@@ -1,0 +1,398 @@
+"""Frame-batch localizer: raw multi-mic frames -> TDOAs -> source positions.
+
+    frames [B, M, N] -> condition -> window -> GCC(-PHAT) -> peaks + taper
+      -> SRP grid scores -> grid peak -> Gauss-Newton refine -> xy [B, 2]
+
+Counterpart of ``audio_triangulation_tpu.models.localizer`` (``Localizer``
+and ``localize_frames``).  Two hand-written CUDA kernels carry the path on
+a GPU: ``ops/cuda/gcc_kernel`` (conditioning through per-pair peaks) and
+``ops/cuda/gn_kernel`` (the Gauss-Newton solve).  On a CPU tensor each
+wrapper runs its plain PyTorch version.  SRP scoring and the grid peak are
+plain torch, as they were plain XLA in the reference.
+
+Routing follows the reference: the GCC kernel serves every configuration
+of this slice (with in-kernel peaks when taper and sub-sample are both on,
+else plain peak ops after it); the GN kernel runs for at most 64 pairs
+with ``robust='none'``, else the batched solver does.  Configurations the
+port does not cover yet raise ``NotImplementedError``.  The TPU dispatch
+knobs ``fused_kernel``, ``fused_tile_b``, ``fused_srp``,
+``fused_sub_tiles``, ``pair_chunk`` and ``srp_big_matmul_budget_bytes``
+are accepted and change nothing; both ``dft_precision`` values compute in
+exact fp32.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..core import geometry
+from ..core.config import GridConfig, PipelineConfig, SolverConfig
+from ..ops import conditioning, mxu_fft, srp, solver as solver_ops
+from ..ops import window as window_ops, xcorr
+from ..ops.cuda import gcc_kernel, gn_kernel
+
+SAVE_FORMAT = "audio_triangulation_tpu.Localizer/1"
+MAX_PAIRS = 256  # the GCC kernel's slice; larger arrays are ROADMAP slice D
+
+
+@dataclasses.dataclass
+class LocalizerParams:
+    """Tensor-valued constants of the pipeline."""
+
+    mic_positions: torch.Tensor  # [M, 2] float32
+    pairs: torch.Tensor  # [P, 2] int32
+    window: torch.Tensor  # [N] float32
+    lut_flat: torch.Tensor  # [P, G] int32 lag indices
+    onehot: Optional[torch.Tensor]  # [P*L, G] float32 (matmul form) or None
+    score_bias: Optional[torch.Tensor] = None  # [G] additive, or None
+
+
+PARAM_NAMES = tuple(f.name for f in dataclasses.fields(LocalizerParams))
+
+
+_SPECTRAL = "ROADMAP.md kernel queue, GCC spectral-stats mode"
+_ENGINES = "ROADMAP.md slice A2 (other correlation engines)"
+
+
+def _refuse(unsupported) -> None:
+    for bad, what, item in unsupported:
+        if bad:
+            raise NotImplementedError(
+                f"{what} is not ported to the PyTorch package yet: {item}")
+
+
+def check_engine(cfg: PipelineConfig) -> None:
+    """Raise ``NotImplementedError`` for correlation settings the matmul
+    engine of this port does not serve yet, naming the ROADMAP.md item."""
+    _refuse([
+        (cfg.band_auto, "band_hz='auto'", _SPECTRAL),
+        (cfg.effective_weighting in ("scot", "roth", "ml"),
+         f"weighting={cfg.effective_weighting!r}", _ENGINES),
+        (cfg.phat and cfg.phat_beta != 1.0, f"phat_beta={cfg.phat_beta}",
+         _ENGINES),
+        (cfg.xcorr_mode != "mxu", f"xcorr_mode={cfg.xcorr_mode!r}", _ENGINES),
+        (cfg.matmul_dtype != "float32", f"matmul_dtype={cfg.matmul_dtype!r}",
+         _ENGINES),
+    ])
+
+
+def check_slice(cfg: PipelineConfig, n_pairs: int) -> None:
+    """Raise ``NotImplementedError`` for localizer configurations this port
+    does not serve yet (the engine's, plus what the GCC kernel does not
+    fold in), naming the ROADMAP.md item that ports them."""
+    check_engine(cfg)
+    _refuse([
+        (cfg.subsample_peak and cfg.subsample_method != "parabolic",
+         f"subsample_method={cfg.subsample_method!r}", _SPECTRAL),
+        (cfg.normalize_mode == "full_range", "normalize_mode='full_range'",
+         _ENGINES),
+        (n_pairs > MAX_PAIRS, f"{n_pairs} mic pairs (> {MAX_PAIRS})",
+         "ROADMAP.md slice D (large arrays)"),
+    ])
+
+
+def pin_fp32() -> None:
+    """Turn TF32 off: PHAT whitening and the GN solve need full fp32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+class Localizer(nn.Module):
+    """Configured frame-batch localizer on one device.
+
+    >>> loc = Localizer.create(mic_positions, device="cuda")
+    >>> out = loc(frames)           # frames [B, M, N] on the same device
+    >>> out["xy"]                   # [B, 2] source positions (meters)
+    """
+
+    def __init__(self, pipeline: PipelineConfig, grid: GridConfig,
+                 solver: SolverConfig, params: LocalizerParams, *,
+                 srp_form: str, with_solver: bool = True,
+                 with_heatmap: bool = False):
+        super().__init__()
+        check_slice(pipeline, params.pairs.shape[0])
+        if srp_form not in ("matmul", "gather"):
+            raise ValueError(f"srp_form={srp_form!r}")
+        if srp_form == "matmul" and params.onehot is None:
+            raise ValueError("srp_form='matmul' needs the one-hot matrix")
+        if params.onehot is not None and pipeline.srp_dtype == "bfloat16":
+            # srp_scores_matmul takes the one-hot as is: round it once
+            params = dataclasses.replace(
+                params, onehot=params.onehot.to(torch.bfloat16).float())
+        self.pipeline = pipeline
+        self.grid = grid
+        self.solver = solver
+        self.srp_form = srp_form
+        self.with_solver = with_solver
+        self.with_heatmap = with_heatmap
+        for name in PARAM_NAMES:
+            self.register_buffer(name, getattr(params, name))
+        if self.window.is_cuda:
+            pin_fp32()
+
+    # ------------------------------------------------------------------
+    @classmethod
+    def create(
+        cls,
+        mic_positions: np.ndarray,
+        pipeline: PipelineConfig = PipelineConfig(),
+        grid: GridConfig = GridConfig(),
+        solver: SolverConfig = SolverConfig(),
+        *,
+        device,
+        srp_form: str = "auto",
+        with_solver: bool = True,
+        with_heatmap: bool = False,
+        init_grid_stride: int = 1,
+    ) -> "Localizer":
+        """Build the localizer's constants on ``device``.
+
+        ``init_grid_stride`` > 1 coarsens the SRP grid by that factor: the
+        solver only needs an init inside the right basin, so the refined
+        ``xy`` is unchanged while scoring shrinks ~stride^2-fold.  It needs
+        ``with_solver`` and no heatmap (grid outputs would be coarse)."""
+        if init_grid_stride > 1:
+            if with_heatmap or not with_solver:
+                raise ValueError(
+                    "init_grid_stride > 1 needs with_solver=True and "
+                    "with_heatmap=False (grid outputs would be coarse)")
+            s = init_grid_stride
+            grid = dataclasses.replace(
+                grid, half_cells_x=grid.half_cells_x // s,
+                half_cells_y=grid.half_cells_y // s,
+                cells_per_m=grid.cells_per_m / s)
+        mic_positions = np.asarray(mic_positions, dtype=np.float32)
+        pairs = geometry.mic_pairs(mic_positions.shape[0])
+        check_slice(pipeline, pairs.shape[0])
+        lut = geometry.lag_lut(grid, mic_positions, pairs, pipeline)
+        if srp_form == "auto":
+            srp_form = srp.auto_srp_form(
+                pairs.shape[0], pipeline.num_lags, grid.num_cells)
+        onehot = None
+        if srp_form == "matmul":
+            onehot = geometry.lag_onehot(lut, pipeline.num_lags)
+
+        def t(a):
+            return None if a is None else torch.as_tensor(a, device=device)
+
+        params = LocalizerParams(
+            mic_positions=t(mic_positions), pairs=t(pairs),
+            window=t(window_ops.window_for(pipeline)),
+            lut_flat=t(lut.reshape(lut.shape[0], -1)), onehot=t(onehot))
+        return cls(pipeline, grid, solver, params, srp_form=srp_form,
+                   with_solver=with_solver, with_heatmap=with_heatmap)
+
+    @classmethod
+    def from_reference_params(
+        cls, arrays: dict, pipeline: PipelineConfig, grid: GridConfig,
+        solver: SolverConfig, *, device, srp_form: str,
+        with_solver: bool = True, with_heatmap: bool = False,
+    ) -> "Localizer":
+        """A localizer from the JAX package's ``LocalizerParams`` given as
+        numpy arrays (``grid`` is the possibly stride-coarsened grid the
+        reference stores)."""
+        from ..utils.convert import params_from_reference
+
+        params = LocalizerParams(**params_from_reference(arrays, device))
+        return cls(pipeline, grid, solver, params, srp_form=srp_form,
+                   with_solver=with_solver, with_heatmap=with_heatmap)
+
+    @property
+    def params(self) -> LocalizerParams:
+        return LocalizerParams(**{n: getattr(self, n) for n in PARAM_NAMES})
+
+    # ------------------------------------------------------------------
+    def forward(self, frames: torch.Tensor) -> dict:
+        m = self.mic_positions.shape[0]
+        n = self.pipeline.frame_size
+        if not isinstance(frames, torch.Tensor):
+            raise TypeError("frames must be a torch.Tensor on the "
+                            "localizer's device")
+        if frames.ndim < 2 or frames.shape[-2] != m or frames.shape[-1] != n:
+            raise ValueError(f"frames must be [..., {m} mics, {n} samples]; "
+                             f"got {tuple(frames.shape)}")
+        if frames.device != self.window.device:
+            raise ValueError(f"frames are on {frames.device}; this localizer "
+                             f"lives on {self.window.device}")
+        if frames.is_cuda:
+            pin_fp32()
+        return localize_frames(
+            self.params, frames, cfg=self.pipeline, grid_cfg=self.grid,
+            solver_cfg=self.solver, srp_form=self.srp_form,
+            with_solver=self.with_solver, with_heatmap=self.with_heatmap)
+
+    def save(self, path: str) -> str:
+        """Write the exact configuration as JSON (the same format the JAX
+        package writes; every tensor is derived from it)."""
+        blob = {
+            "format": SAVE_FORMAT,
+            "pipeline": dataclasses.asdict(self.pipeline),
+            "grid": dataclasses.asdict(self.grid),
+            "solver": dataclasses.asdict(self.solver),
+            "srp_form": self.srp_form,
+            "with_solver": self.with_solver,
+            "with_heatmap": self.with_heatmap,
+            "mic_positions": self.mic_positions.cpu().numpy().tolist(),
+        }
+        if not path.endswith(".json"):
+            path = path + ".json"
+        with open(path, "w") as f:
+            json.dump(blob, f, indent=1)
+        return path
+
+    @classmethod
+    def load(cls, path: str, *, device) -> "Localizer":
+        """Rebuild a localizer saved by :meth:`save` (or by the JAX
+        package's ``Localizer.save``).  The stored grid already reflects
+        any ``init_grid_stride``, so it is used as it is."""
+        if not path.endswith(".json"):
+            path = path + ".json"
+        with open(path) as f:
+            blob = json.load(f)
+        fmt = blob.get("format", "")
+        if not fmt.startswith("audio_triangulation_tpu.Localizer/"):
+            raise ValueError(f"not a saved Localizer: {path} ({fmt!r})")
+
+        def detuple(d):  # JSON turns tuples (band_hz) into lists
+            return {k: tuple(v) if isinstance(v, list) else v
+                    for k, v in d.items()}
+
+        return cls.create(
+            np.asarray(blob["mic_positions"], np.float32),
+            PipelineConfig(**detuple(blob["pipeline"])),
+            GridConfig(**detuple(blob["grid"])),
+            SolverConfig(**detuple(blob["solver"])),
+            device=device, srp_form=blob["srp_form"],
+            with_solver=blob["with_solver"],
+            with_heatmap=blob["with_heatmap"])
+
+
+# ----------------------------------------------------------------------
+# Functional pipeline
+# ----------------------------------------------------------------------
+
+def condition_frames(frames: torch.Tensor, window: torch.Tensor,
+                     cfg: PipelineConfig) -> torch.Tensor:
+    """DC removal -> gain -> window (float)."""
+    x = frames.to(window.dtype)
+    if cfg.nan_guard:
+        x = torch.nan_to_num(x, nan=0.0, posinf=0.0, neginf=0.0)
+    x = conditioning.dc_remove(x)
+    x = conditioning.normalize(x, cfg.normalize_mode)
+    if cfg.window_enabled:
+        x = window_ops.apply_window(x, window)
+    return x
+
+
+def correlate_frames(frames: torch.Tensor, params: LocalizerParams,
+                     cfg: PipelineConfig) -> torch.Tensor:
+    """Conditioned frames [..., M, N] -> correlograms [..., P, L] through
+    the matmul engine (the only engine ported so far)."""
+    check_engine(cfg)
+    return mxu_fft.xcorr_mxu(frames, params.pairs, cfg)
+
+
+def localize_frames(
+    params: LocalizerParams,
+    frames: torch.Tensor,
+    *,
+    cfg: PipelineConfig,
+    grid_cfg: GridConfig,
+    solver_cfg: SolverConfig,
+    srp_form: str,
+    with_solver: bool = True,
+    with_heatmap: bool = False,
+) -> dict:
+    """Full pipeline on frames [..., M, N].  Returns a dict of:
+
+    - 'tdoa_samples' [..., P]: sub-sample TDOAs (fractional lags)
+    - 'best_shift'   [..., P]: integer argmax lags
+    - 'correlograms' [..., P, L]: tapered correlograms
+    - 'scores'       [..., G]: SRP grid scores
+    - 'xy_grid'      [..., 2]: grid peak (meters)
+    - 'peak_value'   [..., P], 'confidence' [...]: weakest-pair PSR
+    - 'xy'           [..., 2]: Gauss-Newton refined position
+    - 'rms_m'        [...]: solver residual (meters)
+    - 'xy_cov'       [..., 2, 2]: position covariance (with the solver)
+    - 'heat_levels'  [..., G] uint8 (only with ``with_heatmap``)
+    """
+    k = cfg.max_shift
+    p_n = params.pairs.shape[0]
+    check_slice(cfg, p_n)
+    m, n = frames.shape[-2:]
+    lead = frames.shape[:-2]
+    flat = frames.reshape(-1, m, n).float()
+    if cfg.nan_guard:
+        flat = torch.nan_to_num(flat, nan=0.0, posinf=0.0, neginf=0.0)
+
+    if cfg.taper_enabled and cfg.subsample_peak:
+        # taper, argmax, sub-sample peak and PSR inside the GCC kernel
+        corr_t, shifts, tdoa_samples, peak_val, psr = gcc_kernel.fused_gcc(
+            flat, params.window, params.pairs, cfg, with_peaks=True)
+    else:
+        corr = gcc_kernel.fused_gcc(flat, params.window, params.pairs, cfg,
+                                    with_peaks=False)
+        shifts = xcorr.best_lag(corr, k)
+        tdoa_samples, peak_val = xcorr.subsample_peak(corr, k)
+        psr = xcorr.peak_confidence(corr, k)  # raw, pre-taper
+        if not cfg.subsample_peak:
+            tdoa_samples = shifts.to(corr.dtype)
+        corr_t = (xcorr.peak_taper(corr, k, cfg.taper_denom, shifts)
+                  if cfg.taper_enabled else corr)
+
+    if srp_form == "matmul":
+        scores = srp.srp_scores_matmul(corr_t, params.onehot, cfg.srp_dtype)
+    else:
+        scores = srp.srp_scores_gather(corr_t, params.lut_flat)
+    if params.score_bias is not None:
+        scores = scores + params.score_bias
+
+    refine = (grid_cfg.refine_peak == "on"
+              or (grid_cfg.refine_peak == "auto" and not with_solver))
+    xy_grid = srp.grid_peak_xy(
+        scores, (grid_cfg.height, grid_cfg.width),
+        (grid_cfg.half_cells_x, grid_cfg.half_cells_y),
+        grid_cfg.cells_per_m, refine=refine)
+
+    out = {
+        "tdoa_samples": tdoa_samples,
+        "best_shift": shifts,
+        "correlograms": corr_t,
+        "scores": scores,
+        "xy_grid": xy_grid,
+        "peak_value": peak_val,
+        "confidence": psr.amin(dim=-1),
+    }
+    if with_heatmap:
+        out["heat_levels"] = srp.quantize_heatmap(scores)
+
+    if with_solver:
+        tdoa_s = tdoa_samples / cfg.sample_rate_hz
+        if p_n <= gn_kernel.MAX_PAIRS and solver_cfg.robust == "none":
+            xy, rms = gn_kernel.solve_tdoa_gn(
+                tdoa_s, params.mic_positions, params.pairs,
+                speed_of_sound=cfg.speed_of_sound_mps,
+                height=grid_cfg.height_m, init_xy=xy_grid, cfg=solver_cfg)
+        else:
+            xy, rms = solver_ops.solve_tdoa_batched(
+                tdoa_s, params.mic_positions, params.pairs,
+                speed_of_sound=cfg.speed_of_sound_mps,
+                height=grid_cfg.height_m, init_xy=xy_grid, cfg=solver_cfg)
+        out["xy"] = xy
+        out["rms_m"] = rms
+        out["xy_cov"] = solver_ops.solution_covariance(
+            xy, rms, params.mic_positions, params.pairs,
+            height=grid_cfg.height_m, cfg=solver_cfg)
+    else:
+        out["xy"] = xy_grid
+        out["rms_m"] = torch.zeros(tdoa_samples.shape[:-1],
+                                   dtype=corr_t.dtype, device=corr_t.device)
+
+    # restore the caller's leading batch dims
+    return {key: v.reshape(*lead, *v.shape[1:]) for key, v in out.items()}

@@ -1,0 +1,177 @@
+"""Batched damped Gauss-Newton TDOA solve and its position covariance.
+
+Counterpart of ``audio_triangulation_tpu.ops.solver`` (main-path subset).
+The source lies on the radius-h sphere around the array center or on the
+z = h plane; residuals are r_p = (|x - m_j| - |x - m_i|) - c tau_p.
+The iteration works on the M-space sufficient statistics Q = S^T W S and
+t2 = S^T W t of the +-1 pair-difference matrix S, so no [B, P] tensor is
+formed per step.  ``robust='huber'|'cauchy'`` adds IRLS rounds.  Runs in
+fp32 (TF32 off on CUDA).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.config import SolverConfig
+from . import consistency
+
+
+def lift_to_model(xy: torch.Tensor, height: float,
+                  constrain_sphere: bool) -> torch.Tensor:
+    """Planar coords [..., 2] -> 3-D source model points [..., 3]."""
+    raw = torch.cat([xy, torch.full_like(xy[..., :1], height)], dim=-1)
+    if constrain_sphere:
+        r = torch.linalg.vector_norm(raw, dim=-1, keepdim=True)
+        return raw * (height / r.clamp_min(1e-12))
+    return raw
+
+
+def predicted_tdoas(xy: torch.Tensor, mic_pos3: torch.Tensor,
+                    pairs: torch.Tensor, speed_of_sound: float,
+                    height: float, constrain_sphere: bool = True):
+    """Model TDOAs [..., P] (seconds) for planar source coords [..., 2]."""
+    p3 = lift_to_model(xy, height, constrain_sphere)
+    d = torch.linalg.vector_norm(p3[..., None, :] - mic_pos3, dim=-1)
+    dt = d[..., pairs[:, 1].long()] - d[..., pairs[:, 0].long()]
+    return dt / speed_of_sound
+
+
+def _mic3(mic_positions: torch.Tensor, dt) -> torch.Tensor:
+    m = mic_positions.shape[0]
+    mic3 = torch.zeros((m, 3), dtype=dt, device=mic_positions.device)
+    mic3[:, : mic_positions.shape[1]] = mic_positions.to(dt)
+    return mic3
+
+
+def _dist_grad(xy, h, mic3, sphere):
+    """Distances d [..., M] and their gradients [..., M, 2] w.r.t. xy."""
+    v = torch.cat([xy, torch.full_like(xy[..., :1], h)], dim=-1)
+    # d(x, y, h)/d(x, y); built on the device (writing Python scalars into
+    # a CUDA tensor would copy each from host memory and sync the stream)
+    e = torch.eye(3, 2, dtype=xy.dtype, device=xy.device)
+    if sphere:
+        nv = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+        vhat = v / nv.clamp_min(1e-12)
+        s = h * vhat
+        scale = h / nv.clamp_min(1e-12)
+        js = scale[..., None] * (e - vhat[..., None] * vhat[..., None, :2])
+    else:
+        s = v
+        js = e.expand(*xy.shape[:-1], 3, 2)
+    diff = s[..., None, :] - mic3
+    d = torch.linalg.vector_norm(diff, dim=-1)
+    u = diff / d.clamp_min(1e-12)[..., None]
+    return d, torch.einsum("...mi,...ij->...mj", u, js)
+
+
+def solve_tdoa_batched(
+    tdoas: torch.Tensor,
+    mic_positions: torch.Tensor,
+    pairs: torch.Tensor,
+    *,
+    speed_of_sound: float,
+    height: float,
+    init_xy: torch.Tensor,
+    weights: torch.Tensor | None = None,
+    cfg: SolverConfig = SolverConfig(),
+):
+    """tdoas [B, P] seconds, init_xy [B, 2] -> (xy [B, 2], rms [B] meters)."""
+    dt = init_xy.dtype
+    m = mic_positions.shape[0]
+    mic3 = _mic3(mic_positions, dt)
+    h = float(height)
+    target = tdoas.to(dt) * speed_of_sound  # [B, P] meters
+    sel = consistency.pair_selection(pairs, m, dt)  # [P, M]
+    w2 = None if weights is None else (weights * weights).to(dt)
+    sel_w = sel if w2 is None else sel * w2[:, None]
+    q = sel.T @ sel_w  # [M, M]
+    t2 = torch.einsum("pm,...p->...m", sel_w, target)  # [B, M]
+
+    def gn_loop(q_, t2_, xy):
+        for _ in range(cfg.iterations):
+            d, gd = _dist_grad(xy, h, mic3, cfg.constrain_to_sphere)
+            qgd = torch.einsum("...mn,...nj->...mj", q_, gd)
+            a = torch.einsum("...mi,...mj->...ij", gd, qgd)
+            qd = torch.einsum("...mn,...n->...m", q_, d)
+            b = torch.einsum("...mi,...m->...i", gd, qd - t2_)
+            a00 = a[..., 0, 0] + cfg.damping
+            a11 = a[..., 1, 1] + cfg.damping
+            a01 = a[..., 0, 1]
+            det = a00 * a11 - a01 * a01
+            inv_det = 1.0 / torch.where(det.abs() > 1e-20, det,
+                                        torch.full_like(det, 1e-20))
+            dx = (a11 * b[..., 0] - a01 * b[..., 1]) * inv_det
+            dy = (a00 * b[..., 1] - a01 * b[..., 0]) * inv_det
+            xy = xy - torch.stack([dx, dy], dim=-1)
+        return xy
+
+    def pair_residual(xy, weighted=True):
+        d, _ = _dist_grad(xy, h, mic3, cfg.constrain_to_sphere)
+        r = torch.einsum("pm,...m->...p", sel, d) - target
+        return r if (weights is None or not weighted) else r * weights
+
+    xy = gn_loop(q, t2, init_xy)
+
+    if cfg.robust != "none":
+        base_w2 = (torch.ones(pairs.shape[0], dtype=dt, device=xy.device)
+                   if w2 is None else w2)
+        for _ in range(cfg.irls_iterations):
+            # robust weights and the MAD scale come from the raw residual
+            ar = pair_residual(xy, weighted=False).abs()
+            if cfg.robust_scale_m > 0:
+                delta = torch.tensor(cfg.robust_scale_m, dtype=dt,
+                                     device=xy.device)
+            else:
+                # 1.4826 * MAD; quantile(0.5) averages the two middle
+                # values of an even count, like numpy's median
+                delta = (1.345 * 1.4826) * torch.quantile(
+                    ar, 0.5, dim=-1, keepdim=True).clamp_min(1e-6)
+            if cfg.robust == "huber":
+                w_rob = torch.clamp(delta / ar.clamp_min(1e-12), max=1.0)
+            elif cfg.robust == "cauchy":
+                w_rob = 1.0 / (1.0 + (ar / delta) ** 2)
+            else:
+                raise ValueError(f"unknown robust mode {cfg.robust!r}")
+            w2_tot = base_w2 * w_rob  # [B, P]
+            q_b = torch.einsum("pm,pn,...p->...mn", sel, sel, w2_tot)
+            t2_b = torch.einsum("pm,...p,...p->...m", sel, w2_tot, target)
+            xy = gn_loop(q_b, t2_b, xy)
+
+    r = pair_residual(xy)
+    rms = torch.sqrt(torch.mean(r * r, dim=-1))
+    return xy, rms
+
+
+def solution_covariance(
+    xy: torch.Tensor,
+    rms: torch.Tensor,
+    mic_positions: torch.Tensor,
+    pairs: torch.Tensor,
+    *,
+    height: float,
+    n_pairs: int | None = None,
+    cfg: SolverConfig = SolverConfig(),
+    min_sigma_m: float = 1e-4,
+) -> torch.Tensor:
+    """Position covariance sigma^2 (J^T J + damping)^-1 [..., 2, 2] at the
+    solution, sigma^2 = P rms^2 / (P - 2) with sigma floored at
+    ``min_sigma_m``."""
+    dt = xy.dtype
+    m = mic_positions.shape[0]
+    mic3 = _mic3(mic_positions, dt)
+    p_count = int(pairs.shape[0]) if n_pairs is None else int(n_pairs)
+    sel = consistency.pair_selection(pairs, m, dt)
+    q = sel.T @ sel
+    _, gd = _dist_grad(xy, float(height), mic3, cfg.constrain_to_sphere)
+    qgd = torch.einsum("mn,...nj->...mj", q, gd)
+    a = torch.einsum("...mi,...mj->...ij", gd, qgd)
+    dof = max(p_count - 2, 1)
+    sigma2 = rms.clamp_min(min_sigma_m) ** 2 * (p_count / dof)
+    a00 = a[..., 0, 0] + cfg.damping
+    a11 = a[..., 1, 1] + cfg.damping
+    a01 = a[..., 0, 1]
+    det = (a00 * a11 - a01 * a01).clamp_min(1e-20)
+    inv = torch.stack([torch.stack([a11, -a01], dim=-1),
+                       torch.stack([-a01, a00], dim=-1)], dim=-2)
+    return sigma2[..., None, None] * (inv / det[..., None, None])

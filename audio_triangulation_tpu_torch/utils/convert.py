@@ -1,0 +1,41 @@
+"""Bring the JAX package's localizer constants into the port.
+
+``params_from_reference`` takes the reference's ``LocalizerParams`` as a
+dict of numpy arrays (for example ``{k: np.asarray(v) for k, v in
+vars(params).items()}``) and returns the port's buffers on ``device``.
+The TPU-only ``onehot_pad`` and ``onehot_big`` entries are dropped: they
+exist for lane padding and for large arrays.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_DTYPES = {
+    "mic_positions": torch.float32,
+    "pairs": torch.int32,
+    "window": torch.float32,
+    "lut_flat": torch.int32,
+    "onehot": torch.float32,
+    "score_bias": torch.float32,
+}
+
+
+def params_from_reference(arrays: dict, device) -> dict:
+    """{name: tensor or None} for the port's ``LocalizerParams`` fields.
+    The pair indices are checked here, once: the GCC kernel reads mics by
+    them unchecked (``Localizer.create`` builds them itself)."""
+    mics, pairs = arrays.get("mic_positions"), arrays.get("pairs")
+    if mics is None or pairs is None:
+        raise ValueError("mic_positions and pairs are required")
+    pairs, m = np.asarray(pairs), np.shape(mics)[0]
+    if (pairs.ndim != 2 or pairs.shape[1] != 2 or len(pairs) < 1
+            or pairs.min() < 0 or pairs.max() >= m):
+        raise ValueError(f"pairs must be [P, 2] indices of the {m} mics")
+    out = {}
+    for name, dtype in _DTYPES.items():
+        a = arrays.get(name)
+        out[name] = (None if a is None else torch.as_tensor(
+            np.array(a, copy=True), device=device).to(dtype))
+    return out
