@@ -2,7 +2,8 @@
 //
 // Replaces audio_triangulation_tpu/ops/pallas/gcc_kernel.py::_gcc_kernel in
 // its base mode (rows 1 and 2 of the port's kernel table: with and without
-// the in-kernel peak stage).  Per frame [M, N]:
+// the in-kernel peak stage) and in its spectral-stats mode (row 3, below).
+// Base mode, per frame [M, N]:
 //
 //   mean removal, x (window * gain)            -> samples staged in shared memory
 //   Re/Im DFT against the host-built cos / -sin matrices (interleaved
@@ -31,6 +32,44 @@
 // the Nyquist fold (all F = L/2 + 1 bins are carried), the 128-lane padding
 // of the lag axis, the one-hot neighbour sums (direct indexing here) and
 // sub-tile emission order.
+//
+// Spectral-stats mode (gcc_kernel<true>; the TPU kernel's _smooth,
+// stage_front_stats, stage_cross_stats and phase_slope_tdoa), for
+// band_hz='auto' and the phase-slope / hybrid sub-sample TDOA.  The same
+// DFT leaves the spectra RAW in shared memory; then
+//   smoothed periodograms |X|^2 over +-hw bins (edge counts over all F bins),
+//   per (frame, pair) the smoothed raw cross-power and the coherence
+//   g2 = clip(|G_ab|^2 / (G_aa G_bb + eps^2), 0, 1), kept per row,
+//   per frame the auto band: pair-mean g2 over the interior (DC and Nyquist
+//   out) against max(rel * max, floor), the interior when fewer than
+//   min_bins bins pass,
+//   synthesis of the raw cross-power times the per-mic (M >= 3, tabled
+//   once per bin in the periodograms' place) or per-pair PHAT factor and
+//   the band weight, staged per chunk of bins for the pass's rows, then
+//   the base mode's peaks,
+//   per row (one warp, rows spread over all warps once the peaks are out)
+//   the phase slope: weights |R|^2 g2 band over bins 0..F-2, normalised by
+//   their maximum, two Gauss-Newton steps, and the hybrid coherence gate.
+//   The steps use accurate atan2f and sincosf, no fast intrinsics (the
+//   phase argument reaches ~145 rad, where those lose digits); each lane
+//   takes two sincosf a step and advances its bins' rotation by complex
+//   products, 16 of them, which adds ~1e-6 rad.
+// The smoothing is a direct windowed sum in shared memory (33 terms a bin
+// at hw = 16), never a running-sum difference: power spectra span ~1e18,
+// and the TPU kernel's banded smoothing matmul existed because its rolls
+// were slow.  What bounds it on an H100: the shared memory it keeps (raw
+// spectra, smoothed periodograms, g2 per row, band per frame: about 39 KB
+// a 4-mic frame at F = 513, 205 KB a block of 4) allows one block per SM
+// where the base mode has two, so nothing overlaps the latency-bound
+// synthesis stage that the base mode's second block hides (timed: the
+// base mode forced to one block per SM takes 1.36x its time); on top come
+// the window sums and the phase steps.  The design keeps what it can off
+// the synthesis loop (the cross-power whitened and banded once per chunk
+// and row instead of in every lane, 3 rows a warp so all 8 warps
+// synthesise the bench shape's 24 rows) and spreads the phase steps over
+// all warps.  Dropped as well: the polynomial atan2 (Mosaic has
+// none), the row expansion of the band weight, and the per-mic rsqrt the
+// TPU kernel computes for 2-mic arrays without using it.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -56,19 +95,43 @@ constexpr int kLagBlock = 128;    // lags per synthesis block
 constexpr int kLagsPerLane = kLagBlock / 32;
 constexpr int kRowsPerWarp = 4;   // (frame, pair) rows a warp synthesises together
 constexpr int kRowsPerPass = kWarps * kRowsPerWarp;
+// the stats mode's blocks hold 4 frames x 6 pairs at the bench shape: 3
+// rows a warp keep all 8 warps synthesising (the base mode, at two blocks
+// an SM, keeps 4)
+constexpr int kStatsRowsPerWarp = 3;
+// stats mode: the pass's whitened, banded cross-power of a staged chunk
+constexpr int kStatsXp = kWarps * kStatsRowsPerWarp * kFChunk;
 constexpr size_t kMaxSmem = 227 * 1024;
 
 // Floats of dynamic shared memory for tb frames per block, in layout order
-// (16-byte and 8-byte aligned regions first).
-size_t smem_floats(int tb, int m, int f, int l) {
+// (16-byte and 8-byte aligned regions first); p > 0 adds the stats mode's
+// smoothed periodograms, per-row coherence and per-frame band weight.
+size_t smem_floats(int tb, int m, int f, int l, int p = 0) {
   const size_t rows = (size_t)tb * m;
   return (size_t)kNChunk * kXsStride           // staged samples [n][row]
          + 4 * (size_t)kNChunk * kBinLanes     // staged coefficients [n][pair]
          + 2 * (size_t)kFChunk * kLagBlock     // staged synthesis (cos, sin)
          + 2 * rows * f                        // spectra (re, im)
          + rows                                // per-row mean
-         + (size_t)kRowsPerPass * l;           // raw correlogram rows of a pass
+         + (size_t)kRowsPerPass * l            // raw correlogram rows of a pass
+         + (p > 0 ? 2 * (size_t)kStatsXp       // staged cross-power (re, im)
+                        + rows * f             // smoothed periodograms
+                        + (size_t)tb * p * f   // coherence per (frame, pair)
+                        + (size_t)tb * f       // band weight per frame
+                  : 0);
 }
+
+// The stats mode's settings (zero in the base mode).
+struct Stats {
+  float* band_out;   // [B, F] per-frame auto band weights, or null
+  int band_auto;     // weight the cross-power by the per-event auto band
+  int phase;         // phase-slope sub-sample TDOA (with peaks)
+  int hybrid;        // keep it only where the row's band coherence clears
+  int hw;            // coherence smoothing half-width (bins)
+  int min_bins;      // auto band: fewer selected bins -> the interior
+  int lo, hi;        // without the auto band: bins [lo, hi) weight the phase
+  float rel, floor_, hybrid_min, omega, gain_d;
+};
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
@@ -85,6 +148,73 @@ __device__ __forceinline__ float4 fma4(float a, float4 c, float4 acc) {
                      fmaf(a, c.z, acc.z), fmaf(a, c.w, acc.w));
 }
 
+// Sum of |X[q]|^2 over the bins q of [lo, hi], in ascending order.
+__device__ __forceinline__ float window_power(const float2* a, int lo, int hi) {
+  float acc = 0.f;
+  for (int q = lo; q <= hi; ++q) {
+    const float2 v = a[q];
+    acc += v.x * v.x + v.y * v.y;
+  }
+  return acc;
+}
+
+// Phase-slope TDOA of one (frame, pair) row, by its warp (the TPU kernel's
+// phase_slope_tdoa, without its polynomial atan2).  a, b: the pair's raw
+// spectra; g2r: the row's coherence; wb: the frame's auto band or null for
+// the bins [lo, hi); bins 0..F-2 take part (Nyquist's phase is sign-only).
+__device__ float phase_slope(const float2* a, const float2* b,
+                             const float* g2r, const float* wb, int F,
+                             float d, float tdoa_par, const Stats& st) {
+  const int lane = threadIdx.x & 31;
+  const int fk = F - 1;
+  auto band = [&](int f) {
+    return wb ? wb[f] : (f >= st.lo && f < st.hi ? 1.f : 0.f);
+  };
+  auto weight = [&](int f, float& rr, float& jj) {
+    const float2 x = a[f], y = b[f];
+    rr = x.x * y.x + x.y * y.y;
+    jj = x.x * y.y - x.y * y.x;
+    return (rr * rr + jj * jj) * g2r[f] * band(f);
+  };
+  float rr, jj, wmax = 0.f;
+  for (int f = lane; f < fk; f += 32) wmax = fmaxf(wmax, weight(f, rr, jj));
+  const float norm = fmaxf(warp_max(wmax), 1e-30f);
+  float den = 0.f;
+  for (int f = lane; f < fk; f += 32) {
+    const float k = (float)f;
+    den += weight(f, rr, jj) / norm * k * k;
+  }
+  den = fmaxf(warp_sum(den), 1e-20f);
+  for (int it = 0; it < 2; ++it) {  // Gauss-Newton on the wrapped phase
+    // the derotation e^{i omega f d} of this lane's bins f = lane + 32 j,
+    // advanced from bin to bin by the rotation of 32 bins
+    float s, c, s32, c32;
+    sincosf(st.omega * (float)lane * d, &s, &c);
+    sincosf(st.omega * 32.f * d, &s32, &c32);
+    float num = 0.f;
+    for (int f = lane; f < fk; f += 32) {
+      const float k = (float)f;
+      const float w = weight(f, rr, jj) / norm;
+      num += w * k * atan2f(rr * s + jj * c, rr * c - jj * s);
+      const float cn = c * c32 - s * s32;
+      s = s * c32 + c * s32;
+      c = cn;
+    }
+    num = warp_sum(num);
+    d += fminf(fmaxf(st.gain_d * num / den, -1.f), 1.f);
+  }
+  if (!st.hybrid) return d;
+  float sg = 0.f, sw = 0.f;
+  for (int f = lane; f < fk; f += 32) {
+    const float v = band(f);
+    sg += g2r[f] * v;
+    sw += v;
+  }
+  const float coh = warp_sum(sg) / fmaxf(warp_sum(sw), 1e-12f);
+  return coh >= st.hybrid_min ? d : tdoa_par;
+}
+
+template <bool kStats>
 __global__ void __launch_bounds__(kThreads)
 gcc_kernel(const float* __restrict__ frames,   // [B, M, N]
            const float* __restrict__ win,      // [N] window * gain
@@ -98,7 +228,8 @@ gcc_kernel(const float* __restrict__ frames,   // [B, M, N]
            float* __restrict__ peak_out,
            float* __restrict__ psr_out,
            int B, int M, int N, int F, int Fp, int P, int L, int TB,
-           int phat, int per_mic, float eps2, float taper_denom, int with_peaks) {
+           int phat, int per_mic, float eps2, float taper_denom, int with_peaks,
+           Stats st) {
   extern __shared__ float4 smem4[];
   const int b0 = blockIdx.x * TB;
   const int tb = min(TB, B - b0);
@@ -108,9 +239,15 @@ gcc_kernel(const float* __restrict__ frames,   // [B, M, N]
   float* xs = reinterpret_cast<float*>(smem4);
   float4* ws = smem4 + kNChunk * kXsStride / 4;
   float2* syn = reinterpret_cast<float2*>(ws + kNChunk * kBinLanes);
-  float2* spec = syn + kFChunk * kLagBlock;
+  float2* xp = syn + kFChunk * kLagBlock;   // stats mode only
+  float2* spec = xp + (kStats ? kStatsXp : 0);
   float* mean = reinterpret_cast<float*>(spec + rows_max * F);
   float* rowbuf = mean + rows_max;
+  // stats mode: smoothed periodograms [rows][F], coherence [TB * P][F],
+  // band weight [TB][F]
+  float* auto_s = rowbuf + (size_t)kRowsPerPass * L;
+  float* g2 = auto_s + rows_max * F;
+  float* wband = g2 + (size_t)TB * P * F;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -198,7 +335,7 @@ gcc_kernel(const float* __restrict__ frames,   // [B, M, N]
           const int row = r0 + rg * kRowsPerThread + r;
           if (row >= R) continue;
           float re0 = acc[r].x, im0 = acc[r].y, re1 = acc[r].z, im1 = acc[r].w;
-          if (per_mic) {
+          if (!kStats && per_mic) {  // the stats mode keeps spectra raw
             const float inv0 = rsqrtf(re0 * re0 + im0 * im0 + eps2);
             const float inv1 = rsqrtf(re1 * re1 + im1 * im1 + eps2);
             re0 *= inv0; im0 *= inv0; re1 *= inv1; im1 *= inv1;
@@ -211,23 +348,99 @@ gcc_kernel(const float* __restrict__ frames,   // [B, M, N]
   }
   __syncthreads();
 
+  if constexpr (kStats) {
+    // ---- 2a. smoothed periodograms ---------------------------------------
+    const int hw = st.hw;
+    for (int e = tid; e < R * F; e += kThreads) {
+      const int r = e / F, f = e % F;
+      const int lo = max(f - hw, 0), hi = min(f + hw, F - 1);
+      auto_s[e] = window_power(spec + (size_t)r * F, lo, hi) / (float)(hi - lo + 1);
+    }
+    __syncthreads();
+    // ---- 2b. coherence per (frame, pair) row -----------------------------
+    for (int e = tid; e < RP * F; e += kThreads) {
+      const int row = e / F, f = e % F;
+      const int t = row / P, p = row % P;
+      const int ia = t * M + __ldg(pairs + 2 * p), ib = t * M + __ldg(pairs + 2 * p + 1);
+      const float2* a = spec + (size_t)ia * F;
+      const float2* b = spec + (size_t)ib * F;
+      const int lo = max(f - hw, 0), hi = min(f + hw, F - 1);
+      float sr = 0.f, sj = 0.f;
+      for (int q = lo; q <= hi; ++q) {
+        const float2 x = a[q], y = b[q];
+        sr += x.x * y.x + x.y * y.y;
+        sj += x.x * y.y - x.y * y.x;
+      }
+      const float cnt = (float)(hi - lo + 1);
+      sr /= cnt;
+      sj /= cnt;
+      const float gab = sr * sr + sj * sj;
+      const float gg = auto_s[(size_t)ia * F + f] * auto_s[(size_t)ib * F + f] + eps2;
+      g2[e] = fminf(fmaxf(gab / gg, 0.f), 1.f);
+    }
+    __syncthreads();
+    // ---- 2c. per-frame auto band, one warp per frame ----------------------
+    if (st.band_auto) {
+      const int fk = F - 1;  // Nyquist is never in the band
+      for (int t = warp; t < tb; t += kWarps) {
+        float* w = wband + (size_t)t * F;
+        const float* g = g2 + (size_t)t * P * F;
+        float mx = 0.f;
+        for (int f = lane; f < F; f += 32) {
+          float s = 0.f;
+          for (int p = 0; p < P; ++p) s += g[(size_t)p * F + f];
+          const float g2i = (f > 0 && f < fk) ? s / (float)P : 0.f;
+          w[f] = g2i;
+          mx = fmaxf(mx, g2i);
+        }
+        const float thr = fmaxf(st.rel * warp_max(mx), st.floor_);
+        int cnt = 0;
+        for (int f = lane; f < fk; f += 32) cnt += w[f] >= thr;
+        for (int off = 16; off > 0; off >>= 1) cnt += __shfl_xor_sync(0xffffffffu, cnt, off);
+        const bool enough = cnt >= st.min_bins;
+        for (int f = lane; f < F; f += 32) {
+          const bool interior = f > 0 && f < fk;
+          const float v = f < fk && (enough ? w[f] >= thr : interior) ? 1.f : 0.f;
+          w[f] = v;
+          if (st.band_out) st.band_out[(size_t)(b0 + t) * F + f] = v;
+        }
+      }
+      __syncthreads();
+    }
+    // ---- 2d. per-mic PHAT factors (M >= 3), band folded in ----------------
+    // The smoothed periodograms are spent: their place takes
+    // rsqrt(|X|^2 + eps^2) (times the 0/1 band weight), so the synthesis
+    // loop reads two factors where it would evaluate two rsqrts.
+    if (phat && per_mic) {
+      for (int e = tid; e < R * F; e += kThreads) {
+        const int r = e / F, f = e % F;
+        const float2 x = spec[e];
+        const float inv = rsqrtf(x.x * x.x + x.y * x.y + eps2);
+        auto_s[e] = st.band_auto ? inv * wband[(size_t)(r / M) * F + f] : inv;
+      }
+      __syncthreads();
+    }
+  }
+
   // ---- 3. cross-power + lag synthesis, then 4. peaks -------------------
+  constexpr int kRpw = kStats ? kStatsRowsPerWarp : kRowsPerWarp;
+  constexpr int kRpp = kWarps * kRpw;
   const int K = (L - 1) / 2;
-  for (int q0 = 0; q0 < RP; q0 += kRowsPerPass) {
-    size_t off_i[kRowsPerWarp], off_j[kRowsPerWarp];
-    bool live[kRowsPerWarp];
+  for (int q0 = 0; q0 < RP; q0 += kRpp) {
+    size_t off_i[kRpw], off_j[kRpw];
+    bool live[kRpw];
 #pragma unroll
-    for (int k = 0; k < kRowsPerWarp; ++k) {
-      const int row = q0 + warp * kRowsPerWarp + k;
+    for (int k = 0; k < kRpw; ++k) {
+      const int row = q0 + warp * kRpw + k;
       live[k] = row < RP;
       const int t = live[k] ? row / P : 0, p = live[k] ? row % P : 0;
       off_i[k] = ((size_t)t * M + __ldg(pairs + 2 * p)) * F;   // spectra rows
       off_j[k] = ((size_t)t * M + __ldg(pairs + 2 * p + 1)) * F;
     }
     for (int l0 = 0; l0 < L; l0 += kLagBlock) {
-      float acc[kRowsPerWarp][kLagsPerLane];
+      float acc[kRpw][kLagsPerLane];
 #pragma unroll
-      for (int k = 0; k < kRowsPerWarp; ++k)
+      for (int k = 0; k < kRpw; ++k)
 #pragma unroll
         for (int j = 0; j < kLagsPerLane; ++j) acc[k][j] = 0.f;
       for (int fb = 0; fb < F; fb += kFChunk) {
@@ -237,6 +450,39 @@ gcc_kernel(const float* __restrict__ frames,   // [B, M, N]
           syn[e] = ok ? make_float2(sync[(size_t)f * L + l], syns[(size_t)f * L + l])
                       : make_float2(0.f, 0.f);
         }
+        if constexpr (kStats) {
+          // the raw spectra's cross-power for the pass's rows and the
+          // chunk's bins, whitened and banded once, not in every lane
+          for (int e = tid; e < kRpp * kFChunk; e += kThreads) {
+            const int row = q0 + e / kFChunk, f = fb + e % kFChunk;
+            float rr = 0.f, jj = 0.f;
+            if (row < RP && f < F) {
+              const int t = row / P, p = row % P;
+              const size_t ia = ((size_t)t * M + __ldg(pairs + 2 * p)) * F + f;
+              const size_t ib = ((size_t)t * M + __ldg(pairs + 2 * p + 1)) * F + f;
+              const float2 a = spec[ia], b = spec[ib];
+              rr = a.x * b.x + a.y * b.y;
+              jj = a.x * b.y - a.y * b.x;
+              if (phat && per_mic) {  // band already in the factors
+                const float inv = auto_s[ia] * auto_s[ib];
+                rr *= inv;
+                jj *= inv;
+              } else {
+                if (phat) {
+                  const float inv = rsqrtf(rr * rr + jj * jj + eps2);
+                  rr *= inv;
+                  jj *= inv;
+                }
+                if (st.band_auto) {
+                  const float wv = wband[(size_t)t * F + f];
+                  rr *= wv;
+                  jj *= wv;
+                }
+              }
+            }
+            xp[e] = make_float2(rr, jj);
+          }
+        }
         __syncthreads();
         const int fmax = min(kFChunk, F - fb);
         for (int ff = 0; ff < fmax; ++ff) {
@@ -245,15 +491,22 @@ gcc_kernel(const float* __restrict__ frames,   // [B, M, N]
 #pragma unroll
           for (int j = 0; j < kLagsPerLane; ++j) cs[j] = syn[ff * kLagBlock + lane + 32 * j];
 #pragma unroll
-          for (int k = 0; k < kRowsPerWarp; ++k) {
+          for (int k = 0; k < kRpw; ++k) {
             if (!live[k]) continue;
-            const float2 a = spec[off_i[k] + f], b = spec[off_j[k] + f];
-            float rr = a.x * b.x + a.y * b.y;
-            float jj = a.x * b.y - a.y * b.x;
-            if (phat && !per_mic) {
-              const float inv = rsqrtf(rr * rr + jj * jj + eps2);
-              rr *= inv;
-              jj *= inv;
+            float rr, jj;
+            if constexpr (kStats) {
+              const float2 x = xp[(warp * kRpw + k) * kFChunk + ff];
+              rr = x.x;
+              jj = x.y;
+            } else {
+              const float2 a = spec[off_i[k] + f], b = spec[off_j[k] + f];
+              rr = a.x * b.x + a.y * b.y;
+              jj = a.x * b.y - a.y * b.x;
+              if (phat && !per_mic) {
+                const float inv = rsqrtf(rr * rr + jj * jj + eps2);
+                rr *= inv;
+                jj *= inv;
+              }
             }
 #pragma unroll
             for (int j = 0; j < kLagsPerLane; ++j)
@@ -263,9 +516,9 @@ gcc_kernel(const float* __restrict__ frames,   // [B, M, N]
         __syncthreads();
       }
 #pragma unroll
-      for (int k = 0; k < kRowsPerWarp; ++k) {
+      for (int k = 0; k < kRpw; ++k) {
         if (!live[k]) continue;
-        float* rb = rowbuf + (size_t)(warp * kRowsPerWarp + k) * L;
+        float* rb = rowbuf + (size_t)(warp * kRpw + k) * L;
 #pragma unroll
         for (int j = 0; j < kLagsPerLane; ++j) {
           const int l = l0 + lane + 32 * j;
@@ -275,11 +528,11 @@ gcc_kernel(const float* __restrict__ frames,   // [B, M, N]
     }
     __syncwarp();
 
-    for (int k = 0; k < kRowsPerWarp; ++k) {
+    for (int k = 0; k < kRpw; ++k) {
       if (!live[k]) continue;
-      const int row = q0 + warp * kRowsPerWarp + k;
+      const int row = q0 + warp * kRpw + k;
       const size_t grow = (size_t)b0 * P + row;   // global (frame, pair) row
-      const float* c = rowbuf + (size_t)(warp * kRowsPerWarp + k) * L;
+      const float* c = rowbuf + (size_t)(warp * kRpw + k) * L;
       float* out = corr_out + grow * L;
       if (!with_peaks) {
         for (int l = lane; l < L; l += 32) out[l] = c[l];
@@ -324,16 +577,66 @@ gcc_kernel(const float* __restrict__ frames,   // [B, M, N]
     }
     __syncwarp();
   }
+
+  if constexpr (kStats) {
+    // ---- 5. phase-slope TDOA, a row per warp ------------------------------
+    // from this block's shifts and parabolic TDOAs, now in global memory
+    if (st.phase && with_peaks) {
+      __syncthreads();
+      for (int row = warp; row < RP; row += kWarps) {
+        const int t = row / P, p = row % P;
+        const size_t grow = (size_t)b0 * P + row;
+        const float d = phase_slope(
+            spec + ((size_t)t * M + __ldg(pairs + 2 * p)) * F,
+            spec + ((size_t)t * M + __ldg(pairs + 2 * p + 1)) * F,
+            g2 + (size_t)row * F, st.band_auto ? wband + (size_t)t * F : nullptr,
+            F, (float)shift_out[grow], tdoa_out[grow], st);
+        if (lane == 0) tdoa_out[grow] = d;
+      }
+    }
+  }
+}
+
+// Frames per block: up to kDftRows (frame, mic) rows, fewer when the
+// spectra (and with p > 0 the stats mode's buffers) would not fit shared
+// memory.  Returns 0 when one frame does not fit.
+int frames_per_block(int m, int f, int l, int p) {
+  int tb = m >= kDftRows ? 1 : kDftRows / m;
+  while (tb > 0 && smem_floats(tb, m, f, l, p) * sizeof(float) > kMaxSmem) --tb;
+  return tb;
+}
+
+template <bool kStats>
+int launch(const void* frames, const void* win, const void* w, const void* sync,
+           const void* syns, const void* pairs, void* corr_out, void* shift_out,
+           void* tdoa_out, void* peak_out, void* psr_out, int B, int M, int N,
+           int F, int Fp, int P, int L, int phat, int per_mic, float eps,
+           float taper_denom, int with_peaks, const Stats& st, void* stream) {
+  const int p_smem = kStats ? P : 0;
+  const int tb = frames_per_block(M, F, L, p_smem);
+  if (tb < 1 || Fp % 2 != 0 || Fp < F) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_floats(tb, M, F, L, p_smem) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      gcc_kernel<kStats>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = (B + tb - 1) / tb;
+  gcc_kernel<kStats><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)frames, (const float*)win, (const float4*)w,
+      (const float*)sync, (const float*)syns, (const int*)pairs,
+      (float*)corr_out, (int*)shift_out, (float*)tdoa_out, (float*)peak_out,
+      (float*)psr_out, B, M, N, F, Fp, P, L, tb, phat, per_mic, eps * eps,
+      taper_denom, with_peaks, st);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Frames per block: up to kDftRows (frame, mic) rows, fewer when the
-// spectra would not fit shared memory.  Returns 0 when one frame does not fit.
 extern "C" int att_gcc_frames_per_block(int m, int f, int l) {
-  int tb = m >= kDftRows ? 1 : kDftRows / m;
-  while (tb > 0 && smem_floats(tb, m, f, l) * sizeof(float) > kMaxSmem) --tb;
-  return tb;
+  return frames_per_block(m, f, l, 0);
+}
+
+extern "C" int att_gcc_stats_frames_per_block(int m, int f, int l, int p) {
+  return frames_per_block(m, f, l, p);
 }
 
 extern "C" int att_gcc(const void* frames, const void* win, const void* w,
@@ -343,18 +646,29 @@ extern "C" int att_gcc(const void* frames, const void* win, const void* w,
                        int F, int Fp, int P, int L, int phat, int per_mic,
                        float eps, float taper_denom, int with_peaks,
                        void* stream) {
-  const int tb = att_gcc_frames_per_block(M, F, L);
-  if (tb < 1 || Fp % 2 != 0 || Fp < F) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_floats(tb, M, F, L) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      gcc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = (B + tb - 1) / tb;
-  gcc_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)frames, (const float*)win, (const float4*)w,
-      (const float*)sync, (const float*)syns, (const int*)pairs,
-      (float*)corr_out, (int*)shift_out, (float*)tdoa_out, (float*)peak_out,
-      (float*)psr_out, B, M, N, F, Fp, P, L, tb, phat, per_mic, eps * eps,
-      taper_denom, with_peaks);
-  return (int)cudaGetLastError();
+  return launch<false>(frames, win, w, sync, syns, pairs, corr_out, shift_out,
+                       tdoa_out, peak_out, psr_out, B, M, N, F, Fp, P, L, phat,
+                       per_mic, eps, taper_denom, with_peaks, Stats{}, stream);
+}
+
+// The stats mode: the base mode's operands and outputs, plus band_out
+// ([B, F] auto band weights, may be null) and the mode's settings.
+extern "C" int att_gcc_stats(const void* frames, const void* win, const void* w,
+                             const void* sync, const void* syns,
+                             const void* pairs, void* corr_out, void* shift_out,
+                             void* tdoa_out, void* peak_out, void* psr_out,
+                             void* band_out, int B, int M, int N, int F, int Fp,
+                             int P, int L, int phat, int per_mic, float eps,
+                             float taper_denom, int with_peaks, int band_auto,
+                             int phase, int hybrid, int hw, int min_bins,
+                             int lo, int hi, int fft_length, float rel,
+                             float floor_, float hybrid_min, void* stream) {
+  if (phase && !with_peaks) return (int)cudaErrorInvalidValue;
+  const double two_pi = 6.283185307179586;
+  Stats st{(float*)band_out, band_auto, phase, hybrid, hw, min_bins, lo, hi,
+           rel, floor_, hybrid_min, (float)(two_pi / fft_length),
+           (float)(-fft_length / two_pi)};
+  return launch<true>(frames, win, w, sync, syns, pairs, corr_out, shift_out,
+                      tdoa_out, peak_out, psr_out, B, M, N, F, Fp, P, L, phat,
+                      per_mic, eps, taper_denom, with_peaks, st, stream);
 }

@@ -5,17 +5,23 @@
 
 Counterpart of ``audio_triangulation_tpu.models.localizer`` (``Localizer``
 and ``localize_frames``).  Two hand-written CUDA kernels carry the path on
-a GPU: ``ops/cuda/gcc_kernel`` (conditioning through per-pair peaks) and
-``ops/cuda/gn_kernel`` (the Gauss-Newton solve).  On a CPU tensor each
-wrapper runs its plain PyTorch version.  SRP scoring and the grid peak are
-plain torch, as they were plain XLA in the reference.
+a GPU: ``ops/cuda/gcc_kernel`` (conditioning through per-pair peaks, in
+its base mode or its spectral-stats mode) and ``ops/cuda/gn_kernel`` (the
+Gauss-Newton solve).  On a CPU tensor each wrapper runs its plain PyTorch
+version.  SRP scoring, the grid peak and the unfused correlation engines
+are plain torch, as they were plain XLA in the reference.
 
-Routing follows the reference: the GCC kernel serves every configuration
-of this slice (with in-kernel peaks when taper and sub-sample are both on,
-else plain peak ops after it); the GN kernel runs for at most 64 pairs
-with ``robust='none'``, else the batched solver does.  Configurations the
-port does not cover yet raise ``NotImplementedError``.  The TPU dispatch
-knobs ``fused_kernel``, ``fused_tile_b``, ``fused_srp``,
+Routing follows the reference's with its kernel switched on
+(``fused_kernel='on'``), on every device: :func:`kernel_route` says when
+the GCC kernel serves a configuration (in its stats mode for
+``band_hz='auto'`` or a phase/hybrid sub-sample), with in-kernel peaks
+when taper and sub-sample are both on, else plain peak ops after it.
+Configurations the reference keeps off its kernel run the unfused engines
+(:func:`correlate_frames`), then the plain peak ops and, for phase/hybrid,
+the reference's unfused phase-slope branch.  The GN kernel runs for at
+most 64 pairs with ``robust='none'``, else the batched solver does.  More
+than 256 pairs raise ``NotImplementedError`` (ROADMAP slice D).  The TPU
+dispatch knobs ``fused_kernel``, ``fused_tile_b``, ``fused_srp``,
 ``fused_sub_tiles``, ``pair_chunk`` and ``srp_big_matmul_budget_bytes``
 are accepted and change nothing; both ``dft_precision`` values compute in
 exact fp32.
@@ -56,45 +62,31 @@ class LocalizerParams:
 PARAM_NAMES = tuple(f.name for f in dataclasses.fields(LocalizerParams))
 
 
-_SPECTRAL = "ROADMAP.md kernel queue, GCC spectral-stats mode"
-_ENGINES = "ROADMAP.md slice A2 (other correlation engines)"
+def check_slice(n_pairs: int) -> None:
+    """Raise ``NotImplementedError`` for arrays this port does not serve
+    yet: more than ``MAX_PAIRS`` pairs (ROADMAP.md slice D)."""
+    if n_pairs > MAX_PAIRS:
+        raise NotImplementedError(
+            f"{n_pairs} mic pairs (> {MAX_PAIRS}) is not ported to the "
+            "PyTorch package yet: ROADMAP.md slice D (large arrays)")
 
 
-def _refuse(unsupported) -> None:
-    for bad, what, item in unsupported:
-        if bad:
-            raise NotImplementedError(
-                f"{what} is not ported to the PyTorch package yet: {item}")
-
-
-def check_engine(cfg: PipelineConfig) -> None:
-    """Raise ``NotImplementedError`` for correlation settings the matmul
-    engine of this port does not serve yet, naming the ROADMAP.md item."""
-    _refuse([
-        (cfg.band_auto, "band_hz='auto'", _SPECTRAL),
-        (cfg.effective_weighting in ("scot", "roth", "ml"),
-         f"weighting={cfg.effective_weighting!r}", _ENGINES),
-        (cfg.phat and cfg.phat_beta != 1.0, f"phat_beta={cfg.phat_beta}",
-         _ENGINES),
-        (cfg.xcorr_mode != "mxu", f"xcorr_mode={cfg.xcorr_mode!r}", _ENGINES),
-        (cfg.matmul_dtype != "float32", f"matmul_dtype={cfg.matmul_dtype!r}",
-         _ENGINES),
-    ])
-
-
-def check_slice(cfg: PipelineConfig, n_pairs: int) -> None:
-    """Raise ``NotImplementedError`` for localizer configurations this port
-    does not serve yet (the engine's, plus what the GCC kernel does not
-    fold in), naming the ROADMAP.md item that ports them."""
-    check_engine(cfg)
-    _refuse([
-        (cfg.subsample_peak and cfg.subsample_method != "parabolic",
-         f"subsample_method={cfg.subsample_method!r}", _SPECTRAL),
-        (cfg.normalize_mode == "full_range", "normalize_mode='full_range'",
-         _ENGINES),
-        (n_pairs > MAX_PAIRS, f"{n_pairs} mic pairs (> {MAX_PAIRS})",
-         "ROADMAP.md slice D (large arrays)"),
-    ])
+def kernel_route(cfg: PipelineConfig) -> bool:
+    """Whether the GCC kernel serves ``cfg``: the reference's fused-kernel
+    conditions (``_fused_tile``) without its TPU-only batch and VMEM rules.
+    The kernel takes the matmul engine with shift8/none normalisation and
+    none/PHAT weighting at beta 1, and its stats mode the full band of an
+    even-length DFT."""
+    if cfg.xcorr_mode != "mxu":
+        return False
+    if cfg.normalize_mode not in ("shift8", "none"):
+        return False
+    if cfg.effective_weighting in ("scot", "roth", "ml"):
+        return False
+    if gcc_kernel.needs_stats(cfg) and (cfg.band_crop
+                                        or cfg.fft_length % 2 != 0):
+        return False
+    return not (cfg.phat and cfg.phat_beta != 1.0)
 
 
 def pin_fp32() -> None:
@@ -116,7 +108,7 @@ class Localizer(nn.Module):
                  srp_form: str, with_solver: bool = True,
                  with_heatmap: bool = False):
         super().__init__()
-        check_slice(pipeline, params.pairs.shape[0])
+        check_slice(params.pairs.shape[0])
         if srp_form not in ("matmul", "gather"):
             raise ValueError(f"srp_form={srp_form!r}")
         if srp_form == "matmul" and params.onehot is None:
@@ -169,7 +161,7 @@ class Localizer(nn.Module):
                 cells_per_m=grid.cells_per_m / s)
         mic_positions = np.asarray(mic_positions, dtype=np.float32)
         pairs = geometry.mic_pairs(mic_positions.shape[0])
-        check_slice(pipeline, pairs.shape[0])
+        check_slice(pairs.shape[0])
         lut = geometry.lag_lut(grid, mic_positions, pairs, pipeline)
         if srp_form == "auto":
             srp_form = srp.auto_srp_form(
@@ -293,9 +285,43 @@ def condition_frames(frames: torch.Tensor, window: torch.Tensor,
 def correlate_frames(frames: torch.Tensor, params: LocalizerParams,
                      cfg: PipelineConfig) -> torch.Tensor:
     """Conditioned frames [..., M, N] -> correlograms [..., P, L] through
-    the matmul engine (the only engine ported so far)."""
-    check_engine(cfg)
-    return mxu_fft.xcorr_mxu(frames, params.pairs, cfg)
+    the unfused engine ``cfg`` selects, as the reference routes it."""
+    if cfg.effective_weighting in ("scot", "roth", "ml"):
+        return xcorr.xcorr_fft(frames, params.pairs, cfg)
+    if cfg.band_auto and cfg.xcorr_mode != "mxu":
+        return xcorr.xcorr_fft(frames, params.pairs, cfg)
+    if cfg.xcorr_mode == "mxu":
+        return mxu_fft.xcorr_mxu(frames, params.pairs, cfg,
+                                 matmul_dtype=cfg.matmul_dtype)
+    if cfg.xcorr_mode == "fft":
+        return xcorr.xcorr_fft(frames, params.pairs, cfg)
+    if cfg.xcorr_mode == "time":
+        return xcorr.xcorr_time(frames, params.pairs, cfg.max_shift)
+    raise ValueError(f"unknown xcorr mode {cfg.xcorr_mode}")
+
+
+def _phase_subsample(frames, params: LocalizerParams, cfg: PipelineConfig,
+                     shifts, tdoa_par):
+    """The reference's unfused phase/hybrid sub-sample branch, as written
+    there: its hybrid gate averages coherence over the bins of the band
+    mask, or over all bins, Nyquist included, without one."""
+    cond = condition_frames(frames, params.window, cfg)
+    spectra = xcorr.rfft_frames(cond, cfg.fft_length)
+    wm = xcorr.band_mask(cfg)
+    if wm is None and cfg.band_auto:
+        wm = xcorr.auto_band_weight(spectra, params.pairs, cfg)[..., None, :]
+    tdoa_phase = xcorr.tdoa_phase_slope(
+        spectra, params.pairs, shifts, fft_length=cfg.fft_length,
+        half_width=cfg.coherence_bins, eps=cfg.phat_eps, weight_mask=wm)
+    if cfg.subsample_method != "hybrid":
+        return tdoa_phase
+    _, _, _, g2 = xcorr.smoothed_cross_stats(
+        spectra, params.pairs, cfg.coherence_bins, eps=cfg.phat_eps)
+    w_bins = (torch.ones_like(g2) if wm is None else torch.broadcast_to(
+        torch.as_tensor(wm, dtype=g2.dtype, device=g2.device), g2.shape))
+    coh = (g2 * w_bins).sum(dim=-1) / w_bins.sum(dim=-1).clamp_min(1e-12)
+    return torch.where(coh >= cfg.hybrid_coherence_min, tdoa_phase,
+                       tdoa_par)
 
 
 def localize_frames(
@@ -324,25 +350,33 @@ def localize_frames(
     """
     k = cfg.max_shift
     p_n = params.pairs.shape[0]
-    check_slice(cfg, p_n)
+    check_slice(p_n)
     m, n = frames.shape[-2:]
     lead = frames.shape[:-2]
     flat = frames.reshape(-1, m, n).float()
     if cfg.nan_guard:
         flat = torch.nan_to_num(flat, nan=0.0, posinf=0.0, neginf=0.0)
 
-    if cfg.taper_enabled and cfg.subsample_peak:
+    on_kernel = kernel_route(cfg)
+    if on_kernel and cfg.taper_enabled and cfg.subsample_peak:
         # taper, argmax, sub-sample peak and PSR inside the GCC kernel
         corr_t, shifts, tdoa_samples, peak_val, psr = gcc_kernel.fused_gcc(
             flat, params.window, params.pairs, cfg, with_peaks=True)
     else:
-        corr = gcc_kernel.fused_gcc(flat, params.window, params.pairs, cfg,
-                                    with_peaks=False)
+        if on_kernel:
+            corr = gcc_kernel.fused_gcc(flat, params.window, params.pairs,
+                                        cfg, with_peaks=False)
+        else:
+            corr = correlate_frames(
+                condition_frames(flat, params.window, cfg), params, cfg)
         shifts = xcorr.best_lag(corr, k)
         tdoa_samples, peak_val = xcorr.subsample_peak(corr, k)
         psr = xcorr.peak_confidence(corr, k)  # raw, pre-taper
         if not cfg.subsample_peak:
             tdoa_samples = shifts.to(corr.dtype)
+        elif cfg.subsample_method in ("phase", "hybrid"):
+            tdoa_samples = _phase_subsample(flat, params, cfg, shifts,
+                                            tdoa_samples)
         corr_t = (xcorr.peak_taper(corr, k, cfg.taper_denom, shifts)
                   if cfg.taper_enabled else corr)
 

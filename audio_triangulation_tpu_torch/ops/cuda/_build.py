@@ -1,7 +1,8 @@
 """Build the package's CUDA kernels with ``nvcc`` and load them with ctypes.
 
-Every ``csrc/*.cu`` file is compiled for ``sm_90a`` into one shared library
-with a plain C interface.  The library's name carries a hash of the sources
+Every ``csrc/*.cu`` file is compiled for ``sm_90a`` (one ``nvcc`` per
+source, all started together) and linked into one shared library with a
+plain C interface.  The library's name carries a hash of the sources
 and flags, so a rebuild happens only when they change; it lives in the
 package's ``_build/`` directory (not committed).  The build runs at first
 use, never at import.  A missing ``nvcc`` or a failed build raises
@@ -24,7 +25,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 CUDA_HOME_DEFAULT = "/usr/local/cuda"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _loaded: dict = {}
@@ -61,6 +62,19 @@ def library_path(build_dir: Path = BUILD_DIR) -> Path:
     return Path(build_dir) / f"libatt_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds: list) -> None:
+    """Run the commands side by side; raise with the first failure's
+    output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (stdout, stderr) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(cmd)}\n{stdout}\n{stderr}")
+
+
 def build(build_dir: Path = BUILD_DIR) -> Path:
     """Compile ``csrc/*.cu`` into the shared library unless a library of the
     same sources already exists; returns its path."""
@@ -69,17 +83,14 @@ def build(build_dir: Path = BUILD_DIR) -> Path:
         return out
     nvcc = find_nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in sources() if s.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    cu = [s for s in sources() if s.suffix == ".cu"]
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp_dir:
+        objs = [str(Path(tmp_dir) / f"{s.stem}.o") for s in cu]
+        _run([[nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o", o, str(s)]
+              for s, o in zip(cu, objs)])
+        tmp = str(Path(tmp_dir) / out.name)
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
+        os.replace(tmp, out)  # atomic: a loader never sees half a file
     return out
 
 

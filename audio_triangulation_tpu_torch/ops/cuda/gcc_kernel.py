@@ -1,10 +1,19 @@
 """Fused GCC kernel: raw frames -> (tapered) correlograms and per-pair peaks.
 
-Counterpart of ``audio_triangulation_tpu.ops.pallas.gcc_kernel`` in its base
-mode (``fused_gcc`` / ``fused_gcc_peaks``).  On a CUDA tensor
-:func:`fused_gcc` launches ``csrc/gcc_kernel.cu`` or raises; on a CPU tensor
-it runs :func:`gcc_reference`, the plain PyTorch version of the same
-function.  ``launches`` counts kernel launches.
+Counterpart of ``audio_triangulation_tpu.ops.pallas.gcc_kernel``
+(``fused_gcc`` / ``fused_gcc_peaks``) in both of its modes on this path:
+
+- the base mode: conditioning, DFT, PHAT, cross-power, lag synthesis and
+  the peak stage;
+- the spectral-stats mode, taken when ``band_hz='auto'`` or (with peaks)
+  ``subsample_method`` is 'phase' or 'hybrid': smoothed periodograms and
+  cross-spectra, coherence, the per-event auto band weighting the
+  cross-power, and the phase-slope sub-sample TDOA with its hybrid gate.
+
+On a CUDA tensor :func:`fused_gcc` launches ``csrc/gcc_kernel.cu`` or
+raises; on a CPU tensor it runs the plain PyTorch version of the mode
+(:func:`gcc_reference`, :func:`gcc_stats_reference`).  ``launches`` counts
+base-mode launches and ``stats_launches`` stats-mode launches.
 """
 
 from __future__ import annotations
@@ -13,6 +22,7 @@ import ctypes
 import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ...core.config import PipelineConfig
@@ -20,6 +30,7 @@ from .. import mxu_fft, xcorr
 from . import _build
 
 launches = 0
+stats_launches = 0
 
 
 class GccMatrices(NamedTuple):
@@ -58,10 +69,20 @@ def window_gain(window: torch.Tensor, cfg: PipelineConfig) -> torch.Tensor:
     return win * (256.0 if cfg.normalize_mode == "shift8" else 1.0)
 
 
+def _peaks(corr, max_shift: int, taper_denom: float):
+    """The peak stage on raw correlograms: (tapered correlograms, shift,
+    parabolic tdoa, peak, psr)."""
+    shifts = xcorr.best_lag(corr, max_shift)
+    tdoa, peak = xcorr.subsample_peak(corr, max_shift)
+    psr = xcorr.peak_confidence(corr, max_shift)
+    corr_t = xcorr.peak_taper(corr, max_shift, taper_denom, shifts)
+    return corr_t, shifts, tdoa, peak, psr
+
+
 def gcc_reference(frames, win_gain, mats: GccMatrices, pairs, *,
                   phat: bool, phat_eps: float, max_shift: int,
                   taper_denom: float, with_peaks: bool):
-    """Plain PyTorch version of the kernel, on the kernel's own operands.
+    """Plain PyTorch version of the base mode, on the kernel's operands.
 
     frames [B, M, N] -> correlograms [B, P, L]; with ``with_peaks`` ->
     (tapered correlograms, best shift int32 [B, P], sub-sample tdoa [B, P]
@@ -74,11 +95,168 @@ def gcc_reference(frames, win_gain, mats: GccMatrices, pairs, *,
     corr = mxu_fft.lag_correlogram(rr, jj, mats.sync, mats.syns)
     if not with_peaks:
         return corr
-    shifts = xcorr.best_lag(corr, max_shift)
-    tdoa, peak = xcorr.subsample_peak(corr, max_shift)
-    psr = xcorr.peak_confidence(corr, max_shift)
-    corr_t = xcorr.peak_taper(corr, max_shift, taper_denom, shifts)
-    return corr_t, shifts, tdoa, peak, psr
+    return _peaks(corr, max_shift, taper_denom)
+
+
+class StatsParams(NamedTuple):
+    """The stats mode's settings (see :func:`stats_params`)."""
+
+    band_auto: bool  # weight the cross-power by the per-event auto band
+    phase: bool  # phase-slope sub-sample TDOA (needs peaks)
+    hybrid: bool  # keep it only where the row's band coherence clears
+    hybrid_min: float
+    half_width: int  # coherence smoothing, +- bins
+    rel: float  # auto band: threshold = max(rel * max, floor)
+    floor: float
+    min_bins: int  # fewer selected bins fall back to the interior
+    lo: int  # without the auto band, bins [lo, hi) weight the phase
+    hi: int  # slope and the hybrid gate (Nyquist always out)
+    fft_length: int
+
+
+def _phase(cfg: PipelineConfig, with_peaks: bool) -> bool:
+    """Whether the peak stage refines by phase slope (phase / hybrid)."""
+    return (with_peaks and cfg.subsample_peak
+            and cfg.subsample_method in ("phase", "hybrid"))
+
+
+def needs_stats(cfg: PipelineConfig, with_peaks: bool = True) -> bool:
+    """Whether ``cfg`` takes the stats mode: the per-event auto band, or
+    (with the peak stage) a phase-slope / hybrid sub-sample TDOA."""
+    return cfg.band_auto or _phase(cfg, with_peaks)
+
+
+def stats_params(cfg: PipelineConfig, with_peaks: bool):
+    """StatsParams when ``cfg`` needs the stats mode, else None.  The mode
+    runs on all F = L/2 + 1 bins of an even-length DFT; band-crop and odd
+    lengths are routed to the unfused path by the Localizer and refused
+    here."""
+    if not needs_stats(cfg, with_peaks):
+        return None
+    phase = _phase(cfg, with_peaks)
+    if cfg.band_crop or cfg.fft_length % 2:
+        raise ValueError("the GCC kernel's stats mode needs the full band "
+                         "of an even fft_length (no band_crop)")
+    nyq = cfg.fft_length // 2
+    lo, hi = 0, nyq
+    if cfg.band_hz is not None and not cfg.band_auto:
+        lo, hi = mxu_fft.band_bins(cfg.fft_length, cfg.sample_rate_hz,
+                                   *cfg.band_hz)
+        hi = min(hi, nyq)
+    return StatsParams(
+        band_auto=cfg.band_auto, phase=phase,
+        hybrid=cfg.subsample_method == "hybrid",
+        hybrid_min=cfg.hybrid_coherence_min, half_width=cfg.coherence_bins,
+        rel=cfg.auto_band_rel, floor=cfg.auto_band_floor,
+        min_bins=cfg.auto_band_min_bins, lo=lo, hi=hi,
+        fft_length=cfg.fft_length)
+
+
+def stats_terms(frames, win_gain, mats: GccMatrices, pairs,
+                sp: StatsParams, *, phat_eps: float) -> dict:
+    """The stats mode's spectral statistics, in the frames' dtype:
+    raw spectra ``re``/``im`` [B, M, F], raw cross-power ``rr``/``jj``
+    [B, P, F], coherence ``g2`` [B, P, F], the pair-mean coherence ``g2m``
+    and the auto band's threshold ``thr`` [B, 1] (auto band only), and the
+    bin weights ``wb`` of the phase slope and the hybrid gate ([B, 1, F] or
+    [F]; 0 at Nyquist, which the auto band also always leaves out)."""
+    x = (frames - frames.mean(dim=-1, keepdim=True)) * win_gain
+    re, im = mxu_fft.rdft(x, mats.cos, mats.msin)
+    f = re.shape[-1]
+    hw = sp.half_width
+    auto_s = xcorr.freq_smooth(re * re + im * im, hw)
+    i, j = pairs[:, 0].long(), pairs[:, 1].long()
+    ri, ii = re.index_select(-2, i), im.index_select(-2, i)
+    rj, ij = re.index_select(-2, j), im.index_select(-2, j)
+    rr = ri * rj + ii * ij
+    jj = ri * ij - ii * rj
+    rr_s, jj_s = xcorr.freq_smooth(rr, hw), xcorr.freq_smooth(jj, hw)
+    gaa, gbb = auto_s.index_select(-2, i), auto_s.index_select(-2, j)
+    g2 = ((rr_s * rr_s + jj_s * jj_s)
+          / (gaa * gbb + phat_eps * phat_eps)).clamp(0.0, 1.0)
+    out = dict(re=re, im=im, rr=rr, jj=jj, g2=g2)
+    k = torch.arange(f, device=re.device)
+    if sp.band_auto:
+        # pair-mean coherence over the interior (DC and Nyquist out)
+        g2m = g2.mean(dim=-2)
+        interior = (k > 0) & (k < f - 1)
+        g2i = torch.where(interior, g2m, torch.zeros_like(g2m))
+        thr = (sp.rel * g2i.amax(dim=-1, keepdim=True)).clamp_min(sp.floor)
+        sel = (g2i >= thr) & (k < f - 1)
+        enough = sel.sum(dim=-1, keepdim=True) >= sp.min_bins
+        band = torch.where(enough, sel, interior).to(re.dtype)
+        out.update(g2m=g2m, thr=thr, band=band, wb=band[..., None, :])
+    else:
+        out["wb"] = ((k >= sp.lo) & (k < sp.hi)).to(re.dtype)
+    return out
+
+
+def hybrid_coherence(terms: dict) -> torch.Tensor:
+    """The hybrid gate's in-band mean coherence per row [B, P]."""
+    wb = terms["wb"]
+    return ((terms["g2"] * wb).sum(dim=-1)
+            / wb.sum(dim=-1).clamp_min(1e-12))
+
+
+def _phase_slope(terms: dict, shifts, tdoa_par, sp: StatsParams):
+    """Phase-slope TDOA [B, P] from the integer peaks: weights |R|^2 g2 wb
+    normalised by the row maximum, two Gauss-Newton steps on the wrapped
+    phase of the derotated raw cross-power; with ``hybrid`` the parabolic
+    ``tdoa_par`` stays where the row's band coherence is under the gate."""
+    rr, jj = terms["rr"], terms["jj"]
+    k = torch.arange(rr.shape[-1], dtype=rr.dtype, device=rr.device)
+    w = (rr * rr + jj * jj) * terms["g2"] * terms["wb"]
+    w = w / w.amax(dim=-1, keepdim=True).clamp_min(1e-30)
+    den = (w * k * k).sum(dim=-1)
+    omega = 2.0 * np.pi / sp.fft_length
+    gain_d = -sp.fft_length / (2.0 * np.pi)
+    d = shifts.to(rr.dtype)
+    for _ in range(2):
+        ang = omega * k * d[..., None]
+        c, s = torch.cos(ang), torch.sin(ang)
+        phi = torch.atan2(rr * s + jj * c, rr * c - jj * s)
+        num = (w * k * phi).sum(dim=-1)
+        d = d + (gain_d * num / den.clamp_min(1e-20)).clamp(-1.0, 1.0)
+    if not sp.hybrid:
+        return d
+    return torch.where(hybrid_coherence(terms) >= sp.hybrid_min, d,
+                       tdoa_par)
+
+
+def gcc_stats_reference(frames, win_gain, mats: GccMatrices, pairs,
+                        sp: StatsParams, *, phat: bool, phat_eps: float,
+                        max_shift: int, taper_denom: float, with_peaks: bool,
+                        with_band: bool = False):
+    """Plain PyTorch version of the stats mode, on the kernel's operands and
+    with the outputs of :func:`gcc_reference`; ``with_band`` appends the
+    per-frame auto band weights [B, F] (None without the auto band).
+
+    It follows the TPU kernel's stats mode, which the hands-free
+    configuration ran on: the raw cross-power is whitened by the product of
+    per-mic factors (M >= 3), the auto band's pair mean takes all pairs,
+    and Nyquist is out of the phase weights and of the hybrid gate."""
+    t = stats_terms(frames, win_gain, mats, pairs, sp, phat_eps=phat_eps)
+    rr, jj = t["rr"], t["jj"]
+    if phat and xcorr.phat_per_mic(frames.shape[-2]):
+        inv = torch.rsqrt(t["re"] ** 2 + t["im"] ** 2 + phat_eps * phat_eps)
+        invij = (inv.index_select(-2, pairs[:, 0].long())
+                 * inv.index_select(-2, pairs[:, 1].long()))
+        rr_w, jj_w = rr * invij, jj * invij
+    elif phat:
+        inv = torch.rsqrt(rr * rr + jj * jj + phat_eps * phat_eps)
+        rr_w, jj_w = rr * inv, jj * inv
+    else:
+        rr_w, jj_w = rr, jj
+    if sp.band_auto:
+        rr_w, jj_w = rr_w * t["wb"], jj_w * t["wb"]
+    corr = mxu_fft.lag_correlogram(rr_w, jj_w, mats.sync, mats.syns)
+    band = (t.get("band"),) if with_band else ()
+    if not with_peaks:
+        return (corr, *band) if with_band else corr
+    corr_t, shifts, tdoa, peak, psr = _peaks(corr, max_shift, taper_denom)
+    if sp.phase:
+        tdoa = _phase_slope(t, shifts, tdoa, sp)
+    return (corr_t, shifts, tdoa, peak, psr, *band)
 
 
 def operands(frames: torch.Tensor, window: torch.Tensor,
@@ -95,27 +273,30 @@ def fused_gcc(frames: torch.Tensor, window: torch.Tensor,
     """Raw frames [B, M, N] f32 -> correlograms [B, P, L] (conditioning,
     DFT, PHAT per ``cfg``, cross-power, lag synthesis), or with
     ``with_peaks`` the tapered correlograms plus per-pair peaks (see
-    :func:`gcc_reference`)."""
+    :func:`gcc_reference`); in the stats mode when ``cfg`` needs it (see
+    :func:`stats_params`)."""
     if frames.ndim != 3 or frames.dtype != torch.float32:
         raise ValueError(f"frames must be f32 [B, M, N]; got "
                          f"{tuple(frames.shape)} {frames.dtype}")
     ops = operands(frames, window, cfg)
     kw = dict(phat=cfg.phat, phat_eps=cfg.phat_eps, max_shift=cfg.max_shift,
               taper_denom=cfg.taper_denom, with_peaks=with_peaks)
-    if frames.device.type == "cpu":
+    sp = stats_params(cfg, with_peaks)
+    on_cpu = frames.device.type == "cpu"
+    if sp is not None:
+        if on_cpu:
+            return gcc_stats_reference(frames, *ops, pairs.to(frames.device),
+                                       sp, **kw)
+        return launch_stats(frames, *ops, pairs, sp, **kw)
+    if on_cpu:
         return gcc_reference(frames, *ops, pairs.to(frames.device), **kw)
     return launch(frames, *ops, pairs, **kw)
 
 
-def launch(frames, win_gain, mats: GccMatrices, pairs, *, phat: bool,
-           phat_eps: float, max_shift: int, taper_denom: float,
-           with_peaks: bool):
-    """Run ``csrc/gcc_kernel.cu`` on CUDA tensors (same contract as
-    :func:`gcc_reference`); raises on anything it does not take.  The pair
-    indices are not range-checked here (that would sync with the device):
-    they must index the M mics, as ``Localizer.create`` and
-    ``params_from_reference`` ensure."""
-    global launches
+def _checked(frames, win_gain, mats: GccMatrices, pairs):
+    """The launch operands on ``frames``' CUDA device, checked against the
+    frames: (dims (b, m, n, f, fp, p, l), frames, [win_gain, cs, sync,
+    syns], pairs int32)."""
     if frames.device.type != "cuda":
         raise ValueError(f"the GCC kernel needs CUDA tensors; frames are on "
                          f"{frames.device}")
@@ -124,7 +305,6 @@ def launch(frames, win_gain, mats: GccMatrices, pairs, *, phat: bool,
     fp = f + f % 2
     p = pairs.shape[0]
     dev = frames.device
-    frames = frames.contiguous()
     pairs32 = pairs.to(device=dev, dtype=torch.int32).contiguous()
     ins = [t.to(device=dev, dtype=torch.float32).contiguous()
            for t in (win_gain, mats.cs, mats.sync, mats.syns)]
@@ -133,33 +313,90 @@ def launch(frames, win_gain, mats: GccMatrices, pairs, *, phat: bool,
         raise ValueError("GCC operand shapes do not match the frames")
     if p < 1 or pairs32.shape != (p, 2) or l % 2 == 0:
         raise ValueError("bad pair list or lag count for the GCC kernel")
+    return (b, m, n, f, fp, p, l), frames.contiguous(), ins, pairs32
+
+
+def _outputs(b, p, l, dev, with_peaks):
+    corr = torch.empty((b, p, l), dtype=torch.float32, device=dev)
+    if not with_peaks:
+        return (corr,)
+    shift = torch.empty((b, p), dtype=torch.int32, device=dev)
+    return (corr, shift, *(torch.empty((b, p), dtype=torch.float32,
+                                       device=dev) for _ in range(3)))
+
+
+def launch(frames, win_gain, mats: GccMatrices, pairs, *, phat: bool,
+           phat_eps: float, max_shift: int, taper_denom: float,
+           with_peaks: bool):
+    """Run ``csrc/gcc_kernel.cu``'s base mode on CUDA tensors (same
+    contract as :func:`gcc_reference`); raises on anything it does not
+    take.  The pair indices are not range-checked here (that would sync
+    with the device): they must index the M mics, as ``Localizer.create``
+    and ``params_from_reference`` ensure."""
+    global launches
+    (b, m, n, f, fp, p, l), frames, ins, pairs32 = _checked(
+        frames, win_gain, mats, pairs)
     lib = _lib()
     if lib.att_gcc_frames_per_block(m, f, l) < 1:
         raise ValueError(f"one frame of {m} mics x {f} bins does not fit "
                          "the kernel's shared memory")
-    corr = torch.empty((b, p, l), dtype=torch.float32, device=dev)
-    if with_peaks:
-        shift = torch.empty((b, p), dtype=torch.int32, device=dev)
-        tdoa, peak, psr = (torch.empty((b, p), dtype=torch.float32,
-                                       device=dev) for _ in range(3))
-        outs = (corr, shift, tdoa, peak, psr)
-    else:
-        outs = (corr,)
-    if b == 0:
-        return outs if with_peaks else corr
-    # Temporaries may be freed once launched: the caching allocator reuses
-    # memory in the order of the stream the kernel runs on.
-    ptr = [t.data_ptr() for t in (frames, *ins, pairs32)]
-    optr = [t.data_ptr() for t in outs] + [None] * (5 - len(outs))
-    per_mic = phat and xcorr.phat_per_mic(m)
-    with torch.cuda.device(dev):
-        err = lib.att_gcc(*ptr, *optr, b, m, n, f, fp, p, l, int(phat),
-                          int(per_mic), phat_eps, taper_denom,
-                          int(with_peaks),
-                          torch.cuda.current_stream(dev).cuda_stream)
-    launches += 1
-    _build.check(err, "gcc_kernel launch", lib)
-    return outs if with_peaks else corr
+    outs = _outputs(b, p, l, frames.device, with_peaks)
+    if b > 0:
+        # Temporaries may be freed once launched: the caching allocator
+        # reuses memory in the order of the stream the kernel runs on.
+        ptr = [t.data_ptr() for t in (frames, *ins, pairs32)]
+        optr = [t.data_ptr() for t in outs] + [None] * (5 - len(outs))
+        per_mic = phat and xcorr.phat_per_mic(m)
+        with torch.cuda.device(frames.device):
+            err = lib.att_gcc(
+                *ptr, *optr, b, m, n, f, fp, p, l, int(phat), int(per_mic),
+                phat_eps, taper_denom, int(with_peaks),
+                torch.cuda.current_stream(frames.device).cuda_stream)
+        launches += 1
+        _build.check(err, "gcc_kernel launch", lib)
+    return outs if with_peaks else outs[0]
+
+
+def launch_stats(frames, win_gain, mats: GccMatrices, pairs,
+                 sp: StatsParams, *, phat: bool, phat_eps: float,
+                 max_shift: int, taper_denom: float, with_peaks: bool,
+                 with_band: bool = False):
+    """Run ``csrc/gcc_kernel.cu``'s stats mode on CUDA tensors (same
+    contract as :func:`gcc_stats_reference`); raises on anything it does
+    not take, a frame too large for its shared memory included."""
+    global stats_launches
+    (b, m, n, f, fp, p, l), frames, ins, pairs32 = _checked(
+        frames, win_gain, mats, pairs)
+    if sp.phase and not with_peaks:
+        raise ValueError("the phase-slope TDOA needs the peak stage")
+    if f != sp.fft_length // 2 + 1:
+        raise ValueError("the stats mode needs all F = L/2 + 1 bins")
+    lib = _lib()
+    if lib.att_gcc_stats_frames_per_block(m, f, l, p) < 1:
+        raise ValueError(f"one frame of {m} mics, {p} pairs x {f} bins does "
+                         "not fit the stats mode's shared memory")
+    dev = frames.device
+    outs = _outputs(b, p, l, dev, with_peaks)
+    band = (torch.empty((b, f), dtype=torch.float32, device=dev)
+            if with_band and sp.band_auto else None)
+    if b > 0:
+        ptr = [t.data_ptr() for t in (frames, *ins, pairs32)]
+        optr = [t.data_ptr() for t in outs] + [None] * (5 - len(outs))
+        per_mic = phat and xcorr.phat_per_mic(m)
+        with torch.cuda.device(dev):
+            err = lib.att_gcc_stats(
+                *ptr, *optr, None if band is None else band.data_ptr(),
+                b, m, n, f, fp, p, l, int(phat), int(per_mic), phat_eps,
+                taper_denom, int(with_peaks), int(sp.band_auto),
+                int(sp.phase), int(sp.hybrid), sp.half_width, sp.min_bins,
+                sp.lo, sp.hi, sp.fft_length, sp.rel, sp.floor, sp.hybrid_min,
+                torch.cuda.current_stream(dev).cuda_stream)
+        stats_launches += 1
+        _build.check(err, "gcc_kernel stats launch", lib)
+    extra = (band,) if with_band else ()
+    if not with_peaks:
+        return (outs[0], *extra) if with_band else outs[0]
+    return (*outs, *extra)
 
 
 def _lib():
@@ -168,6 +405,11 @@ def _lib():
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.att_gcc.argtypes = ([vp] * 11 + [ci] * 9 + [cf, cf, ci, vp])
         lib.att_gcc.restype = ci
+        lib.att_gcc_stats.argtypes = ([vp] * 12 + [ci] * 9 + [cf, cf]
+                                      + [ci] * 9 + [cf] * 3 + [vp])
+        lib.att_gcc_stats.restype = ci
         lib.att_gcc_frames_per_block.argtypes = [ci, ci, ci]
         lib.att_gcc_frames_per_block.restype = ci
+        lib.att_gcc_stats_frames_per_block.argtypes = [ci] * 4
+        lib.att_gcc_stats_frames_per_block.restype = ci
     return lib

@@ -1,15 +1,20 @@
 """GCC as matrix products: the DFT and the +-K lag synthesis as matmuls.
 
-Counterpart of ``audio_triangulation_tpu.ops.mxu_fft`` (main-path subset):
+Counterpart of ``audio_triangulation_tpu.ops.mxu_fft`` (the unfused
+engine; the reference's pair-blocked form is ROADMAP slice D):
 
 - forward: Re/Im spectra = frames @ cos / frames @ -sin, DFT matrices [N, F]
-- cross-power per pair, optionally PHAT-whitened (elementwise)
+- the per-event auto band folded into the raw spectra (``band_hz='auto'``)
+- cross-power per pair, optionally PHAT(-beta)-whitened (elementwise)
 - inverse: correlogram = Re @ synC + Im @ synS, synthesising only the
   2K+1 lags the pipeline reads
 
 The numpy matrix builders are the reference's, so both packages (and the
 CUDA kernel, which reads the same matrices) see identical coefficients.
-All products run in fp32: the Localizer turns TF32 off on CUDA.
+Products run in fp32 (the Localizer turns TF32 off on CUDA); with
+``matmul_dtype='bfloat16'`` the operands are rounded to bf16 and the
+products summed in fp32, as the reference's bf16 matmuls with f32
+accumulation do.
 """
 
 from __future__ import annotations
@@ -126,86 +131,127 @@ def gcc_matrices(cfg: PipelineConfig, n: int):
 MATMUL_DFT_MAX_N = 4096
 
 
-def rdft(frames: torch.Tensor, cos: torch.Tensor, msin: torch.Tensor):
-    """Real DFT as two fp32 matmuls: frames [..., N] -> (re, im) [..., F]."""
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bf16, carried as fp32 (a bf16 x bf16 torch matmul
+    would round its output to bf16 too; the reference's keeps f32)."""
+    return x.to(torch.bfloat16).float()
+
+
+def rdft(frames: torch.Tensor, cos: torch.Tensor, msin: torch.Tensor,
+         matmul_dtype: str = "float32"):
+    """Real DFT as two matmuls: frames [..., N] -> (re, im) [..., F]."""
+    if matmul_dtype == "bfloat16":
+        frames, cos, msin = _bf16(frames), _bf16(cos), _bf16(msin)
     x = frames.to(cos.dtype)
     return torch.matmul(x, cos), torch.matmul(x, msin)
 
 
-def forward_spectra(frames: torch.Tensor, fft_length: int):
+def forward_spectra(frames: torch.Tensor, fft_length: int,
+                    matmul_dtype: str = "float32"):
     """(re, im) [..., F] via the matmul DFT (or torch.fft past
     ``MATMUL_DFT_MAX_N`` samples)."""
     n = frames.shape[-1]
     if n <= MATMUL_DFT_MAX_N:
         cos, msin = dft_matrices(n, fft_length)
-        return rdft(frames, _dev(cos, frames), _dev(msin, frames))
+        return rdft(frames, _dev(cos, frames), _dev(msin, frames),
+                    matmul_dtype)
     spec = torch.fft.rfft(frames.float(), n=fft_length, dim=-1)
     return spec.real, spec.imag
 
 
 def forward_spectra_band(frames: torch.Tensor, fft_length: int,
-                         lo_bin: int, hi_bin: int):
+                         lo_bin: int, hi_bin: int,
+                         matmul_dtype: str = "float32"):
     """(re, im) [..., Fb] of only the bins [lo_bin, hi_bin)."""
     n = frames.shape[-1]
     if n <= MATMUL_DFT_MAX_N:
         cos, msin = dft_matrices_band(n, fft_length, lo_bin, hi_bin)
-        return rdft(frames, _dev(cos, frames), _dev(msin, frames))
+        return rdft(frames, _dev(cos, frames), _dev(msin, frames),
+                    matmul_dtype)
     spec = torch.fft.rfft(frames.float(), n=fft_length, dim=-1)
     spec = spec[..., lo_bin:hi_bin]
     return spec.real, spec.imag
 
 
-def whiten_reim(re: torch.Tensor, im: torch.Tensor, eps: float = 1e-12):
+def whiten_reim(re: torch.Tensor, im: torch.Tensor, eps: float = 1e-12,
+                beta: float = 1.0):
     """Per-mic PHAT whitening of (re, im) [..., M, F]: the pair weight
-    1/|X_i X_j*| factorizes into per-mic normalization."""
-    inv = torch.rsqrt(re * re + im * im + eps * eps)
+    1/|X_i X_j*| factorizes into per-mic normalization; ``beta`` < 1 is
+    partial whitening."""
+    mag2 = re * re + im * im + eps * eps
+    inv = torch.rsqrt(mag2) if beta == 1.0 else mag2 ** (-0.5 * beta)
     return re * inv, im * inv
+
+
+def autoband_scale_reim(re: torch.Tensor, im: torch.Tensor,
+                        pairs: torch.Tensor, cfg: PipelineConfig):
+    """Fold the per-event auto band into RAW spectra [..., M, F] by
+    scaling them with sqrt(w): w is 0/1, so the scaling commutes with
+    PHAT whitening and the cross-power comes out w-weighted.  The weight
+    is estimated in fp32 from :func:`xcorr.band_pair_subset` of the pairs."""
+    from . import xcorr
+
+    w = xcorr.auto_band_weight_reim(
+        re.float(), im.float(), xcorr.band_pair_subset(pairs), cfg)
+    ws = torch.sqrt(w)[..., None, :]
+    return re * ws.to(re.dtype), im * ws.to(im.dtype)
 
 
 def cross_power_reim(re: torch.Tensor, im: torch.Tensor,
                      pairs: torch.Tensor, *, phat: bool = False,
-                     phat_eps: float = 1e-12):
+                     phat_eps: float = 1e-12, phat_beta: float = 1.0):
     """conj(X_i) X_j per pair on (re, im) [..., M, F] -> [..., P, F];
     PHAT whitens per mic for M >= 3 and per pair for 2-mic arrays."""
     from . import xcorr
 
     per_mic = phat and xcorr.phat_per_mic(re.shape[-2])
     if per_mic:
-        re, im = whiten_reim(re, im, phat_eps)
+        re, im = whiten_reim(re, im, phat_eps, phat_beta)
     i, j = pairs[:, 0].long(), pairs[:, 1].long()
     ri, ii = re.index_select(-2, i), im.index_select(-2, i)
     rj, ij = re.index_select(-2, j), im.index_select(-2, j)
     rr = ri * rj + ii * ij
     jj = ri * ij - ii * rj
     if phat and not per_mic:
-        inv = torch.rsqrt(rr * rr + jj * jj + phat_eps * phat_eps)
+        mag2 = rr * rr + jj * jj + phat_eps * phat_eps
+        inv = (torch.rsqrt(mag2) if phat_beta == 1.0
+               else mag2 ** (-0.5 * phat_beta))
         rr = rr * inv
         jj = jj * inv
     return rr, jj
 
 
 def lag_correlogram(rr: torch.Tensor, jj: torch.Tensor,
-                    syn_c: torch.Tensor, syn_s: torch.Tensor) -> torch.Tensor:
+                    syn_c: torch.Tensor, syn_s: torch.Tensor,
+                    matmul_dtype: str = "float32") -> torch.Tensor:
     """Cross-power (re, im) [..., P, F] -> correlogram [..., P, 2K+1]."""
+    if matmul_dtype == "bfloat16":
+        rr, jj, syn_c, syn_s = (_bf16(t) for t in (rr, jj, syn_c, syn_s))
     return torch.matmul(rr, syn_c) + torch.matmul(jj, syn_s)
 
 
 def xcorr_mxu(frames: torch.Tensor, pairs: torch.Tensor,
-              cfg: PipelineConfig) -> torch.Tensor:
+              cfg: PipelineConfig, *,
+              matmul_dtype: str = "float32") -> torch.Tensor:
     """GCC correlograms [..., P, 2K+1] of conditioned frames [..., M, N]
     through the matmul chain (static band folded into the synthesis rows,
-    or only in-band bins under ``band_crop``)."""
+    only in-band bins under ``band_crop``, the auto band folded into the
+    spectra)."""
     crop = crop_bins(cfg)
     if crop is not None:
         syn_c, syn_s = lag_synthesis_matrices_band(
             cfg.fft_length, cfg.max_shift, *crop)
-        re, im = forward_spectra_band(frames, cfg.fft_length, *crop)
+        re, im = forward_spectra_band(frames, cfg.fft_length, *crop,
+                                      matmul_dtype)
     else:
         syn_c, syn_s = masked_synthesis(cfg)
-        re, im = forward_spectra(frames, cfg.fft_length)
+        re, im = forward_spectra(frames, cfg.fft_length, matmul_dtype)
+    if cfg.band_auto:
+        re, im = autoband_scale_reim(re, im, pairs, cfg)
     rr, jj = cross_power_reim(re, im, pairs, phat=cfg.phat,
-                              phat_eps=cfg.phat_eps)
-    return lag_correlogram(rr, jj, _dev(syn_c, frames), _dev(syn_s, frames))
+                              phat_eps=cfg.phat_eps, phat_beta=cfg.phat_beta)
+    return lag_correlogram(rr, jj, _dev(syn_c, frames), _dev(syn_s, frames),
+                           matmul_dtype)
 
 
 def _dev(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Where one Localizer call's time goes on the GPU (torch.profiler).
 
-For each of ``chip_smoke.py``'s two main-path configurations, at its full
-size (16,384 frames of 4 x 1,024 samples), prints:
+For each of ``chip_smoke.py``'s three main-path configurations (band-crop,
+full band, hands-free), at its full size (16,384 frames of 4 x 1,024
+samples), prints:
 
 - the median wall time of 7 unprofiled calls and the device-busy time of
   one profiled call (the sum of its kernels' device time), hence the

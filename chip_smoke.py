@@ -2,10 +2,11 @@
 """On-GPU smoke test of the PyTorch port (audio_triangulation_tpu_torch).
 
 Builds the CUDA kernels from ``audio_triangulation_tpu_torch/csrc`` with
-nvcc, holds each kernel against its plain PyTorch version on the card,
-drives the frame-batch Localizer at full size (16,384 frames of 4 x 1,024
-samples) in the two default-mode bench configurations, checks the result
-against the known source and the port's own CPU path, and times it.
+nvcc, holds each kernel (the GCC kernel's base and spectral-stats modes,
+the GN kernel) against its plain PyTorch version on the card, drives the
+frame-batch Localizer at full size (16,384 frames of 4 x 1,024 samples) in
+the three bench configurations (band-crop, full band, hands-free), checks
+each against the known source and the port's own CPU path, and times it.
 
     python3 chip_smoke.py            # one CUDA card; exits non-zero on any failure
 
@@ -29,6 +30,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE_XY = (0.5, 0.4)  # plane point whose sphere projection is the source
 FRAMES = 16384  # main-path batch: frames of 4 mics x 1,024 samples
 CHECK_FRAMES = 1024  # frames per kernel-vs-plain comparison
+# Band and gate decisions are thresholds on coherence (0..1): the stats
+# kernel is compared with its plain version only where the plain version's
+# value lies further than this from the threshold.
+DECISION_MARGIN = 1e-3
 TRIALS = 7  # timed trials of the main path per configuration
 REPS = 20  # launches per kernel timing
 SEED = 0
@@ -36,13 +41,18 @@ SEED = 0
 # whitens the out-of-band noise bins up to the chirp's level, which biases
 # it on this band-limited source: the JAX package's Localizer itself gives
 # a 1.64 cm median on 256 frames of this scene (CPU), so it gets a looser
-# bound; its real check is the agreement with the CPU path below.
-MEDIAN_BOUND_M = {"bandcrop_800_6000": 0.01, "fullband": 0.03}
+# bound; its real check is the agreement with the CPU path below.  The
+# hands-free line gives 0.0126 cm in the JAX package (256 frames, CPU).
+MEDIAN_BOUND_M = {"bandcrop_800_6000": 0.01, "fullband": 0.03,
+                  "handsfree_auto_hybrid": 0.001}
 
 KERNEL_INFO = {
     "gcc_kernel": dict(
         source="audio_triangulation_tpu_torch/csrc/gcc_kernel.cu",
         replaces="audio_triangulation_tpu/ops/pallas/gcc_kernel.py:92"),
+    "gcc_stats_kernel": dict(
+        source="audio_triangulation_tpu_torch/csrc/gcc_kernel.cu",
+        replaces="audio_triangulation_tpu/ops/pallas/gcc_kernel.py:247"),
     "gn_kernel": dict(
         source="audio_triangulation_tpu_torch/csrc/gn_kernel.cu",
         replaces="audio_triangulation_tpu/ops/pallas/gn_kernel.py:29"),
@@ -214,6 +224,130 @@ def phase_gcc(rng, results):
     results["gcc_kernel"]["max_abs_err"] = worst
 
 
+def stats_cases():
+    from audio_triangulation_tpu_torch import PipelineConfig, geometry
+
+    two = np.array([[-0.1, 0.0], [0.1, 0.0]], np.float32)
+    phat = dict(phat=True, fft_pad_mode="circular")
+    return [
+        ("4mic_circular_auto_hybrid", geometry.square_array(0.3),
+         PipelineConfig(**phat, band_hz="auto", subsample_method="hybrid")),
+        ("4mic_linear_auto_phase", geometry.square_array(0.3),
+         PipelineConfig(phat=True, band_hz="auto", subsample_method="phase")),
+        ("4mic_static_800_6000_hybrid", geometry.square_array(0.3),
+         PipelineConfig(**phat, band_hz=(800.0, 6000.0),
+                        subsample_method="hybrid")),
+        ("3mic_reference_auto_nophat", geometry.reference_array(),
+         PipelineConfig(band_hz="auto")),
+        ("2mic_auto_hybrid_per_pair_phat", two,
+         PipelineConfig(**phat, band_hz="auto", subsample_method="hybrid")),
+    ]
+
+
+def clear_decisions(terms, sp, corr64, scale):
+    """Masks of what rounding cannot decide differently, from the float64
+    plain version: (frames whose auto band is settled [B], bins whose band
+    weight is settled [B, F], rows whose shift and hybrid gate are settled
+    [B, P])."""
+    import torch
+    from audio_triangulation_tpu_torch.ops.cuda import gcc_kernel
+
+    b, p, _ = corr64.shape
+    frame_ok = torch.ones(b, dtype=torch.bool, device=corr64.device)
+    bins_ok = None
+    if sp.band_auto:
+        g2m, thr = terms["g2m"], terms["thr"]
+        f = g2m.shape[-1]
+        k = torch.arange(f, device=g2m.device)
+        interior = (k > 0) & (k < f - 1)
+        unclear = interior & ((g2m - thr).abs() <= DECISION_MARGIN)
+        n_unc = unclear.sum(dim=-1)
+        cnt = ((g2m >= thr) & interior).sum(dim=-1)
+        enough = cnt >= sp.min_bins
+        enough_ok = ((cnt - n_unc >= sp.min_bins)
+                     | (cnt + n_unc < sp.min_bins))
+        frame_ok = enough_ok & ((n_unc == 0) | ~enough)
+        bins_ok = enough_ok[:, None] & (~unclear | ~enough[:, None])
+    top2 = corr64.topk(2, dim=-1).values
+    rows_ok = frame_ok[:, None] & ((top2[..., 0] - top2[..., 1])
+                                   > 1e-4 * scale)
+    if sp.phase and sp.hybrid:
+        coh = gcc_kernel.hybrid_coherence(terms)
+        rows_ok &= (coh - sp.hybrid_min).abs() > DECISION_MARGIN
+    return frame_ok, bins_ok, rows_ok
+
+
+def phase_stats(rng, results):
+    """The GCC kernel's stats mode against its plain version evaluated in
+    float64, with peaks (and without, for the auto band).  Correlograms
+    within 1e-4 of scale on frames whose auto band is settled, shifts
+    equal and tdoa within 1e-3 samples on rows whose shift and hybrid gate
+    are settled, band weights equal on settled bins; the unsettled counts
+    are printed."""
+    import torch
+    from audio_triangulation_tpu_torch.core import geometry
+    from audio_triangulation_tpu_torch.ops import window as window_ops
+    from audio_triangulation_tpu_torch.ops.cuda import gcc_kernel
+
+    worst = 0.0
+    for name, mics, cfg in stats_cases():
+        frames = torch.from_numpy(
+            scene_frames(mics, CHECK_FRAMES, rng)).cuda()
+        pairs = torch.as_tensor(geometry.mic_pairs(mics.shape[0]),
+                                device="cuda")
+        window = torch.as_tensor(window_ops.window_for(cfg), device="cuda")
+        win_gain, mats = gcc_kernel.operands(frames, window, cfg)
+        sp = gcc_kernel.stats_params(cfg, True)
+        kw = dict(phat=cfg.phat, phat_eps=cfg.phat_eps,
+                  max_shift=cfg.max_shift, taper_denom=cfg.taper_denom,
+                  with_band=True)
+        ops64 = (frames.double(), win_gain.double(), mats.to(torch.float64),
+                 pairs, sp)
+        raw64 = gcc_kernel.gcc_stats_reference(*ops64, **kw,
+                                               with_peaks=False)[0]
+        ref64 = gcc_kernel.gcc_stats_reference(*ops64, **kw, with_peaks=True)
+        terms = gcc_kernel.stats_terms(*ops64, phat_eps=cfg.phat_eps)
+        got = gcc_kernel.launch_stats(frames, win_gain, mats, pairs, sp,
+                                      **kw, with_peaks=True)
+        # without peaks the stats mode runs only for the auto band (the
+        # base mode serves a static band; phase 2 holds that)
+        sp_raw = gcc_kernel.stats_params(cfg, False)
+        raw = None if sp_raw is None else gcc_kernel.launch_stats(
+            frames, win_gain, mats, pairs, sp_raw, **kw, with_peaks=False)[0]
+        torch.cuda.synchronize()
+        scale = float(raw64.abs().max())
+        frame_ok, bins_ok, rows_ok = clear_decisions(terms, sp, raw64, scale)
+
+        def err(a, b, mask):
+            d = (a.double() - b.double()).abs()
+            return float((d * mask.reshape(*mask.shape, *[1] * (
+                d.ndim - mask.ndim))).max())
+
+        err_raw = 0.0 if raw is None else err(raw, raw64, frame_ok) / scale
+        raw_msg = "n/a (base mode)" if raw is None else f"{err_raw:.2e}"
+        err_tap = err(got[0], ref64[0], rows_ok) / scale
+        shift_bad = int(((got[1] != ref64[1]) & rows_ok).sum())
+        tdoa_err = err(got[2], ref64[2], rows_ok)
+        band_bad, band_msg = 0, "no auto band"
+        if sp.band_auto:
+            band_bad = int(((got[5] != ref64[5]) & bins_ok).sum())
+            band_msg = (f"band mismatches {band_bad} (unsettled bins "
+                        f"excluded: {int((~bins_ok).sum())})")
+        say("2 stats", f"{name}: {frames.shape[0]} frames vs the plain "
+            f"version in float64: corr/scale err raw {raw_msg} tapered "
+            f"{err_tap:.2e}, shift mismatches {shift_bad}, tdoa err "
+            f"{tdoa_err:.2e} samples, {band_msg}; unsettled frames "
+            f"{int((~frame_ok).sum())}, rows {int((~rows_ok).sum())} of "
+            f"{rows_ok.numel()}")
+        if not (err_raw <= 1e-4 and err_tap <= 1e-4 and shift_bad == 0
+                and tdoa_err <= 1e-3 and band_bad == 0
+                and int(rows_ok.sum()) * 2 > rows_ok.numel()):
+            fail("2 stats", f"{name}: kernel disagrees with its plain "
+                 "version (or too few settled rows to tell)")
+        worst = max(worst, err_raw, err_tap)
+    results["gcc_stats_kernel"]["max_abs_err"] = worst
+
+
 def phase_gn(rng, results):
     import torch
     from audio_triangulation_tpu_torch.core import geometry
@@ -262,13 +396,34 @@ def main_configs():
         ("bandcrop_800_6000", PipelineConfig(
             **base, band_hz=(800.0, 6000.0), band_crop=True)),
         ("fullband", PipelineConfig(**base)),
+        ("handsfree_auto_hybrid", PipelineConfig(
+            **base, band_hz="auto", subsample_method="hybrid")),
     ]
+
+
+# the kernels each main-path configuration must launch
+PATH_KERNELS = {"bandcrop_800_6000": ("gcc_kernel", "gn_kernel"),
+                "fullband": ("gcc_kernel", "gn_kernel"),
+                "handsfree_auto_hybrid": ("gcc_stats_kernel", "gn_kernel")}
+
+
+def launch_counts():
+    from audio_triangulation_tpu_torch.ops.cuda import gcc_kernel, gn_kernel
+
+    return {"gcc_kernel": gcc_kernel.launches,
+            "gcc_stats_kernel": gcc_kernel.stats_launches,
+            "gn_kernel": gn_kernel.launches}
+
+
+def reset_counts():
+    from audio_triangulation_tpu_torch.ops.cuda import gcc_kernel, gn_kernel
+
+    gcc_kernel.launches = gcc_kernel.stats_launches = gn_kernel.launches = 0
 
 
 def phase_main(rng, results):
     import torch
     from audio_triangulation_tpu_torch import Localizer, geometry
-    from audio_triangulation_tpu_torch.ops.cuda import gcc_kernel, gn_kernel
 
     mics = geometry.square_array(0.3)
     frames_np = scene_frames(mics, FRAMES, rng,
@@ -279,17 +434,22 @@ def phase_main(rng, results):
             for name, cfg in main_configs()]
     torch.cuda.synchronize()
 
-    gcc_kernel.launches = 0
-    gn_kernel.launches = 0
-    outs = [(name, loc(frames)) for name, loc in locs]
-    torch.cuda.synchronize()
-    counts = {"gcc_kernel": gcc_kernel.launches,
-              "gn_kernel": gn_kernel.launches}
-    for k, v in counts.items():
-        results[k]["launches"] = v
-    say("4 main", f"{FRAMES} frames x 2 configs, launches {counts}")
-    if min(counts.values()) < 1:
-        fail("4 main", "a kernel of the main path was never launched")
+    outs = []
+    for k in results:
+        results[k]["launches"] = 0
+    for name, loc in locs:
+        # each path's kernels are counted from 0 around its own run
+        reset_counts()
+        out = loc(frames)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        outs.append((name, out))
+        for k, v in counts.items():
+            results[k]["launches"] += v
+        say("4 main", f"{name}: {FRAMES} frames, launches {counts}")
+        if min(counts[k] for k in PATH_KERNELS[name]) < 1:
+            fail("4 main", f"{name}: a kernel of its path was never "
+                 "launched")
 
     n_cpu = 64
     for (name, out), (_, loc) in zip(outs, locs):
@@ -345,13 +505,20 @@ def phase_timing(card, locs, frames, results):
         kw = dict(phat=cfg.phat, phat_eps=cfg.phat_eps,
                   max_shift=cfg.max_shift, taper_denom=cfg.taper_denom,
                   with_peaks=True)
-        k_ms, p_ms = alternate_ms(
-            lambda: gcc_kernel.gcc_reference(frames, *ops, **kw),
-            lambda: gcc_kernel.launch(frames, *ops, **kw))
-        say("5 timing", f"gcc_kernel {name} ({frames.shape[0]} frames): "
+        sp = gcc_kernel.stats_params(cfg, True)
+        if sp is None:
+            kernel, k_ms, p_ms = "gcc_kernel", *alternate_ms(
+                lambda: gcc_kernel.gcc_reference(frames, *ops, **kw),
+                lambda: gcc_kernel.launch(frames, *ops, **kw))
+        else:
+            kernel, k_ms, p_ms = "gcc_stats_kernel", *alternate_ms(
+                lambda: gcc_kernel.gcc_stats_reference(frames, *ops, sp,
+                                                       **kw),
+                lambda: gcc_kernel.launch_stats(frames, *ops, sp, **kw))
+        say("5 timing", f"{kernel} {name} ({frames.shape[0]} frames): "
             f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms ({card})")
-        if "ms" not in results["gcc_kernel"]:  # the headline config
-            results["gcc_kernel"].update(ms=k_ms, plain_ms=p_ms)
+        if "ms" not in results[kernel]:  # the first config of each kernel
+            results[kernel].update(ms=k_ms, plain_ms=p_ms)
 
     loc = locs[0][1]
     b = frames.shape[0]
@@ -381,6 +548,7 @@ def main():
     results = {k: {"name": k, "route": "cuda", **v}
                for k, v in KERNEL_INFO.items()}
     phase_gcc(rng, results)
+    phase_stats(rng, results)
     phase_gn(rng, results)
     locs, frames = phase_main(rng, results)
     phase_timing(card, locs, frames, results)

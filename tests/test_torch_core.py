@@ -239,3 +239,25 @@ def test_build_reports_compiler_failure(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no card here"):
         _build.build(build_dir=tmp_path / "build")
     assert not list((tmp_path / "build").glob("*.so"))
+
+
+def test_build_compiles_each_source_then_links(tmp_path, monkeypatch):
+    """One nvcc per csrc/*.cu (started together), then one link into the
+    library; nothing of the build is left beside it."""
+    log = tmp_path / "calls"
+    fake = tmp_path / "bin" / "nvcc"
+    fake.parent.mkdir()
+    fake.write_text(
+        "#!/bin/sh\necho \"$@\" >> " + str(log) + "\n"
+        "while [ $# -gt 0 ]; do\n"
+        "  if [ \"$1\" = -o ]; then touch \"$2\"; fi; shift\ndone\n")
+    fake.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    out = _build.build(build_dir=tmp_path / "build")
+    calls = log.read_text().splitlines()
+    cu = [s for s in _build.sources() if s.suffix == ".cu"]
+    assert len(calls) == len(cu) + 1
+    assert sorted(c.split()[-1] for c in calls[:-1]) == sorted(map(str, cu))
+    assert all(" -c " in c for c in calls[:-1])
+    assert " -shared " in calls[-1] and "-c" not in calls[-1].split()
+    assert out.exists() and list((tmp_path / "build").iterdir()) == [out]

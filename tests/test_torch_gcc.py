@@ -1,6 +1,7 @@
 """PyTorch port, GCC kernel module: the port's fused GCC (its plain version
 on the CPU) against the JAX package's Pallas GCC kernel in interpret mode,
-on the same raw frames; plus the wrapper's no-fallback contract."""
+on the same raw frames, in the base mode and the spectral-stats mode; plus
+the wrapper's no-fallback contract."""
 
 import numpy as np
 import pytest
@@ -10,6 +11,7 @@ import jax.numpy as jnp
 from audio_triangulation_tpu.core import config as jcfg, geometry as jgeo
 from audio_triangulation_tpu.ops import window as jwin
 from audio_triangulation_tpu.ops.pallas import gcc_kernel as jgcc
+from audio_triangulation_tpu.utils import synth as jsynth
 from audio_triangulation_tpu_torch.core import config as tcfg
 from audio_triangulation_tpu_torch.ops.cuda import gcc_kernel as tgcc
 
@@ -68,11 +70,105 @@ def test_fused_gcc_matches_pallas_interpret(rng, case, with_peaks):
         np.testing.assert_allclose(psr, ref[4], rtol=1e-4)
 
 
+# the stats mode: tests/test_fused_stats.py's configurations (circular,
+# square array), plus the linear pad (F = 1,025) and a 2-mic array
+STATS_CASES = {
+    "auto": (4, dict(phat=True, band_hz="auto")),
+    "auto_hybrid": (4, dict(phat=True, band_hz="auto",
+                            subsample_method="hybrid")),
+    "hybrid_fullband": (4, dict(phat=True, subsample_method="hybrid")),
+    "static_band_hybrid": (4, dict(phat=True, band_hz=(800.0, 6000.0),
+                                   subsample_method="hybrid")),
+    "auto_nophat": (4, dict(band_hz="auto")),
+    "auto_phase": (4, dict(phat=True, band_hz="auto",
+                           subsample_method="phase")),
+    "linear_auto_phase": (4, dict(phat=True, band_hz="auto",
+                                  subsample_method="phase",
+                                  fft_pad_mode="linear")),
+    "2mic_auto_hybrid": (2, dict(phat=True, band_hz="auto",
+                                 subsample_method="hybrid")),
+}
+# without peaks the stats mode runs only for the auto band
+STATS_PARAMS = [(c, p) for c in sorted(STATS_CASES) for p in (False, True)
+                if p or STATS_CASES[c][1].get("band_hz") == "auto"]
+
+
+def _chirps(m, b=8):
+    """test_fused_stats' chirp scenes (sources from seed 7, noise 0.02,
+    seed 1), where the JAX package's fused and unfused paths agree on
+    every band and gate decision."""
+    rng = np.random.default_rng(7)
+    planes = rng.uniform(-1.2, 1.2, (b, 2))
+    src = np.stack([np.array([x, y, 1.2]) * (1.2 / np.linalg.norm([x, y, 1.2]))
+                    for x, y in planes])
+    mics = (jgeo.square_array(0.3) if m == 4
+            else np.array([[-0.1, 0.0], [0.1, 0.0]], np.float32))
+    frames = jsynth.synth_scene(src, mics, noise_rms=0.02, seed=1)
+    return frames.astype(np.float32), jwin.dpss_window(1024), jgeo.mic_pairs(m)
+
+
+@pytest.mark.parametrize("case,with_peaks", STATS_PARAMS,
+                         ids=[f"{c}-{'peaks' if p else 'no_peaks'}"
+                              for c, p in STATS_PARAMS])
+def test_stats_mode_matches_pallas_interpret(case, with_peaks):
+    """Correlograms within 1e-5 of scale and tdoa within 1e-4 samples (f32
+    on both sides; the JAX kernel's polynomial atan2 is within ~1e-7 rad
+    of atan2), integer shifts exact."""
+    m, kw = STATS_CASES[case]
+    kw = {"fft_pad_mode": "circular", **kw}
+    frames, win, pairs = _chirps(m)
+    cfg = tcfg.PipelineConfig(**kw)
+    assert tgcc.stats_params(cfg, with_peaks) is not None
+    call = jgcc.fused_gcc_peaks if with_peaks else jgcc.fused_gcc
+    ref = call(jnp.asarray(frames), jnp.asarray(win), pairs,
+               jcfg.PipelineConfig(**kw), tile_b=8, interpret=True)
+    got = _port(frames, win, pairs, kw, with_peaks)
+    if not with_peaks:
+        ref, got = (ref,), (got,)
+    ref = [np.asarray(r) for r in ref]
+    got = [g.numpy() for g in got]
+    assert got[0].shape == ref[0].shape == (8, len(pairs), 93)
+    scale = np.abs(ref[0]).max()
+    np.testing.assert_allclose(got[0] / scale, ref[0] / scale, atol=1e-5)
+    if with_peaks:
+        np.testing.assert_array_equal(got[1], ref[1])
+        np.testing.assert_allclose(got[2], ref[2], atol=1e-4)
+        np.testing.assert_allclose(got[3], ref[3], rtol=1e-5,
+                                   atol=1e-5 * scale)
+        np.testing.assert_allclose(got[4], ref[4], rtol=1e-4)
+
+
+def test_stats_band_weights_and_refusals():
+    """The per-frame auto band of the plain version leaves DC and Nyquist
+    out; band-crop and odd DFT lengths are not the stats mode's."""
+    frames, win, pairs = _chirps(4, b=2)
+    cfg = tcfg.PipelineConfig(phat=True, fft_pad_mode="circular",
+                              band_hz="auto")
+    x = torch.from_numpy(frames)
+    ops = tgcc.operands(x, torch.from_numpy(win), cfg)
+    sp = tgcc.stats_params(cfg, True)
+    corr, band = tgcc.gcc_stats_reference(
+        x, *ops, torch.from_numpy(pairs), sp, phat=True, phat_eps=1e-12,
+        max_shift=46, taper_denom=36.0, with_peaks=False, with_band=True)
+    assert band.shape == (2, 513) and corr.shape == (2, 6, 93)
+    assert float(band[:, 0].max()) == 0 and float(band[:, -1].max()) == 0
+    assert int(band.sum(dim=-1).min()) >= cfg.auto_band_min_bins
+    assert tgcc.stats_params(tcfg.PipelineConfig(), True) is None
+    with pytest.raises(ValueError, match="full band"):
+        tgcc.stats_params(tcfg.PipelineConfig(
+            band_hz=(800.0, 6000.0), band_crop=True,
+            subsample_method="phase"), True)
+    with pytest.raises(ValueError, match="even"):
+        tgcc.stats_params(tcfg.PipelineConfig(fft_size=1025,
+                                              band_hz="auto"), False)
+
+
 def test_cpu_path_does_not_count_launches(rng):
     frames, win, pairs = _inputs(rng, 3, b=2)
-    before = tgcc.launches
+    before = (tgcc.launches, tgcc.stats_launches)
     _port(frames, win, pairs, {}, True)
-    assert tgcc.launches == before
+    _port(frames, win, pairs, {"band_hz": "auto"}, True)
+    assert (tgcc.launches, tgcc.stats_launches) == before
 
 
 def test_window_gain_folds_shift8_and_window_off():
@@ -128,3 +224,31 @@ def test_cuda_kernel_matches_plain_version(rng, cuda_device, case):
     assert float((got[0].double() - ref[0]).abs().max()) / scale < 1e-4
     assert torch.equal(got[1], ref[1])
     assert float((got[2].double() - ref[2]).abs().max()) < 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(STATS_CASES))
+def test_cuda_stats_kernel_matches_plain_version(cuda_device, case):
+    """The stats kernel against its plain version in float64, on chirp
+    scenes whose band and gate decisions are clear of rounding."""
+    m, kw = STATS_CASES[case]
+    cfg = tcfg.PipelineConfig(**{"fft_pad_mode": "circular", **kw})
+    frames, win, pairs = _chirps(m, b=64)
+    x = torch.from_numpy(frames).to(cuda_device)
+    win_gain, mats = tgcc.operands(x, torch.from_numpy(win), cfg)
+    p = torch.from_numpy(pairs).to(cuda_device)
+    sp = tgcc.stats_params(cfg, True)
+    args = dict(phat=cfg.phat, phat_eps=cfg.phat_eps,
+                max_shift=cfg.max_shift, taper_denom=cfg.taper_denom,
+                with_peaks=True, with_band=True)
+    ref = tgcc.gcc_stats_reference(x.double(), win_gain.double(),
+                                   mats.to(torch.float64), p, sp, **args)
+    before = tgcc.stats_launches
+    got = tgcc.launch_stats(x, win_gain, mats, p, sp, **args)
+    assert tgcc.stats_launches == before + 1
+    scale = float(ref[0].abs().max())
+    assert float((got[0].double() - ref[0]).abs().max()) / scale < 1e-4
+    assert torch.equal(got[1], ref[1])
+    assert float((got[2].double() - ref[2]).abs().max()) < 1e-3
+    if sp.band_auto:
+        assert torch.equal(got[5].double(), ref[5])

@@ -23,6 +23,9 @@ CONFIGS = {
                                       band_crop=True),
                        dict(init_grid_stride=3)),
     "bench_fullband": ("square", BENCH, dict(init_grid_stride=3)),
+    "bench_handsfree": ("square", dict(BENCH, band_hz="auto",
+                                       subsample_method="hybrid"),
+                        dict(init_grid_stride=3)),
     "readme_quickstart": ("reference", dict(phat=True), {}),
 }
 MICS = {"square": lambda: geometry.square_array(0.3),
@@ -229,23 +232,99 @@ def test_save_load_across_packages(tmp_path, rng):
         np.asarray(ref(jnp.asarray(frames))["xy"]), atol=2e-4)
 
 
-@pytest.mark.parametrize("kw", [
+FORMERLY_REFUSED = [
     dict(band_hz="auto"), dict(subsample_method="phase"),
     dict(subsample_method="hybrid"), dict(weighting="scot"),
     dict(weighting="roth"), dict(weighting="ml"),
     dict(phat=True, phat_beta=0.5), dict(normalize_mode="full_range"),
     dict(xcorr_mode="fft"), dict(xcorr_mode="time"),
     dict(matmul_dtype="bfloat16"),
-], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
-def test_unported_configs_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Localizer.create(geometry.reference_array(),
-                         tcfg.PipelineConfig(**kw), device="cpu")
+]
+
+
+@pytest.mark.parametrize("kw", FORMERLY_REFUSED,
+                         ids=lambda kw: "-".join(f"{k}={v}"
+                                                 for k, v in kw.items()))
+def test_unported_configs_raise(rng, kw):
+    """The configurations the port once refused now match the JAX
+    Localizer on the reference array (default linear pad, F = 1,025).  The
+    reference runs them through its Pallas kernel (interpret mode) where it
+    routes them there, else unfused; the port routes the same way.  The
+    'hybrid' case without a band is held against the kernel's gate, which
+    leaves Nyquist out (the unfused gate counts it)."""
+    from audio_triangulation_tpu_torch.models.localizer import kernel_route
+
+    cfg = tcfg.PipelineConfig(**kw)
+    fused = "on" if kernel_route(cfg) else "off"
+    assert fused == ("on" if ("band_hz" in kw or "subsample_method" in kw
+                              or "matmul_dtype" in kw) else "off")
+    mics = jgeo.reference_array()
+    grid = dict(half_cells_x=12, half_cells_y=12, cells_per_m=6.0)
+    ref = JLocalizer.create(
+        mics, jcfg.PipelineConfig(**kw, fused_kernel=fused, fused_tile_b=8),
+        jcfg.GridConfig(**grid))
+    port = Localizer.create(mics, cfg, tcfg.GridConfig(**grid), device="cpu")
+    frames = _frames(rng, mics)
+    r = {k: np.asarray(v) for k, v in ref(jnp.asarray(frames)).items()}
+    g = {k: v.numpy() for k, v in port(torch.from_numpy(frames)).items()}
+    np.testing.assert_allclose(g["xy"], r["xy"], atol=2e-4)
+    np.testing.assert_array_equal(g["best_shift"], r["best_shift"])
+    np.testing.assert_allclose(g["tdoa_samples"], r["tdoa_samples"],
+                               atol=1e-3)
+    scale = np.abs(r["correlograms"]).max()
+    # 'ml' divides by 1 - g2 >= 1e-4, which amplifies f32 rounding
+    tol = 2e-3 if kw.get("weighting") == "ml" else 1e-4
+    np.testing.assert_allclose(g["correlograms"] / scale,
+                               r["correlograms"] / scale, atol=tol)
+
+
+HANDSFREE = dict(BENCH, band_hz="auto", subsample_method="hybrid")
+
+
+def test_handsfree_save_load_round_trip(tmp_path, rng):
+    mics = jgeo.square_array(0.3)
+    port = Localizer.create(mics, tcfg.PipelineConfig(**HANDSFREE),
+                            device="cpu", init_grid_stride=3)
+    path = port.save(str(tmp_path / "handsfree"))
+    again = Localizer.load(path, device="cpu")
+    assert again.pipeline == port.pipeline and again.pipeline.band_auto
+    assert again.grid == port.grid
+    ref = JLocalizer.load(path)
+    assert ref.pipeline == jcfg.PipelineConfig(**HANDSFREE)
+    frames = _frames(rng, mics, b=4)
+    a, b = port(torch.from_numpy(frames)), again(torch.from_numpy(frames))
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+def test_handsfree_from_reference_params(rng):
+    """A hands-free Localizer from the JAX package's own parameters (the
+    stats mode adds none) matches the port's and the reference's."""
+    mics = jgeo.square_array(0.3)
+    ref = JLocalizer.create(mics, jcfg.PipelineConfig(**HANDSFREE),
+                            init_grid_stride=3)
+    arrays = {k: None if v is None else np.asarray(v)
+              for k, v in vars(ref.params).items()}
+    port = Localizer.create(mics, tcfg.PipelineConfig(**HANDSFREE),
+                            device="cpu", init_grid_stride=3)
+    twin = Localizer.from_reference_params(
+        arrays, port.pipeline, tcfg.GridConfig(**dataclasses.asdict(
+            ref.grid)), port.solver, device="cpu", srp_form=ref.srp_form)
+    frames = _frames(rng, mics, b=4)
+    a, b = port(torch.from_numpy(frames)), twin(torch.from_numpy(frames))
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    r = ref(jnp.asarray(frames))
+    np.testing.assert_allclose(b["xy"].numpy(), np.asarray(r["xy"]),
+                               atol=2e-4)
 
 
 def test_large_array_raises():
     with pytest.raises(NotImplementedError, match="slice D"):
         Localizer.create(geometry.circular_array(24, 0.5), device="cpu")
+    with pytest.raises(NotImplementedError, match="slice D"):
+        Localizer.create(geometry.circular_array(24, 0.5),
+                         tcfg.PipelineConfig(band_hz="auto"), device="cpu")
 
 
 def test_accepted_tpu_knobs_change_nothing(rng):
@@ -292,21 +371,28 @@ def test_synth_copy_matches_reference():
 
 
 @pytest.mark.gpu
-def test_cuda_localizer_matches_cpu_path(rng):
+@pytest.mark.parametrize("stats", [False, True], ids=["bandcrop",
+                                                      "handsfree"])
+def test_cuda_localizer_matches_cpu_path(rng, stats):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     from audio_triangulation_tpu_torch.ops.cuda import gcc_kernel, gn_kernel
 
     mics = geometry.square_array(0.3)
-    cfg = tcfg.PipelineConfig(**BENCH, band_hz=(800.0, 6000.0),
-                              band_crop=True)
+    cfg = tcfg.PipelineConfig(**(HANDSFREE if stats else dict(
+        BENCH, band_hz=(800.0, 6000.0), band_crop=True)))
     cpu = Localizer.create(mics, cfg, device="cpu", init_grid_stride=3)
     gpu = Localizer.create(mics, cfg, device="cuda", init_grid_stride=3)
     frames = _frames(rng, mics, b=256)
-    before = (gcc_kernel.launches, gn_kernel.launches)
+
+    def counts():
+        return (gcc_kernel.launches, gcc_kernel.stats_launches,
+                gn_kernel.launches)
+
+    before = counts()
     g = gpu(torch.from_numpy(frames).cuda())
-    assert (gcc_kernel.launches, gn_kernel.launches) == (
-        before[0] + 1, before[1] + 1)
+    assert counts() == (before[0] + (not stats), before[1] + stats,
+                        before[2] + 1)
     c = cpu(torch.from_numpy(frames))
     assert torch.equal(g["best_shift"].cpu(), c["best_shift"])
     assert float((g["xy"].cpu() - c["xy"]).abs().max()) < 2e-4
