@@ -7,9 +7,8 @@ either package loads in the other.  The reference module is numpy-only,
 but importing it runs the JAX package's ``__init__``, so it is copied here.
 
 Several fields steer TPU dispatch only (``fused_kernel``, ``fused_tile_b``,
-``fused_srp``, ``fused_sub_tiles``, ``srp_big_matmul_budget_bytes``,
-``dft_precision``).  The port accepts them; which of them change anything
-is stated in ``models.localizer``.
+``fused_sub_tiles``, ``dft_precision``).  The port accepts them and they
+change nothing, as ``models.localizer`` states.
 """
 
 from __future__ import annotations

@@ -1,9 +1,10 @@
 """Microphone-array geometry (numpy, set-up time only).
 
 The same functions as ``audio_triangulation_tpu.core.geometry``, copied so
-the port needs no JAX: array builders, pair enumeration, SRP grid points,
-expected TDOAs, the integer lag LUT (C ``roundf`` semantics) and the
-one-hot steering matrix.  Outputs are byte-equal to the reference's.
+the port needs no JAX: array builders, pair enumeration and distances, the
+lag window of an array, SRP grid points, expected TDOAs, the integer lag LUT
+(C ``roundf`` semantics) and the one-hot steering matrix.  Outputs are
+byte-equal to the reference's.
 """
 
 from __future__ import annotations
@@ -59,6 +60,15 @@ def square_array(side_m: float, *, dtype=np.float32) -> np.ndarray:
     return np.array([[-h, -h], [h, -h], [h, h], [-h, h]], dtype=dtype)
 
 
+def grid_array(nx: int, ny: int, pitch_m: float, *,
+               dtype=np.float32) -> np.ndarray:
+    """nx x ny rectangular grid array [nx * ny, 2] (the 64-mic array)."""
+    xs = (np.arange(nx) - (nx - 1) / 2.0) * pitch_m
+    ys = (np.arange(ny) - (ny - 1) / 2.0) * pitch_m
+    gx, gy = np.meshgrid(xs, ys, indexing="xy")
+    return np.stack([gx.ravel(), gy.ravel()], axis=-1).astype(dtype)
+
+
 def reference_array(dtype=np.float32) -> np.ndarray:
     """The 3-mic triangle of the original firmware."""
     from .config import REFERENCE_DISTANCES, REFERENCE_MIRROR, REFERENCE_ROTATE
@@ -73,6 +83,21 @@ def mic_pairs(n_mics: int) -> np.ndarray:
     """All unordered pairs (i, j), i < j, as int32 [P, 2]."""
     idx = [(i, j) for i in range(n_mics) for j in range(i + 1, n_mics)]
     return np.asarray(idx, dtype=np.int32)
+
+
+def pair_distances(positions: np.ndarray, pairs: np.ndarray) -> np.ndarray:
+    """Euclidean distance per pair [P]."""
+    d = positions[pairs[:, 1]] - positions[pairs[:, 0]]
+    return np.linalg.norm(d, axis=-1)
+
+
+def max_lag_for_array(positions: np.ndarray, pipeline: PipelineConfig,
+                      margin: int = 1) -> int:
+    """Smallest lag window (samples) covering the array's aperture."""
+    pairs = mic_pairs(positions.shape[0])
+    aperture = float(pair_distances(positions, pairs).max())
+    return int(np.ceil(aperture / pipeline.speed_of_sound_mps
+                       * pipeline.sample_rate_hz)) + margin
 
 
 def grid_points(grid: GridConfig, dtype=np.float32) -> np.ndarray:

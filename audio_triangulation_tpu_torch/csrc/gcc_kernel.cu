@@ -33,6 +33,23 @@
 // of the lag axis, the one-hot neighbour sums (direct indexing here) and
 // sub-tile emission order.
 //
+// In-kernel SRP (gcc_kernel<false, true>: the TPU kernel's compact "Mode B",
+// gcc_kernel.py:467-499): the base mode with peaks, and while the block
+// still holds its tapered correlograms, the SRP score of every grid cell and
+// the grid argmax.  The tapered values are
+// rounded to bf16 into a shared buffer of all the block's (frame, pair)
+// rows; then one warp per frame sums, for each cell g, the pairs' values at
+// lut[p, g] in the order p = 0..P-1 in fp32 (the TPU kernel's per-pair
+// products against the one-hot of that LUT have one nonzero term each, so
+// this is the same sum), keeps the first maximum, and writes the cell and
+// its score.  Its cost is P x G shared-memory gathers a frame, against the
+// DFT's millions of FMAs.  What limits it: the buffer of tapered rows
+// (frames x P x L floats) shares the block's shared memory with the
+// spectra, so fewer frames may fit a block, and one frame must; the LUT is
+// read from global memory (L2), so the grid size has no limit.  Dropped:
+// the 4 P + 2 <= 128 lane packing of the outputs and the VMEM budget of the
+// steering matrix.
+//
 // Spectral-stats mode (gcc_kernel<true>; the TPU kernel's _smooth,
 // stage_front_stats, stage_cross_stats and phase_slope_tdoa), for
 // band_hz='auto' and the phase-slope / hybrid sub-sample TDOA.  The same
@@ -71,6 +88,7 @@
 // none), the row expansion of the band weight, and the per-mic rsqrt the
 // TPU kernel computes for 2-mic arrays without using it.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -105,8 +123,9 @@ constexpr size_t kMaxSmem = 227 * 1024;
 
 // Floats of dynamic shared memory for tb frames per block, in layout order
 // (16-byte and 8-byte aligned regions first); p > 0 adds the stats mode's
-// smoothed periodograms, per-row coherence and per-frame band weight.
-size_t smem_floats(int tb, int m, int f, int l, int p = 0) {
+// smoothed periodograms, per-row coherence and per-frame band weight;
+// srp_p > 0 adds the SRP mode's tapered rows of all the block's pairs.
+size_t smem_floats(int tb, int m, int f, int l, int p = 0, int srp_p = 0) {
   const size_t rows = (size_t)tb * m;
   return (size_t)kNChunk * kXsStride           // staged samples [n][row]
          + 4 * (size_t)kNChunk * kBinLanes     // staged coefficients [n][pair]
@@ -114,6 +133,7 @@ size_t smem_floats(int tb, int m, int f, int l, int p = 0) {
          + 2 * rows * f                        // spectra (re, im)
          + rows                                // per-row mean
          + (size_t)kRowsPerPass * l            // raw correlogram rows of a pass
+         + (size_t)tb * srp_p * l              // tapered rows, bf16-rounded
          + (p > 0 ? 2 * (size_t)kStatsXp       // staged cross-power (re, im)
                         + rows * f             // smoothed periodograms
                         + (size_t)tb * p * f   // coherence per (frame, pair)
@@ -132,6 +152,18 @@ struct Stats {
   int lo, hi;        // without the auto band: bins [lo, hi) weight the phase
   float rel, floor_, hybrid_min, omega, gain_d;
 };
+
+// The SRP mode's operands and outputs (zero in the other modes).
+struct Srp {
+  const int* lut;    // [P, G] lag index of each (pair, cell)
+  int* cell_out;     // [B] first best cell
+  float* score_out;  // [B] its score
+  int G;
+};
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
@@ -214,7 +246,7 @@ __device__ float phase_slope(const float2* a, const float2* b,
   return coh >= st.hybrid_min ? d : tdoa_par;
 }
 
-template <bool kStats>
+template <bool kStats, bool kSrp = false>
 __global__ void __launch_bounds__(kThreads)
 gcc_kernel(const float* __restrict__ frames,   // [B, M, N]
            const float* __restrict__ win,      // [N] window * gain
@@ -229,7 +261,8 @@ gcc_kernel(const float* __restrict__ frames,   // [B, M, N]
            float* __restrict__ psr_out,
            int B, int M, int N, int F, int Fp, int P, int L, int TB,
            int phat, int per_mic, float eps2, float taper_denom, int with_peaks,
-           Stats st) {
+           Stats st, Srp srp) {
+  static_assert(!(kStats && kSrp), "the stats mode never scores the grid");
   extern __shared__ float4 smem4[];
   const int b0 = blockIdx.x * TB;
   const int tb = min(TB, B - b0);
@@ -245,7 +278,8 @@ gcc_kernel(const float* __restrict__ frames,   // [B, M, N]
   float* rowbuf = mean + rows_max;
   // stats mode: smoothed periodograms [rows][F], coherence [TB * P][F],
   // band weight [TB][F]
-  float* auto_s = rowbuf + (size_t)kRowsPerPass * L;
+  float* tap = rowbuf + (size_t)kRowsPerPass * L;   // SRP mode only
+  float* auto_s = tap;
   float* g2 = auto_s + rows_max * F;
   float* wband = g2 + (size_t)TB * P * F;
 
@@ -566,7 +600,9 @@ gcc_kernel(const float* __restrict__ frames,   // [B, M, N]
 
       for (int l = lane; l < L; l += 32) {
         const float d = (float)(l - idx);
-        out[l] = c[l] * expf(-(d * d) / taper_denom);
+        const float v = c[l] * expf(-(d * d) / taper_denom);
+        out[l] = v;
+        if constexpr (kSrp) tap[(size_t)row * L + l] = round_bf16(v);
       }
       if (lane == 0) {
         shift_out[grow] = idx - K;
@@ -576,6 +612,34 @@ gcc_kernel(const float* __restrict__ frames,   // [B, M, N]
       }
     }
     __syncwarp();
+  }
+
+  if constexpr (kSrp) {
+    // ---- 5. SRP scores and grid argmax, a frame per warp -------------------
+    __syncthreads();
+    for (int t = warp; t < tb; t += kWarps) {
+      const float* tp = tap + (size_t)t * P * L;
+      float best = -INFINITY;
+      int cell = 0x7fffffff;
+      for (int g = lane; g < srp.G; g += 32) {
+        float s = 0.f;
+        for (int p = 0; p < P; ++p) {
+          // a LUT entry outside the lag axis would read past the row
+          const int li = min(max(__ldg(srp.lut + (size_t)p * srp.G + g), 0), L - 1);
+          s += tp[(size_t)p * L + li];
+        }
+        if (s > best) { best = s; cell = g; }   // ascending g: first maximum
+      }
+      for (int off = 16; off > 0; off >>= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, best, off);
+        const int oc = __shfl_xor_sync(0xffffffffu, cell, off);
+        if (ov > best || (ov == best && oc < cell)) { best = ov; cell = oc; }
+      }
+      if (lane == 0) {
+        srp.cell_out[b0 + t] = cell < srp.G ? cell : 0;   // all-NaN scores
+        srp.score_out[b0 + t] = best;
+      }
+    }
   }
 
   if constexpr (kStats) {
@@ -599,33 +663,35 @@ gcc_kernel(const float* __restrict__ frames,   // [B, M, N]
 
 // Frames per block: up to kDftRows (frame, mic) rows, fewer when the
 // spectra (and with p > 0 the stats mode's buffers) would not fit shared
-// memory.  Returns 0 when one frame does not fit.
-int frames_per_block(int m, int f, int l, int p) {
+// memory; srp_p > 0 counts the SRP mode's tapered rows.  Returns 0 when one
+// frame does not fit.
+int frames_per_block(int m, int f, int l, int p, int srp_p = 0) {
   int tb = m >= kDftRows ? 1 : kDftRows / m;
-  while (tb > 0 && smem_floats(tb, m, f, l, p) * sizeof(float) > kMaxSmem) --tb;
+  while (tb > 0 && smem_floats(tb, m, f, l, p, srp_p) * sizeof(float) > kMaxSmem) --tb;
   return tb;
 }
 
-template <bool kStats>
+template <bool kStats, bool kSrp = false>
 int launch(const void* frames, const void* win, const void* w, const void* sync,
            const void* syns, const void* pairs, void* corr_out, void* shift_out,
            void* tdoa_out, void* peak_out, void* psr_out, int B, int M, int N,
            int F, int Fp, int P, int L, int phat, int per_mic, float eps,
-           float taper_denom, int with_peaks, const Stats& st, void* stream) {
-  const int p_smem = kStats ? P : 0;
-  const int tb = frames_per_block(M, F, L, p_smem);
+           float taper_denom, int with_peaks, const Stats& st, void* stream,
+           const Srp& srp = Srp{}) {
+  const int p_smem = kStats ? P : 0, p_srp = kSrp ? P : 0;
+  const int tb = frames_per_block(M, F, L, p_smem, p_srp);
   if (tb < 1 || Fp % 2 != 0 || Fp < F) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_floats(tb, M, F, L, p_smem) * sizeof(float);
+  const size_t smem = smem_floats(tb, M, F, L, p_smem, p_srp) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      gcc_kernel<kStats>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      gcc_kernel<kStats, kSrp>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (B + tb - 1) / tb;
-  gcc_kernel<kStats><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  gcc_kernel<kStats, kSrp><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)frames, (const float*)win, (const float4*)w,
       (const float*)sync, (const float*)syns, (const int*)pairs,
       (float*)corr_out, (int*)shift_out, (float*)tdoa_out, (float*)peak_out,
       (float*)psr_out, B, M, N, F, Fp, P, L, tb, phat, per_mic, eps * eps,
-      taper_denom, with_peaks, st);
+      taper_denom, with_peaks, st, srp);
   return (int)cudaGetLastError();
 }
 
@@ -649,6 +715,28 @@ extern "C" int att_gcc(const void* frames, const void* win, const void* w,
   return launch<false>(frames, win, w, sync, syns, pairs, corr_out, shift_out,
                        tdoa_out, peak_out, psr_out, B, M, N, F, Fp, P, L, phat,
                        per_mic, eps, taper_denom, with_peaks, Stats{}, stream);
+}
+
+extern "C" int att_gcc_srp_frames_per_block(int m, int f, int l, int p) {
+  return frames_per_block(m, f, l, 0, p);
+}
+
+// The SRP mode: the base mode with peaks, plus the lag LUT [P, G] in and the
+// first best cell [B] and its score [B] out.
+extern "C" int att_gcc_srp(const void* frames, const void* win, const void* w,
+                           const void* sync, const void* syns, const void* pairs,
+                           const void* lut, void* corr_out, void* shift_out,
+                           void* tdoa_out, void* peak_out, void* psr_out,
+                           void* cell_out, void* score_out, int B, int M, int N,
+                           int F, int Fp, int P, int L, int G, int phat,
+                           int per_mic, float eps, float taper_denom,
+                           void* stream) {
+  if (G < 1) return (int)cudaErrorInvalidValue;
+  const Srp srp{(const int*)lut, (int*)cell_out, (float*)score_out, G};
+  return launch<false, true>(frames, win, w, sync, syns, pairs, corr_out,
+                             shift_out, tdoa_out, peak_out, psr_out, B, M, N, F,
+                             Fp, P, L, phat, per_mic, eps, taper_denom, 1,
+                             Stats{}, stream, srp);
 }
 
 // The stats mode: the base mode's operands and outputs, plus band_out

@@ -4,27 +4,35 @@
       -> SRP grid scores -> grid peak -> Gauss-Newton refine -> xy [B, 2]
 
 Counterpart of ``audio_triangulation_tpu.models.localizer`` (``Localizer``
-and ``localize_frames``).  Two hand-written CUDA kernels carry the path on
-a GPU: ``ops/cuda/gcc_kernel`` (conditioning through per-pair peaks, in
-its base mode or its spectral-stats mode) and ``ops/cuda/gn_kernel`` (the
-Gauss-Newton solve).  On a CPU tensor each wrapper runs its plain PyTorch
-version.  SRP scoring, the grid peak and the unfused correlation engines
-are plain torch, as they were plain XLA in the reference.
+and ``localize_frames``).  Hand-written CUDA kernels carry the path on a
+GPU: ``ops/cuda/gcc_kernel`` (conditioning through per-pair peaks, in its
+base mode, its spectral-stats mode or its in-kernel SRP mode),
+``ops/cuda/gcc_large`` (cross-power and lag synthesis of every pair of a
+large array) and ``ops/cuda/gn_kernel`` (the Gauss-Newton solve).  On a CPU
+tensor each wrapper runs its plain PyTorch version.  SRP scoring outside
+the kernel, the grid peak and the unfused correlation engines are plain
+torch, as they were plain XLA in the reference.
 
-Routing follows the reference's with its kernel switched on
-(``fused_kernel='on'``), on every device: :func:`kernel_route` says when
-the GCC kernel serves a configuration (in its stats mode for
-``band_hz='auto'`` or a phase/hybrid sub-sample), with in-kernel peaks
-when taper and sub-sample are both on, else plain peak ops after it.
-Configurations the reference keeps off its kernel run the unfused engines
-(:func:`correlate_frames`), then the plain peak ops and, for phase/hybrid,
-the reference's unfused phase-slope branch.  The GN kernel runs for at
-most 64 pairs with ``robust='none'``, else the batched solver does.  More
-than 256 pairs raise ``NotImplementedError`` (ROADMAP slice D).  The TPU
-dispatch knobs ``fused_kernel``, ``fused_tile_b``, ``fused_srp``,
-``fused_sub_tiles``, ``pair_chunk`` and ``srp_big_matmul_budget_bytes``
-are accepted and change nothing; both ``dft_precision`` values compute in
-exact fp32.
+Routing follows the reference's with its kernels switched on
+(``fused_kernel='on'``), on every device.  Up to ``LARGE_ARRAY_PAIRS``
+pairs, :func:`kernel_route` says when the GCC kernel serves a configuration
+(in its stats mode for ``band_hz='auto'`` or a phase/hybrid sub-sample),
+with in-kernel peaks when taper and sub-sample are both on, else plain
+peak ops after it; ``fused_srp='on'`` adds SRP scoring and the grid argmax
+to that kernel under :func:`in_kernel_srp`'s conditions.  Past that pair
+count :func:`large_route` says when the large-array kernel serves it, again
+with in-kernel peaks when taper and sub-sample are both on.
+Configurations neither kernel takes run the unfused engines
+(:func:`correlate_frames`, a chunk of pairs at a time under ``pair_chunk``
+or past ``LARGE_ARRAY_PAIRS``), then the plain peak ops and, for
+phase/hybrid, the reference's unfused phase-slope branch.  Scoring takes
+the reference's branches: the one-hot product, and for a large array in
+gather form one product against ``onehot_big`` (built when it fits
+``srp_big_matmul_budget_bytes``) or the pair-blocked product.  The GN
+kernel runs for at most 64 pairs with ``robust='none'``, else the batched
+solver does.  The TPU dispatch knobs ``fused_kernel``, ``fused_tile_b``
+and ``fused_sub_tiles`` are accepted and change nothing; both
+``dft_precision`` values compute in exact fp32.
 """
 
 from __future__ import annotations
@@ -41,10 +49,12 @@ from ..core import geometry
 from ..core.config import GridConfig, PipelineConfig, SolverConfig
 from ..ops import conditioning, mxu_fft, srp, solver as solver_ops
 from ..ops import window as window_ops, xcorr
-from ..ops.cuda import gcc_kernel, gn_kernel
+from ..ops.cuda import gcc_kernel, gcc_large, gn_kernel
 
 SAVE_FORMAT = "audio_triangulation_tpu.Localizer/1"
-MAX_PAIRS = 256  # the GCC kernel's slice; larger arrays are ROADMAP slice D
+# more pairs than this take the large-array routes (the reference's rule for
+# its pair-blocked engine, scoring and steering matrix)
+LARGE_ARRAY_PAIRS = 256
 
 
 @dataclasses.dataclass
@@ -57,18 +67,12 @@ class LocalizerParams:
     lut_flat: torch.Tensor  # [P, G] int32 lag indices
     onehot: Optional[torch.Tensor]  # [P*L, G] float32 (matmul form) or None
     score_bias: Optional[torch.Tensor] = None  # [G] additive, or None
+    # [P*L', G] float32 steering matrix of a large array in gather form,
+    # when it fits the budget (L' >= L: the reference pads its lag axis)
+    onehot_big: Optional[torch.Tensor] = None
 
 
 PARAM_NAMES = tuple(f.name for f in dataclasses.fields(LocalizerParams))
-
-
-def check_slice(n_pairs: int) -> None:
-    """Raise ``NotImplementedError`` for arrays this port does not serve
-    yet: more than ``MAX_PAIRS`` pairs (ROADMAP.md slice D)."""
-    if n_pairs > MAX_PAIRS:
-        raise NotImplementedError(
-            f"{n_pairs} mic pairs (> {MAX_PAIRS}) is not ported to the "
-            "PyTorch package yet: ROADMAP.md slice D (large arrays)")
 
 
 def kernel_route(cfg: PipelineConfig) -> bool:
@@ -87,6 +91,26 @@ def kernel_route(cfg: PipelineConfig) -> bool:
                                         or cfg.fft_length % 2 != 0):
         return False
     return not (cfg.phat and cfg.phat_beta != 1.0)
+
+
+def large_route(cfg: PipelineConfig, n_pairs: int) -> bool:
+    """Whether the large-array GCC kernel serves ``cfg``: the reference's
+    ``_use_gcc_large`` conditions without its backend and precision rules
+    (the port computes in exact fp32 either way)."""
+    return (n_pairs > LARGE_ARRAY_PAIRS and cfg.xcorr_mode == "mxu"
+            and cfg.effective_weighting in ("none", "phat"))
+
+
+def in_kernel_srp(cfg: PipelineConfig, srp_form: str, refine: bool,
+                  has_bias: bool) -> bool:
+    """Whether ``fused_srp='on'`` puts scoring and the grid argmax into the
+    GCC kernel: the reference's conditions (bf16 one-hot scoring of a plain
+    grid argmax, base mode only) on a configuration that already takes the
+    kernel with its peaks.  The kernel's own size limit is asked at the
+    call (``gcc_kernel.srp_mode_fits``)."""
+    return (cfg.fused_srp == "on" and not gcc_kernel.needs_stats(cfg)
+            and srp_form == "matmul" and cfg.srp_dtype == "bfloat16"
+            and not has_bias and not refine)
 
 
 def pin_fp32() -> None:
@@ -108,7 +132,6 @@ class Localizer(nn.Module):
                  srp_form: str, with_solver: bool = True,
                  with_heatmap: bool = False):
         super().__init__()
-        check_slice(params.pairs.shape[0])
         if srp_form not in ("matmul", "gather"):
             raise ValueError(f"srp_form={srp_form!r}")
         if srp_form == "matmul" and params.onehot is None:
@@ -161,7 +184,6 @@ class Localizer(nn.Module):
                 cells_per_m=grid.cells_per_m / s)
         mic_positions = np.asarray(mic_positions, dtype=np.float32)
         pairs = geometry.mic_pairs(mic_positions.shape[0])
-        check_slice(pairs.shape[0])
         lut = geometry.lag_lut(grid, mic_positions, pairs, pipeline)
         if srp_form == "auto":
             srp_form = srp.auto_srp_form(
@@ -173,10 +195,22 @@ class Localizer(nn.Module):
         def t(a):
             return None if a is None else torch.as_tensor(a, device=device)
 
+        lut_flat = t(lut.reshape(lut.shape[0], -1))
+        onehot_big = None
+        if (srp_form != "matmul" and pairs.shape[0] > LARGE_ARRAY_PAIRS
+                and pipeline.srp_big_matmul_budget_bytes > 0):
+            # the reference's rule, on its padded bf16/f32 size, so both
+            # packages take the same scoring branch
+            itemsize = 2 if pipeline.srp_dtype == "bfloat16" else 4
+            if (pairs.shape[0] * srp.sublane_pad_lags(pipeline.num_lags)
+                    * grid.num_cells * itemsize
+                    <= pipeline.srp_big_matmul_budget_bytes):
+                onehot_big = srp.big_onehot_device(
+                    lut_flat, pipeline.num_lags, pipeline.srp_dtype)
         params = LocalizerParams(
             mic_positions=t(mic_positions), pairs=t(pairs),
             window=t(window_ops.window_for(pipeline)),
-            lut_flat=t(lut.reshape(lut.shape[0], -1)), onehot=t(onehot))
+            lut_flat=lut_flat, onehot=t(onehot), onehot_big=onehot_big)
         return cls(pipeline, grid, solver, params, srp_form=srp_form,
                    with_solver=with_solver, with_heatmap=with_heatmap)
 
@@ -291,6 +325,12 @@ def correlate_frames(frames: torch.Tensor, params: LocalizerParams,
     if cfg.band_auto and cfg.xcorr_mode != "mxu":
         return xcorr.xcorr_fft(frames, params.pairs, cfg)
     if cfg.xcorr_mode == "mxu":
+        n_pairs = params.pairs.shape[0]
+        chunk = _pair_chunk(cfg, n_pairs)
+        if chunk is not None and n_pairs > chunk:
+            return mxu_fft.xcorr_mxu_pairblocked(
+                frames, params.pairs, cfg, matmul_dtype=cfg.matmul_dtype,
+                pair_chunk=chunk)
         return mxu_fft.xcorr_mxu(frames, params.pairs, cfg,
                                  matmul_dtype=cfg.matmul_dtype)
     if cfg.xcorr_mode == "fft":
@@ -298,6 +338,13 @@ def correlate_frames(frames: torch.Tensor, params: LocalizerParams,
     if cfg.xcorr_mode == "time":
         return xcorr.xcorr_time(frames, params.pairs, cfg.max_shift)
     raise ValueError(f"unknown xcorr mode {cfg.xcorr_mode}")
+
+
+def _pair_chunk(cfg: PipelineConfig, n_pairs: int):
+    """``cfg.pair_chunk``, or 128 for a large array that names none."""
+    if cfg.pair_chunk is None and n_pairs > LARGE_ARRAY_PAIRS:
+        return 128
+    return cfg.pair_chunk
 
 
 def _phase_subsample(frames, params: LocalizerParams, cfg: PipelineConfig,
@@ -350,22 +397,48 @@ def localize_frames(
     """
     k = cfg.max_shift
     p_n = params.pairs.shape[0]
-    check_slice(p_n)
     m, n = frames.shape[-2:]
     lead = frames.shape[:-2]
     flat = frames.reshape(-1, m, n).float()
     if cfg.nan_guard:
         flat = torch.nan_to_num(flat, nan=0.0, posinf=0.0, neginf=0.0)
 
-    on_kernel = kernel_route(cfg)
-    if on_kernel and cfg.taper_enabled and cfg.subsample_peak:
+    refine = (grid_cfg.refine_peak == "on"
+              or (grid_cfg.refine_peak == "auto" and not with_solver))
+    on_kernel = p_n <= LARGE_ARRAY_PAIRS and kernel_route(cfg)
+    on_large = large_route(cfg, p_n)
+    in_kernel_peaks = cfg.taper_enabled and cfg.subsample_peak
+    best_cell = None
+    if on_kernel and in_kernel_peaks:
         # taper, argmax, sub-sample peak and PSR inside the GCC kernel
-        corr_t, shifts, tdoa_samples, peak_val, psr = gcc_kernel.fused_gcc(
-            flat, params.window, params.pairs, cfg, with_peaks=True)
+        if (in_kernel_srp(cfg, srp_form, refine,
+                          params.score_bias is not None)
+                and gcc_kernel.srp_mode_fits(flat, cfg, p_n)):
+            # and the SRP scores and grid argmax too: only the cell leaves
+            (corr_t, shifts, tdoa_samples, peak_val, psr, best_cell,
+             _) = gcc_kernel.fused_gcc_srp(
+                 flat, params.window, params.pairs, params.lut_flat, cfg)
+        else:
+            (corr_t, shifts, tdoa_samples, peak_val,
+             psr) = gcc_kernel.fused_gcc(
+                 flat, params.window, params.pairs, cfg, with_peaks=True)
+    elif on_large and in_kernel_peaks:
+        # the same peak stage inside the large-array kernel
+        corr_t, shifts, tdoa_samples, peak_val, psr = (
+            gcc_large.xcorr_large_peaks(
+                condition_frames(flat, params.window, cfg), params.pairs,
+                cfg))
+        if cfg.subsample_method in ("phase", "hybrid"):
+            tdoa_samples = _phase_subsample(flat, params, cfg, shifts,
+                                            tdoa_samples)
     else:
         if on_kernel:
             corr = gcc_kernel.fused_gcc(flat, params.window, params.pairs,
                                         cfg, with_peaks=False)
+        elif on_large:
+            corr = gcc_large.xcorr_large(
+                condition_frames(flat, params.window, cfg), params.pairs,
+                cfg)
         else:
             corr = correlate_frames(
                 condition_frames(flat, params.window, cfg), params, cfg)
@@ -380,19 +453,32 @@ def localize_frames(
         corr_t = (xcorr.peak_taper(corr, k, cfg.taper_denom, shifts)
                   if cfg.taper_enabled else corr)
 
+    # with the in-kernel SRP the scores are still returned, from the same
+    # product outside, as the reference's plain call returns them
     if srp_form == "matmul":
         scores = srp.srp_scores_matmul(corr_t, params.onehot, cfg.srp_dtype)
     else:
-        scores = srp.srp_scores_gather(corr_t, params.lut_flat)
+        chunk = _pair_chunk(cfg, p_n)
+        if params.onehot_big is not None:
+            scores = srp.srp_scores_matmul_big(corr_t, params.onehot_big,
+                                               dtype=cfg.srp_dtype)
+        elif chunk is not None and p_n > chunk:
+            scores = srp.srp_scores_matmul_blocked(
+                corr_t, params.lut_flat, cfg.num_lags, chunk,
+                dtype=cfg.srp_dtype)
+        else:
+            scores = srp.srp_scores_gather(corr_t, params.lut_flat)
     if params.score_bias is not None:
         scores = scores + params.score_bias
 
-    refine = (grid_cfg.refine_peak == "on"
-              or (grid_cfg.refine_peak == "auto" and not with_solver))
-    xy_grid = srp.grid_peak_xy(
-        scores, (grid_cfg.height, grid_cfg.width),
-        (grid_cfg.half_cells_x, grid_cfg.half_cells_y),
-        grid_cfg.cells_per_m, refine=refine)
+    half_cells = (grid_cfg.half_cells_x, grid_cfg.half_cells_y)
+    if best_cell is not None:
+        xy_grid = srp.cell_to_xy(best_cell, grid_cfg.width, half_cells,
+                                 grid_cfg.cells_per_m)
+    else:
+        xy_grid = srp.grid_peak_xy(
+            scores, (grid_cfg.height, grid_cfg.width), half_cells,
+            grid_cfg.cells_per_m, refine=refine)
 
     out = {
         "tdoa_samples": tdoa_samples,

@@ -8,12 +8,18 @@ Counterpart of ``audio_triangulation_tpu.ops.pallas.gcc_kernel``
 - the spectral-stats mode, taken when ``band_hz='auto'`` or (with peaks)
   ``subsample_method`` is 'phase' or 'hybrid': smoothed periodograms and
   cross-spectra, coherence, the per-event auto band weighting the
-  cross-power, and the phase-slope sub-sample TDOA with its hybrid gate.
+  cross-power, and the phase-slope sub-sample TDOA with its hybrid gate;
+- the in-kernel SRP mode (:func:`fused_gcc_srp`, the reference's compact
+  "Mode B", ``fused_gcc_peaks(..., srp_onehot=...)``): the base mode with
+  peaks, then every grid cell scored from the bf16-rounded tapered
+  correlograms and the first best cell and its score written per frame.
 
-On a CUDA tensor :func:`fused_gcc` launches ``csrc/gcc_kernel.cu`` or
-raises; on a CPU tensor it runs the plain PyTorch version of the mode
-(:func:`gcc_reference`, :func:`gcc_stats_reference`).  ``launches`` counts
-base-mode launches and ``stats_launches`` stats-mode launches.
+On a CUDA tensor :func:`fused_gcc` and :func:`fused_gcc_srp` launch
+``csrc/gcc_kernel.cu`` or raise; on a CPU tensor they run the plain PyTorch
+version of the mode (:func:`gcc_reference`, :func:`gcc_stats_reference`,
+:func:`gcc_srp_reference`).  ``launches`` counts base-mode launches,
+``stats_launches`` stats-mode launches and ``srp_launches`` SRP-mode
+launches.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from . import _build
 
 launches = 0
 stats_launches = 0
+srp_launches = 0
 
 
 class GccMatrices(NamedTuple):
@@ -96,6 +103,33 @@ def gcc_reference(frames, win_gain, mats: GccMatrices, pairs, *,
     if not with_peaks:
         return corr
     return _peaks(corr, max_shift, taper_denom)
+
+
+def srp_first_max(corr_t: torch.Tensor, lut_flat: torch.Tensor):
+    """The SRP mode's scoring on tapered correlograms [B, P, L]: (first best
+    cell int32 [B], its score [B]).  Each value is rounded to bf16, and the
+    pairs' values at ``lut_flat`` [P, G] are added in the order p = 0..P-1
+    in the correlograms' dtype, as the kernel adds them."""
+    tap = corr_t.to(torch.bfloat16).to(corr_t.dtype)
+    idx = lut_flat.long()
+    scores = torch.zeros((corr_t.shape[0], idx.shape[1]),
+                         dtype=corr_t.dtype, device=corr_t.device)
+    for p in range(idx.shape[0]):
+        scores = scores + tap[:, p, :].index_select(-1, idx[p])
+    cell = scores.argmax(dim=-1)  # the first maximum
+    return cell.to(torch.int32), scores.gather(-1, cell[:, None])[:, 0]
+
+
+def gcc_srp_reference(frames, win_gain, mats: GccMatrices, pairs, lut_flat,
+                      *, phat: bool, phat_eps: float, max_shift: int,
+                      taper_denom: float):
+    """Plain PyTorch version of the SRP mode, on the kernel's operands:
+    :func:`gcc_reference` with peaks, then (cell int32 [B], score [B]) from
+    :func:`srp_first_max`."""
+    outs = gcc_reference(frames, win_gain, mats, pairs, phat=phat,
+                         phat_eps=phat_eps, max_shift=max_shift,
+                         taper_denom=taper_denom, with_peaks=True)
+    return (*outs, *srp_first_max(outs[0], lut_flat))
 
 
 class StatsParams(NamedTuple):
@@ -293,6 +327,40 @@ def fused_gcc(frames: torch.Tensor, window: torch.Tensor,
     return launch(frames, *ops, pairs, **kw)
 
 
+def fused_gcc_srp(frames: torch.Tensor, window: torch.Tensor,
+                  pairs: torch.Tensor, lut_flat: torch.Tensor,
+                  cfg: PipelineConfig):
+    """:func:`fused_gcc` with peaks in the base mode, plus SRP scoring and
+    the grid argmax in the same kernel: (tapered correlograms, shift, tdoa,
+    peak, psr, best cell int32 [B], best score [B]) for the lag LUT
+    ``lut_flat`` int32 [P, G].  ``cfg`` must not need the stats mode."""
+    if frames.ndim != 3 or frames.dtype != torch.float32:
+        raise ValueError(f"frames must be f32 [B, M, N]; got "
+                         f"{tuple(frames.shape)} {frames.dtype}")
+    if needs_stats(cfg):
+        raise ValueError("the in-kernel SRP mode does not take the stats "
+                         "mode (band_hz='auto', phase / hybrid sub-sample)")
+    ops = operands(frames, window, cfg)
+    kw = dict(phat=cfg.phat, phat_eps=cfg.phat_eps, max_shift=cfg.max_shift,
+              taper_denom=cfg.taper_denom)
+    if frames.device.type == "cpu":
+        return gcc_srp_reference(frames, *ops, pairs.to(frames.device),
+                                 lut_flat.to(frames.device), **kw)
+    return launch_srp(frames, *ops, pairs, lut_flat, **kw)
+
+
+def srp_mode_fits(frames: torch.Tensor, cfg: PipelineConfig,
+                  n_pairs: int) -> bool:
+    """Whether the SRP mode takes these frames [B, M, N]: on a CUDA device
+    one frame's spectra and its pairs' tapered rows must fit a block's
+    shared memory; the plain version on the CPU has no limit."""
+    if frames.device.type != "cuda":
+        return True
+    f, l = mxu_fft.gcc_matrices(cfg, frames.shape[-1])[2].shape
+    return _lib().att_gcc_srp_frames_per_block(
+        frames.shape[-2], f, l, n_pairs) >= 1
+
+
 def _checked(frames, win_gain, mats: GccMatrices, pairs):
     """The launch operands on ``frames``' CUDA device, checked against the
     frames: (dims (b, m, n, f, fp, p, l), frames, [win_gain, cs, sync,
@@ -357,6 +425,45 @@ def launch(frames, win_gain, mats: GccMatrices, pairs, *, phat: bool,
     return outs if with_peaks else outs[0]
 
 
+def launch_srp(frames, win_gain, mats: GccMatrices, pairs, lut_flat, *,
+               phat: bool, phat_eps: float, max_shift: int,
+               taper_denom: float):
+    """Run ``csrc/gcc_kernel.cu``'s SRP mode on CUDA tensors (same contract
+    as :func:`gcc_srp_reference`); raises on anything it does not take.
+    Its size limit: the spectra of one frame and the tapered rows of its P
+    pairs (P x L floats) must fit a block's shared memory together; the
+    grid size G has no limit (the LUT stays in global memory).  LUT entries
+    are clamped to the lag axis, not range-checked."""
+    global srp_launches
+    (b, m, n, f, fp, p, l), frames, ins, pairs32 = _checked(
+        frames, win_gain, mats, pairs)
+    dev = frames.device
+    lut32 = lut_flat.to(device=dev, dtype=torch.int32).contiguous()
+    if lut32.ndim != 2 or lut32.shape[0] != p or lut32.shape[1] < 1:
+        raise ValueError(f"lut_flat must be [P={p}, G]; got "
+                         f"{tuple(lut32.shape)}")
+    lib = _lib()
+    if lib.att_gcc_srp_frames_per_block(m, f, l, p) < 1:
+        raise ValueError(f"one frame of {m} mics x {f} bins with {p} pairs "
+                         f"x {l} lags does not fit the SRP mode's shared "
+                         "memory")
+    outs = _outputs(b, p, l, dev, True)
+    cell = torch.empty((b,), dtype=torch.int32, device=dev)
+    score = torch.empty((b,), dtype=torch.float32, device=dev)
+    if b > 0:
+        ptr = [t.data_ptr() for t in (frames, *ins, pairs32, lut32)]
+        optr = [t.data_ptr() for t in (*outs, cell, score)]
+        per_mic = phat and xcorr.phat_per_mic(m)
+        with torch.cuda.device(dev):
+            err = lib.att_gcc_srp(
+                *ptr, *optr, b, m, n, f, fp, p, l, lut32.shape[1], int(phat),
+                int(per_mic), phat_eps, taper_denom,
+                torch.cuda.current_stream(dev).cuda_stream)
+        srp_launches += 1
+        _build.check(err, "gcc_kernel SRP launch", lib)
+    return (*outs, cell, score)
+
+
 def launch_stats(frames, win_gain, mats: GccMatrices, pairs,
                  sp: StatsParams, *, phat: bool, phat_eps: float,
                  max_shift: int, taper_denom: float, with_peaks: bool,
@@ -412,4 +519,8 @@ def _lib():
         lib.att_gcc_frames_per_block.restype = ci
         lib.att_gcc_stats_frames_per_block.argtypes = [ci] * 4
         lib.att_gcc_stats_frames_per_block.restype = ci
+        lib.att_gcc_srp.argtypes = [vp] * 14 + [ci] * 10 + [cf, cf, vp]
+        lib.att_gcc_srp.restype = ci
+        lib.att_gcc_srp_frames_per_block.argtypes = [ci] * 4
+        lib.att_gcc_srp_frames_per_block.restype = ci
     return lib

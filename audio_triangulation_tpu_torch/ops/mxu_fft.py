@@ -1,7 +1,7 @@
 """GCC as matrix products: the DFT and the +-K lag synthesis as matmuls.
 
 Counterpart of ``audio_triangulation_tpu.ops.mxu_fft`` (the unfused
-engine; the reference's pair-blocked form is ROADMAP slice D):
+engine, whole or a chunk of the pair axis at a time):
 
 - forward: Re/Im spectra = frames @ cos / frames @ -sin, DFT matrices [N, F]
 - the per-event auto band folded into the raw spectra (``band_hz='auto'``)
@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..core.config import PipelineConfig
+from ._device import device_constant
 
 
 @functools.lru_cache(maxsize=16)
@@ -98,6 +99,7 @@ def crop_bins(cfg: PipelineConfig):
     return band_bins(cfg.fft_length, cfg.sample_rate_hz, *cfg.band_hz)
 
 
+@functools.lru_cache(maxsize=16)
 def masked_synthesis(cfg: PipelineConfig, matmul_dtype: str = "float32"):
     """Lag-synthesis matrices with ``cfg.band_hz`` folded in (out-of-band
     rows zeroed)."""
@@ -254,6 +256,36 @@ def xcorr_mxu(frames: torch.Tensor, pairs: torch.Tensor,
                            matmul_dtype)
 
 
+def xcorr_mxu_pairblocked(frames: torch.Tensor, pairs: torch.Tensor,
+                          cfg: PipelineConfig, *,
+                          matmul_dtype: str = "float32",
+                          pair_chunk: int = 128) -> torch.Tensor:
+    """:func:`xcorr_mxu` for large arrays: the spectra are computed (and
+    PHAT-whitened per mic) once, then cross-power and lag synthesis run
+    ``pair_chunk`` pairs at a time, so only [..., pair_chunk, F] of the
+    cross-power is alive where 2,016 pairs would take tens of GB."""
+    crop = crop_bins(cfg)
+    if crop is not None:
+        syn_c, syn_s = lag_synthesis_matrices_band(
+            cfg.fft_length, cfg.max_shift, *crop)
+        re, im = forward_spectra_band(frames, cfg.fft_length, *crop,
+                                      matmul_dtype)
+    else:
+        syn_c, syn_s = masked_synthesis(cfg)
+        re, im = forward_spectra(frames, cfg.fft_length, matmul_dtype)
+    syn_c, syn_s = _dev(syn_c, frames), _dev(syn_s, frames)
+    if cfg.band_auto:
+        re, im = autoband_scale_reim(re, im, pairs, cfg)
+    if cfg.phat:
+        re, im = whiten_reim(re, im, cfg.phat_eps, cfg.phat_beta)
+    out = []
+    for p0 in range(0, pairs.shape[0], pair_chunk):
+        rr, jj = cross_power_reim(re, im, pairs[p0:p0 + pair_chunk])
+        out.append(lag_correlogram(rr, jj, syn_c, syn_s, matmul_dtype))
+    return torch.cat(out, dim=-2)
+
+
 def _dev(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    """A numpy constant as an f32 tensor on ``like``'s device."""
-    return torch.as_tensor(arr, dtype=torch.float32, device=like.device)
+    """One of the cached numpy matrices above as an f32 tensor on ``like``'s
+    device, copied there once."""
+    return device_constant(arr, like.device)

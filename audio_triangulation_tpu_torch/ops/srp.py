@@ -4,7 +4,14 @@ Counterpart of ``audio_triangulation_tpu.ops.srp`` (main-path subset):
 
 - matmul form: scores[B, G] = corr[B, P*L] @ onehot[P*L, G]
 - gather form: sum over pairs of corr[..., p, lut[p, g]]
+- large arrays: one product against a steering matrix built on the device
+  (``big_onehot_device`` / ``srp_scores_matmul_big``), or the pair axis a
+  chunk at a time (``srp_scores_matmul_blocked`` / ``_gather_blocked``)
 - grid peak: first-max argmax, optional separable quadratic refinement
+
+The reference pads the lag axis of its large-array one-hots to a multiple
+of 8 for its memory layout; the zero rows add nothing to a score, so the
+port builds them unpadded and takes a padded matrix when it is given one.
 """
 
 from __future__ import annotations
@@ -22,10 +29,8 @@ def srp_scores_matmul(correlograms: torch.Tensor, onehot: torch.Tensor,
     is, so it must hold bf16-exact values: a 0/1 steering matrix does, and
     ``Localizer`` stores any other one rounded."""
     *lead, p, l = correlograms.shape
-    flat = correlograms.reshape(*lead, p * l)
-    if dtype == "bfloat16":
-        flat = flat.to(torch.bfloat16).float()
-    return torch.matmul(flat, onehot)
+    return torch.matmul(_round(correlograms.reshape(*lead, p * l), dtype),
+                        onehot)
 
 
 def srp_scores_gather(correlograms: torch.Tensor,
@@ -33,6 +38,90 @@ def srp_scores_gather(correlograms: torch.Tensor,
     """scores [..., G] via a per-pair gather; lut_flat is int [P, G]."""
     idx = lut_flat.long().expand(*correlograms.shape[:-2], *lut_flat.shape)
     return correlograms.gather(-1, idx).sum(dim=-2)
+
+
+def _round(x: torch.Tensor, dtype: str) -> torch.Tensor:
+    """``x`` rounded to bf16 and carried as f32 when ``dtype`` says so (a
+    bf16 torch matmul would round its output too), else as it is."""
+    return x.to(torch.bfloat16).float() if dtype == "bfloat16" else x
+
+
+def srp_scores_gather_blocked(correlograms: torch.Tensor,
+                              lut_flat: torch.Tensor,
+                              pair_chunk: int = 128) -> torch.Tensor:
+    """:func:`srp_scores_gather` summed over ``pair_chunk``-sized slices of
+    the pair axis, so the [..., P, G] gather is never whole in memory."""
+    out = torch.zeros((*correlograms.shape[:-2], lut_flat.shape[-1]),
+                      dtype=correlograms.dtype, device=correlograms.device)
+    for p0 in range(0, lut_flat.shape[0], pair_chunk):
+        out = out + srp_scores_gather(
+            correlograms[..., p0:p0 + pair_chunk, :],
+            lut_flat[p0:p0 + pair_chunk])
+    return out
+
+
+def srp_scores_matmul_blocked(correlograms: torch.Tensor,
+                              lut_flat: torch.Tensor, num_lags: int,
+                              pair_chunk: int = 128,
+                              dtype: str = "float32") -> torch.Tensor:
+    """Pair-blocked matmul scoring for large arrays: each chunk's one-hot
+    block [chunk * L, G] is built from ``lut_flat`` (a compare against the
+    lag index) and multiplied, the chunks summed in order.  ``dtype``
+    'bfloat16' rounds the correlograms and sums in f32."""
+    lags = torch.arange(num_lags, dtype=lut_flat.dtype,
+                        device=lut_flat.device)
+    out = torch.zeros((*correlograms.shape[:-2], lut_flat.shape[-1]),
+                      dtype=correlograms.dtype, device=correlograms.device)
+    for p0 in range(0, lut_flat.shape[0], pair_chunk):
+        lut = lut_flat[p0:p0 + pair_chunk]
+        onehot = (lut[:, None, :] == lags[None, :, None]).to(
+            correlograms.dtype)
+        c = _round(correlograms[..., p0:p0 + pair_chunk, :], dtype)
+        out = out + torch.matmul(c.reshape(*c.shape[:-2], -1),
+                                 onehot.reshape(-1, lut.shape[-1]))
+    return out
+
+
+def sublane_pad_lags(num_lags: int) -> int:
+    """Lag count rounded up to a multiple of 8: the row count per pair of
+    the reference's large-array steering matrix, which sizes the budget
+    rule of ``Localizer.create`` in both packages."""
+    return -(-num_lags // 8) * 8
+
+
+def big_onehot_device(lut_flat: torch.Tensor, num_lags: int,
+                      dtype: str = "bfloat16") -> torch.Tensor:
+    """The large-array steering matrix [P * L, G], built on ``lut_flat``'s
+    device.  Its 0/1 entries are exact in bf16, so it is stored as f32 for
+    either ``dtype`` (an f32 product of bf16-exact operands is what the
+    reference's bf16 product with f32 accumulation computes)."""
+    p, g = lut_flat.shape
+    lags = torch.arange(num_lags, dtype=lut_flat.dtype,
+                        device=lut_flat.device)
+    return (lut_flat[:, None, :] == lags[None, :, None]).float().reshape(
+        p * num_lags, g)
+
+
+def srp_scores_matmul_big(correlograms: torch.Tensor,
+                          onehot_big: torch.Tensor,
+                          dtype: str = "float32") -> torch.Tensor:
+    """scores [..., G] in one product against a precomputed [P * L', G]
+    steering matrix (:func:`big_onehot_device`, or the reference's with its
+    lag axis zero-padded to L' >= L)."""
+    *lead, p, l = correlograms.shape
+    lp = onehot_big.shape[0] // p
+    corr = correlograms
+    if lp != l:
+        corr = torch.nn.functional.pad(corr, (0, lp - l))
+    flat = _round(corr.reshape(*lead, p * lp), dtype)
+    return torch.matmul(flat, onehot_big.to(flat.dtype))
+
+
+def grid_argmax(scores: torch.Tensor, grid_shape: tuple[int, int]):
+    """(row, col) int32 of the first maximum of flat scores [..., G]."""
+    _, w = grid_shape
+    flat_idx = scores.argmax(dim=-1).to(torch.int32)
+    return torch.div(flat_idx, w, rounding_mode="floor"), flat_idx % w
 
 
 def auto_srp_form(num_pairs: int, num_lags: int, num_cells: int,

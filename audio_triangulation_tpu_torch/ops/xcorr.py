@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..core.config import PipelineConfig
+from ._device import device_constant
 
 
 # ----------------------------------------------------------------------
@@ -158,15 +159,19 @@ def _auto_band_from_g2(g2m: torch.Tensor,
     return torch.where(enough, sel, interior).to(torch.float32)
 
 
+@functools.lru_cache(maxsize=16)
+def _subset_index(p: int, limit: int) -> np.ndarray:
+    return (np.arange(p) if p <= limit else np.unique(
+        np.linspace(0, p - 1, limit).round().astype(np.int64)))
+
+
 def band_pair_subset(pairs, limit: int = 64):
     """The evenly strided subset of ``limit`` pairs that estimates the auto
     band's pair mean on large arrays (all pairs up to ``limit``); numpy in,
     numpy out, tensor in, tensor out."""
-    p = len(pairs)
-    idx = (np.arange(p) if p <= limit else np.unique(
-        np.linspace(0, p - 1, limit).round().astype(np.int64)))
+    idx = _subset_index(len(pairs), limit)
     if isinstance(pairs, torch.Tensor):
-        return pairs[torch.as_tensor(idx, device=pairs.device)]
+        return pairs[device_constant(idx, pairs.device, torch.int64)]
     return np.asarray(pairs)[idx]
 
 
@@ -186,8 +191,8 @@ def freq_smooth_matmul(x: torch.Tensor, half_width: int) -> torch.Tensor:
     (TF32 off: the estimates feed the auto-band threshold)."""
     if half_width <= 0:
         return x
-    s = torch.as_tensor(_smooth_matrix(x.shape[-1], half_width),
-                        dtype=x.dtype, device=x.device)
+    s = device_constant(_smooth_matrix(x.shape[-1], half_width), x.device,
+                        x.dtype)
     return torch.matmul(x, s)
 
 

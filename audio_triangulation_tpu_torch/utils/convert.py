@@ -3,8 +3,9 @@
 ``params_from_reference`` takes the reference's ``LocalizerParams`` as a
 dict of numpy arrays (for example ``{k: np.asarray(v) for k, v in
 vars(params).items()}``) and returns the port's buffers on ``device``.
-The TPU-only ``onehot_pad`` and ``onehot_big`` entries are dropped: they
-exist for lane padding and for large arrays.
+``onehot_big`` (the large-array steering matrix, bf16 or f32 there) comes
+across as float32; ``onehot_pad`` is dropped: it is ``onehot`` with zero
+rows padding the lag axis.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ _DTYPES = {
     "lut_flat": torch.int32,
     "onehot": torch.float32,
     "score_bias": torch.float32,
+    "onehot_big": torch.float32,
 }
 
 
@@ -36,6 +38,8 @@ def params_from_reference(arrays: dict, device) -> dict:
     out = {}
     for name, dtype in _DTYPES.items():
         a = arrays.get(name)
+        if a is not None and name == "onehot_big":
+            a = np.asarray(a).astype(np.float32)  # numpy's bf16 is not torch's
         out[name] = (None if a is None else torch.as_tensor(
             np.array(a, copy=True), device=device).to(dtype))
     return out

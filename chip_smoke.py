@@ -2,11 +2,17 @@
 """On-GPU smoke test of the PyTorch port (audio_triangulation_tpu_torch).
 
 Builds the CUDA kernels from ``audio_triangulation_tpu_torch/csrc`` with
-nvcc, holds each kernel (the GCC kernel's base and spectral-stats modes,
-the GN kernel) against its plain PyTorch version on the card, drives the
-frame-batch Localizer at full size (16,384 frames of 4 x 1,024 samples) in
-the three bench configurations (band-crop, full band, hands-free), checks
-each against the known source and the port's own CPU path, and times it.
+nvcc and holds each kernel (the GCC kernel's base, spectral-stats and
+in-kernel SRP modes, the GN kernel, the large-array GCC kernel, the
+SRP-argmax kernel) against its plain PyTorch version on the card.  Then it
+drives the frame-batch Localizer at full size: 16,384 frames of 4 x 1,024
+samples in the three bench configurations (band-crop, full band,
+hands-free) and with ``fused_srp='on'``, and 256 frames of 64 x 4,096
+samples (2,016 pairs) in the three large-array configurations (full band,
+band-crop, auto band); and ``srp_argmax`` on 16,384 frames against the
+101 x 101 grid.  Each path is checked against the known source and the
+port's own CPU path, its kernel launches are counted from 0, and it is
+timed.
 
     python3 chip_smoke.py            # one CUDA card; exits non-zero on any failure
 
@@ -37,14 +43,36 @@ DECISION_MARGIN = 1e-3
 TRIALS = 7  # timed trials of the main path per configuration
 REPS = 20  # launches per kernel timing
 SEED = 0
+# the large-array paths: grid_array(8, 8, 0.05), 64 mics, 2,016 pairs
+LARGE_SAMPLES = 4096
+LARGE_FRAMES = 256  # frames a call
+LARGE_STRIDE = 2  # init_grid_stride: 31 x 31 cells of the 63 x 63 grid
+LARGE_CHECK_FRAMES = 16  # frames per kernel-vs-plain comparison (float64)
+LARGE_CPU_FRAMES = 4  # frames held to the CPU path
+LARGE_REPS = 5  # launches per timing of the large-array kernel
+SRP_CHECK_FRAMES = 4096  # frames per SRP-argmax comparison (float64)
+# published peaks of one H100 SXM (NVIDIA's data sheet): fp32 outside the
+# tensor cores, and device memory; every kernel here computes in fp32 on
+# the CUDA cores
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
 # Median |xy - SOURCE_XY| bound per main-path configuration.  Full-band PHAT
 # whitens the out-of-band noise bins up to the chirp's level, which biases
 # it on this band-limited source: the JAX package's Localizer itself gives
 # a 1.64 cm median on 256 frames of this scene (CPU), so it gets a looser
 # bound; its real check is the agreement with the CPU path below.  The
 # hands-free line gives 0.0126 cm in the JAX package (256 frames, CPU).
+# The 64-mic lines: the JAX package's Localizer gives medians of 0.0831 cm
+# (largest 0.2054) full band, 0.0227 cm (0.0318) band-crop and 0.0127 cm
+# (0.0225) auto band on 8 frames of this scene on the CPU, and the port's CPU
+# path the same within 1e-6 m (tests/witness_large64.py); the bounds are
+# about three times those medians.
 MEDIAN_BOUND_M = {"bandcrop_800_6000": 0.01, "fullband": 0.03,
-                  "handsfree_auto_hybrid": 0.001}
+                  "handsfree_auto_hybrid": 0.001,
+                  "bandcrop_800_6000_fused_srp": 0.01,
+                  "large64_fullband": 0.0025,
+                  "large64_bandcrop_800_6000": 0.0007,
+                  "large64_auto": 0.0004}
 
 KERNEL_INFO = {
     "gcc_kernel": dict(
@@ -56,6 +84,15 @@ KERNEL_INFO = {
     "gn_kernel": dict(
         source="audio_triangulation_tpu_torch/csrc/gn_kernel.cu",
         replaces="audio_triangulation_tpu/ops/pallas/gn_kernel.py:29"),
+    "gcc_large_kernel": dict(
+        source="audio_triangulation_tpu_torch/csrc/gcc_large.cu",
+        replaces="audio_triangulation_tpu/ops/pallas/gcc_large.py:73"),
+    "srp_argmax_kernel": dict(
+        source="audio_triangulation_tpu_torch/csrc/srp_kernel.cu",
+        replaces="audio_triangulation_tpu/ops/pallas/srp_kernel.py:34"),
+    "gcc_srp_kernel": dict(
+        source="audio_triangulation_tpu_torch/csrc/gcc_kernel.cu",
+        replaces="audio_triangulation_tpu/ops/pallas/gcc_kernel.py:467"),
 }
 
 
@@ -84,18 +121,47 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def alternate_ms(plain, kernel):
+def alternate_ms(plain, kernel, reps=REPS):
     """(kernel ms, plain ms), timed in turns plain, kernel, kernel, plain."""
-    p1 = cuda_ms(plain, REPS)
-    k1 = cuda_ms(kernel, REPS)
-    k2 = cuda_ms(kernel, REPS)
-    p2 = cuda_ms(plain, REPS)
+    p1 = cuda_ms(plain, reps)
+    k1 = cuda_ms(kernel, reps)
+    k2 = cuda_ms(kernel, reps)
+    p2 = cuda_ms(plain, reps)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def scene_frames(mics, n_frames, rng, *, fixed_source=None, noise=0.01):
-    """Synthetic chirp frames [n_frames, M, 1024] f32 from sources on the
-    radius-1.2 m sphere (random ones unless ``fixed_source`` is given)."""
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the operations
+    over its fp32 peak and the bytes (inputs read once, outputs written
+    once) over its memory rate."""
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def gcc_bound(b, m, n, f, p, l, *, stats_hw=None, srp_cells=0) -> dict:
+    """Bound of one GCC kernel launch on [b, m, n] frames: the DFT (re and
+    im of f bins per sample), the cross-power and the lag synthesis (cos
+    and sin terms per bin and lag), with the stats mode's window sums over
+    2 hw + 1 bins for m periodograms and p complex cross-spectra, and the
+    SRP mode's p additions per cell."""
+    flops = b * (4 * m * n * f + 6 * p * f + 4 * p * f * l)
+    nbytes = 4 * (b * m * n + n + 2 * n * f + 2 * f * l + 2 * p
+                  + b * p * l + 4 * b * p)
+    if stats_hw is not None:
+        flops += b * 2 * (m + 2 * p) * f * (2 * stats_hw + 1)
+    if srp_cells:
+        flops += b * p * srp_cells
+        nbytes += 4 * (p * srp_cells + 2 * b)
+    return bound(flops, nbytes)
+
+
+def scene_frames(mics, n_frames, rng, *, fixed_source=None, noise=0.01,
+                 n=1024):
+    """Synthetic chirp frames [n_frames, M, n] f32 from sources on the
+    radius-1.2 m sphere (random ones unless ``fixed_source`` is given), with
+    noise drawn anew for every frame."""
     from audio_triangulation_tpu_torch.utils import synth
 
     if fixed_source is None:
@@ -105,7 +171,7 @@ def scene_frames(mics, n_frames, rng, *, fixed_source=None, noise=0.01):
         v = np.broadcast_to(np.asarray(fixed_source, np.float64),
                             (n_frames, 3))
     src = v * (1.2 / np.linalg.norm(v, axis=1, keepdims=True))
-    return synth.synth_scene(src, mics, noise_rms=noise,
+    return synth.synth_scene(src, mics, n=n, noise_rms=noise,
                              seed=int(rng.integers(1 << 30))).astype(
                                  np.float32)
 
@@ -388,6 +454,261 @@ def phase_gn(rng, results):
     results["gn_kernel"]["max_abs_err"] = worst
 
 
+def large_configs():
+    """(mics [64, 2], grid, [(name, PipelineConfig)]): the three 64-mic
+    bench configurations: 8 x 8 grid array at 5 cm pitch, 4,096-sample
+    frames, the lag window of the aperture (74 -> 149 lags), PHAT,
+    circular padding, bf16 SRP scoring, on the 63 x 63 grid at 16 cells/m."""
+    from audio_triangulation_tpu_torch import (GridConfig, PipelineConfig,
+                                               geometry)
+
+    mics = geometry.grid_array(8, 8, 0.05)
+    base = dict(frame_size_bits=12,
+                max_shift_samples=geometry.max_lag_for_array(
+                    mics, PipelineConfig()),
+                phat=True, fft_pad_mode="circular", srp_dtype="bfloat16")
+    grid = GridConfig(half_cells_x=31, half_cells_y=31, cells_per_m=16.0)
+    return mics, grid, [
+        ("large64_fullband", PipelineConfig(**base)),
+        ("large64_bandcrop_800_6000", PipelineConfig(
+            **base, band_hz=(800.0, 6000.0), band_crop=True)),
+        ("large64_auto", PipelineConfig(**base, band_hz="auto")),
+    ]
+
+
+def large_operands(frames, window, pairs, cfg):
+    """The large-array kernel's operands for raw frames on the card:
+    (re, im, sync, syns, keyword arguments), as its wrapper makes them."""
+    from audio_triangulation_tpu_torch.models.localizer import (
+        condition_frames)
+    from audio_triangulation_tpu_torch.ops.cuda import gcc_large
+
+    return gcc_large.operands(condition_frames(frames, window, cfg), pairs,
+                              cfg)
+
+
+def phase_large(rng, results):
+    """The large-array GCC kernel against its plain version evaluated in
+    float64 on the kernel's own operands (whitened, banded spectra), at 64
+    mics x 4,096 samples, 2,016 pairs: without and with peaks.  Correlograms
+    within 1e-4 of scale (1e-3 in the bf16 mode, where a cross-power value
+    that differs in its last fp32 bits can round to the next bf16), shifts
+    equal on rows whose two best values are clear of rounding, tdoa within
+    1e-3 lags, psr within 1e-3 relative on those rows."""
+    import dataclasses
+
+    import torch
+    from audio_triangulation_tpu_torch.core import geometry
+    from audio_triangulation_tpu_torch.ops import window as window_ops
+    from audio_triangulation_tpu_torch.ops.cuda import gcc_large
+
+    mics, _, configs = large_configs()
+    cases = configs + [("large64_fullband_bf16", dataclasses.replace(
+        configs[0][1], matmul_dtype="bfloat16"))]
+    pairs = torch.as_tensor(geometry.mic_pairs(mics.shape[0]), device="cuda")
+    frames = torch.from_numpy(scene_frames(
+        mics, LARGE_CHECK_FRAMES, rng, n=LARGE_SAMPLES)).cuda()
+    worst = 0.0
+    for name, cfg in cases:
+        window = torch.as_tensor(window_ops.window_for(cfg), device="cuda")
+        re, im, sync, syns, kw = large_operands(frames, window, pairs, cfg)
+        ops64 = (re.double(), im.double(), pairs, sync.double(),
+                 syns.double())
+        raw64 = gcc_large.gcc_large_reference(*ops64, **kw, with_peaks=False)
+        ref64 = gcc_large.gcc_large_reference(*ops64, **kw, with_peaks=True)
+        raw = gcc_large.launch(re, im, pairs, sync, syns, **kw,
+                               with_peaks=False)
+        got = gcc_large.launch(re, im, pairs, sync, syns, **kw,
+                               with_peaks=True)
+        torch.cuda.synchronize()
+        scale = float(raw64.abs().max())
+        tol = 1e-3 if kw["bf16"] else 1e-4
+
+        def err(a, b):
+            return float((a.double() - b.double()).abs().max()) / scale
+
+        err_raw = err(raw, raw64)
+        top2 = raw64.topk(2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > 10 * tol * scale
+        err_tap = float(((got[0].double() - ref64[0]).abs().amax(dim=-1)
+                         * clear).max()) / scale
+        shift_bad = int(((got[1] != ref64[1]) & clear).sum())
+        tdoa_err = float(((got[2] - ref64[2]).abs() * clear).max())
+        peak_err = err(got[3], ref64[3])
+        psr_rel = float((((got[4] - ref64[4]).abs() / ref64[4].abs())
+                         * clear).max())
+        say("2 large", f"{name}: {frames.shape[0]} frames x {pairs.shape[0]} "
+            f"pairs, {re.shape[-1]} bins vs the plain version in float64: "
+            f"corr/scale err raw {err_raw:.2e} tapered {err_tap:.2e}, peak "
+            f"{peak_err:.2e}, shift mismatches {shift_bad} (near ties "
+            f"excluded: {int((~clear).sum())} of {clear.numel()}), tdoa err "
+            f"{tdoa_err:.2e} lags, psr rel err {psr_rel:.2e}")
+        if not (err_raw <= tol and err_tap <= tol and peak_err <= tol
+                and shift_bad == 0 and tdoa_err <= 10 * tol
+                and psr_rel <= 10 * tol
+                and int(clear.sum()) * 2 > clear.numel()):
+            fail("2 large", f"{name}: kernel disagrees with its plain "
+                 "version (or too few clear rows to tell)")
+        if not kw["bf16"]:
+            worst = max(worst, err_raw, err_tap)
+    results["gcc_large_kernel"]["max_abs_err"] = worst
+
+
+def srp_inputs(corr_t):
+    """The full 101 x 101 steering matrix [558, 10,201] of the 4-mic array
+    for tapered correlograms [B, 6, 93] on the card."""
+    import torch
+    from audio_triangulation_tpu_torch import (GridConfig, PipelineConfig,
+                                               geometry)
+
+    mics = geometry.square_array(0.3)
+    grid, cfg = GridConfig(), PipelineConfig()
+    lut = geometry.lag_lut(grid, mics, geometry.mic_pairs(4), cfg)
+    onehot = torch.as_tensor(geometry.lag_onehot(lut, cfg.num_lags),
+                             device=corr_t.device)
+    if (onehot.shape != (corr_t.shape[1] * corr_t.shape[2], 10201)
+            or grid.num_cells != 10201):
+        fail("srp", f"unexpected steering matrix {tuple(onehot.shape)}")
+    return onehot, grid.num_cells
+
+
+def srp_check(phase, name, corr_t, onehot, cells, bf16):
+    """The SRP-argmax kernel against its plain version in float64: best
+    score within 1e-4 of the score scale, the cell equal wherever the
+    float64 top-two gap is clear of rounding.  Returns the score error."""
+    import torch
+    from audio_triangulation_tpu_torch.ops.cuda import srp_kernel
+
+    b = corr_t.shape[0]
+    val, cell = srp_kernel.srp_argmax(corr_t, onehot, cells, bf16=bf16)
+    torch.cuda.synchronize()
+    flat, w = corr_t.reshape(b, -1).double(), onehot.double()
+    if bf16:
+        flat, w = flat.bfloat16().double(), w.bfloat16().double()
+    scores = torch.matmul(flat, w)[:, :cells]
+    top2 = scores.topk(2, dim=-1)
+    smax = float(scores.abs().max())
+    clear = (top2.values[:, 0] - top2.values[:, 1]) > 1e-4 * smax
+    verr = float((val.double() - top2.values[:, 0]).abs().max()) / smax
+    picked = scores.gather(-1, cell.long()[:, None])[:, 0]
+    pick_err = float((picked - top2.values[:, 0]).abs().max()) / smax
+    cell_bad = int(((cell.long() != scores.argmax(dim=-1)) & clear).sum())
+    say(phase, f"{name}: {b} frames x {onehot.shape[0]} x {cells} cells vs "
+        f"the plain version in float64: score/scale err {verr:.2e}, cell "
+        f"mismatches {cell_bad} (near ties excluded: {int((~clear).sum())}), "
+        f"score of the chosen cell below the best by {pick_err:.2e}")
+    if not (verr <= 1e-4 and pick_err <= 1e-4 and cell_bad == 0
+            and int(clear.sum()) * 2 > b):
+        fail(phase, f"{name}: kernel disagrees with its plain version")
+    return verr
+
+
+def phase_srp(rng, results):
+    """The SRP-argmax kernel in f32 and bf16 on tapered correlograms of
+    random-source frames against the 101 x 101 grid (10,201 cells: no
+    multiple of any tile), and planted ties that the first cell must win."""
+    import torch
+    from audio_triangulation_tpu_torch import PipelineConfig, geometry
+    from audio_triangulation_tpu_torch.ops import window as window_ops
+    from audio_triangulation_tpu_torch.ops.cuda import gcc_kernel, srp_kernel
+
+    mics = geometry.square_array(0.3)
+    cfg = PipelineConfig(phat=True, fft_pad_mode="circular")
+    frames = torch.from_numpy(scene_frames(mics, SRP_CHECK_FRAMES,
+                                           rng)).cuda()
+    corr_t = gcc_kernel.fused_gcc(
+        frames, torch.as_tensor(window_ops.window_for(cfg), device="cuda"),
+        torch.as_tensor(geometry.mic_pairs(4), device="cuda"), cfg,
+        with_peaks=True)[0]
+    onehot, cells = srp_inputs(corr_t)
+    worst = 0.0
+    for bf16 in (False, True):
+        worst = max(worst, srp_check(
+            "2 srp", "bf16" if bf16 else "f32", corr_t, onehot, cells, bf16))
+    # ties: all-zero scores -> cell 0; two equal best columns, 8,963 cells
+    # apart -> the earlier one; a best column past num_cells never wins
+    zeros = torch.zeros_like(corr_t[:300])
+    _, cell0 = srp_kernel.srp_argmax(zeros, onehot, cells)
+    tied = onehot.clone()
+    tied[:, 37] = tied[:, 9000] = 2.0
+    pos = corr_t[:300].abs() + 1e-3
+    _, cell1 = srp_kernel.srp_argmax(pos, tied, cells)
+    _, cell2 = srp_kernel.srp_argmax(pos, tied, cells, bf16=True)
+    tied[:, 37] = 0.0
+    _, cell3 = srp_kernel.srp_argmax(pos, tied, 9000)
+    ref3 = torch.matmul(pos.reshape(pos.shape[0], -1), tied)[:, :9000].argmax(dim=-1)
+    torch.cuda.synchronize()
+    ok = (bool((cell0 == 0).all()) and bool((cell1 == 37).all())
+          and bool((cell2 == 37).all()) and bool((cell3 < 9000).all())
+          and float((cell3.long() == ref3).float().mean()) > 0.99)
+    say("2 srp", f"ties on {pos.shape[0]} frames: zero scores -> cell 0 "
+        f"{bool((cell0 == 0).all())}; equal columns 37 and 9,000 -> 37 "
+        f"{bool((cell1 == 37).all())}, in bf16 "
+        f"{bool((cell2 == 37).all())}; a larger column past num_cells "
+        f"never wins {bool((cell3 < 9000).all())}")
+    if not ok:
+        fail("2 srp", "the first maximum did not win")
+    results["srp_argmax_kernel"]["max_abs_err"] = worst
+
+
+def phase_gcc_srp(rng, results):
+    """The GCC kernel's SRP mode against its plain version.  Its first five
+    outputs must equal the base mode's bit for bit.  Its scoring must equal
+    the plain scoring of its own tapered rows (the same fp32 sums in the
+    same order): cell equal, score within 1e-6 of scale.  Against the plain
+    version in float64 on the frames, the cell must agree wherever the
+    float64 top-two gap exceeds 1e-2 of the score scale: a tapered value
+    that differs in its last fp32 bits can round to the next bf16 (2^-8 of
+    it) before it is summed.  The count left out is printed."""
+    import torch
+    from audio_triangulation_tpu_torch import Localizer, geometry
+    from audio_triangulation_tpu_torch.ops.cuda import gcc_kernel
+
+    mics = geometry.square_array(0.3)
+    frames = torch.from_numpy(scene_frames(mics, CHECK_FRAMES, rng)).cuda()
+    worst = 0.0
+    for name, cfg in main_configs()[:2]:
+        loc = Localizer.create(mics, cfg, device="cuda", init_grid_stride=3)
+        win_gain, mats = gcc_kernel.operands(frames, loc.window, cfg)
+        kw = dict(phat=cfg.phat, phat_eps=cfg.phat_eps,
+                  max_shift=cfg.max_shift, taper_denom=cfg.taper_denom)
+        if not gcc_kernel.srp_mode_fits(frames, cfg, loc.pairs.shape[0]):
+            fail("2 gcc srp", f"{name}: the SRP mode does not fit")
+        got = gcc_kernel.launch_srp(frames, win_gain, mats, loc.pairs,
+                                    loc.lut_flat, **kw)
+        base = gcc_kernel.launch(frames, win_gain, mats, loc.pairs, **kw,
+                                 with_peaks=True)
+        own_cell, own_score = gcc_kernel.srp_first_max(got[0], loc.lut_flat)
+        ref64 = gcc_kernel.gcc_srp_reference(
+            frames.double(), win_gain.double(), mats.to(torch.float64),
+            loc.pairs, loc.lut_flat, **kw)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(base, got[:5]))
+        tap64 = ref64[0].bfloat16().double()
+        scores64 = sum(tap64[:, p, :].index_select(-1, loc.lut_flat[p].long())
+                       for p in range(loc.pairs.shape[0]))
+        smax = float(scores64.abs().max())
+        top2 = scores64.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > 1e-2 * smax
+        cell_bad = int(((got[5] != ref64[5]) & clear).sum())
+        serr = float((got[6].double() - ref64[6]).abs().max()) / smax
+        own_bad = int((got[5] != own_cell).sum())
+        own_err = float((got[6] - own_score).abs().max()) / smax
+        say("2 gcc srp", f"{name}: {frames.shape[0]} frames, "
+            f"{loc.lut_flat.shape[1]} cells: first five outputs equal to the "
+            f"base mode's {same}; vs the plain scoring of its own rows: cell "
+            f"mismatches {own_bad}, score/scale err {own_err:.2e}; vs the "
+            f"plain version in float64: cell mismatches {cell_bad} (near "
+            f"ties excluded: {int((~clear).sum())}), score/scale err "
+            f"{serr:.2e}")
+        if not (same and own_bad == 0 and own_err <= 1e-6 and cell_bad == 0
+                and serr <= 1e-2 and int(clear.sum()) * 2 > clear.numel()):
+            fail("2 gcc srp", f"{name}: kernel disagrees with its plain "
+                 "version")
+        worst = max(worst, own_err)
+    results["gcc_srp_kernel"]["max_abs_err"] = worst
+
+
 def main_configs():
     from audio_triangulation_tpu_torch import PipelineConfig
 
@@ -401,143 +722,351 @@ def main_configs():
     ]
 
 
-# the kernels each main-path configuration must launch
+def fused_srp_config():
+    """The first bench line with scoring and the grid argmax in the GCC
+    kernel."""
+    import dataclasses
+
+    name, cfg = main_configs()[0]
+    return name + "_fused_srp", dataclasses.replace(cfg, fused_srp="on")
+
+
+# the kernels each main path must launch
 PATH_KERNELS = {"bandcrop_800_6000": ("gcc_kernel", "gn_kernel"),
                 "fullband": ("gcc_kernel", "gn_kernel"),
-                "handsfree_auto_hybrid": ("gcc_stats_kernel", "gn_kernel")}
+                "handsfree_auto_hybrid": ("gcc_stats_kernel", "gn_kernel"),
+                "bandcrop_800_6000_fused_srp": ("gcc_srp_kernel",
+                                                "gn_kernel"),
+                "large64_fullband": ("gcc_large_kernel",),
+                "large64_bandcrop_800_6000": ("gcc_large_kernel",),
+                "large64_auto": ("gcc_large_kernel",),
+                "srp_argmax_101x101": ("srp_argmax_kernel",)}
 
 
 def launch_counts():
-    from audio_triangulation_tpu_torch.ops.cuda import gcc_kernel, gn_kernel
+    from audio_triangulation_tpu_torch.ops.cuda import (
+        gcc_kernel, gcc_large, gn_kernel, srp_kernel)
 
     return {"gcc_kernel": gcc_kernel.launches,
             "gcc_stats_kernel": gcc_kernel.stats_launches,
-            "gn_kernel": gn_kernel.launches}
+            "gn_kernel": gn_kernel.launches,
+            "gcc_large_kernel": gcc_large.launches,
+            "srp_argmax_kernel": srp_kernel.launches,
+            "gcc_srp_kernel": gcc_kernel.srp_launches}
 
 
 def reset_counts():
-    from audio_triangulation_tpu_torch.ops.cuda import gcc_kernel, gn_kernel
+    from audio_triangulation_tpu_torch.ops.cuda import (
+        gcc_kernel, gcc_large, gn_kernel, srp_kernel)
 
-    gcc_kernel.launches = gcc_kernel.stats_launches = gn_kernel.launches = 0
+    gcc_kernel.launches = gcc_kernel.stats_launches = 0
+    gcc_kernel.srp_launches = gn_kernel.launches = 0
+    gcc_large.launches = srp_kernel.launches = 0
+
+
+def counted(name, results, fn):
+    """Run ``fn`` with every launch count set to 0 just before and read just
+    after; add the counts to the results and fail if a kernel of the path
+    ``name`` was not launched."""
+    import torch
+
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for k, v in counts.items():
+        results[k]["launches"] += v
+    say("4 main", f"{name}: launches {counts}")
+    if min(counts[k] for k in PATH_KERNELS[name]) < 1:
+        fail("4 main", f"{name}: a kernel of its path was never launched")
+    return out
+
+
+def check_localizer(name, loc, out, frames_np, n_cpu, create_kw,
+                    clear_rows=None):
+    """One path's result: finite, of the expected shape, its median error
+    under the configuration's bound, and held to the port's CPU path on the
+    first ``n_cpu`` frames (xy within 2e-4 m, tdoa within 1e-3 samples,
+    equal best shifts; with ``clear_rows``, a function of the CPU localizer
+    and frames that marks the rows clear of a near tie, on those rows)."""
+    import torch
+    from audio_triangulation_tpu_torch import Localizer
+
+    n_frames = frames_np.shape[0]
+    xy = out["xy"]
+    if (xy.shape != (n_frames, 2) or not bool(torch.isfinite(xy).all())
+            or not bool(torch.isfinite(out["scores"]).all())):
+        fail("4 main", f"{name}: non-finite or misshapen output")
+    err = (xy - torch.tensor(SOURCE_XY, device="cuda")).norm(dim=-1)
+    med = float(err.median())
+    cpu_loc = Localizer.create(
+        loc.mic_positions.cpu().numpy(), loc.pipeline, device="cpu",
+        **create_kw)
+    cpu_frames = torch.from_numpy(frames_np[:n_cpu])
+    ref = cpu_loc(cpu_frames)
+    dxy = float((xy[:n_cpu].cpu() - ref["xy"]).abs().max())
+    shift_ne = out["best_shift"][:n_cpu].cpu() != ref["best_shift"]
+    left_out = ""
+    if clear_rows is not None:
+        clear = clear_rows(cpu_loc, cpu_frames)
+        left_out = (f" on rows clear of a near tie ({int((~clear).sum())} of "
+                    f"{clear.numel()} left out)")
+        shift_ne &= clear
+    shift_eq = not bool(shift_ne.any())
+    dtdoa = float((out["tdoa_samples"][:n_cpu].cpu()
+                   - ref["tdoa_samples"]).abs().max())
+    say("4 main", f"{name}: median |xy - (0.5, 0.4)| = {med * 100:.4f} "
+        f"cm; vs CPU path on {n_cpu} frames: xy {dxy:.2e} m, shifts "
+        f"equal {shift_eq}{left_out}, tdoa {dtdoa:.2e} samples")
+    if not (med < MEDIAN_BOUND_M[name] and dxy <= 2e-4 and shift_eq
+            and dtdoa <= 1e-3):
+        fail("4 main", f"{name}: result check failed")
+
+
+def large_clear_rows(cpu_loc, cpu_frames):
+    """Rows [B, P] whose two best raw correlogram values lie further apart
+    than 1e-3 of scale, from the CPU path's plain large-array engine: over
+    2,016 pairs some true delays fall half-way between two lags, and there
+    fp32 rounding decides the integer shift (the sub-sample tdoa is the
+    same either way)."""
+    from audio_triangulation_tpu_torch.models.localizer import (
+        condition_frames)
+    from audio_triangulation_tpu_torch.ops.cuda import gcc_large
+
+    raw = gcc_large.xcorr_large(
+        condition_frames(cpu_frames, cpu_loc.window, cpu_loc.pipeline),
+        cpu_loc.pairs, cpu_loc.pipeline)
+    top2 = raw.topk(2, dim=-1).values
+    return (top2[..., 0] - top2[..., 1]) > 1e-3 * float(raw.abs().max())
 
 
 def phase_main(rng, results):
     import torch
     from audio_triangulation_tpu_torch import Localizer, geometry
+    from audio_triangulation_tpu_torch.ops.cuda import srp_kernel
 
+    for k in results:
+        results[k]["launches"] = 0
+
+    # ---- the 4-mic paths: 16,384 frames of 4 x 1,024 ----------------------
     mics = geometry.square_array(0.3)
     frames_np = scene_frames(mics, FRAMES, rng,
                              fixed_source=(*SOURCE_XY, 1.2))
     frames = torch.from_numpy(frames_np).cuda()
-    locs = [(name, Localizer.create(mics, cfg, device="cuda",
-                                    init_grid_stride=3))
-            for name, cfg in main_configs()]
+    small_kw = dict(init_grid_stride=3)
+    locs = [(name, Localizer.create(mics, cfg, device="cuda", **small_kw))
+            for name, cfg in main_configs() + [fused_srp_config()]]
     torch.cuda.synchronize()
-
-    outs = []
-    for k in results:
-        results[k]["launches"] = 0
+    outs = {}
     for name, loc in locs:
-        # each path's kernels are counted from 0 around its own run
-        reset_counts()
-        out = loc(frames)
+        outs[name] = counted(name, results, lambda: loc(frames))
+    for name, loc in locs:
+        check_localizer(name, loc, outs[name], frames_np, 64, small_kw)
+    fused, plain = outs[locs[3][0]], outs[locs[0][0]]
+    same = all(torch.equal(fused[k], plain[k]) for k in plain
+               if k not in ("xy_grid", "xy", "rms_m", "xy_cov"))
+    cell_eq = float((fused["xy_grid"] == plain["xy_grid"]).all(
+        dim=-1).float().mean())
+    say("4 main", f"{locs[3][0]}: outputs before the grid peak equal to "
+        f"{locs[0][0]}'s {same}; the kernel's cell is the outside argmax's "
+        f"on {cell_eq * 100:.3f}% of frames")
+    # two cells whose scores differ by fp32 rounding may swap between the
+    # kernel's sum over pairs in order and the outside product's order
+    if not (same and cell_eq >= 0.999):
+        fail("4 main", "in-kernel SRP changed the result")
+
+    # ---- srp_argmax on the full 101 x 101 grid ------------------------------
+    corr_t = outs["fullband"]["correlograms"]
+    onehot, cells = srp_inputs(corr_t)
+    val, cell = counted(
+        "srp_argmax_101x101", results,
+        lambda: srp_kernel.srp_argmax(corr_t, onehot, cells))
+    srp_check("4 main", "srp_argmax_101x101", corr_t[:SRP_CHECK_FRAMES],
+              onehot, cells, False)
+    xy_cell = torch.stack([(cell % 101 - 50) / 24.0,
+                           (50 - cell // 101) / 24.0], dim=-1)
+    off = float((xy_cell - torch.tensor(SOURCE_XY, device="cuda")).norm(
+        dim=-1).median())
+    say("4 main", f"srp_argmax_101x101: median |best cell - (0.5, 0.4)| = "
+        f"{off * 100:.2f} cm (cells are 4.17 cm)")
+    if not (val.shape == cell.shape == (FRAMES,)
+            and bool(torch.isfinite(val).all()) and off < 0.1):
+        fail("4 main", "srp_argmax_101x101: result check failed")
+    srp_args = (corr_t, onehot, cells)
+    del outs, fused, plain
+
+    # ---- the 64-mic paths: 256 frames of 64 x 4,096 -------------------------
+    mics64, grid64, configs64 = large_configs()
+    large_np = scene_frames(mics64, LARGE_FRAMES, rng,
+                            fixed_source=(*SOURCE_XY, 1.2), n=LARGE_SAMPLES)
+    large = torch.from_numpy(large_np).cuda()
+    large_kw = dict(grid=grid64, init_grid_stride=LARGE_STRIDE)
+    large_locs = []
+    for name, cfg in configs64:
+        loc = Localizer.create(mics64, cfg, device="cuda", **large_kw)
+        out = counted(name, results, lambda: loc(large))
+        check_localizer(name, loc, out, large_np, LARGE_CPU_FRAMES, large_kw,
+                        clear_rows=large_clear_rows)
+        large_locs.append((name, loc))
+        del out
+    return locs, frames, large_locs, large, srp_args
+
+
+def time_path(card, name, fn, n_frames):
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    rates = []
+    for _ in range(TRIALS):
         torch.cuda.synchronize()
-        counts = launch_counts()
-        outs.append((name, out))
-        for k, v in counts.items():
-            results[k]["launches"] += v
-        say("4 main", f"{name}: {FRAMES} frames, launches {counts}")
-        if min(counts[k] for k in PATH_KERNELS[name]) < 1:
-            fail("4 main", f"{name}: a kernel of its path was never "
-                 "launched")
-
-    n_cpu = 64
-    for (name, out), (_, loc) in zip(outs, locs):
-        xy = out["xy"]
-        if (xy.shape != (FRAMES, 2) or not bool(torch.isfinite(
-                xy).all()) or not bool(torch.isfinite(out["scores"]).all())):
-            fail("4 main", f"{name}: non-finite or misshapen output")
-        err = (xy - torch.tensor(SOURCE_XY, device="cuda")).norm(dim=-1)
-        med = float(err.median())
-        cpu_loc = Localizer.create(mics, loc.pipeline, device="cpu",
-                                   init_grid_stride=3)
-        ref = cpu_loc(torch.from_numpy(frames_np[:n_cpu]))
-        dxy = float((xy[:n_cpu].cpu() - ref["xy"]).abs().max())
-        shift_eq = bool((out["best_shift"][:n_cpu].cpu()
-                         == ref["best_shift"]).all())
-        dtdoa = float((out["tdoa_samples"][:n_cpu].cpu()
-                       - ref["tdoa_samples"]).abs().max())
-        say("4 main", f"{name}: median |xy - (0.5, 0.4)| = {med * 100:.4f} "
-            f"cm; vs CPU path on {n_cpu} frames: xy {dxy:.2e} m, shifts "
-            f"equal {shift_eq}, tdoa {dtdoa:.2e} samples")
-        if not (med < MEDIAN_BOUND_M[name] and dxy <= 2e-4 and shift_eq
-                and dtdoa <= 1e-3):
-            fail("4 main", f"{name}: result check failed")
-    return locs, frames
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        rates.append(n_frames / (time.perf_counter() - t0))
+    q1, med, q3 = np.percentile(rates, [25, 50, 75])
+    say("5 timing", f"{name}: {med:.1f} frames/s median, IQR "
+        f"{q1:.1f}-{q3:.1f} over {TRIALS} trials of {n_frames} frames "
+        f"({card})")
 
 
-def phase_timing(card, locs, frames, results):
+def phase_timing(card, locs, frames, large_locs, large, srp_args, results):
     import torch
     from audio_triangulation_tpu_torch.core import geometry
-    from audio_triangulation_tpu_torch.ops.cuda import gcc_kernel, gn_kernel
+    from audio_triangulation_tpu_torch.ops import solver as solver_ops, xcorr
+    from audio_triangulation_tpu_torch.ops.cuda import (
+        gcc_kernel, gcc_large, gn_kernel, srp_kernel)
 
     for name, loc in locs:
-        for _ in range(2):
-            loc(frames)
-        torch.cuda.synchronize()
-        rates = []
-        for _ in range(TRIALS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            loc(frames)
-            torch.cuda.synchronize()
-            rates.append(frames.shape[0] / (time.perf_counter() - t0))
-        q1, med, q3 = np.percentile(rates, [25, 50, 75])
-        say("5 timing", f"{name}: {med:.1f} frames/s median, IQR "
-            f"{q1:.1f}-{q3:.1f} over {TRIALS} trials of "
-            f"{frames.shape[0]} frames ({card})")
+        time_path(card, name, lambda: loc(frames), frames.shape[0])
+    time_path(card, "srp_argmax_101x101",
+              lambda: srp_kernel.srp_argmax(*srp_args), frames.shape[0])
+    for name, loc in large_locs:
+        time_path(card, name, lambda: loc(large), large.shape[0])
+
+    def report(kernel, name, k_ms, p_ms, bnd, library_ms=None, **extra):
+        lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
+        say("5 timing", f"{kernel} {name}: kernel {k_ms:.4f} ms, plain "
+            f"{p_ms:.4f} ms{lib}, bound {bnd['bound_ms']:.4f} ms by "
+            f"{bnd['bound_by']} ({card})")
+        if "ms" not in results[kernel]:  # the first config of each kernel
+            results[kernel].update(ms=k_ms, plain_ms=p_ms, **bnd,
+                                   library_ms=library_ms, **extra)
 
     # each kernel against its plain version at the main path's shapes
+    b, m, n = frames.shape
     pairs = torch.as_tensor(geometry.mic_pairs(4), device="cuda")
     for name, loc in locs:
         cfg = loc.pipeline
         ops = (*gcc_kernel.operands(frames, loc.window, cfg), pairs)
+        f, l = ops[1][2].shape
         kw = dict(phat=cfg.phat, phat_eps=cfg.phat_eps,
-                  max_shift=cfg.max_shift, taper_denom=cfg.taper_denom,
-                  with_peaks=True)
+                  max_shift=cfg.max_shift, taper_denom=cfg.taper_denom)
         sp = gcc_kernel.stats_params(cfg, True)
-        if sp is None:
-            kernel, k_ms, p_ms = "gcc_kernel", *alternate_ms(
-                lambda: gcc_kernel.gcc_reference(frames, *ops, **kw),
-                lambda: gcc_kernel.launch(frames, *ops, **kw))
+        if cfg.fused_srp == "on":
+            lut = loc.lut_flat
+            report("gcc_srp_kernel", name, *alternate_ms(
+                lambda: gcc_kernel.gcc_srp_reference(frames, *ops, lut, **kw),
+                lambda: gcc_kernel.launch_srp(frames, *ops, lut, **kw)),
+                gcc_bound(b, m, n, f, 6, l, srp_cells=lut.shape[1]))
+        elif sp is None:
+            report("gcc_kernel", name, *alternate_ms(
+                lambda: gcc_kernel.gcc_reference(frames, *ops, **kw,
+                                                 with_peaks=True),
+                lambda: gcc_kernel.launch(frames, *ops, **kw,
+                                          with_peaks=True)),
+                gcc_bound(b, m, n, f, 6, l))
+            # the same kernel without its peak stage (no bench line asks
+            # for it: they all taper and sub-sample)
+            k_ms, p_ms = alternate_ms(
+                lambda: gcc_kernel.gcc_reference(frames, *ops, **kw,
+                                                 with_peaks=False),
+                lambda: gcc_kernel.launch(frames, *ops, **kw,
+                                          with_peaks=False))
+            say("5 timing", f"gcc_kernel {name} without peaks: kernel "
+                f"{k_ms:.4f} ms, plain {p_ms:.4f} ms ({card})")
         else:
-            kernel, k_ms, p_ms = "gcc_stats_kernel", *alternate_ms(
-                lambda: gcc_kernel.gcc_stats_reference(frames, *ops, sp,
-                                                       **kw),
-                lambda: gcc_kernel.launch_stats(frames, *ops, sp, **kw))
-        say("5 timing", f"{kernel} {name} ({frames.shape[0]} frames): "
-            f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms ({card})")
-        if "ms" not in results[kernel]:  # the first config of each kernel
-            results[kernel].update(ms=k_ms, plain_ms=p_ms)
+            report("gcc_stats_kernel", name, *alternate_ms(
+                lambda: gcc_kernel.gcc_stats_reference(
+                    frames, *ops, sp, **kw, with_peaks=True),
+                lambda: gcc_kernel.launch_stats(
+                    frames, *ops, sp, **kw, with_peaks=True)),
+                gcc_bound(b, m, n, f, 6, l, stats_hw=sp.half_width))
 
     loc = locs[0][1]
-    b = frames.shape[0]
     xy0 = torch.rand((b, 2), device="cuda") * 2 - 1
     mic3 = torch.zeros((4, 3), device="cuda")
     mic3[:, :2] = loc.mic_positions
-    from audio_triangulation_tpu_torch.ops import solver as solver_ops
-
     tau = solver_ops.predicted_tdoas(xy0, mic3, pairs, 343.0, 1.2, True)
     init = xy0 * 0.9 + 0.02
-    kw = dict(c=343.0, h=1.2, iters=loc.solver.iterations,
-              damping=loc.solver.damping, sphere=True)
-    k_ms, p_ms = alternate_ms(
+    iters = loc.solver.iterations
+    kw = dict(c=343.0, h=1.2, iters=iters, damping=loc.solver.damping,
+              sphere=True)
+    # per evaluation of residuals and Jacobian: the sphere projection, a
+    # distance and two gradient terms per mic, three differences and five
+    # products per pair
+    report("gn_kernel", f"({b} frames)", *alternate_ms(
         lambda: gn_kernel.gn_reference(tau, init, loc.mic_positions, pairs,
                                        **kw),
-        lambda: gn_kernel.launch(tau, init, loc.mic_positions, pairs, **kw))
-    say("5 timing", f"gn_kernel ({b} frames): kernel {k_ms:.4f} ms, plain "
-        f"{p_ms:.4f} ms ({card})")
-    results["gn_kernel"].update(ms=k_ms, plain_ms=p_ms)
+        lambda: gn_kernel.launch(tau, init, loc.mic_positions, pairs, **kw)),
+        bound(b * (iters + 1) * (30 + 25 * 4 + 15 * 6),
+              4 * b * (6 + 2 + 2 + 1)))
+
+    # the SRP-argmax kernel; its library yardstick is two calls, a matmul
+    # that stores [B, G] and an argmax over it
+    corr_t, onehot, cells = srp_args
+    flat = corr_t.reshape(b, -1)
+    k_dim, g = onehot.shape
+    k_ms, p_ms = alternate_ms(
+        lambda: srp_kernel.srp_argmax_reference(flat, onehot, cells),
+        lambda: srp_kernel.launch(flat, onehot, cells))
+    lib_ms = cuda_ms(lambda: torch.matmul(flat, onehot).argmax(dim=-1), REPS)
+    report("srp_argmax_kernel", f"({b} frames, {g} cells)", k_ms, p_ms,
+           bound(2 * b * k_dim * g, 4 * (b * k_dim + k_dim * g + 2 * b)),
+           library_ms=lib_ms, library="torch.matmul + argmax (two calls)")
+
+    # the large-array kernel, with peaks as the Localizer calls it; and on
+    # the band-crop line both peak routes: in the kernel, or the plain peak
+    # ops after it
+    lb, lm, _ = large.shape
+    for name, loc in large_locs:
+        cfg = loc.pipeline
+        re, im, sync, syns, kw = large_operands(large, loc.window, loc.pairs,
+                                                cfg)
+        f, l = sync.shape
+        p = loc.pairs.shape[0]
+        report("gcc_large_kernel", name, *alternate_ms(
+            lambda: gcc_large.gcc_large_reference(
+                re, im, loc.pairs, sync, syns, **kw, with_peaks=True),
+            lambda: gcc_large.launch(re, im, loc.pairs, sync, syns, **kw,
+                                     with_peaks=True), LARGE_REPS),
+            bound(lb * p * f * (6 + 4 * l),
+                  4 * (2 * lb * lm * f + 2 * f * l + 2 * p + lb * p * l
+                       + 4 * lb * p)))
+        if cfg.band_crop:
+            k = cfg.max_shift
+
+            def outside():
+                corr = gcc_large.launch(re, im, loc.pairs, sync, syns, **kw,
+                                        with_peaks=False)
+                shifts = xcorr.best_lag(corr, k)
+                return (xcorr.peak_taper(corr, k, cfg.taper_denom, shifts),
+                        shifts, *xcorr.subsample_peak(corr, k),
+                        xcorr.peak_confidence(corr, k))
+
+            in_ms, out_ms = alternate_ms(
+                outside, lambda: gcc_large.launch(
+                    re, im, loc.pairs, sync, syns, **kw, with_peaks=True),
+                LARGE_REPS)
+            say("5 timing", f"gcc_large_kernel {name} peak routes: peaks in "
+                f"the kernel {in_ms:.4f} ms, kernel without peaks then the "
+                f"plain peak ops {out_ms:.4f} ms ({card})")
+
+
+KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
+               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms")
 
 
 def main():
@@ -550,13 +1079,15 @@ def main():
     phase_gcc(rng, results)
     phase_stats(rng, results)
     phase_gn(rng, results)
-    locs, frames = phase_main(rng, results)
-    phase_timing(card, locs, frames, results)
+    phase_large(rng, results)
+    phase_srp(rng, results)
+    phase_gcc_srp(rng, results)
+    state = phase_main(rng, results)
+    phase_timing(card, *state, results)
 
     print(json.dumps({"kernels": [
-        {k: results[n][k] for k in ("name", "route", "source", "replaces",
-                                    "launches", "max_abs_err", "ms",
-                                    "plain_ms")}
+        {k: results[n][k] for k in (*KERNEL_KEYS, *(
+            ["library"] if "library" in results[n] else []))}
         for n in KERNEL_INFO]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -261,3 +261,26 @@ def test_build_compiles_each_source_then_links(tmp_path, monkeypatch):
     assert all(" -c " in c for c in calls[:-1])
     assert " -shared " in calls[-1] and "-c" not in calls[-1].split()
     assert out.exists() and list((tmp_path / "build").iterdir()) == [out]
+
+
+def test_device_constant_copies_once_per_array_and_device():
+    """Off the CPU a numpy constant is copied to the device once and the
+    copy kept by the array's identity (the "meta" device stands in for a
+    card here); on the CPU nothing is kept."""
+    from audio_triangulation_tpu_torch.ops import _device
+
+    a = np.arange(6, dtype=np.float64).reshape(2, 3)
+    b = a.copy()
+    ta = _device.device_constant(a, "meta")
+    assert ta.device.type == "meta" and ta.dtype == torch.float32
+    assert _device.device_constant(a, torch.device("meta")) is ta
+    assert _device.device_constant(b, "meta") is not ta  # another array
+    assert _device.device_constant(a, "meta", torch.int64) is not ta
+    cpu = _device.device_constant(a, "cpu")
+    assert cpu.dtype == torch.float32 and cpu.tolist() == a.tolist()
+    assert _device.device_constant(a, "cpu") is not cpu
+    for i in range(_device.MAX_ENTRIES + 3):  # the oldest entries go
+        _device.device_constant(np.zeros(1) + i, "meta")
+    assert len(_device._cache) == _device.MAX_ENTRIES
+    assert _device.device_constant(a, "meta") is not ta
+

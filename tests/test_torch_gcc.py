@@ -1,7 +1,7 @@
 """PyTorch port, GCC kernel module: the port's fused GCC (its plain version
 on the CPU) against the JAX package's Pallas GCC kernel in interpret mode,
-on the same raw frames, in the base mode and the spectral-stats mode; plus
-the wrapper's no-fallback contract."""
+on the same raw frames, in the base mode, the spectral-stats mode and the
+in-kernel SRP mode; plus the wrapper's no-fallback contract."""
 
 import numpy as np
 import pytest
@@ -163,6 +163,118 @@ def test_stats_band_weights_and_refusals():
                                               band_hz="auto"), False)
 
 
+# the in-kernel SRP mode (the reference's compact Mode B)
+SRP_CASES = {
+    "3mic_phat_circular": (3, dict(fft_pad_mode="circular", phat=True),
+                           dict(half_cells_x=16, half_cells_y=16,
+                                cells_per_m=8.0)),
+    "3mic_linear_nophat": (3, dict(), dict(half_cells_x=10, half_cells_y=10,
+                                           cells_per_m=6.0)),
+    "4mic_band_crop": (4, dict(phat=True, fft_pad_mode="circular",
+                               band_hz=(800.0, 6000.0), band_crop=True),
+                       dict(half_cells_x=16, half_cells_y=16,
+                            cells_per_m=8.0)),
+    "4mic_fullband": (4, dict(phat=True, fft_pad_mode="circular"),
+                                dict(half_cells_x=16, half_cells_y=16,
+                                     cells_per_m=8.0)),
+}
+
+
+def _chirp_case(m, grid_kw, cfg):
+    """Chirp frames from random sources and the lag LUT of the case."""
+    mics = jgeo.reference_array() if m == 3 else jgeo.square_array(0.3)
+    rng = np.random.default_rng(11)
+    planes = rng.uniform(-1.0, 1.0, (8, 2))
+    src = np.stack([np.array([x, y, 1.2]) * (1.2 / np.linalg.norm([x, y, 1.2]))
+                    for x, y in planes])
+    frames = jsynth.synth_scene(src, mics, noise_rms=0.02,
+                                seed=5).astype(np.float32)
+    pairs = jgeo.mic_pairs(m)
+    lut = jgeo.lag_lut(jcfg.GridConfig(**grid_kw), mics, pairs, cfg)
+    return frames, jwin.dpss_window(1024), pairs, lut
+
+
+@pytest.mark.parametrize("case", sorted(SRP_CASES))
+def test_srp_mode_matches_pallas_interpret(case):
+    """The first five outputs as in the base mode; the best score within
+    1e-4 of the score scale of the reference kernel's (per-pair f32 sums on
+    both sides, over bf16-rounded correlograms that differ in the last
+    bits), and the cell the same or one whose score ties within that."""
+    m, kw, grid_kw = SRP_CASES[case]
+    cfg = jcfg.PipelineConfig(**kw)
+    frames, win, pairs, lut = _chirp_case(m, grid_kw, cfg)
+    oh = jgeo.lag_onehot(lut, cfg.num_lags)  # [P*L, G]
+    p, l, g = len(pairs), cfg.num_lags, oh.shape[-1]
+    oh3 = np.zeros((p, 128, g), np.float32)  # lag axis padded to 128 lanes
+    oh3[:, :l] = oh.reshape(p, l, g)
+    ref = [np.asarray(r) for r in jgcc.fused_gcc_peaks(
+        jnp.asarray(frames), jnp.asarray(win), pairs, cfg, tile_b=8,
+        interpret=True, srp_onehot=jnp.asarray(oh3))]
+    got = tgcc.fused_gcc_srp(
+        torch.from_numpy(frames), torch.from_numpy(win),
+        torch.from_numpy(pairs), torch.from_numpy(lut.reshape(p, -1)),
+        tcfg.PipelineConfig(**kw))
+    base = _port(frames, win, pairs, kw, True)
+    assert len(got) == len(ref) == 7
+    for a, b in zip(base, got[:5]):
+        assert torch.equal(a, b)
+    got = [t.numpy() for t in got]
+    scale = np.abs(ref[0]).max()
+    np.testing.assert_allclose(got[0] / scale, ref[0] / scale, atol=1e-5)
+    np.testing.assert_array_equal(got[1], ref[1])
+    cell, score = got[5], got[6]
+    assert cell.dtype == np.int32 and cell.shape == score.shape == (8,)
+    scores = tsrp_scores(got[0], oh)
+    smax = np.abs(scores).max()
+    np.testing.assert_allclose(score, ref[6], atol=1e-4 * smax)
+    np.testing.assert_allclose(score, scores.max(-1), atol=1e-4 * smax)
+    picked_ref = scores[np.arange(8), ref[5]]
+    picked = scores[np.arange(8), cell]
+    np.testing.assert_allclose(picked, picked_ref, atol=1e-4 * smax)
+    assert (cell == ref[5]).mean() >= 0.75
+
+
+def tsrp_scores(corr_t, onehot):
+    """bf16-rounded tapered correlograms times the steering matrix, f32."""
+    from audio_triangulation_tpu_torch.ops import srp as tsrp
+
+    return tsrp.srp_scores_matmul(torch.from_numpy(corr_t),
+                                  torch.from_numpy(onehot),
+                                  "bfloat16").numpy()
+
+
+def test_srp_first_max_is_first_and_in_pair_order():
+    """Ties go to the first cell, and the sum runs over pairs in order."""
+    corr = torch.zeros((2, 3, 5))
+    corr[0, :, 2] = 1.0
+    corr[1, 0, 1], corr[1, 1, 3], corr[1, 2, 0] = 1.0, 1e-8, -1.0
+    lut = torch.tensor([[2, 0, 2, 1, 1], [2, 4, 2, 3, 3], [2, 4, 2, 4, 0]],
+                       dtype=torch.int32)
+    cell, score = tgcc.srp_first_max(corr, lut)
+    assert cell.tolist() == [0, 3] and cell.dtype == torch.int32
+    # (1 + 1e-8) - 1 in pair order; 1e-8 is bf16-rounded first
+    want = (torch.tensor(1.0) + torch.tensor(1e-8).bfloat16().float()) - 0.0
+    assert float(score[0]) == 3.0 and float(score[1]) == float(want)
+
+
+def test_srp_mode_refuses_the_stats_mode():
+    x = torch.zeros((2, 3, 1024))
+    lut = torch.zeros((3, 9), dtype=torch.int32)
+    with pytest.raises(ValueError, match="stats"):
+        tgcc.fused_gcc_srp(x, torch.ones(1024), torch.tensor(jgeo.mic_pairs(3)),
+                           lut, tcfg.PipelineConfig(band_hz="auto"))
+    with pytest.raises(ValueError, match="CUDA"):  # no plain fallback
+        tgcc.fused_gcc_srp(x.to("meta"), torch.ones(1024),
+                           torch.tensor(jgeo.mic_pairs(3)), lut,
+                           tcfg.PipelineConfig())
+    before = tgcc.srp_launches
+    out = tgcc.fused_gcc_srp(x, torch.ones(1024),
+                             torch.tensor(jgeo.mic_pairs(3)), lut,
+                             tcfg.PipelineConfig())
+    assert tgcc.srp_launches == before and out[5].tolist() == [0, 0]
+    assert tgcc.srp_mode_fits(x, tcfg.PipelineConfig(), 3)  # no CPU limit
+
+
 def test_cpu_path_does_not_count_launches(rng):
     frames, win, pairs = _inputs(rng, 3, b=2)
     before = (tgcc.launches, tgcc.stats_launches)
@@ -252,3 +364,34 @@ def test_cuda_stats_kernel_matches_plain_version(cuda_device, case):
     assert float((got[2].double() - ref[2]).abs().max()) < 1e-3
     if sp.band_auto:
         assert torch.equal(got[5].double(), ref[5])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(SRP_CASES))
+def test_cuda_srp_mode_matches_plain_version(cuda_device, case):
+    """The SRP mode against its plain version in float64: the first five
+    outputs as the base mode's, the score within 1e-4 of the score scale."""
+    m, kw, grid_kw = SRP_CASES[case]
+    cfg = tcfg.PipelineConfig(**kw)
+    frames, win, pairs, lut = _chirp_case(m, grid_kw,
+                                          jcfg.PipelineConfig(**kw))
+    x = torch.from_numpy(frames).to(cuda_device)
+    win_gain, mats = tgcc.operands(x, torch.from_numpy(win), cfg)
+    p = torch.from_numpy(pairs).to(cuda_device)
+    lut_flat = torch.from_numpy(lut.reshape(len(pairs), -1)).to(cuda_device)
+    args = dict(phat=cfg.phat, phat_eps=cfg.phat_eps,
+                max_shift=cfg.max_shift, taper_denom=cfg.taper_denom)
+    before = tgcc.srp_launches
+    got = tgcc.launch_srp(x, win_gain, mats, p, lut_flat, **args)
+    assert tgcc.srp_launches == before + 1
+    base = tgcc.launch(x, win_gain, mats, p, **args, with_peaks=True)
+    for a, b in zip(base, got[:5]):
+        assert torch.equal(a, b)
+    ref = tgcc.gcc_srp_reference(x.double(), win_gain.double(),
+                                 mats.to(torch.float64), p, lut_flat, **args)
+    smax = float(ref[6].abs().max())
+    assert float((got[6].double() - ref[6]).abs().max()) < 1e-2 * smax
+    # against the scoring of the kernel's own tapered rows: exact cell
+    cell, score = tgcc.srp_first_max(got[0], lut_flat)
+    assert torch.equal(got[5], cell)
+    assert float((got[6] - score).abs().max()) < 1e-5 * smax

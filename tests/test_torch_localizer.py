@@ -319,27 +319,159 @@ def test_handsfree_from_reference_params(rng):
                                atol=2e-4)
 
 
-def test_large_array_raises():
-    with pytest.raises(NotImplementedError, match="slice D"):
-        Localizer.create(geometry.circular_array(24, 0.5), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice D"):
-        Localizer.create(geometry.circular_array(24, 0.5),
-                         tcfg.PipelineConfig(band_hz="auto"), device="cpu")
-
-
 def test_accepted_tpu_knobs_change_nothing(rng):
     mics = geometry.square_array(0.3)
     base = Localizer.create(mics, tcfg.PipelineConfig(**BENCH),
                             device="cpu", init_grid_stride=3)
     knobs = Localizer.create(
-        mics, tcfg.PipelineConfig(**BENCH, fused_srp="on",
-                                  fused_sub_tiles=2, fused_kernel="off",
-                                  dft_precision="highest", pair_chunk=2),
+        mics, tcfg.PipelineConfig(**BENCH, fused_sub_tiles=2,
+                                  fused_kernel="off", fused_tile_b=64,
+                                  dft_precision="highest"),
         device="cpu", init_grid_stride=3)
     frames = torch.from_numpy(_frames(rng, mics, b=3))
     a, b = base(frames), knobs(frames)
     for k in a:
         assert torch.equal(a[k], b[k]), k
+
+
+def _spy(monkeypatch, calls, mod, name):
+    def spy(*a, _f=getattr(mod, name), **k):
+        calls.append(name)
+        return _f(*a, **k)
+    monkeypatch.setattr(mod, name, spy)
+
+
+@pytest.mark.parametrize("name", ["bench_headline", "bench_fullband",
+                                  "readme_quickstart"])
+def test_fused_srp_matches_reference(rng, monkeypatch, name):
+    """``fused_srp='on'``: scoring and the grid argmax run inside the GCC
+    kernel's SRP mode, as in the reference with its kernel on (interpret
+    mode), and the init cell comes from it."""
+    from audio_triangulation_tpu_torch.ops.cuda import gcc_kernel
+
+    arr, kw, create_kw = CONFIGS[name]
+    kw = dict(kw, srp_dtype="bfloat16", fused_srp="on")
+    mics = MICS[arr]()
+    grid = dict(half_cells_x=16, half_cells_y=16, cells_per_m=8.0)
+    ref = JLocalizer.create(
+        mics, jcfg.PipelineConfig(**kw, fused_kernel="on", fused_tile_b=8),
+        jcfg.GridConfig(**grid), **create_kw)
+    port = Localizer.create(mics, tcfg.PipelineConfig(**kw),
+                            tcfg.GridConfig(**grid), device="cpu",
+                            **create_kw)
+    calls = []
+    _spy(monkeypatch, calls, gcc_kernel, "fused_gcc_srp")
+    _spy(monkeypatch, calls, gcc_kernel, "fused_gcc")
+    frames = _frames(rng, mics)
+    r = {k: np.asarray(v) for k, v in ref(jnp.asarray(frames)).items()}
+    g = {k: v.numpy() for k, v in port(torch.from_numpy(frames)).items()}
+    assert calls == ["fused_gcc_srp"]
+    assert sorted(g) == sorted(r)
+    np.testing.assert_allclose(g["xy"], r["xy"], atol=2e-4)
+    np.testing.assert_array_equal(g["best_shift"], r["best_shift"])
+    np.testing.assert_allclose(g["tdoa_samples"], r["tdoa_samples"],
+                               atol=1e-3)
+    # a correlogram value that differs in its last f32 bits can round to
+    # the next bf16 (2^-8 of it) before it is summed into a score
+    smax = np.abs(r["scores"]).max()
+    np.testing.assert_allclose(g["scores"] / smax, r["scores"] / smax,
+                               atol=2e-3)
+    # the same cell, or a neighbour whose bf16 score ties with it
+    np.testing.assert_allclose(g["xy_grid"], r["xy_grid"], atol=0.25)
+    assert (np.abs(g["xy_grid"] - r["xy_grid"]).max(-1) < 1e-6).mean() >= 0.75
+    # the same dict as without the knob: the in-kernel argmax picks the
+    # cell the outside argmax picks
+    off = Localizer.create(
+        mics, tcfg.PipelineConfig(**dict(kw, fused_srp="off")),
+        tcfg.GridConfig(**grid), device="cpu", **create_kw)
+    o = off(torch.from_numpy(frames))
+    assert calls == ["fused_gcc_srp", "fused_gcc"]
+    for k in o:
+        np.testing.assert_array_equal(o[k].numpy(), g[k], err_msg=k)
+
+
+@pytest.mark.parametrize("why,kw,create_kw", [
+    ("auto_band", dict(band_hz="auto"), dict(init_grid_stride=3)),
+    ("hybrid", dict(subsample_method="hybrid"), dict(init_grid_stride=3)),
+    ("f32_scoring", dict(srp_dtype="float32"), dict(init_grid_stride=3)),
+    ("gather_form", {}, dict(init_grid_stride=3, srp_form="gather")),
+    ("refined_peak", {}, dict(with_solver=False)),
+    ("no_taper", dict(taper_enabled=False), dict(init_grid_stride=3)),
+], ids=lambda v: v if isinstance(v, str) else "")
+def test_fused_srp_gate(rng, monkeypatch, why, kw, create_kw):
+    """Outside the reference's conditions the knob changes nothing."""
+    from audio_triangulation_tpu_torch.ops.cuda import gcc_kernel
+
+    mics = geometry.square_array(0.3)
+    calls = []
+    _spy(monkeypatch, calls, gcc_kernel, "fused_gcc_srp")
+    cfg = dict(BENCH, **kw)
+    grid = tcfg.GridConfig(half_cells_x=16, half_cells_y=16, cells_per_m=8.0)
+    on = Localizer.create(mics, tcfg.PipelineConfig(**cfg, fused_srp="on"),
+                          grid, device="cpu", **create_kw)
+    off = Localizer.create(mics, tcfg.PipelineConfig(**cfg), grid,
+                           device="cpu", **create_kw)
+    frames = torch.from_numpy(_frames(rng, mics, b=3))
+    a, b = on(frames), off(frames)
+    assert calls == []
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+def test_fused_srp_gate_score_bias(rng, monkeypatch):
+    from audio_triangulation_tpu_torch.ops.cuda import gcc_kernel
+
+    mics = geometry.square_array(0.3)
+    calls = []
+    _spy(monkeypatch, calls, gcc_kernel, "fused_gcc_srp")
+    loc = Localizer.create(mics, tcfg.PipelineConfig(**BENCH, fused_srp="on"),
+                           device="cpu", init_grid_stride=3)
+    frames = torch.from_numpy(_frames(rng, mics, b=2))
+    loc(frames)
+    assert calls == ["fused_gcc_srp"]
+    loc.score_bias = torch.zeros(loc.grid.num_cells)
+    loc(frames)
+    assert calls == ["fused_gcc_srp"]  # a bias keeps scoring outside
+
+
+@pytest.mark.parametrize("srp_form", ["gather", "matmul"])
+def test_pair_chunk_takes_the_pair_blocked_routes(rng, monkeypatch,
+                                                   srp_form):
+    """``pair_chunk`` below the pair count: the unfused matmul engine and
+    the gather-form scoring go a chunk of pairs at a time, as in the
+    reference, on a configuration the GCC kernel does not take."""
+    from audio_triangulation_tpu_torch.models import localizer as tloc
+    from audio_triangulation_tpu_torch.ops import mxu_fft
+
+    mics = jgeo.circular_array(6, 0.25)  # 15 pairs, chunks of 4
+    kw = dict(phat=True, fft_pad_mode="circular",
+              normalize_mode="full_range", pair_chunk=4)
+    grid = dict(half_cells_x=12, half_cells_y=12, cells_per_m=6.0)
+    ref = JLocalizer.create(mics, jcfg.PipelineConfig(**kw),
+                            jcfg.GridConfig(**grid), srp_form=srp_form)
+    port = Localizer.create(mics, tcfg.PipelineConfig(**kw),
+                            tcfg.GridConfig(**grid), device="cpu",
+                            srp_form=srp_form)
+    calls = []
+    _spy(monkeypatch, calls, mxu_fft, "xcorr_mxu_pairblocked")
+    _spy(monkeypatch, calls, tloc.srp, "srp_scores_matmul_blocked")
+    frames = _frames(rng, mics, b=4)
+    r = {k: np.asarray(v) for k, v in ref(jnp.asarray(frames)).items()}
+    g = {k: v.numpy() for k, v in port(torch.from_numpy(frames)).items()}
+    assert calls == ["xcorr_mxu_pairblocked"] + (
+        ["srp_scores_matmul_blocked"] if srp_form == "gather" else [])
+    np.testing.assert_allclose(g["xy"], r["xy"], atol=2e-4)
+    np.testing.assert_array_equal(g["best_shift"], r["best_shift"])
+    smax = np.abs(r["scores"]).max()
+    np.testing.assert_allclose(g["scores"] / smax, r["scores"] / smax,
+                               atol=1e-4)
+    calls.clear()
+    whole = Localizer.create(
+        mics, tcfg.PipelineConfig(**dict(kw, pair_chunk=None)),
+        tcfg.GridConfig(**grid), device="cpu", srp_form=srp_form)
+    w = whole(torch.from_numpy(frames))
+    assert calls == []
+    np.testing.assert_allclose(w["xy"].numpy(), g["xy"], atol=1e-5)
 
 
 def test_leading_dims_and_device_rules(rng):
