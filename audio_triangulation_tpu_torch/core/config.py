@@ -1,14 +1,16 @@
 """Configuration dataclasses of the PyTorch port.
 
 Field for field the same as ``audio_triangulation_tpu.core.config``
-(``PipelineConfig``, ``GridConfig``, ``SolverConfig``): the same names,
+(``PipelineConfig``, ``GridConfig``, ``SolverConfig``, ``StreamConfig``): the
+same names,
 defaults, validation and derived properties, so a configuration saved by
 either package loads in the other.  The reference module is numpy-only,
 but importing it runs the JAX package's ``__init__``, so it is copied here.
 
 Several fields steer TPU dispatch only (``fused_kernel``, ``fused_tile_b``,
 ``fused_sub_tiles``, ``dft_precision``).  The port accepts them and they
-change nothing, as ``models.localizer`` states.
+change nothing, as ``models.localizer`` states; likewise
+``StreamConfig.batch_chunk_streams`` (``models.streaming``).
 """
 
 from __future__ import annotations
@@ -237,6 +239,42 @@ class SolverConfig:
     robust: str = "none"  # 'none' | 'huber' | 'cauchy'
     robust_scale_m: float = 0.0  # 0 = adaptive 1.4826*MAD
     irls_iterations: int = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamConfig:
+    """Streaming ingest / event-detection configuration.
+
+    The streaming step extracts up to ``max_events_per_chunk`` triggers per
+    chunk (masked, statically unrolled), each followed by a full-frame
+    refill holdoff plus ``refractory_samples``.  With chunk_size <
+    frame_size the default of 1 loses nothing: the refill outlasts the
+    chunk."""
+
+    chunk_size: int = 256  # samples consumed per stream step
+    max_events_per_chunk: int = 1  # events extracted per step (masked)
+    refractory_samples: int = 0  # extra post-trigger holdoff
+    # > 1 resolves simultaneous sources per event into 'multi_*' outputs
+    n_sources: int = 1
+    multi_min_separation_m: float = 0.4  # top-K NMS suppression radius
+    multi_assoc_window_samples: float = 3.0  # TDOA re-measurement gate
+    # step_many sub-batch size of the reference (a limit of its compiler's
+    # fast memory); accepted here, where one batched step runs at any size
+    batch_chunk_streams: Optional[int] = 1024
+    # free-(x, y, z) solve of each step's smoothed TDOAs
+    solve_xyz: bool = False
+    xyz_z_inits: tuple = (0.4, 1.2, 2.0)
+    # per-event instantaneous velocity via the delay-Doppler CAF
+    solve_velocity: bool = False
+    velocity_v_max: float = 8.0
+    velocity_n_scales: int = 33
+    # fault-tolerant live solve: per-mic TDOA cycle-consistency scores
+    # become per-pair weights on the SRP scoring and the GN solve.
+    # health_ratio is the Cauchy scale in units of the median mic score,
+    # health_floor_s bounds that scale from below (seconds)
+    health_weighting: bool = False
+    health_ratio: float = 3.0
+    health_floor_s: float = 1e-5
 
 
 # Reference mic geometry: AB, BC, CA in meters

@@ -87,10 +87,29 @@
 // all warps.  Dropped as well: the polynomial atan2 (Mosaic has
 // none), the row expansion of the band weight, and the per-mic rsqrt the
 // TPU kernel computes for 2-mic arrays without using it.
+//
+// Persistent, self-pipelined instance (gcc_pipelined_kernel; replaces
+// tools/emit_pipeline_probe.py::outer, which drives the same body through
+// pltpu.emit_pipeline as one program step).  The base mode takes one tile of
+// frames per block and leaves the overlap of one tile's synthesis and peak
+// stage with the next tile's loads to the hardware scheduler running several
+// blocks an SM.  Here (SM count x blocks an SM) blocks each walk the tiles
+// blockIdx.x, blockIdx.x + gridDim.x, ... themselves: a tile's frames arrive
+// by cp.async in a staging buffer in shared memory (tb x M x N floats), the
+// mean and DFT stages read them from there, and as soon as the DFT is done
+// the next tile's copy is issued into the same buffer, so it runs under the
+// current tile's synthesis and peak stage.  The TPU probe's "weights
+// resident" has no shared-memory form on this card: the band-crop DFT
+// matrices alone are 1,024 x 106 x 2 floats = 868 KB against 227 KB a block,
+// so they stay where the base mode reads them from (L2).  The arithmetic and
+// its order are the base mode's (the same gcc_tile), so the outputs are
+// bit-equal.  What it costs: the staging buffer (64 KB for 4 frames of
+// 4 x 1,024) leaves fewer blocks an SM than the base mode has.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -246,28 +265,30 @@ __device__ float phase_slope(const float2* a, const float2* b,
   return coh >= st.hybrid_min ? d : tdoa_par;
 }
 
-template <bool kStats, bool kSrp = false>
-__global__ void __launch_bounds__(kThreads)
-gcc_kernel(const float* __restrict__ frames,   // [B, M, N]
-           const float* __restrict__ win,      // [N] window * gain
-           const float4* __restrict__ w,       // [N, Fp / 2] (cos, -sin) of 2 bins
-           const float* __restrict__ sync,     // [F, L]
-           const float* __restrict__ syns,     // [F, L]
-           const int* __restrict__ pairs,      // [P, 2]
-           float* __restrict__ corr_out,       // [B, P, L]
-           int* __restrict__ shift_out,        // [B, P] (peaks only)
-           float* __restrict__ tdoa_out,
-           float* __restrict__ peak_out,
-           float* __restrict__ psr_out,
-           int B, int M, int N, int F, int Fp, int P, int L, int TB,
-           int phat, int per_mic, float eps2, float taper_denom, int with_peaks,
-           Stats st, Srp srp) {
+// One tile of tb frames, by the whole block: x0 points at the tile's frames
+// [tb, M, N] (device memory, or the pipelined instance's staging buffer),
+// b0 is its first frame's index in the outputs.  after_dft() is called by
+// every thread once the spectra are in shared memory and x0 is spent.
+template <bool kStats, bool kSrp, typename AfterDft>
+__device__ __forceinline__ void
+gcc_tile(const float* x0, int b0, int tb,
+         const float* __restrict__ win,      // [N] window * gain
+         const float4* __restrict__ w,       // [N, Fp / 2] (cos, -sin) of 2 bins
+         const float* __restrict__ sync,     // [F, L]
+         const float* __restrict__ syns,     // [F, L]
+         const int* __restrict__ pairs,      // [P, 2]
+         float* __restrict__ corr_out,       // [B, P, L]
+         int* __restrict__ shift_out,        // [B, P] (peaks only)
+         float* __restrict__ tdoa_out,
+         float* __restrict__ peak_out,
+         float* __restrict__ psr_out,
+         int M, int N, int F, int Fp, int P, int L, int TB,
+         int phat, int per_mic, float eps2, float taper_denom, int with_peaks,
+         Stats st, Srp srp, AfterDft after_dft) {
   static_assert(!(kStats && kSrp), "the stats mode never scores the grid");
   extern __shared__ float4 smem4[];
-  const int b0 = blockIdx.x * TB;
-  const int tb = min(TB, B - b0);
-  const int R = tb * M;    // (frame, mic) rows of this block
-  const int RP = tb * P;   // (frame, pair) rows of this block
+  const int R = tb * M;    // (frame, mic) rows of this tile
+  const int RP = tb * P;   // (frame, pair) rows of this tile
   const size_t rows_max = (size_t)TB * M;
   float* xs = reinterpret_cast<float*>(smem4);
   float4* ws = smem4 + kNChunk * kXsStride / 4;
@@ -286,7 +307,6 @@ gcc_kernel(const float* __restrict__ frames,   // [B, M, N]
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const float* x0 = frames + (size_t)b0 * M * N;
 
   // ---- 1. per-row mean -------------------------------------------------
   for (int r = warp; r < R; r += kWarps) {
@@ -381,6 +401,7 @@ gcc_kernel(const float* __restrict__ frames,   // [B, M, N]
     }
   }
   __syncthreads();
+  after_dft();
 
   if constexpr (kStats) {
     // ---- 2a. smoothed periodograms ---------------------------------------
@@ -661,6 +682,68 @@ gcc_kernel(const float* __restrict__ frames,   // [B, M, N]
   }
 }
 
+template <bool kStats, bool kSrp = false>
+__global__ void __launch_bounds__(kThreads)
+gcc_kernel(const float* __restrict__ frames,   // [B, M, N]
+           const float* __restrict__ win, const float4* __restrict__ w,
+           const float* __restrict__ sync, const float* __restrict__ syns,
+           const int* __restrict__ pairs, float* __restrict__ corr_out,
+           int* __restrict__ shift_out, float* __restrict__ tdoa_out,
+           float* __restrict__ peak_out, float* __restrict__ psr_out,
+           int B, int M, int N, int F, int Fp, int P, int L, int TB,
+           int phat, int per_mic, float eps2, float taper_denom, int with_peaks,
+           Stats st, Srp srp) {
+  const int b0 = blockIdx.x * TB;
+  gcc_tile<kStats, kSrp>(frames + (size_t)b0 * M * N, b0, min(TB, B - b0), win,
+                         w, sync, syns, pairs, corr_out, shift_out, tdoa_out,
+                         peak_out, psr_out, M, N, F, Fp, P, L, TB, phat, per_mic,
+                         eps2, taper_denom, with_peaks, st, srp, [] {});
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
+}
+
+// The base mode as a persistent block that walks the tiles itself, each
+// tile's frames staged in shared memory (at float4 offset stage_off of the
+// dynamic shared memory) one tile ahead of the synthesis and peak stage.
+__global__ void __launch_bounds__(kThreads)
+gcc_pipelined_kernel(const float* __restrict__ frames,   // [B, M, N], 16-byte aligned
+                     const float* __restrict__ win, const float4* __restrict__ w,
+                     const float* __restrict__ sync, const float* __restrict__ syns,
+                     const int* __restrict__ pairs, float* __restrict__ corr_out,
+                     int* __restrict__ shift_out, float* __restrict__ tdoa_out,
+                     float* __restrict__ peak_out, float* __restrict__ psr_out,
+                     int B, int M, int N, int F, int Fp, int P, int L, int TB,
+                     int phat, int per_mic, float eps2, float taper_denom,
+                     int with_peaks, int stage_off) {
+  extern __shared__ float4 smem4[];
+  float4* stage = smem4 + stage_off;
+  const int n_tiles = (B + TB - 1) / TB;
+  auto prefetch = [&](int tile) {
+    if (tile < n_tiles) {
+      const int b0 = tile * TB;
+      const int n16 = min(TB, B - b0) * M * N / 4;
+      const float4* src = reinterpret_cast<const float4*>(frames + (size_t)b0 * M * N);
+      for (int e = threadIdx.x; e < n16; e += kThreads) cp_async16(stage + e, src + e);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  prefetch(blockIdx.x);
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    // the tile's frames have arrived, and every warp has left the tile before
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    const int b0 = tile * TB;
+    gcc_tile<false, false>(reinterpret_cast<const float*>(stage), b0, min(TB, B - b0),
+                           win, w, sync, syns, pairs, corr_out, shift_out, tdoa_out,
+                           peak_out, psr_out, M, N, F, Fp, P, L, TB, phat, per_mic,
+                           eps2, taper_denom, with_peaks, Stats{}, Srp{},
+                           [&] { prefetch(tile + gridDim.x); });
+  }
+}
+
 // Frames per block: up to kDftRows (frame, mic) rows, fewer when the
 // spectra (and with p > 0 the stats mode's buffers) would not fit shared
 // memory; srp_p > 0 counts the SRP mode's tapered rows.  Returns 0 when one
@@ -695,7 +778,62 @@ int launch(const void* frames, const void* win, const void* w, const void* sync,
   return (int)cudaGetLastError();
 }
 
+// The pipelined instance's shared memory: the base mode's, rounded to 16
+// bytes, then the staging buffer of one tile's frames.
+size_t pipelined_stage_off(int tb, int m, int f, int l) {
+  return (smem_floats(tb, m, f, l) + 3) / 4;   // in float4s
+}
+
+int pipelined_frames_per_block(int m, int n, int f, int l) {
+  int tb = m >= kDftRows ? 1 : kDftRows / m;
+  while (tb > 0 && pipelined_stage_off(tb, m, f, l) * 16 + (size_t)tb * m * n * 4 > kMaxSmem) --tb;
+  return tb;
+}
+
 }  // namespace
+
+extern "C" int att_gcc_pipelined_frames_per_block(int m, int n, int f, int l) {
+  return pipelined_frames_per_block(m, n, f, l);
+}
+
+// The pipelined instance of the base mode: att_gcc's operands and outputs.
+// blocks_out (host, may be null) receives the grid size it launched.
+extern "C" int att_gcc_pipelined(const void* frames, const void* win, const void* w,
+                                 const void* sync, const void* syns,
+                                 const void* pairs, void* corr_out,
+                                 void* shift_out, void* tdoa_out, void* peak_out,
+                                 void* psr_out, int B, int M, int N, int F, int Fp,
+                                 int P, int L, int phat, int per_mic, float eps,
+                                 float taper_denom, int with_peaks, int* blocks_out,
+                                 void* stream) {
+  const int tb = pipelined_frames_per_block(M, N, F, L);
+  if (tb < 1 || Fp % 2 != 0 || Fp < F || (M * N) % 4 != 0 ||
+      ((uintptr_t)frames & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t stage_off = pipelined_stage_off(tb, M, F, L);
+  const size_t smem = stage_off * 16 + (size_t)tb * M * N * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      gcc_pipelined_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, gcc_pipelined_kernel, kThreads, smem)) != cudaSuccess)
+    return (int)err;
+  if (per_sm < 1 || sms < 1) return (int)cudaErrorInvalidValue;
+  const int n_tiles = (B + tb - 1) / tb;
+  const int grid = n_tiles < sms * per_sm ? n_tiles : sms * per_sm;
+  if (blocks_out) *blocks_out = grid;
+  gcc_pipelined_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)frames, (const float*)win, (const float4*)w,
+      (const float*)sync, (const float*)syns, (const int*)pairs,
+      (float*)corr_out, (int*)shift_out, (float*)tdoa_out, (float*)peak_out,
+      (float*)psr_out, B, M, N, F, Fp, P, L, tb, phat, per_mic, eps * eps,
+      taper_denom, with_peaks, (int)stage_off);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int att_gcc_frames_per_block(int m, int f, int l) {
   return frames_per_block(m, f, l, 0);

@@ -1,0 +1,118 @@
+"""The DFT-shaped pair of products ``(x + s) @ w1 + (x + s) @ w2`` in f32,
+bf16 or int8 operands.
+
+Counterpart of ``tools/int8_microbench.py``'s ``_kernel`` in the JAX
+package: the fused GCC kernel's matmul shape ([rows, N] @ [N, F], once for
+the cos and once for the -sin matrix) as a kernel of its own, to time the
+operand types against each other.  ``s`` is a one-element tensor added to
+``x`` in ``x``'s own type (a bf16 add, a wrapping int8 add) before the
+products; they accumulate and come out in f32 (f32, bf16) or int32 (int8).
+
+On CUDA tensors :func:`dft_matmul` launches ``csrc/dft_matmul.cu`` or
+raises; on CPU tensors it runs :func:`dft_matmul_reference`, the plain
+PyTorch version.  ``launches`` counts kernel launches per type set.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+# name -> (operand dtype, accumulator / output / scalar dtype, kernel code)
+TYPE_SETS = {
+    "f32": (torch.float32, torch.float32, 0),
+    "bf16": (torch.bfloat16, torch.float32, 1),
+    "int8": (torch.int8, torch.int32, 2),
+}
+launches = {name: 0 for name in TYPE_SETS}
+
+
+def _type_set(x: torch.Tensor):
+    for name, (in_dt, acc_dt, code) in TYPE_SETS.items():
+        if x.dtype == in_dt:
+            return name, acc_dt, code
+    raise ValueError(f"x must be f32, bf16 or int8; got {x.dtype}")
+
+
+def _checked(x, w1, w2, s):
+    name, acc_dt, code = _type_set(x)
+    if (x.ndim != 2 or w1.ndim != 2 or w1.shape != w2.shape
+            or w1.shape[0] != x.shape[1] or w1.dtype != x.dtype
+            or w2.dtype != x.dtype):
+        raise ValueError(
+            f"need x [R, N] and w1, w2 [N, F] of one dtype; got "
+            f"{tuple(x.shape)} {x.dtype}, {tuple(w1.shape)} {w1.dtype}, "
+            f"{tuple(w2.shape)} {w2.dtype}")
+    if s.numel() != 1 or s.dtype != acc_dt:
+        raise ValueError(f"s must be one {acc_dt} value; got "
+                         f"{tuple(s.shape)} {s.dtype}")
+    return name, acc_dt, code
+
+
+def dft_matmul_reference(x: torch.Tensor, w1: torch.Tensor,
+                         w2: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: x [R, N], w1 and w2 [N, F] in
+    f32, bf16 or int8, s one f32 (int32 for int8) value -> [R, F] f32
+    (int32 for int8).  The int8 products are formed in float64, which is
+    exact for any N below 2^17 (|x w| < 2^14, sums below 2^31), so the
+    result equals an int32 accumulation bit for bit."""
+    _, acc_dt, _ = _checked(x, w1, w2, s)
+    xs = x + s.reshape(1).to(x.dtype)  # in x's type: int8 wraps
+    if x.dtype == torch.int8:
+        xd = xs.double()
+        out = torch.matmul(xd, w1.double()) + torch.matmul(xd, w2.double())
+        return out.to(torch.int64).to(torch.int32)
+    # bf16 values are exact in f32, where the products are summed
+    xf = xs.to(acc_dt)
+    return torch.matmul(xf, w1.to(acc_dt)) + torch.matmul(xf, w2.to(acc_dt))
+
+
+def launch(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+           s: torch.Tensor) -> torch.Tensor:
+    """Run ``csrc/dft_matmul.cu`` on CUDA tensors (same contract as
+    :func:`dft_matmul_reference`); raises on anything it does not take:
+    N must be a multiple of 64 and F of 16."""
+    name, acc_dt, code = _checked(x, w1, w2, s)
+    if x.device.type != "cuda":
+        raise ValueError(f"the DFT-product kernel needs CUDA tensors; x is "
+                         f"on {x.device}")
+    dev = x.device
+    if any(t.device != dev for t in (w1, w2, s)):
+        raise ValueError("x, w1, w2 and s must be on one device")
+    r, n = x.shape
+    f = w1.shape[1]
+    if r < 1 or n % 64 or f % 16 or n < 64 or f < 16:
+        raise ValueError(f"the kernel takes N a multiple of 64 and F a "
+                         f"multiple of 16; got R={r}, N={n}, F={f}")
+    x, w1, w2, s = (t.contiguous() for t in (x, w1, w2, s))
+    out = torch.empty((r, f), dtype=acc_dt, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        err = lib.att_dft_matmul(
+            x.data_ptr(), w1.data_ptr(), w2.data_ptr(), s.data_ptr(),
+            out.data_ptr(), r, n, f, code,
+            torch.cuda.current_stream(dev).cuda_stream)
+    launches[name] += 1
+    _build.check(err, "dft_matmul_kernel launch", lib)
+    return out
+
+
+def dft_matmul(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+               s: torch.Tensor) -> torch.Tensor:
+    """``(x + s) @ w1 + (x + s) @ w2`` (see :func:`dft_matmul_reference`):
+    the kernel on CUDA tensors, the plain version on CPU tensors."""
+    if x.device.type == "cpu":
+        return dft_matmul_reference(x, w1, w2, s)
+    return launch(x, w1, w2, s)
+
+
+def _lib():
+    lib = _build.load_library()
+    if lib.att_dft_matmul.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.att_dft_matmul.argtypes = [vp] * 5 + [ci] * 4 + [vp]
+        lib.att_dft_matmul.restype = ci
+    return lib

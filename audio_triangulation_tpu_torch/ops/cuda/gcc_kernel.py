@@ -20,6 +20,13 @@ version of the mode (:func:`gcc_reference`, :func:`gcc_stats_reference`,
 :func:`gcc_srp_reference`).  ``launches`` counts base-mode launches,
 ``stats_launches`` stats-mode launches and ``srp_launches`` SRP-mode
 launches.
+
+:func:`fused_gcc_pipelined` is the base mode with peaks as a persistent
+kernel that walks the batch tiles itself, each tile's frames staged one
+tile ahead (counterpart of ``tools/emit_pipeline_probe.py``'s ``outer`` in
+the JAX package); its outputs are bit-equal to :func:`fused_gcc`'s, its
+plain version is :func:`gcc_reference`, and ``pipelined_launches`` counts
+it.  The ``Localizer`` does not route to it.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from . import _build
 launches = 0
 stats_launches = 0
 srp_launches = 0
+pipelined_launches = 0
 
 
 class GccMatrices(NamedTuple):
@@ -349,6 +357,27 @@ def fused_gcc_srp(frames: torch.Tensor, window: torch.Tensor,
     return launch_srp(frames, *ops, pairs, lut_flat, **kw)
 
 
+def fused_gcc_pipelined(frames: torch.Tensor, window: torch.Tensor,
+                        pairs: torch.Tensor, cfg: PipelineConfig):
+    """:func:`fused_gcc` with peaks in the base mode through the persistent,
+    self-pipelined kernel: (tapered correlograms, shift, tdoa, peak, psr),
+    bit-equal to :func:`fused_gcc`'s on the same frames.  ``cfg`` must not
+    need the stats mode."""
+    if frames.ndim != 3 or frames.dtype != torch.float32:
+        raise ValueError(f"frames must be f32 [B, M, N]; got "
+                         f"{tuple(frames.shape)} {frames.dtype}")
+    if needs_stats(cfg):
+        raise ValueError("the pipelined kernel is the base mode only (no "
+                         "band_hz='auto', no phase / hybrid sub-sample)")
+    ops = operands(frames, window, cfg)
+    kw = dict(phat=cfg.phat, phat_eps=cfg.phat_eps, max_shift=cfg.max_shift,
+              taper_denom=cfg.taper_denom)
+    if frames.device.type == "cpu":
+        return gcc_reference(frames, *ops, pairs.to(frames.device), **kw,
+                             with_peaks=True)
+    return launch_pipelined(frames, *ops, pairs, **kw)
+
+
 def srp_mode_fits(frames: torch.Tensor, cfg: PipelineConfig,
                   n_pairs: int) -> bool:
     """Whether the SRP mode takes these frames [B, M, N]: on a CUDA device
@@ -423,6 +452,36 @@ def launch(frames, win_gain, mats: GccMatrices, pairs, *, phat: bool,
         launches += 1
         _build.check(err, "gcc_kernel launch", lib)
     return outs if with_peaks else outs[0]
+
+
+def launch_pipelined(frames, win_gain, mats: GccMatrices, pairs, *,
+                     phat: bool, phat_eps: float, max_shift: int,
+                     taper_denom: float):
+    """Run ``csrc/gcc_kernel.cu``'s persistent, self-pipelined instance of
+    the base mode with peaks on CUDA tensors (same contract as
+    :func:`gcc_reference` with peaks); raises on anything it does not take.
+    Its size limit: one frame's spectra and its staged samples (M x N
+    floats, a multiple of 16 bytes) must fit a block's shared memory."""
+    global pipelined_launches
+    (b, m, n, f, fp, p, l), frames, ins, pairs32 = _checked(
+        frames, win_gain, mats, pairs)
+    lib = _lib()
+    if (m * n) % 4 or lib.att_gcc_pipelined_frames_per_block(m, n, f, l) < 1:
+        raise ValueError(f"one frame of {m} mics x {n} samples x {f} bins "
+                         "does not fit the pipelined kernel's shared memory "
+                         "(or is no multiple of 16 bytes)")
+    outs = _outputs(b, p, l, frames.device, True)
+    if b > 0:
+        ptr = [t.data_ptr() for t in (frames, *ins, pairs32, *outs)]
+        per_mic = phat and xcorr.phat_per_mic(m)
+        with torch.cuda.device(frames.device):
+            err = lib.att_gcc_pipelined(
+                *ptr, b, m, n, f, fp, p, l, int(phat), int(per_mic),
+                phat_eps, taper_denom, 1, None,
+                torch.cuda.current_stream(frames.device).cuda_stream)
+        pipelined_launches += 1
+        _build.check(err, "gcc_kernel pipelined launch", lib)
+    return outs
 
 
 def launch_srp(frames, win_gain, mats: GccMatrices, pairs, lut_flat, *,
@@ -523,4 +582,9 @@ def _lib():
         lib.att_gcc_srp.restype = ci
         lib.att_gcc_srp_frames_per_block.argtypes = [ci] * 4
         lib.att_gcc_srp_frames_per_block.restype = ci
+        lib.att_gcc_pipelined.argtypes = ([vp] * 11 + [ci] * 9
+                                          + [cf, cf, ci, vp, vp])
+        lib.att_gcc_pipelined.restype = ci
+        lib.att_gcc_pipelined_frames_per_block.argtypes = [ci] * 4
+        lib.att_gcc_pipelined_frames_per_block.restype = ci
     return lib

@@ -76,7 +76,9 @@ def solve_tdoa_batched(
     weights: torch.Tensor | None = None,
     cfg: SolverConfig = SolverConfig(),
 ):
-    """tdoas [B, P] seconds, init_xy [B, 2] -> (xy [B, 2], rms [B] meters)."""
+    """tdoas [B, P] seconds, init_xy [B, 2] -> (xy [B, 2], rms [B] meters).
+    ``weights`` (standard-deviation style, squared inside) are per pair [P]
+    or per row and pair [B, P]."""
     dt = init_xy.dtype
     m = mic_positions.shape[0]
     mic3 = _mic3(mic_positions, dt)
@@ -84,9 +86,13 @@ def solve_tdoa_batched(
     target = tdoas.to(dt) * speed_of_sound  # [B, P] meters
     sel = consistency.pair_selection(pairs, m, dt)  # [P, M]
     w2 = None if weights is None else (weights * weights).to(dt)
-    sel_w = sel if w2 is None else sel * w2[:, None]
-    q = sel.T @ sel_w  # [M, M]
-    t2 = torch.einsum("pm,...p->...m", sel_w, target)  # [B, M]
+    if w2 is not None and w2.ndim > 1:  # per-row weights [B, P]
+        q = torch.einsum("pm,pn,...p->...mn", sel, sel, w2)  # [B, M, M]
+        t2 = torch.einsum("pm,...p,...p->...m", sel, w2, target)
+    else:
+        sel_w = sel if w2 is None else sel * w2[:, None]
+        q = sel.T @ sel_w  # [M, M]
+        t2 = torch.einsum("pm,...p->...m", sel_w, target)  # [B, M]
 
     def gn_loop(q_, t2_, xy):
         for _ in range(cfg.iterations):

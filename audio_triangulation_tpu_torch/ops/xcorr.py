@@ -377,3 +377,18 @@ def peak_confidence(correlograms: torch.Tensor, max_shift: int,
     side = torch.where(outside, correlograms,
                        torch.full_like(correlograms, -torch.inf)).amax(dim=-1)
     return peak.abs() / side.abs().clamp_min(1e-20)
+
+
+# ----------------------------------------------------------------------
+# Temporal smoothing
+# ----------------------------------------------------------------------
+
+def ema_decay(dt_s: torch.Tensor, tau_s: float) -> torch.Tensor:
+    """decay = 1 - exp(-dt / tau)."""
+    return 1.0 - torch.exp(-dt_s / tau_s)
+
+
+def ema_update(state: torch.Tensor, new: torch.Tensor,
+               decay: torch.Tensor) -> torch.Tensor:
+    """state + (new - state) * decay."""
+    return state + (new - state) * decay

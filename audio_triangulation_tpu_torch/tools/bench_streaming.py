@@ -1,0 +1,127 @@
+"""Streaming benchmark: real-time capacity of the stateful chunked pipeline.
+
+Counterpart of ``bench_streaming.py`` in the JAX package, without its
+tracked variants (``models/tracking`` is not ported).  Measures the
+single-stream step and the batched ``step_many`` at 256 to 4,096 streams of
+a 3-mic 50 kHz array in 512-sample chunks, in three pipelines (default,
+band-cropped PHAT, PHAT with the auto band), and derives how many real-time
+streams one card sustains: a chunk lasts 10.24 ms, so
+``capacity = 10.24 ms / step_ms * streams``.  Every point is ``--trials``
+trials of ``--steps`` steps (host clock around a device synchronise), and
+prints one JSON line with the median and the quartiles.  ``--graph`` (CUDA
+only) adds, for every batched point, the same step replayed as a CUDA graph
+(``StreamingLocalizer.graph_step_many``; lines with ``"graphed": true``).
+
+    python -m audio_triangulation_tpu_torch.tools.bench_streaming
+        [--trials 5] [--steps 20] [--device cuda] [--graph]
+        [--streams 256 1024 2048 4096]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+from ..core import geometry
+from ..core.config import PipelineConfig, StreamConfig
+from ..models.streaming import StreamingLocalizer
+
+CHUNK = 512
+PIPELINES = {
+    "default": PipelineConfig(),
+    "band_crop_phat": PipelineConfig(phat=True, band_hz=(800.0, 6000.0),
+                                     band_crop=True),
+    "band_auto_phat": PipelineConfig(phat=True, band_hz="auto"),
+}
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def time_steps(step, state, chunks, trials: int, steps: int, device):
+    """Seconds per step of ``step(state, chunks)``: (median, q1, q3) over
+    ``trials`` trials of ``steps`` chained steps, after two warm-up steps."""
+    for _ in range(2):
+        state, _ = step(state, chunks)
+    per_step = []
+    for _ in range(trials):
+        _sync(device)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, _ = step(state, chunks)
+        _sync(device)
+        per_step.append((time.perf_counter() - t0) / steps)
+    q1, med, q3 = np.percentile(per_step, [25, 50, 75])
+    return float(med), float(q1), float(q3)
+
+
+def time_graphed_steps(sl, n_streams: int, chunks, trials: int, steps: int):
+    """:func:`time_steps` of ``sl``'s batched step captured as a CUDA graph
+    (the capture and its warm-up are not timed)."""
+    graphed = sl.graph_step_many(sl.init_states(n_streams), chunks)
+    return time_steps(lambda state, ch: (state, graphed(ch)), None, chunks,
+                      trials, steps, chunks.device)
+
+
+def main(argv=None) -> list:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--trials", type=int, default=5)
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--streams", type=int, nargs="+",
+                    default=[256, 1024, 2048, 4096])
+    ap.add_argument("--graph", action="store_true",
+                    help="also time the step replayed as a CUDA graph")
+    args = ap.parse_args(argv)
+    dev = args.device
+    chunk_s = CHUNK / 50_000.0
+    rng = np.random.default_rng(0)
+    results = []
+
+    def emit(rec):
+        # a CPU run's times say nothing about a card: the line names it
+        rec["device"] = (torch.cuda.get_device_name(dev)
+                         if torch.device(dev).type == "cuda" else "cpu")
+        results.append(rec)
+        print(json.dumps(rec), flush=True)
+
+    def quiet(*shape):  # the ADC's idle level, +- 1 count
+        return torch.from_numpy(
+            rng.integers(127, 130, shape).astype(np.float32)).to(dev)
+
+    for mode, pipeline in PIPELINES.items():
+        sl = StreamingLocalizer.create(
+            geometry.reference_array(), pipeline,
+            stream=StreamConfig(chunk_size=CHUNK), device=dev)
+        if mode == "default":
+            med, q1, q3 = time_steps(sl, sl.init_state(), quiet(3, CHUNK),
+                                     args.trials, args.steps, dev)
+            emit({"mode": mode, "streams": 1, "step_ms": med * 1e3,
+                  "step_ms_iqr": [q1 * 1e3, q3 * 1e3],
+                  "realtime_margin": chunk_s / med})
+        for s_count in args.streams:
+            chunks = quiet(s_count, 3, CHUNK)
+            timed = [(False, time_steps(
+                sl.step_many, sl.init_states(s_count), chunks, args.trials,
+                args.steps, dev))]
+            if args.graph:
+                timed.append((True, time_graphed_steps(
+                    sl, s_count, chunks, args.trials, args.steps)))
+            for graphed, (med, q1, q3) in timed:
+                emit({"mode": mode, "streams": s_count, "graphed": graphed,
+                      "step_ms": med * 1e3,
+                      "step_ms_iqr": [q1 * 1e3, q3 * 1e3],
+                      "realtime_capacity_streams": int(
+                          chunk_s / med * s_count),
+                      "realtime_ok": med < chunk_s})
+    return results
+
+
+if __name__ == "__main__":
+    main()

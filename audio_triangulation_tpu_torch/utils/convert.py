@@ -6,6 +6,10 @@ vars(params).items()}``) and returns the port's buffers on ``device``.
 ``onehot_big`` (the large-array steering matrix, bf16 or f32 there) comes
 across as float32; ``onehot_pad`` is dropped: it is ``onehot`` with zero
 rows padding the lag axis.
+
+``stream_state_from_reference`` and ``stream_state_to_numpy`` carry a
+streaming state across the same way, so one stream can be continued by
+either package mid-way.
 """
 
 from __future__ import annotations
@@ -43,3 +47,39 @@ def params_from_reference(arrays: dict, device) -> dict:
         out[name] = (None if a is None else torch.as_tensor(
             np.array(a, copy=True), device=device).to(dtype))
     return out
+
+
+_STATE_DTYPES = {
+    "context": torch.float32,
+    "ema_corr": torch.float32,
+    "best_shift": torch.int32,
+    "time_s": torch.float32,
+    "last_event_s": torch.float32,
+    "suppress": torch.int32,
+    "abs_sample": torch.int32,
+    "event_count": torch.int32,
+}
+
+
+def stream_state_from_reference(arrays: dict, device):
+    """The port's ``StreamState`` on ``device`` from the leaves of the JAX
+    package's ``StreamState`` given as numpy arrays (for example
+    ``{f.name: np.asarray(getattr(state, f.name)) for f in
+    dataclasses.fields(state)}``), one stream or stacked streams alike."""
+    from ..models.streaming import StreamState
+
+    missing = sorted(set(_STATE_DTYPES) - set(arrays))
+    if missing:
+        raise ValueError(f"stream state lacks {missing}")
+    return StreamState(**{
+        name: torch.as_tensor(np.array(arrays[name], copy=True),
+                              device=device).to(dtype)
+        for name, dtype in _STATE_DTYPES.items()})
+
+
+def stream_state_to_numpy(state) -> dict:
+    """{leaf name: numpy array} of a port ``StreamState``, the form
+    :func:`stream_state_from_reference` takes and from which the JAX
+    package's ``StreamState(**arrays)`` can be rebuilt."""
+    return {name: getattr(state, name).detach().cpu().numpy()
+            for name in _STATE_DTYPES}

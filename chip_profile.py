@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Where one Localizer call's time goes on the GPU (torch.profiler).
+"""Where one call's time goes on the GPU (torch.profiler).
 
 For each of ``chip_smoke.py``'s Localizer paths at its full size (the three
 4-mic bench configurations and the ``fused_srp`` line on 16,384 frames of
 4 x 1,024 samples; the three 64-mic configurations on 256 frames of
-64 x 4,096 samples), prints:
+64 x 4,096 samples), and for one ``StreamingLocalizer.step_many`` step of
+its three streaming pipelines at 1,024 and 4,096 streams of 3 mics x 512
+samples, prints:
 
 - the median wall time of 7 unprofiled calls and the device-busy time of
   one profiled call (the sum of its kernels' device time), hence the
   card's idle share;
-- the kernels by device time;
+- the kernels by device time, and how many were launched;
 - host-side ops that took over 0.3 ms, and the count of device-to-host
   scalar reads: a blocking copy or ``.item()`` in the middle of a call
   makes the card wait for the host.  The first op of the profiled call also
@@ -54,36 +56,51 @@ def main():
         mics, chip_smoke.FRAMES, rng, fixed_source=src)).cuda()
     for name, cfg in (chip_smoke.main_configs()
                       + [chip_smoke.fused_srp_config()]):
-        profile_path(name, Localizer.create(
-            mics, cfg, device="cuda", init_grid_stride=3), frames)
+        loc = Localizer.create(mics, cfg, device="cuda", init_grid_stride=3)
+        profile_path(name, lambda: loc(frames))
     del frames
     mics64, grid64, configs64 = chip_smoke.large_configs()
     large = torch.from_numpy(chip_smoke.scene_frames(
         mics64, chip_smoke.LARGE_FRAMES, rng, fixed_source=src,
         n=chip_smoke.LARGE_SAMPLES)).cuda()
     for name, cfg in configs64:
-        profile_path(name, Localizer.create(
-            mics64, cfg, grid64, device="cuda",
-            init_grid_stride=chip_smoke.LARGE_STRIDE), large)
+        loc = Localizer.create(mics64, cfg, grid64, device="cuda",
+                               init_grid_stride=chip_smoke.LARGE_STRIDE)
+        profile_path(name, lambda: loc(large))
+    del large
+
+    # one streaming step: the state is carried from call to call
+    for name, sl in chip_smoke.stream_localizers():
+        for n_streams in (chip_smoke.STREAM_COUNTS[0],
+                          chip_smoke.STREAM_COUNTS[-1]):
+            carried = [sl.init_states(n_streams)]
+            chunks = chip_smoke.quiet_chunks(rng, n_streams)
+
+            def step():
+                carried[0], out = sl.step_many(carried[0], chunks)
+                return out
+
+            profile_path(f"stream_{name}_{n_streams}", step)
 
 
-def profile_path(name, loc, frames):
+def profile_path(name, fn):
+    """Profile one call of ``fn()``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     cpu = torch.autograd.DeviceType.CPU
     for _ in range(3):
-        loc(frames)
+        fn()
     walls = []
     for _ in range(WALL_TRIALS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        loc(frames)
+        fn()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        loc(frames)
+        fn()
         torch.cuda.synchronize()
     stats = prof.key_averages()
     # CPU ops repeat their kernels' device time: count kernels only
@@ -95,8 +112,9 @@ def profile_path(name, loc, frames):
     reads = sum(e.count for e in stats
                 if e.key == "aten::_local_scalar_dense")
     print(f"[{name}] wall median {wall:.4f} ms, device busy {busy:.4f} "
-          f"ms, idle share {1 - busy / wall:.4f}, device-to-host scalar "
-          f"reads {reads}", flush=True)
+          f"ms, idle share {1 - busy / wall:.4f}, "
+          f"{sum(k[1] for k in kernels)} kernel launches, device-to-host "
+          f"scalar reads {reads}", flush=True)
     for ms, count, key in kernels[:TOP_KERNELS]:
         print(f"    {ms:9.4f} ms  x{count:<3d} {key[:90]}", flush=True)
     for e in prof.events():

@@ -4,7 +4,8 @@
 Builds the CUDA kernels from ``audio_triangulation_tpu_torch/csrc`` with
 nvcc and holds each kernel (the GCC kernel's base, spectral-stats and
 in-kernel SRP modes, the GN kernel, the large-array GCC kernel, the
-SRP-argmax kernel) against its plain PyTorch version on the card.  Then it
+SRP-argmax kernel, the DFT-product kernel, the pipelined GCC kernel)
+against its plain PyTorch version on the card.  Then it
 drives the frame-batch Localizer at full size: 16,384 frames of 4 x 1,024
 samples in the three bench configurations (band-crop, full band,
 hands-free) and with ``fused_srp='on'``, and 256 frames of 64 x 4,096
@@ -12,7 +13,14 @@ samples (2,016 pairs) in the three large-array configurations (full band,
 band-crop, auto band); and ``srp_argmax`` on 16,384 frames against the
 101 x 101 grid.  Each path is checked against the known source and the
 port's own CPU path, its kernel launches are counted from 0, and it is
-timed.
+timed.  The two tool kernels (the DFT-shaped f32 / bf16 / int8 product and
+the persistent, self-pipelined GCC kernel) are held against their plain
+versions and driven through their tools.  The streaming path
+(``StreamingLocalizer.step_many``, which launches none of the hand kernels)
+runs 2,048 streams of 3 mics for 24 chunks of 512 samples with planted
+events in its three bench pipelines, is checked against the planted events,
+the known sources, the port's CPU path and its own replay as a CUDA graph,
+and is timed at 1,024, 2,048 and 4,096 streams, eager and graphed.
 
     python3 chip_smoke.py            # one CUDA card; exits non-zero on any failure
 
@@ -52,10 +60,40 @@ LARGE_CPU_FRAMES = 4  # frames held to the CPU path
 LARGE_REPS = 5  # launches per timing of the large-array kernel
 SRP_CHECK_FRAMES = 4096  # frames per SRP-argmax comparison (float64)
 # published peaks of one H100 SXM (NVIDIA's data sheet): fp32 outside the
-# tensor cores, and device memory; every kernel here computes in fp32 on
-# the CUDA cores
+# tensor cores, dense bf16 and int8 in them, and device memory.  Every
+# kernel here computes on the CUDA cores; the bf16 and int8 type sets of
+# the DFT product are bounded by what the card offers their operand types.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
+# the DFT-shaped product: rows x n x f, grid row tiles (the tool's defaults)
+DFT_ROWS, DFT_N, DFT_F = 256, 1024, 512
+DFT_CHECK_GRID = 16  # row tiles of the kernel-vs-plain comparison
+DFT_GRID = 256  # row tiles timed: 65,536 rows, 137.4 GFLOP a call
+DFT_REPS = 10
+DFT_TOOL_ITERS = 6  # chained calls per type set when the tool is driven
+PIPE_TOOL_ITERS = 10
+# the streaming paths: geometry.reference_array() (3 mics), 50 kHz,
+# 512-sample chunks, one event planted in every fourth stream
+STREAM_CHUNK = 512
+STREAM_CHECK_STREAMS = 2048
+STREAM_STEPS = 24
+STREAM_PLANT_EVERY = 4
+STREAM_STARTS = (300, 1211, 2750, 4100, 5632, 7000, 8801, 10000)
+STREAM_CPU_STREAMS = 32  # streams held to the port's CPU path
+STREAM_COUNTS = (1024, 2048, 4096)  # streams a timed step
+STREAM_TRIALS, STREAM_TIMED_STEPS = 7, 20
+# outputs of the step replayed as a CUDA graph that are held bit-equal to
+# the eager step's
+GRAPH_EQUAL_KEYS = ("event_trigger_abs", "events", "best_shift", "xy")
+# Median |xy - truth| bound of the accepted planted events per pipeline,
+# twice the JAX package's own medians on the 512 planted streams of this
+# scene on the CPU: 0.5412 cm default, 0.9125 cm band-cropped PHAT,
+# 0.6306 cm PHAT with the auto band, all 512 events accepted; the port's
+# CPU path gives the same within 3.1e-6 m (tests/witness_stream.py).
+STREAM_MEDIAN_BOUND_M = {"default": 0.011, "band_crop_phat": 0.018,
+                         "band_auto_phat": 0.013}
 # Median |xy - SOURCE_XY| bound per main-path configuration.  Full-band PHAT
 # whitens the out-of-band noise bins up to the chirp's level, which biases
 # it on this band-limited source: the JAX package's Localizer itself gives
@@ -93,6 +131,13 @@ KERNEL_INFO = {
     "gcc_srp_kernel": dict(
         source="audio_triangulation_tpu_torch/csrc/gcc_kernel.cu",
         replaces="audio_triangulation_tpu/ops/pallas/gcc_kernel.py:467"),
+    "gcc_pipelined_kernel": dict(
+        source="audio_triangulation_tpu_torch/csrc/gcc_kernel.cu",
+        replaces="tools/emit_pipeline_probe.py:84"),
+    **{f"dft_matmul_kernel_{t}": dict(
+        source="audio_triangulation_tpu_torch/csrc/dft_matmul.cu",
+        replaces="tools/int8_microbench.py:29")
+       for t in ("f32", "bf16", "int8")},
 }
 
 
@@ -130,25 +175,28 @@ def alternate_ms(plain, kernel, reps=REPS):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def bound(flops: float, nbytes: float) -> dict:
+def bound(flops: float, nbytes: float, rate: float = PEAK_FP32_FLOPS) -> dict:
     """The least time the card could take: the larger of the operations
-    over its fp32 peak and the bytes (inputs read once, outputs written
-    once) over its memory rate."""
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    over its peak ``rate`` for their type (fp32 on the CUDA cores unless
+    given) and the bytes (inputs read once, outputs written once) over its
+    memory rate."""
+    t_ops = flops / rate * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return dict(bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
-def gcc_bound(b, m, n, f, p, l, *, stats_hw=None, srp_cells=0) -> dict:
+def gcc_bound(b, m, n, f, p, l, *, stats_hw=None, srp_cells=0,
+              with_peaks=True) -> dict:
     """Bound of one GCC kernel launch on [b, m, n] frames: the DFT (re and
     im of f bins per sample), the cross-power and the lag synthesis (cos
     and sin terms per bin and lag), with the stats mode's window sums over
     2 hw + 1 bins for m periodograms and p complex cross-spectra, and the
-    SRP mode's p additions per cell."""
+    SRP mode's p additions per cell.  Without peaks the four [b, p] peak
+    outputs are not written."""
     flops = b * (4 * m * n * f + 6 * p * f + 4 * p * f * l)
     nbytes = 4 * (b * m * n + n + 2 * n * f + 2 * f * l + 2 * p
-                  + b * p * l + 4 * b * p)
+                  + b * p * l + (4 * b * p if with_peaks else 0))
     if stats_hw is not None:
         flops += b * 2 * (m + 2 * p) * f * (2 * stats_hw + 1)
     if srp_cells:
@@ -740,28 +788,39 @@ PATH_KERNELS = {"bandcrop_800_6000": ("gcc_kernel", "gn_kernel"),
                 "large64_fullband": ("gcc_large_kernel",),
                 "large64_bandcrop_800_6000": ("gcc_large_kernel",),
                 "large64_auto": ("gcc_large_kernel",),
-                "srp_argmax_101x101": ("srp_argmax_kernel",)}
+                "srp_argmax_101x101": ("srp_argmax_kernel",),
+                "tool_int8_microbench": ("dft_matmul_kernel_f32",
+                                         "dft_matmul_kernel_bf16",
+                                         "dft_matmul_kernel_int8"),
+                "tool_emit_pipeline_probe": ("gcc_pipelined_kernel",
+                                             "gcc_kernel")}
 
 
 def launch_counts():
     from audio_triangulation_tpu_torch.ops.cuda import (
-        gcc_kernel, gcc_large, gn_kernel, srp_kernel)
+        dft_matmul, gcc_kernel, gcc_large, gn_kernel, srp_kernel)
 
     return {"gcc_kernel": gcc_kernel.launches,
             "gcc_stats_kernel": gcc_kernel.stats_launches,
             "gn_kernel": gn_kernel.launches,
             "gcc_large_kernel": gcc_large.launches,
             "srp_argmax_kernel": srp_kernel.launches,
-            "gcc_srp_kernel": gcc_kernel.srp_launches}
+            "gcc_srp_kernel": gcc_kernel.srp_launches,
+            "gcc_pipelined_kernel": gcc_kernel.pipelined_launches,
+            **{f"dft_matmul_kernel_{t}": n
+               for t, n in dft_matmul.launches.items()}}
 
 
 def reset_counts():
     from audio_triangulation_tpu_torch.ops.cuda import (
-        gcc_kernel, gcc_large, gn_kernel, srp_kernel)
+        dft_matmul, gcc_kernel, gcc_large, gn_kernel, srp_kernel)
 
     gcc_kernel.launches = gcc_kernel.stats_launches = 0
     gcc_kernel.srp_launches = gn_kernel.launches = 0
+    gcc_kernel.pipelined_launches = 0
     gcc_large.launches = srp_kernel.launches = 0
+    for t in dft_matmul.launches:
+        dft_matmul.launches[t] = 0
 
 
 def counted(name, results, fn):
@@ -984,8 +1043,10 @@ def phase_timing(card, locs, frames, large_locs, large, srp_args, results):
                                                  with_peaks=False),
                 lambda: gcc_kernel.launch(frames, *ops, **kw,
                                           with_peaks=False))
+            bnd = gcc_bound(b, m, n, f, 6, l, with_peaks=False)
             say("5 timing", f"gcc_kernel {name} without peaks: kernel "
-                f"{k_ms:.4f} ms, plain {p_ms:.4f} ms ({card})")
+                f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+                f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']} ({card})")
         else:
             report("gcc_stats_kernel", name, *alternate_ms(
                 lambda: gcc_kernel.gcc_stats_reference(
@@ -1064,6 +1125,356 @@ def phase_timing(card, locs, frames, large_locs, large, srp_args, results):
                 f"plain peak ops {out_ms:.4f} ms ({card})")
 
 
+def dft_bound(name, rows, n, f) -> dict:
+    """Bound of one DFT-product call: 2 x 2 rows n f operations at the rate
+    the card has for the operand type (fp32 CUDA cores; bf16 and int8
+    tensor cores), and x, w1, w2 read once and the 4-byte output written
+    once."""
+    rate, size = {"f32": (PEAK_FP32_FLOPS, 4), "bf16": (PEAK_BF16_FLOPS, 2),
+                  "int8": (PEAK_INT8_OPS, 1)}[name]
+    return bound(4 * rows * n * f,
+                 size * (rows * n + 2 * n * f) + 4 * rows * f, rate)
+
+
+def phase_dft_matmul(card, results):
+    """The DFT-product kernel against its plain version at rows 256 x 16,
+    n 1,024, f 512: int8 bit-equal; f32 and bf16 within 1e-5 of the output
+    scale of a float64 evaluation of the same type-rounded operands (a
+    1,024-term fp32 sum; the x + s add is made in x's type on both sides).
+    Then timed at 65,536 rows in turns with the plain version, and beside
+    the library form: two ``torch.matmul`` and an add (for bf16 with bf16
+    outputs, the only form one call gives), ``torch._int_mm`` for int8."""
+    import torch
+    from audio_triangulation_tpu_torch.ops.cuda import dft_matmul
+    from audio_triangulation_tpu_torch.tools import int8_microbench
+
+    for name in dft_matmul.TYPE_SETS:
+        key = f"dft_matmul_kernel_{name}"
+        x, w1, acc_dt = int8_microbench.make_inputs(
+            name, DFT_ROWS, DFT_N, DFT_F, DFT_GRID, "cuda", seed=SEED)
+        w2 = w1.flip(0).contiguous()  # a second matrix, not the first again
+        worst = 0.0
+        for sv in (0, 2):
+            s = torch.full((1,), sv, dtype=acc_dt, device="cuda")
+            xc = x[:DFT_CHECK_GRID * DFT_ROWS]
+            got = dft_matmul.launch(xc, w1, w2, s)
+            ref = dft_matmul.dft_matmul_reference(xc, w1, w2, s)
+            torch.cuda.synchronize()
+            if name == "int8":
+                same = bool(torch.equal(got, ref))
+                say("2 dft", f"{name} s={sv}: {tuple(got.shape)} equal to the "
+                    f"plain version bit for bit: {same}")
+                if not same:
+                    fail("2 dft", f"{name}: kernel disagrees with its plain "
+                         "version")
+            else:
+                xs = (xc + s.to(xc.dtype)).double()
+                r64 = xs @ w1.double() + xs @ w2.double()
+                scale = float(r64.abs().max())
+                e_k = float((got.double() - r64).abs().max()) / scale
+                e_p = float((ref.double() - r64).abs().max()) / scale
+                say("2 dft", f"{name} s={sv}: {tuple(got.shape)} vs float64: "
+                    f"kernel {e_k:.2e} of scale (tolerance 1e-5), plain "
+                    f"version {e_p:.2e}")
+                if not e_k <= 1e-5:
+                    fail("2 dft", f"{name}: kernel disagrees with the float64 "
+                         "evaluation")
+                worst = max(worst, e_k)
+        results[key]["max_abs_err"] = worst
+
+        s = torch.full((1,), 1, dtype=acc_dt, device="cuda")
+        k_ms, p_ms = alternate_ms(
+            lambda: dft_matmul.dft_matmul_reference(x, w1, w2, s),
+            lambda: dft_matmul.launch(x, w1, w2, s), DFT_REPS)
+        xs = x + s.to(x.dtype)
+        lib_ms, lib = None, "none"
+        if name == "int8":
+            if hasattr(torch, "_int_mm"):
+                lib = "torch._int_mm twice and an add"
+                lib_ms = cuda_ms(lambda: torch._int_mm(xs, w1)
+                                 + torch._int_mm(xs, w2), DFT_REPS)
+        else:
+            lib = ("two torch.matmul and an add" if name == "f32" else
+                   "two bf16 torch.matmul (bf16 outputs) and an f32 add")
+            lib_ms = cuda_ms(lambda: torch.matmul(xs, w1).float()
+                             + torch.matmul(xs, w2).float(), DFT_REPS)
+        bnd = dft_bound(name, x.shape[0], DFT_N, DFT_F)
+        ops = 4 * x.shape[0] * DFT_N * DFT_F
+        lib_msg = "none" if lib_ms is None else f"{lib_ms:.4f} ms ({lib})"
+        say("5 timing", f"{key} ({x.shape[0]} x {DFT_N} x {DFT_F} twice): "
+            f"kernel {k_ms:.4f} ms ({ops / k_ms / 1e9:.1f} T(FL)OP/s), plain "
+            f"{p_ms:.4f} ms, library {lib_msg}, bound {bnd['bound_ms']:.4f} "
+            f"ms by {bnd['bound_by']} ({card})")
+        results[key].update(ms=k_ms, plain_ms=p_ms, **bnd, library_ms=lib_ms,
+                            library=lib)
+        del x, xs
+
+
+def phase_gcc_pipelined(card, rng, results):
+    """The persistent, self-pipelined GCC kernel: bit-equal to the base mode
+    on 1,024 frames (band-crop and full band) and, like it, within 1e-4 of
+    scale of the float64 plain version; then timed in turns with the base
+    mode at 16,384 frames."""
+    import torch
+    from audio_triangulation_tpu_torch.core import geometry
+    from audio_triangulation_tpu_torch.ops import window as window_ops
+    from audio_triangulation_tpu_torch.ops.cuda import gcc_kernel
+
+    mics = geometry.square_array(0.3)
+    pairs = torch.as_tensor(geometry.mic_pairs(4), device="cuda")
+    small = torch.from_numpy(scene_frames(mics, CHECK_FRAMES + 3, rng)).cuda()
+    big = torch.from_numpy(scene_frames(
+        mics, FRAMES, rng, fixed_source=(*SOURCE_XY, 1.2))).cuda()
+    worst = 0.0
+    for name, cfg in main_configs()[:2]:
+        window = torch.as_tensor(window_ops.window_for(cfg), device="cuda")
+        win_gain, mats = gcc_kernel.operands(small, window, cfg)
+        kw = dict(phat=cfg.phat, phat_eps=cfg.phat_eps,
+                  max_shift=cfg.max_shift, taper_denom=cfg.taper_denom)
+        base = gcc_kernel.launch(small, win_gain, mats, pairs, **kw,
+                                 with_peaks=True)
+        pipe = gcc_kernel.launch_pipelined(small, win_gain, mats, pairs, **kw)
+        ref64 = gcc_kernel.gcc_reference(
+            small.double(), win_gain.double(), mats.to(torch.float64), pairs,
+            **kw, with_peaks=True)
+        torch.cuda.synchronize()
+        same = [bool(torch.equal(a, b)) for a, b in zip(base, pipe)]
+        err = (float((pipe[0].double() - ref64[0]).abs().max())
+               / float(ref64[0].abs().max()))
+        say("2 pipelined", f"{name}: {small.shape[0]} frames: outputs equal "
+            f"to the base mode's bit for bit {same}; tapered correlograms "
+            f"vs the plain version in float64 {err:.2e} of scale")
+        if not (all(same) and err <= 1e-4):
+            fail("2 pipelined", f"{name}: kernel disagrees")
+        worst = max(worst, err)
+
+        def run_base():
+            return gcc_kernel.launch(big, win_gain, mats, pairs, **kw,
+                                     with_peaks=True)
+
+        def run_pipe():
+            return gcc_kernel.launch_pipelined(big, win_gain, mats, pairs,
+                                               **kw)
+
+        p_ms, b_ms = alternate_ms(run_base, run_pipe)
+        plain_ms = cuda_ms(lambda: gcc_kernel.gcc_reference(
+            big, win_gain, mats, pairs, **kw, with_peaks=True), REPS)
+        f, l = mats.sync.shape
+        bnd = gcc_bound(*big.shape, f, 6, l)
+        say("5 timing", f"gcc_pipelined_kernel {name}: pipelined {p_ms:.4f} "
+            f"ms, base mode {b_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']} ({card})")
+        if "ms" not in results["gcc_pipelined_kernel"]:
+            results["gcc_pipelined_kernel"].update(
+                ms=p_ms, plain_ms=plain_ms, **bnd, library_ms=None)
+    results["gcc_pipelined_kernel"]["max_abs_err"] = worst
+
+
+def phase_tools(results):
+    """The two tools, as a user runs them (fewer iterations), with the
+    launch counts from 0."""
+    from audio_triangulation_tpu_torch.tools import (emit_pipeline_probe,
+                                                     int8_microbench)
+
+    counted("tool_int8_microbench", results, lambda: int8_microbench.main(
+        ["--iters", str(DFT_TOOL_ITERS)]))
+    counted("tool_emit_pipeline_probe", results,
+            lambda: emit_pipeline_probe.main(
+                ["--iters", str(PIPE_TOOL_ITERS)]))
+
+
+def stream_pipelines():
+    """The reference streaming bench's three pipelines."""
+    from audio_triangulation_tpu_torch.tools import bench_streaming
+
+    return dict(bench_streaming.PIPELINES)
+
+
+def stream_localizers(device="cuda"):
+    from audio_triangulation_tpu_torch import (StreamConfig,
+                                               StreamingLocalizer, geometry)
+
+    return [(name, StreamingLocalizer.create(
+        geometry.reference_array(), cfg,
+        stream=StreamConfig(chunk_size=STREAM_CHUNK), device=device))
+        for name, cfg in stream_pipelines().items()]
+
+
+def quiet_chunks(rng, n_streams):
+    """[S, 3, 512] f32 on the card: the ADC's idle level, +- 1 count (the
+    reference bench's input; the step's work does not depend on it)."""
+    import torch
+
+    return torch.from_numpy(rng.integers(
+        127, 130, (n_streams, 3, STREAM_CHUNK)).astype(np.float32)).cuda()
+
+
+def stream_scene(n_streams=STREAM_CHECK_STREAMS, seed=SEED):
+    """The streaming check's scene, from its own seed: (streams [S, 3, T]
+    f32 ADC counts, planted stream indices [E], their sources' plane
+    points [E, 2], their burst starts [E]).  Every stream idles at 127-129
+    counts; every ``STREAM_PLANT_EVERY``-th holds one chirp burst of a
+    source on the 1.2 m sphere (plane radius 0.3-1.0 m, so no pair's delay
+    is near zero and the shift gate passes), starting at one of
+    ``STREAM_STARTS``."""
+    from audio_triangulation_tpu_torch import geometry
+    from audio_triangulation_tpu_torch.utils import synth
+
+    rng = np.random.default_rng(seed)
+    mics = geometry.reference_array()
+    t_len = STREAM_STEPS * STREAM_CHUNK
+    x = rng.integers(127, 130, (n_streams, 3, t_len),
+                     dtype=np.uint8).astype(np.float32)
+    planted = np.arange(0, n_streams, STREAM_PLANT_EVERY)
+    ang = rng.uniform(0, 2 * np.pi, planted.size)
+    rad = rng.uniform(0.3, 1.0, planted.size)
+    xy = np.stack([rad * np.cos(ang), rad * np.sin(ang)], axis=-1)
+    v = np.concatenate([xy, np.full((planted.size, 1), 1.2)], axis=1)
+    src = v * (1.2 / np.linalg.norm(v, axis=1, keepdims=True))
+    bursts = synth.synth_scene(src, mics, noise_rms=0.005,
+                               seed=int(rng.integers(1 << 30)))
+    starts = np.asarray(STREAM_STARTS)[np.arange(planted.size)
+                                       % len(STREAM_STARTS)]
+    for at in STREAM_STARTS:
+        sel = starts == at
+        x[planted[sel]] += (110.0 * synth.embed_burst_in_stream(
+            bursts[sel], t_len, at)).astype(np.float32)
+    x[planted] = np.clip(np.round(x[planted]), 0, 255)
+    return x, planted, xy.astype(np.float32), starts
+
+
+def expected_trigger_steps(x, cfg):
+    """The chunk in which each stream of x [E, M, T] first triggers, by a
+    plain float64 numpy evaluation of the detector (mic-summed outgoing
+    power > threshold + mic-summed incoming power, from the first full
+    frame on): [E] step indices, -1 where it never does."""
+    n, half = cfg.frame_size, cfg.frame_size // 2
+    xd = x.astype(np.float64)
+
+    def windowed(a):
+        c = np.cumsum(a, axis=-1)
+        c[..., half:] -= c[..., :-half].copy()
+        return c
+
+    s1, s2 = windowed(xd), windowed(xd * xd)
+    inc = (half * s2 - s1 * s1).sum(axis=-2)
+    out = np.pad(inc, [(0, 0), (half, 0)])[:, :inc.shape[-1]]
+    if cfg.trigger_mode != "absolute":
+        raise ValueError("the check plants events for the absolute trigger")
+    fire = out > cfg.detect_threshold + inc
+    fire[:, :n - 1] = False
+    first = fire.argmax(axis=-1)
+    return np.where(fire.any(axis=-1), first // STREAM_CHUNK, -1)
+
+
+def phase_stream(card):
+    """The streaming path in the three bench pipelines: 2,048 streams x 24
+    chunks with planted events, checked (a) against the planted events: a
+    planted stream triggers in the chunk a float64 numpy detector says and
+    in no other, no other stream triggers, and at least 98% of the planted
+    events pass the shift gate; (b) the median |xy - truth| of the accepted
+    events under the pipeline's bound; (c) against the port's CPU path on
+    the first 32 streams, every step: trigger positions, ``events`` and
+    ``best_shift`` equal, ``xy`` within 2e-4 m, ``ema_corr`` within 1e-5 of
+    scale; (d) the same 24 chunks through the step replayed as a CUDA graph
+    (``graph_step_many``): trigger positions, ``events``, ``best_shift`` and
+    ``xy`` equal to the eager step's bit for bit.  Then ``step_many`` is
+    timed at 1,024 / 2,048 / 4,096 streams, eager and graphed in turns."""
+    import torch
+    from audio_triangulation_tpu_torch.tools import bench_streaming
+
+    x_np, planted, truth, _ = stream_scene()
+    s_n, n_cpu = x_np.shape[0], STREAM_CPU_STREAMS
+    x = torch.from_numpy(x_np).cuda()
+    cpu_locs = dict(stream_localizers("cpu"))
+    rng = np.random.default_rng(SEED + 1)
+    for name, sl in stream_localizers():
+        want = np.full(s_n, -1)
+        want[planted] = expected_trigger_steps(x_np[planted], sl.pipeline)
+        if (want[planted] < 0).any():
+            fail("6 stream", f"{name}: a planted event never triggers in the "
+                 "float64 detector")
+        cpu_sl = cpu_locs[name]
+        st, cst = sl.init_states(s_n), cpu_sl.init_states(n_cpu)
+        trig, acc, xys, eager = [], [], [], []
+        worst = dict(xy=0.0, ema=0.0)
+        exact = True
+        for i in range(STREAM_STEPS):
+            sl_ = slice(i * STREAM_CHUNK, (i + 1) * STREAM_CHUNK)
+            st, out = sl.step_many(st, x[:, :, sl_])
+            cst, cout = cpu_sl.step_many(
+                cst, torch.from_numpy(x_np[:n_cpu, :, sl_]))
+            trig.append(out["triggered"])
+            acc.append(out["event"])
+            xys.append(out["xy"])
+            eager.append([out[k] for k in GRAPH_EQUAL_KEYS])
+            for k in ("event_trigger_abs", "events", "best_shift"):
+                exact &= bool(torch.equal(out[k][:n_cpu].cpu(), cout[k]))
+            worst["xy"] = max(worst["xy"], float(
+                (out["xy"][:n_cpu].cpu() - cout["xy"]).abs().max()))
+            scale = max(float(cst.ema_corr.abs().max()), 1e-30)
+            worst["ema"] = max(worst["ema"], float(
+                (st.ema_corr[:n_cpu].cpu() - cst.ema_corr).abs().max())
+                / scale)
+        torch.cuda.synchronize()
+        trig, acc = torch.stack(trig).cpu().numpy(), torch.stack(acc).cpu()
+        xys = torch.stack(xys).cpu()
+        if not (bool(torch.isfinite(xys).all()) and xys.shape
+                == (STREAM_STEPS, s_n, 2)):
+            fail("6 stream", f"{name}: non-finite or misshapen output")
+        want_mask = np.arange(STREAM_STEPS)[:, None] == want[None, :]
+        wrong = int((trig != want_mask).sum())
+        steps_t = torch.from_numpy(want[planted])
+        took = acc[steps_t, torch.from_numpy(planted)].numpy()
+        err = (xys[steps_t, torch.from_numpy(planted)]
+               - torch.from_numpy(truth)).norm(dim=-1).numpy()
+        med = float(np.median(err[took]))
+        say("6 stream", f"{name}: {s_n} streams x {STREAM_STEPS} chunks of "
+            f"{STREAM_CHUNK}: {planted.size} planted events, trigger flags "
+            f"that differ from the planted steps {wrong} of {trig.size}, "
+            f"accepted {int(took.sum())}; median |xy - truth| of the "
+            f"accepted {med * 100:.4f} cm; vs CPU path on {n_cpu} streams: "
+            f"trigger positions, events, best shifts equal {exact}, xy "
+            f"{worst['xy']:.2e} m, ema_corr {worst['ema']:.2e} of scale")
+        if not (wrong == 0 and took.sum() >= 0.98 * planted.size
+                and int(acc.sum()) == int(took.sum())
+                and med < STREAM_MEDIAN_BOUND_M[name] and exact
+                and worst["xy"] <= 2e-4 and worst["ema"] <= 1e-5):
+            fail("6 stream", f"{name}: result check failed")
+        graphed = sl.graph_step_many(sl.init_states(s_n),
+                                     x[:, :, :STREAM_CHUNK])
+        same = True
+        for i in range(STREAM_STEPS):
+            out = graphed(x[:, :, i * STREAM_CHUNK:(i + 1) * STREAM_CHUNK])
+            same &= all(bool(torch.equal(out[k], e))
+                        for k, e in zip(GRAPH_EQUAL_KEYS, eager[i]))
+        same &= bool(torch.equal(graphed.states.ema_corr, st.ema_corr))
+        say("6 stream", f"{name}: the step replayed as a CUDA graph over the "
+            f"same chunks: {', '.join(GRAPH_EQUAL_KEYS)} and the final "
+            f"ema_corr equal to the eager step's bit for bit: {same}")
+        if not same:
+            fail("6 stream", f"{name}: the graphed step disagrees with the "
+                 "eager step")
+        del st, graphed, eager
+        chunk_ms = STREAM_CHUNK / sl.pipeline.sample_rate_hz * 1e3
+        for n_streams in STREAM_COUNTS:
+            chunks = quiet_chunks(rng, n_streams)
+            for how, timer in (
+                    ("eager", lambda: bench_streaming.time_steps(
+                        sl.step_many, sl.init_states(n_streams), chunks,
+                        STREAM_TRIALS, STREAM_TIMED_STEPS, "cuda")),
+                    ("graphed", lambda: bench_streaming.time_graphed_steps(
+                        sl, n_streams, chunks, STREAM_TRIALS,
+                        STREAM_TIMED_STEPS))):
+                med_s, q1, q3 = timer()
+                say("5 timing", f"stream {name} {n_streams} streams, {how}: "
+                    f"step_ms {med_s * 1e3:.4f} median, IQR {q1 * 1e3:.4f}-"
+                    f"{q3 * 1e3:.4f} over {STREAM_TRIALS} trials of "
+                    f"{STREAM_TIMED_STEPS} steps; streams sustained in real "
+                    f"time {chunk_ms / (med_s * 1e3) * n_streams:.1f} "
+                    f"({card})")
+
+
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
@@ -1084,6 +1495,12 @@ def main():
     phase_gcc_srp(rng, results)
     state = phase_main(rng, results)
     phase_timing(card, *state, results)
+    del state
+    torch.cuda.empty_cache()
+    phase_dft_matmul(card, results)
+    phase_gcc_pipelined(card, rng, results)
+    phase_tools(results)
+    phase_stream(card)
 
     print(json.dumps({"kernels": [
         {k: results[n][k] for k in (*KERNEL_KEYS, *(

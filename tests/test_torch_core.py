@@ -32,7 +32,7 @@ ARRAYS = {
 
 
 @pytest.mark.parametrize("name", ["PipelineConfig", "GridConfig",
-                                  "SolverConfig"])
+                                  "SolverConfig", "StreamConfig"])
 def test_config_fields_and_defaults_match(name):
     ref, port = getattr(jcfg, name), getattr(tcfg, name)
     rf = [(f.name, f.default) for f in dataclasses.fields(ref)]
@@ -211,6 +211,10 @@ def test_port_import_leaves_jax_unloaded():
     code = ("import sys, audio_triangulation_tpu_torch as p; "
             "import audio_triangulation_tpu_torch.models.localizer; "
             "import audio_triangulation_tpu_torch.utils.convert; "
+            "import audio_triangulation_tpu_torch.models.streaming; "
+            "import audio_triangulation_tpu_torch.tools.int8_microbench; "
+            "import audio_triangulation_tpu_torch.tools.emit_pipeline_probe; "
+            "import audio_triangulation_tpu_torch.tools.bench_streaming; "
             "print(sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('audio_triangulation_tpu.')"
             " or m == 'audio_triangulation_tpu'))")

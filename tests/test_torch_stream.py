@@ -1,0 +1,352 @@
+"""PyTorch port, the streaming path: the same numpy streams through the JAX
+package's ``StreamingLocalizer`` / ``TwoRateStreamingLocalizer`` and the
+port's, chunk by chunk, with planted events.
+
+Held exactly: trigger flags and positions, ``events``, ``event_shifts``,
+``best_shift``, event counts and the carried countdown.  Float tolerances:
+``ema_corr`` and the context within 1e-5 of scale, ``tdoa_samples`` within
+1e-3 lags (2e-3 where the phase slope runs: its arctangents differ in the
+last bits), ``xy`` / ``xy_grid`` within 1e-4 m, ``rms_m`` within 1e-5 m,
+the consistency outputs within 2e-8 s (1e-3 lags), ``xy_cov`` 1e-3
+relative; the health weights (Cauchy functions of residual ratios) 5e-3
+relative."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+from audio_triangulation_tpu.core import config as jcfg, geometry as jgeo
+from audio_triangulation_tpu.models import streaming as jstream
+from audio_triangulation_tpu.utils import synth as jsynth
+from audio_triangulation_tpu_torch.core import config as tcfg
+from audio_triangulation_tpu_torch.models import streaming as tstream
+from audio_triangulation_tpu_torch.utils import convert
+
+EXACT = ("event", "triggered", "trigger_abs", "events", "events_found",
+         "event_trigger_abs", "event_shifts", "best_shift", "event_count")
+# key -> (rtol, atol)
+FLOAT = {"event_time_s": (0, 1e-6), "tdoa_samples": (0, 1e-3),
+         "xy_grid": (0, 1e-4), "xy": (0, 1e-4), "rms_m": (0, 1e-5),
+         "xy_cov": (1e-3, 1e-9), "consistency_rms": (0, 2e-8),
+         "mic_consistency": (0, 2e-8), "pair_weight": (5e-3, 1e-5),
+         "mic_weight": (5e-3, 1e-5)}
+
+
+def _source(i):
+    p = np.array([0.5 - 0.25 * i, 0.4 - 0.1 * i, 1.2])
+    return p * (1.2 / np.linalg.norm(p))
+
+
+def _streams(mics, n_streams, t_len, events, seed=0, dead=None):
+    """[S, M, T] f32 ADC counts: idle level +-1 with chirp events planted;
+    ``events[s]`` lists the start samples of stream s (none: silent)."""
+    rng = np.random.default_rng(seed)
+    m = mics.shape[0]
+    x = rng.integers(127, 130, size=(n_streams, m, t_len)).astype(np.float64)
+    for s, starts in enumerate(events):
+        for i, at in enumerate(starts):
+            fr = jsynth.synth_scene(_source(s + i), mics, noise_rms=0.005,
+                                    seed=seed + 10 * s + i)[0]
+            if dead is not None and s == dead[0]:
+                fr[dead[1]] = rng.normal(0, 0.3, fr.shape[-1])
+            x[s, :, at:at + 1024] += 110.0 * fr
+    return np.clip(np.round(x), 0, 255).astype(np.float32)
+
+
+# name -> (mics, pipeline kw, stream kw, create kw, chunk, events/stream)
+MICS3 = jgeo.reference_array()
+MICS6 = jgeo.circular_array(6, 0.25)
+EV4 = [(700,), (1500, 3300), (), (2900,)]
+CASES = {
+    "default": (MICS3, {}, {}, {}, 512, EV4),
+    "bandcrop_phat": (MICS3, dict(phat=True, band_hz=(800.0, 6000.0),
+                                  band_crop=True), {}, {}, 512, EV4),
+    "auto_band": (MICS3, dict(phat=True, band_hz="auto"), {}, {}, 512, EV4),
+    "hybrid": (MICS3, dict(phat=True, subsample_method="hybrid"), {}, {},
+               512, EV4),
+    "phase_static_band": (MICS3, dict(phat=True, band_hz=(800.0, 6000.0),
+                                      subsample_method="phase"), {}, {},
+                          512, EV4),
+    "relative_trigger": (MICS3, dict(trigger_mode="relative"), {}, {}, 512,
+                         EV4),
+    # two events inside one 2,560-sample chunk, 1,300 apart (the holdoff is
+    # a frame plus the refractory: 1,124)
+    "two_events_refractory": (
+        MICS3, {}, dict(max_events_per_chunk=2, refractory_samples=100), {},
+        2560, [(2700, 4000), (300, 1800, 4400), (), (5200, 6600)]),
+    "health6": (MICS6, dict(phat=True), dict(health_weighting=True), {},
+                1024, [(700, 3000), (1500, 4000), (), (900, 3500)]),
+    "gather": (MICS3, {}, {}, dict(srp_form="gather"), 512, EV4),
+    "matmul_no_solver": (MICS3, dict(phat=True), {},
+                         dict(srp_form="matmul", with_solver=False), 512,
+                         EV4),
+}
+
+
+def _pair(name):
+    mics, pkw, skw, ckw, chunk, events = CASES[name]
+    skw = dict(chunk_size=chunk, **skw)
+    jsl = jstream.StreamingLocalizer.create(
+        mics, jcfg.PipelineConfig(**pkw), stream=jcfg.StreamConfig(**skw),
+        **ckw)
+    tsl = tstream.StreamingLocalizer.create(
+        mics, tcfg.PipelineConfig(**pkw), stream=tcfg.StreamConfig(**skw),
+        device="cpu", **ckw)
+    assert tsl.srp_form == jsl.srp_form
+    return jsl, tsl
+
+
+def _state_np(jstate):
+    return {f.name: np.asarray(getattr(jstate, f.name))
+            for f in dataclasses.fields(jstate)}
+
+
+def _compare_out(ref, got, where):
+    assert set(got) == set(ref), (where, set(got) ^ set(ref))
+    for k in ref:
+        r, g = np.asarray(ref[k]), got[k].numpy()
+        assert g.shape == r.shape, (where, k, g.shape, r.shape)
+        if k in EXACT:
+            np.testing.assert_array_equal(g, r, err_msg=f"{where} {k}")
+        else:
+            rtol, atol = FLOAT[k]
+            np.testing.assert_allclose(g, r, rtol=rtol, atol=atol,
+                                       err_msg=f"{where} {k}")
+
+
+def _compare_state(jstate, tstate, where):
+    ref = _state_np(jstate)
+    got = convert.stream_state_to_numpy(tstate)
+    for k in ("best_shift", "suppress", "abs_sample", "event_count"):
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=f"{where} {k}")
+    for k in ("time_s", "last_event_s"):
+        np.testing.assert_allclose(got[k], ref[k], atol=1e-6)
+    np.testing.assert_array_equal(got["context"], ref["context"])
+    scale = max(np.abs(ref["ema_corr"]).max(), 1e-30)
+    np.testing.assert_allclose(got["ema_corr"] / scale,
+                               ref["ema_corr"] / scale, atol=1e-5,
+                               err_msg=f"{where} ema_corr")
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_step_many_matches_reference(name):
+    """4 stacked streams over 6 or more chunks: every output of every step,
+    and the carried state."""
+    mics, _, skw, _, chunk, events = CASES[name]
+    n_chunks = max(6, -(-8200 // chunk))
+    dead = (1, 3) if name == "health6" else None
+    x = _streams(mics, 4, n_chunks * chunk, events, dead=dead)
+    jsl, tsl = _pair(name)
+    jst, tst = jsl.init_states(4), tsl.init_states(4)
+    n_events = np.zeros(4, int)
+    most_in_a_chunk = 0
+    for i in range(n_chunks):
+        c = x[:, :, i * chunk:(i + 1) * chunk]
+        jst, jout = jsl.step_many(jst, jnp.asarray(c))
+        tst, tout = tsl.step_many(tst, torch.from_numpy(c))
+        _compare_out(jout, tout, f"{name} chunk {i}")
+        n_events += tout["events"].numpy().sum(axis=-1)
+        most_in_a_chunk = max(most_in_a_chunk,
+                              int(tout["events"].sum(dim=-1).max()))
+    _compare_state(jst, tst, name)
+    # the planted events were seen, the silent stream saw none
+    assert n_events.tolist() == [len(e) for e in events]
+    assert most_in_a_chunk == skw.get("max_events_per_chunk", 1)
+    if name == "health6":  # the dead channel of stream 1 is found
+        assert int(tout["mic_weight"][1].argmin()) == 3
+
+
+def test_single_stream_call_and_run_match_reference():
+    """The single-stream call (no stream axis) and ``run`` over 8 chunks."""
+    x = _streams(MICS3, 1, 8 * 512, [(1300,)])[0]
+    jsl, tsl = _pair("default")
+    _, jouts = jsl.run(x)
+    tstate, touts = tsl.run(x)
+    assert len(touts) == len(jouts) == 8
+    for i, (jo, to) in enumerate(zip(jouts, touts)):
+        _compare_out(jo, {k: torch.from_numpy(np.asarray(v))
+                          for k, v in to.items()}, f"run chunk {i}")
+    assert [bool(o["event"]) for o in touts].count(True) == 1
+    assert tstate.context.shape == (3, 1023) and tstate.time_s.ndim == 0
+    # the single-stream call is step_many's row
+    st1, out1 = tsl(tsl.init_state(), torch.from_numpy(x[:, :512]))
+    stm, outm = tsl.step_many(tsl.init_states(2),
+                              torch.from_numpy(np.stack([x[:, :512]] * 2)))
+    for k in out1:
+        assert torch.equal(out1[k], outm[k][1]), k
+    assert torch.equal(st1.context, stm.context[0])
+
+
+def test_state_converted_midstream_continues_equal():
+    """Three chunks in the JAX package, its state handed to the port, three
+    more chunks in both; and the port's state handed back to the JAX
+    package for the last chunk."""
+    x = _streams(MICS3, 4, 7 * 512, [(300,), (700, 2400), (), (1900,)])
+    jsl, tsl = _pair("bandcrop_phat")
+    jst = jsl.init_states(4)
+    for i in range(3):
+        jst, _ = jsl.step_many(jst, jnp.asarray(x[:, :, i * 512:(i + 1) * 512]))
+    tst = convert.stream_state_from_reference(_state_np(jst), "cpu")
+    assert tst.best_shift.dtype == torch.int32
+    for i in range(3, 6):
+        c = x[:, :, i * 512:(i + 1) * 512]
+        jst, jout = jsl.step_many(jst, jnp.asarray(c))
+        tst, tout = tsl.step_many(tst, torch.from_numpy(c))
+        _compare_out(jout, tout, f"converted chunk {i}")
+    _compare_state(jst, tst, "converted")
+    back = jstream.StreamState(**{
+        k: jnp.asarray(v)
+        for k, v in convert.stream_state_to_numpy(tst).items()})
+    c = x[:, :, 6 * 512:]
+    _, jout = jsl.step_many(back, jnp.asarray(c))
+    _, tout = tsl.step_many(tst, torch.from_numpy(c))
+    _compare_out(jout, tout, "handed back")
+    with pytest.raises(ValueError, match="lacks"):
+        convert.stream_state_from_reference({"context": x[0]}, "cpu")
+
+
+def _tworate(pkg, cfgs, mics, **kw):
+    return pkg.TwoRateStreamingLocalizer.create(
+        mics, cfgs.PipelineConfig(phat=True),
+        stream=cfgs.StreamConfig(chunk_size=512), event_capacity=3, **kw)
+
+
+def test_two_rate_matches_reference_and_one_rate():
+    """detect_many + localize_triggered against the JAX package's, and
+    against the port's own one-rate step on the same streams.  Capacity 3 of
+    5 streams, and chunk 2 holds four triggers: one overflows."""
+    ev = [(700,), (700, 3300), (), (700,), (700,)]
+    x = _streams(MICS3, 5, 9 * 512, ev)
+    jtr = _tworate(jstream, jcfg, MICS3)
+    ttr = _tworate(tstream, tcfg, MICS3, device="cpu")
+    one = tstream.StreamingLocalizer.create(
+        MICS3, tcfg.PipelineConfig(phat=True),
+        stream=tcfg.StreamConfig(chunk_size=512), device="cpu")
+    jst, tst, ost = jtr.init_states(5), ttr.init_states(5), one.init_states(5)
+    overflow = 0
+    for i in range(9):
+        c = x[:, :, i * 512:(i + 1) * 512]
+        jst, jdet = jtr.detect_many(jst, jnp.asarray(c))
+        tst, tdet = ttr.detect_many(tst, torch.from_numpy(c))
+        ost, oout = one.step_many(ost, torch.from_numpy(c))
+        for k in ("triggered", "trigger_abs", "frame"):
+            np.testing.assert_array_equal(tdet[k].numpy(), np.asarray(jdet[k]))
+        np.testing.assert_allclose(tdet["trig_time"].numpy(),
+                                   np.asarray(jdet["trig_time"]), atol=1e-6)
+        assert torch.equal(tdet["triggered"], oout["triggered"])
+        jst, jev = jtr.localize_triggered(jst, jdet)
+        tst, tev = ttr.localize_triggered(tst, tdet)
+        assert set(tev) == set(jev)
+        for k in ("stream_idx", "accepted", "triggered", "event_shifts",
+                  "overflow"):
+            np.testing.assert_array_equal(tev[k].numpy(), np.asarray(jev[k]),
+                                          err_msg=f"chunk {i} {k}")
+        for k, atol in (("tdoa_samples", 1e-3), ("xy_grid", 1e-4),
+                        ("xy", 1e-4), ("rms_m", 1e-5)):
+            np.testing.assert_allclose(tev[k].numpy(), np.asarray(jev[k]),
+                                       atol=atol, err_msg=f"chunk {i} {k}")
+        # the PSR of a slot that captured no event is a ratio of rounding
+        # noise: held on the triggered slots
+        trig = tev["triggered"].numpy()
+        np.testing.assert_allclose(tev["confidence"].numpy()[trig],
+                                   np.asarray(jev["confidence"])[trig],
+                                   rtol=1e-3)
+        overflow += int(tev["overflow"])
+        # an accepted slot carries the one-rate step's position
+        for slot in torch.nonzero(tev["accepted"])[:, 0].tolist():
+            s = int(tev["stream_idx"][slot])
+            assert bool(oout["event"][s])
+            np.testing.assert_allclose(tev["xy"][slot].numpy(),
+                                       oout["xy"][s].numpy(), atol=1e-5)
+    assert overflow == 1
+    _compare_state(jst, tst, "two-rate")
+    # streams that never overflowed carry the one-rate step's state
+    assert tst.event_count.tolist() == [1, 2, 0, 1, 0]
+    keep = [0, 1, 2, 3]
+    scale = float(ost.ema_corr.abs().max())
+    np.testing.assert_allclose(tst.ema_corr[keep].numpy() / scale,
+                               ost.ema_corr[keep].numpy() / scale, atol=1e-6)
+    assert torch.equal(tst.best_shift[keep], ost.best_shift[keep])
+    assert torch.equal(tst.context, ost.context)
+
+
+@pytest.mark.parametrize("kw,word", [
+    (dict(n_sources=2), "n_sources"), (dict(solve_xyz=True), "solve_xyz"),
+    (dict(solve_velocity=True), "solve_velocity")])
+def test_unported_stream_options_raise(kw, word):
+    for cls in (tstream.StreamingLocalizer,
+                tstream.TwoRateStreamingLocalizer):
+        with pytest.raises(NotImplementedError, match=word):
+            cls.create(MICS3, stream=tcfg.StreamConfig(**kw), device="cpu")
+
+
+def test_with_audio_raises_and_device_is_required():
+    with pytest.raises(NotImplementedError, match="with_audio"):
+        tstream.TwoRateStreamingLocalizer.create(MICS3, device="cpu",
+                                                 with_audio=True)
+    with pytest.raises(TypeError):
+        tstream.StreamingLocalizer.create(MICS3)
+    sl = tstream.StreamingLocalizer.create(MICS3, device="cpu")
+    with pytest.raises(ValueError, match="mics"):
+        sl.step_many(sl.init_states(2), torch.zeros(2, 4, 256))
+    with pytest.raises(TypeError, match="Tensor"):
+        sl.step_many(sl.init_states(2), np.zeros((2, 3, 256), np.float32))
+
+
+def test_batch_chunk_streams_changes_nothing():
+    """The reference's sub-batch size is accepted without effect."""
+    x = _streams(MICS3, 4, 4 * 512, [(700,), (300,), (), (900,)])
+    outs = []
+    for cs in (1024, 2, None):
+        sl = tstream.StreamingLocalizer.create(
+            MICS3, stream=tcfg.StreamConfig(chunk_size=512,
+                                            batch_chunk_streams=cs),
+            device="cpu")
+        st = sl.init_states(4)
+        for i in range(4):
+            st, out = sl.step_many(
+                st, torch.from_numpy(x[:, :, i * 512:(i + 1) * 512]))
+        outs.append((st, out))
+    for st, out in outs[1:]:
+        assert torch.equal(st.ema_corr, outs[0][0].ema_corr)
+        assert torch.equal(out["xy"], outs[0][1]["xy"])
+
+
+def test_graphed_step_refuses_cpu_tensors():
+    """A CUDA graph exists only on the card: nothing falls back."""
+    sl = tstream.StreamingLocalizer.create(MICS3, device="cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        sl.graph_step_many(sl.init_states(2), torch.zeros(2, 3, 512))
+
+
+@pytest.mark.gpu
+def test_cuda_graphed_step_equals_eager_step():
+    """The step replayed as a CUDA graph against the eager step on the
+    card, 17 chunks with planted events: every output and the carried
+    state bit-equal (the graph records the same ops)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (a CUDA graph has no CPU mode)")
+    x = torch.from_numpy(_streams(MICS3, 4, 17 * 512, EV4)).cuda()
+    sl = tstream.StreamingLocalizer.create(
+        MICS3, tcfg.PipelineConfig(phat=True, band_hz="auto"),
+        stream=tcfg.StreamConfig(chunk_size=512), device="cuda")
+    st = sl.init_states(4)
+    graphed = sl.graph_step_many(sl.init_states(4), x[:, :, :512])
+    with pytest.raises(ValueError, match="captured shape"):
+        graphed(x[:2, :, :512])
+    n_events = 0
+    for i in range(17):
+        c = x[:, :, i * 512:(i + 1) * 512]
+        st, out = sl.step_many(st, c)
+        gout = graphed(c)
+        assert set(gout) == set(out)
+        for k in out:
+            assert torch.equal(gout[k], out[k]), (i, k)
+        n_events += int(out["events"].sum())
+    assert n_events == sum(len(e) for e in EV4)
+    for k in tstream.STATE_NAMES:
+        assert torch.equal(getattr(graphed.states, k), getattr(st, k)), k
