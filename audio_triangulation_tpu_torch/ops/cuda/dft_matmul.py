@@ -9,7 +9,10 @@ operand types against each other.  ``s`` is a one-element tensor added to
 products; they accumulate and come out in f32 (f32, bf16) or int32 (int8).
 
 On CUDA tensors :func:`dft_matmul` launches ``csrc/dft_matmul.cu`` or
-raises; on CPU tensors it runs :func:`dft_matmul_reference`, the plain
+raises: f32 on the CUDA cores, bf16 and int8 as ``wgmma`` products on the
+tensor cores, which read both operands K-major, so those two type sets
+hand the kernel :func:`k_major` copies of ``w1`` and ``w2`` made on every
+call.  On CPU tensors it runs :func:`dft_matmul_reference`, the plain
 PyTorch version.  ``launches`` counts kernel launches per type set.
 """
 
@@ -28,6 +31,8 @@ TYPE_SETS = {
     "int8": (torch.int8, torch.int32, 2),
 }
 launches = {name: 0 for name in TYPE_SETS}
+# att_dft_matmul's return when the TMA tensor maps could not be encoded
+TENSOR_MAP_ERROR = -1
 
 
 def _type_set(x: torch.Tensor):
@@ -70,24 +75,60 @@ def dft_matmul_reference(x: torch.Tensor, w1: torch.Tensor,
     return torch.matmul(xf, w1.to(acc_dt)) + torch.matmul(xf, w2.to(acc_dt))
 
 
+def k_major_reference(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`k_major`."""
+    return torch.stack((w1.t(), w2.t())).contiguous()
+
+
+def k_major(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """[2, F, N]: the transposes of w1 and w2 [N, F] (bf16 or int8),
+    contiguous, so that K runs fastest: the layout ``wgmma`` reads an int8
+    operand in.  A small kernel of ``csrc/dft_matmul.cu`` on CUDA tensors,
+    the plain version on CPU tensors."""
+    if w1.device.type == "cpu":
+        return k_major_reference(w1, w2)
+    n, f = w1.shape
+    if (w1.device.type != "cuda" or w2.device != w1.device
+            or w2.shape != w1.shape or w2.dtype != w1.dtype
+            or w1.element_size() not in (1, 2)):
+        raise ValueError(
+            f"need two CUDA [N, F] matrices of one 1- or 2-byte dtype; got "
+            f"{tuple(w1.shape)} {w1.dtype} on {w1.device}, "
+            f"{tuple(w2.shape)} {w2.dtype} on {w2.device}")
+    w1, w2 = w1.contiguous(), w2.contiguous()
+    out = torch.empty((2, f, n), dtype=w1.dtype, device=w1.device)
+    lib = _lib()
+    with torch.cuda.device(w1.device):
+        err = lib.att_dft_k_major(
+            w1.data_ptr(), w2.data_ptr(), out.data_ptr(), n, f,
+            w1.element_size(),
+            torch.cuda.current_stream(w1.device).cuda_stream)
+    _build.check(err, "k_major_kernel launch", lib)
+    return out
+
+
 def launch(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
            s: torch.Tensor) -> torch.Tensor:
     """Run ``csrc/dft_matmul.cu`` on CUDA tensors (same contract as
     :func:`dft_matmul_reference`); raises on anything it does not take:
     N must be a multiple of 64 and F of 16."""
     name, acc_dt, code = _checked(x, w1, w2, s)
+    r, n = x.shape
+    f = w1.shape[1]
+    if r < 1 or n % 64 or f % 16 or n < 64 or f < 16:
+        raise ValueError(f"the kernel takes N a multiple of 64 and F a "
+                         f"multiple of 16; got R={r}, N={n}, F={f}")
     if x.device.type != "cuda":
         raise ValueError(f"the DFT-product kernel needs CUDA tensors; x is "
                          f"on {x.device}")
     dev = x.device
     if any(t.device != dev for t in (w1, w2, s)):
         raise ValueError("x, w1, w2 and s must be on one device")
-    r, n = x.shape
-    f = w1.shape[1]
-    if r < 1 or n % 64 or f % 16 or n < 64 or f < 16:
-        raise ValueError(f"the kernel takes N a multiple of 64 and F a "
-                         f"multiple of 16; got R={r}, N={n}, F={f}")
-    x, w1, w2, s = (t.contiguous() for t in (x, w1, w2, s))
+    x, s = x.contiguous(), s.contiguous()
+    if name == "f32":
+        w1, w2 = w1.contiguous(), w2.contiguous()
+    else:
+        w1, w2 = k_major(w1, w2)
     out = torch.empty((r, f), dtype=acc_dt, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
@@ -95,6 +136,11 @@ def launch(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
             x.data_ptr(), w1.data_ptr(), w2.data_ptr(), s.data_ptr(),
             out.data_ptr(), r, n, f, code,
             torch.cuda.current_stream(dev).cuda_stream)
+    if err == TENSOR_MAP_ERROR:
+        raise RuntimeError(
+            f"dft_matmul_kernel {name}: cuTensorMapEncodeTiled was not found "
+            f"in libcuda.so.1 or refused x {tuple(x.shape)}, w [{f}, {n}]; "
+            "nothing was launched")
     launches[name] += 1
     _build.check(err, "dft_matmul_kernel launch", lib)
     return out
@@ -115,4 +161,6 @@ def _lib():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.att_dft_matmul.argtypes = [vp] * 5 + [ci] * 4 + [vp]
         lib.att_dft_matmul.restype = ci
+        lib.att_dft_k_major.argtypes = [vp] * 3 + [ci] * 3 + [vp]
+        lib.att_dft_k_major.restype = ci
     return lib

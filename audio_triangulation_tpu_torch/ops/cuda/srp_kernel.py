@@ -8,7 +8,11 @@ problem.
 
 On CUDA tensors :func:`srp_argmax` launches ``csrc/srp_kernel.cu`` or
 raises; on CPU tensors it runs :func:`srp_argmax_reference`, the plain
-PyTorch version.  ``launches`` counts kernel launches.
+PyTorch version.  The kernel multiplies on the tensor cores: in f32 mode
+as three TF32 products of operands split into a high and a low part, in
+bf16 mode as one bf16 product, both summed in fp32;
+:func:`srp_argmax_split_reference` repeats that arithmetic in plain
+PyTorch.  ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -33,6 +37,51 @@ def srp_argmax_reference(flat: torch.Tensor, matrix: torch.Tensor,
         matrix = matrix.to(torch.bfloat16).to(matrix.dtype)
     scores = torch.matmul(flat, matrix)[:, :num_cells]
     cell = scores.argmax(dim=-1)  # the first maximum
+    val = scores.gather(-1, cell[:, None])[:, 0]
+    return val, cell.to(torch.int32)
+
+
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """f32 values rounded to TF32 (10 mantissa bits) to nearest, ties away
+    from zero, as the kernel and ``cvt.rna.tf32.f32`` do: half a TF32 ulp
+    added to the magnitude bits, the 13 low bits cleared."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split(t: torch.Tensor):
+    """(hi, lo), both TF32 values, with hi + lo within 2^-21 of t: hi is t
+    rounded to TF32 and lo the rounded remainder."""
+    hi = tf32_round(t)
+    return hi, tf32_round(t - hi)
+
+
+def srp_argmax_split_reference(flat: torch.Tensor, matrix: torch.Tensor,
+                               num_cells: int, *, bf16: bool = False):
+    """Plain PyTorch version that repeats the kernel's arithmetic on f32
+    operands (same contract as :func:`srp_argmax_reference`).  f32 mode:
+    both operands split by :func:`tf32_split`, and every 8 values of K add
+    ``a_lo w_hi``, then ``a_hi w_lo``, then ``a_hi w_hi`` to one f32
+    accumulator.  bf16 mode: operands rounded to bf16, every 16 values of
+    K added to one f32 accumulator."""
+    flat, matrix = flat.float(), matrix.float()
+    b, k = flat.shape
+    acc = torch.zeros((b, matrix.shape[1]), dtype=torch.float32,
+                      device=flat.device)
+    if bf16:
+        a = flat.to(torch.bfloat16).float()
+        w = matrix.to(torch.bfloat16).float()
+        for k0 in range(0, k, 16):
+            acc += a[:, k0:k0 + 16] @ w[k0:k0 + 16]
+    else:
+        (a_hi, a_lo), (w_hi, w_lo) = tf32_split(flat), tf32_split(matrix)
+        for k0 in range(0, k, 8):
+            ks = slice(k0, k0 + 8)
+            acc += a_lo[:, ks] @ w_hi[ks]
+            acc += a_hi[:, ks] @ w_lo[ks]
+            acc += a_hi[:, ks] @ w_hi[ks]
+    scores = acc[:, :num_cells]
+    cell = scores.argmax(dim=-1)
     val = scores.gather(-1, cell[:, None])[:, 0]
     return val, cell.to(torch.int32)
 

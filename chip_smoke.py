@@ -59,17 +59,24 @@ LARGE_CHECK_FRAMES = 16  # frames per kernel-vs-plain comparison (float64)
 LARGE_CPU_FRAMES = 4  # frames held to the CPU path
 LARGE_REPS = 5  # launches per timing of the large-array kernel
 SRP_CHECK_FRAMES = 4096  # frames per SRP-argmax comparison (float64)
+# a general matrix whose sizes no tile divides: frames, K (odd: rows aligned
+# to 4 bytes only), columns, cells counted
+SRP_RAGGED = (1000, 557, 1531, 1400)
 # published peaks of one H100 SXM (NVIDIA's data sheet): fp32 outside the
-# tensor cores, dense bf16 and int8 in them, and device memory.  Every
-# kernel here computes on the CUDA cores; the bf16 and int8 type sets of
-# the DFT product are bounded by what the card offers their operand types.
+# tensor cores, dense TF32, bf16 and int8 in them, and device memory.  The
+# SRP-argmax kernel (three TF32 products in f32 mode, one bf16 product in
+# bf16 mode) and the bf16 and int8 type sets of the DFT product compute on
+# the tensor cores and are bounded by their rates; every other kernel
+# computes on the CUDA cores.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
 # the DFT-shaped product: rows x n x f, grid row tiles (the tool's defaults)
 DFT_ROWS, DFT_N, DFT_F = 256, 1024, 512
 DFT_CHECK_GRID = 16  # row tiles of the kernel-vs-plain comparison
+DFT_RAGGED_ROWS = 16 * 256 - 91  # and a row count that no block tile divides
 DFT_GRID = 256  # row tiles timed: 65,536 rows, 137.4 GFLOP a call
 DFT_REPS = 10
 DFT_TOOL_ITERS = 6  # chained calls per type set when the tool is driven
@@ -184,6 +191,17 @@ def bound(flops: float, nbytes: float, rate: float = PEAK_FP32_FLOPS) -> dict:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return dict(bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def share_of_bound(phase: str, what: str, k_ms: float, bnd: dict) -> float:
+    """Percent of its bound's rate that a kernel timed at ``k_ms`` reaches.
+    No kernel can beat its bound, so a time under it means the bound counts
+    too few operations or bytes, or too high a rate: the run fails."""
+    if k_ms < bnd["bound_ms"]:
+        fail(phase, f"{what}: {k_ms:.4f} ms is under its bound of "
+             f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']}: the bound is "
+             "wrong")
+    return 100 * bnd["bound_ms"] / k_ms
 
 
 def gcc_bound(b, m, n, f, p, l, *, stats_hw=None, srp_cells=0,
@@ -623,7 +641,9 @@ def srp_inputs(corr_t):
 def srp_check(phase, name, corr_t, onehot, cells, bf16):
     """The SRP-argmax kernel against its plain version in float64: best
     score within 1e-4 of the score scale, the cell equal wherever the
-    float64 top-two gap is clear of rounding.  Returns the score error."""
+    float64 top-two gap is clear of rounding; and its score against the
+    plain version in the kernel's own arithmetic.  Returns the float64
+    score error."""
     import torch
     from audio_triangulation_tpu_torch.ops.cuda import srp_kernel
 
@@ -641,12 +661,20 @@ def srp_check(phase, name, corr_t, onehot, cells, bf16):
     picked = scores.gather(-1, cell.long()[:, None])[:, 0]
     pick_err = float((picked - top2.values[:, 0]).abs().max()) / smax
     cell_bad = int(((cell.long() != scores.argmax(dim=-1)) & clear).sum())
+    # and against the plain version that repeats the kernel's arithmetic
+    # (split TF32 or bf16 operands, fp32 sums per step of K), within 2e-5
+    # of scale: inside a step the tensor cores add in another order and
+    # cut, not round, the aligned addends
+    sval, _ = srp_kernel.srp_argmax_split_reference(
+        corr_t.reshape(b, -1), onehot, cells, bf16=bf16)
+    serr = float((val - sval).abs().max()) / smax
     say(phase, f"{name}: {b} frames x {onehot.shape[0]} x {cells} cells vs "
         f"the plain version in float64: score/scale err {verr:.2e}, cell "
         f"mismatches {cell_bad} (near ties excluded: {int((~clear).sum())}), "
-        f"score of the chosen cell below the best by {pick_err:.2e}")
+        f"score of the chosen cell below the best by {pick_err:.2e}; vs the "
+        f"plain version in the kernel's arithmetic {serr:.2e}")
     if not (verr <= 1e-4 and pick_err <= 1e-4 and cell_bad == 0
-            and int(clear.sum()) * 2 > b):
+            and serr <= 2e-5 and int(clear.sum()) * 2 > b):
         fail(phase, f"{name}: kernel disagrees with its plain version")
     return verr
 
@@ -654,7 +682,9 @@ def srp_check(phase, name, corr_t, onehot, cells, bf16):
 def phase_srp(rng, results):
     """The SRP-argmax kernel in f32 and bf16 on tapered correlograms of
     random-source frames against the 101 x 101 grid (10,201 cells: no
-    multiple of any tile), and planted ties that the first cell must win."""
+    multiple of any tile), on a general random matrix whose every size is
+    ragged (1,000 frames, K = 557, 1,531 columns of which 1,400 count), and
+    planted ties that the first cell must win."""
     import torch
     from audio_triangulation_tpu_torch import PipelineConfig, geometry
     from audio_triangulation_tpu_torch.ops import window as window_ops
@@ -670,9 +700,17 @@ def phase_srp(rng, results):
         with_peaks=True)[0]
     onehot, cells = srp_inputs(corr_t)
     worst = 0.0
+    rb, rk, rg, rcells = SRP_RAGGED
+    ragged_a = torch.from_numpy(rng.standard_normal(
+        (rb, 1, rk), dtype=np.float32)).cuda()
+    ragged_w = torch.from_numpy(rng.standard_normal(
+        (rk, rg), dtype=np.float32)).cuda()
     for bf16 in (False, True):
-        worst = max(worst, srp_check(
-            "2 srp", "bf16" if bf16 else "f32", corr_t, onehot, cells, bf16))
+        mode = "bf16" if bf16 else "f32"
+        worst = max(worst, srp_check("2 srp", mode, corr_t, onehot, cells,
+                                     bf16))
+        worst = max(worst, srp_check("2 srp", f"{mode}, general matrix",
+                                     ragged_a, ragged_w, rcells, bf16))
     # ties: all-zero scores -> cell 0; two equal best columns, 8,963 cells
     # apart -> the earlier one; a best column past num_cells never wins
     zeros = torch.zeros_like(corr_t[:300])
@@ -1006,6 +1044,7 @@ def phase_timing(card, locs, frames, large_locs, large, srp_args, results):
 
     def report(kernel, name, k_ms, p_ms, bnd, library_ms=None, **extra):
         lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
+        share_of_bound("5 timing", f"{kernel} {name}", k_ms, bnd)
         say("5 timing", f"{kernel} {name}: kernel {k_ms:.4f} ms, plain "
             f"{p_ms:.4f} ms{lib}, bound {bnd['bound_ms']:.4f} ms by "
             f"{bnd['bound_by']} ({card})")
@@ -1075,17 +1114,49 @@ def phase_timing(card, locs, frames, large_locs, large, srp_args, results):
               4 * b * (6 + 2 + 2 + 1)))
 
     # the SRP-argmax kernel; its library yardstick is two calls, a matmul
-    # that stores [B, G] and an argmax over it
+    # that stores [B, G] and an argmax over it (for the bf16 mode on
+    # operands already rounded to bf16).  The f32 mode has two bounds, the
+    # product once on the fp32 CUDA cores or three times on the TF32 tensor
+    # cores; it is held to the smaller.
     corr_t, onehot, cells = srp_args
     flat = corr_t.reshape(b, -1)
     k_dim, g = onehot.shape
+    flops, nbytes = 2 * b * k_dim * g, 4 * (b * k_dim + k_dim * g + 2 * b)
     k_ms, p_ms = alternate_ms(
         lambda: srp_kernel.srp_argmax_reference(flat, onehot, cells),
         lambda: srp_kernel.launch(flat, onehot, cells))
     lib_ms = cuda_ms(lambda: torch.matmul(flat, onehot).argmax(dim=-1), REPS)
-    report("srp_argmax_kernel", f"({b} frames, {g} cells)", k_ms, p_ms,
-           bound(2 * b * k_dim * g, 4 * (b * k_dim + k_dim * g + 2 * b)),
+    cores, tensor = bound(flops, nbytes), bound(3 * flops, nbytes,
+                                                PEAK_TF32_FLOPS)
+    bnd = min(cores, tensor, key=lambda d: d["bound_ms"])
+    report("srp_argmax_kernel", f"({b} frames, {g} cells)", k_ms, p_ms, bnd,
            library_ms=lib_ms, library="torch.matmul + argmax (two calls)")
+    pct = share_of_bound("5 timing", "srp_argmax_kernel f32 mode", k_ms, bnd)
+    say("5 timing", f"srp_argmax_kernel f32 mode: bound on the fp32 CUDA "
+        f"cores {cores['bound_ms']:.4f} ms, as three TF32 products "
+        f"{tensor['bound_ms']:.4f} ms; the kernel runs at "
+        f"{pct:.1f}% of the smaller")
+    kb_ms, pb_ms = alternate_ms(
+        lambda: srp_kernel.srp_argmax_reference(flat, onehot, cells,
+                                                bf16=True),
+        lambda: srp_kernel.launch(flat, onehot, cells, bf16=True))
+    flat_b, onehot_b = flat.bfloat16(), onehot.bfloat16()
+    libb_ms = cuda_ms(
+        lambda: torch.matmul(flat_b, onehot_b).argmax(dim=-1), REPS)
+    bnd_b = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    pct = share_of_bound("5 timing", "srp_argmax_kernel bf16 mode", kb_ms,
+                         bnd_b)
+    say("5 timing", f"srp_argmax_kernel bf16 mode ({b} frames, {g} cells): "
+        f"kernel {kb_ms:.4f} ms, plain {pb_ms:.4f} ms, library "
+        f"{libb_ms:.4f} ms (bf16 torch.matmul + argmax on operands already "
+        f"in bf16), bound {bnd_b['bound_ms']:.4f} ms by "
+        f"{bnd_b['bound_by']}, "
+        f"{pct:.1f}% of it ({card})")
+    results["srp_argmax_kernel"].update(
+        bound_ms_fp32_cores=cores["bound_ms"], bf16_ms=kb_ms,
+        bf16_plain_ms=pb_ms, bf16_library_ms=libb_ms,
+        bf16_bound_ms=bnd_b["bound_ms"])
+    del flat_b, onehot_b
 
     # the large-array kernel, with peaks as the Localizer calls it; and on
     # the band-crop line both peak routes: in the kernel, or the plain peak
@@ -1137,8 +1208,10 @@ def dft_bound(name, rows, n, f) -> dict:
 
 
 def phase_dft_matmul(card, results):
-    """The DFT-product kernel against its plain version at rows 256 x 16,
-    n 1,024, f 512: int8 bit-equal; f32 and bf16 within 1e-5 of the output
+    """The DFT-product kernel against its plain version at rows 256 x 16
+    (s = 0), at 4,005 rows, which no block tile divides (s = 2), and at the
+    65,536 rows that the tool and the timing below give it (s = 1), n 1,024,
+    f 512: int8 bit-equal; f32 and bf16 within 1e-5 of the output
     scale of a float64 evaluation of the same type-rounded operands (a
     1,024-term fp32 sum; the x + s add is made in x's type on both sides).
     Then timed at 65,536 rows in turns with the plain version, and beside
@@ -1154,9 +1227,10 @@ def phase_dft_matmul(card, results):
             name, DFT_ROWS, DFT_N, DFT_F, DFT_GRID, "cuda", seed=SEED)
         w2 = w1.flip(0).contiguous()  # a second matrix, not the first again
         worst = 0.0
-        for sv in (0, 2):
+        for sv, rows in ((0, DFT_CHECK_GRID * DFT_ROWS), (2, DFT_RAGGED_ROWS),
+                         (1, x.shape[0])):
             s = torch.full((1,), sv, dtype=acc_dt, device="cuda")
-            xc = x[:DFT_CHECK_GRID * DFT_ROWS]
+            xc = x[:rows]
             got = dft_matmul.launch(xc, w1, w2, s)
             ref = dft_matmul.dft_matmul_reference(xc, w1, w2, s)
             torch.cuda.synchronize()
@@ -1180,7 +1254,17 @@ def phase_dft_matmul(card, results):
                     fail("2 dft", f"{name}: kernel disagrees with the float64 "
                          "evaluation")
                 worst = max(worst, e_k)
+                del xs, r64
+            del got, ref
         results[key]["max_abs_err"] = worst
+        if name != "f32":  # the K-major copies the wgmma kernel reads
+            km = dft_matmul.k_major(w1, w2)
+            same = bool(torch.equal(km[0], w1.t()) and torch.equal(km[1],
+                                                                    w2.t()))
+            say("2 dft", f"{name}: K-major copies of w1, w2 "
+                f"{tuple(km.shape)} equal to their transposes: {same}")
+            if not same:
+                fail("2 dft", f"{name}: k_major disagrees with w.T")
 
         s = torch.full((1,), 1, dtype=acc_dt, device="cuda")
         k_ms, p_ms = alternate_ms(
@@ -1198,13 +1282,30 @@ def phase_dft_matmul(card, results):
                    "two bf16 torch.matmul (bf16 outputs) and an f32 add")
             lib_ms = cuda_ms(lambda: torch.matmul(xs, w1).float()
                              + torch.matmul(xs, w2).float(), DFT_REPS)
+            if name == "bf16":
+                # the same with f32 outputs, where this PyTorch takes it; a
+                # fault left by an earlier kernel surfaces here, not inside
+                torch.cuda.synchronize()
+                try:
+                    f32_ms = cuda_ms(
+                        lambda: torch.mm(xs, w1, out_dtype=torch.float32)
+                        + torch.mm(xs, w2, out_dtype=torch.float32),
+                        DFT_REPS)
+                    say("5 timing", f"{key}: two torch.mm(out_dtype=float32) "
+                        f"and an add {f32_ms:.4f} ms ({card})")
+                    results[key]["library_f32_out_ms"] = f32_ms
+                except (TypeError, NotImplementedError) as exc:
+                    say("5 timing", f"{key}: torch.mm(out_dtype=float32) is "
+                        f"not taken here ({type(exc).__name__})")
         bnd = dft_bound(name, x.shape[0], DFT_N, DFT_F)
         ops = 4 * x.shape[0] * DFT_N * DFT_F
         lib_msg = "none" if lib_ms is None else f"{lib_ms:.4f} ms ({lib})"
+        pct = share_of_bound("5 timing", key, k_ms, bnd)
         say("5 timing", f"{key} ({x.shape[0]} x {DFT_N} x {DFT_F} twice): "
             f"kernel {k_ms:.4f} ms ({ops / k_ms / 1e9:.1f} T(FL)OP/s), plain "
             f"{p_ms:.4f} ms, library {lib_msg}, bound {bnd['bound_ms']:.4f} "
-            f"ms by {bnd['bound_by']} ({card})")
+            f"ms by {bnd['bound_by']}, "
+            f"{pct:.1f}% of it ({card})")
         results[key].update(ms=k_ms, plain_ms=p_ms, **bnd, library_ms=lib_ms,
                             library=lib)
         del x, xs
@@ -1475,6 +1576,11 @@ def phase_stream(card):
                     f"({card})")
 
 
+# further keys of an entry that has them: what the library yardstick is, the
+# SRP-argmax kernel's other bound and its bf16 mode, the bf16 DFT product's
+# library form with f32 outputs
+EXTRA_KEYS = ("library", "bound_ms_fp32_cores", "bf16_ms", "bf16_plain_ms",
+              "bf16_library_ms", "bf16_bound_ms", "library_f32_out_ms")
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
@@ -1504,7 +1610,7 @@ def main():
 
     print(json.dumps({"kernels": [
         {k: results[n][k] for k in (*KERNEL_KEYS, *(
-            ["library"] if "library" in results[n] else []))}
+            e for e in EXTRA_KEYS if e in results[n]))}
         for n in KERNEL_INFO]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
-"""Time variants of the large-array GCC kernel against each other on the GPU.
+"""Time variants of two kernels against each other on the GPU.
 
 Each variant is a copy of ``audio_triangulation_tpu_torch/csrc`` with one
-constant of ``gcc_large.cu`` edited (bins staged per step, blocks per SM),
-built into its own library; the variants are launched in turns, twice round,
-within one process and on one card, on the operands of the 64-mic full-band
-and band-crop configurations of ``chip_smoke.py`` (256 frames), and each
-output is compared with the unedited kernel's.
+line edited, built into its own library; the variants are launched in
+turns, twice round, within one process and on one card, and each output is
+compared with the unedited kernel's.  The large-array GCC kernel
+(``gcc_large.cu``: bins staged per step, blocks per SM) runs on the
+operands of the 64-mic full-band and band-crop configurations of
+``chip_smoke.py`` (256 frames); the SRP-argmax kernel (``srp_kernel.cu``,
+``hopper.cuh``: how a value is rounded to TF32, stages of the copy ring)
+on 16,384 random correlograms against the 101 x 101 steering matrix, in
+f32 and bf16 mode.
 
     python3 chip_variants.py         # one CUDA card
 
@@ -18,6 +22,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import subprocess
 import sys
 import tempfile
 from pathlib import Path
@@ -27,17 +32,31 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROUNDS = 2
 REPS = 5
-# name -> (text in gcc_large.cu, its replacement)
-VARIANTS = {
+SRP_REPS = 10
+# name -> (file, text in it, its replacement)
+LARGE_VARIANTS = {
     "as_committed": None,
-    "8_bins_a_step": ("constexpr int kFChunk = 16; ",
+    "8_bins_a_step": ("gcc_large.cu", "constexpr int kFChunk = 16; ",
                       "constexpr int kFChunk = 8;  "),
-    "32_bins_a_step": ("constexpr int kFChunk = 16; ",
+    "32_bins_a_step": ("gcc_large.cu", "constexpr int kFChunk = 16; ",
                        "constexpr int kFChunk = 32; "),
-    "3_blocks_an_sm": ("__launch_bounds__(kThreads, 2)",
+    "3_blocks_an_sm": ("gcc_large.cu", "__launch_bounds__(kThreads, 2)",
                        "__launch_bounds__(kThreads, 3)"),
-    "1_block_an_sm": ("__launch_bounds__(kThreads, 2)",
+    "1_block_an_sm": ("gcc_large.cu", "__launch_bounds__(kThreads, 2)",
                       "__launch_bounds__(kThreads, 1)"),
+}
+SRP_VARIANTS = {
+    "as_committed": None,
+    "round_by_cvt": (
+        "hopper.cuh",
+        "  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;",
+        "  uint32_t r;\n"
+        "  asm(\"cvt.rna.tf32.f32 %0, %1;\\n\" : \"=r\"(r) : \"f\"(x));\n"
+        "  return r;"),
+    "2_stages": ("srp_kernel.cu", "constexpr int kStages = 3;",
+                 "constexpr int kStages = 2;"),
+    "4_stages": ("srp_kernel.cu", "constexpr int kStages = 3;",
+                 "constexpr int kStages = 4;"),
 }
 
 
@@ -50,19 +69,21 @@ def main():
     sys.path.insert(0, HERE)
     import chip_smoke
     from audio_triangulation_tpu_torch import Localizer
-    from audio_triangulation_tpu_torch.ops.cuda import _build, gcc_large
+    from audio_triangulation_tpu_torch.ops.cuda import (_build, gcc_large,
+                                                        srp_kernel)
 
     committed = _build.CSRC_DIR
     libs = {}
     with tempfile.TemporaryDirectory() as root:
-        for name, edit in VARIANTS.items():
+        for name, edit in {**SRP_VARIANTS, **LARGE_VARIANTS}.items():
             src = Path(root) / name / "csrc"
             shutil.copytree(committed, src)
             if edit is not None:
-                text = (src / "gcc_large.cu").read_text()
-                if edit[0] not in text:
-                    raise RuntimeError(f"{name}: {edit[0]!r} not in the source")
-                (src / "gcc_large.cu").write_text(text.replace(*edit))
+                file, old, new = edit
+                text = (src / file).read_text()
+                if old not in text:
+                    raise RuntimeError(f"{name}: {old!r} not in {file}")
+                (src / file).write_text(text.replace(old, new))
             _build.CSRC_DIR = src
             libs[name] = _build.load_library(Path(root) / name / "build")
         _build.CSRC_DIR = committed
@@ -79,12 +100,39 @@ def main():
                                    init_grid_stride=chip_smoke.LARGE_STRIDE)
             cases[cname] = (loc.pairs, chip_smoke.large_operands(
                 frames, loc.window, loc.pairs, cfg))
-        print(torch.cuda.get_device_name(0), flush=True)
+        corr = torch.from_numpy(rng.standard_normal(
+            (chip_smoke.FRAMES, 6, 93), dtype=np.float32)).cuda()
+        onehot, cells = chip_smoke.srp_inputs(corr)
+        flat = corr.reshape(chip_smoke.FRAMES, -1)
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip(), flush=True)
         first = {}
+
+        def use(lib):  # the wrappers take whichever library is loaded
+            _build._loaded[str(_build.BUILD_DIR)] = lib
+
         for rnd in range(ROUNDS):
-            for name, lib in libs.items():
-                # the wrappers take whichever library is loaded
-                _build._loaded[str(_build.BUILD_DIR)] = lib
+            for name in SRP_VARIANTS:
+                use(libs[name])
+                row = {}
+                for mode, bf16 in (("f32", False), ("bf16", True)):
+                    def run():
+                        return srp_kernel.launch(flat, onehot, cells,
+                                                 bf16=bf16)
+                    got = run()
+                    torch.cuda.synchronize()
+                    ref = first.setdefault(mode, got)
+                    row[mode] = {
+                        "ms": round(chip_smoke.cuda_ms(run, SRP_REPS), 4),
+                        "outputs_equal": bool(
+                            torch.equal(ref[0], got[0])
+                            and torch.equal(ref[1], got[1]))}
+                print(rnd, "srp_argmax_kernel", name, json.dumps(row),
+                      flush=True)
+            for name in LARGE_VARIANTS:
+                use(libs[name])
                 row = {}
                 for cname, (pairs, (re, im, sync, syns, kw)) in cases.items():
                     def run():
@@ -99,7 +147,8 @@ def main():
                             (ref[0] - got[0]).abs().max()
                             / ref[0].abs().max()),
                         "shifts_equal": bool(torch.equal(ref[1], got[1]))}
-                print(rnd, name, json.dumps(row), flush=True)
+                print(rnd, "gcc_large_kernel", name, json.dumps(row),
+                      flush=True)
 
 
 if __name__ == "__main__":

@@ -271,3 +271,21 @@ def test_cuda_srp_argmax_matches_plain_version(rng, cuda_device, bf16):
         corr.reshape(300, -1).double(), w.double(), cells, bf16=bf16)
     assert torch.equal(cell, rc)
     assert float((val.double() - rv).abs().max()) < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_cuda_srp_argmax_ties_and_ragged_sizes(rng, cuda_device, bf16):
+    """The tensor-core kernel on sizes no tile divides (B = 301, K = 557,
+    G = 1,531, 1,400 cells counted): equal columns far apart give bit-equal
+    scores, so the first wins; a larger column past num_cells never does."""
+    a = torch.from_numpy(np.abs(rng.standard_normal(
+        (301, 1, 557))).astype(np.float32) + 1e-3).to(cuda_device)
+    w = torch.from_numpy(
+        rng.standard_normal((557, 1531)).astype(np.float32)).to(cuda_device)
+    w[:, 5] = w[:, 1300] = 3.0
+    w[:, 1500] = 9.0
+    _, cell = tsrpk.srp_argmax(a, w, 1400, bf16=bf16)
+    assert cell.tolist() == [5] * 301
+    _, cell = tsrpk.srp_argmax(torch.zeros_like(a), w, 1400, bf16=bf16)
+    assert cell.tolist() == [0] * 301

@@ -224,21 +224,44 @@ def cuda_device():
 
 
 @pytest.mark.gpu
+# ragged and whole tiles, and the tool's own row count (several waves of
+# blocks)
+@pytest.mark.parametrize("rows", [1000, 257, 1024, 65536])
 @pytest.mark.parametrize("name", ["f32", "bf16", "int8"])
-def test_cuda_dft_matmul_matches_plain_version(cuda_device, name):
-    x, w, acc_dt = int8_microbench.make_inputs(name, 256, 1024, 512, 4,
-                                               cuda_device)
+def test_cuda_dft_matmul_matches_plain_version(cuda_device, name, rows):
+    x, w, acc_dt = int8_microbench.make_inputs(
+        name, 256, 1024, 512, max(4, rows // 256), cuda_device)
     w2 = w.flip(0).contiguous()
     s = torch.full((1,), 2, dtype=acc_dt, device=cuda_device)
-    got = dft_matmul.dft_matmul(x[:1000], w, w2, s)  # a ragged row tile
-    ref = dft_matmul.dft_matmul_reference(x[:1000], w, w2, s)
+    before = dft_matmul.launches[name]
+    got = dft_matmul.dft_matmul(x[:rows], w, w2, s)
+    assert dft_matmul.launches[name] == before + 1
+    ref = dft_matmul.dft_matmul_reference(x[:rows], w, w2, s)
     if name == "int8":
         assert torch.equal(got, ref)
     else:
-        xs = (x[:1000] + s.to(x.dtype)).double()
+        xs = (x[:rows] + s.to(x.dtype)).double()
         r64 = xs @ w.double() + xs @ w2.double()
         assert float((got.double() - r64).abs().max()
                      / r64.abs().max()) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["bf16", "int8"])
+def test_cuda_dft_matmul_narrow_shapes(cuda_device, name):
+    """The smallest shapes the wgmma type sets take (N = 64, F = 16) and an
+    N that is no multiple of a 128-byte stage of int8 (192)."""
+    for rows, n, f in ((3, 64, 16), (300, 192, 144)):
+        x, w, acc_dt = int8_microbench.make_inputs(name, rows, n, f, 1,
+                                                   cuda_device, seed=3)
+        w2 = w.flip(0).contiguous()
+        s = torch.full((1,), 1, dtype=acc_dt, device=cuda_device)
+        got = dft_matmul.dft_matmul(x, w, w2, s)
+        ref = dft_matmul.dft_matmul_reference(x, w, w2, s)
+        if name == "int8":
+            assert torch.equal(got, ref)
+        else:
+            torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-3)
 
 
 @pytest.mark.gpu
