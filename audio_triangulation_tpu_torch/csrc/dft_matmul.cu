@@ -396,41 +396,9 @@ k_major_kernel(const T* __restrict__ w1, const T* __restrict__ w2, T* __restrict
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from libcuda, which the process has already loaded
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
-    return h ? (EncodeTiled)dlsym(h, "cuTensorMapEncodeTiled") : (EncodeTiled) nullptr;
-  }();
-  return fn;
-}
-
-// map of a row-major [rows, cols] matrix read in tiles of box_rows x 128 bytes
-// under the 128-byte swizzle; out-of-range elements read as zero
-bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes, const void* base,
-              int rows, int cols, int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
-  const cuuint32_t box[2] = {(cuuint32_t)(kWgKBytes / elem_bytes), (cuuint32_t)box_rows};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, elem_strides,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// what att_dft_matmul returns when a tensor map could not be made (libcuda's
-// cuTensorMapEncodeTiled not found, or it refused the matrix): no cudaError_t
-// is negative, and nothing was launched
-constexpr int kErrTensorMap = -1;
+using hopper::kErrTensorMap;
+using hopper::make_map;
+static_assert(kWgKBytes == 128, "hopper::make_map reads tiles of 128 bytes of K");
 
 template <typename TIn, typename TAcc>
 int launch_wgmma(const void* x, const void* w1t, const void* w2t, const void* s, void* out,

@@ -5,22 +5,67 @@
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <stdint.h>
 
 namespace hopper {
+
+// ---- TMA tensor maps (host) --------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, which the process has already loaded
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
+    return h ? (EncodeTiled)dlsym(h, "cuTensorMapEncodeTiled") : (EncodeTiled) nullptr;
+  }();
+  return fn;
+}
+
+// map of a row-major [rows, cols] matrix read in tiles of box_rows x 128 bytes
+// under the 128-byte swizzle; out-of-range elements read as zero
+inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+                     const void* base, int rows, int cols, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / elem_bytes), (cuuint32_t)box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// what an entry point returns when a tensor map could not be made (libcuda's
+// cuTensorMapEncodeTiled not found, or it refused the matrix): no cudaError_t
+// is negative, and nothing was launched
+constexpr int kErrTensorMap = -1;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// ---- cp.async (4 bytes; zero-filled when !ok) ------------------------------
+// ---- cp.async (4 bytes, zero-filled when !ok; 16 bytes) --------------------
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
   const int n = ok ? 4 : 0;
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(n)
+               : "memory");
+}
+// 16 bytes, both addresses 16-byte aligned, past L1
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -29,6 +74,15 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// 16 bytes of shared memory, 16-byte aligned.  Volatile: the load keeps its
+// place among the other volatile statements (mma.sync, other loads), which
+// bounds how long its four registers live.
+__device__ __forceinline__ void lds128(uint32_t (&v)[4], const void* p) {
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+               : "r"(smem_addr(p)));
 }
 
 // ---- mma.sync --------------------------------------------------------------
@@ -57,6 +111,17 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d = a (16 x 8, row) * b (8 x 8, col): the product alone, for sums that are
+// kept outside the tensor cores (which add with truncation)
+__device__ __forceinline__ void mma_tf32_zero(float (&d)[4], const uint32_t (&a)[4],
+                                              const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f));
 }
 
 // d += a (16 x 16, row) * b (16 x 8, col), bf16 pairs packed low k first
@@ -110,6 +175,26 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// mbar_wait that gives up: false when the phase has not changed after about a
+// second of polling (a copy that never lands would otherwise hang the card)
+__device__ __forceinline__ bool mbar_wait_bounded(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  for (uint32_t spins = 0; spins < (1u << 26); ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return true;
+  }
+  return false;
 }
 
 // ---- TMA -------------------------------------------------------------------
@@ -209,6 +294,30 @@ __device__ __forceinline__ void wgmma_m64n128(int (&d)[64], uint64_t a, uint64_t
       "}\n"
       : ATT_64(ATT_R, d)
       : "l"(a), "l"(b), "r"(1));
+}
+
+#define ATT_REGS76                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "      \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, " \
+  "%31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, " \
+  "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, " \
+  "%61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75}"
+
+// d [64 x 152, f32] += a [64 x 8] * b [152 x 8]^T, TF32: a from registers (the
+// mma.sync m16n8k8 A fragment of the warp's 16 rows), b K-major in shared
+// memory under the 128-byte swizzle
+__device__ __forceinline__ void wgmma_m64n152_tf32(float (&d)[76], const uint32_t (&a)[4],
+                                                   uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %81, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n152k8.f32.tf32.tf32 " ATT_REGS76
+      ", {%76, %77, %78, %79}, %80, p, 1, 1;\n"
+      "}\n"
+      : ATT_64(ATT_F, d), ATT_8(ATT_F, d, 64), ATT_F(d[72]), ATT_F(d[73]), ATT_F(d[74]),
+        ATT_F(d[75])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 // keeps the compiler from moving accumulator uses across the async product

@@ -41,11 +41,161 @@ import torch
 from ...core.config import PipelineConfig
 from .. import mxu_fft, xcorr
 from . import _build
+from .srp_kernel import tf32_split
 
 launches = 0
 stats_launches = 0
 srp_launches = 0
 pipelined_launches = 0
+
+
+# The split, packed synthesis matrix that the stats mode's synthesis stage
+# reads: bins are padded to whole chunks of SPLIT_CHUNK_BINS (the
+# large-array kernel stages the same chunks), lags to whole lag blocks of at
+# most STATS_LAG_TILES tiles of 8 (``kLagBlock / 8`` of
+# ``csrc/gcc_kernel.cu``).
+SPLIT_CHUNK_BINS = 16
+STATS_LAG_TILES = 16
+
+
+def split_dims(f: int, l: int, max_tiles: int):
+    """(lag tiles a lag block, lag blocks, padded bins) of the packed matrix
+    for F bins and L lags with at most ``max_tiles`` lag tiles a block."""
+    nt = -(-l // 8)
+    ntb = min(nt, max_tiles)
+    return ntb, -(-nt // ntb), -(-f // SPLIT_CHUNK_BINS) * SPLIT_CHUNK_BINS
+
+
+def pack_split_synthesis(sync: torch.Tensor, syns: torch.Tensor,
+                         max_tiles: int) -> torch.Tensor:
+    """(sync, syns) [F, L] f32 -> the B operand of a tensor-core synthesis,
+    split and in mma fragment order: [lag blocks, steps, lag tiles, 32
+    lanes, 4] f32, where a step is 8 values of K (the cos rows of 4 bins,
+    then their sin rows), a lag tile 8 lags, and lane = 4 g + t holds, for
+    lag 8 j + g of the tile, (hi[k = t], hi[k = t + 4], lo[k = t],
+    lo[k = t + 4]), each matrix split by :func:`tf32_split`.  Bins are
+    padded with zero rows to whole chunks, lags with zero columns to whole
+    lag blocks of at most ``max_tiles`` tiles."""
+    f, l = sync.shape
+    ntb, n_lb, fp = split_dims(f, l, max_tiles)
+    lp = n_lb * ntb * 8
+    parts = []
+    for mat in (sync, syns):
+        padded = torch.zeros((fp, lp), dtype=torch.float32,
+                             device=sync.device)
+        padded[:f, :l] = mat
+        parts.append(tf32_split(padded))
+    comp = torch.stack([parts[0][0], parts[1][0], parts[0][1], parts[1][1]])
+    # (comp, step, t, lag block, j, g) -> (lag block, step, j, g, t, comp)
+    comp = comp.reshape(4, fp // 4, 4, n_lb, ntb, 8).permute(3, 1, 4, 5, 2, 0)
+    return comp.reshape(n_lb, fp // 4, ntb, 32, 4).contiguous()
+
+
+def unpack_split_synthesis(packed: torch.Tensor, f: int, l: int):
+    """The inverse of :func:`pack_split_synthesis`: (sync hi, syns hi,
+    sync lo, syns lo), each [F, L]."""
+    n_lb, steps, ntb = packed.shape[:3]
+    comp = packed.reshape(n_lb, steps, ntb, 8, 4, 4).permute(5, 1, 4, 0, 2, 3)
+    comp = comp.reshape(4, steps * 4, n_lb * ntb * 8)
+    return tuple(comp[i, :f, :l] for i in range(4))
+
+
+DFT_FLUSH_STEPS = 16  # mma steps (of 8 samples) summed before the flush
+
+
+def pack_dft(cos: torch.Tensor, msin: torch.Tensor) -> torch.Tensor:
+    """(cos, -sin) [N, F] f32 -> the DFT's B operand in mma fragment order:
+    [steps, column tiles, 32 lanes, 2] f32.  A step is 8 samples, a column
+    tile 4 bins as (re, im) column pairs; lane = 4 g + t holds, for column
+    g of the tile (bin 4 j + g // 2, cos for even g and -sin for odd), the
+    coefficients of samples 8 s + t and 8 s + t + 4.  Samples are padded
+    with zero rows to whole steps, bins with zero columns to whole tiles.
+    The kernel splits the coefficients in registers, so they are stored
+    once, unsplit."""
+    n, f = cos.shape
+    steps, tiles = -(-n // 8), -(-f // 4)
+    full = torch.zeros((steps * 8, tiles * 4, 2), dtype=torch.float32,
+                       device=cos.device)
+    full[:n, :f, 0] = cos
+    full[:n, :f, 1] = msin
+    # (step, half, t, tile, g) -> (step, tile, g, t, half)
+    full = full.reshape(steps, 2, 4, tiles, 8).permute(0, 3, 4, 2, 1)
+    return full.reshape(steps, tiles, 32, 2).contiguous()
+
+
+def unpack_dft(packed: torch.Tensor, n: int, f: int):
+    """The inverse of :func:`pack_dft`: (cos, -sin), each [N, F]."""
+    steps, tiles = packed.shape[:2]
+    full = packed.reshape(steps, tiles, 8, 4, 2).permute(0, 4, 3, 1, 2)
+    full = full.reshape(steps * 8, tiles * 4, 2)
+    return full[:n, :f, 0], full[:n, :f, 1]
+
+
+def split_rdft(x: torch.Tensor, cos: torch.Tensor, msin: torch.Tensor):
+    """:func:`mxu_fft.rdft` in the arithmetic of the stats mode's DFT stage,
+    in plain PyTorch, on f32 operands: samples and coefficients split by
+    :func:`tf32_split`; a step of 8 samples sums ``x_lo w_hi``, then
+    ``x_hi w_lo``, then ``x_hi w_hi`` from zero and is added to one f32
+    accumulator, which is added into the spectrum and cleared every
+    ``DFT_FLUSH_STEPS`` steps."""
+    x_hi, x_lo = tf32_split(x.float())
+    out = []
+    for w in (cos, msin):
+        w_hi, w_lo = tf32_split(w.float())
+        total = torch.zeros((*x.shape[:-1], w.shape[1]), dtype=torch.float32,
+                            device=x.device)
+        acc = torch.zeros_like(total)
+        n_steps = -(-x.shape[-1] // 8)
+        for s in range(n_steps):
+            ks = slice(8 * s, 8 * s + 8)
+            step = x_lo[..., ks] @ w_hi[ks]
+            step += x_hi[..., ks] @ w_lo[ks]
+            step += x_hi[..., ks] @ w_hi[ks]
+            acc += step
+            if (s + 1) % DFT_FLUSH_STEPS == 0 or s + 1 == n_steps:
+                total += acc
+                acc.zero_()
+        out.append(total)
+    return out
+
+
+def split_lag_correlogram(rr: torch.Tensor, jj: torch.Tensor,
+                          sync: torch.Tensor, syns: torch.Tensor, *,
+                          flush_steps: int = 0,
+                          hi_only: bool = False) -> torch.Tensor:
+    """:func:`mxu_fft.lag_correlogram` in the arithmetic of the tensor-core
+    synthesis stages, in plain PyTorch: cross-power [..., P, F] and matrices
+    [F, L] split by :func:`tf32_split`; every step of 4 bins (8 values of K:
+    their rr, then their jj) adds ``a_lo b_hi``, then ``a_hi b_lo``, then
+    ``a_hi b_hi`` to one f32 accumulator (``a_hi b_hi`` alone with
+    ``hi_only``, for operands that have no low part); with ``flush_steps``
+    the accumulator is added into a total and cleared every that many
+    steps."""
+    f, l = sync.shape
+    fp = -(-f // SPLIT_CHUNK_BINS) * SPLIT_CHUNK_BINS
+    steps = fp // 4
+
+    def k_steps(c, s):  # two [..., F] -> [..., steps, 8]
+        pad = (0, fp - f)
+        return torch.cat(
+            [torch.nn.functional.pad(t.float(), pad).unflatten(-1, (steps, 4))
+             for t in (c, s)], dim=-1)
+
+    b_hi, b_lo = tf32_split(k_steps(sync.t(), syns.t()))  # [L, steps, 8]
+    b_hi, b_lo = b_hi.permute(1, 2, 0), b_lo.permute(1, 2, 0)
+    a_hi, a_lo = tf32_split(k_steps(rr, jj))
+    total = torch.zeros((*rr.shape[:-1], l), dtype=torch.float32,
+                        device=rr.device)
+    acc = torch.zeros_like(total)
+    for s in range(steps):
+        if not hi_only:
+            acc += a_lo[..., s, :] @ b_hi[s]
+            acc += a_hi[..., s, :] @ b_lo[s]
+        acc += a_hi[..., s, :] @ b_hi[s]
+        if flush_steps and (s + 1) % flush_steps == 0:
+            total += acc
+            acc.zero_()
+    return total + acc
 
 
 class GccMatrices(NamedTuple):
@@ -58,9 +208,17 @@ class GccMatrices(NamedTuple):
     # [N, Fp, 2]: (cos, -sin) of bin f side by side, F padded to even with a
     # zero bin, so the kernel reads bins f and f + 1 in one 16-byte load
     cs: torch.Tensor
+    # the stats mode's DFT operand in mma fragment order (:func:`pack_dft`):
+    # [N / 8, F / 4, 32, 2], samples and bins padded with zeros
+    dft: torch.Tensor
+    # sync / syns split and in mma fragment order, for the stats mode's
+    # synthesis on the tensor cores (:func:`pack_split_synthesis`); f32 always
+    synp: torch.Tensor
 
     def to(self, dtype: torch.dtype) -> "GccMatrices":
-        return GccMatrices(*(t.to(dtype) for t in self))
+        """The plain versions' matrices in ``dtype``; the kernel's own
+        packed operands stay f32."""
+        return GccMatrices(*(t.to(dtype) for t in self[:4]), *self[4:])
 
 
 @functools.lru_cache(maxsize=32)
@@ -72,7 +230,8 @@ def _matrices(cfg: PipelineConfig, n: int, device: str) -> GccMatrices:
     cs = torch.zeros((n, f + f % 2, 2), dtype=torch.float32, device=device)
     cs[:, :f, 0] = cos
     cs[:, :f, 1] = msin
-    return GccMatrices(cos, msin, sync, syns, cs)
+    return GccMatrices(cos, msin, sync, syns, cs, pack_dft(cos, msin),
+                       pack_split_synthesis(sync, syns, STATS_LAG_TILES))
 
 
 def window_gain(window: torch.Tensor, cfg: PipelineConfig) -> torch.Tensor:
@@ -195,7 +354,8 @@ def stats_params(cfg: PipelineConfig, with_peaks: bool):
 
 
 def stats_terms(frames, win_gain, mats: GccMatrices, pairs,
-                sp: StatsParams, *, phat_eps: float) -> dict:
+                sp: StatsParams, *, phat_eps: float,
+                split: bool = False) -> dict:
     """The stats mode's spectral statistics, in the frames' dtype:
     raw spectra ``re``/``im`` [B, M, F], raw cross-power ``rr``/``jj``
     [B, P, F], coherence ``g2`` [B, P, F], the pair-mean coherence ``g2m``
@@ -203,7 +363,10 @@ def stats_terms(frames, win_gain, mats: GccMatrices, pairs,
     bin weights ``wb`` of the phase slope and the hybrid gate ([B, 1, F] or
     [F]; 0 at Nyquist, which the auto band also always leaves out)."""
     x = (frames - frames.mean(dim=-1, keepdim=True)) * win_gain
-    re, im = mxu_fft.rdft(x, mats.cos, mats.msin)
+    if split:  # the kernel's DFT arithmetic, on f32 operands
+        re, im = split_rdft(x, mats.cos, mats.msin)
+    else:
+        re, im = mxu_fft.rdft(x, mats.cos, mats.msin)
     f = re.shape[-1]
     hw = sp.half_width
     auto_s = xcorr.freq_smooth(re * re + im * im, hw)
@@ -268,16 +431,22 @@ def _phase_slope(terms: dict, shifts, tdoa_par, sp: StatsParams):
 def gcc_stats_reference(frames, win_gain, mats: GccMatrices, pairs,
                         sp: StatsParams, *, phat: bool, phat_eps: float,
                         max_shift: int, taper_denom: float, with_peaks: bool,
-                        with_band: bool = False):
+                        with_band: bool = False, split: bool = False):
     """Plain PyTorch version of the stats mode, on the kernel's operands and
     with the outputs of :func:`gcc_reference`; ``with_band`` appends the
     per-frame auto band weights [B, F] (None without the auto band).
+    ``split`` repeats the arithmetic of the kernel's synthesis stage (a
+    split-fp32 product, :func:`split_lag_correlogram`) where the plain
+    version multiplies in the operands' dtype, and on f32 frames also that
+    of its DFT stage (:func:`split_rdft`); float64 frames keep the float64
+    DFT and statistics in front of the split synthesis.
 
     It follows the TPU kernel's stats mode, which the hands-free
     configuration ran on: the raw cross-power is whitened by the product of
     per-mic factors (M >= 3), the auto band's pair mean takes all pairs,
     and Nyquist is out of the phase weights and of the hybrid gate."""
-    t = stats_terms(frames, win_gain, mats, pairs, sp, phat_eps=phat_eps)
+    t = stats_terms(frames, win_gain, mats, pairs, sp, phat_eps=phat_eps,
+                    split=split and frames.dtype == torch.float32)
     rr, jj = t["rr"], t["jj"]
     if phat and xcorr.phat_per_mic(frames.shape[-2]):
         inv = torch.rsqrt(t["re"] ** 2 + t["im"] ** 2 + phat_eps * phat_eps)
@@ -291,7 +460,10 @@ def gcc_stats_reference(frames, win_gain, mats: GccMatrices, pairs,
         rr_w, jj_w = rr, jj
     if sp.band_auto:
         rr_w, jj_w = rr_w * t["wb"], jj_w * t["wb"]
-    corr = mxu_fft.lag_correlogram(rr_w, jj_w, mats.sync, mats.syns)
+    if split:
+        corr = split_lag_correlogram(rr_w, jj_w, mats.sync, mats.syns)
+    else:
+        corr = mxu_fft.lag_correlogram(rr_w, jj_w, mats.sync, mats.syns)
     band = (t.get("band"),) if with_band else ()
     if not with_peaks:
         return (corr, *band) if with_band else corr
@@ -390,22 +562,27 @@ def srp_mode_fits(frames: torch.Tensor, cfg: PipelineConfig,
         frames.shape[-2], f, l, n_pairs) >= 1
 
 
-def _checked(frames, win_gain, mats: GccMatrices, pairs):
+def _checked(frames, win_gain, mats: GccMatrices, pairs, stats=False):
     """The launch operands on ``frames``' CUDA device, checked against the
-    frames: (dims (b, m, n, f, fp, p, l), frames, [win_gain, cs, sync,
-    syns], pairs int32)."""
+    frames: (dims (b, m, n, f, fp, p, l), frames, [win_gain, the mode's DFT
+    matrix, sync, syns], pairs int32)."""
     if frames.device.type != "cuda":
         raise ValueError(f"the GCC kernel needs CUDA tensors; frames are on "
                          f"{frames.device}")
     b, m, n = frames.shape
     f, l = mats.sync.shape
-    fp = f + f % 2
     p = pairs.shape[0]
     dev = frames.device
     pairs32 = pairs.to(device=dev, dtype=torch.int32).contiguous()
+    if stats:  # the packed DFT matrix: bins padded to whole column tiles
+        fp = -(-f // 4) * 4
+        dft, dft_shape = mats.dft, (-(-n // 8), fp // 4, 32, 2)
+    else:
+        fp = f + f % 2
+        dft, dft_shape = mats.cs, (n, fp, 2)
     ins = [t.to(device=dev, dtype=torch.float32).contiguous()
-           for t in (win_gain, mats.cs, mats.sync, mats.syns)]
-    if (ins[0].shape != (n,) or ins[1].shape != (n, fp, 2)
+           for t in (win_gain, dft, mats.sync, mats.syns)]
+    if (ins[0].shape != (n,) or ins[1].shape != dft_shape
             or ins[3].shape != (f, l)):
         raise ValueError("GCC operand shapes do not match the frames")
     if p < 1 or pairs32.shape != (p, 2) or l % 2 == 0:
@@ -532,7 +709,7 @@ def launch_stats(frames, win_gain, mats: GccMatrices, pairs,
     not take, a frame too large for its shared memory included."""
     global stats_launches
     (b, m, n, f, fp, p, l), frames, ins, pairs32 = _checked(
-        frames, win_gain, mats, pairs)
+        frames, win_gain, mats, pairs, stats=True)
     if sp.phase and not with_peaks:
         raise ValueError("the phase-slope TDOA needs the peak stage")
     if f != sp.fft_length // 2 + 1:
@@ -542,11 +719,16 @@ def launch_stats(frames, win_gain, mats: GccMatrices, pairs,
         raise ValueError(f"one frame of {m} mics, {p} pairs x {f} bins does "
                          "not fit the stats mode's shared memory")
     dev = frames.device
+    synp = mats.synp.to(device=dev, dtype=torch.float32).contiguous()
+    ntb, n_lb, fpad = split_dims(f, l, STATS_LAG_TILES)
+    if synp.shape != (n_lb, fpad // 4, ntb, 32, 4):
+        raise ValueError("the packed synthesis matrix does not match the "
+                         "operands")
     outs = _outputs(b, p, l, dev, with_peaks)
     band = (torch.empty((b, f), dtype=torch.float32, device=dev)
             if with_band and sp.band_auto else None)
     if b > 0:
-        ptr = [t.data_ptr() for t in (frames, *ins, pairs32)]
+        ptr = [t.data_ptr() for t in (frames, *ins, synp, pairs32)]
         optr = [t.data_ptr() for t in outs] + [None] * (5 - len(outs))
         per_mic = phat and xcorr.phat_per_mic(m)
         with torch.cuda.device(dev):
@@ -571,7 +753,7 @@ def _lib():
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.att_gcc.argtypes = ([vp] * 11 + [ci] * 9 + [cf, cf, ci, vp])
         lib.att_gcc.restype = ci
-        lib.att_gcc_stats.argtypes = ([vp] * 12 + [ci] * 9 + [cf, cf]
+        lib.att_gcc_stats.argtypes = ([vp] * 13 + [ci] * 9 + [cf, cf]
                                       + [ci] * 9 + [cf] * 3 + [vp])
         lib.att_gcc_stats.restype = ci
         lib.att_gcc_frames_per_block.argtypes = [ci, ci, ci]

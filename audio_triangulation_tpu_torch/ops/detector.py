@@ -14,7 +14,7 @@ position comes from two cumulative sums, batched over streams and mics:
 with H = frame / 2.  Integer input is exact in int64.
 
 Trigger positions must equal the reference's exactly, so the float prefix
-sum keeps the reference's summation order (:func:`_blocked_cumsum_f32`).
+sums keep the reference's summation order (``cuda.detector_scan``).
 The reference's one-hot matmul forms of the window capture were TPU gather
 workarounds; :func:`extract_window_mm` is a direct gather here, bit-equal.
 """
@@ -24,74 +24,11 @@ from __future__ import annotations
 import torch
 
 from ..core.config import PipelineConfig
-
-_CUMSUM_BLOCK = 128
-
-
-def _serial_cumsum(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive prefix sum along the last axis, every partial sum rounded
-    in ``x``'s dtype in index order, one add per position (``torch.cumsum``
-    accumulates float32 in float64 on the CPU and scans in parallel on a
-    CUDA device: other last bits)."""
-    acc = x[..., 0]
-    sums = [acc]
-    for j in range(1, x.shape[-1]):
-        acc = acc + x[..., j]
-        sums.append(acc)
-    return torch.stack(sums, dim=-1)
+from .cuda import detector_scan
 
 
-def _tiled_cumsum(x: torch.Tensor, tile: int = 16) -> torch.Tensor:
-    """Inclusive prefix sum along the last axis in the order the reference's
-    compiler gives ``cumsum`` on the CPU, where the parity tests run it:
-    serial inside ``tile``-wide tiles, plus the inclusive prefix sum of the
-    tile totals (taken the same way) shifted by one tile."""
-    n = x.shape[-1]
-    if n <= tile:
-        return _serial_cumsum(x)
-    nt = -(-n // tile)
-    xt = torch.nn.functional.pad(x, (0, nt * tile - n)).reshape(
-        *x.shape[:-1], nt, tile)
-    inner = _serial_cumsum(xt)
-    incl = _tiled_cumsum(inner[..., -1], tile)
-    offsets = torch.nn.functional.pad(incl[..., :-1], (1, 0))
-    return (inner + offsets[..., None]).reshape(
-        *x.shape[:-1], nt * tile)[..., :n]
-
-
-def _blocked_cumsum_f32(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive prefix sum along the last axis in the reference's order:
-    serial sums inside 128-wide blocks, plus the exclusive prefix sum of the
-    block totals.  It differs from one serial ``cumsum`` in the last bits,
-    and the reference's trigger positions come from this order, so on the
-    CPU every add is made in that order (one small op per position).  On a
-    CUDA device both prefix sums are ``torch.cumsum``, one launch each: a
-    parallel scan in another order, so a power within rounding of the
-    trigger threshold can fall on the other side there."""
-    t_len = x.shape[-1]
-    nb = -(-t_len // _CUMSUM_BLOCK)
-    pad = nb * _CUMSUM_BLOCK - t_len
-    xb = torch.nn.functional.pad(x, (0, pad)).reshape(
-        *x.shape[:-1], nb, _CUMSUM_BLOCK)
-    if x.is_cuda:
-        inblk = torch.cumsum(xb, dim=-1)
-        totals = inblk[..., -1]  # [..., nb]
-        offsets = torch.cumsum(totals, dim=-1) - totals  # exclusive
-    else:
-        inblk = _serial_cumsum(xb)
-        totals = inblk[..., -1]
-        offsets = _tiled_cumsum(totals) - totals
-    out = inblk + offsets[..., None]
-    return out.reshape(*x.shape[:-1], nb * _CUMSUM_BLOCK)[..., :t_len]
-
-
-def _windowed_sums(x: torch.Tensor, win: int) -> torch.Tensor:
-    """Trailing-window sums: out[t] = sum(x[t-win+1 .. t]), defined for
-    t >= win - 1 (earlier positions hold partial sums; callers mask)."""
-    if x.is_floating_point():
-        c = _blocked_cumsum_f32(x)
-    else:
-        c = torch.cumsum(x, dim=-1)
+def _windowed(c: torch.Tensor, win: int) -> torch.Tensor:
+    """Trailing-window sums from inclusive prefix sums c [..., T]."""
     shifted = torch.nn.functional.pad(c[..., :-win], (win, 0))
     return c - shifted
 
@@ -100,17 +37,22 @@ def half_window_powers(streams: torch.Tensor, frame_size: int):
     """(incoming, outgoing) detector powers at every sample position of
     streams [..., T], integer or float.  Positions t < frame_size - 1 are
     partial (``trigger_mask`` masks them).  Integer input uses exact int64
-    arithmetic; the float path sums in the input dtype, which is exact
-    enough for windows of about a frame plus a chunk, not for long offline
-    streams (pass those as integers)."""
+    arithmetic; the float path sums in the input dtype (both prefix sums
+    from one launch of the scan kernel on a CUDA device, which takes
+    float32), which is exact enough for windows of about a frame plus a
+    chunk, not for long offline streams (pass those as integers)."""
     half = frame_size // 2
-    x = streams if streams.is_floating_point() else streams.to(torch.int64)
-    s1 = _windowed_sums(x, half)
-    s2 = _windowed_sums(x * x, half)
+    if streams.is_floating_point():
+        c1, c2 = detector_scan.prefix_sums(streams)
+        s1, s2 = _windowed(c1, half), _windowed(c2, half)
+    else:
+        x = streams.to(torch.int64)
+        s1 = _windowed(torch.cumsum(x, dim=-1), half)
+        s2 = _windowed(torch.cumsum(x * x, dim=-1), half)
     inc = half * s2 - s1 * s1
     # the outgoing window ends half a frame earlier: outgoing[t] is
     # incoming[t - half]
-    out = torch.nn.functional.pad(inc, (half, 0))[..., : x.shape[-1]]
+    out = torch.nn.functional.pad(inc, (half, 0))[..., : streams.shape[-1]]
     return inc, out
 
 

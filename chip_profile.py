@@ -11,7 +11,9 @@ samples, prints:
 - the median wall time of 7 unprofiled calls and the device-busy time of
   one profiled call (the sum of its kernels' device time), hence the
   card's idle share;
-- the kernels by device time, and how many were launched;
+- the kernels by device time, and how many were launched (a stream step's
+  list names ``detector_scan_kernel``, the detector's one prefix-sum launch;
+  a ``cumsum`` kernel there would mean that the float path left it);
 - host-side ops that took over 0.3 ms, and the count of device-to-host
   scalar reads: a blocking copy or ``.item()`` in the middle of a call
   makes the card wait for the host.  The first op of the profiled call also
@@ -80,11 +82,14 @@ def main():
                 carried[0], out = sl.step_many(carried[0], chunks)
                 return out
 
-            profile_path(f"stream_{name}_{n_streams}", step)
+            profile_path(f"stream_{name}_{n_streams}", step,
+                         watch=("detector_scan", "cumsum", "gemm"))
 
 
-def profile_path(name, fn):
-    """Profile one call of ``fn()``."""
+def profile_path(name, fn, watch=()):
+    """Profile one call of ``fn()``; ``watch`` names kernels (substrings of
+    their names, any case) whose summed device time and launches get a line
+    of their own."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -117,6 +122,10 @@ def profile_path(name, fn):
           f"scalar reads {reads}", flush=True)
     for ms, count, key in kernels[:TOP_KERNELS]:
         print(f"    {ms:9.4f} ms  x{count:<3d} {key[:90]}", flush=True)
+    for what in watch:
+        hits = [k for k in kernels if what in k[2].lower()]
+        print(f"    kernels named *{what}*: {sum(k[0] for k in hits):.4f} ms "
+              f"in {sum(k[1] for k in hits)} launches", flush=True)
     for e in prof.events():
         if e.device_type == cpu and e.cpu_time_total > SLOW_HOST_OP_US:
             print(f"    host op {e.name}: {e.cpu_time_total:.0f} us",

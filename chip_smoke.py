@@ -4,8 +4,9 @@
 Builds the CUDA kernels from ``audio_triangulation_tpu_torch/csrc`` with
 nvcc and holds each kernel (the GCC kernel's base, spectral-stats and
 in-kernel SRP modes, the GN kernel, the large-array GCC kernel, the
-SRP-argmax kernel, the DFT-product kernel, the pipelined GCC kernel)
-against its plain PyTorch version on the card.  Then it
+SRP-argmax kernel, the DFT-product kernel, the pipelined GCC kernel, the
+detector's prefix-sum kernel) against its plain PyTorch version on the
+card.  Then it
 drives the frame-batch Localizer at full size: 16,384 frames of 4 x 1,024
 samples in the three bench configurations (band-crop, full band,
 hands-free) and with ``fused_srp='on'``, and 256 frames of 64 x 4,096
@@ -16,8 +17,8 @@ port's own CPU path, its kernel launches are counted from 0, and it is
 timed.  The two tool kernels (the DFT-shaped f32 / bf16 / int8 product and
 the persistent, self-pipelined GCC kernel) are held against their plain
 versions and driven through their tools.  The streaming path
-(``StreamingLocalizer.step_many``, which launches none of the hand kernels)
-runs 2,048 streams of 3 mics for 24 chunks of 512 samples with planted
+(``StreamingLocalizer.step_many``, whose detector launches the prefix-sum
+kernel) runs 2,048 streams of 3 mics for 24 chunks of 512 samples with planted
 events in its three bench pipelines, is checked against the planted events,
 the known sources, the port's CPU path and its own replay as a CUDA graph,
 and is timed at 1,024, 2,048 and 4,096 streams, eager and graphed.
@@ -91,6 +92,12 @@ STREAM_STARTS = (300, 1211, 2750, 4100, 5632, 7000, 8801, 10000)
 STREAM_CPU_STREAMS = 32  # streams held to the port's CPU path
 STREAM_COUNTS = (1024, 2048, 4096)  # streams a timed step
 STREAM_TRIALS, STREAM_TIMED_STEPS = 7, 20
+# the detector's prefix-sum kernel: the streaming window [S, 3, 1,535] and
+# row lengths that end inside a block, fill blocks exactly and take the block
+# totals past one tile of 16; values up to 2^15, so that the sums round
+SCAN_WINDOW = 1535
+SCAN_RAGGED = ((7, 100), (5, 128), (3, 2, 4096), (4, 5000))
+SCAN_PLAIN_REPS = 2  # the plain version is one small op per position
 # outputs of the step replayed as a CUDA graph that are held bit-equal to
 # the eager step's
 GRAPH_EQUAL_KEYS = ("event_trigger_abs", "events", "best_shift", "xy")
@@ -145,6 +152,10 @@ KERNEL_INFO = {
         source="audio_triangulation_tpu_torch/csrc/dft_matmul.cu",
         replaces="tools/int8_microbench.py:29")
        for t in ("f32", "bf16", "int8")},
+    # no Pallas kernel: the reference's triangular matmul on the MXU
+    "detector_scan_kernel": dict(
+        source="audio_triangulation_tpu_torch/csrc/detector_scan.cu",
+        replaces="audio_triangulation_tpu/ops/detector.py:31"),
 }
 
 
@@ -205,14 +216,18 @@ def share_of_bound(phase: str, what: str, k_ms: float, bnd: dict) -> float:
 
 
 def gcc_bound(b, m, n, f, p, l, *, stats_hw=None, srp_cells=0,
-              with_peaks=True) -> dict:
+              with_peaks=True, split_products=False) -> dict:
     """Bound of one GCC kernel launch on [b, m, n] frames: the DFT (re and
     im of f bins per sample), the cross-power and the lag synthesis (cos
     and sin terms per bin and lag), with the stats mode's window sums over
     2 hw + 1 bins for m periodograms and p complex cross-spectra, and the
     SRP mode's p additions per cell.  Without peaks the four [b, p] peak
-    outputs are not written."""
-    flops = b * (4 * m * n * f + 6 * p * f + 4 * p * f * l)
+    outputs are not written.  With ``split_products`` the two matrix
+    products, the DFT and the lag synthesis, are each counted as three TF32
+    products on the tensor cores and the rest on the fp32 CUDA cores, one
+    after the other."""
+    products = b * 4 * (m * n * f + p * f * l)
+    flops = b * 6 * p * f + products
     nbytes = 4 * (b * m * n + n + 2 * n * f + 2 * f * l + 2 * p
                   + b * p * l + (4 * b * p if with_peaks else 0))
     if stats_hw is not None:
@@ -220,6 +235,10 @@ def gcc_bound(b, m, n, f, p, l, *, stats_hw=None, srp_cells=0,
     if srp_cells:
         flops += b * p * srp_cells
         nbytes += 4 * (p * srp_cells + 2 * b)
+    if split_products:
+        # the time of both parts at their rates, as one fp32-rate count
+        flops = (flops - products
+                 + 3 * products * PEAK_FP32_FLOPS / PEAK_TF32_FLOPS)
     return bound(flops, nbytes)
 
 
@@ -415,7 +434,15 @@ def phase_stats(rng, results):
     within 1e-4 of scale on frames whose auto band is settled, shifts
     equal and tdoa within 1e-3 samples on rows whose shift and hybrid gate
     are settled, band weights equal on settled bins; the unsettled counts
-    are printed."""
+    are printed.  And against the plain version that repeats the synthesis
+    stage's arithmetic (a split-fp32 product on float64 spectra and
+    statistics), within 2e-5 of scale on the settled frames: what is left
+    is the kernel's fp32 DFT under PHAT and the tensor cores' adds.  And
+    against the plain version that repeats both tensor-core stages on the
+    f32 operands (the DFT as a split-fp32 product with its flushes, then
+    f32 statistics, then the split synthesis), raw and tapered within 2e-5
+    of scale on the same frames and rows: what is left there is the order
+    of the adds inside a step of 8 and the tensor cores' cut addends."""
     import torch
     from audio_triangulation_tpu_torch.core import geometry
     from audio_triangulation_tpu_torch.ops import window as window_ops
@@ -446,6 +473,13 @@ def phase_stats(rng, results):
         sp_raw = gcc_kernel.stats_params(cfg, False)
         raw = None if sp_raw is None else gcc_kernel.launch_stats(
             frames, win_gain, mats, pairs, sp_raw, **kw, with_peaks=False)[0]
+        split = gcc_kernel.gcc_stats_reference(
+            *ops64, **kw, with_peaks=True, split=True)[0]
+        ops32 = (frames, win_gain, mats, pairs)
+        split32 = gcc_kernel.gcc_stats_reference(
+            *ops32, sp, **kw, with_peaks=True, split=True)[0]
+        raw32 = None if raw is None else gcc_kernel.gcc_stats_reference(
+            *ops32, sp_raw, **kw, with_peaks=False, split=True)[0]
         torch.cuda.synchronize()
         scale = float(raw64.abs().max())
         frame_ok, bins_ok, rows_ok = clear_decisions(terms, sp, raw64, scale)
@@ -458,6 +492,10 @@ def phase_stats(rng, results):
         err_raw = 0.0 if raw is None else err(raw, raw64, frame_ok) / scale
         raw_msg = "n/a (base mode)" if raw is None else f"{err_raw:.2e}"
         err_tap = err(got[0], ref64[0], rows_ok) / scale
+        err_split = err(got[0], split, rows_ok) / scale
+        err_both = err(got[0], split32, rows_ok) / scale
+        if raw is not None:
+            err_both = max(err_both, err(raw, raw32, frame_ok) / scale)
         shift_bad = int(((got[1] != ref64[1]) & rows_ok).sum())
         tdoa_err = err(got[2], ref64[2], rows_ok)
         band_bad, band_msg = 0, "no auto band"
@@ -470,8 +508,12 @@ def phase_stats(rng, results):
             f"{err_tap:.2e}, shift mismatches {shift_bad}, tdoa err "
             f"{tdoa_err:.2e} samples, {band_msg}; unsettled frames "
             f"{int((~frame_ok).sum())}, rows {int((~rows_ok).sum())} of "
-            f"{rows_ok.numel()}")
+            f"{rows_ok.numel()}; tapered vs the plain version in the "
+            f"synthesis stage's arithmetic {err_split:.2e}, raw and tapered "
+            f"vs the plain version in the DFT and synthesis stages' "
+            f"arithmetic {err_both:.2e}")
         if not (err_raw <= 1e-4 and err_tap <= 1e-4 and shift_bad == 0
+                and err_split <= 2e-5 and err_both <= 2e-5
                 and tdoa_err <= 1e-3 and band_bad == 0
                 and int(rows_ok.sum()) * 2 > rows_ok.numel()):
             fail("2 stats", f"{name}: kernel disagrees with its plain "
@@ -544,13 +586,15 @@ def large_configs():
 
 def large_operands(frames, window, pairs, cfg):
     """The large-array kernel's operands for raw frames on the card:
-    (re, im, sync, syns, keyword arguments), as its wrapper makes them."""
+    (re, im, sync, syns, keyword arguments, the packed synthesis matrix that
+    the kernel reads), as its wrapper makes them."""
     from audio_triangulation_tpu_torch.models.localizer import (
         condition_frames)
     from audio_triangulation_tpu_torch.ops.cuda import gcc_large
 
-    return gcc_large.operands(condition_frames(frames, window, cfg), pairs,
-                              cfg)
+    return (*gcc_large.operands(condition_frames(frames, window, cfg), pairs,
+                                cfg),
+            gcc_large.packed_synthesis(cfg, str(frames.device)))
 
 
 def phase_large(rng, results):
@@ -560,7 +604,11 @@ def phase_large(rng, results):
     within 1e-4 of scale (1e-3 in the bf16 mode, where a cross-power value
     that differs in its last fp32 bits can round to the next bf16), shifts
     equal on rows whose two best values are clear of rounding, tdoa within
-    1e-3 lags, psr within 1e-3 relative on those rows."""
+    1e-3 lags, psr within 1e-3 relative on those rows.  And the raw
+    correlograms against the plain version that repeats the kernel's
+    arithmetic (split TF32 operands, fp32 sums per step of K, flushed every
+    64 steps), within 2e-5 of scale: inside a step the tensor cores add in
+    another order and cut, not round, the aligned addends."""
     import dataclasses
 
     import torch
@@ -577,15 +625,18 @@ def phase_large(rng, results):
     worst = 0.0
     for name, cfg in cases:
         window = torch.as_tensor(window_ops.window_for(cfg), device="cuda")
-        re, im, sync, syns, kw = large_operands(frames, window, pairs, cfg)
+        re, im, sync, syns, kw, packed = large_operands(frames, window, pairs,
+                                                        cfg)
         ops64 = (re.double(), im.double(), pairs, sync.double(),
                  syns.double())
         raw64 = gcc_large.gcc_large_reference(*ops64, **kw, with_peaks=False)
         ref64 = gcc_large.gcc_large_reference(*ops64, **kw, with_peaks=True)
         raw = gcc_large.launch(re, im, pairs, sync, syns, **kw,
-                               with_peaks=False)
+                               packed=packed, with_peaks=False)
         got = gcc_large.launch(re, im, pairs, sync, syns, **kw,
-                               with_peaks=True)
+                               packed=packed, with_peaks=True)
+        split = gcc_large.gcc_large_split_reference(
+            re, im, pairs, sync, syns, **kw, with_peaks=False)
         torch.cuda.synchronize()
         scale = float(raw64.abs().max())
         tol = 1e-3 if kw["bf16"] else 1e-4
@@ -594,6 +645,10 @@ def phase_large(rng, results):
             return float((a.double() - b.double()).abs().max()) / scale
 
         err_raw = err(raw, raw64)
+        # in the bf16 mode a cross-power value that the kernel's and the
+        # plain version's fp32 products leave a bit apart can round to the
+        # next bf16, as against float64
+        err_split, split_tol = err(raw, split), (tol if kw["bf16"] else 2e-5)
         top2 = raw64.topk(2, dim=-1).values
         clear = (top2[..., 0] - top2[..., 1]) > 10 * tol * scale
         err_tap = float(((got[0].double() - ref64[0]).abs().amax(dim=-1)
@@ -608,8 +663,10 @@ def phase_large(rng, results):
             f"corr/scale err raw {err_raw:.2e} tapered {err_tap:.2e}, peak "
             f"{peak_err:.2e}, shift mismatches {shift_bad} (near ties "
             f"excluded: {int((~clear).sum())} of {clear.numel()}), tdoa err "
-            f"{tdoa_err:.2e} lags, psr rel err {psr_rel:.2e}")
+            f"{tdoa_err:.2e} lags, psr rel err {psr_rel:.2e}; raw vs the "
+            f"plain version in the kernel's arithmetic {err_split:.2e}")
         if not (err_raw <= tol and err_tap <= tol and peak_err <= tol
+                and err_split <= split_tol
                 and shift_bad == 0 and tdoa_err <= 10 * tol
                 and psr_rel <= 10 * tol
                 and int(clear.sum()) * 2 > clear.numel()):
@@ -617,6 +674,7 @@ def phase_large(rng, results):
                  "version (or too few clear rows to tell)")
         if not kw["bf16"]:
             worst = max(worst, err_raw, err_tap)
+        del raw64, ref64, raw, got, split
     results["gcc_large_kernel"]["max_abs_err"] = worst
 
 
@@ -831,14 +889,19 @@ PATH_KERNELS = {"bandcrop_800_6000": ("gcc_kernel", "gn_kernel"),
                                          "dft_matmul_kernel_bf16",
                                          "dft_matmul_kernel_int8"),
                 "tool_emit_pipeline_probe": ("gcc_pipelined_kernel",
-                                             "gcc_kernel")}
+                                             "gcc_kernel"),
+                **{f"stream_{name}": ("detector_scan_kernel",)
+                   for name in ("default", "band_crop_phat",
+                                "band_auto_phat")}}
 
 
 def launch_counts():
     from audio_triangulation_tpu_torch.ops.cuda import (
-        dft_matmul, gcc_kernel, gcc_large, gn_kernel, srp_kernel)
+        detector_scan, dft_matmul, gcc_kernel, gcc_large, gn_kernel,
+        srp_kernel)
 
-    return {"gcc_kernel": gcc_kernel.launches,
+    return {"detector_scan_kernel": detector_scan.launches,
+            "gcc_kernel": gcc_kernel.launches,
             "gcc_stats_kernel": gcc_kernel.stats_launches,
             "gn_kernel": gn_kernel.launches,
             "gcc_large_kernel": gcc_large.launches,
@@ -851,8 +914,10 @@ def launch_counts():
 
 def reset_counts():
     from audio_triangulation_tpu_torch.ops.cuda import (
-        dft_matmul, gcc_kernel, gcc_large, gn_kernel, srp_kernel)
+        detector_scan, dft_matmul, gcc_kernel, gcc_large, gn_kernel,
+        srp_kernel)
 
+    detector_scan.launches = 0
     gcc_kernel.launches = gcc_kernel.stats_launches = 0
     gcc_kernel.srp_launches = gn_kernel.launches = 0
     gcc_kernel.pipelined_launches = 0
@@ -1029,6 +1094,8 @@ def time_path(card, name, fn, n_frames):
 
 
 def phase_timing(card, locs, frames, large_locs, large, srp_args, results):
+    import dataclasses
+
     import torch
     from audio_triangulation_tpu_torch.core import geometry
     from audio_triangulation_tpu_torch.ops import solver as solver_ops, xcorr
@@ -1041,6 +1108,17 @@ def phase_timing(card, locs, frames, large_locs, large, srp_args, results):
               lambda: srp_kernel.srp_argmax(*srp_args), frames.shape[0])
     for name, loc in large_locs:
         time_path(card, name, lambda: loc(large), large.shape[0])
+
+    def smaller_bound(kernel, name, k_ms, cores, tensor, how):
+        """The kernel's two bounds (everything on the fp32 CUDA cores; its
+        products on the tensor cores, ``how``), printed; the smaller one,
+        which the kernel is held to."""
+        bnd = min(cores, tensor, key=lambda d: d["bound_ms"])
+        pct = share_of_bound("5 timing", f"{kernel} {name}", k_ms, bnd)
+        say("5 timing", f"{kernel} {name}: bound on the fp32 CUDA cores "
+            f"{cores['bound_ms']:.4f} ms, {how} {tensor['bound_ms']:.4f} ms; "
+            f"the kernel runs at {pct:.1f}% of the smaller")
+        return bnd
 
     def report(kernel, name, k_ms, p_ms, bnd, library_ms=None, **extra):
         lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
@@ -1087,12 +1165,22 @@ def phase_timing(card, locs, frames, large_locs, large, srp_args, results):
                 f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
                 f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']} ({card})")
         else:
-            report("gcc_stats_kernel", name, *alternate_ms(
+            # the stats mode multiplies its DFT and its synthesis stage on
+            # the tensor cores (three TF32 products each) and does the rest,
+            # window sums and cross-power, on the CUDA cores
+            k_ms, p_ms = alternate_ms(
                 lambda: gcc_kernel.gcc_stats_reference(
                     frames, *ops, sp, **kw, with_peaks=True),
                 lambda: gcc_kernel.launch_stats(
-                    frames, *ops, sp, **kw, with_peaks=True)),
-                gcc_bound(b, m, n, f, 6, l, stats_hw=sp.half_width))
+                    frames, *ops, sp, **kw, with_peaks=True))
+            cores = gcc_bound(b, m, n, f, 6, l, stats_hw=sp.half_width)
+            bnd = smaller_bound(
+                "gcc_stats_kernel", name, k_ms, cores,
+                gcc_bound(b, m, n, f, 6, l, stats_hw=sp.half_width,
+                          split_products=True),
+                "with the DFT and the synthesis as three TF32 products each")
+            report("gcc_stats_kernel", name, k_ms, p_ms, bnd,
+                   bound_ms_fp32_cores=cores["bound_ms"])
 
     loc = locs[0][1]
     xy0 = torch.rand((b, 2), device="cuda") * 2 - 1
@@ -1164,24 +1252,54 @@ def phase_timing(card, locs, frames, large_locs, large, srp_args, results):
     lb, lm, _ = large.shape
     for name, loc in large_locs:
         cfg = loc.pipeline
-        re, im, sync, syns, kw = large_operands(large, loc.window, loc.pairs,
-                                                cfg)
+        re, im, sync, syns, kw, packed = large_operands(
+            large, loc.window, loc.pairs, cfg)
         f, l = sync.shape
         p = loc.pairs.shape[0]
-        report("gcc_large_kernel", name, *alternate_ms(
+        flops = lb * p * f * (6 + 4 * l)
+        nbytes = 4 * (2 * lb * lm * f + 2 * f * l + 2 * p + lb * p * l
+                      + 4 * lb * p)
+        k_ms, p_ms = alternate_ms(
             lambda: gcc_large.gcc_large_reference(
                 re, im, loc.pairs, sync, syns, **kw, with_peaks=True),
             lambda: gcc_large.launch(re, im, loc.pairs, sync, syns, **kw,
-                                     with_peaks=True), LARGE_REPS),
-            bound(lb * p * f * (6 + 4 * l),
-                  4 * (2 * lb * lm * f + 2 * f * l + 2 * p + lb * p * l
-                       + 4 * lb * p)))
+                                     packed=packed, with_peaks=True),
+            LARGE_REPS)
+        cores = bound(flops, nbytes)
+        bnd = smaller_bound("gcc_large_kernel", name, k_ms, cores,
+                            bound(3 * flops, nbytes, PEAK_TF32_FLOPS),
+                            "as three TF32 products")
+        report("gcc_large_kernel", name, k_ms, p_ms, bnd,
+               bound_ms_fp32_cores=cores["bound_ms"])
+        if not cfg.band_crop and not cfg.band_auto:
+            # the bf16 mode of the same line: one TF32 product
+            bcfg = dataclasses.replace(cfg, matmul_dtype="bfloat16")
+            bre, bim, bsync, bsyns, bkw, bpacked = large_operands(
+                large, loc.window, loc.pairs, bcfg)
+            kb_ms, pb_ms = alternate_ms(
+                lambda: gcc_large.gcc_large_reference(
+                    bre, bim, loc.pairs, bsync, bsyns, **bkw,
+                    with_peaks=True),
+                lambda: gcc_large.launch(bre, bim, loc.pairs, bsync, bsyns,
+                                         **bkw, packed=bpacked,
+                                         with_peaks=True), LARGE_REPS)
+            bnd_b = bound(flops, nbytes, PEAK_TF32_FLOPS)
+            pct = share_of_bound("5 timing", "gcc_large_kernel bf16 mode",
+                                 kb_ms, bnd_b)
+            say("5 timing", f"gcc_large_kernel {name} bf16 mode: kernel "
+                f"{kb_ms:.4f} ms, plain {pb_ms:.4f} ms, bound "
+                f"{bnd_b['bound_ms']:.4f} ms by {bnd_b['bound_by']} (one TF32 "
+                f"product), {pct:.1f}% of it ({card})")
+            results["gcc_large_kernel"].update(
+                bf16_ms=kb_ms, bf16_plain_ms=pb_ms,
+                bf16_bound_ms=bnd_b["bound_ms"])
+            del bre, bim
         if cfg.band_crop:
             k = cfg.max_shift
 
             def outside():
                 corr = gcc_large.launch(re, im, loc.pairs, sync, syns, **kw,
-                                        with_peaks=False)
+                                        packed=packed, with_peaks=False)
                 shifts = xcorr.best_lag(corr, k)
                 return (xcorr.peak_taper(corr, k, cfg.taper_denom, shifts),
                         shifts, *xcorr.subsample_peak(corr, k),
@@ -1189,8 +1307,8 @@ def phase_timing(card, locs, frames, large_locs, large, srp_args, results):
 
             in_ms, out_ms = alternate_ms(
                 outside, lambda: gcc_large.launch(
-                    re, im, loc.pairs, sync, syns, **kw, with_peaks=True),
-                LARGE_REPS)
+                    re, im, loc.pairs, sync, syns, **kw, packed=packed,
+                    with_peaks=True), LARGE_REPS)
             say("5 timing", f"gcc_large_kernel {name} peak routes: peaks in "
                 f"the kernel {in_ms:.4f} ms, kernel without peaks then the "
                 f"plain peak ops {out_ms:.4f} ms ({card})")
@@ -1384,6 +1502,54 @@ def phase_tools(results):
                 ["--iters", str(PIPE_TOOL_ITERS)]))
 
 
+def phase_scan(card, rng, results):
+    """The detector's prefix-sum kernel against its plain version (the
+    port's CPU path, evaluated on the CPU): both prefix sums equal bit for
+    bit on the streaming window [2,048, 3, 1,535] and on the ragged sizes,
+    on values up to 2^15.  Then timed at 1,024 and 4,096 streams against its
+    bound (x read once, two arrays written) and beside the library
+    yardstick, one ``torch.cumsum`` each of x and x * x, which sums in
+    another order and is not bit-equal."""
+    import torch
+    from audio_triangulation_tpu_torch.ops.cuda import detector_scan
+
+    for shape in ((STREAM_CHECK_STREAMS, 3, SCAN_WINDOW), *SCAN_RAGGED):
+        x = torch.from_numpy(rng.uniform(
+            -2.0 ** 15, 2.0 ** 15, shape).astype(np.float32))
+        want = detector_scan.prefix_sums_reference(x)
+        got = detector_scan.launch(x.cuda())
+        torch.cuda.synchronize()
+        same = [bool(torch.equal(g.cpu(), w)) for g, w in zip(got, want)]
+        rounded = not bool(torch.equal(
+            want[1][..., -1].double(), (x.double() ** 2).sum(dim=-1)))
+        say("2 scan", f"{tuple(shape)}: prefix sums of x and of x * x equal "
+            f"to the CPU path's bit for bit {same} (the sums round: "
+            f"{rounded})")
+        if not (all(same) and rounded):
+            fail("2 scan", "kernel disagrees with its plain version")
+    results["detector_scan_kernel"]["max_abs_err"] = 0.0
+    for n_streams in (STREAM_COUNTS[0], STREAM_COUNTS[-1]):
+        x = torch.from_numpy(rng.integers(
+            0, 256, (n_streams, 3, SCAN_WINDOW)).astype(np.float32)).cuda()
+        k1 = cuda_ms(lambda: detector_scan.launch(x), REPS)
+        lib_ms = cuda_ms(lambda: (torch.cumsum(x, dim=-1),
+                                  torch.cumsum(x * x, dim=-1)), REPS)
+        k_ms = (k1 + cuda_ms(lambda: detector_scan.launch(x), REPS)) / 2
+        p_ms = cuda_ms(lambda: detector_scan.prefix_sums_reference(x),
+                       SCAN_PLAIN_REPS)
+        bnd = bound(2 * x.numel(), 3 * 4 * x.numel())
+        pct = share_of_bound("5 timing", "detector_scan_kernel", k_ms, bnd)
+        say("5 timing", f"detector_scan_kernel ({n_streams} streams x 3 x "
+            f"{SCAN_WINDOW}): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+            f"library {lib_ms:.4f} ms (two torch.cumsum, another order), "
+            f"bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']}, "
+            f"{pct:.1f}% of it ({card})")
+        if n_streams == STREAM_COUNTS[-1]:  # the largest step's shape
+            results["detector_scan_kernel"].update(
+                ms=k_ms, plain_ms=p_ms, **bnd, library_ms=lib_ms,
+                library="two torch.cumsum (another order, not bit-equal)")
+
+
 def stream_pipelines():
     """The reference streaming bench's three pipelines."""
     from audio_triangulation_tpu_torch.tools import bench_streaming
@@ -1468,7 +1634,7 @@ def expected_trigger_steps(x, cfg):
     return np.where(fire.any(axis=-1), first // STREAM_CHUNK, -1)
 
 
-def phase_stream(card):
+def phase_stream(card, results):
     """The streaming path in the three bench pipelines: 2,048 streams x 24
     chunks with planted events, checked (a) against the planted events: a
     planted stream triggers in the chunk a float64 numpy detector says and
@@ -1479,8 +1645,10 @@ def phase_stream(card):
     ``best_shift`` equal, ``xy`` within 2e-4 m, ``ema_corr`` within 1e-5 of
     scale; (d) the same 24 chunks through the step replayed as a CUDA graph
     (``graph_step_many``): trigger positions, ``events``, ``best_shift`` and
-    ``xy`` equal to the eager step's bit for bit.  Then ``step_many`` is
-    timed at 1,024 / 2,048 / 4,096 streams, eager and graphed in turns."""
+    ``xy`` equal to the eager step's bit for bit.  The eager run's launches
+    of the detector's prefix-sum kernel are counted from 0 (one a step; the
+    CPU path beside it launches none).  Then ``step_many`` is timed at
+    1,024 / 2,048 / 4,096 streams, eager and graphed in turns."""
     import torch
     from audio_triangulation_tpu_torch.tools import bench_streaming
 
@@ -1496,27 +1664,33 @@ def phase_stream(card):
             fail("6 stream", f"{name}: a planted event never triggers in the "
                  "float64 detector")
         cpu_sl = cpu_locs[name]
-        st, cst = sl.init_states(s_n), cpu_sl.init_states(n_cpu)
         trig, acc, xys, eager = [], [], [], []
-        worst = dict(xy=0.0, ema=0.0)
-        exact = True
-        for i in range(STREAM_STEPS):
-            sl_ = slice(i * STREAM_CHUNK, (i + 1) * STREAM_CHUNK)
-            st, out = sl.step_many(st, x[:, :, sl_])
-            cst, cout = cpu_sl.step_many(
-                cst, torch.from_numpy(x_np[:n_cpu, :, sl_]))
-            trig.append(out["triggered"])
-            acc.append(out["event"])
-            xys.append(out["xy"])
-            eager.append([out[k] for k in GRAPH_EQUAL_KEYS])
-            for k in ("event_trigger_abs", "events", "best_shift"):
-                exact &= bool(torch.equal(out[k][:n_cpu].cpu(), cout[k]))
-            worst["xy"] = max(worst["xy"], float(
-                (out["xy"][:n_cpu].cpu() - cout["xy"]).abs().max()))
-            scale = max(float(cst.ema_corr.abs().max()), 1e-30)
-            worst["ema"] = max(worst["ema"], float(
-                (st.ema_corr[:n_cpu].cpu() - cst.ema_corr).abs().max())
-                / scale)
+        worst = dict(xy=0.0, ema=0.0, exact=True)
+
+        def run_eager():
+            st, cst = sl.init_states(s_n), cpu_sl.init_states(n_cpu)
+            for i in range(STREAM_STEPS):
+                sl_ = slice(i * STREAM_CHUNK, (i + 1) * STREAM_CHUNK)
+                st, out = sl.step_many(st, x[:, :, sl_])
+                cst, cout = cpu_sl.step_many(
+                    cst, torch.from_numpy(x_np[:n_cpu, :, sl_]))
+                trig.append(out["triggered"])
+                acc.append(out["event"])
+                xys.append(out["xy"])
+                eager.append([out[k] for k in GRAPH_EQUAL_KEYS])
+                for k in ("event_trigger_abs", "events", "best_shift"):
+                    worst["exact"] &= bool(
+                        torch.equal(out[k][:n_cpu].cpu(), cout[k]))
+                worst["xy"] = max(worst["xy"], float(
+                    (out["xy"][:n_cpu].cpu() - cout["xy"]).abs().max()))
+                scale = max(float(cst.ema_corr.abs().max()), 1e-30)
+                worst["ema"] = max(worst["ema"], float(
+                    (st.ema_corr[:n_cpu].cpu() - cst.ema_corr).abs().max())
+                    / scale)
+            return st
+
+        st = counted(f"stream_{name}", results, run_eager)
+        exact = worst["exact"]
         torch.cuda.synchronize()
         trig, acc = torch.stack(trig).cpu().numpy(), torch.stack(acc).cpu()
         xys = torch.stack(xys).cpu()
@@ -1599,6 +1773,7 @@ def main():
     phase_large(rng, results)
     phase_srp(rng, results)
     phase_gcc_srp(rng, results)
+    phase_scan(card, rng, results)
     state = phase_main(rng, results)
     phase_timing(card, *state, results)
     del state
@@ -1606,7 +1781,7 @@ def main():
     phase_dft_matmul(card, results)
     phase_gcc_pipelined(card, rng, results)
     phase_tools(results)
-    phase_stream(card)
+    phase_stream(card, results)
 
     print(json.dumps({"kernels": [
         {k: results[n][k] for k in (*KERNEL_KEYS, *(

@@ -14,6 +14,7 @@ from audio_triangulation_tpu.ops import detector as jdet, framing as jframe
 from audio_triangulation_tpu_torch.core import config as tcfg
 from audio_triangulation_tpu_torch.ops import detector as tdet
 from audio_triangulation_tpu_torch.ops import framing as tframe
+from audio_triangulation_tpu_torch.ops.cuda import detector_scan
 
 N = 1024
 
@@ -32,13 +33,14 @@ def _streams(seed, shape, bursts=((700, 300),), dtype=np.float32):
 # the block totals past 16, where the reference's compiler sums them in
 # tiles; 300 and 100 end inside a block
 @pytest.mark.parametrize("shape", [(5, 3, 1535), (2, 3, 3583), (3, 300),
-                                   (1, 2, 40000), (4, 100)],
+                                   (1, 2, 40000), (4, 100), (2, 4096),
+                                   (2, 5000), (3, 128)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_blocked_cumsum_bit_equal(shape):
     rng = np.random.default_rng(0)
     x = (rng.normal(size=shape) * 50 + 128).astype(np.float32)
     ref = np.asarray(jdet._blocked_cumsum_f32(jnp.asarray(x)))
-    got = tdet._blocked_cumsum_f32(torch.from_numpy(x)).numpy()
+    got = detector_scan.blocked_cumsum(torch.from_numpy(x)).numpy()
     np.testing.assert_array_equal(got, ref)
     # and it is NOT the serial cumsum: the order is what is being ported
     assert got.dtype == np.float32
@@ -165,3 +167,89 @@ def test_framing_equal(t_len, frame, hop):
 def test_framing_short_stream_raises():
     with pytest.raises(ValueError, match="shorter"):
         tframe.frame_stream(torch.zeros(100), 1024, 512)
+
+
+# ---------------------------------------------------------------------------
+# the scan kernel's wrapper and plain version
+
+@pytest.mark.parametrize("t_len", [100, 1535, 4096, 5000])
+def test_prefix_sums_reference_is_both_blocked_sums(t_len):
+    """The plain version of the scan kernel: the prefix sums of x and of
+    x * x (the square rounded to f32 first), each equal to the JAX package's
+    blocked cumsum bit for bit, on values large enough to round."""
+    rng = np.random.default_rng(8)
+    x = (rng.normal(size=(2, 3, t_len)) * 9000.0).astype(np.float32)
+    c1, c2 = detector_scan.prefix_sums_reference(torch.from_numpy(x))
+    sq = x * x
+    np.testing.assert_array_equal(
+        c1.numpy(), np.asarray(jdet._blocked_cumsum_f32(jnp.asarray(x))))
+    np.testing.assert_array_equal(
+        c2.numpy(), np.asarray(jdet._blocked_cumsum_f32(jnp.asarray(sq))))
+    # rounding did happen: past one block the serial f32 sum differs
+    if t_len > detector_scan.CUMSUM_BLOCK:
+        assert not np.array_equal(c2.numpy(), np.cumsum(sq, axis=-1,
+                                                        dtype=np.float32))
+    got = detector_scan.prefix_sums(torch.from_numpy(x))  # the CPU route
+    assert torch.equal(got[0], c1) and torch.equal(got[1], c2)
+
+
+def test_half_window_powers_uses_one_scan_for_both_sums(monkeypatch):
+    calls = []
+    real = detector_scan.prefix_sums
+
+    def counting(x):
+        calls.append(tuple(x.shape))
+        return real(x)
+
+    monkeypatch.setattr(detector_scan, "prefix_sums", counting)
+    x = torch.from_numpy(_streams(9, (2, 3, 1535)))
+    inc, out = tdet.half_window_powers(x, N)
+    assert calls == [(2, 3, 1535)]
+    ref = jdet.half_window_powers(jnp.asarray(x.numpy()), N)
+    np.testing.assert_array_equal(inc.numpy(), np.asarray(ref[0]))
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref[1]))
+
+
+def test_scan_kernel_refuses_what_it_does_not_take():
+    before = detector_scan.launches
+    with pytest.raises(ValueError, match="CUDA"):  # no plain fallback
+        detector_scan.launch(torch.zeros((2, 100)))
+    meta = torch.zeros((2, 100), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        detector_scan.prefix_sums(meta)
+    assert detector_scan.launches == before
+
+
+def test_scan_kernel_source_keeps_the_order_constants():
+    """The kernel's block, tile and row limit are the plain version's."""
+    from audio_triangulation_tpu_torch.ops.cuda import _build
+
+    src = (_build.CSRC_DIR / "detector_scan.cu").read_text()
+    assert f"constexpr int kBlock = {detector_scan.CUMSUM_BLOCK};" in src
+    assert "constexpr int kTile = 16;" in src
+    assert (f"constexpr int kMaxBlocks = "
+            f"{detector_scan.MAX_SAMPLES // detector_scan.CUMSUM_BLOCK};"
+            in src)
+    assert "fmaf" not in src  # the square is rounded before it is added
+
+
+@pytest.fixture()
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(64, 3, 1535), (3, 100), (5, 128),
+                                   (2, 2, 4096), (3, 5000), (1, 40000),
+                                   (130, 1)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cuda_scan_is_bit_equal_to_the_cpu_path(cuda_device, shape):
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy(
+        (rng.normal(size=shape) * 9000.0).astype(np.float32))
+    want = detector_scan.prefix_sums_reference(x)
+    got = detector_scan.launch(x.to(cuda_device))
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])

@@ -19,7 +19,9 @@ from audio_triangulation_tpu_torch import Localizer
 from audio_triangulation_tpu_torch.core import config as tcfg
 from audio_triangulation_tpu_torch.models import localizer as tloc
 from audio_triangulation_tpu_torch.ops import mxu_fft as tmxu
+from audio_triangulation_tpu_torch.ops.cuda import _build
 from audio_triangulation_tpu_torch.ops.cuda import gcc_large as tlarge
+from audio_triangulation_tpu_torch.ops.cuda import srp_kernel as tsrpk
 from audio_triangulation_tpu_torch.utils import synth
 
 SMALL = dict(fft_pad_mode="circular", frame_size_bits=8,
@@ -362,11 +364,174 @@ def test_large_cpu_path_counts_no_launch_and_non_cpu_never_falls_back(rng):
     tlarge.xcorr_large_peaks(frames, pairs, cfg)
     assert tlarge.launches == before
     re, im, sync, syns, kw = tlarge.operands(frames, pairs, cfg)
+    packed = tlarge.packed_synthesis(cfg, "cpu")
     with pytest.raises(ValueError, match="CUDA"):
-        tlarge.launch(re, im, pairs, sync, syns, **kw, with_peaks=True)
+        tlarge.launch(re, im, pairs, sync, syns, **kw, packed=packed,
+                      with_peaks=True)
     with pytest.raises(ValueError, match="CUDA"):
         tlarge.launch(re.to("meta"), im.to("meta"), pairs, sync, syns, **kw,
-                      with_peaks=False)
+                      packed=packed, with_peaks=False)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's split-fp32 arithmetic and its packed synthesis matrices
+
+SPLIT_CASES = {
+    # (mics, samples, PipelineConfig kwargs): 149 / 93 / 7 / 201 lags
+    "24mic_phat": CASES["24mic_phat"],
+    "24mic_band_crop": CASES["24mic_band_crop"],
+    "24mic_auto_band": CASES["24mic_auto_band"],
+    "12mic_bf16": (12, 512, 24, dict(
+        fft_pad_mode="circular", frame_size_bits=9, max_shift_samples=30,
+        phat=True, matmul_dtype="bfloat16")),
+    "12mic_7_lags": (12, 256, 24, dict(SMALL, phat=True,
+                                       max_shift_samples=3)),
+    "9mic_201_lags": (9, 512, 24, dict(
+        fft_pad_mode="circular", frame_size_bits=9, max_shift_samples=100,
+        phat=True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_large_split_reference_against_float64(rng, case):
+    """The plain version that repeats the kernel's arithmetic (split TF32
+    operands, three products a step, the accumulator flushed every 64
+    steps) against the plain version in float64 on the same operands: raw
+    correlograms within 2e-5 of scale (1e-3 in the bf16 mode, where a
+    cross-power value one f32 bit apart can round to the next bf16), equal
+    shifts and tdoa within 1e-3 lags on rows whose two best values are
+    clear of that."""
+    m, n, _, kw = SPLIT_CASES[case]
+    cfg = tcfg.PipelineConfig(**kw)
+    auto = kw.get("band_hz") == "auto"
+    frames = torch.from_numpy(_frames(rng, m, n, band_limited=auto))
+    pairs = torch.from_numpy(jgeo.mic_pairs(m))
+    re, im, sync, syns, okw = tlarge.operands(frames, pairs, cfg)
+    assert "packed" not in okw  # the kernel's own copy is launch's alone
+    okw["taper_enabled"] = False  # compare raw correlograms
+    ref = tlarge.gcc_large_reference(re.double(), im.double(), pairs,
+                                     sync.double(), syns.double(), **okw,
+                                     with_peaks=True)
+    got = tlarge.gcc_large_split_reference(re, im, pairs, sync, syns, **okw,
+                                           with_peaks=True)
+    tol = 1e-3 if okw["bf16"] else 2e-5
+    scale = float(ref[0].abs().max())
+    assert got[0].shape == ref[0].shape == (4, len(pairs), cfg.num_lags)
+    assert float((got[0].double() - ref[0]).abs().max()) <= tol * scale
+    top2 = ref[0].topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 10 * tol * scale
+    assert int(clear.sum()) * 2 > clear.numel()
+    assert not bool(((got[1] != ref[1]) & clear).any())
+    assert float(((got[2] - ref[2]).abs() * clear).max()) <= 50 * tol
+
+
+@pytest.mark.parametrize("case", ["24mic_phat", "24mic_band_crop",
+                                  "12mic_bf16"])
+def test_large_split_reference_matches_pallas_interpret(rng, case):
+    """The kernel's arithmetic against the JAX package's kernel in interpret
+    mode on the same frames: correlograms within 2e-5 of scale (f32 and
+    split-fp32 sums of the same operands; 1e-3 in the bf16 mode), shifts
+    equal on clear rows."""
+    m, n, chunk, kw = SPLIT_CASES[case]
+    frames = _frames(rng, m, n)
+    pairs = jgeo.mic_pairs(m)
+    ref = jlarge.xcorr_large_peaks(
+        jnp.asarray(frames), pairs, jcfg.PipelineConfig(**kw), tile_b=2,
+        chunk=chunk, interpret=True)
+    cfg = tcfg.PipelineConfig(**kw)
+    tp = torch.from_numpy(pairs)
+    re, im, sync, syns, okw = tlarge.operands(torch.from_numpy(frames), tp,
+                                              cfg)
+    got = tlarge.gcc_large_split_reference(re, im, tp, sync, syns, **okw,
+                                           with_peaks=True)
+    tol = 1e-3 if okw["bf16"] else 2e-5
+    ref0 = np.asarray(ref[0])
+    scale = np.abs(ref0).max()
+    np.testing.assert_allclose(got[0].numpy() / scale, ref0 / scale, atol=tol)
+    raw = tlarge.gcc_large_reference(re, im, tp, sync, syns, **okw,
+                                     with_peaks=False)
+    top2 = raw.topk(2, dim=-1).values
+    clear = ((top2[..., 0] - top2[..., 1]) > 10 * tol * scale).numpy()
+    assert clear.mean() > 0.5
+    assert not ((got[1].numpy() != np.asarray(ref[1])) & clear).any()
+
+
+@pytest.mark.parametrize("lags,bins", [(149, 2049), (93, 106), (7, 513),
+                                       (201, 33)])
+def test_packed_synthesis_layout_and_split(rng, lags, bins):
+    """hi + lo within 2^-21 of the matrix, both parts TF32 values; K-major:
+    a row a lag, the hi parts' rows then the lo parts'; lags padded with
+    zero rows to whole lag blocks of 152, bins with zeros to whole chunks
+    of 16; along K a step of 8 is the cos rows of 4 bins, then their sin
+    rows."""
+    sync = torch.from_numpy(rng.standard_normal((bins, lags)).astype(
+        np.float32))
+    syns = torch.from_numpy(rng.standard_normal((bins, lags)).astype(
+        np.float32))
+    packed = tlarge.pack_synthesis(sync, syns)
+    lp = -(-lags // tlarge.LAG_BLOCK) * tlarge.LAG_BLOCK
+    fp = -(-bins // tlarge.CHUNK_BINS) * tlarge.CHUNK_BINS
+    assert packed.shape == (2, lp, 2 * fp)
+    assert packed.is_contiguous() and packed.dtype == torch.float32
+    assert int((packed.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    c_hi, s_hi, c_lo, s_lo = tlarge.unpack_synthesis(packed, bins, lags)
+    for mat, hi, lo in ((sync, c_hi, c_lo), (syns, s_hi, s_lo)):
+        assert torch.equal(hi, tsrpk.tf32_round(mat))
+        err = (hi.double() + lo.double() - mat.double()).abs()
+        assert bool((err <= 2.0 ** -21 * mat.double().abs()).all())
+    # what is past the matrix is zero
+    total = packed.double().abs().sum()
+    inside = sum(t.double().abs().sum() for t in (c_hi, s_hi, c_lo, s_lo))
+    assert float(total) == pytest.approx(float(inside), rel=1e-12)
+    for f, l in ((0, 0), (bins - 1, lags - 1), (bins // 2, lags // 3)):
+        k = 8 * (f // 4) + f % 4
+        assert packed[0, l, k] == c_hi[f, l] and packed[1, l, k] == c_lo[f, l]
+        assert packed[0, l, k + 4] == s_hi[f, l]
+        assert packed[1, l, k + 4] == s_lo[f, l]
+
+
+def test_packed_synthesis_has_no_low_part_in_bf16_mode():
+    cfg = tcfg.PipelineConfig(**SPLIT_CASES["12mic_bf16"][3])
+    sync, syns = tlarge.synthesis(cfg, "cpu")
+    packed = tlarge.packed_synthesis(cfg, "cpu")
+    assert packed is tlarge.packed_synthesis(cfg, "cpu")  # made once
+    c_hi, s_hi, c_lo, s_lo = tlarge.unpack_synthesis(packed, *sync.shape)
+    assert int(c_lo.count_nonzero()) == 0 == int(s_lo.count_nonzero())
+    assert torch.equal(c_hi, sync) and torch.equal(s_hi, syns)
+    f32 = dataclasses.replace(cfg, matmul_dtype="float32")
+    assert int(tlarge.unpack_synthesis(
+        tlarge.packed_synthesis(f32, "cpu"),
+        *sync.shape)[2].count_nonzero()) > 0
+
+
+def test_large_kernel_source_keeps_the_layout_constants():
+    """The packed matrix's layout is stated twice, in the wrapper that
+    packs it and in the kernel that reads it."""
+    src = (_build.CSRC_DIR / "gcc_large.cu").read_text()
+    assert tlarge.LAG_BLOCK % 8 == 0
+    assert f"constexpr int kNT = {tlarge.LAG_BLOCK // 8};" in src
+    assert "constexpr int kLagBlock = 8 * kNT;" in src
+    assert f"constexpr int kChunkBins = {tlarge.CHUNK_BINS};" in src
+    assert "constexpr int kStepsPerChunk = kChunkBins / 4;" in src
+    flush_chunks = tlarge.FLUSH_STEPS * 4 // tlarge.CHUNK_BINS
+    assert f"constexpr int kFlushChunks = {flush_chunks};" in src
+    # a refused tensor map comes back under the code the wrapper knows
+    shared = (_build.CSRC_DIR / "hopper.cuh").read_text()
+    assert (f"constexpr int kErrTensorMap = {tlarge.TENSOR_MAP_ERROR};"
+            in shared)
+    assert "return hopper::kErrTensorMap;" in src
+
+
+def test_large_launch_refuses_a_mismatched_packed_matrix(rng):
+    re = torch.zeros((1, 4, 33), device="meta")
+    pairs = torch.from_numpy(jgeo.mic_pairs(4))
+    sync = torch.zeros((33, 41))
+    before = tlarge.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        tlarge.launch(re, re, pairs, sync, sync, bf16=False, with_peaks=True,
+                      max_shift=20, taper_denom=1.0,
+                      packed=tlarge.pack_synthesis(sync, sync))
+    assert tlarge.launches == before
 
 
 @pytest.fixture()
@@ -389,7 +554,8 @@ def test_cuda_large_kernel_matches_plain_version(rng, cuda_device, case):
                                      sync.double(), syns.double(), **kw,
                                      with_peaks=True)
     before = tlarge.launches
-    got = tlarge.launch(re, im, pairs, sync, syns, **kw, with_peaks=True)
+    got = tlarge.launch(re, im, pairs, sync, syns, **kw, with_peaks=True,
+                        packed=tlarge.packed_synthesis(cfg, str(re.device)))
     assert tlarge.launches == before + 1
     scale = float(ref[0].abs().max())
     assert float((got[0].double() - ref[0]).abs().max()) / scale < 1e-4
@@ -411,3 +577,46 @@ def test_cuda_large_localizer_matches_cpu_path(rng, cuda_device):
     c = cpu(torch.from_numpy(frames))
     assert torch.equal(g["best_shift"].cpu(), c["best_shift"])
     assert float((g["xy"].cpu() - c["xy"]).abs().max()) < 2e-4
+
+
+RAGGED = {
+    # (mics, samples, PipelineConfig kwargs): pairs no row tile divides, and
+    # 7 / 93 / 149 / 201 lags on 33 / 106 / 513 / 2,049 bins
+    "9mic_7_lags_33_bins": (9, 64, dict(
+        fft_pad_mode="circular", frame_size_bits=6, max_shift_samples=3,
+        phat=True)),
+    "21mic_93_lags_106_bins": (21, 1024, dict(
+        fft_pad_mode="circular", phat=True, band_hz=(800.0, 6000.0),
+        band_crop=True)),
+    "24mic_149_lags_513_bins": (24, 1024, dict(
+        fft_pad_mode="circular", phat=True, max_shift_samples=74)),
+    "11mic_201_lags_2049_bins": (11, 4096, dict(
+        fft_pad_mode="circular", frame_size_bits=12, phat=True,
+        max_shift_samples=100)),
+    "11mic_bf16": (11, 1024, dict(fft_pad_mode="circular", phat=True,
+                                  matmul_dtype="bfloat16")),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(RAGGED))
+def test_cuda_large_kernel_ragged_sizes(rng, cuda_device, case):
+    """The kernel against float64 (1e-4 of scale; 1e-3 in the bf16 mode)
+    and against the plain version in its own arithmetic (2e-5)."""
+    m, n, kw = RAGGED[case]
+    cfg = tcfg.PipelineConfig(**kw)
+    frames = torch.from_numpy(_frames(rng, m, n, b=3)).to(cuda_device)
+    pairs = torch.from_numpy(jgeo.mic_pairs(m)).to(cuda_device)
+    re, im, sync, syns, okw = tlarge.operands(frames, pairs, cfg)
+    ref = tlarge.gcc_large_reference(re.double(), im.double(), pairs,
+                                     sync.double(), syns.double(), **okw,
+                                     with_peaks=False)
+    split = tlarge.gcc_large_split_reference(re, im, pairs, sync, syns,
+                                             **okw, with_peaks=False)
+    got = tlarge.launch(re, im, pairs, sync, syns, **okw, with_peaks=False,
+                        packed=tlarge.pack_synthesis(sync, syns))
+    scale = float(ref.abs().max())
+    tol = 1e-3 if okw["bf16"] else 1e-4
+    assert float((got.double() - ref).abs().max()) <= tol * scale
+    assert float((got - split).abs().max()) <= (
+        tol if okw["bf16"] else 2e-5) * scale

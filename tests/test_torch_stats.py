@@ -28,6 +28,9 @@ from audio_triangulation_tpu.ops import (mxu_fft as jmxu, window as jwin,
 from audio_triangulation_tpu.utils import synth as jsynth
 from audio_triangulation_tpu_torch.core import config as tcfg
 from audio_triangulation_tpu_torch.ops import mxu_fft as tmxu, xcorr as tx
+from audio_triangulation_tpu_torch.ops.cuda import _build
+from audio_triangulation_tpu_torch.ops.cuda import gcc_kernel as tgcc
+from audio_triangulation_tpu_torch.ops.cuda import srp_kernel as tsrpk
 
 MICS = jgeo.square_array(0.3)
 PAIRS = jgeo.mic_pairs(4)
@@ -262,3 +265,242 @@ def test_auto_band_decimated_min_bins_counts_coarse_bins():
         dataclasses.replace(jcfg.PipelineConfig(band_hz="auto"),
                             auto_band_min_bins=40)))
     np.testing.assert_array_equal(got, ref)
+
+
+# ---------------------------------------------------------------------------
+# the fused stats mode's synthesis stage in the kernel's arithmetic
+
+SPLIT_STATS = {
+    "auto_hybrid": (4, dict(phat=True, band_hz="auto",
+                            subsample_method="hybrid")),
+    "hybrid_fullband": (4, dict(phat=True, subsample_method="hybrid")),
+    "auto_nophat": (4, dict(band_hz="auto")),
+    "linear_auto_phase": (4, dict(phat=True, band_hz="auto",
+                                  subsample_method="phase",
+                                  fft_pad_mode="linear")),
+    "2mic_auto_hybrid": (2, dict(phat=True, band_hz="auto",
+                                 subsample_method="hybrid")),
+}
+
+
+def _stats_operands(m, kw, b=8):
+    mics = (MICS if m == 4
+            else np.array([[-0.1, 0.0], [0.1, 0.0]], np.float32))
+    rng = np.random.default_rng(7)
+    planes = rng.uniform(-1.2, 1.2, (b, 2))
+    src = np.stack([np.array([x, y, 1.2]) * (1.2 / np.linalg.norm([x, y, 1.2]))
+                    for x, y in planes])
+    frames = torch.from_numpy(jsynth.synth_scene(
+        src, mics, noise_rms=0.02, seed=1).astype(np.float32))
+    cfg = tcfg.PipelineConfig(**{"fft_pad_mode": "circular", **kw})
+    win = torch.from_numpy(np.asarray(jwin.dpss_window(1024)))
+    pairs = torch.from_numpy(jgeo.mic_pairs(m))
+    win_gain, mats = tgcc.operands(frames, win, cfg)
+    args = dict(phat=cfg.phat, phat_eps=cfg.phat_eps, max_shift=cfg.max_shift,
+                taper_denom=cfg.taper_denom)
+    return cfg, frames, win, pairs, win_gain, mats, args
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_STATS))
+def test_stats_split_reference_against_float64(case):
+    """The stats mode with its synthesis as a split-fp32 product against the
+    all-float64 plain version: the synthesis stage alone (float64 spectra
+    and statistics in front of it) within 2e-5 of scale with equal shifts;
+    the whole f32 path within 1e-4 of scale with shifts equal on rows whose
+    two best values are clear of that."""
+    m, kw = SPLIT_STATS[case]
+    cfg, frames, _, pairs, win_gain, mats, args = _stats_operands(m, kw)
+    sp = tgcc.stats_params(cfg, True)
+    ops64 = (frames.double(), win_gain.double(), mats.to(torch.float64),
+             pairs, sp)
+    ref = tgcc.gcc_stats_reference(*ops64, **args, with_peaks=True)
+    stage = tgcc.gcc_stats_reference(*ops64, **args, with_peaks=True,
+                                     split=True)
+    scale = float(ref[0].abs().max())
+    assert stage[0].dtype == torch.float32
+    assert float((stage[0].double() - ref[0]).abs().max()) <= 2e-5 * scale
+    top2 = ref[0].topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 1e-3 * scale
+    assert int(clear.sum()) * 2 > clear.numel()
+    assert not bool(((stage[1] != ref[1]) & clear).any())
+    whole = tgcc.gcc_stats_reference(frames, win_gain, mats, pairs, sp,
+                                     **args, with_peaks=True, split=True)
+    assert float((whole[0].double() - ref[0]).abs().max()) <= 1e-4 * scale
+    assert not bool(((whole[1] != ref[1]) & clear).any())
+
+
+@pytest.mark.parametrize("case", ["auto_hybrid", "hybrid_fullband",
+                                  "2mic_auto_hybrid"])
+def test_stats_split_reference_matches_pallas_interpret(case):
+    """The same against the JAX package's fused kernel in interpret mode on
+    the same frames: correlograms within 2e-5 of scale (f32 sums there,
+    split-fp32 sums here), shifts equal, tdoa within 1e-4 samples."""
+    from audio_triangulation_tpu.ops.pallas import gcc_kernel as jgcc
+
+    m, kw = SPLIT_STATS[case]
+    cfg, frames, win, pairs, win_gain, mats, args = _stats_operands(m, kw)
+    ref = jgcc.fused_gcc_peaks(
+        jnp.asarray(frames.numpy()), jnp.asarray(win.numpy()), pairs.numpy(),
+        jcfg.PipelineConfig(**{"fft_pad_mode": "circular", **kw}), tile_b=8,
+        interpret=True)
+    got = tgcc.gcc_stats_reference(frames, win_gain, mats, pairs,
+                                   tgcc.stats_params(cfg, True), **args,
+                                   with_peaks=True, split=True)
+    ref0 = np.asarray(ref[0])
+    scale = np.abs(ref0).max()
+    np.testing.assert_allclose(got[0].numpy() / scale, ref0 / scale,
+                               atol=2e-5)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(ref[1]))
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(ref[2]), atol=1e-4)
+
+
+def test_split_lag_correlogram_is_the_three_kept_products(rng):
+    """One step of 4 bins in float64: a_lo b_hi + a_hi b_lo + a_hi b_hi of
+    the rr and jj columns; with ``hi_only`` the last alone; a flush only
+    moves where the f32 adds are made."""
+    rr = torch.from_numpy(rng.standard_normal((3, 5, 37)).astype(np.float32))
+    jj = torch.from_numpy(rng.standard_normal((3, 5, 37)).astype(np.float32))
+    sc = torch.from_numpy(rng.standard_normal((37, 21)).astype(np.float32))
+    ss = torch.from_numpy(rng.standard_normal((37, 21)).astype(np.float32))
+    (rh, rl), (jh, jl) = tsrpk.tf32_split(rr), tsrpk.tf32_split(jj)
+    (ch, cl), (sh, sl) = tsrpk.tf32_split(sc), tsrpk.tf32_split(ss)
+    d = torch.Tensor.double
+    kept = (d(rl) @ d(ch) + d(rh) @ d(cl) + d(rh) @ d(ch)
+            + d(jl) @ d(sh) + d(jh) @ d(sl) + d(jh) @ d(sh))
+    got = tgcc.split_lag_correlogram(rr, jj, sc, ss)
+    scale = float(kept.abs().max())
+    assert float((got.double() - kept).abs().max()) <= 2e-6 * scale
+    flushed = tgcc.split_lag_correlogram(rr, jj, sc, ss, flush_steps=2)
+    assert float((flushed - got).abs().max()) <= 2e-6 * scale
+    hi = tgcc.split_lag_correlogram(rr, jj, sc, ss, hi_only=True)
+    assert float((hi.double() - d(rh) @ d(ch) - d(jh) @ d(sh)).abs().max()
+                 ) <= 2e-6 * scale
+    full = d(rr) @ d(sc) + d(jj) @ d(ss)
+    assert float((kept - full).abs().max()) <= 74 * 3 * 2.0 ** -22 * float(
+        rr.abs().max() * sc.abs().max())
+
+
+@pytest.mark.parametrize("n,f", [(1024, 513), (64, 33), (100, 106),
+                                 (256, 7)])
+def test_pack_dft_layout(rng, n, f):
+    """The stats mode's DFT operand: samples padded with zeros to whole
+    steps of 8, bins to whole column tiles of 4; lane 4 g + t of step s and
+    tile j holds column g of the tile (bin 4 j + g // 2; cos for even g,
+    -sin for odd) at samples 8 s + t and 8 s + t + 4."""
+    cos = torch.from_numpy(rng.standard_normal((n, f)).astype(np.float32))
+    msin = torch.from_numpy(rng.standard_normal((n, f)).astype(np.float32))
+    packed = tgcc.pack_dft(cos, msin)
+    steps, tiles = -(-n // 8), -(-f // 4)
+    assert packed.shape == (steps, tiles, 32, 2) and packed.is_contiguous()
+    c, s = tgcc.unpack_dft(packed, n, f)
+    assert torch.equal(c, cos) and torch.equal(s, msin)
+    assert float(packed.abs().sum()) == pytest.approx(
+        float(cos.abs().sum() + msin.abs().sum()), rel=1e-5)
+    for nn, ff in ((0, 0), (n - 1, f - 1), (n // 2, f // 3)):
+        step, k = divmod(nn, 8)
+        tile, b = divmod(ff, 4)
+        for comp, mat in ((0, cos), (1, msin)):
+            lane = 4 * (2 * b + comp) + k % 4
+            assert packed[step, tile, lane, k // 4] == mat[nn, ff]
+
+
+def test_split_rdft_against_float64(rng):
+    """The stats mode's DFT arithmetic (steps of 8 samples summed from zero,
+    16 steps to a chunk, chunks into the total) within 2e-6 of the spectrum
+    scale of float64, like the plain f32 product; one TF32 product is not."""
+    x = torch.from_numpy(rng.standard_normal((5, 4, 1024)).astype(np.float32))
+    cos, msin = (torch.from_numpy(a) for a in tmxu.dft_matrices(1024, 1024))
+    re64, im64 = tmxu.rdft(x.double(), cos.double(), msin.double())
+    scale = float(re64.abs().max())
+    re, im = tgcc.split_rdft(x, cos, msin)
+    assert re.dtype == torch.float32 and re.shape == (5, 4, 513)
+    assert float((re.double() - re64).abs().max()) <= 2e-6 * scale
+    assert float((im.double() - im64).abs().max()) <= 2e-6 * scale
+    pre, _ = tmxu.rdft(x, cos, msin)
+    assert float((pre.double() - re64).abs().max()) <= 2e-6 * scale
+    one = tsrpk.tf32_round(x) @ tsrpk.tf32_round(cos)
+    assert float((one.double() - re64).abs().max()) > 1e-4 * scale
+    # 100 samples: the last step is padded, the only chunk is cut short
+    r2, _ = tgcc.split_rdft(x[..., :100], cos[:100], msin[:100])
+    want = x[..., :100].double() @ cos[:100].double()
+    assert float((r2.double() - want).abs().max()) <= 2e-6 * scale
+
+
+def test_gcc_matrices_carry_the_packed_synthesis():
+    """The stats mode's B operand is made once with the other matrices:
+    split, padded to 16 bins and to lag blocks of at most 16 tiles, f32
+    whatever dtype the plain version's copies are cast to."""
+    cfg = tcfg.PipelineConfig(phat=True, fft_pad_mode="circular",
+                              band_hz="auto")
+    frames = torch.zeros((1, 4, 1024))
+    _, mats = tgcc.operands(frames, torch.ones(1024), cfg)
+    f, l = mats.sync.shape
+    assert (f, l) == (513, 93)
+    assert mats.synp.shape == (1, 528 // 4, 12, 32, 4)
+    c_hi, s_hi, c_lo, s_lo = tgcc.unpack_split_synthesis(mats.synp, f, l)
+    assert torch.equal(c_hi, tsrpk.tf32_round(mats.sync))
+    assert float((c_hi.double() + c_lo.double() - mats.sync.double()
+                  ).abs().max()) <= 2.0 ** -21 * float(mats.sync.abs().max())
+    assert float((s_hi.double() + s_lo.double() - mats.syns.double()
+                  ).abs().max()) <= 2.0 ** -21 * float(mats.syns.abs().max())
+    assert mats.dft.shape == (128, 129, 32, 2)
+    c, s = tgcc.unpack_dft(mats.dft, 1024, f)
+    assert torch.equal(c, mats.cos) and torch.equal(s, mats.msin)
+    m64 = mats.to(torch.float64)
+    assert m64.sync.dtype == torch.float64 and m64.cos.dtype == torch.float64
+    assert m64.synp is mats.synp and m64.dft is mats.dft
+    wide = tgcc.pack_split_synthesis(torch.ones((5, 300)),
+                                     torch.ones((5, 300)),
+                                     tgcc.STATS_LAG_TILES)
+    assert wide.shape == (3, 4, 16, 32, 4)  # 38 tiles in 3 lag blocks
+
+
+def test_stats_kernel_source_keeps_the_layout_constants():
+    src = (_build.CSRC_DIR / "gcc_kernel.cu").read_text()
+    assert f"constexpr int kFChunk = {tgcc.SPLIT_CHUNK_BINS};" in src
+    assert "constexpr int kLagBlock = 128;" in src
+    assert tgcc.STATS_LAG_TILES == 128 // 8
+    assert "constexpr int kStatsTilesN = kLagBlock / 8;" in src
+    assert f"constexpr int kAChunk = {8 * tgcc.DFT_FLUSH_STEPS};" in src
+    assert "constexpr int kRegHw = 16;" in src  # window sums from registers
+
+
+@pytest.fixture()
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 5, 7])
+@pytest.mark.parametrize("case", sorted(SPLIT_STATS))
+def test_cuda_stats_kernel_ragged_batches(cuda_device, case, b):
+    """Batches that no block of 4 frames divides: the kernel against
+    float64 (1e-4 of scale, shifts equal on clear rows), against its
+    synthesis stage's arithmetic behind float64 statistics (2e-5), and
+    against its DFT and synthesis stages' arithmetic on the f32 operands
+    (2e-5)."""
+    m, kw = SPLIT_STATS[case]
+    cfg, frames, _, pairs, win_gain, mats, args = _stats_operands(m, kw, b=b)
+    sp = tgcc.stats_params(cfg, True)
+    x, p = frames.to(cuda_device), pairs.to(cuda_device)
+    win_gain, mats = tgcc.operands(x, win_gain.to(cuda_device) / (
+        256.0 if cfg.normalize_mode == "shift8" else 1.0), cfg)
+    ops64 = (x.double(), win_gain.double(), mats.to(torch.float64), p, sp)
+    ref = tgcc.gcc_stats_reference(*ops64, **args, with_peaks=True)
+    stage = tgcc.gcc_stats_reference(*ops64, **args, with_peaks=True,
+                                     split=True)
+    both = tgcc.gcc_stats_reference(x, win_gain, mats, p, sp, **args,
+                                    with_peaks=True, split=True)
+    got = tgcc.launch_stats(x, win_gain, mats, p, sp, **args,
+                            with_peaks=True)
+    scale = float(ref[0].abs().max())
+    top2 = ref[0].topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 1e-3 * scale
+    d = (got[0].double() - ref[0]).abs().amax(dim=-1)
+    assert float((d * clear).max()) <= 1e-4 * scale
+    assert not bool(((got[1] != ref[1]) & clear).any())
+    for plain in (stage, both):
+        d = (got[0] - plain[0]).abs().amax(dim=-1)
+        assert float((d * clear).max()) <= 2e-5 * scale

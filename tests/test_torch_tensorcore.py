@@ -17,9 +17,17 @@ import jax.numpy as jnp
 
 from audio_triangulation_tpu.core import config as jcfg, geometry as jgeo
 from audio_triangulation_tpu.ops.pallas import srp_kernel as jsrpk
+from audio_triangulation_tpu_torch.core import config as tcfg
+from audio_triangulation_tpu_torch.core import geometry as tgeo
+from audio_triangulation_tpu_torch.models.localizer import condition_frames
+from audio_triangulation_tpu_torch.ops import mxu_fft as tmxu
+from audio_triangulation_tpu_torch.ops import window as twindow
 from audio_triangulation_tpu_torch.ops.cuda import _build, dft_matmul
+from audio_triangulation_tpu_torch.ops.cuda import gcc_kernel as tgcc
+from audio_triangulation_tpu_torch.ops.cuda import gcc_large as tlarge
 from audio_triangulation_tpu_torch.ops.cuda import srp_kernel as tsrpk
 from audio_triangulation_tpu_torch.tools import int8_microbench
+from audio_triangulation_tpu_torch.utils import synth as tsynth
 
 from test_torch_srp_kernel import ARGMAX_CASES, L, _onehot
 
@@ -162,6 +170,108 @@ def test_split_reference_ties_and_masking(rng):
 
 
 # ---------------------------------------------------------------------------
+# the split under PHAT: may a GCC kernel's forward DFT go to the tensor cores?
+
+def _bench_frames(mics, n_frames, n, seed):
+    """Chirp frames (800-6000 Hz, noise 0.01) of random sources on the
+    1.2 m sphere: the scene the kernels are held to on the card."""
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(-1.0, 1.0, (n_frames, 2))
+    v = np.concatenate([xy, np.full((n_frames, 1), 1.2)], axis=1)
+    src = v * (1.2 / np.linalg.norm(v, axis=1, keepdims=True))
+    return torch.from_numpy(tsynth.synth_scene(
+        src, mics, n=n, noise_rms=0.01,
+        seed=int(rng.integers(1 << 30))).astype(np.float32))
+
+
+def _split_rdft(x, cos, msin):
+    """The forward DFT x [..., N] @ (cos, msin) [N, F] as a split-fp32
+    product: both operands split by ``tf32_split``, and every 8 values of N
+    add ``x_lo w_hi``, then ``x_hi w_lo``, then ``x_hi w_hi`` to one f32
+    accumulator (the order of ``srp_argmax_split_reference``)."""
+    xh, xl = tsrpk.tf32_split(x)
+    out = []
+    for w in (cos, msin):
+        wh, wl = tsrpk.tf32_split(w)
+        acc = torch.zeros((*x.shape[:-1], w.shape[1]))
+        for k0 in range(0, x.shape[-1], 8):
+            ks = slice(k0, k0 + 8)
+            acc += xl[..., ks] @ wh[ks]
+            acc += xh[..., ks] @ wl[ks]
+            acc += xh[..., ks] @ wh[ks]
+        out.append(acc)
+    return out
+
+
+SPLIT_PHAT_CASES = {
+    # name: (mics, samples, frames, PipelineConfig fields)
+    "4mic_1024_fullband": (tgeo.square_array(0.3), 1024, 16, {}),
+    "4mic_1024_bandcrop": (tgeo.square_array(0.3), 1024, 16, dict(
+        band_hz=(800.0, 6000.0), band_crop=True)),
+    "8mic_4096_fullband": (tgeo.grid_array(2, 4, 0.05), 4096, 6, dict(
+        frame_size_bits=12)),
+    "8mic_4096_bandcrop": (tgeo.grid_array(2, 4, 0.05), 4096, 6, dict(
+        frame_size_bits=12, band_hz=(800.0, 6000.0), band_crop=True)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_PHAT_CASES))
+def test_split_dft_under_phat_stays_inside_the_kernels_tolerance(case):
+    """PHAT divides every bin by its magnitude, so an error of the DFT on a
+    weak bin comes out at full size.  The forward DFT of ``gcc_reference``
+    (4 mics x 1,024) and of ``gcc_large._prep_spectra`` (8 mics x 4,096) as
+    a split-fp32 product, with PHAT, cross-power and lag synthesis in
+    float64 behind it, against the all-float64 evaluation of the same f32
+    operands: the correlogram error must stay under 1e-4 of scale, the
+    tolerance the kernels are held to on the card.  One TF32 product
+    without the split does not (about 1e-2), which is why the split is
+    needed; the fp32 ``torch.matmul`` DFT's error is printed beside it."""
+    mics, n, n_frames, kw = SPLIT_PHAT_CASES[case]
+    cfg = tcfg.PipelineConfig(phat=True, fft_pad_mode="circular", **kw)
+    frames = _bench_frames(mics, n_frames, n, seed=3)
+    pairs = torch.as_tensor(tgeo.mic_pairs(mics.shape[0]))
+    window = torch.as_tensor(twindow.window_for(cfg))
+    if n == 1024:  # the fused kernel's conditioning and operands
+        win_gain, mats = tgcc.operands(frames, window, cfg)
+        x = (frames - frames.mean(dim=-1, keepdim=True)) * win_gain
+        cos, msin, sync, syns = mats.cos, mats.msin, mats.sync, mats.syns
+    else:  # the large-array path's
+        x = condition_frames(frames, window, cfg).float()
+        crop = tmxu.crop_bins(cfg)
+        cos, msin = (tmxu.dft_matrices(n, cfg.fft_length) if crop is None
+                     else tmxu.dft_matrices_band(n, cfg.fft_length, *crop))
+        cos, msin = torch.from_numpy(cos), torch.from_numpy(msin)
+        sync, syns = tlarge.synthesis(cfg, "cpu")
+        # the operands are the path's own
+        re, im = tlarge._prep_spectra(x, pairs, cfg)
+        wre, wim = tmxu.whiten_reim(*tmxu.rdft(x, cos, msin), cfg.phat_eps,
+                                    cfg.phat_beta)
+        assert torch.equal(re, wre) and torch.equal(im, wim)
+
+    def correlogram(re, im):
+        rr, jj = tmxu.cross_power_reim(re.double(), im.double(), pairs,
+                                       phat=True, phat_eps=cfg.phat_eps)
+        return tmxu.lag_correlogram(rr, jj, sync.double(), syns.double())
+
+    ref = correlogram(*tmxu.rdft(x.double(), cos.double(), msin.double()))
+    scale = float(ref.abs().max())
+
+    def err(re, im):
+        return float((correlogram(re, im) - ref).abs().max()) / scale
+
+    e_split = err(*_split_rdft(x, cos, msin))
+    e_fp32 = err(*tmxu.rdft(x, cos, msin))
+    xh = tsrpk.tf32_round(x)
+    e_tf32 = err(xh @ tsrpk.tf32_round(cos), xh @ tsrpk.tf32_round(msin))
+    print(f"{case}: correlogram error of scale under PHAT: split-fp32 DFT "
+          f"{e_split:.2e}, fp32 torch.matmul DFT {e_fp32:.2e}, one TF32 "
+          f"product {e_tf32:.2e}")
+    assert e_split <= 1e-4
+    assert e_split <= 4 * max(e_fp32, 2e-6)  # a small factor of fp32
+    assert e_tf32 > 1e-3  # the split is what keeps the digits
+
+
+# ---------------------------------------------------------------------------
 # the DFT-product kernel's host-side preparation and refusals
 
 @pytest.mark.parametrize("name", ["bf16", "int8"])
@@ -219,8 +329,10 @@ def test_tensor_map_error_code_is_the_sources():
     """The wrapper tells a refused tensor map from a failed launch by the
     code the C entry point returns for it, which no ``cudaError_t`` is."""
     src = (_build.CSRC_DIR / "dft_matmul.cu").read_text()
+    shared = (_build.CSRC_DIR / "hopper.cuh").read_text()
     assert (f"constexpr int kErrTensorMap = {dft_matmul.TENSOR_MAP_ERROR};"
-            in src)
+            in shared)
+    assert "using hopper::kErrTensorMap;" in src
     assert src.count("return kErrTensorMap;") == 1
     assert dft_matmul.TENSOR_MAP_ERROR < 0
 
