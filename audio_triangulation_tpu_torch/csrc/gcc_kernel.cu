@@ -2,57 +2,75 @@
 //
 // Replaces audio_triangulation_tpu/ops/pallas/gcc_kernel.py::_gcc_kernel in
 // its base mode (rows 1 and 2 of the port's kernel table: with and without
-// the in-kernel peak stage) and in its spectral-stats mode (row 3, below).
-// Base mode, per frame [M, N]:
+// the in-kernel peak stage), its compact "Mode B" (row 4, in-kernel SRP) and
+// its spectral-stats mode (row 3, below).  Base mode, per frame [M, N]:
 //
-//   mean removal, x (window * gain)            -> samples staged in shared memory
-//   Re/Im DFT against the host-built cos / -sin matrices (interleaved
-//   [N, Fp/2] float4 of two bins), fp32 FMA, summed in two levels
+//   mean removal, x (window * gain)
+//   Re/Im DFT against the host-packed cos / -sin matrix (pack_dft)
 //   PHAT: per mic (M >= 3) or per pair (M = 2), rsqrt(re^2 + im^2 + eps^2)
 //   per-pair cross-power, lag synthesis against sync / syns [F, L]
 //   optional peaks: first-max argmax, parabolic sub-sample (interior peaks,
 //   |den| > 1e-20, delta clipped to +-0.5), PSR (guard 3, floor 1e-20) on the
 //   raw correlogram, then the Gaussian taper exp(-d^2 / taper_denom)
 //
-// What bounds it on an H100: the DFT is N*F*M*2 multiply-adds per frame
-// (8.4 MFLOP at N = 1024, F = 513, M = 4), all in fp32 on the CUDA cores;
-// TF32 tensor cores keep about three digits, which PHAT whitening would
-// amplify on weak bins.  So the issue rate of fp32 FMAs is the bound, and
-// the design keeps loads off that path: a block holds up to 16
-// (frame, mic) rows, each thread owns 4 rows x 2 bins, so two 16-byte
-// shared-memory loads (coefficients staged once per block, samples) feed
-// 16 FMAs; the next chunk's global loads are issued into registers before
-// the current chunk is computed, hiding their latency.  The spectra and
-// cross-power never leave shared memory; only the frames (16 KB per 4-mic
-// frame) come in and the correlograms go out.  The DFT sums each 16-sample chunk
-// before adding it to the total, which keeps it within 2e-5 of a float64
-// evaluation where one 1,024-term fp32 sum (cuBLAS) drifts to 1.4e-4.  A pass
-// covers 128 bins, so the 513th (Nyquist) would cost a fifth pass for one bin;
-// the warp that computes a row's mean sums that bin over the samples instead.
+// What bounds the base mode on an H100: the DFT, N*F*M*2 multiply-adds a
+// frame (8.4 MFLOP at N = 1024, F = 513, M = 4), nine tenths of the work.
+// On the fp32 CUDA cores it ran at a quarter of the fp32 rate, because a
+// block could hold the whole spectra of only 16 (frame, mic) rows, so every
+// block streamed the whole DFT matrix from L2 for 16 rows (17 GB of L2 reads
+// a 16,384-frame full-band call).  So the base body (base_tile) streams the
+// bins instead of holding the spectra: a block takes up to 64 (frame, mic)
+// rows (16 frames of 4 mics) and walks the bins in chunks of kChunkBins.
+// Every bin's PHAT, cross-power and share of the lag synthesis is local to
+// that bin, and the correlogram is a sum over bins, so per chunk it
+//   computes the chunk's spectra of all its rows on the tensor cores, as a
+//   split-fp32 product (mma.sync m16n8k8, TF32 operands; see hopper.cuh):
+//   the conditioned samples are staged 32 at a time, split into TF32 hi / lo
+//   parts once and stored in mma fragment order; each warp owns two column
+//   tiles (8 bins) of the chunk for all four row tiles, so every coefficient
+//   it loads from the packed matrix in L2 (8 bytes a lane, a step ahead of
+//   its use) is split once and feeds 64 rows, in one block (no cluster);
+//   a step's three products (x_lo w_hi, x_hi w_lo, x_hi w_hi) are summed
+//   in the tensor cores from zero and the steps are added on the CUDA cores,
+//   flushed into the chunk's spectra in shared memory every kFlushSteps
+//   steps (the tensor cores cut where the CUDA cores round, and PHAT lifts
+//   that on weak bins);
+//   whitens the chunk (per mic), forms the cross-power of every (frame,
+//   pair) row (per-pair PHAT for 2-mic arrays) 16 bins at a time, and adds
+//   those bins' lag synthesis into the correlograms [frames x P, L], which
+//   stay in shared memory for the whole call.  The synthesis stays on the
+//   fp32 CUDA cores, a bin at a time in ascending order per lag: a thread
+//   owns 4 rows x up to 4 lags and reads one staged (cos, sin) pair a lag
+//   and one broadcast cross-power value a row for 8 FMAs.
+// The frames are read once per bin chunk (from L2 after the first), the DFT
+// matrix once per block.  A bin that would take a column tile to itself
+// (F = L/2 + 1 with L a power of two leaves bin F - 1 alone) is summed over
+// the samples by the warp that computes its row's mean.  Rows are
+// independent in every stage, so a row's outputs do not depend on which
+// other rows share its block: the SRP mode and the pipelined instance, run
+// at other tile sizes or with more shared memory, stay bit-equal to it.
 //
 // Dropped from the TPU kernel, because they existed for Mosaic or the MXU:
 // the Nyquist fold (all F = L/2 + 1 bins are carried), the 128-lane padding
 // of the lag axis, the one-hot neighbour sums (direct indexing here) and
 // sub-tile emission order.
 //
-// In-kernel SRP (gcc_kernel<false, true>: the TPU kernel's compact "Mode B",
+// In-kernel SRP (base_tile<true>: the TPU kernel's compact "Mode B",
 // gcc_kernel.py:467-499): the base mode with peaks, and while the block
-// still holds its tapered correlograms, the SRP score of every grid cell and
-// the grid argmax.  The tapered values are
-// rounded to bf16 into a shared buffer of all the block's (frame, pair)
-// rows; then one warp per frame sums, for each cell g, the pairs' values at
-// lut[p, g] in the order p = 0..P-1 in fp32 (the TPU kernel's per-pair
-// products against the one-hot of that LUT have one nonzero term each, so
-// this is the same sum), keeps the first maximum, and writes the cell and
-// its score.  Its cost is P x G shared-memory gathers a frame, against the
-// DFT's millions of FMAs.  What limits it: the buffer of tapered rows
-// (frames x P x L floats) shares the block's shared memory with the
-// spectra, so fewer frames may fit a block, and one frame must; the LUT is
-// read from global memory (L2), so the grid size has no limit.  Dropped:
-// the 4 P + 2 <= 128 lane packing of the outputs and the VMEM budget of the
+// still holds its correlograms, the SRP score of every grid cell, written
+// out as [B, G], and the grid argmax.  The peak stage leaves each tapered
+// row rounded to bf16 in the row's place; then the block stages the lag LUT
+// in shared memory as int16, as many cells at a time as the staging region
+// holds (so G has no limit), and every thread scores cells for 8 frames at a
+// time: for each cell g the pairs' values at lut[p, g] summed in the order
+// p = 0..P-1 in fp32 (the TPU kernel's per-pair products against the
+// one-hot of that LUT have one nonzero term each, so this is the same sum),
+// the score written coalesced and the first maximum kept per frame, then
+// reduced across the block with ties to the lower cell.  Dropped: the
+// 4 P + 2 <= 128 lane packing of the outputs and the VMEM budget of the
 // steering matrix.
 //
-// Spectral-stats mode (gcc_kernel<true>; the TPU kernel's _smooth,
+// Spectral-stats mode (gcc_stats_kernel, stats_tile; the TPU kernel's _smooth,
 // stage_front_stats, stage_cross_stats and phase_slope_tdoa), for
 // band_hz='auto' and the phase-slope / hybrid sub-sample TDOA.  Its DFT
 // leaves the spectra RAW in shared memory; then
@@ -101,13 +119,11 @@
 //   per chunk.
 // The window sums come from registers (a thread owns 16 consecutive bins of
 // a row and loads their 48 terms once); that stage was 0.4 ms and stayed so.
-// What is left (9.8 ms against a bound of 2.3): the DFT, 4.6 ms, waits for
+// What is left (9.8 ms against a bound of 1.1): the DFT, 4.6 ms, waits for
 // its coefficient loads (one step of 8 samples ahead is all the registers
 // allow) and spends 10 of its 21 instructions a column tile and step on
-// splitting them; the same stage is 39% slower than the CUDA-core one at
-// the band-crop width (27 column tiles over 8 warps) and 20% faster at the
-// full band at two blocks an SM, so the other instances keep the CUDA-core
-// stage (spectra_cuda_cores).  Dropped as well: the polynomial atan2
+// splitting them, for one row tile of 16 rows (the base body shares each
+// coefficient among four).  Dropped as well: the polynomial atan2
 // (Mosaic has none), the row expansion of the band weight, and the per-mic
 // rsqrt the TPU kernel computes for 2-mic arrays without using it.
 //
@@ -115,19 +131,21 @@
 // tools/emit_pipeline_probe.py::outer, which drives the same body through
 // pltpu.emit_pipeline as one program step).  The base mode takes one tile of
 // frames per block and leaves the overlap of one tile's synthesis and peak
-// stage with the next tile's loads to the hardware scheduler running several
+// stage with the next tile's loads to the hardware scheduler running two
 // blocks an SM.  Here (SM count x blocks an SM) blocks each walk the tiles
 // blockIdx.x, blockIdx.x + gridDim.x, ... themselves: a tile's frames arrive
 // by cp.async in a staging buffer in shared memory (tb x M x N floats), the
-// mean and DFT stages read them from there, and as soon as the DFT is done
-// the next tile's copy is issued into the same buffer, so it runs under the
-// current tile's synthesis and peak stage.  The TPU probe's "weights
-// resident" has no shared-memory form on this card: the band-crop DFT
-// matrices alone are 1,024 x 106 x 2 floats = 868 KB against 227 KB a block,
-// so they stay where the base mode reads them from (L2).  The arithmetic and
-// its order are the base mode's (the same gcc_tile), so the outputs are
-// bit-equal.  What it costs: the staging buffer (64 KB for 4 frames of
-// 4 x 1,024) leaves fewer blocks an SM than the base mode has.
+// mean and DFT stages read them from there, and as soon as the last bin
+// chunk's DFT is done the next tile's copy is issued into the same buffer,
+// so it runs under the current tile's last synthesis and peak stage.  The
+// TPU probe's "weights resident" has no shared-memory form on this card: the
+// band-crop DFT matrices alone are 1,024 x 106 x 2 floats = 868 KB against
+// 227 KB a block, so they stay where the base mode reads them from (L2).  The
+// body is the base mode's (base_tile), at the tile that fits beside the
+// staging buffer (8 frames of 4 x 1,024 where the base mode takes 16); rows
+// are independent in it, so the outputs are bit-equal.  What it costs: the
+// smaller tile shares each coefficient among fewer rows, and the staging
+// buffer leaves one block an SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -140,25 +158,36 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// DFT on the CUDA cores (base, SRP and pipelined instances): a pass covers
-// kDftRows (frame, mic) rows x kBinsPerPass bins; each thread owns
-// kRowsPerThread rows x 2 bins
-constexpr int kRowsPerThread = 4;
-constexpr int kRowGroups = 4;
-constexpr int kDftRows = kRowGroups * kRowsPerThread;
-constexpr int kBinLanes = kThreads / kRowGroups;
-constexpr int kBinsPerPass = 2 * kBinLanes;
-constexpr int kNChunk = 16;       // samples staged per DFT step
-constexpr int kXsStride = kDftRows + 4;  // staged sample row, padded (floats)
-constexpr int kWPerThread = kNChunk * kBinLanes / kThreads;  // staged float4s
-static_assert(kDftRows * kNChunk == kThreads, "one staged sample per thread");
-static_assert(kNChunk * kBinLanes % kThreads == 0, "whole float4s per thread");
-// DFT on the tensor cores (stats mode): the block's (frame, mic) rows are
-// one mma row tile of kDftRows; the
-// columns are (re, im) pairs, 4 bins a column tile of 8; a pass covers
-// kDftTiles column tiles a warp, and the conditioned samples are staged
-// kAChunk at a time in two buffers
-static_assert(kDftRows == 16, "one mma row tile");
+// ---- the base body (base_tile: base, SRP and pipelined instances) ----------
+// A block holds up to kBlockRows (frame, mic) rows, kRowTiles mma row tiles
+// of 16.  The bins go in chunks of kChunkBins: each warp owns kWarpTiles
+// column tiles (4 bins as (re, im) column pairs) of a chunk for every row
+// tile.  The conditioned samples are staged kSampSteps mma steps (8 samples
+// each) at a time, split into TF32 hi and lo parts, in fragment order.
+constexpr int kRowTiles = 4;
+constexpr int kBlockRows = 16 * kRowTiles;
+constexpr int kWarpTiles = 2;
+constexpr int kChunkTiles = kWarps * kWarpTiles;
+constexpr int kChunkBins = 4 * kChunkTiles;
+constexpr int kSampSteps = 4;
+constexpr int kSampChunk = 8 * kSampSteps;
+// floats of one staged part (hi or lo) of one buffer
+constexpr int kStageFloats = kSampSteps * kRowTiles * 32 * 4;
+static_assert(kBlockRows * kSampChunk == 8 * kThreads, "8 staged samples a thread");
+constexpr int kFlushSteps = 16;   // ops/cuda/gcc_kernel.py DFT_FLUSH_STEPS
+// a spectrum row of the chunk: its bins and the lone tail bin (float2)
+constexpr int kSpecStride = kChunkBins + 2;
+constexpr int kSub = 16;          // bins of a synthesis step
+constexpr int kLagBlock = 128;    // lags per synthesis block
+constexpr int kLagsPerLane = kLagBlock / 32;
+constexpr int kRowsPerGroup = 4;  // (frame, pair) rows a warp synthesises together
+constexpr int kSrpFrames = 8;     // frames a thread scores at a time
+// ---- the stats mode (stats_tile) -------------------------------------------
+// DFT on the tensor cores: the block's (frame, mic) rows are one mma row
+// tile of kDftRows; the columns are (re, im) pairs, 4 bins a column tile of
+// 8; a pass covers kDftTiles column tiles a warp, and the conditioned
+// samples are staged kAChunk at a time in two buffers
+constexpr int kDftRows = 16;
 constexpr int kDftTiles = 8;
 constexpr int kDftPassTiles = kWarps * kDftTiles;
 constexpr int kAChunk = 128;             // 16 mma steps of 8 samples
@@ -166,20 +195,16 @@ constexpr int kAStride = kAChunk + 4;    // staged row (floats): bank 4 g + t
 constexpr int kAPerThread = kDftRows * kAChunk / kThreads;
 static_assert(kDftRows * kAChunk % kThreads == 0, "whole staged samples per thread");
 static_assert(kThreads % kAChunk == 0, "a thread stages one sample column");
-static_assert(2 * kDftRows * kAStride <= kNChunk * kXsStride + 4 * kNChunk * kBinLanes,
-              "the two sample buffers fit the CUDA-core stage's staging region");
+constexpr int kStatsStage = 2 * kDftRows * kAStride;   // the two sample buffers
 constexpr int kFChunk = 16;       // synthesis-matrix bins staged per step
-constexpr int kLagBlock = 128;    // lags per synthesis block
-constexpr int kLagsPerLane = kLagBlock / 32;
-constexpr int kRowsPerWarp = 4;   // (frame, pair) rows a warp synthesises together
-constexpr int kRowsPerPass = kWarps * kRowsPerWarp;
-// stats mode: the synthesis runs on the tensor cores, a pass of 32 (frame,
-// pair) rows as 2 mma row tiles x up to 16 lag tiles, 4 warps side by side
-// over the lag tiles of each row tile
+constexpr int kRowsPerPass = 32;  // (frame, pair) rows a synthesis pass
+// the synthesis runs on the tensor cores, a pass of 32 (frame, pair) rows
+// as 2 mma row tiles x up to 16 lag tiles, 4 warps side by side over the lag
+// tiles of each row tile
 constexpr int kStatsTilesN = kLagBlock / 8;     // lag tiles per lag block, at most
 constexpr int kStatsWarpsN = 4;
 constexpr int kStatsTilesPerWarp = kStatsTilesN / kStatsWarpsN;
-static_assert(kRowsPerPass == 32 && kWarps == 2 * kStatsWarpsN, "2 row tiles x 4 warps");
+static_assert(kWarps == 2 * kStatsWarpsN, "2 row tiles x 4 warps");
 // the pass's whitened, banded cross-power of a staged chunk: rows of
 // kFChunk (rr, jj) pairs, padded so that a fragment load hits every bank once
 constexpr int kXpStride = kFChunk + 4;
@@ -195,29 +220,39 @@ __host__ __device__ inline int stats_tiles(int l) {
   return (l + 7) / 8 < kStatsTilesN ? (l + 7) / 8 : kStatsTilesN;
 }
 
-// Floats of dynamic shared memory for tb frames per block, in layout order
-// (16-byte and 8-byte aligned regions first); p > 0 adds the stats mode's
-// smoothed periodograms, per-row coherence and per-frame band weight;
-// srp_p > 0 adds the SRP mode's tapered rows of all the block's pairs.
-size_t smem_floats(int tb, int m, int f, int l, int p = 0, int srp_p = 0) {
+// Floats of the stats mode's dynamic shared memory for tb frames per block,
+// in layout order (16-byte and 8-byte aligned regions first): the sample
+// buffers, the packed synthesis chunk, the staged cross-power, the spectra,
+// per-row means, a pass's raw correlograms, the smoothed periodograms,
+// per-row coherence and per-frame band weight.
+size_t stats_smem_floats(int tb, int m, int f, int l, int p) {
   const size_t rows = (size_t)tb * m;
-  return (size_t)kNChunk * kXsStride           // staged samples [n][row] and
-         + 4 * (size_t)kNChunk * kBinLanes     // coefficients [n][pair]; in the
-                                               // stats mode two sample buffers
-         + (p > 0 ? (size_t)kFChunk * 32 * stats_tiles(l)   // packed, split synthesis
-                  : 2 * (size_t)kFChunk * kLagBlock)        // staged synthesis (cos, sin)
-         + 2 * rows * f                        // spectra (re, im)
-         + rows                                // per-row mean
-         + (size_t)kRowsPerPass * l            // raw correlogram rows of a pass
-         + (size_t)tb * srp_p * l              // tapered rows, bf16-rounded
-         + (p > 0 ? 2 * (size_t)kStatsXp       // staged cross-power (re, im)
-                        + rows * f             // smoothed periodograms
-                        + (size_t)tb * p * f   // coherence per (frame, pair)
-                        + (size_t)tb * f       // band weight per frame
-                  : 0);
+  return (size_t)kStatsStage + (size_t)kFChunk * 32 * stats_tiles(l) + 2 * (size_t)kStatsXp +
+         2 * rows * f + rows + (size_t)kRowsPerPass * l + rows * f + (size_t)tb * p * f +
+         (size_t)tb * f;
 }
 
-// The stats mode's settings (zero in the base mode).
+// The base body's staging region (floats, a multiple of 4): the two sample
+// buffers of the DFT; then a synthesis step's lag matrices and cross-power of
+// rp (frame, pair) rows, padded to whole row groups; then the SRP mode's LUT
+// chunk.
+__host__ __device__ inline size_t base_stage_floats(int rp) {
+  const size_t rows = (size_t)(rp + kRowsPerGroup - 1) / kRowsPerGroup * kRowsPerGroup;
+  const size_t syn = 2 * (size_t)kSub * kLagBlock + 2 * rows * kSub;
+  const size_t dft = 4 * (size_t)kStageFloats;
+  return ((syn > dft ? syn : dft) + 3) & ~(size_t)3;
+}
+
+// Floats of the base body's dynamic shared memory for tb frames of m mics
+// and p pairs: staging region, chunk spectra [kBlockRows][kSpecStride]
+// float2, tail bins [kBlockRows] float2, means, the SRP argmax's reduction
+// (kWarps x kSrpFrames scores and cells), correlograms [tb * p][l].
+__host__ __device__ inline size_t base_smem_floats(int tb, int p, int l) {
+  return base_stage_floats(tb * p) + 2 * (size_t)kBlockRows * kSpecStride +
+         3 * (size_t)kBlockRows + 2 * (size_t)kWarps * kSrpFrames + (size_t)tb * p * l;
+}
+
+// The stats mode's settings.
 struct Stats {
   // the synthesis matrices split and in mma fragment order (the wrapper's
   // pack_split_synthesis): [lag blocks, steps of 4 bins, lag tiles, 32 lanes]
@@ -232,11 +267,12 @@ struct Stats {
   float rel, floor_, hybrid_min, omega, gain_d;
 };
 
-// The SRP mode's operands and outputs (zero in the other modes).
+// The SRP mode's operands and outputs (zero in the other instances).
 struct Srp {
   const int* lut;    // [P, G] lag index of each (pair, cell)
   int* cell_out;     // [B] first best cell
   float* score_out;  // [B] its score
+  float* scores_out; // [B, G] every cell's score
   int G;
 };
 
@@ -252,11 +288,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 __device__ __forceinline__ float warp_max(float v) {
   for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
-}
-
-__device__ __forceinline__ float4 fma4(float a, float4 c, float4 acc) {
-  return make_float4(fmaf(a, c.x, acc.x), fmaf(a, c.y, acc.y),
-                     fmaf(a, c.z, acc.z), fmaf(a, c.w, acc.w));
 }
 
 // Sum of |X[q]|^2 over the bins q of [lo, hi], in ascending order.
@@ -495,176 +526,529 @@ spectra_tensor_cores(const float* x0, int R, int N, int F, int Fp,
   }
 }
 
-// Stages 1 and 2 of the other instances, by the whole block: the per-row
-// means and the spectra (whitened per mic when per_mic), the DFT on the CUDA
-// cores.  w: [N, Fp / 2] float4 of (cos, -sin) of two bins.
+// The peak stage of one raw correlogram row c [L], by its warp: without
+// peaks the row is written out as it is; with them the first maximum, the
+// parabolic sub-sample offset and the PSR of the raw row, and the tapered
+// row written out.  keep_tapered leaves the tapered values, rounded to bf16,
+// in the row's place (the SRP mode scores them).
+__device__ void row_peaks(float* c, int L, float* __restrict__ out, size_t grow,
+                          int* __restrict__ shift_out, float* __restrict__ tdoa_out,
+                          float* __restrict__ peak_out, float* __restrict__ psr_out,
+                          float taper_denom, int with_peaks, bool keep_tapered) {
+  const int lane = threadIdx.x & 31;
+  if (!with_peaks) {
+    for (int l = lane; l < L; l += 32) out[l] = c[l];
+    return;
+  }
+  const int K = (L - 1) / 2;
+  // first maximum: lanes scan ascending lags, ties go to the lower lag
+  float best = -INFINITY;
+  int bi = L;
+  for (int l = lane; l < L; l += 32) {
+    const float v = c[l];
+    if (v > best) { best = v; bi = l; }
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, best, off);
+    const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+    if (ov > best || (ov == best && oi < bi)) { best = ov; bi = oi; }
+  }
+  const int idx = bi < L ? bi : 0;   // all-NaN / all -inf rows
+  const float v0 = c[idx];
+  const bool interior = idx >= 1 && idx <= L - 2;
+  const float cm = idx >= 1 ? c[idx - 1] : 0.f;
+  const float cp = idx <= L - 2 ? c[idx + 1] : 0.f;
+  const float den = cm - 2.f * v0 + cp;
+  float delta = (interior && fabsf(den) > 1e-20f) ? 0.5f * (cm - cp) / den : 0.f;
+  delta = fminf(fmaxf(delta, -0.5f), 0.5f);
+
+  float side = -INFINITY;
+  for (int l = lane; l < L; l += 32)
+    if (abs(l - idx) > 3) side = fmaxf(side, c[l]);
+  side = warp_max(side);
+  __syncwarp();   // every lane has read the peak's neighbours
+
+  for (int l = lane; l < L; l += 32) {
+    const float d = (float)(l - idx);
+    const float v = c[l] * expf(-(d * d) / taper_denom);
+    out[l] = v;
+    if (keep_tapered) c[l] = round_bf16(v);
+  }
+  if (lane == 0) {
+    shift_out[grow] = idx - K;
+    tdoa_out[grow] = (float)(idx - K) + delta;
+    peak_out[grow] = v0;
+    psr_out[grow] = fabsf(v0) / fmaxf(fabsf(side), 1e-20f);
+  }
+}
+
+// A load as a volatile statement: it keeps its place ahead of the mma.sync
+// statements (volatile too) that follow it, so the next step's coefficients
+// are in flight while the current step multiplies, and the compiler does not
+// sink the load to its use.
+__device__ __forceinline__ float2 ldg_early(const float2* p) {
+  float2 v;
+  asm volatile("ld.global.nc.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "l"(p));
+  return v;
+}
+
+// Where sample k (of kSampChunk) of row `row` goes in a staged part: the
+// mma A fragment of its step q and row tile rt, [q][rt][lane 4 g + t][4] =
+// (A[g][t], A[g + 8][t], A[g][t + 4], A[g + 8][t + 4]), so that a lane loads
+// its fragment with one 16-byte load.
+__device__ __forceinline__ int frag_at(int row, int k) {
+  const int q = k >> 3, t = k & 3, hi4 = (k >> 2) & 1;
+  const int rt = row >> 4, g = row & 7, h8 = (row >> 3) & 1;
+  return (((q * kRowTiles + rt) * 32 + 4 * g + t) << 2) + h8 + 2 * hi4;
+}
+
+// A warp adds the staged bins (fmax of them) into the correlograms of the
+// kRowsPerGroup (frame, pair) rows from r0 (staged cross-power xp [rows][kSub],
+// zero past RP), a lane owning the lags l0 + lane + 32 j, j < kJ, of the lag
+// block (staged (cos, sin) syn [kSub][kLagBlock], zero past L), in ascending
+// bin order.
+template <int kJ>
+__device__ __forceinline__ void synth_rows(float* corr, const float2* xp, const float2* syn,
+                                           int r0, int RP, int L, int l0, int fmax) {
+  const int lane = threadIdx.x & 31;
+  float acc[kRowsPerGroup][kJ];
+#pragma unroll
+  for (int k = 0; k < kRowsPerGroup; ++k)
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) {
+      const int l = l0 + lane + 32 * j;
+      acc[k][j] = (r0 + k < RP && l < L) ? corr[(size_t)(r0 + k) * L + l] : 0.f;
+    }
+#pragma unroll 4
+  for (int ff = 0; ff < fmax; ++ff) {
+    float2 cs[kJ];
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) cs[j] = syn[ff * kLagBlock + lane + 32 * j];
+#pragma unroll
+    for (int k = 0; k < kRowsPerGroup; ++k) {
+      const float2 v = xp[(r0 + k) * kSub + ff];
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) acc[k][j] = fmaf(v.x, cs[j].x, fmaf(v.y, cs[j].y, acc[k][j]));
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kRowsPerGroup; ++k)
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) {
+      const int l = l0 + lane + 32 * j;
+      if (r0 + k < RP && l < L) corr[(size_t)(r0 + k) * L + l] = acc[k][j];
+    }
+}
+
+// One tile of tb frames in the base mode (kSrp: and the SRP scores), by the
+// whole block; see the note at the top.  x0 points at the tile's frames
+// [tb, M, N] (device memory, or the pipelined instance's staging buffer), b0
+// is its first frame's index in the outputs.  after_dft() is called by every
+// thread once the last bin chunk's DFT is done and x0 is spent.
+template <bool kSrp, typename AfterDft>
 __device__ __forceinline__ void
-spectra_cuda_cores(const float* x0, int R, int N, int F, int Fp,
-                   const float* __restrict__ win, const float4* __restrict__ w,
-                   float* xs, float4* ws, float* mean, float2* spec, int per_mic,
-                   float eps2) {
+base_tile(const float* x0, int b0, int tb,
+          const float* __restrict__ win,      // [N] window * gain
+          const float2* __restrict__ wp,      // packed DFT [N / 8, Fp / 4, 32] float2
+          const float* __restrict__ sync,     // [F, L]
+          const float* __restrict__ syns,     // [F, L]
+          const int* __restrict__ pairs,      // [P, 2]
+          float* __restrict__ corr_out,       // [B, P, L]
+          int* __restrict__ shift_out,        // [B, P] (peaks only)
+          float* __restrict__ tdoa_out,
+          float* __restrict__ peak_out,
+          float* __restrict__ psr_out,
+          int M, int N, int F, int Fp, int P, int L,
+          int phat, int per_mic, float eps2, float taper_denom, int with_peaks,
+          Srp srp, AfterDft after_dft) {
+  extern __shared__ float4 smem4[];
+  const int R = tb * M;    // (frame, mic) rows of this tile, at most kBlockRows
+  const int RP = tb * P;   // (frame, pair) rows of this tile
+  const size_t stage_n = base_stage_floats(RP);
+  float* stage = reinterpret_cast<float*>(smem4);
+  float2* spec = reinterpret_cast<float2*>(stage + stage_n);   // [kBlockRows][kSpecStride]
+  float2* tailv = spec + kBlockRows * kSpecStride;              // [kBlockRows]
+  float* mean = reinterpret_cast<float*>(tailv + kBlockRows);
+  float* red = mean + kBlockRows;                               // [2][kWarps][kSrpFrames]
+  float* corr = red + 2 * kWarps * kSrpFrames;                  // [RP][L]
+
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  // ---- 1. per-row mean, and the bin that would have a pass to itself -----
-  // With F = L/2 + 1 and L a power of two, F - 1 is whole passes of
-  // kBinsPerPass bins and the Nyquist bin would cost a further pass for one
-  // bin in 128.  The warp that has just read the row sums that bin instead,
-  // over the samples (32 strided terms a lane, then across the lanes).
-  const size_t wstride = (size_t)Fp / 2;
-  const int tail = (F > 1 && F % kBinsPerPass == 1) ? 1 : 0;
-  const int Fd = F - tail;   // bins of the DFT passes
-  for (int r = warp; r < R; r += kWarps) {
-    const float* xr = x0 + (size_t)r * N;
-    float s = 0.f;
-    for (int n = lane; n < N; n += 32) s += xr[n];
-    s = warp_sum(s);
-    const float mu = s / (float)N;
-    if (lane == 0) mean[r] = mu;
-    if (tail) {
-      float re0 = 0.f, im0 = 0.f;
-      for (int n = lane; n < N; n += 32) {
-        const float v = (xr[n] - mu) * win[n];
-        const float4 c = __ldg(w + (size_t)n * wstride + (F - 1) / 2);
-        re0 = fmaf(v, c.x, re0);
-        im0 = fmaf(v, c.y, im0);
-      }
-      re0 = warp_sum(re0);
-      im0 = warp_sum(im0);
-      if (lane == 0) {
-        if (per_mic) {
-          const float inv = rsqrtf(re0 * re0 + im0 * im0 + eps2);
-          re0 *= inv;
-          im0 *= inv;
+  const int g_ = lane >> 2, t_ = lane & 3;   // the fragments' row and column index
+  const int nt_all = Fp / 4;                 // column tiles of the packed matrix
+  const int tail = (F > 1 && F % 4 == 1) ? 1 : 0;
+  const int Fd = F - tail;                   // bins of the DFT chunks
+  const int nt = (Fd + 3) / 4;
+  const int n_chunks = (nt + kChunkTiles - 1) / kChunkTiles;
+  const int n_steps = (N + 7) / 8;
+  const int n_samp = (N + kSampChunk - 1) / kSampChunk;
+  const int nrt = (R + 15) / 16;
+
+  // ---- 1. per-row mean, and a bin that would have a column tile to itself -
+  // With F = L/2 + 1 and L a power of two, F - 1 is whole column tiles of 4
+  // bins and the Nyquist bin would cost a further tile for one bin.  The
+  // warp that has just read the row sums that bin instead, over the samples
+  // (32 strided terms a lane, then across the lanes).
+  for (int r = warp; r < kBlockRows; r += kWarps) {
+    float mu = 0.f, re0 = 0.f, im0 = 0.f;
+    if (r < R) {
+      const float* xr = x0 + (size_t)r * N;
+      float s = 0.f;
+      for (int n = lane; n < N; n += 32) s += xr[n];
+      mu = warp_sum(s) / (float)N;
+      if (tail) {
+        // bin F - 1 is column pair 0 of tile (F - 1) / 4: lanes t (re) and
+        // 4 + t (im) of sample n's step, half n / 4 % 2
+        const float2* wt = wp + (size_t)((F - 1) / 4) * 32;
+        for (int n = lane; n < N; n += 32) {
+          const float v = (xr[n] - mu) * __ldg(win + n);
+          const float2* at = wt + (size_t)(n / 8) * nt_all * 32 + n % 4;
+          const float2 cr = __ldg(at), ci = __ldg(at + 4);
+          const bool hi = (n & 4) != 0;
+          re0 = fmaf(v, hi ? cr.y : cr.x, re0);
+          im0 = fmaf(v, hi ? ci.y : ci.x, im0);
         }
-        spec[(size_t)r * F + F - 1] = make_float2(re0, im0);
+        re0 = warp_sum(re0);
+        im0 = warp_sum(im0);
+      }
+    }
+    if (lane == 0) {
+      mean[r] = mu;
+      tailv[r] = make_float2(re0, im0);
+    }
+  }
+  for (int e = tid; e < RP * L; e += kThreads) corr[e] = 0.f;
+  __syncthreads();
+
+  // The staged samples: a thread loads 8 of a chunk, lanes taking 8
+  // consecutive samples of 4 rows (32-byte segments), then conditions them
+  // and stores each split where its fragment wants it (no two lanes on one
+  // bank).  The next chunk's samples are loaded into registers before the
+  // current chunk multiplies.
+  float xr[8];
+  auto sample_row = [&](int i) {
+    const int combo = warp + kWarps * i;
+    return 16 * (combo >> 4) + 2 * ((combo >> 2) & 3) + ((lane >> 3) & 1) + 8 * (lane >> 4);
+  };
+  auto sample_k = [&](int i) { return 8 * ((warp + kWarps * i) & 3) + (lane & 7); };
+  auto fetch = [&](int sc) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = sample_row(i), n = sc * kSampChunk + sample_k(i);
+      xr[i] = (row < R && n < N) ? x0[(size_t)row * N + n] : 0.f;
+    }
+  };
+  auto put = [&](int sc) {
+    float* hi = stage + (sc & 1) * 2 * kStageFloats;
+    float* lo = hi + kStageFloats;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = sample_row(i), n = sc * kSampChunk + sample_k(i);
+      const int at = frag_at(row, sample_k(i));
+      const float v = (row < R && n < N) ? (xr[i] - mean[row]) * __ldg(win + n) : 0.f;
+      uint32_t h, l;
+      hopper::tf32_split(v, h, l);
+      hi[at] = __uint_as_float(h);
+      lo[at] = __uint_as_float(l);
+    }
+  };
+
+  for (int c = 0; c < n_chunks; ++c) {
+    const int j0 = c * kChunkTiles;            // the chunk's first column tile
+    const int f0 = 4 * j0;                     // and bin
+    const int nb = min(kChunkBins, Fd - f0);   // its DFT bins
+    const bool last = c + 1 == n_chunks;
+    const int nbs = nb + (last ? tail : 0);    // and the bins it synthesises
+
+    // ---- 2. the chunk's spectra on the tensor cores ----------------------
+    // [R rows, N] x [N, 2 nb] as a split-fp32 product (mma.sync m16n8k8):
+    // this warp's column tiles j0 + warp + kWarps ct for all row tiles; a
+    // step's three products from zero, small terms first, then added on the
+    // CUDA cores, and the sum flushed into the spectra every kFlushSteps.
+    bool live[kWarpTiles];
+#pragma unroll
+    for (int ct = 0; ct < kWarpTiles; ++ct) live[ct] = j0 + warp + kWarps * ct < nt;
+    float part[kRowTiles][kWarpTiles][4];
+#pragma unroll
+    for (int rt = 0; rt < kRowTiles; ++rt)
+#pragma unroll
+      for (int ct = 0; ct < kWarpTiles; ++ct)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) part[rt][ct][k] = 0.f;
+    auto load_b = [&](float2 (&dst)[kWarpTiles], int s) {
+#pragma unroll
+      for (int ct = 0; ct < kWarpTiles; ++ct) {
+        const int j = j0 + warp + kWarps * ct;
+        dst[ct] = (live[ct] && s < n_steps) ? ldg_early(wp + ((size_t)s * nt_all + j) * 32 + lane)
+                                            : make_float2(0.f, 0.f);
+      }
+    };
+    // fragment rows g and g + 8 of each row tile, columns (re, im) of bin
+    // 4 j + t
+    auto flush = [&](bool first) {
+#pragma unroll
+      for (int rt = 0; rt < kRowTiles; ++rt) {
+        if (rt >= nrt) break;
+#pragma unroll
+        for (int ct = 0; ct < kWarpTiles; ++ct) {
+          const int col = 4 * (warp + kWarps * ct) + t_;
+          if (!live[ct] || col >= nb) continue;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float2* at = spec + (16 * rt + g_ + 8 * h) * kSpecStride + col;
+            float2 v = make_float2(part[rt][ct][2 * h], part[rt][ct][2 * h + 1]);
+            if (!first) {
+              const float2 o = *at;
+              v.x += o.x;
+              v.y += o.y;
+            }
+            *at = v;
+          }
+#pragma unroll
+          for (int k = 0; k < 4; ++k) part[rt][ct][k] = 0.f;
+        }
+      }
+    };
+    float2 bcur[kWarpTiles], bnxt[kWarpTiles];
+    load_b(bcur, 0);
+    fetch(0);
+    for (int sc = 0; sc < n_samp; ++sc) {
+      put(sc);
+      __syncthreads();   // the buffer of chunk sc - 1 is free again after the next one
+      if (sc + 1 < n_samp) fetch(sc + 1);
+      const float4* ah4 = reinterpret_cast<const float4*>(stage + (sc & 1) * 2 * kStageFloats);
+      const float4* al4 = ah4 + kStageFloats / 4;
+#pragma unroll
+      for (int q = 0; q < kSampSteps; ++q) {
+        const int s = sc * kSampSteps + q;
+        if (s >= n_steps) break;
+        load_b(bnxt, s + 1);
+        uint32_t bh[kWarpTiles][2], bl[kWarpTiles][2];
+#pragma unroll
+        for (int ct = 0; ct < kWarpTiles; ++ct) {
+          hopper::tf32_split(bcur[ct].x, bh[ct][0], bl[ct][0]);
+          hopper::tf32_split(bcur[ct].y, bh[ct][1], bl[ct][1]);
+        }
+        // two row tiles at a time: four independent products in flight
+#pragma unroll
+        for (int rt0 = 0; rt0 < kRowTiles; rt0 += 2) {
+          if (rt0 >= nrt) break;
+          uint32_t ah[2][4], al[2][4];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            hopper::lds128(ah[h], ah4 + (q * kRowTiles + rt0 + h) * 32 + lane);
+            hopper::lds128(al[h], al4 + (q * kRowTiles + rt0 + h) * 32 + lane);
+          }
+          float stp[2][kWarpTiles][4];
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int ct = 0; ct < kWarpTiles; ++ct)
+              if (live[ct]) hopper::mma_tf32_zero(stp[h][ct], al[h], bh[ct]);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int ct = 0; ct < kWarpTiles; ++ct)
+              if (live[ct]) hopper::mma_tf32(stp[h][ct], ah[h], bl[ct]);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int ct = 0; ct < kWarpTiles; ++ct)
+              if (live[ct]) hopper::mma_tf32(stp[h][ct], ah[h], bh[ct]);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int ct = 0; ct < kWarpTiles; ++ct)
+              if (live[ct]) {
+#pragma unroll
+                for (int k = 0; k < 4; ++k) part[rt0 + h][ct][k] += stp[h][ct][k];
+              }
+        }
+#pragma unroll
+        for (int ct = 0; ct < kWarpTiles; ++ct) bcur[ct] = bnxt[ct];
+        if ((s + 1) % kFlushSteps == 0 || s + 1 == n_steps) flush(s < kFlushSteps);
+      }
+    }
+    __syncthreads();   // the chunk's spectra are whole; the staging region is free
+    if (last) after_dft();
+
+    // ---- 3. per-mic PHAT, and the tail bin into its column ----------------
+    if (per_mic || nbs > nb) {
+      for (int e = tid; e < R * nbs; e += kThreads) {
+        const int r = e / nbs, col = e % nbs;
+        float2* at = spec + r * kSpecStride + col;
+        float2 v = col < nb ? *at : tailv[r];
+        if (per_mic) {
+          const float inv = rsqrtf(v.x * v.x + v.y * v.y + eps2);
+          v.x *= inv;
+          v.y *= inv;
+        }
+        *at = v;
+      }
+      __syncthreads();
+    }
+
+    // ---- 4. cross-power and lag synthesis, kSub bins at a time -------------
+    // The cross-power of every (frame, pair) row (per-pair PHAT for 2-mic
+    // arrays) and the bins' (cos, sin) rows of a lag block are staged; a
+    // warp then adds the bins, in ascending order, into the correlograms of
+    // kRowsPerGroup rows at a time, a lane owning the lags lane + 32 j.
+    const int rpg = (RP + kRowsPerGroup - 1) / kRowsPerGroup * kRowsPerGroup;
+    float2* xp = reinterpret_cast<float2*>(stage);   // [rpg][kSub]
+    float2* syn = xp + (size_t)rpg * kSub;           // [kSub][kLagBlock]
+    for (int fb = 0; fb < nbs; fb += kSub) {
+      const int fmax = min(kSub, nbs - fb);
+      for (int e = tid; e < rpg * kSub; e += kThreads) {
+        const int row = e / kSub, ff = e % kSub;
+        float rr = 0.f, jj = 0.f;
+        if (row < RP && ff < fmax) {
+          const int t = row / P, p = row % P;
+          const float2 a = spec[(t * M + __ldg(pairs + 2 * p)) * kSpecStride + fb + ff];
+          const float2 b = spec[(t * M + __ldg(pairs + 2 * p + 1)) * kSpecStride + fb + ff];
+          rr = a.x * b.x + a.y * b.y;
+          jj = a.x * b.y - a.y * b.x;
+          if (phat && !per_mic) {
+            const float inv = rsqrtf(rr * rr + jj * jj + eps2);
+            rr *= inv;
+            jj *= inv;
+          }
+        }
+        xp[e] = make_float2(rr, jj);
+      }
+      for (int l0 = 0; l0 < L; l0 += kLagBlock) {
+        for (int e = tid; e < kSub * kLagBlock; e += kThreads) {
+          const int ff = e / kLagBlock, l = l0 + e % kLagBlock;
+          const size_t f = (size_t)f0 + fb + ff;
+          syn[e] = (ff < fmax && l < L)
+                       ? make_float2(__ldg(sync + f * L + l), __ldg(syns + f * L + l))
+                       : make_float2(0.f, 0.f);
+        }
+        __syncthreads();
+        const int nj = min(kLagsPerLane, (L - l0 + 31) / 32);
+        for (int r0 = warp * kRowsPerGroup; r0 < RP; r0 += kWarps * kRowsPerGroup) {
+          switch (nj) {
+            case 4: synth_rows<4>(corr, xp, syn, r0, RP, L, l0, fmax); break;
+            case 3: synth_rows<3>(corr, xp, syn, r0, RP, L, l0, fmax); break;
+            case 2: synth_rows<2>(corr, xp, syn, r0, RP, L, l0, fmax); break;
+            default: synth_rows<1>(corr, xp, syn, r0, RP, L, l0, fmax); break;
+          }
+        }
+        __syncthreads();
       }
     }
   }
-  __syncthreads();
 
-  // ---- 2. DFT ----------------------------------------------------------
-  const int rg = tid / kBinLanes;   // this thread's row group
-  const int bl = tid % kBinLanes;   // and bin pair
-  for (int r0 = 0; r0 < R; r0 += kDftRows) {
-    for (int f0 = 0; f0 < Fd; f0 += kBinsPerPass) {
-      const int f = f0 + 2 * bl;    // bins f and f + 1
-      // per row: (re f, im f, re f+1, im f+1)
-      float4 acc[kRowsPerThread];
+  // ---- 5. peaks, a row per warp ----------------------------------------------
+  for (int row = warp; row < RP; row += kWarps) {
+    const size_t grow = (size_t)b0 * P + row;   // global (frame, pair) row
+    row_peaks(corr + (size_t)row * L, L, corr_out + grow * L, grow, shift_out, tdoa_out,
+              peak_out, psr_out, taper_denom, with_peaks, kSrp);
+  }
+
+  if constexpr (kSrp) {
+    // ---- 6. SRP scores and grid argmax ---------------------------------------
+    // The LUT is staged as int16, clamped to the lag axis, as many cells at a
+    // time as the staging region holds; a thread scores its cells for
+    // kSrpFrames frames at a time, the pairs' bf16-rounded tapered values
+    // summed in pair order, and keeps each frame's first maximum; the block
+    // then reduces them with ties to the lower cell.
+    short* lut_s = reinterpret_cast<short*>(stage);
+    const int cap = (int)(stage_n * 2 / (size_t)P);
+    const int gc = srp.G < cap ? srp.G : cap;
+    int* red_c = reinterpret_cast<int*>(red + kWarps * kSrpFrames);
+    for (int t0 = 0; t0 < tb; t0 += kSrpFrames) {
+      float best[kSrpFrames];
+      int cell[kSrpFrames];
 #pragma unroll
-      for (int r = 0; r < kRowsPerThread; ++r) acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
-      // the next chunk's samples and coefficients are loaded into registers
-      // before the current chunk is computed, so their latency overlaps it
-      float xr, wv;
-      float4 wr[kWPerThread];
-      auto fetch = [&](int n0) {
-        const int r = tid / kNChunk, n = n0 + tid % kNChunk;
-        const bool ok = r0 + r < R && n < N;
-        xr = ok ? x0[(size_t)(r0 + r) * N + n] : 0.f;
-        wv = ok ? win[n] : 0.f;
-#pragma unroll
-        for (int i = 0; i < kWPerThread; ++i) {
-          const int e = tid + i * kThreads;
-          const int nn = n0 + e / kBinLanes, fe = f0 + 2 * (e % kBinLanes);
-          wr[i] = (nn < N && fe < Fp) ? __ldg(w + (size_t)nn * wstride + fe / 2)
-                                      : make_float4(0.f, 0.f, 0.f, 0.f);
-        }
-      };
-      fetch(0);
-      for (int n0 = 0; n0 < N; n0 += kNChunk) {
-        {
-          const int r = tid / kNChunk;
-          xs[(tid % kNChunk) * kXsStride + r] =
-              r0 + r < R ? (xr - mean[r0 + r]) * wv : 0.f;
-#pragma unroll
-          for (int i = 0; i < kWPerThread; ++i) ws[tid + i * kThreads] = wr[i];
-        }
-        __syncthreads();
-        if (n0 + kNChunk < N) fetch(n0 + kNChunk);
-        if (f < Fd) {
-          // two-level sum: a partial over this chunk, then into the total,
-          // so rounding grows with N / kNChunk + kNChunk terms, not N
-          float4 part[kRowsPerThread];
-#pragma unroll
-          for (int r = 0; r < kRowsPerThread; ++r) part[r] = make_float4(0.f, 0.f, 0.f, 0.f);
-          const int nmax = min(kNChunk, N - n0);
-          for (int nn = 0; nn < nmax; ++nn) {
-            const float4 c = ws[nn * kBinLanes + bl];
-            const float4 xv = *reinterpret_cast<const float4*>(
-                xs + nn * kXsStride + rg * kRowsPerThread);
-            part[0] = fma4(xv.x, c, part[0]);
-            part[1] = fma4(xv.y, c, part[1]);
-            part[2] = fma4(xv.z, c, part[2]);
-            part[3] = fma4(xv.w, c, part[3]);
-          }
-#pragma unroll
-          for (int r = 0; r < kRowsPerThread; ++r) {
-            acc[r].x += part[r].x;
-            acc[r].y += part[r].y;
-            acc[r].z += part[r].z;
-            acc[r].w += part[r].w;
-          }
-        }
-        __syncthreads();
+      for (int tt = 0; tt < kSrpFrames; ++tt) {
+        best[tt] = -INFINITY;
+        cell[tt] = 0x7fffffff;
       }
-      if (f < Fd) {
-#pragma unroll
-        for (int r = 0; r < kRowsPerThread; ++r) {
-          const int row = r0 + rg * kRowsPerThread + r;
-          if (row >= R) continue;
-          float re0 = acc[r].x, im0 = acc[r].y, re1 = acc[r].z, im1 = acc[r].w;
-          if (per_mic) {
-            const float inv0 = rsqrtf(re0 * re0 + im0 * im0 + eps2);
-            const float inv1 = rsqrtf(re1 * re1 + im1 * im1 + eps2);
-            re0 *= inv0; im0 *= inv0; re1 *= inv1; im1 *= inv1;
-          }
-          spec[(size_t)row * F + f] = make_float2(re0, im0);
-          if (f + 1 < Fd) spec[(size_t)row * F + f + 1] = make_float2(re1, im1);
+      for (int g0 = 0; g0 < srp.G; g0 += gc) {
+        const int nc = min(gc, srp.G - g0);
+        __syncthreads();   // the rows are tapered; the last LUT chunk is spent
+        for (int e = tid; e < P * nc; e += kThreads) {
+          const int p = e / nc, g = e % nc;
+          lut_s[e] = (short)min(max(__ldg(srp.lut + (size_t)p * srp.G + g0 + g), 0), L - 1);
         }
+        __syncthreads();
+        for (int g = tid; g < nc; g += kThreads) {
+#pragma unroll
+          for (int tt = 0; tt < kSrpFrames; ++tt) {
+            const int t = t0 + tt;
+            if (t >= tb) break;
+            const float* tp = corr + (size_t)t * P * L;
+            float s = 0.f;
+            for (int p = 0; p < P; ++p) s += tp[(size_t)p * L + lut_s[p * nc + g]];
+            srp.scores_out[(size_t)(b0 + t) * srp.G + g0 + g] = s;
+            if (s > best[tt]) {   // ascending g: first maximum
+              best[tt] = s;
+              cell[tt] = g0 + g;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int tt = 0; tt < kSrpFrames; ++tt) {
+        float b = best[tt];
+        int cc = cell[tt];
+        for (int off = 16; off > 0; off >>= 1) {
+          const float ov = __shfl_xor_sync(0xffffffffu, b, off);
+          const int oc = __shfl_xor_sync(0xffffffffu, cc, off);
+          if (ov > b || (ov == b && oc < cc)) { b = ov; cc = oc; }
+        }
+        if (lane == 0) {
+          red[warp * kSrpFrames + tt] = b;
+          red_c[warp * kSrpFrames + tt] = cc;
+        }
+      }
+      __syncthreads();
+      if (warp == 0 && lane < kSrpFrames && t0 + lane < tb) {
+        float b = -INFINITY;
+        int cc = 0x7fffffff;
+        for (int w = 0; w < kWarps; ++w) {
+          const float ov = red[w * kSrpFrames + lane];
+          const int oc = red_c[w * kSrpFrames + lane];
+          if (ov > b || (ov == b && oc < cc)) { b = ov; cc = oc; }
+        }
+        srp.cell_out[b0 + t0 + lane] = cc < srp.G ? cc : 0;   // all-NaN scores
+        srp.score_out[b0 + t0 + lane] = b;
       }
     }
   }
 }
 
-// One tile of tb frames, by the whole block: x0 points at the tile's frames
-// [tb, M, N] (device memory, or the pipelined instance's staging buffer),
-// b0 is its first frame's index in the outputs.  after_dft() is called by
-// every thread once the spectra are in shared memory and x0 is spent.
-template <bool kStats, bool kSrp, typename AfterDft>
+// One tile of tb frames in the stats mode, by the whole block: x0 points at
+// the tile's frames [tb, M, N] in device memory, b0 is its first frame's
+// index in the outputs.
 __device__ __forceinline__ void
-gcc_tile(const float* x0, int b0, int tb,
-         const float* __restrict__ win,      // [N] window * gain
-         const float4* __restrict__ w,       // [N, Fp / 2] (cos, -sin) of 2 bins; stats
-                                             // mode: the packed [N / 8, Fp / 4, 32] float2
-         const float* __restrict__ sync,     // [F, L]
-         const float* __restrict__ syns,     // [F, L]
-         const int* __restrict__ pairs,      // [P, 2]
-         float* __restrict__ corr_out,       // [B, P, L]
-         int* __restrict__ shift_out,        // [B, P] (peaks only)
-         float* __restrict__ tdoa_out,
-         float* __restrict__ peak_out,
-         float* __restrict__ psr_out,
-         int M, int N, int F, int Fp, int P, int L, int TB,
-         int phat, int per_mic, float eps2, float taper_denom, int with_peaks,
-         Stats st, Srp srp, AfterDft after_dft) {
-  static_assert(!(kStats && kSrp), "the stats mode never scores the grid");
+stats_tile(const float* x0, int b0, int tb,
+           const float* __restrict__ win,      // [N] window * gain
+           const float2* __restrict__ wp,      // packed DFT [N / 8, Fp / 4, 32] float2
+           const int* __restrict__ pairs,      // [P, 2]
+           float* __restrict__ corr_out,       // [B, P, L]
+           int* __restrict__ shift_out,        // [B, P] (peaks only)
+           float* __restrict__ tdoa_out,
+           float* __restrict__ peak_out,
+           float* __restrict__ psr_out,
+           int M, int N, int F, int Fp, int P, int L, int TB,
+           int phat, int per_mic, float eps2, float taper_denom, int with_peaks,
+           Stats st) {
   extern __shared__ float4 smem4[];
   const int R = tb * M;    // (frame, mic) rows of this tile
   const int RP = tb * P;   // (frame, pair) rows of this tile
   const size_t rows_max = (size_t)TB * M;
-  float* xs = reinterpret_cast<float*>(smem4);   // stats mode: [2][kDftRows][kAStride]
-  float4* ws = smem4 + kNChunk * kXsStride / 4;
-  float2* syn = reinterpret_cast<float2*>(ws + kNChunk * kBinLanes);
-  // stats mode: syn holds the packed, split matrices of a chunk (float4 per
-  // lane), then the pass's staged cross-power
-  float2* xp = syn + (kStats ? kFChunk * 16 * stats_tiles(L) : kFChunk * kLagBlock);
-  float2* spec = xp + (kStats ? kStatsXp : 0);
+  float* xs = reinterpret_cast<float*>(smem4);   // [2][kDftRows][kAStride]
+  // the packed, split matrices of a chunk (float4 per lane), then the
+  // pass's staged cross-power
+  float2* syn = reinterpret_cast<float2*>(xs + kStatsStage);
+  float2* xp = syn + kFChunk * 16 * stats_tiles(L);
+  float2* spec = xp + kStatsXp;
   float* mean = reinterpret_cast<float*>(spec + rows_max * F);
   float* rowbuf = mean + rows_max;
-  // stats mode: smoothed periodograms [rows][F], coherence [TB * P][F],
-  // band weight [TB][F]
-  float* tap = rowbuf + (size_t)kRowsPerPass * L;   // SRP mode only
-  float* auto_s = tap;
+  // smoothed periodograms [rows][F], coherence [TB * P][F], band weight [TB][F]
+  float* auto_s = rowbuf + (size_t)kRowsPerPass * L;
   float* g2 = auto_s + rows_max * F;
   float* wband = g2 + (size_t)TB * P * F;
 
@@ -672,461 +1056,328 @@ gcc_tile(const float* x0, int b0, int tb,
   const int lane = tid & 31;
   const int warp = tid >> 5;
 
-  if constexpr (kStats) {  // raw spectra; its DFT runs on the tensor cores
-    spectra_tensor_cores(x0, R, N, F, Fp, win, reinterpret_cast<const float2*>(w), xs,
-                         mean, spec);
-  } else {
-    spectra_cuda_cores(x0, R, N, F, Fp, win, w, xs, ws, mean, spec, per_mic, eps2);
-  }
+  // raw spectra; the DFT runs on the tensor cores
+  spectra_tensor_cores(x0, R, N, F, Fp, win, wp, xs, mean, spec);
   __syncthreads();
-  after_dft();
 
-  if constexpr (kStats) {
-    // ---- 2a. smoothed periodograms ---------------------------------------
-    // A thread owns kRun consecutive bins of a row: it loads their terms and
-    // those of kRegHw neighbours on either side once (zero outside the
-    // spectrum, which adds nothing), then sums every window from registers
-    // in ascending bin order, each a direct sum.  Lanes take neighbouring
-    // rows, which lie 8 bytes apart modulo the banks.  A half-width past
-    // kRegHw walks shared memory instead.
-    const int hw = st.hw;
-    const int runs = (F + kRun - 1) / kRun;
-    if (hw <= kRegHw) {
-      for (int e = tid; e < R * runs; e += kThreads) {
-        const int r = e % R, f0 = (e / R) * kRun;
-        const float2* a = spec + (size_t)r * F;
-        float pw[kRun + 2 * kRegHw];
+  // ---- 2a. smoothed periodograms ---------------------------------------
+  // A thread owns kRun consecutive bins of a row: it loads their terms and
+  // those of kRegHw neighbours on either side once (zero outside the
+  // spectrum, which adds nothing), then sums every window from registers
+  // in ascending bin order, each a direct sum.  Lanes take neighbouring
+  // rows, which lie 8 bytes apart modulo the banks.  A half-width past
+  // kRegHw walks shared memory instead.
+  const int hw = st.hw;
+  const int runs = (F + kRun - 1) / kRun;
+  if (hw <= kRegHw) {
+    for (int e = tid; e < R * runs; e += kThreads) {
+      const int r = e % R, f0 = (e / R) * kRun;
+      const float2* a = spec + (size_t)r * F;
+      float pw[kRun + 2 * kRegHw];
 #pragma unroll
-        for (int k = 0; k < kRun + 2 * kRegHw; ++k) {
-          const int q = f0 - kRegHw + k;
-          float v = 0.f;
-          if (q >= 0 && q < F) {
-            const float2 x = a[q];
-            v = x.x * x.x + x.y * x.y;
-          }
-          pw[k] = v;
+      for (int k = 0; k < kRun + 2 * kRegHw; ++k) {
+        const int q = f0 - kRegHw + k;
+        float v = 0.f;
+        if (q >= 0 && q < F) {
+          const float2 x = a[q];
+          v = x.x * x.x + x.y * x.y;
         }
-#pragma unroll
-        for (int k = 0; k < kRun; ++k) {
-          const int f = f0 + k;
-          if (f >= F) break;
-          float acc = 0.f;
-#pragma unroll
-          for (int d = -kRegHw; d <= kRegHw; ++d)
-            if (d >= -hw && d <= hw) acc += pw[k + kRegHw + d];
-          const int lo = max(f - hw, 0), hi = min(f + hw, F - 1);
-          auto_s[(size_t)r * F + f] = acc / (float)(hi - lo + 1);
-        }
+        pw[k] = v;
       }
-    } else {
-      for (int e = tid; e < R * F; e += kThreads) {
-        const int r = e / F, f = e % F;
+#pragma unroll
+      for (int k = 0; k < kRun; ++k) {
+        const int f = f0 + k;
+        if (f >= F) break;
+        float acc = 0.f;
+#pragma unroll
+        for (int d = -kRegHw; d <= kRegHw; ++d)
+          if (d >= -hw && d <= hw) acc += pw[k + kRegHw + d];
         const int lo = max(f - hw, 0), hi = min(f + hw, F - 1);
-        auto_s[e] = window_power(spec + (size_t)r * F, lo, hi) / (float)(hi - lo + 1);
+        auto_s[(size_t)r * F + f] = acc / (float)(hi - lo + 1);
       }
     }
-    __syncthreads();
-    // ---- 2b. coherence per (frame, pair) row -----------------------------
-    auto coherence = [&](int row, int f, int ia, int ib, float sr, float sj) {
+  } else {
+    for (int e = tid; e < R * F; e += kThreads) {
+      const int r = e / F, f = e % F;
       const int lo = max(f - hw, 0), hi = min(f + hw, F - 1);
-      const float cnt = (float)(hi - lo + 1);
-      sr /= cnt;
-      sj /= cnt;
-      const float gab = sr * sr + sj * sj;
-      const float gg = auto_s[(size_t)ia * F + f] * auto_s[(size_t)ib * F + f] + eps2;
-      g2[(size_t)row * F + f] = fminf(fmaxf(gab / gg, 0.f), 1.f);
-    };
-    if (hw <= kRegHw) {
-      for (int e = tid; e < RP * runs; e += kThreads) {
-        const int row = e % RP, f0 = (e / RP) * kRun;
-        const int t = row / P, p = row % P;
-        const int ia = t * M + __ldg(pairs + 2 * p), ib = t * M + __ldg(pairs + 2 * p + 1);
-        const float2* a = spec + (size_t)ia * F;
-        const float2* b = spec + (size_t)ib * F;
-        float tr[kRun + 2 * kRegHw], tj[kRun + 2 * kRegHw];
+      auto_s[e] = window_power(spec + (size_t)r * F, lo, hi) / (float)(hi - lo + 1);
+    }
+  }
+  __syncthreads();
+  // ---- 2b. coherence per (frame, pair) row -----------------------------
+  auto coherence = [&](int row, int f, int ia, int ib, float sr, float sj) {
+    const int lo = max(f - hw, 0), hi = min(f + hw, F - 1);
+    const float cnt = (float)(hi - lo + 1);
+    sr /= cnt;
+    sj /= cnt;
+    const float gab = sr * sr + sj * sj;
+    const float gg = auto_s[(size_t)ia * F + f] * auto_s[(size_t)ib * F + f] + eps2;
+    g2[(size_t)row * F + f] = fminf(fmaxf(gab / gg, 0.f), 1.f);
+  };
+  if (hw <= kRegHw) {
+    for (int e = tid; e < RP * runs; e += kThreads) {
+      const int row = e % RP, f0 = (e / RP) * kRun;
+      const int t = row / P, p = row % P;
+      const int ia = t * M + __ldg(pairs + 2 * p), ib = t * M + __ldg(pairs + 2 * p + 1);
+      const float2* a = spec + (size_t)ia * F;
+      const float2* b = spec + (size_t)ib * F;
+      float tr[kRun + 2 * kRegHw], tj[kRun + 2 * kRegHw];
 #pragma unroll
-        for (int k = 0; k < kRun + 2 * kRegHw; ++k) {
-          const int q = f0 - kRegHw + k;
-          float vr = 0.f, vj = 0.f;
-          if (q >= 0 && q < F) {
-            const float2 x = a[q], y = b[q];
-            vr = x.x * y.x + x.y * y.y;
-            vj = x.x * y.y - x.y * y.x;
-          }
-          tr[k] = vr;
-          tj[k] = vj;
-        }
-#pragma unroll
-        for (int k = 0; k < kRun; ++k) {
-          const int f = f0 + k;
-          if (f >= F) break;
-          float sr = 0.f, sj = 0.f;
-#pragma unroll
-          for (int d = -kRegHw; d <= kRegHw; ++d)
-            if (d >= -hw && d <= hw) {
-              sr += tr[k + kRegHw + d];
-              sj += tj[k + kRegHw + d];
-            }
-          coherence(row, f, ia, ib, sr, sj);
-        }
-      }
-    } else {
-      for (int e = tid; e < RP * F; e += kThreads) {
-        const int row = e / F, f = e % F;
-        const int t = row / P, p = row % P;
-        const int ia = t * M + __ldg(pairs + 2 * p), ib = t * M + __ldg(pairs + 2 * p + 1);
-        const float2* a = spec + (size_t)ia * F;
-        const float2* b = spec + (size_t)ib * F;
-        const int lo = max(f - hw, 0), hi = min(f + hw, F - 1);
-        float sr = 0.f, sj = 0.f;
-        for (int q = lo; q <= hi; ++q) {
+      for (int k = 0; k < kRun + 2 * kRegHw; ++k) {
+        const int q = f0 - kRegHw + k;
+        float vr = 0.f, vj = 0.f;
+        if (q >= 0 && q < F) {
           const float2 x = a[q], y = b[q];
-          sr += x.x * y.x + x.y * y.y;
-          sj += x.x * y.y - x.y * y.x;
+          vr = x.x * y.x + x.y * y.y;
+          vj = x.x * y.y - x.y * y.x;
         }
+        tr[k] = vr;
+        tj[k] = vj;
+      }
+#pragma unroll
+      for (int k = 0; k < kRun; ++k) {
+        const int f = f0 + k;
+        if (f >= F) break;
+        float sr = 0.f, sj = 0.f;
+#pragma unroll
+        for (int d = -kRegHw; d <= kRegHw; ++d)
+          if (d >= -hw && d <= hw) {
+            sr += tr[k + kRegHw + d];
+            sj += tj[k + kRegHw + d];
+          }
         coherence(row, f, ia, ib, sr, sj);
       }
     }
+  } else {
+    for (int e = tid; e < RP * F; e += kThreads) {
+      const int row = e / F, f = e % F;
+      const int t = row / P, p = row % P;
+      const int ia = t * M + __ldg(pairs + 2 * p), ib = t * M + __ldg(pairs + 2 * p + 1);
+      const float2* a = spec + (size_t)ia * F;
+      const float2* b = spec + (size_t)ib * F;
+      const int lo = max(f - hw, 0), hi = min(f + hw, F - 1);
+      float sr = 0.f, sj = 0.f;
+      for (int q = lo; q <= hi; ++q) {
+        const float2 x = a[q], y = b[q];
+        sr += x.x * y.x + x.y * y.y;
+        sj += x.x * y.y - x.y * y.x;
+      }
+      coherence(row, f, ia, ib, sr, sj);
+    }
+  }
+  __syncthreads();
+  // ---- 2c. per-frame auto band, one warp per frame ----------------------
+  if (st.band_auto) {
+    const int fk = F - 1;  // Nyquist is never in the band
+    for (int t = warp; t < tb; t += kWarps) {
+      float* w = wband + (size_t)t * F;
+      const float* g = g2 + (size_t)t * P * F;
+      float mx = 0.f;
+      for (int f = lane; f < F; f += 32) {
+        float s = 0.f;
+        for (int p = 0; p < P; ++p) s += g[(size_t)p * F + f];
+        const float g2i = (f > 0 && f < fk) ? s / (float)P : 0.f;
+        w[f] = g2i;
+        mx = fmaxf(mx, g2i);
+      }
+      const float thr = fmaxf(st.rel * warp_max(mx), st.floor_);
+      int cnt = 0;
+      for (int f = lane; f < fk; f += 32) cnt += w[f] >= thr;
+      for (int off = 16; off > 0; off >>= 1) cnt += __shfl_xor_sync(0xffffffffu, cnt, off);
+      const bool enough = cnt >= st.min_bins;
+      for (int f = lane; f < F; f += 32) {
+        const bool interior = f > 0 && f < fk;
+        const float v = f < fk && (enough ? w[f] >= thr : interior) ? 1.f : 0.f;
+        w[f] = v;
+        if (st.band_out) st.band_out[(size_t)(b0 + t) * F + f] = v;
+      }
+    }
     __syncthreads();
-    // ---- 2c. per-frame auto band, one warp per frame ----------------------
-    if (st.band_auto) {
-      const int fk = F - 1;  // Nyquist is never in the band
-      for (int t = warp; t < tb; t += kWarps) {
-        float* w = wband + (size_t)t * F;
-        const float* g = g2 + (size_t)t * P * F;
-        float mx = 0.f;
-        for (int f = lane; f < F; f += 32) {
-          float s = 0.f;
-          for (int p = 0; p < P; ++p) s += g[(size_t)p * F + f];
-          const float g2i = (f > 0 && f < fk) ? s / (float)P : 0.f;
-          w[f] = g2i;
-          mx = fmaxf(mx, g2i);
-        }
-        const float thr = fmaxf(st.rel * warp_max(mx), st.floor_);
-        int cnt = 0;
-        for (int f = lane; f < fk; f += 32) cnt += w[f] >= thr;
-        for (int off = 16; off > 0; off >>= 1) cnt += __shfl_xor_sync(0xffffffffu, cnt, off);
-        const bool enough = cnt >= st.min_bins;
-        for (int f = lane; f < F; f += 32) {
-          const bool interior = f > 0 && f < fk;
-          const float v = f < fk && (enough ? w[f] >= thr : interior) ? 1.f : 0.f;
-          w[f] = v;
-          if (st.band_out) st.band_out[(size_t)(b0 + t) * F + f] = v;
-        }
-      }
-      __syncthreads();
+  }
+  // ---- 2d. per-mic PHAT factors (M >= 3), band folded in ----------------
+  // The smoothed periodograms are spent: their place takes
+  // rsqrt(|X|^2 + eps^2) (times the 0/1 band weight), so the synthesis
+  // loop reads two factors where it would evaluate two rsqrts.
+  if (phat && per_mic) {
+    for (int e = tid; e < R * F; e += kThreads) {
+      const int r = e / F, f = e % F;
+      const float2 x = spec[e];
+      const float inv = rsqrtf(x.x * x.x + x.y * x.y + eps2);
+      auto_s[e] = st.band_auto ? inv * wband[(size_t)(r / M) * F + f] : inv;
     }
-    // ---- 2d. per-mic PHAT factors (M >= 3), band folded in ----------------
-    // The smoothed periodograms are spent: their place takes
-    // rsqrt(|X|^2 + eps^2) (times the 0/1 band weight), so the synthesis
-    // loop reads two factors where it would evaluate two rsqrts.
-    if (phat && per_mic) {
-      for (int e = tid; e < R * F; e += kThreads) {
-        const int r = e / F, f = e % F;
-        const float2 x = spec[e];
-        const float inv = rsqrtf(x.x * x.x + x.y * x.y + eps2);
-        auto_s[e] = st.band_auto ? inv * wband[(size_t)(r / M) * F + f] : inv;
-      }
-      __syncthreads();
-    }
+    __syncthreads();
   }
 
   // ---- 3. cross-power + lag synthesis, then 4. peaks -------------------
-  constexpr int kRpw = kRowsPerWarp;
-  constexpr int kRpp = kRowsPerPass;
-  const int K = (L - 1) / 2;
-  for (int q0 = 0; q0 < RP; q0 += kRpp) {
-    size_t off_i[kRpw], off_j[kRpw];
-    bool live[kRpw];
+  for (int q0 = 0; q0 < RP; q0 += kRowsPerPass) {
+    // The pass's 32 rows x 2F x L product on the tensor cores (mma.sync
+    // m16n8k8, TF32 operands, fp32 sums), as a split-fp32 product: the
+    // whitened, banded cross-power is staged once per chunk of 16 bins and
+    // split as it leaves shared memory, the matrices arrive split and in
+    // fragment order, and a step of 4 bins (their rr, then their jj) adds
+    // a_lo b_hi, then a_hi b_lo, then a_hi b_hi.  Warp (wm, wn) owns row
+    // tile wm and the lag tiles wn, wn + 4, ...
+    const int g_ = lane >> 2, t_ = lane & 3;
+    const int wm = warp / kStatsWarpsN, wn = warp % kStatsWarpsN;
+    const int ntb = stats_tiles(L);
+    const int n_steps = ((F + kFChunk - 1) / kFChunk) * (kFChunk / 4);
+    float4* bst = reinterpret_cast<float4*>(syn);   // [kFChunk / 4][ntb][32]
+    for (int lb = 0; lb * ntb * 8 < L; ++lb) {
+      float acc[kStatsTilesPerWarp][4];
 #pragma unroll
-    for (int k = 0; k < kRpw; ++k) {
-      const int row = q0 + warp * kRpw + k;
-      live[k] = row < RP;
-      const int t = live[k] ? row / P : 0, p = live[k] ? row % P : 0;
-      off_i[k] = ((size_t)t * M + __ldg(pairs + 2 * p)) * F;   // spectra rows
-      off_j[k] = ((size_t)t * M + __ldg(pairs + 2 * p + 1)) * F;
-    }
-    if constexpr (kStats) {
-      // The pass's 32 rows x 2F x L product on the tensor cores (mma.sync
-      // m16n8k8, TF32 operands, fp32 sums), as a split-fp32 product: the
-      // whitened, banded cross-power is staged once per chunk of 16 bins and
-      // split as it leaves shared memory, the matrices arrive split and in
-      // fragment order, and a step of 4 bins (their rr, then their jj) adds
-      // a_lo b_hi, then a_hi b_lo, then a_hi b_hi.  Warp (wm, wn) owns row
-      // tile wm and the lag tiles wn, wn + 4, ...
-      const int g_ = lane >> 2, t_ = lane & 3;
-      const int wm = warp / kStatsWarpsN, wn = warp % kStatsWarpsN;
-      const int ntb = stats_tiles(L);
-      const int n_steps = ((F + kFChunk - 1) / kFChunk) * (kFChunk / 4);
-      float4* bst = reinterpret_cast<float4*>(syn);   // [kFChunk / 4][ntb][32]
-      for (int lb = 0; lb * ntb * 8 < L; ++lb) {
-        float acc[kStatsTilesPerWarp][4];
+      for (int j = 0; j < kStatsTilesPerWarp; ++j)
 #pragma unroll
-        for (int j = 0; j < kStatsTilesPerWarp; ++j)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
-        for (int fb = 0; fb < F; fb += kFChunk) {
-          const float4* src = st.synp + ((size_t)lb * n_steps + fb / 4) * ntb * 32;
-          for (int e = tid; e < (kFChunk / 4) * ntb * 32; e += kThreads) bst[e] = __ldg(src + e);
-          // the raw spectra's cross-power for the pass's rows and the
-          // chunk's bins, whitened and banded once
-          for (int e = tid; e < kRpp * kFChunk; e += kThreads) {
-            const int row = q0 + e / kFChunk, f = fb + e % kFChunk;
-            float rr = 0.f, jj = 0.f;
-            if (row < RP && f < F) {
-              const int t = row / P, p = row % P;
-              const size_t ia = ((size_t)t * M + __ldg(pairs + 2 * p)) * F + f;
-              const size_t ib = ((size_t)t * M + __ldg(pairs + 2 * p + 1)) * F + f;
-              const float2 a = spec[ia], b = spec[ib];
-              rr = a.x * b.x + a.y * b.y;
-              jj = a.x * b.y - a.y * b.x;
-              if (phat && per_mic) {  // band already in the factors
-                const float inv = auto_s[ia] * auto_s[ib];
-                rr *= inv;
-                jj *= inv;
-              } else {
-                if (phat) {
-                  const float inv = rsqrtf(rr * rr + jj * jj + eps2);
-                  rr *= inv;
-                  jj *= inv;
-                }
-                if (st.band_auto) {
-                  const float wv = wband[(size_t)t * F + f];
-                  rr *= wv;
-                  jj *= wv;
-                }
-              }
-            }
-            xp[(e / kFChunk) * kXpStride + e % kFChunk] = make_float2(rr, jj);
-          }
-          __syncthreads();
-#pragma unroll
-          for (int q = 0; q < kFChunk / 4; ++q) {
-            // A: rows g and g + 8 of the row tile at bin 4 q + t; k = t is
-            // its rr, k = t + 4 its jj
-            const float2 v0 = xp[(wm * 16 + g_) * kXpStride + 4 * q + t_];
-            const float2 v1 = xp[(wm * 16 + g_ + 8) * kXpStride + 4 * q + t_];
-            uint32_t ah[4], al[4];
-            hopper::tf32_split(v0.x, ah[0], al[0]);
-            hopper::tf32_split(v1.x, ah[1], al[1]);
-            hopper::tf32_split(v0.y, ah[2], al[2]);
-            hopper::tf32_split(v1.y, ah[3], al[3]);
-            uint32_t bf[kStatsTilesPerWarp][4];   // (hi k, hi k + 4, lo k, lo k + 4)
-#pragma unroll
-            for (int j = 0; j < kStatsTilesPerWarp; ++j)
-              if (wn + kStatsWarpsN * j < ntb)
-                hopper::lds128(bf[j], bst + (q * ntb + wn + kStatsWarpsN * j) * 32 + lane);
-            // small terms first; each pass touches every accumulator once
-#pragma unroll
-            for (int j = 0; j < kStatsTilesPerWarp; ++j)
-              if (wn + kStatsWarpsN * j < ntb) {
-                const uint32_t bh[2] = {bf[j][0], bf[j][1]};
-                hopper::mma_tf32(acc[j], al, bh);
-              }
-#pragma unroll
-            for (int j = 0; j < kStatsTilesPerWarp; ++j)
-              if (wn + kStatsWarpsN * j < ntb) {
-                const uint32_t bl[2] = {bf[j][2], bf[j][3]};
-                hopper::mma_tf32(acc[j], ah, bl);
-              }
-#pragma unroll
-            for (int j = 0; j < kStatsTilesPerWarp; ++j)
-              if (wn + kStatsWarpsN * j < ntb) {
-                const uint32_t bh[2] = {bf[j][0], bf[j][1]};
-                hopper::mma_tf32(acc[j], ah, bh);
-              }
-          }
-          __syncthreads();
-        }
-        // fragment: rows g and g + 8, lags 8 j + 2 t and + 1 of the tile
-#pragma unroll
-        for (int j = 0; j < kStatsTilesPerWarp; ++j)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int r = wm * 16 + g_ + 8 * (c / 2);
-            const int l = (lb * ntb + wn + kStatsWarpsN * j) * 8 + 2 * t_ + c % 2;
-            if (wn + kStatsWarpsN * j < ntb && l < L) rowbuf[(size_t)r * L + l] = acc[j][c];
-          }
-      }
-      __syncthreads();   // a row's lags come from four warps
-    } else {
-      for (int l0 = 0; l0 < L; l0 += kLagBlock) {
-        float acc[kRpw][kLagsPerLane];
-#pragma unroll
-        for (int k = 0; k < kRpw; ++k)
-#pragma unroll
-          for (int j = 0; j < kLagsPerLane; ++j) acc[k][j] = 0.f;
-        for (int fb = 0; fb < F; fb += kFChunk) {
-          for (int e = tid; e < kFChunk * kLagBlock; e += kThreads) {
-            const int f = fb + e / kLagBlock, l = l0 + e % kLagBlock;
-            const bool ok = f < F && l < L;
-            syn[e] = ok ? make_float2(sync[(size_t)f * L + l], syns[(size_t)f * L + l])
-                        : make_float2(0.f, 0.f);
-          }
-          __syncthreads();
-          const int fmax = min(kFChunk, F - fb);
-          for (int ff = 0; ff < fmax; ++ff) {
-            const int f = fb + ff;
-            float2 cs[kLagsPerLane];
-#pragma unroll
-            for (int j = 0; j < kLagsPerLane; ++j) cs[j] = syn[ff * kLagBlock + lane + 32 * j];
-#pragma unroll
-            for (int k = 0; k < kRpw; ++k) {
-              if (!live[k]) continue;
-              const float2 a = spec[off_i[k] + f], b = spec[off_j[k] + f];
-              float rr = a.x * b.x + a.y * b.y;
-              float jj = a.x * b.y - a.y * b.x;
-              if (phat && !per_mic) {
+        for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
+      for (int fb = 0; fb < F; fb += kFChunk) {
+        const float4* src = st.synp + ((size_t)lb * n_steps + fb / 4) * ntb * 32;
+        for (int e = tid; e < (kFChunk / 4) * ntb * 32; e += kThreads) bst[e] = __ldg(src + e);
+        // the raw spectra's cross-power for the pass's rows and the
+        // chunk's bins, whitened and banded once
+        for (int e = tid; e < kRowsPerPass * kFChunk; e += kThreads) {
+          const int row = q0 + e / kFChunk, f = fb + e % kFChunk;
+          float rr = 0.f, jj = 0.f;
+          if (row < RP && f < F) {
+            const int t = row / P, p = row % P;
+            const size_t ia = ((size_t)t * M + __ldg(pairs + 2 * p)) * F + f;
+            const size_t ib = ((size_t)t * M + __ldg(pairs + 2 * p + 1)) * F + f;
+            const float2 a = spec[ia], b = spec[ib];
+            rr = a.x * b.x + a.y * b.y;
+            jj = a.x * b.y - a.y * b.x;
+            if (phat && per_mic) {  // band already in the factors
+              const float inv = auto_s[ia] * auto_s[ib];
+              rr *= inv;
+              jj *= inv;
+            } else {
+              if (phat) {
                 const float inv = rsqrtf(rr * rr + jj * jj + eps2);
                 rr *= inv;
                 jj *= inv;
               }
-#pragma unroll
-              for (int j = 0; j < kLagsPerLane; ++j)
-                acc[k][j] = fmaf(rr, cs[j].x, fmaf(jj, cs[j].y, acc[k][j]));
+              if (st.band_auto) {
+                const float wv = wband[(size_t)t * F + f];
+                rr *= wv;
+                jj *= wv;
+              }
             }
           }
-          __syncthreads();
+          xp[(e / kFChunk) * kXpStride + e % kFChunk] = make_float2(rr, jj);
         }
+        __syncthreads();
 #pragma unroll
-        for (int k = 0; k < kRpw; ++k) {
-          if (!live[k]) continue;
-          float* rb = rowbuf + (size_t)(warp * kRpw + k) * L;
+        for (int q = 0; q < kFChunk / 4; ++q) {
+          // A: rows g and g + 8 of the row tile at bin 4 q + t; k = t is
+          // its rr, k = t + 4 its jj
+          const float2 v0 = xp[(wm * 16 + g_) * kXpStride + 4 * q + t_];
+          const float2 v1 = xp[(wm * 16 + g_ + 8) * kXpStride + 4 * q + t_];
+          uint32_t ah[4], al[4];
+          hopper::tf32_split(v0.x, ah[0], al[0]);
+          hopper::tf32_split(v1.x, ah[1], al[1]);
+          hopper::tf32_split(v0.y, ah[2], al[2]);
+          hopper::tf32_split(v1.y, ah[3], al[3]);
+          uint32_t bf[kStatsTilesPerWarp][4];   // (hi k, hi k + 4, lo k, lo k + 4)
 #pragma unroll
-          for (int j = 0; j < kLagsPerLane; ++j) {
-            const int l = l0 + lane + 32 * j;
-            if (l < L) rb[l] = acc[k][j];
-          }
+          for (int j = 0; j < kStatsTilesPerWarp; ++j)
+            if (wn + kStatsWarpsN * j < ntb)
+              hopper::lds128(bf[j], bst + (q * ntb + wn + kStatsWarpsN * j) * 32 + lane);
+          // small terms first; each pass touches every accumulator once
+#pragma unroll
+          for (int j = 0; j < kStatsTilesPerWarp; ++j)
+            if (wn + kStatsWarpsN * j < ntb) {
+              const uint32_t bh[2] = {bf[j][0], bf[j][1]};
+              hopper::mma_tf32(acc[j], al, bh);
+            }
+#pragma unroll
+          for (int j = 0; j < kStatsTilesPerWarp; ++j)
+            if (wn + kStatsWarpsN * j < ntb) {
+              const uint32_t bl[2] = {bf[j][2], bf[j][3]};
+              hopper::mma_tf32(acc[j], ah, bl);
+            }
+#pragma unroll
+          for (int j = 0; j < kStatsTilesPerWarp; ++j)
+            if (wn + kStatsWarpsN * j < ntb) {
+              const uint32_t bh[2] = {bf[j][0], bf[j][1]};
+              hopper::mma_tf32(acc[j], ah, bh);
+            }
         }
+        __syncthreads();
       }
-      __syncwarp();
+      // fragment: rows g and g + 8, lags 8 j + 2 t and + 1 of the tile
+#pragma unroll
+      for (int j = 0; j < kStatsTilesPerWarp; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int r = wm * 16 + g_ + 8 * (c / 2);
+          const int l = (lb * ntb + wn + kStatsWarpsN * j) * 8 + 2 * t_ + c % 2;
+          if (wn + kStatsWarpsN * j < ntb && l < L) rowbuf[(size_t)r * L + l] = acc[j][c];
+        }
     }
-
-    for (int k = 0; k < kRpw; ++k) {
-      if (!live[k]) continue;
-      const int row = q0 + warp * kRpw + k;
-      const size_t grow = (size_t)b0 * P + row;   // global (frame, pair) row
-      const float* c = rowbuf + (size_t)(warp * kRpw + k) * L;
-      float* out = corr_out + grow * L;
-      if (!with_peaks) {
-        for (int l = lane; l < L; l += 32) out[l] = c[l];
-        continue;
-      }
-      // first maximum: lanes scan ascending lags, ties go to the lower lag
-      float best = -INFINITY;
-      int bi = L;
-      for (int l = lane; l < L; l += 32) {
-        const float v = c[l];
-        if (v > best) { best = v; bi = l; }
-      }
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, best, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-        if (ov > best || (ov == best && oi < bi)) { best = ov; bi = oi; }
-      }
-      const int idx = bi < L ? bi : 0;   // all-NaN / all -inf rows
-      const float v0 = c[idx];
-      const bool interior = idx >= 1 && idx <= L - 2;
-      const float cm = idx >= 1 ? c[idx - 1] : 0.f;
-      const float cp = idx <= L - 2 ? c[idx + 1] : 0.f;
-      const float den = cm - 2.f * v0 + cp;
-      float delta = (interior && fabsf(den) > 1e-20f) ? 0.5f * (cm - cp) / den : 0.f;
-      delta = fminf(fmaxf(delta, -0.5f), 0.5f);
-
-      float side = -INFINITY;
-      for (int l = lane; l < L; l += 32)
-        if (abs(l - idx) > 3) side = fmaxf(side, c[l]);
-      side = warp_max(side);
-
-      for (int l = lane; l < L; l += 32) {
-        const float d = (float)(l - idx);
-        const float v = c[l] * expf(-(d * d) / taper_denom);
-        out[l] = v;
-        if constexpr (kSrp) tap[(size_t)row * L + l] = round_bf16(v);
-      }
-      if (lane == 0) {
-        shift_out[grow] = idx - K;
-        tdoa_out[grow] = (float)(idx - K) + delta;
-        peak_out[grow] = v0;
-        psr_out[grow] = fabsf(v0) / fmaxf(fabsf(side), 1e-20f);
-      }
+    __syncthreads();   // a row's lags come from four warps
+    for (int r = warp; r < kRowsPerPass && q0 + r < RP; r += kWarps) {
+      const size_t grow = (size_t)b0 * P + q0 + r;   // global (frame, pair) row
+      row_peaks(rowbuf + (size_t)r * L, L, corr_out + grow * L, grow, shift_out, tdoa_out,
+                peak_out, psr_out, taper_denom, with_peaks, false);
     }
-    __syncwarp();
+    __syncthreads();   // rowbuf is the next pass's
   }
 
-  if constexpr (kSrp) {
-    // ---- 5. SRP scores and grid argmax, a frame per warp -------------------
+  // ---- 5. phase-slope TDOA, a row per warp ------------------------------
+  // from this block's shifts and parabolic TDOAs, now in global memory
+  if (st.phase && with_peaks) {
     __syncthreads();
-    for (int t = warp; t < tb; t += kWarps) {
-      const float* tp = tap + (size_t)t * P * L;
-      float best = -INFINITY;
-      int cell = 0x7fffffff;
-      for (int g = lane; g < srp.G; g += 32) {
-        float s = 0.f;
-        for (int p = 0; p < P; ++p) {
-          // a LUT entry outside the lag axis would read past the row
-          const int li = min(max(__ldg(srp.lut + (size_t)p * srp.G + g), 0), L - 1);
-          s += tp[(size_t)p * L + li];
-        }
-        if (s > best) { best = s; cell = g; }   // ascending g: first maximum
-      }
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, best, off);
-        const int oc = __shfl_xor_sync(0xffffffffu, cell, off);
-        if (ov > best || (ov == best && oc < cell)) { best = ov; cell = oc; }
-      }
-      if (lane == 0) {
-        srp.cell_out[b0 + t] = cell < srp.G ? cell : 0;   // all-NaN scores
-        srp.score_out[b0 + t] = best;
-      }
-    }
-  }
-
-  if constexpr (kStats) {
-    // ---- 5. phase-slope TDOA, a row per warp ------------------------------
-    // from this block's shifts and parabolic TDOAs, now in global memory
-    if (st.phase && with_peaks) {
-      __syncthreads();
-      for (int row = warp; row < RP; row += kWarps) {
-        const int t = row / P, p = row % P;
-        const size_t grow = (size_t)b0 * P + row;
-        const float d = phase_slope(
-            spec + ((size_t)t * M + __ldg(pairs + 2 * p)) * F,
-            spec + ((size_t)t * M + __ldg(pairs + 2 * p + 1)) * F,
-            g2 + (size_t)row * F, st.band_auto ? wband + (size_t)t * F : nullptr,
-            F, (float)shift_out[grow], tdoa_out[grow], st);
-        if (lane == 0) tdoa_out[grow] = d;
-      }
+    for (int row = warp; row < RP; row += kWarps) {
+      const int t = row / P, p = row % P;
+      const size_t grow = (size_t)b0 * P + row;
+      const float d = phase_slope(
+          spec + ((size_t)t * M + __ldg(pairs + 2 * p)) * F,
+          spec + ((size_t)t * M + __ldg(pairs + 2 * p + 1)) * F,
+          g2 + (size_t)row * F, st.band_auto ? wband + (size_t)t * F : nullptr,
+          F, (float)shift_out[grow], tdoa_out[grow], st);
+      if (lane == 0) tdoa_out[grow] = d;
     }
   }
 }
 
-// No minimum of blocks an SM is asked for: held to 128 registers the base
-// mode's compiler takes 120 where it takes 97 unasked, and runs 4% slower.
-template <bool kStats, bool kSrp = false>
-__global__ void __launch_bounds__(kThreads)
+// The base and SRP modes.  Two blocks an SM (128 registers a thread, about
+// 100 KB of shared memory a block at 4 mics) let one block's synthesis and
+// peak stage run beside the other's DFT.
+template <bool kSrp>
+__global__ void __launch_bounds__(kThreads, 2)
 gcc_kernel(const float* __restrict__ frames,   // [B, M, N]
-           const float* __restrict__ win, const float4* __restrict__ w,
+           const float* __restrict__ win, const float2* __restrict__ wp,
            const float* __restrict__ sync, const float* __restrict__ syns,
            const int* __restrict__ pairs, float* __restrict__ corr_out,
            int* __restrict__ shift_out, float* __restrict__ tdoa_out,
            float* __restrict__ peak_out, float* __restrict__ psr_out,
            int B, int M, int N, int F, int Fp, int P, int L, int TB,
            int phat, int per_mic, float eps2, float taper_denom, int with_peaks,
-           Stats st, Srp srp) {
+           Srp srp) {
   const int b0 = blockIdx.x * TB;
-  gcc_tile<kStats, kSrp>(frames + (size_t)b0 * M * N, b0, min(TB, B - b0), win,
-                         w, sync, syns, pairs, corr_out, shift_out, tdoa_out,
-                         peak_out, psr_out, M, N, F, Fp, P, L, TB, phat, per_mic,
-                         eps2, taper_denom, with_peaks, st, srp, [] {});
+  base_tile<kSrp>(frames + (size_t)b0 * M * N, b0, min(TB, B - b0), win, wp, sync, syns,
+                  pairs, corr_out, shift_out, tdoa_out, peak_out, psr_out, M, N, F, Fp, P,
+                  L, phat, per_mic, eps2, taper_denom, with_peaks, srp, [] {});
+}
+
+__global__ void __launch_bounds__(kThreads)
+gcc_stats_kernel(const float* __restrict__ frames,   // [B, M, N]
+                 const float* __restrict__ win, const float2* __restrict__ wp,
+                 const int* __restrict__ pairs, float* __restrict__ corr_out,
+                 int* __restrict__ shift_out, float* __restrict__ tdoa_out,
+                 float* __restrict__ peak_out, float* __restrict__ psr_out,
+                 int B, int M, int N, int F, int Fp, int P, int L, int TB,
+                 int phat, int per_mic, float eps2, float taper_denom, int with_peaks,
+                 Stats st) {
+  const int b0 = blockIdx.x * TB;
+  stats_tile(frames + (size_t)b0 * M * N, b0, min(TB, B - b0), win, wp, pairs, corr_out,
+             shift_out, tdoa_out, peak_out, psr_out, M, N, F, Fp, P, L, TB, phat, per_mic,
+             eps2, taper_denom, with_peaks, st);
 }
 
 // The base mode as a persistent block that walks the tiles itself, each
 // tile's frames staged in shared memory (at float4 offset stage_off of the
-// dynamic shared memory) one tile ahead of the synthesis and peak stage.
+// dynamic shared memory) one tile ahead of the last synthesis and peak stage.
 __global__ void __launch_bounds__(kThreads)
 gcc_pipelined_kernel(const float* __restrict__ frames,   // [B, M, N], 16-byte aligned
-                     const float* __restrict__ win, const float4* __restrict__ w,
+                     const float* __restrict__ win, const float2* __restrict__ wp,
                      const float* __restrict__ sync, const float* __restrict__ syns,
                      const int* __restrict__ pairs, float* __restrict__ corr_out,
                      int* __restrict__ shift_out, float* __restrict__ tdoa_out,
@@ -1153,69 +1404,75 @@ gcc_pipelined_kernel(const float* __restrict__ frames,   // [B, M, N], 16-byte a
     asm volatile("cp.async.wait_all;\n" ::: "memory");
     __syncthreads();
     const int b0 = tile * TB;
-    gcc_tile<false, false>(reinterpret_cast<const float*>(stage), b0, min(TB, B - b0),
-                           win, w, sync, syns, pairs, corr_out, shift_out, tdoa_out,
-                           peak_out, psr_out, M, N, F, Fp, P, L, TB, phat, per_mic,
-                           eps2, taper_denom, with_peaks, Stats{}, Srp{},
-                           [&] { prefetch(tile + gridDim.x); });
+    base_tile<false>(reinterpret_cast<const float*>(stage), b0, min(TB, B - b0), win, wp,
+                     sync, syns, pairs, corr_out, shift_out, tdoa_out, peak_out, psr_out,
+                     M, N, F, Fp, P, L, phat, per_mic, eps2, taper_denom, with_peaks,
+                     Srp{}, [&] { prefetch(tile + gridDim.x); });
   }
 }
 
-// Frames per block: up to kDftRows (frame, mic) rows, fewer when the
-// spectra (and with p > 0 the stats mode's buffers) would not fit shared
-// memory; srp_p > 0 counts the SRP mode's tapered rows.  Returns 0 when one
-// frame does not fit.
-int frames_per_block(int m, int f, int l, int p, int srp_p = 0) {
-  int tb = m >= kDftRows ? 1 : kDftRows / m;
-  while (tb > 0 && smem_floats(tb, m, f, l, p, srp_p) * sizeof(float) > kMaxSmem) --tb;
+// Frames per block of the base body: up to kBlockRows (frame, mic) rows,
+// fewer when the correlograms of their pairs would not fit shared memory.
+// Returns 0 when one frame does not fit.
+int frames_per_block(int m, int p, int l) {
+  if (m < 1 || m > kBlockRows) return 0;
+  int tb = kBlockRows / m;
+  while (tb > 0 && base_smem_floats(tb, p, l) * sizeof(float) > kMaxSmem) --tb;
   return tb;
 }
 
-template <bool kStats, bool kSrp = false>
-int launch(const void* frames, const void* win, const void* w, const void* sync,
+// Frames per block of the stats mode: up to kDftRows (frame, mic) rows,
+// fewer when the spectra and the mode's buffers would not fit.
+int stats_frames_per_block(int m, int f, int l, int p) {
+  int tb = m >= kDftRows ? 1 : kDftRows / m;
+  while (tb > 0 && stats_smem_floats(tb, m, f, l, p) * sizeof(float) > kMaxSmem) --tb;
+  return tb;
+}
+
+template <bool kSrp>
+int launch(const void* frames, const void* win, const void* wp, const void* sync,
            const void* syns, const void* pairs, void* corr_out, void* shift_out,
            void* tdoa_out, void* peak_out, void* psr_out, int B, int M, int N,
            int F, int Fp, int P, int L, int phat, int per_mic, float eps,
-           float taper_denom, int with_peaks, const Stats& st, void* stream,
-           const Srp& srp = Srp{}) {
-  const int p_smem = kStats ? P : 0, p_srp = kSrp ? P : 0;
-  const int tb = frames_per_block(M, F, L, p_smem, p_srp);
-  if (tb < 1 || Fp % (kStats ? 4 : 2) != 0 || Fp < F) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_floats(tb, M, F, L, p_smem, p_srp) * sizeof(float);
+           float taper_denom, int with_peaks, void* stream, const Srp& srp) {
+  const int tb = frames_per_block(M, P, L);
+  if (tb < 1 || Fp % 4 != 0 || Fp < F) return (int)cudaErrorInvalidValue;
+  const size_t smem = base_smem_floats(tb, P, L) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      gcc_kernel<kStats, kSrp>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      gcc_kernel<kSrp>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (B + tb - 1) / tb;
-  gcc_kernel<kStats, kSrp><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)frames, (const float*)win, (const float4*)w,
+  gcc_kernel<kSrp><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)frames, (const float*)win, (const float2*)wp,
       (const float*)sync, (const float*)syns, (const int*)pairs,
       (float*)corr_out, (int*)shift_out, (float*)tdoa_out, (float*)peak_out,
       (float*)psr_out, B, M, N, F, Fp, P, L, tb, phat, per_mic, eps * eps,
-      taper_denom, with_peaks, st, srp);
+      taper_denom, with_peaks, srp);
   return (int)cudaGetLastError();
 }
 
-// The pipelined instance's shared memory: the base mode's, rounded to 16
+// The pipelined instance's shared memory: the base body's, rounded to 16
 // bytes, then the staging buffer of one tile's frames.
-size_t pipelined_stage_off(int tb, int m, int f, int l) {
-  return (smem_floats(tb, m, f, l) + 3) / 4;   // in float4s
+size_t pipelined_stage_off(int tb, int p, int l) {
+  return (base_smem_floats(tb, p, l) + 3) / 4;   // in float4s
 }
 
-int pipelined_frames_per_block(int m, int n, int f, int l) {
-  int tb = m >= kDftRows ? 1 : kDftRows / m;
-  while (tb > 0 && pipelined_stage_off(tb, m, f, l) * 16 + (size_t)tb * m * n * 4 > kMaxSmem) --tb;
+int pipelined_frames_per_block(int m, int n, int p, int l) {
+  if (m < 1 || m > kBlockRows) return 0;
+  int tb = kBlockRows / m;
+  while (tb > 0 && pipelined_stage_off(tb, p, l) * 16 + (size_t)tb * m * n * 4 > kMaxSmem) --tb;
   return tb;
 }
 
 }  // namespace
 
-extern "C" int att_gcc_pipelined_frames_per_block(int m, int n, int f, int l) {
-  return pipelined_frames_per_block(m, n, f, l);
+extern "C" int att_gcc_pipelined_frames_per_block(int m, int n, int p, int l) {
+  return pipelined_frames_per_block(m, n, p, l);
 }
 
 // The pipelined instance of the base mode: att_gcc's operands and outputs.
 // blocks_out (host, may be null) receives the grid size it launched.
-extern "C" int att_gcc_pipelined(const void* frames, const void* win, const void* w,
+extern "C" int att_gcc_pipelined(const void* frames, const void* win, const void* wp,
                                  const void* sync, const void* syns,
                                  const void* pairs, void* corr_out,
                                  void* shift_out, void* tdoa_out, void* peak_out,
@@ -1223,11 +1480,11 @@ extern "C" int att_gcc_pipelined(const void* frames, const void* win, const void
                                  int P, int L, int phat, int per_mic, float eps,
                                  float taper_denom, int with_peaks, int* blocks_out,
                                  void* stream) {
-  const int tb = pipelined_frames_per_block(M, N, F, L);
-  if (tb < 1 || Fp % 2 != 0 || Fp < F || (M * N) % 4 != 0 ||
+  const int tb = pipelined_frames_per_block(M, N, P, L);
+  if (tb < 1 || Fp % 4 != 0 || Fp < F || (M * N) % 4 != 0 ||
       ((uintptr_t)frames & 15) != 0)
     return (int)cudaErrorInvalidValue;
-  const size_t stage_off = pipelined_stage_off(tb, M, F, L);
+  const size_t stage_off = pipelined_stage_off(tb, P, L);
   const size_t smem = stage_off * 16 + (size_t)tb * M * N * 4;
   cudaError_t err = cudaFuncSetAttribute(
       gcc_pipelined_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1244,7 +1501,7 @@ extern "C" int att_gcc_pipelined(const void* frames, const void* win, const void
   const int grid = n_tiles < sms * per_sm ? n_tiles : sms * per_sm;
   if (blocks_out) *blocks_out = grid;
   gcc_pipelined_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)frames, (const float*)win, (const float4*)w,
+      (const float*)frames, (const float*)win, (const float2*)wp,
       (const float*)sync, (const float*)syns, (const int*)pairs,
       (float*)corr_out, (int*)shift_out, (float*)tdoa_out, (float*)peak_out,
       (float*)psr_out, B, M, N, F, Fp, P, L, tb, phat, per_mic, eps * eps,
@@ -1252,52 +1509,50 @@ extern "C" int att_gcc_pipelined(const void* frames, const void* win, const void
   return (int)cudaGetLastError();
 }
 
-extern "C" int att_gcc_frames_per_block(int m, int f, int l) {
-  return frames_per_block(m, f, l, 0);
+// Frames a block of the base and SRP modes takes; 0 when one frame of m mics
+// and p pairs x l lags does not fit.
+extern "C" int att_gcc_frames_per_block(int m, int p, int l) {
+  return frames_per_block(m, p, l);
 }
 
 extern "C" int att_gcc_stats_frames_per_block(int m, int f, int l, int p) {
-  return frames_per_block(m, f, l, p);
+  return stats_frames_per_block(m, f, l, p);
 }
 
-extern "C" int att_gcc(const void* frames, const void* win, const void* w,
+// The base mode.  wp: the packed DFT matrix (pack_dft) [N / 8, Fp / 4, 32, 2].
+extern "C" int att_gcc(const void* frames, const void* win, const void* wp,
                        const void* sync, const void* syns, const void* pairs,
                        void* corr_out, void* shift_out, void* tdoa_out,
                        void* peak_out, void* psr_out, int B, int M, int N,
                        int F, int Fp, int P, int L, int phat, int per_mic,
                        float eps, float taper_denom, int with_peaks,
                        void* stream) {
-  return launch<false>(frames, win, w, sync, syns, pairs, corr_out, shift_out,
+  return launch<false>(frames, win, wp, sync, syns, pairs, corr_out, shift_out,
                        tdoa_out, peak_out, psr_out, B, M, N, F, Fp, P, L, phat,
-                       per_mic, eps, taper_denom, with_peaks, Stats{}, stream);
-}
-
-extern "C" int att_gcc_srp_frames_per_block(int m, int f, int l, int p) {
-  return frames_per_block(m, f, l, 0, p);
+                       per_mic, eps, taper_denom, with_peaks, stream, Srp{});
 }
 
 // The SRP mode: the base mode with peaks, plus the lag LUT [P, G] in and the
-// first best cell [B] and its score [B] out.
-extern "C" int att_gcc_srp(const void* frames, const void* win, const void* w,
+// first best cell [B], its score [B] and every cell's score [B, G] out.
+extern "C" int att_gcc_srp(const void* frames, const void* win, const void* wp,
                            const void* sync, const void* syns, const void* pairs,
                            const void* lut, void* corr_out, void* shift_out,
                            void* tdoa_out, void* peak_out, void* psr_out,
-                           void* cell_out, void* score_out, int B, int M, int N,
-                           int F, int Fp, int P, int L, int G, int phat,
-                           int per_mic, float eps, float taper_denom,
-                           void* stream) {
-  if (G < 1) return (int)cudaErrorInvalidValue;
-  const Srp srp{(const int*)lut, (int*)cell_out, (float*)score_out, G};
-  return launch<false, true>(frames, win, w, sync, syns, pairs, corr_out,
-                             shift_out, tdoa_out, peak_out, psr_out, B, M, N, F,
-                             Fp, P, L, phat, per_mic, eps, taper_denom, 1,
-                             Stats{}, stream, srp);
+                           void* cell_out, void* score_out, void* scores_out, int B,
+                           int M, int N, int F, int Fp, int P, int L, int G, int phat,
+                           int per_mic, float eps, float taper_denom, void* stream) {
+  if (G < 1 || L > 32767) return (int)cudaErrorInvalidValue;   // int16 LUT
+  const Srp srp{(const int*)lut, (int*)cell_out, (float*)score_out, (float*)scores_out, G};
+  return launch<true>(frames, win, wp, sync, syns, pairs, corr_out, shift_out,
+                      tdoa_out, peak_out, psr_out, B, M, N, F, Fp, P, L, phat,
+                      per_mic, eps, taper_denom, 1, stream, srp);
 }
 
 // The stats mode: the base mode's operands and outputs, plus synp (the
-// synthesis matrices split and packed by the wrapper, 16-byte aligned),
-// band_out ([B, F] auto band weights, may be null) and the mode's settings.
-extern "C" int att_gcc_stats(const void* frames, const void* win, const void* w,
+// synthesis matrices split and packed by the wrapper, 16-byte aligned; sync
+// and syns are not read), band_out ([B, F] auto band weights, may be null)
+// and the mode's settings.
+extern "C" int att_gcc_stats(const void* frames, const void* win, const void* wp,
                              const void* sync, const void* syns, const void* synp,
                              const void* pairs, void* corr_out, void* shift_out,
                              void* tdoa_out, void* peak_out, void* psr_out,
@@ -1307,13 +1562,25 @@ extern "C" int att_gcc_stats(const void* frames, const void* win, const void* w,
                              int phase, int hybrid, int hw, int min_bins,
                              int lo, int hi, int fft_length, float rel,
                              float floor_, float hybrid_min, void* stream) {
+  (void)sync;
+  (void)syns;
   if ((phase && !with_peaks) || !synp || ((uintptr_t)synp & 15) != 0)
     return (int)cudaErrorInvalidValue;
+  const int tb = stats_frames_per_block(M, F, L, P);
+  if (tb < 1 || Fp % 4 != 0 || Fp < F) return (int)cudaErrorInvalidValue;
   const double two_pi = 6.283185307179586;
-  Stats st{(const float4*)synp, (float*)band_out, band_auto, phase, hybrid, hw, min_bins, lo, hi,
-           rel, floor_, hybrid_min, (float)(two_pi / fft_length),
-           (float)(-fft_length / two_pi)};
-  return launch<true>(frames, win, w, sync, syns, pairs, corr_out, shift_out,
-                      tdoa_out, peak_out, psr_out, B, M, N, F, Fp, P, L, phat,
-                      per_mic, eps, taper_denom, with_peaks, st, stream);
+  const Stats st{(const float4*)synp, (float*)band_out, band_auto, phase, hybrid, hw, min_bins,
+                 lo, hi, rel, floor_, hybrid_min, (float)(two_pi / fft_length),
+                 (float)(-fft_length / two_pi)};
+  const size_t smem = stats_smem_floats(tb, M, F, L, P) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      gcc_stats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = (B + tb - 1) / tb;
+  gcc_stats_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)frames, (const float*)win, (const float2*)wp, (const int*)pairs,
+      (float*)corr_out, (int*)shift_out, (float*)tdoa_out, (float*)peak_out,
+      (float*)psr_out, B, M, N, F, Fp, P, L, tb, phat, per_mic, eps * eps, taper_denom,
+      with_peaks, st);
+  return (int)cudaGetLastError();
 }

@@ -371,6 +371,24 @@ def _phase_subsample(frames, params: LocalizerParams, cfg: PipelineConfig,
                        tdoa_par)
 
 
+def _srp_scores(corr_t, params: LocalizerParams, cfg: PipelineConfig,
+                srp_form: str, p_n: int) -> torch.Tensor:
+    """SRP scores [..., G] of tapered correlograms, by the reference's
+    branches: the one-hot product, or for a large array in gather form one
+    product against ``onehot_big``, the pair-blocked product, or the
+    gather."""
+    if srp_form == "matmul":
+        return srp.srp_scores_matmul(corr_t, params.onehot, cfg.srp_dtype)
+    if params.onehot_big is not None:
+        return srp.srp_scores_matmul_big(corr_t, params.onehot_big,
+                                         dtype=cfg.srp_dtype)
+    chunk = _pair_chunk(cfg, p_n)
+    if chunk is not None and p_n > chunk:
+        return srp.srp_scores_matmul_blocked(
+            corr_t, params.lut_flat, cfg.num_lags, chunk, dtype=cfg.srp_dtype)
+    return srp.srp_scores_gather(corr_t, params.lut_flat)
+
+
 def localize_frames(
     params: LocalizerParams,
     frames: torch.Tensor,
@@ -408,15 +426,15 @@ def localize_frames(
     on_kernel = p_n <= LARGE_ARRAY_PAIRS and kernel_route(cfg)
     on_large = large_route(cfg, p_n)
     in_kernel_peaks = cfg.taper_enabled and cfg.subsample_peak
-    best_cell = None
+    best_cell = scores = None
     if on_kernel and in_kernel_peaks:
         # taper, argmax, sub-sample peak and PSR inside the GCC kernel
         if (in_kernel_srp(cfg, srp_form, refine,
                           params.score_bias is not None)
                 and gcc_kernel.srp_mode_fits(flat, cfg, p_n)):
-            # and the SRP scores and grid argmax too: only the cell leaves
-            (corr_t, shifts, tdoa_samples, peak_val, psr, best_cell,
-             _) = gcc_kernel.fused_gcc_srp(
+            # and the SRP scores and grid argmax too
+            (corr_t, shifts, tdoa_samples, peak_val, psr, best_cell, _,
+             scores) = gcc_kernel.fused_gcc_srp(
                  flat, params.window, params.pairs, params.lut_flat, cfg)
         else:
             (corr_t, shifts, tdoa_samples, peak_val,
@@ -453,21 +471,10 @@ def localize_frames(
         corr_t = (xcorr.peak_taper(corr, k, cfg.taper_denom, shifts)
                   if cfg.taper_enabled else corr)
 
-    # with the in-kernel SRP the scores are still returned, from the same
-    # product outside, as the reference's plain call returns them
-    if srp_form == "matmul":
-        scores = srp.srp_scores_matmul(corr_t, params.onehot, cfg.srp_dtype)
-    else:
-        chunk = _pair_chunk(cfg, p_n)
-        if params.onehot_big is not None:
-            scores = srp.srp_scores_matmul_big(corr_t, params.onehot_big,
-                                               dtype=cfg.srp_dtype)
-        elif chunk is not None and p_n > chunk:
-            scores = srp.srp_scores_matmul_blocked(
-                corr_t, params.lut_flat, cfg.num_lags, chunk,
-                dtype=cfg.srp_dtype)
-        else:
-            scores = srp.srp_scores_gather(corr_t, params.lut_flat)
+    # with the in-kernel SRP the scores come from the kernel: the one-hot
+    # product's sums, in pair order
+    if scores is None:
+        scores = _srp_scores(corr_t, params, cfg, srp_form, p_n)
     if params.score_bias is not None:
         scores = scores + params.score_bias
 

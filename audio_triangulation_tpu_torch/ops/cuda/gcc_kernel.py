@@ -12,7 +12,12 @@ Counterpart of ``audio_triangulation_tpu.ops.pallas.gcc_kernel``
 - the in-kernel SRP mode (:func:`fused_gcc_srp`, the reference's compact
   "Mode B", ``fused_gcc_peaks(..., srp_onehot=...)``): the base mode with
   peaks, then every grid cell scored from the bf16-rounded tapered
-  correlograms and the first best cell and its score written per frame.
+  correlograms, the scores [B, G] written out and the first best cell and
+  its score per frame.
+
+The base and SRP modes compute the DFT as a split-fp32 product on the
+tensor cores (:func:`split_rdft`) a chunk of ``CHUNK_BINS`` bins at a time;
+:func:`gcc_reference` with ``split=True`` repeats that arithmetic.
 
 On a CUDA tensor :func:`fused_gcc` and :func:`fused_gcc_srp` launch
 ``csrc/gcc_kernel.cu`` or raise; on a CPU tensor they run the plain PyTorch
@@ -42,6 +47,9 @@ from ...core.config import PipelineConfig
 from .. import mxu_fft, xcorr
 from . import _build
 from .srp_kernel import tf32_split
+
+# the SRP mode stages the lag LUT as int16
+SRP_MAX_LAGS = 32767
 
 launches = 0
 stats_launches = 0
@@ -101,6 +109,10 @@ def unpack_split_synthesis(packed: torch.Tensor, f: int, l: int):
 
 
 DFT_FLUSH_STEPS = 16  # mma steps (of 8 samples) summed before the flush
+# bins of a chunk of the base and SRP modes (``kChunkBins`` of
+# ``csrc/gcc_kernel.cu``): each chunk's spectra are computed, whitened and
+# added into the correlograms before the next
+CHUNK_BINS = 64
 
 
 def pack_dft(cos: torch.Tensor, msin: torch.Tensor) -> torch.Tensor:
@@ -159,6 +171,21 @@ def split_rdft(x: torch.Tensor, cos: torch.Tensor, msin: torch.Tensor):
     return out
 
 
+def chunked_lag_correlogram(rr: torch.Tensor, jj: torch.Tensor,
+                            sync: torch.Tensor,
+                            syns: torch.Tensor) -> torch.Tensor:
+    """:func:`mxu_fft.lag_correlogram` summed ``CHUNK_BINS`` bins at a
+    time, the chunks in ascending order, as the base mode adds each bin
+    chunk's synthesis into the correlograms it holds."""
+    corr = None
+    for f0 in range(0, rr.shape[-1], CHUNK_BINS):
+        ks = slice(f0, f0 + CHUNK_BINS)
+        part = mxu_fft.lag_correlogram(rr[..., ks], jj[..., ks], sync[ks],
+                                       syns[ks])
+        corr = part if corr is None else corr + part
+    return corr
+
+
 def split_lag_correlogram(rr: torch.Tensor, jj: torch.Tensor,
                           sync: torch.Tensor, syns: torch.Tensor, *,
                           flush_steps: int = 0,
@@ -205,10 +232,7 @@ class GccMatrices(NamedTuple):
     msin: torch.Tensor  # [N, F] DFT, imaginary part (-sin)
     sync: torch.Tensor  # [F, L] lag synthesis, cos rows
     syns: torch.Tensor  # [F, L] lag synthesis, sin rows
-    # [N, Fp, 2]: (cos, -sin) of bin f side by side, F padded to even with a
-    # zero bin, so the kernel reads bins f and f + 1 in one 16-byte load
-    cs: torch.Tensor
-    # the stats mode's DFT operand in mma fragment order (:func:`pack_dft`):
+    # the kernel's DFT operand in mma fragment order (:func:`pack_dft`):
     # [N / 8, F / 4, 32, 2], samples and bins padded with zeros
     dft: torch.Tensor
     # sync / syns split and in mma fragment order, for the stats mode's
@@ -226,11 +250,7 @@ def _matrices(cfg: PipelineConfig, n: int, device: str) -> GccMatrices:
     cos, msin, sync, syns = (
         torch.as_tensor(a, dtype=torch.float32, device=device)
         for a in mxu_fft.gcc_matrices(cfg, n))
-    f = cos.shape[1]
-    cs = torch.zeros((n, f + f % 2, 2), dtype=torch.float32, device=device)
-    cs[:, :f, 0] = cos
-    cs[:, :f, 1] = msin
-    return GccMatrices(cos, msin, sync, syns, cs, pack_dft(cos, msin),
+    return GccMatrices(cos, msin, sync, syns, pack_dft(cos, msin),
                        pack_split_synthesis(sync, syns, STATS_LAG_TILES))
 
 
@@ -255,18 +275,25 @@ def _peaks(corr, max_shift: int, taper_denom: float):
 
 def gcc_reference(frames, win_gain, mats: GccMatrices, pairs, *,
                   phat: bool, phat_eps: float, max_shift: int,
-                  taper_denom: float, with_peaks: bool):
+                  taper_denom: float, with_peaks: bool, split: bool = False):
     """Plain PyTorch version of the base mode, on the kernel's operands.
 
     frames [B, M, N] -> correlograms [B, P, L]; with ``with_peaks`` ->
     (tapered correlograms, best shift int32 [B, P], sub-sample tdoa [B, P]
     in lags, peak value [B, P], psr [B, P]), peaks taken on the raw
-    correlogram."""
+    correlogram.  ``split`` repeats the kernel's arithmetic on f32 frames:
+    the DFT as a split-fp32 product (:func:`split_rdft`) and the synthesis
+    added a bin chunk at a time (:func:`chunked_lag_correlogram`)."""
+    split = split and frames.dtype == torch.float32
     x = (frames - frames.mean(dim=-1, keepdim=True)) * win_gain
-    re, im = mxu_fft.rdft(x, mats.cos, mats.msin)
+    if split:
+        re, im = split_rdft(x, mats.cos, mats.msin)
+    else:
+        re, im = mxu_fft.rdft(x, mats.cos, mats.msin)
     rr, jj = mxu_fft.cross_power_reim(re, im, pairs, phat=phat,
                                       phat_eps=phat_eps)
-    corr = mxu_fft.lag_correlogram(rr, jj, mats.sync, mats.syns)
+    synth = chunked_lag_correlogram if split else mxu_fft.lag_correlogram
+    corr = synth(rr, jj, mats.sync, mats.syns)
     if not with_peaks:
         return corr
     return _peaks(corr, max_shift, taper_denom)
@@ -274,9 +301,10 @@ def gcc_reference(frames, win_gain, mats: GccMatrices, pairs, *,
 
 def srp_first_max(corr_t: torch.Tensor, lut_flat: torch.Tensor):
     """The SRP mode's scoring on tapered correlograms [B, P, L]: (first best
-    cell int32 [B], its score [B]).  Each value is rounded to bf16, and the
-    pairs' values at ``lut_flat`` [P, G] are added in the order p = 0..P-1
-    in the correlograms' dtype, as the kernel adds them."""
+    cell int32 [B], its score [B], every cell's score [B, G]).  Each value
+    is rounded to bf16, and the pairs' values at ``lut_flat`` [P, G] are
+    added in the order p = 0..P-1 in the correlograms' dtype, as the kernel
+    adds them."""
     tap = corr_t.to(torch.bfloat16).to(corr_t.dtype)
     idx = lut_flat.long()
     scores = torch.zeros((corr_t.shape[0], idx.shape[1]),
@@ -284,15 +312,16 @@ def srp_first_max(corr_t: torch.Tensor, lut_flat: torch.Tensor):
     for p in range(idx.shape[0]):
         scores = scores + tap[:, p, :].index_select(-1, idx[p])
     cell = scores.argmax(dim=-1)  # the first maximum
-    return cell.to(torch.int32), scores.gather(-1, cell[:, None])[:, 0]
+    return (cell.to(torch.int32), scores.gather(-1, cell[:, None])[:, 0],
+            scores)
 
 
 def gcc_srp_reference(frames, win_gain, mats: GccMatrices, pairs, lut_flat,
                       *, phat: bool, phat_eps: float, max_shift: int,
                       taper_denom: float):
     """Plain PyTorch version of the SRP mode, on the kernel's operands:
-    :func:`gcc_reference` with peaks, then (cell int32 [B], score [B]) from
-    :func:`srp_first_max`."""
+    :func:`gcc_reference` with peaks, then (cell int32 [B], score [B],
+    scores [B, G]) from :func:`srp_first_max`."""
     outs = gcc_reference(frames, win_gain, mats, pairs, phat=phat,
                          phat_eps=phat_eps, max_shift=max_shift,
                          taper_denom=taper_denom, with_peaks=True)
@@ -512,8 +541,9 @@ def fused_gcc_srp(frames: torch.Tensor, window: torch.Tensor,
                   cfg: PipelineConfig):
     """:func:`fused_gcc` with peaks in the base mode, plus SRP scoring and
     the grid argmax in the same kernel: (tapered correlograms, shift, tdoa,
-    peak, psr, best cell int32 [B], best score [B]) for the lag LUT
-    ``lut_flat`` int32 [P, G].  ``cfg`` must not need the stats mode."""
+    peak, psr, best cell int32 [B], best score [B], scores [B, G]) for the
+    lag LUT ``lut_flat`` int32 [P, G].  ``cfg`` must not need the stats
+    mode."""
     if frames.ndim != 3 or frames.dtype != torch.float32:
         raise ValueError(f"frames must be f32 [B, M, N]; got "
                          f"{tuple(frames.shape)} {frames.dtype}")
@@ -553,18 +583,18 @@ def fused_gcc_pipelined(frames: torch.Tensor, window: torch.Tensor,
 def srp_mode_fits(frames: torch.Tensor, cfg: PipelineConfig,
                   n_pairs: int) -> bool:
     """Whether the SRP mode takes these frames [B, M, N]: on a CUDA device
-    one frame's spectra and its pairs' tapered rows must fit a block's
-    shared memory; the plain version on the CPU has no limit."""
+    one frame's correlograms must fit a block's shared memory, and the lag
+    axis the LUT's int16 copy; the plain version on the CPU has no limit."""
     if frames.device.type != "cuda":
         return True
-    f, l = mxu_fft.gcc_matrices(cfg, frames.shape[-1])[2].shape
-    return _lib().att_gcc_srp_frames_per_block(
-        frames.shape[-2], f, l, n_pairs) >= 1
+    l = mxu_fft.gcc_matrices(cfg, frames.shape[-1])[2].shape[1]
+    return (l <= SRP_MAX_LAGS and _lib().att_gcc_frames_per_block(
+        frames.shape[-2], n_pairs, l) >= 1)
 
 
-def _checked(frames, win_gain, mats: GccMatrices, pairs, stats=False):
+def _checked(frames, win_gain, mats: GccMatrices, pairs):
     """The launch operands on ``frames``' CUDA device, checked against the
-    frames: (dims (b, m, n, f, fp, p, l), frames, [win_gain, the mode's DFT
+    frames: (dims (b, m, n, f, fp, p, l), frames, [win_gain, the packed DFT
     matrix, sync, syns], pairs int32)."""
     if frames.device.type != "cuda":
         raise ValueError(f"the GCC kernel needs CUDA tensors; frames are on "
@@ -574,15 +604,10 @@ def _checked(frames, win_gain, mats: GccMatrices, pairs, stats=False):
     p = pairs.shape[0]
     dev = frames.device
     pairs32 = pairs.to(device=dev, dtype=torch.int32).contiguous()
-    if stats:  # the packed DFT matrix: bins padded to whole column tiles
-        fp = -(-f // 4) * 4
-        dft, dft_shape = mats.dft, (-(-n // 8), fp // 4, 32, 2)
-    else:
-        fp = f + f % 2
-        dft, dft_shape = mats.cs, (n, fp, 2)
+    fp = -(-f // 4) * 4  # bins padded to whole column tiles
     ins = [t.to(device=dev, dtype=torch.float32).contiguous()
-           for t in (win_gain, dft, mats.sync, mats.syns)]
-    if (ins[0].shape != (n,) or ins[1].shape != dft_shape
+           for t in (win_gain, mats.dft, mats.sync, mats.syns)]
+    if (ins[0].shape != (n,) or ins[1].shape != (-(-n // 8), fp // 4, 32, 2)
             or ins[3].shape != (f, l)):
         raise ValueError("GCC operand shapes do not match the frames")
     if p < 1 or pairs32.shape != (p, 2) or l % 2 == 0:
@@ -611,9 +636,9 @@ def launch(frames, win_gain, mats: GccMatrices, pairs, *, phat: bool,
     (b, m, n, f, fp, p, l), frames, ins, pairs32 = _checked(
         frames, win_gain, mats, pairs)
     lib = _lib()
-    if lib.att_gcc_frames_per_block(m, f, l) < 1:
-        raise ValueError(f"one frame of {m} mics x {f} bins does not fit "
-                         "the kernel's shared memory")
+    if lib.att_gcc_frames_per_block(m, p, l) < 1:
+        raise ValueError(f"one frame of {m} mics, {p} pairs x {l} lags does "
+                         "not fit the kernel's shared memory")
     outs = _outputs(b, p, l, frames.device, with_peaks)
     if b > 0:
         # Temporaries may be freed once launched: the caching allocator
@@ -637,14 +662,14 @@ def launch_pipelined(frames, win_gain, mats: GccMatrices, pairs, *,
     """Run ``csrc/gcc_kernel.cu``'s persistent, self-pipelined instance of
     the base mode with peaks on CUDA tensors (same contract as
     :func:`gcc_reference` with peaks); raises on anything it does not take.
-    Its size limit: one frame's spectra and its staged samples (M x N
+    Its size limit: one frame's correlograms and its staged samples (M x N
     floats, a multiple of 16 bytes) must fit a block's shared memory."""
     global pipelined_launches
     (b, m, n, f, fp, p, l), frames, ins, pairs32 = _checked(
         frames, win_gain, mats, pairs)
     lib = _lib()
-    if (m * n) % 4 or lib.att_gcc_pipelined_frames_per_block(m, n, f, l) < 1:
-        raise ValueError(f"one frame of {m} mics x {n} samples x {f} bins "
+    if (m * n) % 4 or lib.att_gcc_pipelined_frames_per_block(m, n, p, l) < 1:
+        raise ValueError(f"one frame of {m} mics x {n} samples, {p} pairs "
                          "does not fit the pipelined kernel's shared memory "
                          "(or is no multiple of 16 bytes)")
     outs = _outputs(b, p, l, frames.device, True)
@@ -666,10 +691,11 @@ def launch_srp(frames, win_gain, mats: GccMatrices, pairs, lut_flat, *,
                taper_denom: float):
     """Run ``csrc/gcc_kernel.cu``'s SRP mode on CUDA tensors (same contract
     as :func:`gcc_srp_reference`); raises on anything it does not take.
-    Its size limit: the spectra of one frame and the tapered rows of its P
-    pairs (P x L floats) must fit a block's shared memory together; the
-    grid size G has no limit (the LUT stays in global memory).  LUT entries
-    are clamped to the lag axis, not range-checked."""
+    Its size limit: the correlograms of one frame (P x L floats) must fit a
+    block's shared memory, and L at most ``SRP_MAX_LAGS`` (the LUT is staged
+    as int16); the grid size G has no limit (the LUT is staged a chunk of
+    cells at a time).  LUT entries are clamped to the lag axis, not
+    range-checked."""
     global srp_launches
     (b, m, n, f, fp, p, l), frames, ins, pairs32 = _checked(
         frames, win_gain, mats, pairs)
@@ -679,16 +705,18 @@ def launch_srp(frames, win_gain, mats: GccMatrices, pairs, lut_flat, *,
         raise ValueError(f"lut_flat must be [P={p}, G]; got "
                          f"{tuple(lut32.shape)}")
     lib = _lib()
-    if lib.att_gcc_srp_frames_per_block(m, f, l, p) < 1:
-        raise ValueError(f"one frame of {m} mics x {f} bins with {p} pairs "
-                         f"x {l} lags does not fit the SRP mode's shared "
-                         "memory")
+    if l > SRP_MAX_LAGS or lib.att_gcc_frames_per_block(m, p, l) < 1:
+        raise ValueError(f"one frame of {m} mics with {p} pairs x {l} lags "
+                         "does not fit the SRP mode's shared memory (or "
+                         "its int16 LUT)")
     outs = _outputs(b, p, l, dev, True)
     cell = torch.empty((b,), dtype=torch.int32, device=dev)
     score = torch.empty((b,), dtype=torch.float32, device=dev)
+    scores = torch.empty((b, lut32.shape[1]), dtype=torch.float32,
+                         device=dev)
     if b > 0:
         ptr = [t.data_ptr() for t in (frames, *ins, pairs32, lut32)]
-        optr = [t.data_ptr() for t in (*outs, cell, score)]
+        optr = [t.data_ptr() for t in (*outs, cell, score, scores)]
         per_mic = phat and xcorr.phat_per_mic(m)
         with torch.cuda.device(dev):
             err = lib.att_gcc_srp(
@@ -697,7 +725,7 @@ def launch_srp(frames, win_gain, mats: GccMatrices, pairs, lut_flat, *,
                 torch.cuda.current_stream(dev).cuda_stream)
         srp_launches += 1
         _build.check(err, "gcc_kernel SRP launch", lib)
-    return (*outs, cell, score)
+    return (*outs, cell, score, scores)
 
 
 def launch_stats(frames, win_gain, mats: GccMatrices, pairs,
@@ -709,7 +737,7 @@ def launch_stats(frames, win_gain, mats: GccMatrices, pairs,
     not take, a frame too large for its shared memory included."""
     global stats_launches
     (b, m, n, f, fp, p, l), frames, ins, pairs32 = _checked(
-        frames, win_gain, mats, pairs, stats=True)
+        frames, win_gain, mats, pairs)
     if sp.phase and not with_peaks:
         raise ValueError("the phase-slope TDOA needs the peak stage")
     if f != sp.fft_length // 2 + 1:
@@ -760,10 +788,8 @@ def _lib():
         lib.att_gcc_frames_per_block.restype = ci
         lib.att_gcc_stats_frames_per_block.argtypes = [ci] * 4
         lib.att_gcc_stats_frames_per_block.restype = ci
-        lib.att_gcc_srp.argtypes = [vp] * 14 + [ci] * 10 + [cf, cf, vp]
+        lib.att_gcc_srp.argtypes = [vp] * 15 + [ci] * 10 + [cf, cf, vp]
         lib.att_gcc_srp.restype = ci
-        lib.att_gcc_srp_frames_per_block.argtypes = [ci] * 4
-        lib.att_gcc_srp_frames_per_block.restype = ci
         lib.att_gcc_pipelined.argtypes = ([vp] * 11 + [ci] * 9
                                           + [cf, cf, ci, vp, vp])
         lib.att_gcc_pipelined.restype = ci

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time variants of three kernels against each other on the GPU.
+"""Time variants of four kernels against each other on the GPU.
 
 Each variant is a copy of ``audio_triangulation_tpu_torch/csrc`` with one
 line edited, built into its own library; the variants are launched in
@@ -14,9 +14,17 @@ stages of the copy ring) on 16,384 random correlograms against the
 mode (``gcc_kernel.cu``) on the 16,384 frames of the hands-free line, with
 the window sums from shared memory, and with one stage at a time cut to a
 fraction of its work, which gives that stage's time (those outputs are
-wrong and say so).
+wrong and say so); the GCC kernel's base mode (``gcc_kernel.cu``) on the
+16,384 frames of the full-band and band-crop lines and its SRP mode on the
+band-crop line, at one block an SM, with bin chunks of 128 (four column
+tiles a warp; the outputs stay bit-equal), with the coefficient loads left
+to the compiler's placement, and with its DFT cut to the first 32 samples,
+its samples loaded for the first chunk only, or its synthesis cut out (DFT,
+means and peaks only).
 
-    python3 chip_variants.py         # one CUDA card
+    python3 chip_variants.py [srp] [large] [stats] [base]   # one CUDA card
+
+With no argument every group runs; else the groups named.
 
 Imports no JAX.
 """
@@ -72,6 +80,28 @@ STATS_VARIANTS = {
         "gcc_kernel.cu", "if (st.phase && with_peaks) {",
         "if (false) {"),
 }
+# the base and SRP modes: the DFT's time is the committed kernel's less the
+# time with the DFT cut short; the synthesis's, less the time without it
+BASE_VARIANTS = {
+    "as_committed": None,
+    "one_block_an_sm": ("gcc_kernel.cu", "__launch_bounds__(kThreads, 2)\ngcc_kernel",
+                        "__launch_bounds__(kThreads, 1)\ngcc_kernel"),
+    "chunks_of_128_bins": ("gcc_kernel.cu", "constexpr int kWarpTiles = 2;",
+                           "constexpr int kWarpTiles = 4;"),
+    "timing_only_dft_first_32_samples": (
+        "gcc_kernel.cu", "for (int sc = 0; sc < n_samp; ++sc) {",
+        "for (int sc = 0; sc < 1; ++sc) {"),
+    "coefficient_loads_not_pinned": (
+        "gcc_kernel.cu",
+        'asm volatile("ld.global.nc.v2.f32 {%0, %1}, [%2];\\n" : "=f"(v.x), "=f"(v.y) : "l"(p));',
+        "v = __ldg(p);"),
+    "timing_only_samples_loaded_once": (
+        "gcc_kernel.cu", "if (sc + 1 < n_samp) fetch(sc + 1);",
+        "if (false) fetch(sc + 1);"),
+    "timing_only_no_synthesis": (
+        "gcc_kernel.cu", "for (int fb = 0; fb < nbs; fb += kSub) {",
+        "for (int fb = 0; fb < 0; fb += kSub) {"),
+}
 SRP_VARIANTS = {
     "as_committed": None,
     "round_by_cvt": (
@@ -101,21 +131,30 @@ def main():
     from audio_triangulation_tpu_torch.ops.cuda import (_build, gcc_kernel,
                                                         gcc_large, srp_kernel)
 
+    groups = {"srp": SRP_VARIANTS, "large": LARGE_VARIANTS,
+              "stats": STATS_VARIANTS, "base": BASE_VARIANTS}
+    asked = sys.argv[1:] or list(groups)
+    if not set(asked) <= set(groups):
+        sys.exit(f"chip_variants: groups are {sorted(groups)}; got {asked}")
+    chosen = {g: groups[g] if g in asked else {} for g in groups}
+    srp_variants, large_variants = chosen["srp"], chosen["large"]
+    stats_variants, base_variants = chosen["stats"], chosen["base"]
     committed = _build.CSRC_DIR
     libs = {}
     with tempfile.TemporaryDirectory() as root:
-        for name, edit in {**SRP_VARIANTS, **LARGE_VARIANTS,
-                           **STATS_VARIANTS}.items():
-            src = Path(root) / name / "csrc"
-            shutil.copytree(committed, src)
-            if edit is not None:
-                file, old, new = edit
-                text = (src / file).read_text()
-                if old not in text:
-                    raise RuntimeError(f"{name}: {old!r} not in {file}")
-                (src / file).write_text(text.replace(old, new))
-            _build.CSRC_DIR = src
-            libs[name] = _build.load_library(Path(root) / name / "build")
+        for group, variants in chosen.items():
+            for name, edit in variants.items():
+                key = f"{group}_{name}"
+                src = Path(root) / key / "csrc"
+                shutil.copytree(committed, src)
+                if edit is not None:
+                    file, old, new = edit
+                    text = (src / file).read_text()
+                    if old not in text:
+                        raise RuntimeError(f"{key}: {old!r} not in {file}")
+                    (src / file).write_text(text.replace(old, new))
+                _build.CSRC_DIR = src
+                libs[key] = _build.load_library(Path(root) / key / "build")
         _build.CSRC_DIR = committed
 
         rng = np.random.default_rng(chip_smoke.SEED)
@@ -144,6 +183,15 @@ def main():
         s_sp = gcc_kernel.stats_params(scfg, True)
         s_kw = dict(phat=scfg.phat, phat_eps=scfg.phat_eps,
                     max_shift=scfg.max_shift, taper_denom=scfg.taper_denom)
+        # the base mode's lines, and the SRP mode's
+        base_cases = {}
+        for bname, bcfg in chip_smoke.main_configs()[:2]:
+            bloc = Localizer.create(mics4, bcfg, device="cuda",
+                                    init_grid_stride=3)
+            base_cases[bname] = (bloc, gcc_kernel.operands(
+                frames4, bloc.window, bcfg), dict(
+                    phat=bcfg.phat, phat_eps=bcfg.phat_eps,
+                    max_shift=bcfg.max_shift, taper_denom=bcfg.taper_denom))
         corr = torch.from_numpy(rng.standard_normal(
             (chip_smoke.FRAMES, 6, 93), dtype=np.float32)).cuda()
         onehot, cells = chip_smoke.srp_inputs(corr)
@@ -158,8 +206,8 @@ def main():
             _build._loaded[str(_build.BUILD_DIR)] = lib
 
         for rnd in range(ROUNDS):
-            for name in SRP_VARIANTS:
-                use(libs[name])
+            for name in srp_variants:
+                use(libs["srp_" + name])
                 row = {}
                 for mode, bf16 in (("f32", False), ("bf16", True)):
                     def run():
@@ -175,8 +223,8 @@ def main():
                             and torch.equal(ref[1], got[1]))}
                 print(rnd, "srp_argmax_kernel", name, json.dumps(row),
                       flush=True)
-            for name in LARGE_VARIANTS:
-                use(libs[name])
+            for name in large_variants:
+                use(libs["large_" + name])
                 row = {}
                 for cname, (pairs, (re, im, sync, syns, kw,
                                     packed)) in cases.items():
@@ -198,8 +246,28 @@ def main():
                         "rows_with_another_shift": int((~same).sum())}
                 print(rnd, "gcc_large_kernel", name, json.dumps(row),
                       flush=True)
-            for name in STATS_VARIANTS:
-                use(libs[name])
+            for name in base_variants:
+                use(libs["base_" + name])
+                row = {}
+                for bname, (bloc, bops, bkw) in base_cases.items():
+                    runs = {bname: lambda: gcc_kernel.launch(
+                        frames4, *bops, bloc.pairs, **bkw, with_peaks=True)}
+                    if bloc.pipeline.band_crop:
+                        runs[bname + "_srp"] = lambda: gcc_kernel.launch_srp(
+                            frames4, *bops, bloc.pairs, bloc.lut_flat, **bkw)
+                    for key, run in runs.items():
+                        got = run()
+                        torch.cuda.synchronize()
+                        ref = first.setdefault(key, got)
+                        row[key] = {
+                            "ms": round(chip_smoke.cuda_ms(run,
+                                                           chip_smoke.REPS), 4),
+                            "outputs_equal": all(torch.equal(a, b)
+                                                 for a, b in zip(ref, got))}
+                print(rnd, "gcc_kernel base / SRP mode", name,
+                      json.dumps(row), flush=True)
+            for name in stats_variants:
+                use(libs["stats_" + name])
 
                 def run():
                     return gcc_kernel.launch_stats(

@@ -163,6 +163,105 @@ def test_stats_band_weights_and_refusals():
                                               band_hz="auto"), False)
 
 
+# The base mode's arithmetic on the card, gcc_reference(split=True): the DFT
+# as a split-fp32 product with its flushes, the synthesis a bin chunk at a
+# time.  Bench-scene chirps (800-6000 Hz, noise 0.01), where PHAT lifts the
+# DFT's rounding on the weak bins.
+SPLIT_CASES = {
+    "4mic_fullband": (4, dict(phat=True, fft_pad_mode="circular")),
+    "4mic_band_crop": (4, dict(phat=True, fft_pad_mode="circular",
+                               band_hz=(800.0, 6000.0), band_crop=True)),
+    "3mic_linear_nophat": (3, {}),
+    "2mic_per_pair_phat": (2, dict(phat=True, fft_pad_mode="circular")),
+}
+
+
+def _bench_chirps(m, b, seed=3):
+    """Chirp frames of b random sources on the 1.2 m sphere (noise 0.01),
+    the DPSS window and the pairs of an m-mic array."""
+    mics = {4: jgeo.square_array(0.3), 3: jgeo.reference_array(),
+            2: np.array([[-0.1, 0.0], [0.1, 0.0]], np.float32)}[m]
+    rng = np.random.default_rng(seed)
+    v = np.concatenate([rng.uniform(-1.0, 1.0, (b, 2)),
+                        np.full((b, 1), 1.2)], axis=1)
+    src = v * (1.2 / np.linalg.norm(v, axis=1, keepdims=True))
+    frames = jsynth.synth_scene(src, mics, noise_rms=0.01, seed=seed + 1)
+    return frames.astype(np.float32), jwin.dpss_window(1024), jgeo.mic_pairs(m)
+
+
+def _split_case(case, b):
+    """(frames, window, pairs, the port's config, the split plain version
+    with peaks, the raw split correlograms) of a SPLIT_CASES case."""
+    m, kw = SPLIT_CASES[case]
+    frames, win, pairs = _bench_chirps(m, b)
+    cfg = tcfg.PipelineConfig(**kw)
+    x, p = torch.from_numpy(frames), torch.from_numpy(pairs)
+    ops = tgcc.operands(x, torch.from_numpy(win), cfg)
+    args = dict(phat=cfg.phat, phat_eps=cfg.phat_eps,
+                max_shift=cfg.max_shift, taper_denom=cfg.taper_denom,
+                split=True)
+    return (frames, win, pairs, cfg,
+            tgcc.gcc_reference(x, *ops, p, **args, with_peaks=True),
+            tgcc.gcc_reference(x, *ops, p, **args, with_peaks=False))
+
+
+def _clear(raw, scale, margin=1e-4):
+    """Rows whose two best raw values lie more than margin x scale apart."""
+    top2 = np.sort(np.asarray(raw), axis=-1)[..., -2:]
+    return (top2[..., 1] - top2[..., 0]) > margin * scale
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_split_reference_matches_pallas_interpret(case):
+    """The plain version in the kernel's arithmetic against the JAX
+    package's fused kernel in interpret mode (f32 on both sides, another
+    DFT arithmetic): correlograms, raw and tapered, within 3e-5 of scale;
+    shifts equal and tdoa within 1e-3 samples on rows clear of near ties."""
+    frames, win, pairs, cfg, got, raw = _split_case(case, 8)
+    jc = jcfg.PipelineConfig(**SPLIT_CASES[case][1])
+    args = (jnp.asarray(frames), jnp.asarray(win), pairs, jc)
+    ref = [np.asarray(r) for r in jgcc.fused_gcc_peaks(
+        *args, tile_b=8, interpret=True)]
+    ref_raw = np.asarray(jgcc.fused_gcc(*args, tile_b=8, interpret=True))
+    scale = np.abs(ref_raw).max()
+    np.testing.assert_allclose(raw.numpy() / scale, ref_raw / scale,
+                               atol=3e-5)
+    np.testing.assert_allclose(got[0].numpy() / scale, ref[0] / scale,
+                               atol=3e-5)
+    clear = _clear(ref_raw, scale)
+    assert clear.mean() > 0.5
+    np.testing.assert_array_equal(got[1].numpy()[clear], ref[1][clear])
+    np.testing.assert_allclose(got[2].numpy()[clear], ref[2][clear],
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_split_reference_against_float64(case):
+    """The kernel's arithmetic against float64 on the same f32 operands:
+    within 3e-5 of scale raw and tapered (the CUDA-core stage it replaces
+    was 3.04e-05 on the card), equal shifts on rows clear of near ties."""
+    frames, win, pairs, cfg, got, raw = _split_case(case, 16)
+    x = torch.from_numpy(frames).double()
+    win_gain, mats = tgcc.operands(torch.from_numpy(frames),
+                                   torch.from_numpy(win), cfg)
+    args = dict(phat=cfg.phat, phat_eps=cfg.phat_eps,
+                max_shift=cfg.max_shift, taper_denom=cfg.taper_denom)
+    ops64 = (x, win_gain.double(), mats.to(torch.float64),
+             torch.from_numpy(pairs))
+    raw64 = tgcc.gcc_reference(*ops64, **args, with_peaks=False)
+    ref64 = tgcc.gcc_reference(*ops64, **args, with_peaks=True)
+    scale = float(raw64.abs().max())
+    e_raw = float((raw.double() - raw64).abs().max()) / scale
+    e_tap = float((got[0].double() - ref64[0]).abs().max()) / scale
+    print(f"{case}: split plain version vs float64 {e_raw:.2e} raw, "
+          f"{e_tap:.2e} tapered (of scale)")
+    assert e_raw <= 3e-5 and e_tap <= 3e-5
+    clear = torch.from_numpy(_clear(raw64.numpy(), scale))
+    assert bool(clear.float().mean() > 0.5)
+    assert torch.equal(got[1][clear], ref64[1][clear])
+    assert float((got[2].double() - ref64[2]).abs()[clear].max()) < 1e-3
+
+
 # the in-kernel SRP mode (the reference's compact Mode B)
 SRP_CASES = {
     "3mic_phat_circular": (3, dict(fft_pad_mode="circular", phat=True),
@@ -215,7 +314,8 @@ def test_srp_mode_matches_pallas_interpret(case):
         torch.from_numpy(pairs), torch.from_numpy(lut.reshape(p, -1)),
         tcfg.PipelineConfig(**kw))
     base = _port(frames, win, pairs, kw, True)
-    assert len(got) == len(ref) == 7
+    # and the scores [B, G], which the reference kernel does not write
+    assert len(got) == 8 and len(ref) == 7
     for a, b in zip(base, got[:5]):
         assert torch.equal(a, b)
     got = [t.numpy() for t in got]
@@ -228,6 +328,10 @@ def test_srp_mode_matches_pallas_interpret(case):
     smax = np.abs(scores).max()
     np.testing.assert_allclose(score, ref[6], atol=1e-4 * smax)
     np.testing.assert_allclose(score, scores.max(-1), atol=1e-4 * smax)
+    # the same six fp32 adds as the one-hot product, in pair order
+    assert got[7].shape == scores.shape == (8, g)
+    np.testing.assert_allclose(got[7], scores, atol=1e-6 * smax)
+    np.testing.assert_array_equal(score, got[7][np.arange(8), cell])
     picked_ref = scores[np.arange(8), ref[5]]
     picked = scores[np.arange(8), cell]
     np.testing.assert_allclose(picked, picked_ref, atol=1e-4 * smax)
@@ -250,8 +354,10 @@ def test_srp_first_max_is_first_and_in_pair_order():
     corr[1, 0, 1], corr[1, 1, 3], corr[1, 2, 0] = 1.0, 1e-8, -1.0
     lut = torch.tensor([[2, 0, 2, 1, 1], [2, 4, 2, 3, 3], [2, 4, 2, 4, 0]],
                        dtype=torch.int32)
-    cell, score = tgcc.srp_first_max(corr, lut)
+    cell, score, scores = tgcc.srp_first_max(corr, lut)
     assert cell.tolist() == [0, 3] and cell.dtype == torch.int32
+    assert scores.shape == (2, 5)
+    assert torch.equal(scores.gather(-1, cell.long()[:, None])[:, 0], score)
     # (1 + 1e-8) - 1 in pair order; 1e-8 is bf16-rounded first
     want = (torch.tensor(1.0) + torch.tensor(1e-8).bfloat16().float()) - 0.0
     assert float(score[0]) == 3.0 and float(score[1]) == float(want)
@@ -391,7 +497,85 @@ def test_cuda_srp_mode_matches_plain_version(cuda_device, case):
                                  mats.to(torch.float64), p, lut_flat, **args)
     smax = float(ref[6].abs().max())
     assert float((got[6].double() - ref[6]).abs().max()) < 1e-2 * smax
-    # against the scoring of the kernel's own tapered rows: exact cell
-    cell, score = tgcc.srp_first_max(got[0], lut_flat)
+    # against the scoring of the kernel's own tapered rows: exact cell,
+    # every score the same fp32 sum in pair order
+    cell, score, scores = tgcc.srp_first_max(got[0], lut_flat)
     assert torch.equal(got[5], cell)
     assert float((got[6] - score).abs().max()) < 1e-5 * smax
+    assert float((got[7] - scores).abs().max()) <= 1e-6 * smax
+
+
+# the base and SRP modes at batches that no frames-a-block divides, at
+# 2, 3 and 4 mics, full band and band-crop
+RAGGED_CASES = {f"{m}mic_{band}": (m, band) for m in (2, 3, 4)
+                for band in ("fullband", "band_crop")}
+
+
+def _ragged(case, device):
+    m, band = RAGGED_CASES[case]
+    kw = dict(phat=True, fft_pad_mode="circular")
+    if band == "band_crop":
+        kw.update(band_hz=(800.0, 6000.0), band_crop=True)
+    cfg = tcfg.PipelineConfig(**kw)
+    p = len(jgeo.mic_pairs(m))
+    tb = tgcc._lib().att_gcc_frames_per_block(m, p, cfg.num_lags)
+    assert tb >= 1
+    frames, win, pairs = _bench_chirps(m, 2 * tb + 3)
+    x = torch.from_numpy(frames).to(device)
+    win_gain, mats = tgcc.operands(x, torch.from_numpy(win), cfg)
+    args = dict(phat=cfg.phat, phat_eps=cfg.phat_eps,
+                max_shift=cfg.max_shift, taper_denom=cfg.taper_denom)
+    return cfg, x, win_gain, mats, torch.from_numpy(pairs).to(device), args
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(RAGGED_CASES))
+def test_cuda_base_mode_ragged_batches(cuda_device, case):
+    """The base mode against float64 (1e-4 of scale, raw and tapered) and
+    against the plain version in its own arithmetic (5e-5: the tensor
+    cores cut the addends of a step where the plain version rounds, and
+    PHAT lifts that on weak bins; 2.7e-05 at the full band on the card),
+    equal shifts and tdoa within 1e-3 samples on rows clear of near ties."""
+    cfg, x, win_gain, mats, p, args = _ragged(case, cuda_device)
+    ops64 = (x.double(), win_gain.double(), mats.to(torch.float64), p)
+    raw64 = tgcc.gcc_reference(*ops64, **args, with_peaks=False)
+    ref64 = tgcc.gcc_reference(*ops64, **args, with_peaks=True)
+    split = tgcc.gcc_reference(x, win_gain, mats, p, **args,
+                               with_peaks=False, split=True)
+    raw = tgcc.launch(x, win_gain, mats, p, **args, with_peaks=False)
+    got = tgcc.launch(x, win_gain, mats, p, **args, with_peaks=True)
+    scale = float(raw64.abs().max())
+    assert float((raw.double() - raw64).abs().max()) / scale < 1e-4
+    assert float((got[0].double() - ref64[0]).abs().max()) / scale < 1e-4
+    assert float((raw - split).abs().max()) / scale < 5e-5
+    clear = torch.from_numpy(_clear(raw64.cpu().numpy(), scale)).to(
+        cuda_device)
+    assert torch.equal(got[1][clear], ref64[1][clear])
+    assert float((got[2].double() - ref64[2]).abs()[clear].max()) < 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(RAGGED_CASES))
+def test_cuda_srp_mode_ragged_batches(cuda_device, case):
+    """The SRP mode on a ragged batch: its first five outputs equal to the
+    base mode's, its cells and scores [B, G] those of the plain scoring of
+    its own tapered rows (scores within 1e-6 of scale)."""
+    cfg, x, win_gain, mats, p, args = _ragged(case, cuda_device)
+    m = x.shape[1]
+    mics = {4: jgeo.square_array(0.3), 3: jgeo.reference_array(),
+            2: np.array([[-0.1, 0.0], [0.1, 0.0]], np.float32)}[m]
+    lut = jgeo.lag_lut(jcfg.GridConfig(half_cells_x=16, half_cells_y=16,
+                                       cells_per_m=8.0), mics,
+                       jgeo.mic_pairs(m), jcfg.PipelineConfig())
+    lut_flat = torch.from_numpy(lut.reshape(len(jgeo.mic_pairs(m)), -1)).to(
+        cuda_device)
+    got = tgcc.launch_srp(x, win_gain, mats, p, lut_flat, **args)
+    base = tgcc.launch(x, win_gain, mats, p, **args, with_peaks=True)
+    for a, b in zip(base, got[:5]):
+        assert torch.equal(a, b)
+    cell, score, scores = tgcc.srp_first_max(got[0], lut_flat)
+    smax = float(scores.abs().max())
+    assert got[7].shape == scores.shape == (x.shape[0], lut_flat.shape[1])
+    assert torch.equal(got[5], cell)
+    assert float((got[6] - score).abs().max()) <= 1e-6 * smax
+    assert float((got[7] - scores).abs().max()) <= 1e-6 * smax

@@ -346,7 +346,9 @@ def _spy(monkeypatch, calls, mod, name):
 def test_fused_srp_matches_reference(rng, monkeypatch, name):
     """``fused_srp='on'``: scoring and the grid argmax run inside the GCC
     kernel's SRP mode, as in the reference with its kernel on (interpret
-    mode), and the init cell comes from it."""
+    mode), and the init cell and the scores come from it: the scoring
+    product outside is not called."""
+    from audio_triangulation_tpu_torch.ops import srp as tsrp
     from audio_triangulation_tpu_torch.ops.cuda import gcc_kernel
 
     arr, kw, create_kw = CONFIGS[name]
@@ -362,6 +364,7 @@ def test_fused_srp_matches_reference(rng, monkeypatch, name):
     calls = []
     _spy(monkeypatch, calls, gcc_kernel, "fused_gcc_srp")
     _spy(monkeypatch, calls, gcc_kernel, "fused_gcc")
+    _spy(monkeypatch, calls, tsrp, "srp_scores_matmul")
     frames = _frames(rng, mics)
     r = {k: np.asarray(v) for k, v in ref(jnp.asarray(frames)).items()}
     g = {k: v.numpy() for k, v in port(torch.from_numpy(frames)).items()}
@@ -385,9 +388,17 @@ def test_fused_srp_matches_reference(rng, monkeypatch, name):
         mics, tcfg.PipelineConfig(**dict(kw, fused_srp="off")),
         tcfg.GridConfig(**grid), device="cpu", **create_kw)
     o = off(torch.from_numpy(frames))
-    assert calls == ["fused_gcc_srp", "fused_gcc"]
+    assert calls == ["fused_gcc_srp", "fused_gcc", "srp_scores_matmul"]
+    assert sorted(o) == sorted(g)
     for k in o:
-        np.testing.assert_array_equal(o[k].numpy(), g[k], err_msg=k)
+        assert o[k].shape == g[k].shape and o[k].numpy().dtype == g[k].dtype
+        if k == "scores":
+            # the same six fp32 adds of bf16 values, in pair order here and
+            # in the product's order there
+            np.testing.assert_allclose(o[k].numpy() / smax, g[k] / smax,
+                                       atol=1e-6)
+        else:
+            np.testing.assert_array_equal(o[k].numpy(), g[k], err_msg=k)
 
 
 @pytest.mark.parametrize("why,kw,create_kw", [
