@@ -9,12 +9,36 @@
 // products: a bf16 add rounded to bf16, an int8 add that wraps as two's
 // complement.  Both products are formed; w1 + w2 never is.
 //
-// What bounds it on an H100: operations in f32 (137 GFLOP at R = 65,536,
-// N = 1,024, F = 512 against the 67 TFLOP/s of the CUDA cores).  In bf16 and
-// int8 the tensor cores (989 TFLOP/s, 1,979 TOP/s) bring the operations down
-// to the time of the bytes: x is read once and the 4-byte output, as large
-// as x in bf16 and twice x in int8, is written once, and each SM must be
-// fed its operand tiles from L2 fast enough.
+// What bounds it on an H100.  f32: operations.  The tool asks how fp32
+// products run on this card, and every fp32 DFT of the package's main path
+// runs as a split-fp32 product on the tensor cores, so this one does too:
+// three TF32 products (3 x 137 GFLOP at R = 65,536, N = 1,024, F = 512
+// against 495 TFLOP/s, 0.83 ms), which the 67 TFLOP/s of the fp32 CUDA
+// cores (2.05 ms) cannot match.  In bf16 and int8 the tensor cores
+// (989 TFLOP/s, 1,979 TOP/s) bring the operations down to the time of the
+// bytes: x is read once and the 4-byte output, as large as x in bf16 and
+// twice x in int8, is written once, and each SM must be fed its operand
+// tiles from L2 fast enough.
+//
+// f32: dft_split_kernel.  w1 and w2 are split once a call into TF32 hi and
+// lo parts and stored K-major ([4, F, N]: split_pack_kernel; that time is
+// the call's).  A block of three warpgroups owns 192 rows x 128 columns,
+// 64 rows a warpgroup; thread 0 keeps two 88 KB stages filled by TMA (32
+// f32 values of K a stage: the x tile and the four w tiles, under the
+// 128-byte swizzle, ragged edges zero-filled).  Each thread reads the
+// m16n8k8 A fragment of its rows from the x tile, adds s in f32 and splits
+// x + s into TF32 parts in registers (two integer instructions a part), and
+// its warpgroup issues wgmma m64n128k8 with A from registers, three per
+// matrix and step of 8 (lo hi, hi lo, hi hi; lo lo, 2^-22 of a product, is
+// dropped), into one accumulator for both matrices.  The next step's
+// fragments are formed while the step before multiplies.  The tensor cores
+// add with truncation, so the accumulator goes into fp32 registers (round
+// to nearest) every 16 steps (96 products) and is cleared; that second set
+// of 64 registers is why a warpgroup owns 64 rows, not bf16's 128.  What
+// bounds the design: each SM pulls 88 KB from L2 per stage of 4.7 M
+// multiply-adds, the four w tiles 64 KB of it (4.7 TB/s over the card at
+// the TF32 rate); a stage is refilled once every warpgroup has finished its
+// products, and the tensor cores drain at every flush.
 //
 // bf16 and int8: dft_wgmma_kernel.  A block of three warpgroups owns 256
 // rows x 128 columns.  One thread of the producer warpgroup keeps a ring of
@@ -39,12 +63,9 @@
 // Dropped from the CUDA-core template that served these type sets before:
 // bf16 widened to f32 for fp32 FMAs, int8 packed four to a word for __dp4a.
 //
-// f32: dft_matmul_kernel, a shared-memory SGEMM on the CUDA cores (the fp32
-// baseline of the tool): a block of 256 threads owns 128 rows x
-// 64 columns, a thread 8 rows x 4 columns of both products, K advances 16
-// values a step, x is staged K-major so a thread's 8 rows are two 16-byte
-// loads, and the next step's global loads are issued before the current
-// step is computed.  Its two products have their own accumulators.
+// Dropped from the f32 mode's first design: a shared-memory SGEMM on the
+// fp32 CUDA cores (128 x 64 tiles, 8 x 4 outputs a thread), 3.12 ms at the
+// tool's size, slower than two cuBLAS SGEMMs.
 //
 // Dropped from the TPU kernel: the rows-per-grid-step tiling, the VMEM block
 // specs, and the scalar passed through a VMEM block (Mosaic could not
@@ -61,148 +82,6 @@
 #include "hopper.cuh"
 
 namespace {
-
-// ---------------------------------------------------------------------------
-// f32 on the CUDA cores
-
-constexpr int kThreads = 256;
-constexpr int kBM = 128;             // rows of a block's tile
-constexpr int kBN = 64;              // columns of a block's tile
-constexpr int kTM = 8;               // rows a thread owns
-constexpr int kTN = 4;               // columns a thread owns
-constexpr int kDepth = 16;           // values of K staged per step
-constexpr int kXsStride = kBM + 4;   // staged x row (K-major), padded
-static_assert((kBM / kTM) * (kBN / kTN) == kThreads && kTN == 4 && kTM == 8,
-              "one thread per 8 x 4 patch");
-
-__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-__device__ __forceinline__ uint32_t bits(float v) { return __float_as_uint(v); }
-__device__ __forceinline__ float val(uint32_t w) { return __uint_as_float(w); }
-
-// Operands travel as 32-bit words, four to a 16-byte load or store, from
-// global memory through registers to shared memory; a word becomes a float
-// only where x + s is formed and in the FMAs.
-__global__ void __launch_bounds__(kThreads, 2)
-dft_matmul_kernel(const float* __restrict__ x,      // [R, N]
-                  const float* __restrict__ w1,     // [N, F]
-                  const float* __restrict__ w2,     // [N, F]
-                  const float* __restrict__ s_ptr,  // one scalar
-                  float* __restrict__ out,          // [R, F]
-                  int R, int N, int F) {
-  constexpr int kXVecsPerRow = kDepth / 4;                     // 16-byte loads
-  constexpr int kXVecs = kBM * kXVecsPerRow / kThreads;        // per thread
-  constexpr int kWVecsPerRow = kBN / 4;
-  constexpr int kWVecsPerMat = kDepth * kWVecsPerRow;
-  constexpr int kWVecs = 2 * kWVecsPerMat / kThreads;          // per thread
-  static_assert(kBM * kXVecsPerRow % kThreads == 0 && 2 * kWVecsPerMat % kThreads == 0,
-                "whole loads per thread");
-
-  __shared__ __align__(16) uint32_t xs[kDepth * kXsStride];   // [k][row]
-  __shared__ __align__(16) uint32_t ws[2][kDepth * kBN];      // [matrix][k][col]
-
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.y * kBM, col0 = blockIdx.x * kBN;
-  const int ty = tid / (kBN / kTN), tx = tid % (kBN / kTN);
-  const float s = *s_ptr;
-
-  float acc1[kTM][kTN], acc2[kTM][kTN];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc1[i][j] = acc2[i][j] = 0.0f;
-
-  uint4 xr[kXVecs], wr[kWVecs];
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < kXVecs; ++i) {
-      const int e = tid + i * kThreads;
-      const int r = e / kXVecsPerRow, q = e % kXVecsPerRow;
-      xr[i] = row0 + r < R
-                  ? __ldg(reinterpret_cast<const uint4*>(
-                        x + (size_t)(row0 + r) * N + k0 + q * 4))
-                  : zero;
-    }
-#pragma unroll
-    for (int i = 0; i < kWVecs; ++i) {
-      const int e = tid + i * kThreads;
-      const float* wm = e / kWVecsPerMat ? w2 : w1;
-      const int e2 = e % kWVecsPerMat;
-      const int k = e2 / kWVecsPerRow, c = e2 % kWVecsPerRow;
-      wr[i] = col0 + c * 4 < F
-                  ? __ldg(reinterpret_cast<const uint4*>(
-                        wm + (size_t)(k0 + k) * F + col0 + c * 4))
-                  : zero;
-    }
-  };
-  auto stage = [&]() {
-#pragma unroll
-    for (int i = 0; i < kXVecs; ++i) {
-      const int e = tid + i * kThreads;
-      const int r = e / kXVecsPerRow, q = e % kXVecsPerRow;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)   // x + s, transposed to K-major
-        xs[(q * 4 + j) * kXsStride + r] = bits(val(word(xr[i], j)) + s);
-    }
-#pragma unroll
-    for (int i = 0; i < kWVecs; ++i) {
-      const int e = tid + i * kThreads;
-      uint32_t* wm = ws[e / kWVecsPerMat];
-      const int e2 = e % kWVecsPerMat;
-      const int k = e2 / kWVecsPerRow, c = e2 % kWVecsPerRow;
-      *reinterpret_cast<uint4*>(wm + k * kBN + c * 4) = wr[i];
-    }
-  };
-
-  fetch(0);
-  for (int k0 = 0; k0 < N; k0 += kDepth) {
-    stage();
-    __syncthreads();
-    if (k0 + kDepth < N) fetch(k0 + kDepth);
-#pragma unroll
-    for (int d = 0; d < kDepth; ++d) {
-      const uint4 xa0 = *reinterpret_cast<const uint4*>(xs + d * kXsStride + ty * kTM);
-      const uint4 xa1 = *reinterpret_cast<const uint4*>(xs + d * kXsStride + ty * kTM + 4);
-      const uint4 b1 = *reinterpret_cast<const uint4*>(ws[0] + d * kBN + tx * kTN);
-      const uint4 b2 = *reinterpret_cast<const uint4*>(ws[1] + d * kBN + tx * kTN);
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) {
-        const float a = val(i < 4 ? word(xa0, i) : word(xa1, i - 4));
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) {
-          acc1[i][j] = fmaf(a, val(word(b1, j)), acc1[i][j]);
-          acc2[i][j] = fmaf(a, val(word(b2, j)), acc2[i][j]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  const int col = col0 + tx * kTN;
-  if (col < F) {
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      const int row = row0 + ty * kTM + i;
-      if (row >= R) continue;
-      *reinterpret_cast<uint4*>(out + (size_t)row * F + col) = make_uint4(
-          bits(acc1[i][0] + acc2[i][0]), bits(acc1[i][1] + acc2[i][1]),
-          bits(acc1[i][2] + acc2[i][2]), bits(acc1[i][3] + acc2[i][3]));
-    }
-  }
-}
-
-int launch_f32(const void* x, const void* w1, const void* w2, const void* s, void* out,
-               int R, int N, int F, cudaStream_t stream) {
-  const dim3 grid((F + kBN - 1) / kBN, (R + kBM - 1) / kBM);
-  if (grid.y > 65535u) return (int)cudaErrorInvalidValue;
-  dft_matmul_kernel<<<grid, kThreads, 0, stream>>>(
-      (const float*)x, (const float*)w1, (const float*)w2, (const float*)s,
-      (float*)out, R, N, F);
-  return (int)cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // bf16 and int8 on wgmma
@@ -396,6 +275,183 @@ k_major_kernel(const T* __restrict__ w1, const T* __restrict__ w2, T* __restrict
   }
 }
 
+// ---------------------------------------------------------------------------
+// f32 as a split-fp32 product on wgmma
+
+constexpr int kSpWGs = 3;                       // warpgroups, 64 rows each
+constexpr int kSpRows = 64 * kSpWGs;            // rows of a block's tile
+constexpr int kSpCols = 128;                    // columns of a block's tile
+constexpr int kSpThreads = 128 * kSpWGs;
+constexpr int kSpK = 32;                        // values of K a stage: one 128-byte row
+constexpr int kSpStages = 2;
+constexpr int kSpFlushStages = 4;               // sums into fp32 registers every 16 steps
+constexpr int kSpXBytes = kSpRows * 128;        // 24 KB
+constexpr int kSpWBytes = kSpCols * 128;        // 16 KB: w1 hi, w1 lo, w2 hi, w2 lo
+constexpr int kSpStageBytes = kSpXBytes + 4 * kSpWBytes;
+constexpr int kSpSmemBytes = kSpStages * kSpStageBytes + 1024 /* alignment */ + 64;
+static_assert(kSpSmemBytes <= 232448, "fits an SM's shared memory");
+static_assert(kSpXBytes % 1024 == 0 && kSpWBytes % 1024 == 0,
+              "swizzled tiles start on 1,024-byte boundaries");
+
+// Thread t of warpgroup wg holds the m16n8k8 A fragment of rows 16 warp + g
+// and + 8 (g = lane / 4) at K values 8 q + lane % 4 and + 4 of a stage: in the
+// 128-byte swizzle the 16-byte chunk c of row r lies at chunk c ^ (r % 8), and
+// r % 8 = g, so the four loads of a warp hit 32 banks.
+__global__ void __launch_bounds__(kSpThreads, 1)
+dft_split_kernel(const __grid_constant__ CUtensorMap map_x,    // x [R, N]
+                 const __grid_constant__ CUtensorMap map_w,    // [4 F, N] split, K-major
+                 const float* __restrict__ s_ptr,              // one scalar
+                 float* __restrict__ out,                      // [R, F]
+                 int R, int N, int F) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      ((uintptr_t)smem_raw + 1023) & ~(uintptr_t)1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kSpStages * kSpStageBytes);
+  uint64_t* empty = full + kSpStages;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, t = tid % 128;
+  const int warp = t / 32, g = (t % 32) / 4, tq = t % 4;
+  const int row0 = blockIdx.y * kSpRows, col0 = blockIdx.x * kSpCols;
+  const int nkb = N / kSpK;
+
+  if (tid == 0) {
+    for (int i = 0; i < kSpStages; ++i) {
+      hopper::mbar_init(full + i, 1);               // the expect_tx arrival
+      hopper::mbar_init(empty + i, kSpThreads);     // every thread
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  // stage kb: the x tile and the four w tiles, by thread 0
+  auto issue = [&](int kb) {
+    const int st = kb % kSpStages;
+    uint8_t* base = smem + st * kSpStageBytes;
+    hopper::mbar_expect_tx(full + st, kSpStageBytes);
+    hopper::tma_load_2d(base, &map_x, full + st, kb * kSpK, row0);
+    for (int m = 0; m < 4; ++m)
+      hopper::tma_load_2d(base + kSpXBytes + m * kSpWBytes, &map_w, full + st, kb * kSpK,
+                          m * F + col0);
+  };
+  if (tid == 0) {
+    issue(0);
+    if (nkb > 1) issue(1);
+  }
+
+  const float s = *s_ptr;
+  float acc[64], sum[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = sum[i] = 0.f;
+  uint32_t ah[2][4], al[2][4];   // two steps' fragments: one multiplies, one is formed
+  const int xrow = (wg * 64 + warp * 16 + g) * 128 + 4 * tq;   // bytes into an x tile
+
+  for (int kb = 0; kb < nkb; ++kb) {
+    const int st = kb % kSpStages;
+    // a copy that never lands is a fault of the tensor map or the card: stop
+    // the kernel with an error where waiting on would hang it
+    if (!hopper::mbar_wait_bounded(full + st, (kb / kSpStages) & 1)) __trap();
+    const uint8_t* base = smem + st * kSpStageBytes;
+    const uint8_t* xt = base + xrow;
+    uint64_t dw[4];   // w1 hi, w1 lo, w2 hi, w2 lo
+#pragma unroll
+    for (int m = 0; m < 4; ++m) dw[m] = hopper::wgmma_desc_k128(base + kSpXBytes + m * kSpWBytes);
+#pragma unroll
+    for (int q = 0; q < kSpK / 8; ++q) {
+      const int p = q & 1;
+      hopper::wgmma_wait<1>();   // the products of two steps back have read set p
+      if (q == 1 && kb > 0) {
+        // every product of stage kb - 1 is done: its buffers may be refilled
+        hopper::mbar_arrive(empty + (kb - 1) % kSpStages);
+        if (tid == 0 && kb + 1 < nkb) {
+          hopper::mbar_wait(empty + (kb - 1) % kSpStages, ((kb - 1) / kSpStages) & 1);
+          issue(kb + 1);
+        }
+      }
+      const int c0 = ((2 * q) ^ g) * 16, c1 = ((2 * q + 1) ^ g) * 16;
+      const float v[4] = {*reinterpret_cast<const float*>(xt + c0),
+                          *reinterpret_cast<const float*>(xt + 1024 + c0),
+                          *reinterpret_cast<const float*>(xt + c1),
+                          *reinterpret_cast<const float*>(xt + 1024 + c1)};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) hopper::tf32_split(v[i] + s, ah[p][i], al[p][i]);
+      hopper::wgmma_fence();   // the fragments just written, before their products
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {   // small terms first
+        hopper::wgmma_m64n128_tf32(acc, al[p], dw[2 * m] + 2 * q);
+        hopper::wgmma_m64n128_tf32(acc, ah[p], dw[2 * m + 1] + 2 * q);
+        hopper::wgmma_m64n128_tf32(acc, ah[p], dw[2 * m] + 2 * q);
+      }
+      hopper::wgmma_commit();
+    }
+    if ((kb + 1) % kSpFlushStages == 0 || kb + 1 == nkb) {
+      // the tensor cores add with truncation: their sums go into fp32
+      // registers (round to nearest) every kSpFlushStages stages
+      hopper::wgmma_wait0();
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        hopper::keep(acc[i]);
+        sum[i] += acc[i];
+        acc[i] = 0.f;
+      }
+    }
+  }
+
+  // fragment of m64n128: thread t holds rows 16 (t / 32) + (t % 32) / 4 and
+  // + 8, columns 8 j + 2 (t % 4) and + 1
+  const int row = row0 + wg * 64 + 16 * warp + g;
+  const int col_t = col0 + 2 * tq;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = col_t + 8 * j;
+    if (col >= F) continue;
+    if (row < R) store2(out + (size_t)row * F + col, sum[4 * j], sum[4 * j + 1]);
+    if (row + 8 < R) store2(out + (size_t)(row + 8) * F + col, sum[4 * j + 2], sum[4 * j + 3]);
+  }
+}
+
+// wpk [4, F, N]: the TF32 hi and lo parts of w1 and of w2 [N, F], each
+// transposed (blockIdx.z picks the matrix), as k_major_kernel does
+__global__ void __launch_bounds__(256)
+split_pack_kernel(const float* __restrict__ w1, const float* __restrict__ w2,
+                  uint32_t* __restrict__ wpk, int N, int F) {
+  __shared__ float tile[32][33];
+  const float* w = blockIdx.z ? w2 : w1;
+  uint32_t* hi = wpk + (size_t)(2 * blockIdx.z) * N * F;
+  uint32_t* lo = hi + (size_t)N * F;
+  const int f0 = blockIdx.x * 32, n0 = blockIdx.y * 32;
+  for (int r = threadIdx.y; r < 32; r += 8) {
+    const int n = n0 + r, f = f0 + threadIdx.x;
+    if (n < N && f < F) tile[r][threadIdx.x] = w[(size_t)n * F + f];
+  }
+  __syncthreads();
+  for (int r = threadIdx.y; r < 32; r += 8) {
+    const int f = f0 + r, n = n0 + threadIdx.x;
+    if (n < N && f < F) {
+      uint32_t h, l;
+      hopper::tf32_split(tile[threadIdx.x][r], h, l);
+      hi[(size_t)f * N + n] = h;
+      lo[(size_t)f * N + n] = l;
+    }
+  }
+}
+
+int launch_split(const void* x, const void* wpk, const void* s, void* out, int R, int N,
+                 int F, cudaStream_t stream) {
+  CUtensorMap map_x, map_w;
+  if (!hopper::make_map(&map_x, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, x, R, N, kSpRows) ||
+      !hopper::make_map(&map_w, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, wpk, 4 * F, N, kSpCols))
+    return hopper::kErrTensorMap;
+  const dim3 grid((F + kSpCols - 1) / kSpCols, (R + kSpRows - 1) / kSpRows);
+  if (grid.y > 65535u) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      dft_split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSpSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  dft_split_kernel<<<grid, kSpThreads, kSpSmemBytes, stream>>>(
+      map_x, map_w, (const float*)s, (float*)out, R, N, F);
+  return (int)cudaGetLastError();
+}
+
 using hopper::kErrTensorMap;
 using hopper::make_map;
 static_assert(kWgKBytes == 128, "hopper::make_map reads tiles of 128 bytes of K");
@@ -439,11 +495,24 @@ extern "C" int att_dft_k_major(const void* w1, const void* w2, void* wt, int N, 
   return (int)cudaGetLastError();
 }
 
-// dtype: 0 f32 x f32 -> f32 with w1, w2 [N, F]; 1 bf16 x bf16 -> f32 and
-// 2 int8 x int8 -> int32 with w1, w2 given K-major, as their [F, N]
-// transposes.  s points at one f32 (dtype 0, 1) or int32 (dtype 2) in
-// device memory.  Returns a cudaError_t, or -1 when the TMA tensor maps of
-// dtype 1 or 2 could not be encoded.
+// wpk [4, F, N] f32 = the TF32 hi and lo parts of w1, then of w2 [N, F] f32,
+// each transposed so that K runs fastest: the operand of dtype 0.
+extern "C" int att_dft_split_pack(const void* w1, const void* w2, void* wpk, int N, int F,
+                                  void* stream) {
+  if (N < 1 || F < 1) return (int)cudaErrorInvalidValue;
+  const dim3 grid((F + 31) / 32, (N + 31) / 32, 2), block(32, 8);
+  if (grid.y > 65535u) return (int)cudaErrorInvalidValue;
+  split_pack_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+      (const float*)w1, (const float*)w2, (uint32_t*)wpk, N, F);
+  return (int)cudaGetLastError();
+}
+
+// dtype: 0 f32 x f32 -> f32 with w1 the packed [4, F, N] split copies of
+// att_dft_split_pack (w2 is not read); 1 bf16 x bf16 -> f32 and 2 int8 x
+// int8 -> int32 with w1, w2 given K-major, as their [F, N] transposes.  s
+// points at one f32 (dtype 0, 1) or int32 (dtype 2) in device memory.
+// Returns a cudaError_t, or -1 when the TMA tensor maps could not be
+// encoded.
 extern "C" int att_dft_matmul(const void* x, const void* w1, const void* w2,
                               const void* s, void* out, int R, int N, int F,
                               int dtype, void* stream) {
@@ -453,7 +522,7 @@ extern "C" int att_dft_matmul(const void* x, const void* w1, const void* w2,
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (dtype) {
-    case 0: return launch_f32(x, w1, w2, s, out, R, N, F, st);
+    case 0: return launch_split(x, w1, s, out, R, N, F, st);
     case 1: return launch_wgmma<__nv_bfloat16, float>(x, w1, w2, s, out, R, N, F, st);
     case 2: return launch_wgmma<int8_t, int>(x, w1, w2, s, out, R, N, F, st);
     default: return (int)cudaErrorInvalidValue;

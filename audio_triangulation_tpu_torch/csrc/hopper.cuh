@@ -1,7 +1,8 @@
 // Thin wrappers over the PTX that the tensor-core kernels of this package
 // share: cp.async, mma.sync (TF32 and bf16), and Hopper's mbarrier, TMA
-// tile load and wgmma (bf16 and int8, both operands K-major in shared
-// memory under the 128-byte swizzle).  Built for sm_90a only.
+// tile load and wgmma (bf16 and int8 with both operands K-major in shared
+// memory under the 128-byte swizzle; TF32 with A from registers).  Built
+// for sm_90a only.
 
 #pragma once
 
@@ -240,6 +241,11 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// returns once at most kPending committed groups are still in flight
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
+}
 
 // Descriptor of a K-major tile whose rows are 128 bytes under the 128-byte
 // swizzle (what TMA writes with CU_TENSOR_MAP_SWIZZLE_128B): groups of 8
@@ -294,6 +300,22 @@ __device__ __forceinline__ void wgmma_m64n128(int (&d)[64], uint64_t a, uint64_t
       "}\n"
       : ATT_64(ATT_R, d)
       : "l"(a), "l"(b), "r"(1));
+}
+
+// d [64 x 128, f32] += a [64 x 8] * b [128 x 8]^T, TF32: a from registers (the
+// mma.sync m16n8k8 A fragment of the warp's 16 rows), b K-major in shared
+// memory under the 128-byte swizzle
+__device__ __forceinline__ void wgmma_m64n128_tf32(float (&d)[64], const uint32_t (&a)[4],
+                                                   uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " ATT_REGS64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : ATT_64(ATT_F, d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 #define ATT_REGS76                                                              \

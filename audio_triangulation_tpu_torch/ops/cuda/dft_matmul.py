@@ -9,11 +9,15 @@ operand types against each other.  ``s`` is a one-element tensor added to
 products; they accumulate and come out in f32 (f32, bf16) or int32 (int8).
 
 On CUDA tensors :func:`dft_matmul` launches ``csrc/dft_matmul.cu`` or
-raises: f32 on the CUDA cores, bf16 and int8 as ``wgmma`` products on the
-tensor cores, which read both operands K-major, so those two type sets
-hand the kernel :func:`k_major` copies of ``w1`` and ``w2`` made on every
-call.  On CPU tensors it runs :func:`dft_matmul_reference`, the plain
-PyTorch version.  ``launches`` counts kernel launches per type set.
+raises.  Every type set runs as ``wgmma`` products on the tensor cores,
+which read ``w1`` and ``w2`` K-major: bf16 and int8 as one product per
+matrix against :func:`k_major` copies, f32 as a split-fp32 product (three
+TF32 products per matrix, as every fp32 DFT of the main path runs) against
+:func:`split_k_major` copies; the copies are made on every call.  On CPU
+tensors it runs :func:`dft_matmul_reference`, the plain PyTorch version
+(exact f32 products); :func:`dft_matmul_split_reference` repeats the f32
+kernel's arithmetic in plain PyTorch.  ``launches`` counts kernel launches
+per type set.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import ctypes
 import torch
 
 from . import _build
+from .srp_kernel import tf32_split
 
 # name -> (operand dtype, accumulator / output / scalar dtype, kernel code)
 TYPE_SETS = {
@@ -31,6 +36,9 @@ TYPE_SETS = {
     "int8": (torch.int8, torch.int32, 2),
 }
 launches = {name: 0 for name in TYPE_SETS}
+# steps of 8 values of K that the f32 kernel sums in the tensor cores before
+# it adds them into fp32 registers (kSpFlushStages stages of 32 values)
+FLUSH_STEPS = 16
 # att_dft_matmul's return when the TMA tensor maps could not be encoded
 TENSOR_MAP_ERROR = -1
 
@@ -73,6 +81,69 @@ def dft_matmul_reference(x: torch.Tensor, w1: torch.Tensor,
     # bf16 values are exact in f32, where the products are summed
     xf = xs.to(acc_dt)
     return torch.matmul(xf, w1.to(acc_dt)) + torch.matmul(xf, w2.to(acc_dt))
+
+
+def dft_matmul_split_reference(x: torch.Tensor, w1: torch.Tensor,
+                               w2: torch.Tensor, s: torch.Tensor
+                               ) -> torch.Tensor:
+    """Plain PyTorch version of the f32 kernel's arithmetic (same contract
+    as :func:`dft_matmul_reference`, f32 only): ``x + s`` and both matrices
+    split into TF32 parts by :func:`~.srp_kernel.tf32_split`; every 8
+    values of K add ``lo hi``, ``hi lo`` and ``hi hi`` of w1, then of w2, to
+    one f32 accumulator (``lo lo`` is dropped), which is added into the f32
+    result every :data:`FLUSH_STEPS` steps and at the end."""
+    name, _, _ = _checked(x, w1, w2, s)
+    if name != "f32":
+        raise ValueError(f"the split product takes f32 operands; got {name}")
+    n = x.shape[1]
+    xh, xl = tf32_split(x + s.reshape(1))
+    parts = [tf32_split(w) for w in (w1, w2)]
+    total = torch.zeros((x.shape[0], w1.shape[1]), dtype=torch.float32,
+                        device=x.device)
+    acc = torch.zeros_like(total)
+    for step, k0 in enumerate(range(0, n, 8)):
+        ks = slice(k0, k0 + 8)
+        for wh, wl in parts:
+            acc += xl[:, ks] @ wh[ks]
+            acc += xh[:, ks] @ wl[ks]
+            acc += xh[:, ks] @ wh[ks]
+        if (step + 1) % FLUSH_STEPS == 0 or k0 + 8 >= n:
+            total += acc
+            acc.zero_()
+    return total
+
+
+def split_k_major_reference(w1: torch.Tensor,
+                            w2: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`split_k_major`."""
+    (h1, l1), (h2, l2) = tf32_split(w1), tf32_split(w2)
+    return torch.stack((h1.t(), l1.t(), h2.t(), l2.t())).contiguous()
+
+
+def split_k_major(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """[4, F, N] f32: the TF32 hi and lo parts of w1, then of w2 [N, F],
+    each transposed so that K runs fastest (the f32 kernel's B operand).
+    A small kernel of ``csrc/dft_matmul.cu`` on CUDA tensors, the plain
+    version on CPU tensors."""
+    if w1.device.type == "cpu":
+        return split_k_major_reference(w1, w2)
+    n, f = w1.shape
+    if (w1.device.type != "cuda" or w2.device != w1.device
+            or w2.shape != w1.shape or w1.dtype != torch.float32
+            or w2.dtype != torch.float32):
+        raise ValueError(
+            f"need two CUDA [N, F] f32 matrices; got {tuple(w1.shape)} "
+            f"{w1.dtype} on {w1.device}, {tuple(w2.shape)} {w2.dtype} on "
+            f"{w2.device}")
+    w1, w2 = w1.contiguous(), w2.contiguous()
+    out = torch.empty((4, f, n), dtype=torch.float32, device=w1.device)
+    lib = _lib()
+    with torch.cuda.device(w1.device):
+        err = lib.att_dft_split_pack(
+            w1.data_ptr(), w2.data_ptr(), out.data_ptr(), n, f,
+            torch.cuda.current_stream(w1.device).cuda_stream)
+    _build.check(err, "split_pack_kernel launch", lib)
+    return out
 
 
 def k_major_reference(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
@@ -126,7 +197,7 @@ def launch(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
         raise ValueError("x, w1, w2 and s must be on one device")
     x, s = x.contiguous(), s.contiguous()
     if name == "f32":
-        w1, w2 = w1.contiguous(), w2.contiguous()
+        w1 = w2 = split_k_major(w1, w2)  # the kernel reads [4, F, N]
     else:
         w1, w2 = k_major(w1, w2)
     out = torch.empty((r, f), dtype=acc_dt, device=dev)
@@ -163,4 +234,6 @@ def _lib():
         lib.att_dft_matmul.restype = ci
         lib.att_dft_k_major.argtypes = [vp] * 3 + [ci] * 3 + [vp]
         lib.att_dft_k_major.restype = ci
+        lib.att_dft_split_pack.argtypes = [vp] * 3 + [ci] * 2 + [vp]
+        lib.att_dft_split_pack.restype = ci
     return lib

@@ -4,7 +4,10 @@ Counterpart of ``tools/int8_microbench.py`` in the JAX package.  The GCC
 kernel's matrix work per tile is two [rows, N] @ [N, F] DFT products; this
 tool runs that shape through ``ops.cuda.dft_matmul`` in each operand type
 and reports ms per call and T(FL)OP/s, to decide whether an int8 or bf16
-numerics mode could pay before building one.
+numerics mode could pay before building one.  All three run on the tensor
+cores; f32 as the split-fp32 product (three TF32 products per matrix)
+that every fp32 DFT of the main path uses, so the types compare as this
+card runs them.
 
 The loop is chained: the scalar added to ``x`` in call i is call i - 1's
 ``out[0, 0] % 3``, computed on the device, so the calls are sequential and

@@ -97,6 +97,11 @@ STREAM_TRIALS, STREAM_TIMED_STEPS = 7, 20
 # totals past one tile of 16; values up to 2^15, so that the sums round
 SCAN_WINDOW = 1535
 SCAN_RAGGED = ((7, 100), (5, 128), (3, 2, 4096), (4, 5000))
+# and the shapes of the pipelined kernel's paths: rows no multiple of 4 at
+# the streaming length, fewer row groups than CTAs, one sample a row, rows
+# longer than one unit of 64 blocks, and the longest row it takes
+SCAN_UNITS = ((1023, SCAN_WINDOW), (3, SCAN_WINDOW), (130, 1), (3, 9000),
+              (2, 524288))
 SCAN_PLAIN_REPS = 2  # the plain version is one small op per position
 # outputs of the step replayed as a CUDA graph that are held bit-equal to
 # the eager step's
@@ -1376,15 +1381,18 @@ def phase_timing(card, locs, frames, large_locs, large, srp_args, results):
                 f"plain peak ops {out_ms:.4f} ms ({card})")
 
 
-def dft_bound(name, rows, n, f) -> dict:
+def dft_bound(name, rows, n, f, *, split=False) -> dict:
     """Bound of one DFT-product call: 2 x 2 rows n f operations at the rate
     the card has for the operand type (fp32 CUDA cores; bf16 and int8
     tensor cores), and x, w1, w2 read once and the 4-byte output written
-    once."""
+    once.  ``split``: f32 as three TF32 products on the tensor cores, the
+    split-fp32 product the f32 kernel runs."""
     rate, size = {"f32": (PEAK_FP32_FLOPS, 4), "bf16": (PEAK_BF16_FLOPS, 2),
                   "int8": (PEAK_INT8_OPS, 1)}[name]
-    return bound(4 * rows * n * f,
-                 size * (rows * n + 2 * n * f) + 4 * rows * f, rate)
+    ops = 4 * rows * n * f
+    if split:
+        ops, rate = 3 * ops, PEAK_TF32_FLOPS
+    return bound(ops, size * (rows * n + 2 * n * f) + 4 * rows * f, rate)
 
 
 def phase_dft_matmul(card, results):
@@ -1393,7 +1401,10 @@ def phase_dft_matmul(card, results):
     65,536 rows that the tool and the timing below give it (s = 1), n 1,024,
     f 512: int8 bit-equal; f32 and bf16 within 1e-5 of the output
     scale of a float64 evaluation of the same type-rounded operands (a
-    1,024-term fp32 sum; the x + s add is made in x's type on both sides).
+    1,024-term fp32 sum; the x + s add is made in x's type on both sides);
+    f32 also within 1e-5 of scale of ``dft_matmul_split_reference``, its
+    arithmetic in plain PyTorch, and its packed split copies of w1, w2
+    equal to the plain version's.
     Then timed at 65,536 rows in turns with the plain version, and beside
     the library form: two ``torch.matmul`` and an add (for bf16 with bf16
     outputs, the only form one call gives), ``torch._int_mm`` for int8."""
@@ -1434,6 +1445,18 @@ def phase_dft_matmul(card, results):
                     fail("2 dft", f"{name}: kernel disagrees with the float64 "
                          "evaluation")
                 worst = max(worst, e_k)
+                if name == "f32":
+                    sp = dft_matmul.dft_matmul_split_reference(xc, w1, w2, s)
+                    e_s = float((got.double() - sp.double()).abs().max()
+                                ) / scale
+                    say("2 dft", f"{name} s={sv}: kernel vs the split plain "
+                        f"version {e_s:.2e} of scale (tolerance 1e-5); that "
+                        f"version vs float64 "
+                        f"{float((sp.double() - r64).abs().max()) / scale:.2e}")
+                    if not e_s <= 1e-5:
+                        fail("2 dft", f"{name}: kernel disagrees with "
+                             "dft_matmul_split_reference")
+                    del sp
                 del xs, r64
             del got, ref
         results[key]["max_abs_err"] = worst
@@ -1445,6 +1468,15 @@ def phase_dft_matmul(card, results):
                 f"{tuple(km.shape)} equal to their transposes: {same}")
             if not same:
                 fail("2 dft", f"{name}: k_major disagrees with w.T")
+        else:  # the split K-major copies
+            km = dft_matmul.split_k_major(w1, w2)
+            same = bool(torch.equal(
+                km, dft_matmul.split_k_major_reference(w1, w2)))
+            say("2 dft", f"{name}: split K-major copies of w1, w2 "
+                f"{tuple(km.shape)} equal to the plain version's: {same}")
+            if not same:
+                fail("2 dft", f"{name}: split_k_major disagrees with its "
+                     "plain version")
 
         s = torch.full((1,), 1, dtype=acc_dt, device="cuda")
         k_ms, p_ms = alternate_ms(
@@ -1480,6 +1512,14 @@ def phase_dft_matmul(card, results):
         bnd = dft_bound(name, x.shape[0], DFT_N, DFT_F)
         ops = 4 * x.shape[0] * DFT_N * DFT_F
         lib_msg = "none" if lib_ms is None else f"{lib_ms:.4f} ms ({lib})"
+        if name == "f32":  # held to the smaller of its two bounds
+            split = dft_bound(name, x.shape[0], DFT_N, DFT_F, split=True)
+            say("5 timing", f"{key}: bound on the fp32 CUDA cores "
+                f"{bnd['bound_ms']:.4f} ms, as three TF32 products "
+                f"{split['bound_ms']:.4f} ms; the kernel runs at "
+                f"{100 * split['bound_ms'] / k_ms:.1f}% of the split bound")
+            results[key]["bound_ms_fp32_cores"] = bnd["bound_ms"]
+            bnd = min(bnd, split, key=lambda d: d["bound_ms"])
         pct = share_of_bound("5 timing", key, k_ms, bnd)
         say("5 timing", f"{key} ({x.shape[0]} x {DFT_N} x {DFT_F} twice): "
             f"kernel {k_ms:.4f} ms ({ops / k_ms / 1e9:.1f} T(FL)OP/s), plain "
@@ -1570,15 +1610,16 @@ def phase_tools(results):
 def phase_scan(card, rng, results):
     """The detector's prefix-sum kernel against its plain version (the
     port's CPU path, evaluated on the CPU): both prefix sums equal bit for
-    bit on the streaming window [2,048, 3, 1,535] and on the ragged sizes,
-    on values up to 2^15.  Then timed at 1,024 and 4,096 streams against its
+    bit on the streaming window [2,048, 3, 1,535], on the ragged sizes
+    and on the shapes of the kernel's unit paths, on values up to 2^15.  Then timed at 1,024 and 4,096 streams against its
     bound (x read once, two arrays written) and beside the library
     yardstick, one ``torch.cumsum`` each of x and x * x, which sums in
     another order and is not bit-equal."""
     import torch
     from audio_triangulation_tpu_torch.ops.cuda import detector_scan
 
-    for shape in ((STREAM_CHECK_STREAMS, 3, SCAN_WINDOW), *SCAN_RAGGED):
+    for shape in ((STREAM_CHECK_STREAMS, 3, SCAN_WINDOW), *SCAN_RAGGED,
+                  *SCAN_UNITS):
         x = torch.from_numpy(rng.uniform(
             -2.0 ** 15, 2.0 ** 15, shape).astype(np.float32))
         want = detector_scan.prefix_sums_reference(x)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time variants of four kernels against each other on the GPU.
+"""Time variants of six kernels against each other on the GPU.
 
 Each variant is a copy of ``audio_triangulation_tpu_torch/csrc`` with one
 line edited, built into its own library; the variants are launched in
@@ -22,7 +22,14 @@ to the compiler's placement, and with its DFT cut to the first 32 samples,
 its samples loaded for the first chunk only, or its synthesis cut out (DFT,
 means and peaks only).
 
-    python3 chip_variants.py [srp] [large] [stats] [base]   # one CUDA card
+    python3 chip_variants.py [srp] [large] [stats] [base] [dft] [scan]
+
+(one CUDA card).  The DFT-product kernel's f32 mode (``dft_matmul.cu``)
+runs at the tool's 65,536 x 1,024 x 512 with its sums flushed into fp32
+registers every 8, 16 (committed) or 32 steps of 8 or once at the end,
+each output held to float64; the detector's scan kernel
+(``detector_scan.cu``) on the [S, 3, 1,535] window at 1,024 and 4,096
+streams with three slots, or with units of 32 blocks.
 
 With no argument every group runs; else the groups named.
 
@@ -102,6 +109,25 @@ BASE_VARIANTS = {
         "gcc_kernel.cu", "for (int fb = 0; fb < nbs; fb += kSub) {",
         "for (int fb = 0; fb < 0; fb += kSub) {"),
 }
+# the DFT-product kernel's f32 mode: how often the tensor cores' sums go
+# into fp32 registers (outputs compared with float64, not with each other)
+DFT_VARIANTS = {
+    "as_committed": None,
+    "flush_every_8_steps": ("dft_matmul.cu", "constexpr int kSpFlushStages = 4; ",
+                            "constexpr int kSpFlushStages = 2; "),
+    "flush_every_32_steps": ("dft_matmul.cu", "constexpr int kSpFlushStages = 4; ",
+                             "constexpr int kSpFlushStages = 8; "),
+    "one_flush_at_the_end": ("dft_matmul.cu", "constexpr int kSpFlushStages = 4; ",
+                             "constexpr int kSpFlushStages = 1 << 20; "),
+}
+# the detector's scan kernel: depth of the slot ring, blocks a unit
+SCAN_VARIANTS = {
+    "as_committed": None,
+    "3_stages": ("detector_scan.cu", "constexpr int kStages = 2; ",
+                 "constexpr int kStages = 3; "),
+    "units_of_32_blocks": ("detector_scan.cu", "constexpr int kChains = 64; ",
+                           "constexpr int kChains = 32; "),
+}
 SRP_VARIANTS = {
     "as_committed": None,
     "round_by_cvt": (
@@ -128,17 +154,20 @@ def main():
     import dataclasses
 
     from audio_triangulation_tpu_torch import Localizer, geometry
-    from audio_triangulation_tpu_torch.ops.cuda import (_build, gcc_kernel,
-                                                        gcc_large, srp_kernel)
+    from audio_triangulation_tpu_torch.ops.cuda import (
+        _build, detector_scan, dft_matmul, gcc_kernel, gcc_large, srp_kernel)
+    from audio_triangulation_tpu_torch.tools import int8_microbench
 
     groups = {"srp": SRP_VARIANTS, "large": LARGE_VARIANTS,
-              "stats": STATS_VARIANTS, "base": BASE_VARIANTS}
+              "stats": STATS_VARIANTS, "base": BASE_VARIANTS,
+              "dft": DFT_VARIANTS, "scan": SCAN_VARIANTS}
     asked = sys.argv[1:] or list(groups)
     if not set(asked) <= set(groups):
         sys.exit(f"chip_variants: groups are {sorted(groups)}; got {asked}")
     chosen = {g: groups[g] if g in asked else {} for g in groups}
     srp_variants, large_variants = chosen["srp"], chosen["large"]
     stats_variants, base_variants = chosen["stats"], chosen["base"]
+    dft_variants, scan_variants = chosen["dft"], chosen["scan"]
     committed = _build.CSRC_DIR
     libs = {}
     with tempfile.TemporaryDirectory() as root:
@@ -158,6 +187,18 @@ def main():
         _build.CSRC_DIR = committed
 
         rng = np.random.default_rng(chip_smoke.SEED)
+        # the DFT product at the tool's size, and the detector's window
+        dft_x, dft_w, _ = int8_microbench.make_inputs(
+            "f32", chip_smoke.DFT_ROWS, chip_smoke.DFT_N, chip_smoke.DFT_F,
+            chip_smoke.DFT_GRID, "cuda", seed=chip_smoke.SEED)
+        dft_w2 = dft_w.flip(0).contiguous()
+        dft_s = torch.ones((1,), device="cuda")
+        dft_xs = (dft_x + dft_s).double()
+        dft_r64 = dft_xs @ dft_w.double() + dft_xs @ dft_w2.double()
+        del dft_xs
+        windows = {n: torch.from_numpy(rng.integers(
+            0, 256, (n, 3, chip_smoke.SCAN_WINDOW)).astype(np.float32)).cuda()
+            for n in (chip_smoke.STREAM_COUNTS[0], chip_smoke.STREAM_COUNTS[-1])}
         mics, grid, configs = chip_smoke.large_configs()
         frames = torch.from_numpy(chip_smoke.scene_frames(
             mics, chip_smoke.LARGE_FRAMES, rng,
@@ -206,6 +247,35 @@ def main():
             _build._loaded[str(_build.BUILD_DIR)] = lib
 
         for rnd in range(ROUNDS):
+            for name in dft_variants:
+                use(libs["dft_" + name])
+
+                def run():
+                    return dft_matmul.launch(dft_x, dft_w, dft_w2, dft_s)
+                got = run()
+                torch.cuda.synchronize()
+                print(rnd, "dft_matmul_kernel_f32", name, json.dumps({
+                    "ms": round(chip_smoke.cuda_ms(run, chip_smoke.DFT_REPS),
+                                4),
+                    "err_of_scale_vs_float64": float(
+                        (got.double() - dft_r64).abs().max()
+                        / dft_r64.abs().max())}), flush=True)
+                del got
+            for name in scan_variants:
+                use(libs["scan_" + name])
+                row = {}
+                for n_streams, win in windows.items():
+                    got = detector_scan.launch(win)
+                    torch.cuda.synchronize()
+                    ref = first.setdefault(f"scan_{n_streams}", got)
+                    row[n_streams] = {
+                        "ms": round(chip_smoke.cuda_ms(
+                            lambda: detector_scan.launch(win),
+                            chip_smoke.REPS), 4),
+                        "outputs_equal": all(torch.equal(a, b)
+                                             for a, b in zip(ref, got))}
+                print(rnd, "detector_scan_kernel", name, json.dumps(row),
+                      flush=True)
             for name in srp_variants:
                 use(libs["srp_" + name])
                 row = {}

@@ -172,7 +172,7 @@ def test_framing_short_stream_raises():
 # ---------------------------------------------------------------------------
 # the scan kernel's wrapper and plain version
 
-@pytest.mark.parametrize("t_len", [100, 1535, 4096, 5000])
+@pytest.mark.parametrize("t_len", [100, 1535, 4096, 5000, 1, 9000])
 def test_prefix_sums_reference_is_both_blocked_sums(t_len):
     """The plain version of the scan kernel: the prefix sums of x and of
     x * x (the square rounded to f32 first), each equal to the JAX package's
@@ -241,9 +241,12 @@ def cuda_device():
 
 
 @pytest.mark.gpu
+# the last five: rows no multiple of 4 at the streaming length, fewer row
+# groups than CTAs, rows of more than one unit of 64 blocks, the longest row
 @pytest.mark.parametrize("shape", [(64, 3, 1535), (3, 100), (5, 128),
                                    (2, 2, 4096), (3, 5000), (1, 40000),
-                                   (130, 1)],
+                                   (130, 1), (1023, 1535), (3, 1535),
+                                   (4096, 3, 1535), (3, 9000), (2, 524288)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_cuda_scan_is_bit_equal_to_the_cpu_path(cuda_device, shape):
     rng = np.random.default_rng(10)

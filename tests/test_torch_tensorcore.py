@@ -5,9 +5,10 @@ plain PyTorch (f32 mode: operands split into TF32 parts, three products a
 step of 8 values of K, small terms first; bf16 mode: bf16 operands, f32
 sums); it is held against the JAX package's Pallas kernel in interpret
 mode, against float64 at K = 558, and its split against the definition of
-TF32.  ``k_major`` is the only host-side preparation of the DFT-product
-kernel's ``wgmma`` type sets; its plain version is held byte-equal to the
-transposes.  ``gpu`` cases hold the kernels themselves to these functions
+TF32.  ``k_major`` and ``split_k_major`` are the host-side preparation of
+the DFT-product kernel's ``wgmma`` type sets; their plain versions are
+held to the transposes and the TF32 split, and the f32 mode's arithmetic,
+``dft_matmul_split_reference``, to the three products it keeps.  ``gpu`` cases hold the kernels themselves to these functions
 on a CUDA device."""
 
 import numpy as np
@@ -313,7 +314,63 @@ def test_one_accumulator_order_stays_inside_the_tolerance(rng):
     assert float((ref.double() - r64).abs().max()) <= 1e-5 * scale
 
 
-@pytest.mark.parametrize("name", ["bf16", "int8"])
+def test_dft_split_reference_drops_only_the_low_low_term(rng):
+    """The f32 kernel's plain version equals the float64 sum of the three
+    products it keeps, to f32 summation; that sum misses the exact product
+    by x_lo w_lo and by what the split itself leaves out, each 2^-22 of a
+    product."""
+    x = torch.from_numpy(rng.standard_normal((8, 64)).astype(np.float32))
+    w1 = torch.from_numpy(rng.standard_normal((64, 16)).astype(np.float32))
+    w2 = torch.from_numpy(rng.standard_normal((64, 16)).astype(np.float32))
+    s = torch.full((1,), 0.5)
+    xs = x + s
+    xh, xl = tsrpk.tf32_split(xs)
+    kept = 0
+    for w in (w1, w2):
+        wh, wl = tsrpk.tf32_split(w)
+        kept = kept + (xh.double() @ wh.double() + xh.double() @ wl.double()
+                       + xl.double() @ wh.double())
+    got = dft_matmul.dft_matmul_split_reference(x, w1, w2, s)
+    assert float((got.double() - kept).abs().max()) < 1e-5
+    product = float(xs.abs().max() * max(w1.abs().max(), w2.abs().max()))
+    full = xs.double() @ w1.double() + xs.double() @ w2.double()
+    assert float((kept - full).abs().max()) <= 2 * 64 * 3 * 2.0 ** -22 * product
+    with pytest.raises(ValueError, match="f32"):
+        dft_matmul.dft_matmul_split_reference(
+            x.bfloat16(), w1.bfloat16(), w2.bfloat16(), s)
+
+
+def test_split_k_major_holds_the_tf32_parts_k_major():
+    """[4, F, N]: w1's hi and lo parts, then w2's, each transposed and
+    contiguous; each part a TF32 value, and hi + lo within 2^-21 of w (two
+    11-bit parts hold 22 of f32's 24 bits, so not exactly)."""
+    _, w1, _ = int8_microbench.make_inputs("f32", 4, 192, 80, 1, "cpu")
+    w2 = w1.flip(0).contiguous()
+    pk = dft_matmul.split_k_major(w1, w2)
+    assert pk.shape == (4, 80, 192) and pk.dtype == torch.float32
+    assert pk.is_contiguous()
+    for m, w in enumerate((w1, w2)):
+        hi, lo = tsrpk.tf32_split(w)
+        assert torch.equal(pk[2 * m], hi.t()) and torch.equal(pk[2 * m + 1],
+                                                              lo.t())
+        for part in (pk[2 * m], pk[2 * m + 1]):
+            assert torch.equal(part, tsrpk.tf32_round(part))
+        back = pk[2 * m].t().double() + pk[2 * m + 1].t().double()
+        assert float(((back - w.double()).abs()
+                      / w.double().abs()).max()) <= 2.0 ** -21
+    with pytest.raises(ValueError, match="CUDA"):  # no plain fallback
+        dft_matmul.split_k_major(w1.to("meta"), w2.to("meta"))
+
+
+def test_flush_interval_is_the_sources():
+    """The plain version flushes its sums where the f32 kernel does."""
+    src = (_build.CSRC_DIR / "dft_matmul.cu").read_text()
+    assert "constexpr int kSpK = 32;" in src
+    stages = dft_matmul.FLUSH_STEPS * 8 // 32
+    assert f"constexpr int kSpFlushStages = {stages};" in src
+
+
+@pytest.mark.parametrize("name", ["bf16", "int8", "f32"])
 def test_wgmma_type_sets_refuse_cpu_tensors_and_odd_shapes(name):
     x, w, acc_dt = int8_microbench.make_inputs(name, 4, 64, 16, 1, "cpu")
     s = torch.zeros((1,), dtype=acc_dt)

@@ -4,7 +4,8 @@
 against the kernel body of the JAX package's ``tools/int8_microbench.py``,
 loaded by path and run through ``pl.pallas_call(..., interpret=True)``:
 int8 bit-equal, f32 and bf16 within 1e-5 of the output scale (a 128-term
-fp32 sum in another order).  The pipelined GCC wrapper's CPU path against
+fp32 sum in another order); ``dft_matmul_split_reference``, the f32
+kernel's split-fp32 arithmetic, against the same and against float64.  The pipelined GCC wrapper's CPU path against
 ``gcc_reference`` (equal) and the Pallas GCC kernel in interpret mode
 (the reference probe's own tolerances: correlograms 2e-5, tdoa 1e-4).  The
 port's three tools at a tiny size on the CPU.  ``gpu`` cases hold the two
@@ -93,6 +94,36 @@ def test_dft_matmul_reference_matches_reference_kernel_body(reference_tool,
             scale = np.abs(ref).max()
             np.testing.assert_allclose(got.numpy() / scale, ref / scale,
                                        atol=1e-5)
+
+
+@pytest.mark.parametrize("sv", [0.0, 1.0, 2.0])
+def test_dft_matmul_split_reference_against_float64(sv):
+    """The f32 kernel's arithmetic in plain PyTorch (TF32 parts, lo lo
+    dropped, f32 sums flushed every 16 steps) stays within the kernel's
+    tolerance, 1e-5 of the output scale of a float64 evaluation, at the
+    tool's row tile (256 x 1,024 x 512)."""
+    x, w1, _ = int8_microbench.make_inputs("f32", 256, 1024, 512, 1, "cpu")
+    w2 = w1.flip(0).contiguous()
+    s = torch.full((1,), sv)
+    got = dft_matmul.dft_matmul_split_reference(x, w1, w2, s)
+    xs = (x + s).double()
+    r64 = xs @ w1.double() + xs @ w2.double()
+    assert got.dtype == torch.float32 and got.shape == (256, 512)
+    assert float((got.double() - r64).abs().max()) <= 1e-5 * float(
+        r64.abs().max())
+
+
+def test_dft_matmul_split_reference_matches_reference_kernel_body(
+        reference_tool):
+    x, w1, w2, scalars = _inputs("f32")
+    tx, tw1, tw2 = (torch.from_numpy(a) for a in (x, w1, w2))
+    for s in scalars:
+        ref = _reference_call(reference_tool, "f32", x, w1, w2, s)
+        got = dft_matmul.dft_matmul_split_reference(tx, tw1, tw2,
+                                                    torch.from_numpy(s))
+        scale = np.abs(ref).max()
+        np.testing.assert_allclose(got.numpy() / scale, ref / scale,
+                                   atol=1e-5)
 
 
 def test_int8_add_wraps_as_twos_complement():
@@ -244,6 +275,27 @@ def test_cuda_dft_matmul_matches_plain_version(cuda_device, name, rows):
         r64 = xs @ w.double() + xs @ w2.double()
         assert float((got.double() - r64).abs().max()
                      / r64.abs().max()) < 1e-5
+
+
+@pytest.mark.gpu
+# ragged row counts: inside one tile, across tiles, a tile's edge
+@pytest.mark.parametrize("rows", [3, 257, 4005, 4096])
+def test_cuda_dft_matmul_f32_matches_split_reference(cuda_device, rows):
+    """The f32 kernel within 1e-5 of scale of float64 and of its arithmetic
+    in plain PyTorch, and its split K-major copies equal to theirs."""
+    x, w, _ = int8_microbench.make_inputs("f32", rows, 1024, 512, 1,
+                                          cuda_device, seed=5)
+    w2 = w.flip(0).contiguous()
+    s = torch.full((1,), 2.0, device=cuda_device)
+    got = dft_matmul.launch(x, w, w2, s)
+    split = dft_matmul.dft_matmul_split_reference(x, w, w2, s)
+    xs = (x + s).double()
+    r64 = xs @ w.double() + xs @ w2.double()
+    scale = float(r64.abs().max())
+    assert float((got.double() - r64).abs().max()) <= 1e-5 * scale
+    assert float((got - split).abs().max()) <= 1e-5 * scale
+    assert torch.equal(dft_matmul.split_k_major(w, w2),
+                       dft_matmul.split_k_major_reference(w, w2))
 
 
 @pytest.mark.gpu
