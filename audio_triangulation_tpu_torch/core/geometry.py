@@ -69,6 +69,14 @@ def grid_array(nx: int, ny: int, pitch_m: float, *,
     return np.stack([gx.ravel(), gy.ravel()], axis=-1).astype(dtype)
 
 
+def tetrahedral_array(radius_m: float, *, dtype=np.float32) -> np.ndarray:
+    """Regular-tetrahedron array [4, 3] with vertices ``radius_m`` from the
+    centroid: the smallest non-coplanar array."""
+    v = np.array([[1.0, 1.0, 1.0], [1.0, -1.0, -1.0],
+                  [-1.0, 1.0, -1.0], [-1.0, -1.0, 1.0]])
+    return (v / np.sqrt(3.0) * radius_m).astype(dtype)
+
+
 def reference_array(dtype=np.float32) -> np.ndarray:
     """The 3-mic triangle of the original firmware."""
     from .config import REFERENCE_DISTANCES, REFERENCE_MIRROR, REFERENCE_ROTATE

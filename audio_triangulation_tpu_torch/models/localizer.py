@@ -8,8 +8,9 @@ and ``localize_frames``).  Hand-written CUDA kernels carry the path on a
 GPU: ``ops/cuda/gcc_kernel`` (conditioning through per-pair peaks, in its
 base mode, its spectral-stats mode or its in-kernel SRP mode),
 ``ops/cuda/gcc_large`` (cross-power and lag synthesis of every pair of a
-large array) and ``ops/cuda/gn_kernel`` (the Gauss-Newton solve).  On a CPU
-tensor each wrapper runs its plain PyTorch version.  SRP scoring outside
+large array) and ``ops/cuda/gn_kernel`` (the Gauss-Newton solve and the
+position covariance in one launch).  On a CPU tensor each wrapper runs its
+plain PyTorch version.  SRP scoring outside
 the kernel, the grid peak and the unfused correlation engines are plain
 torch, as they were plain XLA in the reference.
 
@@ -29,8 +30,12 @@ phase/hybrid, the reference's unfused phase-slope branch.  Scoring takes
 the reference's branches: the one-hot product, and for a large array in
 gather form one product against ``onehot_big`` (built when it fits
 ``srp_big_matmul_budget_bytes``) or the pair-blocked product.  The GN
-kernel runs for at most 64 pairs with ``robust='none'``, else the batched
-solver does.  The TPU dispatch knobs ``fused_kernel``, ``fused_tile_b``
+kernel solves, and writes the covariance, for a coplanar array (every mic
+at z = 0) of at most 11 mics (64 pairs) with ``robust='none'``, decided
+once when the localizer is built (``Localizer.gn``); else the batched
+solver and ``solution_covariance`` do, as the reference's CPU route does
+(its TPU route would solve a non-coplanar array as if it were planar).
+The TPU dispatch knobs ``fused_kernel``, ``fused_tile_b``
 and ``fused_sub_tiles`` are accepted and change nothing; both
 ``dft_precision`` values compute in exact fp32.
 """
@@ -113,6 +118,20 @@ def in_kernel_srp(cfg: PipelineConfig, srp_form: str, refine: bool,
             and not has_bias and not refine)
 
 
+def gn_route(mic_positions: np.ndarray, pairs: np.ndarray,
+             pipeline: PipelineConfig, grid: GridConfig,
+             solver: SolverConfig) -> Optional[gn_kernel.GnSolver]:
+    """The GN kernel bound to this array and configuration when it takes
+    them (``gn_kernel.refusal``), else None: the batched solver.  Decided
+    once, from host copies of the array, when a localizer is built."""
+    if gn_kernel.refusal(mic_positions, pairs, solver) is not None:
+        return None
+    return gn_kernel.GnSolver(
+        mic_positions[:, :2], c=pipeline.speed_of_sound_mps, h=grid.height_m,
+        iters=solver.iterations, damping=solver.damping,
+        sphere=solver.constrain_to_sphere)
+
+
 def pin_fp32() -> None:
     """Turn TF32 off: PHAT whitening and the GN solve need full fp32."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -148,6 +167,11 @@ class Localizer(nn.Module):
         self.with_heatmap = with_heatmap
         for name in PARAM_NAMES:
             self.register_buffer(name, getattr(params, name))
+        # the GN kernel bound to this array, or None: the batched solver
+        # (also on the meta device, which holds no coordinates to decide on)
+        self.gn = None if params.mic_positions.is_meta else gn_route(
+            params.mic_positions.cpu().numpy(), params.pairs.cpu().numpy(),
+            pipeline, grid, solver)
         if self.window.is_cuda:
             pin_fp32()
 
@@ -251,7 +275,8 @@ class Localizer(nn.Module):
         return localize_frames(
             self.params, frames, cfg=self.pipeline, grid_cfg=self.grid,
             solver_cfg=self.solver, srp_form=self.srp_form,
-            with_solver=self.with_solver, with_heatmap=self.with_heatmap)
+            with_solver=self.with_solver, with_heatmap=self.with_heatmap,
+            gn=self.gn)
 
     def save(self, path: str) -> str:
         """Write the exact configuration as JSON (the same format the JAX
@@ -399,8 +424,12 @@ def localize_frames(
     srp_form: str,
     with_solver: bool = True,
     with_heatmap: bool = False,
+    gn: Optional[gn_kernel.GnSolver],
 ) -> dict:
-    """Full pipeline on frames [..., M, N].  Returns a dict of:
+    """Full pipeline on frames [..., M, N].  ``gn``: the GN kernel bound to
+    these mics and configurations (``Localizer.gn``), which then solves and
+    writes the covariance; None solves with the batched solver.  Returns a
+    dict of:
 
     - 'tdoa_samples' [..., P]: sub-sample TDOAs (fractional lags)
     - 'best_shift'   [..., P]: integer argmax lags
@@ -501,21 +530,19 @@ def localize_frames(
 
     if with_solver:
         tdoa_s = tdoa_samples / cfg.sample_rate_hz
-        if p_n <= gn_kernel.MAX_PAIRS and solver_cfg.robust == "none":
-            xy, rms = gn_kernel.solve_tdoa_gn(
-                tdoa_s, params.mic_positions, params.pairs,
-                speed_of_sound=cfg.speed_of_sound_mps,
-                height=grid_cfg.height_m, init_xy=xy_grid, cfg=solver_cfg)
+        if gn is not None:
+            xy, rms, cov = gn(tdoa_s, xy_grid)
         else:
             xy, rms = solver_ops.solve_tdoa_batched(
                 tdoa_s, params.mic_positions, params.pairs,
                 speed_of_sound=cfg.speed_of_sound_mps,
                 height=grid_cfg.height_m, init_xy=xy_grid, cfg=solver_cfg)
+            cov = solver_ops.solution_covariance(
+                xy, rms, params.mic_positions, params.pairs,
+                height=grid_cfg.height_m, cfg=solver_cfg)
         out["xy"] = xy
         out["rms_m"] = rms
-        out["xy_cov"] = solver_ops.solution_covariance(
-            xy, rms, params.mic_positions, params.pairs,
-            height=grid_cfg.height_m, cfg=solver_cfg)
+        out["xy_cov"] = cov
     else:
         out["xy"] = xy_grid
         out["rms_m"] = torch.zeros(tdoa_samples.shape[:-1],

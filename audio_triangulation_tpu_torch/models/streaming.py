@@ -31,15 +31,17 @@ is several hundred small launches, which the host cannot issue as fast as
 the card runs them below a few thousand streams;
 :meth:`StreamingLocalizer.graph_step_many` captures the same step once as
 a CUDA graph (the counterpart of the reference's single compiled program)
-and replays it per chunk.  Not ported yet,
-each refused by name: ``n_sources > 1``, ``solve_xyz``, ``solve_velocity``
-and the two-rate ``with_audio``.
+and replays it per chunk.  ``solve_xyz`` adds the free 3-D position of the
+smoothed TDOAs (multi-start Gauss-Newton), in the two-rate localizer too.
+Not ported yet, each refused by name: ``n_sources > 1``,
+``solve_velocity`` and the two-rate ``with_audio``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -83,13 +85,16 @@ def check_ported(stream: StreamConfig) -> None:
         raise NotImplementedError(
             "StreamConfig.n_sources > 1 (simultaneous sources per event) is "
             "not ported yet")
-    if stream.solve_xyz:
-        raise NotImplementedError(
-            "StreamConfig.solve_xyz (free 3-D solve) is not ported yet")
     if stream.solve_velocity:
         raise NotImplementedError(
             "StreamConfig.solve_velocity (delay-Doppler velocity) is not "
             "ported yet")
+
+
+def xyz_starts(stream: StreamConfig) -> Optional[tuple]:
+    """The free 3-D solve's starting heights, or None without
+    ``solve_xyz``."""
+    return tuple(stream.xyz_z_inits) if stream.solve_xyz else None
 
 
 def _init_state(params, cfg: PipelineConfig, lead: tuple) -> StreamState:
@@ -185,6 +190,7 @@ class StreamingLocalizer:
             max_events=self.stream.max_events_per_chunk,
             refractory=self.stream.refractory_samples,
             with_solver=self.with_solver,
+            xyz_z_inits=xyz_starts(self.stream),
             health_weighting=self.stream.health_weighting,
             health_ratio=self.stream.health_ratio,
             health_floor_s=self.stream.health_floor_s)
@@ -341,6 +347,7 @@ def stream_step(
     max_events: int = 1,
     refractory: int = 0,
     with_solver: bool = False,
+    xyz_z_inits: Optional[tuple] = None,
     health_weighting: bool = False,
     health_ratio: float = 3.0,
     health_floor_s: float = 1e-5,
@@ -352,7 +359,10 @@ def stream_step(
     full-frame refill holdoff plus ``refractory`` samples) and EMA-merges
     every accepted event in stream order.  ``with_solver`` adds a
     Gauss-Newton refine of the smoothed correlogram peak (``xy``, ``rms_m``,
-    ``xy_cov``).  ``health_weighting`` turns the per-mic cycle-consistency
+    ``xy_cov``), and ``xyz_z_inits`` (starting heights; None: none) the free
+    3-D position of the same TDOAs (``xyz``, ``xyz_rms_m``).
+    Like ``xy``, they are computed for every stream at every step, from its
+    smoothed state.  ``health_weighting`` turns the per-mic cycle-consistency
     scores into pair weights on the SRP scoring and the solve."""
     n = cfg.frame_size
     c_len = chunks.shape[-1]
@@ -489,6 +499,12 @@ def stream_step(
         out["xy_cov"] = solver_ops.solution_covariance(
             xy, rms, params.mic_positions, params.pairs,
             height=grid_cfg.height_m, cfg=solver_cfg)
+        if xyz_z_inits is not None:
+            out["xyz"], out["xyz_rms_m"] = (
+                solver_ops.solve_tdoa_xyz_multistart(
+                    tdoa_s, params.mic_positions, params.pairs,
+                    speed_of_sound=cfg.speed_of_sound_mps, init_xy=xy,
+                    z_inits=xyz_z_inits))
     return new_state, out
 
 
@@ -588,18 +604,21 @@ class TwoRateStreamingLocalizer:
         events dict with [E]-shaped fields): 'stream_idx', 'accepted'
         (triggered AND past the shift gate), 'triggered', 'event_shifts',
         'tdoa_samples', 'xy_grid', 'confidence', 'xy' / 'rms_m' with the
-        solver, and the scalar 'overflow'."""
+        solver (and 'xyz' / 'xyz_rms_m' with ``solve_xyz``), and the scalar
+        'overflow'."""
         return _localize_triggered(
             states, det["triggered"], det["frame"], det["trig_time"],
             params=self.params, cfg=self.pipeline, grid_cfg=self.grid,
             solver_cfg=self.solver, srp_form=self.srp_form,
-            capacity=self.event_capacity, with_solver=self.with_solver)
+            capacity=self.event_capacity, with_solver=self.with_solver,
+            xyz_z_inits=xyz_starts(self.stream))
 
 
 def _localize_triggered(states: StreamState, triggered, frames, trig_times,
                         *, params, cfg: PipelineConfig, grid_cfg: GridConfig,
                         solver_cfg: SolverConfig, srp_form: str,
-                        capacity: int, with_solver: bool):
+                        capacity: int, with_solver: bool,
+                        xyz_z_inits: Optional[tuple]):
     k = cfg.max_shift
     # stable sort: triggered streams first, in stream order
     order = torch.argsort((~triggered).to(torch.uint8), stable=True)
@@ -644,12 +663,20 @@ def _localize_triggered(states: StreamState, triggered, frames, trig_times,
         "overflow": (triggered.sum() - capacity).clamp_min(0),
     }
     if with_solver:
+        tdoa_s = tdoa_samples / cfg.sample_rate_hz
         xy, rms = solver_ops.solve_tdoa_batched(
-            tdoa_samples / cfg.sample_rate_hz, params.mic_positions,
-            params.pairs, speed_of_sound=cfg.speed_of_sound_mps,
-            height=grid_cfg.height_m, init_xy=xy_grid, cfg=solver_cfg)
+            tdoa_s, params.mic_positions, params.pairs,
+            speed_of_sound=cfg.speed_of_sound_mps, height=grid_cfg.height_m,
+            init_xy=xy_grid, cfg=solver_cfg)
         out["xy"] = xy
         out["rms_m"] = rms
+        if xyz_z_inits is not None:  # as stream_step (the reference's
+            # two-rate localizer has none)
+            out["xyz"], out["xyz_rms_m"] = (
+                solver_ops.solve_tdoa_xyz_multistart(
+                    tdoa_s, params.mic_positions, params.pairs,
+                    speed_of_sound=cfg.speed_of_sound_mps, init_xy=xy,
+                    z_inits=xyz_z_inits))
 
     # scatter the merged state back (slots not accepted write their old
     # values; sel has no duplicates)

@@ -1,32 +1,64 @@
-"""Batched damped Gauss-Newton TDOA solve as a CUDA kernel.
+"""Batched damped Gauss-Newton TDOA solve and its position covariance as
+one CUDA kernel.
 
 Counterpart of ``audio_triangulation_tpu.ops.pallas.gn_kernel``
-(``solve_tdoa_pallas``).  On a CUDA tensor :func:`solve_tdoa_gn` launches
-``csrc/gn_kernel.cu`` or raises; on a CPU tensor it runs
-:func:`gn_reference`, the plain PyTorch version of the same formulas.
-Mics lie at z = 0; at most 64 pairs.  ``launches`` counts kernel launches.
+(``solve_tdoa_pallas``) followed by ``ops.solver.solution_covariance``: the
+Localizer's whole solver tail.  A :class:`GnSolver` holds one array's mic
+coordinates and the solver's constants on the host, built once per
+configuration.  Called on CUDA tensors it launches ``csrc/gn_kernel.cu``
+(one launch and nothing else: the constants travel in the launch's
+parameter block) or raises; on CPU tensors it runs :func:`gn_reference`,
+the plain PyTorch version of the same formulas.  The kernel takes coplanar
+arrays (every mic at z = 0) of 2 to 11 mics with their canonical pair list
+(``geometry.mic_pairs``: at most 55 of the reference kernel's 64 pairs) and
+no robust reweighting; :func:`refusal` says why a configuration does not
+fit.
+``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
+import numpy as np
 import torch
 
+from ...core import geometry
 from ...core.config import SolverConfig
 from . import _build
 
-MAX_PAIRS = 64
+MAX_MICS = 11
+MIN_SIGMA_M = 1e-4  # solution_covariance's default floor on sigma
 launches = 0
+
+
+def refusal(mic_positions: np.ndarray, pairs: np.ndarray,
+            cfg: SolverConfig) -> str | None:
+    """Why the kernel does not take this array and solver configuration
+    (host arrays), or None when it does."""
+    mics = np.asarray(mic_positions)
+    m = mics.shape[0]
+    if cfg.robust != "none":
+        return "robust IRLS runs in the batched solver"
+    if not 2 <= m <= MAX_MICS:
+        return f"the GN kernel takes 2 to {MAX_MICS} mics (at most 64 pairs)"
+    if mics.shape[1] > 2 and np.any(mics[:, 2:] != 0):
+        return "the GN kernel assumes mics at z = 0"
+    if not np.array_equal(np.asarray(pairs), geometry.mic_pairs(m)):
+        return "the GN kernel takes the array's canonical pair list"
+    return None
 
 
 def gn_reference(tau, init, mics, pairs, *, c: float, h: float, iters: int,
                  damping: float, sphere: bool):
     """Plain PyTorch version of the kernel.  tau [B, P] seconds, init
-    [B, 2], mics [M, 2], pairs [P, 2] -> (xy [B, 2], rms [B] meters)."""
+    [B, 2], mics [M, 2+], pairs [P, 2] -> (xy [B, 2], rms [B] meters,
+    cov [B, 2, 2] square meters)."""
     mic_xy = [(float(a), float(b)) for a, b in mics[:, :2].tolist()]
     pair_ij = [(int(i), int(j)) for i, j in pairs.tolist()]
-    targets = [tau[:, p] * c for p in range(len(pair_ij))]
+    n_pairs = len(pair_ij)
+    targets = [tau[:, p] * c for p in range(n_pairs)]
     x, y = init[:, 0], init[:, 1]
 
     def residual_jac(x, y):
@@ -58,11 +90,14 @@ def gn_reference(tau, init, mics, pairs, *, c: float, h: float, iters: int,
         jb = [g2[j] - g2[i] for i, j in pair_ij]
         return rs, ja, jb
 
+    def normal_matrix(ja, jb):
+        return (sum(q * q for q in ja) + damping,
+                sum(q * q for q in jb) + damping,
+                sum(p * q for p, q in zip(ja, jb)))
+
     for _ in range(iters):
         rs, ja, jb = residual_jac(x, y)
-        a00 = sum(q * q for q in ja) + damping
-        a11 = sum(q * q for q in jb) + damping
-        a01 = sum(p * q for p, q in zip(ja, jb))
+        a00, a11, a01 = normal_matrix(ja, jb)
         b0 = sum(p * q for p, q in zip(ja, rs))
         b1 = sum(p * q for p, q in zip(jb, rs))
         det = a00 * a11 - a01 * a01
@@ -70,72 +105,110 @@ def gn_reference(tau, init, mics, pairs, *, c: float, h: float, iters: int,
                                     torch.full_like(det, 1e-20))
         x, y = (x - (a11 * b0 - a01 * b1) * inv_det,
                 y - (a00 * b1 - a01 * b0) * inv_det)
-    rs, _, _ = residual_jac(x, y)
-    rms = torch.sqrt(sum(q * q for q in rs) / len(pair_ij))
-    return torch.stack([x, y], dim=-1), rms
+    # the covariance from the final pass's Jacobian (solution_covariance)
+    rs, ja, jb = residual_jac(x, y)
+    rms = torch.sqrt(sum(q * q for q in rs) / n_pairs)
+    a00, a11, a01 = normal_matrix(ja, jb)
+    sigma2 = rms.clamp_min(MIN_SIGMA_M) ** 2 * (n_pairs / max(n_pairs - 2, 1))
+    det = (a00 * a11 - a01 * a01).clamp_min(1e-20)
+    inv = torch.stack([torch.stack([a11, -a01], dim=-1),
+                       torch.stack([-a01, a00], dim=-1)], dim=-2)
+    cov = sigma2[:, None, None] * (inv / det[:, None, None])
+    return torch.stack([x, y], dim=-1), rms, cov
 
 
-def solve_tdoa_gn(tdoas: torch.Tensor, mic_positions: torch.Tensor,
-                  pairs: torch.Tensor, *, speed_of_sound: float,
-                  height: float, init_xy: torch.Tensor,
-                  cfg: SolverConfig = SolverConfig()):
-    """Drop-in for ``solver.solve_tdoa_batched`` with ``robust='none'``:
-    tdoas [B, P] seconds, init_xy [B, 2] -> (xy [B, 2], rms [B] meters)."""
-    if pairs.shape[0] > MAX_PAIRS:
-        raise ValueError(f"{pairs.shape[0]} pairs; the GN kernel takes at "
-                         f"most {MAX_PAIRS}")
-    if mic_positions.shape[-1] > 2 and bool(
-            (mic_positions[:, 2:] != 0).any()):
-        raise ValueError("the GN kernel assumes mics at z = 0")
-    kw = dict(c=float(speed_of_sound), h=float(height),
-              iters=cfg.iterations, damping=float(cfg.damping),
-              sphere=cfg.constrain_to_sphere)
-    if tdoas.device.type == "cpu":
-        return gn_reference(tdoas.float(), init_xy.float(),
-                            mic_positions.cpu(), pairs.cpu(), **kw)
-    return launch(tdoas, init_xy, mic_positions, pairs, **kw)
+class GnSolver:
+    """The GN kernel bound to one array and solver configuration.
 
+    >>> gn = GnSolver.create(mics, geometry.mic_pairs(4),
+    ...                      speed_of_sound=343.0, height=1.2)
+    >>> xy, rms, cov = gn(tdoas, init_xy)   # [B, P] s, [B, 2] -> outputs
 
-def launch(tau, init, mics, pairs, *, c: float, h: float, iters: int,
-           damping: float, sphere: bool):
-    """Run ``csrc/gn_kernel.cu`` on CUDA tensors (same contract as
-    :func:`gn_reference`); raises on anything it does not take.  The pair
-    indices are not range-checked here (that would sync with the device in
-    the middle of a localizer call): they must index the M mics, as
-    ``Localizer.create`` and ``params_from_reference`` ensure."""
-    global launches
-    if tau.device.type != "cuda":
-        raise ValueError(f"the GN kernel needs CUDA tensors; tau is on "
-                         f"{tau.device}")
-    dev = tau.device
-    b, p = tau.shape
-    m = mics.shape[0]
-    if init.shape != (b, 2) or pairs.shape != (p, 2) or not 1 <= p <= MAX_PAIRS:
-        raise ValueError("GN operand shapes do not match")
-    tau = tau.to(dtype=torch.float32).contiguous()
-    init = init.to(device=dev, dtype=torch.float32).contiguous()
-    mics2 = mics[:, :2].to(device=dev, dtype=torch.float32).contiguous()
-    pairs32 = pairs.to(device=dev, dtype=torch.int32).contiguous()
-    xy = torch.empty((b, 2), dtype=torch.float32, device=dev)
-    rms = torch.empty((b,), dtype=torch.float32, device=dev)
-    if b == 0:
-        return xy, rms
-    lib = _lib()
-    with torch.cuda.device(dev):
-        err = lib.att_gn(tau.data_ptr(), init.data_ptr(), mics2.data_ptr(),
-                         pairs32.data_ptr(), xy.data_ptr(), rms.data_ptr(),
-                         b, m, p, c, h, h * h, iters, damping, int(sphere),
-                         torch.cuda.current_stream(dev).cuda_stream)
-    launches += 1
-    _build.check(err, "gn_kernel launch", lib)
-    return xy, rms
+    Drop-in for ``solver.solve_tdoa_batched`` followed by
+    ``solver.solution_covariance`` with ``robust='none'``."""
+
+    def __init__(self, mics_xy: np.ndarray, *, c: float, h: float,
+                 iters: int, damping: float, sphere: bool):
+        self.mics = np.ascontiguousarray(mics_xy, dtype=np.float32)
+        self.pairs = geometry.mic_pairs(self.mics.shape[0])
+        self.kw = dict(c=float(c), h=float(h), iters=int(iters),
+                       damping=float(damping), sphere=bool(sphere))
+        self._mics_ptr = self.mics.ctypes.data_as(
+            ctypes.POINTER(ctypes.c_float))
+
+    @classmethod
+    def create(cls, mic_positions: np.ndarray, pairs: np.ndarray, *,
+               speed_of_sound: float, height: float,
+               cfg: SolverConfig = SolverConfig()) -> "GnSolver":
+        """From host arrays; raises ValueError when the kernel does not
+        take them (:func:`refusal`)."""
+        why = refusal(mic_positions, pairs, cfg)
+        if why is not None:
+            raise ValueError(why)
+        return cls(np.asarray(mic_positions, np.float32)[:, :2],
+                   c=speed_of_sound, h=height, iters=cfg.iterations,
+                   damping=cfg.damping, sphere=cfg.constrain_to_sphere)
+
+    def __call__(self, tdoas: torch.Tensor, init_xy: torch.Tensor):
+        """tdoas [B, P] seconds, init_xy [B, 2] -> (xy [B, 2], rms [B]
+        meters, cov [B, 2, 2] square meters)."""
+        if tdoas.device.type == "cpu":
+            return self.reference(tdoas.float(), init_xy.float())
+        return self.launch(tdoas, init_xy)
+
+    def reference(self, tau: torch.Tensor, init: torch.Tensor):
+        """:func:`gn_reference` with this solver's constants, on the device
+        of ``tau``."""
+        return gn_reference(tau, init, torch.from_numpy(self.mics),
+                            torch.from_numpy(self.pairs), **self.kw)
+
+    def launch(self, tau: torch.Tensor, init: torch.Tensor):
+        """Run ``csrc/gn_kernel.cu`` on CUDA tensors: tau [B, P] and init
+        [B, 2] float32, contiguous, on one device; raises on anything
+        else.  One kernel launch, no other work on the device."""
+        global launches
+        if tau.device.type != "cuda" or init.device != tau.device:
+            raise ValueError(f"the GN kernel needs CUDA tensors on one "
+                             f"device; tau is on {tau.device}, init on "
+                             f"{init.device}")
+        b, p = tau.shape
+        if (p != self.pairs.shape[0] or init.shape != (b, 2)
+                or tau.dtype != torch.float32 or init.dtype != torch.float32
+                or not (tau.is_contiguous() and init.is_contiguous())
+                or init.data_ptr() % 8):
+            raise ValueError(
+                f"the GN kernel takes float32 contiguous tau [B, "
+                f"{self.pairs.shape[0]}] and 8-byte aligned init [B, 2]; got "
+                f"{tuple(tau.shape)} {tau.dtype}, {tuple(init.shape)} "
+                f"{init.dtype}")
+        dev = tau.device
+        xy = torch.empty((b, 2), dtype=torch.float32, device=dev)
+        rms = torch.empty((b,), dtype=torch.float32, device=dev)
+        cov = torch.empty((b, 2, 2), dtype=torch.float32, device=dev)
+        if b == 0:
+            return xy, rms, cov
+        lib = _lib()
+        kw = self.kw
+        with (contextlib.nullcontext()
+              if dev.index == torch.cuda.current_device()
+              else torch.cuda.device(dev)):
+            err = lib.att_gn(tau.data_ptr(), init.data_ptr(), self._mics_ptr,
+                             xy.data_ptr(), rms.data_ptr(), cov.data_ptr(), b,
+                             self.mics.shape[0], kw["c"], kw["h"],
+                             kw["h"] * kw["h"], kw["iters"], kw["damping"],
+                             int(kw["sphere"]),
+                             torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, "gn_kernel launch", lib)
+        launches += 1
+        return xy, rms, cov
 
 
 def _lib():
     lib = _build.load_library()
     if lib.att_gn.argtypes is None:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.att_gn.argtypes = ([vp] * 6 + [ci] * 3 + [cf] * 3
-                               + [ci, cf, ci, vp])
+        lib.att_gn.argtypes = ([vp, vp, ctypes.POINTER(ctypes.c_float),
+                                vp, vp, vp, ci, ci, cf, cf, cf, ci, cf, ci,
+                                vp])
         lib.att_gn.restype = ci
     return lib

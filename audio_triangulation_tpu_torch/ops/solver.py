@@ -1,12 +1,16 @@
-"""Batched damped Gauss-Newton TDOA solve and its position covariance.
+"""TDOA source solvers: damped Gauss-Newton on the sphere or plane model,
+its position covariance, the free 3-D solve and the far-field bearing.
 
-Counterpart of ``audio_triangulation_tpu.ops.solver`` (main-path subset).
-The source lies on the radius-h sphere around the array center or on the
-z = h plane; residuals are r_p = (|x - m_j| - |x - m_i|) - c tau_p.
-The iteration works on the M-space sufficient statistics Q = S^T W S and
-t2 = S^T W t of the +-1 pair-difference matrix S, so no [B, P] tensor is
-formed per step.  ``robust='huber'|'cauchy'`` adds IRLS rounds.  Runs in
-fp32 (TF32 off on CUDA).
+Counterpart of ``audio_triangulation_tpu.ops.solver`` (all but
+``solve_tdoa_sync``, which belongs with multi-array fusion).  In the
+constrained solves the source lies on the radius-h sphere around the array
+center or on the z = h plane; residuals are r_p = (|x - m_j| - |x - m_i|)
+- c tau_p.  The batched iterations work on the M-space sufficient
+statistics Q = S^T W S and t2 = S^T W t of the +-1 pair-difference matrix
+S, so no [B, P] tensor is formed per step.  ``robust='huber'|'cauchy'``
+adds IRLS rounds.  Runs in fp32 (TF32 off on CUDA); the small linear
+systems go through ``torch.linalg.solve_ex``, which, unlike
+``torch.linalg.solve``, does not wait for the device to check its result.
 """
 
 from __future__ import annotations
@@ -35,6 +39,42 @@ def predicted_tdoas(xy: torch.Tensor, mic_pos3: torch.Tensor,
     d = torch.linalg.vector_norm(p3[..., None, :] - mic_pos3, dim=-1)
     dt = d[..., pairs[:, 1].long()] - d[..., pairs[:, 0].long()]
     return dt / speed_of_sound
+
+
+def solve_tdoa(
+    tdoas: torch.Tensor,
+    mic_positions: torch.Tensor,
+    pairs: torch.Tensor,
+    *,
+    speed_of_sound: float,
+    height: float,
+    init_xy: torch.Tensor,
+    weights: torch.Tensor | None = None,
+    cfg: SolverConfig = SolverConfig(),
+):
+    """Damped Gauss-Newton TDOA solve of one frame, the Jacobian by forward
+    differentiation.  tdoas [P] seconds, init_xy [2] (typically the SRP
+    grid peak), ``weights`` [P] -> (xy [2], rms residual in meters)."""
+    mic3 = _mic3(mic_positions, init_xy.dtype)
+    c = speed_of_sound
+
+    def residual(xy):
+        pred = predicted_tdoas(xy, mic3, pairs, c, height,
+                               cfg.constrain_to_sphere)
+        r = (pred - tdoas) * c  # meters
+        return r if weights is None else r * weights
+
+    damp = cfg.damping * torch.eye(2, dtype=init_xy.dtype,
+                                   device=init_xy.device)
+    xy = init_xy
+    for _ in range(cfg.iterations):
+        r = residual(xy)
+        jac = torch.func.jacfwd(residual)(xy)  # [P, 2]
+        delta = torch.linalg.solve_ex(jac.T @ jac + damp,
+                                      (jac.T @ r)[:, None])[0][:, 0]
+        xy = xy - delta
+    r = residual(xy)
+    return xy, torch.sqrt(torch.mean(r * r))
 
 
 def _mic3(mic_positions: torch.Tensor, dt) -> torch.Tensor:
@@ -181,3 +221,102 @@ def solution_covariance(
     inv = torch.stack([torch.stack([a11, -a01], dim=-1),
                        torch.stack([-a01, a00], dim=-1)], dim=-2)
     return sigma2[..., None, None] * (inv / det[..., None, None])
+
+
+def solve_tdoa_xyz(
+    tdoas: torch.Tensor,
+    mic_positions: torch.Tensor,
+    pairs: torch.Tensor,
+    *,
+    speed_of_sound: float,
+    init_xyz: torch.Tensor,
+    iterations: int = 8,
+    damping: float = 1e-3,
+    z_min: float = 0.05,
+):
+    """Free 3-D damped Gauss-Newton TDOA solve (batched): the source is
+    unconstrained in (x, y, z), z clamped to >= ``z_min`` after every step
+    (a planar array cannot tell +-z apart).  tdoas [B, P] seconds,
+    init_xyz [B, 3] -> (xyz [B, 3], rms [B] meters)."""
+    dt = init_xyz.dtype
+    m = mic_positions.shape[0]
+    mic3 = _mic3(mic_positions, dt)
+    target = tdoas.to(dt) * speed_of_sound
+    sel = consistency.pair_selection(pairs, m, dt)  # [P, M]
+    q = sel.T @ sel  # [M, M]
+    t2 = torch.einsum("pm,...p->...m", sel, target)  # [B, M]
+    damp = damping * torch.eye(3, dtype=dt, device=init_xyz.device)
+
+    def dist_unit(xyz):
+        diff = xyz[..., None, :] - mic3  # [B, M, 3]
+        d = torch.linalg.vector_norm(diff, dim=-1)
+        return d, diff / d.clamp_min(1e-12)[..., None]
+
+    xyz = init_xyz
+    for _ in range(iterations):
+        d, u = dist_unit(xyz)
+        qu = torch.einsum("mn,...nj->...mj", q, u)
+        a = torch.einsum("...mi,...mj->...ij", u, qu) + damp
+        qd = torch.einsum("mn,...n->...m", q, d)
+        b = torch.einsum("...mi,...m->...i", u, qd - t2)
+        xyz = xyz - torch.linalg.solve_ex(a, b[..., None])[0][..., 0]
+        xyz = torch.cat([xyz[..., :2], xyz[..., 2:].clamp_min(z_min)],
+                        dim=-1)
+    d, _ = dist_unit(xyz)
+    r = torch.einsum("pm,...m->...p", sel, d) - target  # final only
+    return xyz, torch.sqrt(torch.mean(r * r, dim=-1))
+
+
+def solve_tdoa_xyz_multistart(
+    tdoas: torch.Tensor,
+    mic_positions: torch.Tensor,
+    pairs: torch.Tensor,
+    *,
+    speed_of_sound: float,
+    init_xy: torch.Tensor,
+    z_inits: tuple = (0.4, 1.2, 2.0),
+    iterations: int = 40,
+    damping: float = 1e-4,
+    z_min: float = 0.05,
+):
+    """Free 3-D solve from a few starting heights, keeping each row's
+    lowest-residual start: from one height GN stalls on nearly overhead
+    sources, where range enters only through the wavefront's curvature.
+    The starts run as one batched solve.  tdoas [B, P] seconds, init_xy
+    [B, 2] -> (xyz [B, 3], rms [B] meters)."""
+    n_z, b = len(z_inits), init_xy.shape[0]
+    # filled on the device: no host copy (a CUDA graph may capture this)
+    z0 = torch.cat([torch.full((b, 1), z, dtype=init_xy.dtype,
+                               device=init_xy.device) for z in z_inits])
+    init = torch.cat([init_xy.repeat(n_z, 1), z0], dim=-1)
+    xyz, rms = solve_tdoa_xyz(
+        tdoas.repeat(n_z, 1), mic_positions, pairs,
+        speed_of_sound=speed_of_sound, init_xyz=init, iterations=iterations,
+        damping=damping, z_min=z_min)
+    xyz, rms = xyz.reshape(n_z, b, 3), rms.reshape(n_z, b)
+    pick = rms.argmin(dim=0)  # [B]
+    rows = torch.arange(b, device=pick.device)
+    return xyz[pick, rows], rms[pick, rows]
+
+
+def farfield_bearing(
+    tdoas: torch.Tensor,
+    mic_positions: torch.Tensor,
+    pairs: torch.Tensor,
+    speed_of_sound: float,
+) -> torch.Tensor:
+    """Linear far-field direction estimate: the least-squares unit vector u
+    of (m_j - m_i) . u = -c tau_p.  mic_positions [M, dim] (dim 2 or 3),
+    tdoas [..., P] -> bearings [..., dim].  For a coplanar [M, 3] array the
+    z row of the normal equations is empty; the 1e-9 damping keeps it
+    solvable and z comes out ~0 (the caller resolves +-z)."""
+    pairs = pairs.long()
+    d = mic_positions[pairs[:, 1]] - mic_positions[pairs[:, 0]]  # [P, dim]
+    rhs = -speed_of_sound * tdoas
+    dim = d.shape[1]
+    ata = d.T @ d + 1e-9 * torch.eye(dim, dtype=d.dtype, device=d.device)
+    atb = torch.einsum("pi,...p->...i", d, rhs)
+    u = torch.linalg.solve_ex(ata.expand(*atb.shape[:-1], dim, dim),
+                              atb[..., None])[0][..., 0]
+    return u / torch.linalg.vector_norm(u, dim=-1,
+                                        keepdim=True).clamp_min(1e-12)

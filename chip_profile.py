@@ -5,8 +5,8 @@ For each of ``chip_smoke.py``'s Localizer paths at its full size (the three
 4-mic bench configurations and the ``fused_srp`` line on 16,384 frames of
 4 x 1,024 samples; the three 64-mic configurations on 256 frames of
 64 x 4,096 samples), and for one ``StreamingLocalizer.step_many`` step of
-its three streaming pipelines at 1,024 and 4,096 streams of 3 mics x 512
-samples, prints:
+its four streaming pipelines at 1,024 and 4,096 streams of 512-sample
+chunks (3 mics; 4 in ``xyz_tetra``), prints:
 
 - the median wall time of 7 unprofiled calls and the device-busy time of
   one profiled call (the sum of its kernels' device time), hence the
@@ -76,7 +76,8 @@ def main():
         for n_streams in (chip_smoke.STREAM_COUNTS[0],
                           chip_smoke.STREAM_COUNTS[-1]):
             carried = [sl.init_states(n_streams)]
-            chunks = chip_smoke.quiet_chunks(rng, n_streams)
+            chunks = chip_smoke.quiet_chunks(
+                rng, n_streams, sl.params.mic_positions.shape[0])
 
             def step():
                 carried[0], out = sl.step_many(carried[0], chunks)

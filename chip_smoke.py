@@ -109,10 +109,15 @@ GRAPH_EQUAL_KEYS = ("event_trigger_abs", "events", "best_shift", "xy")
 # Median |xy - truth| bound of the accepted planted events per pipeline,
 # twice the JAX package's own medians on the 512 planted streams of this
 # scene on the CPU: 0.5412 cm default, 0.9125 cm band-cropped PHAT,
-# 0.6306 cm PHAT with the auto band, all 512 events accepted; the port's
-# CPU path gives the same within 3.1e-6 m (tests/witness_stream.py).
+# 0.6306 cm PHAT with the auto band, 0.1197 cm on the tetrahedral array,
+# all 512 events accepted; the port's CPU path gives the same within
+# 3.1e-6 m (tests/witness_stream.py).  And of |xyz - source| on the
+# tetrahedral array: the JAX package's median is 1.7331 cm (largest 71.80
+# cm: range from a 30 cm array is ill-conditioned), the port's CPU path's
+# 1.7524 cm.
 STREAM_MEDIAN_BOUND_M = {"default": 0.011, "band_crop_phat": 0.018,
-                         "band_auto_phat": 0.013}
+                         "band_auto_phat": 0.013, "xyz_tetra": 0.0024}
+STREAM_XYZ_MEDIAN_BOUND_M = 0.035
 # Median |xy - SOURCE_XY| bound per main-path configuration.  Full-band PHAT
 # whitens the out-of-band noise bins up to the chirp's level, which biases
 # it on this band-limited source: the JAX package's Localizer itself gives
@@ -540,7 +545,17 @@ def phase_stats(rng, results):
     results["gcc_stats_kernel"]["max_abs_err"] = worst
 
 
+GN_CHECK_SIZES = (CHECK_FRAMES, 1027, FRAMES + 27)  # and ragged batches
+
+
 def phase_gn(rng, results):
+    """The GN kernel (solve and covariance) against its plain version on
+    3-, 4- and 11-mic arrays, sphere and plane, at batches no block divides
+    too: xy within 1e-5 m, rms within 1e-6 m, cov within 1e-4 of itself
+    plus 1e-6 of its largest entry.  The kernel rounds every operation as
+    the plain version's tensor ops do, so the line names the outputs that
+    are bit-equal too (on the card torch divides by a scalar as a multiply
+    by its reciprocal, which can move rms by an ulp)."""
     import torch
     from audio_triangulation_tpu_torch.core import geometry
     from audio_triangulation_tpu_torch.core.config import SolverConfig
@@ -548,35 +563,42 @@ def phase_gn(rng, results):
     from audio_triangulation_tpu_torch.ops.cuda import gn_kernel
 
     worst = 0.0
-    for mics in (geometry.reference_array(), geometry.square_array(0.3)):
+    for mics in (geometry.reference_array(), geometry.square_array(0.3),
+                 geometry.circular_array(11, 0.25)):
+        pairs = geometry.mic_pairs(mics.shape[0])
+        mic3 = torch.zeros((mics.shape[0], 3), device="cuda")
+        mic3[:, :2] = torch.as_tensor(mics, device="cuda")
         for sphere in (True, False):
-            cfg = SolverConfig(constrain_to_sphere=sphere)
-            b = CHECK_FRAMES
-            m_t = torch.as_tensor(mics, device="cuda")
-            pairs = torch.as_tensor(geometry.mic_pairs(mics.shape[0]),
-                                    device="cuda")
-            xy_true = torch.as_tensor(rng.uniform(-1.0, 1.0, (b, 2)),
-                                      dtype=torch.float32, device="cuda")
-            mic3 = torch.zeros((mics.shape[0], 3), device="cuda")
-            mic3[:, :2] = m_t
-            tau = solver_ops.predicted_tdoas(xy_true, mic3, pairs, 343.0,
-                                             1.2, sphere)
-            tau = tau + torch.as_tensor(
-                rng.normal(0.0, 2e-7, tau.shape), dtype=torch.float32,
-                device="cuda")
-            init = xy_true * 0.9 + 0.02
-            kw = dict(c=343.0, h=1.2, iters=cfg.iterations,
-                      damping=cfg.damping, sphere=sphere)
-            ref = gn_kernel.gn_reference(tau, init, m_t, pairs, **kw)
-            got = gn_kernel.launch(tau, init, m_t, pairs, **kw)
-            torch.cuda.synchronize()
-            exy = float((got[0] - ref[0]).abs().max())
-            erms = float((got[1] - ref[1]).abs().max())
-            say("3 gn", f"{mics.shape[0]} mics, sphere={sphere}: {b} frames,"
-                f" xy err {exy:.2e} m, rms err {erms:.2e} m")
-            if not (exy <= 1e-5 and erms <= 1e-6):
-                fail("3 gn", "kernel disagrees with its plain version")
-            worst = max(worst, exy)
+            gn = gn_kernel.GnSolver.create(
+                mics, pairs, speed_of_sound=343.0, height=1.2,
+                cfg=SolverConfig(constrain_to_sphere=sphere))
+            for b in GN_CHECK_SIZES:
+                xy_true = torch.as_tensor(rng.uniform(-1.0, 1.0, (b, 2)),
+                                          dtype=torch.float32, device="cuda")
+                tau = solver_ops.predicted_tdoas(
+                    xy_true, mic3, torch.as_tensor(pairs, device="cuda"),
+                    343.0, 1.2, sphere)
+                tau = tau + torch.as_tensor(
+                    rng.normal(0.0, 2e-7, tau.shape), dtype=torch.float32,
+                    device="cuda")
+                init = xy_true * 0.9 + 0.02
+                ref = gn.reference(tau, init)
+                got = gn.launch(tau, init)
+                torch.cuda.synchronize()
+                exy = float((got[0] - ref[0]).abs().max())
+                erms = float((got[1] - ref[1]).abs().max())
+                scale = float(ref[2].abs().max())
+                over = float(((got[2] - ref[2]).abs()
+                              / (1e-4 * ref[2].abs() + 1e-6 * scale)).max())
+                same = [k for k, g, r in zip(("xy", "rms", "cov"), got, ref)
+                        if torch.equal(g, r)]
+                say("3 gn", f"{mics.shape[0]} mics, sphere={sphere}: {b} "
+                    f"frames, xy err {exy:.2e} m, rms err {erms:.2e} m, cov "
+                    f"err {over:.2f} of its tolerance; bit-equal: "
+                    f"{', '.join(same) or 'none'}")
+                if not (exy <= 1e-5 and erms <= 1e-6 and over <= 1.0):
+                    fail("3 gn", "kernel disagrees with its plain version")
+                worst = max(worst, exy)
     results["gn_kernel"]["max_abs_err"] = worst
 
 
@@ -916,7 +938,7 @@ PATH_KERNELS = {"bandcrop_800_6000": ("gcc_kernel", "gn_kernel"),
                                              "gcc_kernel"),
                 **{f"stream_{name}": ("detector_scan_kernel",)
                    for name in ("default", "band_crop_phat",
-                                "band_auto_phat")}}
+                                "band_auto_phat", "xyz_tetra")}}
 
 
 def launch_counts():
@@ -953,35 +975,48 @@ def reset_counts():
 def counted(name, results, fn):
     """Run ``fn`` with every launch count set to 0 just before and read just
     after; add the counts to the results and fail if a kernel of the path
-    ``name`` was not launched.  Calls of the SRP scoring product outside the
-    kernels are counted too: a path whose kernel scores must make none."""
+    ``name`` was not launched.  Calls of the SRP scoring product and of the
+    batched solver and covariance outside the kernels are counted too: a
+    path whose kernel scores must make no scoring product, and a path that
+    takes the GN kernel neither solver call (the kernel writes the
+    covariance)."""
     import torch
-    from audio_triangulation_tpu_torch.ops import srp
+    from audio_triangulation_tpu_torch.ops import solver, srp
 
     reset_counts()
-    scoring = [0]
-    product = srp.srp_scores_matmul
+    spied = {"srp_scores_matmul": srp, "solve_tdoa_batched": solver,
+             "solution_covariance": solver}
+    calls = dict.fromkeys(spied, 0)
+    originals = {k: getattr(mod, k) for k, mod in spied.items()}
 
-    def spy(*args, **kwargs):
-        scoring[0] += 1
-        return product(*args, **kwargs)
+    def spy(k):
+        def call(*args, **kwargs):
+            calls[k] += 1
+            return originals[k](*args, **kwargs)
+        return call
 
-    srp.srp_scores_matmul = spy
+    for k, mod in spied.items():
+        setattr(mod, k, spy(k))
     try:
         out = fn()
     finally:
-        srp.srp_scores_matmul = product
+        for k, mod in spied.items():
+            setattr(mod, k, originals[k])
     torch.cuda.synchronize()
     counts = launch_counts()
     for k, v in counts.items():
         results[k]["launches"] += v
-    say("4 main", f"{name}: launches {counts}; scoring products outside the "
-        f"kernels {scoring[0]}")
+    say("4 main", f"{name}: launches {counts}; calls outside the kernels "
+        f"{calls}")
     if min(counts[k] for k in PATH_KERNELS[name]) < 1:
         fail("4 main", f"{name}: a kernel of its path was never launched")
-    if "gcc_srp_kernel" in PATH_KERNELS[name] and scoring[0]:
+    if "gcc_srp_kernel" in PATH_KERNELS[name] and calls["srp_scores_matmul"]:
         fail("4 main", f"{name}: the scores were formed again outside the "
              "kernel")
+    if "gn_kernel" in PATH_KERNELS[name] and (
+            calls["solve_tdoa_batched"] or calls["solution_covariance"]):
+        fail("4 main", f"{name}: the solve or the covariance ran outside the "
+             "GN kernel")
     return out
 
 
@@ -1141,14 +1176,54 @@ def time_path(card, name, fn, n_frames):
         f"({card})")
 
 
+def gn_inputs(loc, b):
+    """TDOAs [b, P] (seconds) of random plane points under ``loc``'s array
+    with 2e-7 s noise, and inits near them: the solver tail's inputs."""
+    import torch
+    from audio_triangulation_tpu_torch.ops import solver as solver_ops
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    xy0 = torch.rand((b, 2), device="cuda", generator=g) * 2 - 1
+    m_n = loc.mic_positions.shape[0]
+    mic3 = torch.zeros((m_n, 3), device="cuda")
+    mic3[:, :2] = loc.mic_positions[:, :2]
+    tau = solver_ops.predicted_tdoas(
+        xy0, mic3, loc.pairs, loc.pipeline.speed_of_sound_mps,
+        loc.grid.height_m, loc.solver.constrain_to_sphere)
+    tau = tau + 2e-7 * torch.randn(tau.shape, device="cuda", generator=g)
+    return tau.contiguous(), (xy0 * 0.9 + 0.02).contiguous()
+
+
+def device_kernels(fn):
+    """One call of ``fn()`` under torch.profiler: (kernels launched, their
+    device milliseconds, their names)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cpu = torch.autograd.DeviceType.CPU
+    kernels = [e for e in prof.key_averages() if e.device_type != cpu
+               and e.self_device_time_total > 0]
+    return (sum(e.count for e in kernels),
+            sum(e.self_device_time_total for e in kernels) / 1e3,
+            [e.key for e in kernels])
+
+
 def phase_timing(card, locs, frames, large_locs, large, srp_args, results):
     import dataclasses
 
     import torch
     from audio_triangulation_tpu_torch.core import geometry
-    from audio_triangulation_tpu_torch.ops import solver as solver_ops, xcorr
+    from audio_triangulation_tpu_torch.ops import xcorr
     from audio_triangulation_tpu_torch.ops.cuda import (
-        gcc_kernel, gcc_large, gn_kernel, srp_kernel)
+        gcc_kernel, gcc_large, srp_kernel)
+
+    import chip_variants
 
     for name, loc in locs:
         time_path(card, name, lambda: loc(frames), frames.shape[0])
@@ -1249,24 +1324,60 @@ def phase_timing(card, locs, frames, large_locs, large, srp_args, results):
             report("gcc_stats_kernel", name, k_ms, p_ms, bnd,
                    bound_ms_fp32_cores=cores["bound_ms"])
 
+    # row 5 on the band-crop line's Localizer, every form timed alike (CUDA
+    # events, in turns): the plain version, the split tail (the solve-only
+    # kernel through its own wrapper, then torch's covariance), that solve
+    # alone, and the kernel through its wrapper, which is the whole tail
     loc = locs[0][1]
-    xy0 = torch.rand((b, 2), device="cuda") * 2 - 1
-    mic3 = torch.zeros((4, 3), device="cuda")
-    mic3[:, :2] = loc.mic_positions
-    tau = solver_ops.predicted_tdoas(xy0, mic3, pairs, 343.0, 1.2, True)
-    init = xy0 * 0.9 + 0.02
+    m_n, p_n = loc.mic_positions.shape[0], loc.pairs.shape[0]
+    tau, init = gn_inputs(loc, b)
     iters = loc.solver.iterations
-    kw = dict(c=343.0, h=1.2, iters=iters, damping=loc.solver.damping,
-              sphere=True)
-    # per evaluation of residuals and Jacobian: the sphere projection, a
-    # distance and two gradient terms per mic, three differences and five
-    # products per pair
-    report("gn_kernel", f"({b} frames)", *alternate_ms(
-        lambda: gn_kernel.gn_reference(tau, init, loc.mic_positions, pairs,
-                                       **kw),
-        lambda: gn_kernel.launch(tau, init, loc.mic_positions, pairs, **kw)),
-        bound(b * (iters + 1) * (30 + 25 * 4 + 15 * 6),
-              4 * b * (6 + 2 + 2 + 1)))
+    solve_only, split_tail = chip_variants.solve_only_gn_tail(loc)
+    forms = {"plain": lambda: loc.gn.reference(tau, init),
+             "split_tail": lambda: split_tail(tau, init),
+             "solve_only": lambda: solve_only(tau, init),
+             "tail": lambda: loc.gn(tau, init)}
+    order = tuple(forms)
+    t = {k: [] for k in forms}
+    for k in (*order, *order[::-1]):
+        t[k].append(cuda_ms(forms[k], REPS))
+    ms = {k: float(np.mean(v)) for k, v in t.items()}
+    prof = {k: device_kernels(forms[k]) for k in order[1:]}
+    names = prof["tail"][2]
+    if prof["tail"][0] != 1 or not all("gn_kernel" in n for n in names):
+        fail("5 timing", f"the solver tail launched {names}, not the GN "
+             "kernel alone")
+    kernel_ms = prof["tail"][1]
+    for k, label in (("tail", "solver tail (the kernel through its "
+                              "wrapper)"),
+                     ("solve_only", "the solve-only kernel through its "
+                                    "own wrapper (no covariance)"),
+                     ("split_tail", "solver tail, split (the solve-only "
+                                    "kernel, then torch's "
+                                    "solution_covariance)")):
+        say("5 timing", f"gn_kernel {label}: {ms[k]:.4f} ms a call "
+            f"(CUDA events, {t[k][0]:.4f} / {t[k][1]:.4f} in turns), "
+            f"{prof[k][0]} kernel launches a call, {prof[k][1]:.4f} ms of "
+            f"device time ({card})")
+    # per frame and GN pass (iterations and the final one): the sphere
+    # projection (30), each mic's distance and two gradient terms (22),
+    # each pair's residual, Jacobian row and sums (16; 18 with the final
+    # pass's squared residual); the 2x2 solve per iteration (15); the
+    # covariance epilogue (22).  Bytes: tau and init read, xy, rms and cov
+    # written
+    bnd = bound(b * ((iters + 1) * (30 + 22 * m_n + 16 * p_n) + 2 * p_n
+                     + 15 * iters + 22), 4 * b * (p_n + 2 + 2 + 1 + 4))
+    report("gn_kernel", f"({b} frames, through the wrapper)", ms["tail"],
+           ms["plain"], bnd, device_ms=kernel_ms,
+           launches_per_call=prof["tail"][0],
+           solve_only_ms=ms["solve_only"],
+           solve_only_device_ms=prof["solve_only"][1],
+           split_tail_ms=ms["split_tail"],
+           split_tail_launches_per_call=prof["split_tail"][0],
+           split_tail_device_ms=prof["split_tail"][1])
+    pct = share_of_bound("5 timing", "gn_kernel device time", kernel_ms, bnd)
+    say("5 timing", f"gn_kernel device time {kernel_ms:.4f} ms, {pct:.1f}% "
+        f"of its bound ({card})")
 
     # the SRP-argmax kernel; its library yardstick is two calls, a matmul
     # that stores [B, G] and an argmax over it (for the bf16 mode on
@@ -1656,47 +1767,61 @@ def phase_scan(card, rng, results):
                 library="two torch.cumsum (another order, not bit-equal)")
 
 
-def stream_pipelines():
-    """The reference streaming bench's three pipelines."""
+def stream_setups():
+    """The streaming pipelines, name -> (mics, PipelineConfig,
+    StreamConfig): the reference streaming bench's three on its 3-mic
+    array, and the free 3-D solve on a tetrahedral array, its lag window
+    widened to the array's 0.49 m baselines (the default 46 lags fit the
+    reference's 32 cm array; the JAX package's volumetric and DoA models
+    widen it the same way)."""
+    from audio_triangulation_tpu_torch import (PipelineConfig, StreamConfig,
+                                               geometry)
     from audio_triangulation_tpu_torch.tools import bench_streaming
 
-    return dict(bench_streaming.PIPELINES)
+    stream = StreamConfig(chunk_size=STREAM_CHUNK)
+    setups = {name: (geometry.reference_array(), cfg, stream)
+              for name, cfg in bench_streaming.PIPELINES.items()}
+    tetra = geometry.tetrahedral_array(0.3)
+    setups["xyz_tetra"] = (tetra, PipelineConfig(
+        max_shift_samples=geometry.max_lag_for_array(tetra, PipelineConfig())),
+        StreamConfig(chunk_size=STREAM_CHUNK, solve_xyz=True))
+    return setups
 
 
 def stream_localizers(device="cuda"):
-    from audio_triangulation_tpu_torch import (StreamConfig,
-                                               StreamingLocalizer, geometry)
+    from audio_triangulation_tpu_torch import StreamingLocalizer
 
-    return [(name, StreamingLocalizer.create(
-        geometry.reference_array(), cfg,
-        stream=StreamConfig(chunk_size=STREAM_CHUNK), device=device))
-        for name, cfg in stream_pipelines().items()]
+    return [(name, StreamingLocalizer.create(mics, cfg, stream=stream,
+                                             device=device))
+            for name, (mics, cfg, stream) in stream_setups().items()]
 
 
-def quiet_chunks(rng, n_streams):
-    """[S, 3, 512] f32 on the card: the ADC's idle level, +- 1 count (the
+def quiet_chunks(rng, n_streams, n_mics=3):
+    """[S, M, 512] f32 on the card: the ADC's idle level, +- 1 count (the
     reference bench's input; the step's work does not depend on it)."""
     import torch
 
     return torch.from_numpy(rng.integers(
-        127, 130, (n_streams, 3, STREAM_CHUNK)).astype(np.float32)).cuda()
+        127, 130, (n_streams, n_mics, STREAM_CHUNK)).astype(
+            np.float32)).cuda()
 
 
-def stream_scene(n_streams=STREAM_CHECK_STREAMS, seed=SEED):
-    """The streaming check's scene, from its own seed: (streams [S, 3, T]
+def stream_scene(n_streams=STREAM_CHECK_STREAMS, seed=SEED, mics=None):
+    """The streaming check's scene, from its own seed: (streams [S, M, T]
     f32 ADC counts, planted stream indices [E], their sources' plane
-    points [E, 2], their burst starts [E]).  Every stream idles at 127-129
+    points [E, 2], the sources [E, 3]).  Every stream idles at 127-129
     counts; every ``STREAM_PLANT_EVERY``-th holds one chirp burst of a
     source on the 1.2 m sphere (plane radius 0.3-1.0 m, so no pair's delay
     is near zero and the shift gate passes), starting at one of
-    ``STREAM_STARTS``."""
+    ``STREAM_STARTS``.  ``mics`` defaults to the reference array."""
     from audio_triangulation_tpu_torch import geometry
     from audio_triangulation_tpu_torch.utils import synth
 
     rng = np.random.default_rng(seed)
-    mics = geometry.reference_array()
+    if mics is None:
+        mics = geometry.reference_array()
     t_len = STREAM_STEPS * STREAM_CHUNK
-    x = rng.integers(127, 130, (n_streams, 3, t_len),
+    x = rng.integers(127, 130, (n_streams, mics.shape[0], t_len),
                      dtype=np.uint8).astype(np.float32)
     planted = np.arange(0, n_streams, STREAM_PLANT_EVERY)
     ang = rng.uniform(0, 2 * np.pi, planted.size)
@@ -1713,7 +1838,7 @@ def stream_scene(n_streams=STREAM_CHECK_STREAMS, seed=SEED):
         x[planted[sel]] += (110.0 * synth.embed_burst_in_stream(
             bursts[sel], t_len, at)).astype(np.float32)
     x[planted] = np.clip(np.round(x[planted]), 0, 255)
-    return x, planted, xy.astype(np.float32), starts
+    return x, planted, xy.astype(np.float32), src.astype(np.float32)
 
 
 def expected_trigger_steps(x, cfg):
@@ -1740,38 +1865,66 @@ def expected_trigger_steps(x, cfg):
     return np.where(fire.any(axis=-1), first // STREAM_CHUNK, -1)
 
 
+def predicted_tdoas_np(xyz, mics):
+    """float64 TDOAs [..., P] (seconds, 343 m/s) of positions [..., 3] at
+    mics [M, 3]."""
+    from audio_triangulation_tpu_torch import geometry
+
+    pairs = geometry.mic_pairs(mics.shape[0])
+    d = np.linalg.norm(np.asarray(xyz, np.float64)[..., None, :] - mics,
+                       axis=-1)
+    return (d[..., pairs[:, 1]] - d[..., pairs[:, 0]]) / 343.0
+
+
 def phase_stream(card, results):
-    """The streaming path in the three bench pipelines: 2,048 streams x 24
-    chunks with planted events, checked (a) against the planted events: a
+    """The streaming path in the three bench pipelines and ``xyz_tetra``
+    (the free 3-D solve on a tetrahedral array): 2,048 streams x 24 chunks
+    with planted events, checked (a) against the planted events: a
     planted stream triggers in the chunk a float64 numpy detector says and
     in no other, no other stream triggers, and at least 98% of the planted
     events pass the shift gate; (b) the median |xy - truth| of the accepted
-    events under the pipeline's bound; (c) against the port's CPU path on
-    the first 32 streams, every step: trigger positions, ``events`` and
-    ``best_shift`` equal, ``xy`` within 2e-4 m, ``ema_corr`` within 1e-5 of
-    scale; (d) the same 24 chunks through the step replayed as a CUDA graph
-    (``graph_step_many``): trigger positions, ``events``, ``best_shift`` and
-    ``xy`` equal to the eager step's bit for bit.  The eager run's launches
-    of the detector's prefix-sum kernel are counted from 0 (one a step; the
-    CPU path beside it launches none).  Then ``step_many`` is timed at
-    1,024 / 2,048 / 4,096 streams, eager and graphed in turns."""
+    events under the pipeline's bound, and for ``xyz_tetra`` the median
+    |xyz - source| too; (c) against the port's CPU path on the first 32
+    streams, every step: trigger positions, ``events`` and ``best_shift``
+    equal, ``xy`` within 2e-4 m, ``ema_corr`` within 1e-5 of scale, and
+    ``xyz`` in measurement space: its predicted TDOAs within 3e-7 s and
+    ``xyz_rms_m`` within 5e-5 m (a 30 cm array's range is ill-conditioned
+    in float32: tests/test_torch_solver_xyz.py), its distance printed; (d)
+    the same 24 chunks through the step replayed as a CUDA graph
+    (``graph_step_many``): trigger positions, ``events``, ``best_shift``,
+    ``xy`` (and ``xyz``) equal to the eager step's bit for bit.  The eager
+    run's launches of the detector's prefix-sum kernel are counted from 0
+    (one a step; the CPU path beside it launches none).  Then ``step_many``
+    is timed at 1,024 / 2,048 / 4,096 streams, eager and graphed in
+    turns."""
     import torch
     from audio_triangulation_tpu_torch.tools import bench_streaming
 
-    x_np, planted, truth, _ = stream_scene()
-    s_n, n_cpu = x_np.shape[0], STREAM_CPU_STREAMS
-    x = torch.from_numpy(x_np).cuda()
+    n_cpu = STREAM_CPU_STREAMS
     cpu_locs = dict(stream_localizers("cpu"))
     rng = np.random.default_rng(SEED + 1)
+    scenes = {}
     for name, sl in stream_localizers():
+        mics_np = sl.params.mic_positions.cpu().numpy()
+        key = mics_np.tobytes()
+        if key not in scenes:
+            scenes = {key: stream_scene(mics=mics_np)}  # one held at a time
+        x_np, planted, truth, src = scenes[key]
+        s_n, m_n = x_np.shape[:2]
+        x = torch.from_numpy(x_np).cuda()
+        mic3 = np.zeros((m_n, 3))
+        mic3[:, :mics_np.shape[1]] = mics_np
+        xyz_on = sl.stream.solve_xyz
+        keys = GRAPH_EQUAL_KEYS + (("xyz",) if xyz_on else ())
         want = np.full(s_n, -1)
         want[planted] = expected_trigger_steps(x_np[planted], sl.pipeline)
         if (want[planted] < 0).any():
             fail("6 stream", f"{name}: a planted event never triggers in the "
                  "float64 detector")
         cpu_sl = cpu_locs[name]
-        trig, acc, xys, eager = [], [], [], []
-        worst = dict(xy=0.0, ema=0.0, exact=True)
+        trig, acc, xys, xyzs, eager = [], [], [], [], []
+        worst = dict(xy=0.0, ema=0.0, exact=True, xyz_tdoa=0.0, xyz_m=0.0,
+                     xyz_rms=0.0)
 
         def run_eager():
             st, cst = sl.init_states(s_n), cpu_sl.init_states(n_cpu)
@@ -1783,7 +1936,7 @@ def phase_stream(card, results):
                 trig.append(out["triggered"])
                 acc.append(out["event"])
                 xys.append(out["xy"])
-                eager.append([out[k] for k in GRAPH_EQUAL_KEYS])
+                eager.append([out[k] for k in keys])
                 for k in ("event_trigger_abs", "events", "best_shift"):
                     worst["exact"] &= bool(
                         torch.equal(out[k][:n_cpu].cpu(), cout[k]))
@@ -1793,6 +1946,18 @@ def phase_stream(card, results):
                 worst["ema"] = max(worst["ema"], float(
                     (st.ema_corr[:n_cpu].cpu() - cst.ema_corr).abs().max())
                     / scale)
+                if xyz_on:
+                    xyzs.append(out["xyz"])
+                    g = out["xyz"][:n_cpu].cpu().numpy()
+                    c = cout["xyz"].numpy()
+                    worst["xyz_tdoa"] = max(worst["xyz_tdoa"], float(np.abs(
+                        predicted_tdoas_np(g, mic3)
+                        - predicted_tdoas_np(c, mic3)).max()))
+                    worst["xyz_m"] = max(worst["xyz_m"], float(
+                        np.abs(g - c).max()))
+                    worst["xyz_rms"] = max(worst["xyz_rms"], float(
+                        (out["xyz_rms_m"][:n_cpu].cpu()
+                         - cout["xyz_rms_m"]).abs().max()))
             return st
 
         st = counted(f"stream_{name}", results, run_eager)
@@ -1806,8 +1971,9 @@ def phase_stream(card, results):
         want_mask = np.arange(STREAM_STEPS)[:, None] == want[None, :]
         wrong = int((trig != want_mask).sum())
         steps_t = torch.from_numpy(want[planted])
-        took = acc[steps_t, torch.from_numpy(planted)].numpy()
-        err = (xys[steps_t, torch.from_numpy(planted)]
+        planted_t = torch.from_numpy(planted)
+        took = acc[steps_t, planted_t].numpy()
+        err = (xys[steps_t, planted_t]
                - torch.from_numpy(truth)).norm(dim=-1).numpy()
         med = float(np.median(err[took]))
         say("6 stream", f"{name}: {s_n} streams x {STREAM_STEPS} chunks of "
@@ -1817,10 +1983,26 @@ def phase_stream(card, results):
             f"accepted {med * 100:.4f} cm; vs CPU path on {n_cpu} streams: "
             f"trigger positions, events, best shifts equal {exact}, xy "
             f"{worst['xy']:.2e} m, ema_corr {worst['ema']:.2e} of scale")
+        xyz_ok = True
+        if xyz_on:
+            xyzs = torch.stack(xyzs).cpu()
+            xyz_err = (xyzs[steps_t, planted_t]
+                       - torch.from_numpy(src)).norm(dim=-1).numpy()
+            xyz_med = float(np.median(xyz_err[took]))
+            say("6 stream", f"{name}: median |xyz - source| of the accepted "
+                f"{xyz_med * 100:.4f} cm (largest "
+                f"{xyz_err[took].max() * 100:.4f}); vs CPU path: xyz's "
+                f"predicted TDOAs {worst['xyz_tdoa']:.2e} s, xyz_rms_m "
+                f"{worst['xyz_rms']:.2e} m, xyz itself {worst['xyz_m']:.2e} "
+                "m apart")
+            xyz_ok = (bool(torch.isfinite(xyzs).all())
+                      and xyz_med < STREAM_XYZ_MEDIAN_BOUND_M
+                      and worst["xyz_tdoa"] <= 3e-7
+                      and worst["xyz_rms"] <= 5e-5)
         if not (wrong == 0 and took.sum() >= 0.98 * planted.size
                 and int(acc.sum()) == int(took.sum())
                 and med < STREAM_MEDIAN_BOUND_M[name] and exact
-                and worst["xy"] <= 2e-4 and worst["ema"] <= 1e-5):
+                and worst["xy"] <= 2e-4 and worst["ema"] <= 1e-5 and xyz_ok):
             fail("6 stream", f"{name}: result check failed")
         graphed = sl.graph_step_many(sl.init_states(s_n),
                                      x[:, :, :STREAM_CHUNK])
@@ -1828,18 +2010,18 @@ def phase_stream(card, results):
         for i in range(STREAM_STEPS):
             out = graphed(x[:, :, i * STREAM_CHUNK:(i + 1) * STREAM_CHUNK])
             same &= all(bool(torch.equal(out[k], e))
-                        for k, e in zip(GRAPH_EQUAL_KEYS, eager[i]))
+                        for k, e in zip(keys, eager[i]))
         same &= bool(torch.equal(graphed.states.ema_corr, st.ema_corr))
         say("6 stream", f"{name}: the step replayed as a CUDA graph over the "
-            f"same chunks: {', '.join(GRAPH_EQUAL_KEYS)} and the final "
-            f"ema_corr equal to the eager step's bit for bit: {same}")
+            f"same chunks: {', '.join(keys)} and the final ema_corr equal to "
+            f"the eager step's bit for bit: {same}")
         if not same:
             fail("6 stream", f"{name}: the graphed step disagrees with the "
                  "eager step")
-        del st, graphed, eager
+        del st, graphed, eager, x
         chunk_ms = STREAM_CHUNK / sl.pipeline.sample_rate_hz * 1e3
         for n_streams in STREAM_COUNTS:
-            chunks = quiet_chunks(rng, n_streams)
+            chunks = quiet_chunks(rng, n_streams, m_n)
             for how, timer in (
                     ("eager", lambda: bench_streaming.time_steps(
                         sl.step_many, sl.init_states(n_streams), chunks,
@@ -1860,7 +2042,9 @@ def phase_stream(card, results):
 # SRP-argmax kernel's other bound and its bf16 mode, the bf16 DFT product's
 # library form with f32 outputs
 EXTRA_KEYS = ("library", "bound_ms_fp32_cores", "bf16_ms", "bf16_plain_ms",
-              "bf16_library_ms", "bf16_bound_ms", "library_f32_out_ms")
+              "bf16_library_ms", "bf16_bound_ms", "library_f32_out_ms",
+              "device_ms", "launches_per_call", "split_tail_ms",
+              "split_tail_launches_per_call", "split_tail_device_ms")
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")

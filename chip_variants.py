@@ -22,7 +22,7 @@ to the compiler's placement, and with its DFT cut to the first 32 samples,
 its samples loaded for the first chunk only, or its synthesis cut out (DFT,
 means and peaks only).
 
-    python3 chip_variants.py [srp] [large] [stats] [base] [dft] [scan]
+    python3 chip_variants.py [srp] [large] [stats] [base] [dft] [scan] [gn]
 
 (one CUDA card).  The DFT-product kernel's f32 mode (``dft_matmul.cu``)
 runs at the tool's 65,536 x 1,024 x 512 with its sums flushed into fp32
@@ -30,6 +30,15 @@ registers every 8, 16 (committed) or 32 steps of 8 or once at the end,
 each output held to float64; the detector's scan kernel
 (``detector_scan.cu``) on the [S, 3, 1,535] window at 1,024 and 4,096
 streams with three slots, or with units of 32 blocks.
+
+The GN kernel (``gn``): the Localizer's solver tail on the band-crop
+line's 16,384 frames, one call of the GN kernel that writes the covariance
+too, against the split tail, the GN kernel as it was before its covariance
+epilogue (kept below as ``SOLVE_ONLY_GN_SOURCE``, built into a library of
+its own) followed by
+``solution_covariance`` in torch: each timed by CUDA events, and its
+kernels launched and device time read by torch.profiler, in turns;
+``chip_smoke.py`` times the same pair in its phase 5.
 
 With no argument every group runs; else the groups named.
 
@@ -143,6 +152,196 @@ SRP_VARIANTS = {
 }
 
 
+# The GN kernel before its covariance epilogue: the damped Gauss-Newton
+# solve alone, one thread a frame in 256-thread blocks, each mic's terms
+# formed once per pair it is in
+SOLVE_ONLY_GN_SOURCE = r"""
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+struct Lift {
+  float sx, sy, sz;               // source point
+  float j11, j21, j31, j12, j22, j32;  // d(source) / d(x, y)
+};
+
+__device__ __forceinline__ Lift lift(float x, float y, float h, float hh,
+                                     int sphere) {
+  Lift o;
+  if (sphere) {
+    const float nv = sqrtf(x * x + y * y + hh);
+    const float inv = 1.f / nv;
+    const float s = h * inv;
+    o.sx = x * s;
+    o.sy = y * s;
+    o.sz = h * s;
+    const float vx = x * inv, vy = y * inv, vz = h * inv;
+    o.j11 = s * (1.f - vx * vx);
+    o.j21 = s * (-vy * vx);
+    o.j31 = s * (-vz * vx);
+    o.j12 = s * (-vx * vy);
+    o.j22 = s * (1.f - vy * vy);
+    o.j32 = s * (-vz * vy);
+  } else {
+    o.sx = x;
+    o.sy = y;
+    o.sz = h;
+    o.j11 = 1.f; o.j21 = 0.f; o.j31 = 0.f;
+    o.j12 = 0.f; o.j22 = 1.f; o.j32 = 0.f;
+  }
+  return o;
+}
+
+// Distance from the source to mic (mx, my, 0) and its gradient in (x, y).
+__device__ __forceinline__ void mic_term(const Lift& s, float mx, float my,
+                                         float& d, float& g1, float& g2) {
+  const float dx = s.sx - mx, dy = s.sy - my, dz = s.sz;
+  d = sqrtf(dx * dx + dy * dy + dz * dz);
+  const float ud = 1.f / d;
+  const float ux = dx * ud, uy = dy * ud, uz = dz * ud;
+  g1 = ux * s.j11 + uy * s.j21 + uz * s.j31;
+  g2 = ux * s.j12 + uy * s.j22 + uz * s.j32;
+}
+
+__global__ void __launch_bounds__(kThreads)
+gn_kernel(const float* __restrict__ tau,    // [B, P] seconds
+          const float* __restrict__ init,   // [B, 2]
+          const float* __restrict__ mics,   // [M, 2]
+          const int* __restrict__ pairs,    // [P, 2]
+          float* __restrict__ xy_out,       // [B, 2]
+          float* __restrict__ rms_out,      // [B]
+          int B, int M, int P, float c, float h, float hh, int iters,
+          float damping, int sphere) {
+  extern __shared__ float smem[];
+  float* mic_s = smem;                      // [M, 2]
+  int* pair_s = (int*)(smem + 2 * M);       // [P, 2]
+  for (int e = threadIdx.x; e < 2 * M; e += blockDim.x) mic_s[e] = mics[e];
+  for (int e = threadIdx.x; e < 2 * P; e += blockDim.x) pair_s[e] = pairs[e];
+  __syncthreads();
+
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const float* t = tau + (size_t)b * P;
+  float x = init[2 * b], y = init[2 * b + 1];
+
+  for (int it = 0; it < iters; ++it) {
+    const Lift s = lift(x, y, h, hh, sphere);
+    float a00 = 0.f, a11 = 0.f, a01 = 0.f, b0 = 0.f, b1 = 0.f;
+    for (int p = 0; p < P; ++p) {
+      const int i = pair_s[2 * p], j = pair_s[2 * p + 1];
+      float di, g1i, g2i, dj, g1j, g2j;
+      mic_term(s, mic_s[2 * i], mic_s[2 * i + 1], di, g1i, g2i);
+      mic_term(s, mic_s[2 * j], mic_s[2 * j + 1], dj, g1j, g2j);
+      const float r = dj - di - t[p] * c;
+      const float ja = g1j - g1i, jb = g2j - g2i;
+      a00 += ja * ja;
+      a11 += jb * jb;
+      a01 += ja * jb;
+      b0 += ja * r;
+      b1 += jb * r;
+    }
+    a00 += damping;
+    a11 += damping;
+    const float det = a00 * a11 - a01 * a01;
+    const float inv_det = 1.f / (fabsf(det) > 1e-20f ? det : 1e-20f);
+    const float nx = x - (a11 * b0 - a01 * b1) * inv_det;
+    const float ny = y - (a00 * b1 - a01 * b0) * inv_det;
+    x = nx;
+    y = ny;
+  }
+
+  const Lift s = lift(x, y, h, hh, sphere);
+  float ss = 0.f;
+  for (int p = 0; p < P; ++p) {
+    const int i = pair_s[2 * p], j = pair_s[2 * p + 1];
+    float di, dj, g1, g2;
+    mic_term(s, mic_s[2 * i], mic_s[2 * i + 1], di, g1, g2);
+    mic_term(s, mic_s[2 * j], mic_s[2 * j + 1], dj, g1, g2);
+    const float r = dj - di - t[p] * c;
+    ss += r * r;
+  }
+  xy_out[2 * b] = x;
+  xy_out[2 * b + 1] = y;
+  rms_out[b] = sqrtf(ss / (float)P);
+}
+
+}  // namespace
+
+extern "C" int att_gn(const void* tau, const void* init, const void* mics,
+                      const void* pairs, void* xy_out, void* rms_out, int B,
+                      int M, int P, float c, float h, float hh, int iters,
+                      float damping, int sphere, void* stream) {
+  const size_t smem = (size_t)(2 * M + 2 * P) * sizeof(float);
+  const int grid = (B + kThreads - 1) / kThreads;
+  gn_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)tau, (const float*)init, (const float*)mics,
+      (const int*)pairs, (float*)xy_out, (float*)rms_out, B, M, P, c, h, hh,
+      iters, damping, sphere);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def solve_only_gn_tail(loc):
+    """The split solver tail for ``loc`` (a CUDA Localizer on a coplanar
+    array), as (solve, tail): ``solve(tau, init) -> (xy, rms)`` is the
+    solve-only kernel through its wrapper as it stood (the casts, the device
+    context and the mic-z check of every call); ``tail(tau, init) -> (xy,
+    rms, cov)`` adds torch's ``solution_covariance``."""
+    import ctypes
+
+    import torch
+    from audio_triangulation_tpu_torch.ops import solver as solver_ops
+    from audio_triangulation_tpu_torch.ops.cuda import _build
+
+    root = _build.BUILD_DIR / "gn_solve_only"  # beside the package's build
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "gn_solve_only.cu").write_text(SOLVE_ONLY_GN_SOURCE)
+    lib_path = root / "libgn_solve_only.so"
+    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+                    str(lib_path), str(root / "gn_solve_only.cu")],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(lib_path))
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.att_gn.argtypes = [vp] * 6 + [ci] * 3 + [cf] * 3 + [ci, cf, ci, vp]
+    lib.att_gn.restype = ci
+    mics, pairs, cfg = loc.mic_positions, loc.pairs, loc.solver
+    c, h = loc.pipeline.speed_of_sound_mps, loc.grid.height_m
+
+    def solve(tau, init):
+        if mics.shape[-1] > 2 and bool((mics[:, 2:] != 0).any()):
+            raise ValueError("the GN kernel assumes mics at z = 0")
+        dev = tau.device
+        b, p = tau.shape
+        tau32 = tau.to(dtype=torch.float32).contiguous()
+        init32 = init.to(device=dev, dtype=torch.float32).contiguous()
+        mics2 = mics[:, :2].to(device=dev, dtype=torch.float32).contiguous()
+        pairs32 = pairs.to(device=dev, dtype=torch.int32).contiguous()
+        xy = torch.empty((b, 2), dtype=torch.float32, device=dev)
+        rms = torch.empty((b,), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            err = lib.att_gn(
+                tau32.data_ptr(), init32.data_ptr(), mics2.data_ptr(),
+                pairs32.data_ptr(), xy.data_ptr(), rms.data_ptr(), b,
+                mics.shape[0], p, c, h, h * h, cfg.iterations, cfg.damping,
+                int(cfg.constrain_to_sphere),
+                torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(f"solve-only gn_kernel launch: CUDA error {err}")
+        return xy, rms
+
+    def tail(tau, init):
+        xy, rms = solve(tau, init)
+        cov = solver_ops.solution_covariance(xy, rms, mics, pairs, height=h,
+                                             cfg=cfg)
+        return xy, rms, cov
+
+    return solve, tail
+
+
 def main():
     import torch
 
@@ -161,9 +360,18 @@ def main():
     groups = {"srp": SRP_VARIANTS, "large": LARGE_VARIANTS,
               "stats": STATS_VARIANTS, "base": BASE_VARIANTS,
               "dft": DFT_VARIANTS, "scan": SCAN_VARIANTS}
-    asked = sys.argv[1:] or list(groups)
-    if not set(asked) <= set(groups):
-        sys.exit(f"chip_variants: groups are {sorted(groups)}; got {asked}")
+    asked = sys.argv[1:] or [*groups, "gn"]
+    if not set(asked) <= {*groups, "gn"}:
+        sys.exit(f"chip_variants: groups are {sorted(groups) + ['gn']}; "
+                 f"got {asked}")
+    if "gn" in asked:
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip(), flush=True)
+        time_gn_tails()
+        if asked == ["gn"]:
+            return
     chosen = {g: groups[g] if g in asked else {} for g in groups}
     srp_variants, large_variants = chosen["srp"], chosen["large"]
     stats_variants, base_variants = chosen["stats"], chosen["base"]
@@ -351,6 +559,34 @@ def main():
                     "outputs_equal": all(torch.equal(a, b)
                                          for a, b in zip(ref, got))}}),
                       flush=True)
+
+
+def time_gn_tails():
+    """The ``gn`` group: the solver tail against the split tail, in turns,
+    two rounds."""
+    import torch
+
+    import chip_smoke
+    from audio_triangulation_tpu_torch import Localizer, geometry
+
+    name, cfg = chip_smoke.main_configs()[0]
+    loc = Localizer.create(geometry.square_array(0.3), cfg, device="cuda",
+                           init_grid_stride=3)
+    tau, init = chip_smoke.gn_inputs(loc, chip_smoke.FRAMES)
+    _, split = solve_only_gn_tail(loc)
+    forms = {"tail": lambda: loc.gn(tau, init),
+             "split_tail": lambda: split(tau, init)}
+    new, old = forms["tail"](), forms["split_tail"]()
+    torch.cuda.synchronize()
+    diff = {k: float((a - b).abs().max()) for k, a, b in
+            zip(("xy", "rms", "cov"), new, old)}
+    for rnd in range(ROUNDS):
+        for k in ("split_tail", "tail", "tail", "split_tail"):
+            n, dev_ms, _ = chip_smoke.device_kernels(forms[k])
+            print(rnd, "gn", name, k, json.dumps({
+                "ms": round(chip_smoke.cuda_ms(forms[k], chip_smoke.REPS), 4),
+                "launches_a_call": n, "device_ms": round(dev_ms, 4),
+                "max_abs_diff_to_split_tail": diff}), flush=True)
 
 
 if __name__ == "__main__":

@@ -9,7 +9,11 @@ Held exactly: trigger flags and positions, ``events``, ``event_shifts``,
 last bits), ``xy`` / ``xy_grid`` within 1e-4 m, ``rms_m`` within 1e-5 m,
 the consistency outputs within 2e-8 s (1e-3 lags), ``xy_cov`` 1e-3
 relative; the health weights (Cauchy functions of residual ratios) 5e-3
-relative."""
+relative.  The free 3-D position ``xyz`` is held in measurement space:
+its float64 predicted TDOAs within 3e-7 s of the reference's, ``xyz_rms_m``
+within 5e-5 m (the 30 cm array's range is ill-conditioned; each package's
+float32 solve is up to 1.2e-7 s and 2.4e-5 m from the float64 solution,
+``tests/test_torch_solver_xyz.py``)."""
 
 import dataclasses
 
@@ -33,7 +37,7 @@ FLOAT = {"event_time_s": (0, 1e-6), "tdoa_samples": (0, 1e-3),
          "xy_grid": (0, 1e-4), "xy": (0, 1e-4), "rms_m": (0, 1e-5),
          "xy_cov": (1e-3, 1e-9), "consistency_rms": (0, 2e-8),
          "mic_consistency": (0, 2e-8), "pair_weight": (5e-3, 1e-5),
-         "mic_weight": (5e-3, 1e-5)}
+         "mic_weight": (5e-3, 1e-5), "xyz_rms_m": (0, 5e-5)}
 
 
 def _source(i):
@@ -60,6 +64,7 @@ def _streams(mics, n_streams, t_len, events, seed=0, dead=None):
 # name -> (mics, pipeline kw, stream kw, create kw, chunk, events/stream)
 MICS3 = jgeo.reference_array()
 MICS6 = jgeo.circular_array(6, 0.25)
+TETRA = jgeo.tetrahedral_array(0.3)
 EV4 = [(700,), (1500, 3300), (), (2900,)]
 CASES = {
     "default": (MICS3, {}, {}, {}, 512, EV4),
@@ -84,7 +89,20 @@ CASES = {
     "matmul_no_solver": (MICS3, dict(phat=True), {},
                          dict(srp_form="matmul", with_solver=False), 512,
                          EV4),
+    # lag window widened to the tetrahedron's 0.49 m baselines
+    "tetra_solve_xyz": (TETRA, dict(max_shift_samples=jgeo.max_lag_for_array(
+        TETRA, jcfg.PipelineConfig())), dict(solve_xyz=True), {}, 512, EV4),
 }
+
+
+def _predicted_tdoas(xyz, mics):
+    """float64 TDOAs [..., P] (seconds) of positions [..., 3]."""
+    pairs = jgeo.mic_pairs(mics.shape[0])
+    mic3 = np.zeros((mics.shape[0], 3))
+    mic3[:, :mics.shape[1]] = mics
+    d = np.linalg.norm(np.asarray(xyz, np.float64)[..., None, :] - mic3,
+                       axis=-1)
+    return (d[..., pairs[:, 1]] - d[..., pairs[:, 0]]) / 343.0
 
 
 def _pair(name):
@@ -105,12 +123,16 @@ def _state_np(jstate):
             for f in dataclasses.fields(jstate)}
 
 
-def _compare_out(ref, got, where):
+def _compare_out(ref, got, where, mics=MICS3):
     assert set(got) == set(ref), (where, set(got) ^ set(ref))
     for k in ref:
         r, g = np.asarray(ref[k]), got[k].numpy()
         assert g.shape == r.shape, (where, k, g.shape, r.shape)
-        if k in EXACT:
+        if k == "xyz":
+            np.testing.assert_allclose(
+                _predicted_tdoas(g, mics), _predicted_tdoas(r, mics),
+                atol=3e-7, err_msg=f"{where} {k}")
+        elif k in EXACT:
             np.testing.assert_array_equal(g, r, err_msg=f"{where} {k}")
         else:
             rtol, atol = FLOAT[k]
@@ -148,7 +170,7 @@ def test_step_many_matches_reference(name):
         c = x[:, :, i * chunk:(i + 1) * chunk]
         jst, jout = jsl.step_many(jst, jnp.asarray(c))
         tst, tout = tsl.step_many(tst, torch.from_numpy(c))
-        _compare_out(jout, tout, f"{name} chunk {i}")
+        _compare_out(jout, tout, f"{name} chunk {i}", mics)
         n_events += tout["events"].numpy().sum(axis=-1)
         most_in_a_chunk = max(most_in_a_chunk,
                               int(tout["events"].sum(dim=-1).max()))
@@ -274,9 +296,43 @@ def test_two_rate_matches_reference_and_one_rate():
     assert torch.equal(tst.context, ost.context)
 
 
+def test_two_rate_solve_xyz_matches_one_rate():
+    """``solve_xyz`` in the two-rate localizer (the reference's has no 3-D
+    solve): an accepted slot carries the one-rate step's xyz, held in
+    measurement space (module docstring), on a tetrahedral array."""
+    ev = [(700,), (700, 3300), (), (700,), (700,)]
+    x = _streams(TETRA, 5, 9 * 512, ev)
+    stream = tcfg.StreamConfig(chunk_size=512, solve_xyz=True)
+    cfg = tcfg.PipelineConfig(**CASES["tetra_solve_xyz"][1])
+    ttr = tstream.TwoRateStreamingLocalizer.create(
+        TETRA, cfg, stream=stream, event_capacity=3, device="cpu")
+    one = tstream.StreamingLocalizer.create(TETRA, cfg, stream=stream,
+                                            device="cpu")
+    tst, ost = ttr.init_states(5), one.init_states(5)
+    n_acc = 0
+    for i in range(9):
+        c = torch.from_numpy(x[:, :, i * 512:(i + 1) * 512])
+        tst, det = ttr.detect_many(tst, c)
+        ost, oout = one.step_many(ost, c)
+        tst, tev = ttr.localize_triggered(tst, det)
+        assert tev["xyz"].shape == (3, 3) and tev["xyz_rms_m"].shape == (3,)
+        for slot in torch.nonzero(tev["accepted"])[:, 0].tolist():
+            s = int(tev["stream_idx"][slot])
+            np.testing.assert_allclose(
+                _predicted_tdoas(tev["xyz"][slot].numpy(), TETRA),
+                _predicted_tdoas(oout["xyz"][s].numpy(), TETRA), atol=3e-7)
+            np.testing.assert_allclose(tev["xyz_rms_m"][slot].numpy(),
+                                       oout["xyz_rms_m"][s].numpy(),
+                                       atol=5e-5)
+            n_acc += 1
+    assert n_acc == 4  # one of the five triggers of chunk 2 overflows
+
+
+# ids as they were while solve_xyz was refused too
 @pytest.mark.parametrize("kw,word", [
-    (dict(n_sources=2), "n_sources"), (dict(solve_xyz=True), "solve_xyz"),
-    (dict(solve_velocity=True), "solve_velocity")])
+    pytest.param(dict(n_sources=2), "n_sources", id="kw0-n_sources"),
+    pytest.param(dict(solve_velocity=True), "solve_velocity",
+                 id="kw2-solve_velocity")])
 def test_unported_stream_options_raise(kw, word):
     for cls in (tstream.StreamingLocalizer,
                 tstream.TwoRateStreamingLocalizer):
@@ -350,3 +406,24 @@ def test_cuda_graphed_step_equals_eager_step():
     assert n_events == sum(len(e) for e in EV4)
     for k in tstream.STATE_NAMES:
         assert torch.equal(getattr(graphed.states, k), getattr(st, k)), k
+
+
+@pytest.mark.gpu
+def test_cuda_graphed_step_solve_xyz_equals_eager_step():
+    """The step with the free 3-D solve, captured with no host sync and
+    replayed: xyz and xyz_rms_m bit-equal to the eager step's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (a CUDA graph has no CPU mode)")
+    x = torch.from_numpy(_streams(TETRA, 4, 9 * 512, EV4)).cuda()
+    sl = tstream.StreamingLocalizer.create(
+        TETRA, tcfg.PipelineConfig(**CASES["tetra_solve_xyz"][1]),
+        stream=tcfg.StreamConfig(chunk_size=512, solve_xyz=True),
+        device="cuda")
+    st = sl.init_states(4)
+    graphed = sl.graph_step_many(sl.init_states(4), x[:, :, :512])
+    for i in range(9):
+        c = x[:, :, i * 512:(i + 1) * 512]
+        st, out = sl.step_many(st, c)
+        gout = graphed(c)
+        for k in ("xyz", "xyz_rms_m", "xy", "events"):
+            assert torch.equal(gout[k], out[k]), (i, k)
