@@ -1,5 +1,6 @@
 """PyTorch / CUDA port of audio_triangulation_tpu: the frame-batch localizer
-with its kernels written for Hopper, and the streaming localizers.
+with its kernels written for Hopper, the streaming localizers and tracked
+streaming (a Kalman tracker bank on the streaming step).
 
 The JAX package stays the reference; this package imports torch and never
 jax.  Quick start::
@@ -14,6 +15,12 @@ jax.  Quick start::
                                    device="cuda")
     states = sl.init_states(2048)
     states, out = sl.step_many(states, chunks)   # chunks [2048, M, 512]
+
+    tsl = TrackedStreamingLocalizer.create(geometry.reference_array(),
+                                           stream=StreamConfig(chunk_size=512),
+                                           device="cuda")
+    g = tsl.graph_step_many(tsl.init_states(2048), chunks)
+    out = g(chunks)          # out["track_xy"] [2048, 4, 2]; one graph replay
 """
 
 from .core import geometry
@@ -21,7 +28,10 @@ from .core.config import (GridConfig, PipelineConfig, SolverConfig,
                           StreamConfig)
 from .models.localizer import Localizer
 from .models.streaming import StreamingLocalizer, TwoRateStreamingLocalizer
+from .models.tracked import TrackedStreamingLocalizer
+from .models.tracking import Tracker, TrackerConfig
 
 __all__ = ["Localizer", "StreamingLocalizer", "TwoRateStreamingLocalizer",
+           "TrackedStreamingLocalizer", "Tracker", "TrackerConfig",
            "PipelineConfig", "GridConfig", "SolverConfig", "StreamConfig",
            "geometry"]

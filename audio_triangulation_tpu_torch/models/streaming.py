@@ -75,8 +75,22 @@ class StreamState:
 STATE_NAMES = tuple(f.name for f in dataclasses.fields(StreamState))
 
 
-def _map_state(fn, state: StreamState) -> StreamState:
-    return StreamState(**{k: fn(getattr(state, k)) for k in STATE_NAMES})
+def map_state(fn, state):
+    """``fn`` applied to every tensor of a state, a dataclass whose fields
+    are tensors or such dataclasses (a ``StreamState``, or a tracked
+    stream's state holding one and a tracker bank's)."""
+    if dataclasses.is_dataclass(state):
+        return type(state)(**{f.name: map_state(fn, getattr(state, f.name))
+                              for f in dataclasses.fields(state)})
+    return fn(state)
+
+
+def state_leaves(state) -> list:
+    """The tensors of a state (see :func:`map_state`), in field order."""
+    if dataclasses.is_dataclass(state):
+        return [leaf for f in dataclasses.fields(state)
+                for leaf in state_leaves(getattr(state, f.name))]
+    return [state]
 
 
 def check_ported(stream: StreamConfig) -> None:
@@ -199,9 +213,9 @@ class StreamingLocalizer:
         """One stream, one chunk [M, C]: (new state, outputs), both without
         a stream axis."""
         _check_chunks(chunk, self.params, "chunk")
-        new, out = stream_step(_map_state(lambda x: x[None], state),
+        new, out = stream_step(map_state(lambda x: x[None], state),
                                chunk[None], **self.step_kwargs())
-        return (_map_state(lambda x: x[0], new),
+        return (map_state(lambda x: x[0], new),
                 {k: v[0] for k, v in out.items()})
 
     def step_many(self, states: StreamState, chunks: torch.Tensor):
@@ -239,39 +253,59 @@ class StreamingLocalizer:
 
 
 class GraphedStep:
-    """One batched step captured as a CUDA graph, with the stream states
-    kept inside.
+    """Batched steps captured as one CUDA graph, with the stream states kept
+    inside.
 
     >>> g = sl.graph_step_many(sl.init_states(2048), chunks)
     >>> out = g(chunks)      # advances g.states; one graph replay
-    >>> g.states             # the carried StreamState (static buffers)
+    >>> g.states             # the carried state (static buffers)
 
-    The step's arithmetic is the eager step's (the same ops are recorded,
-    not rewritten).  ``out`` and ``states`` are the graph's own buffers:
-    each call overwrites them, so read (or clone) what is needed before the
-    next call.  Chunks must keep the captured shape."""
+    ``step(states, chunks) -> (new states, outputs)`` is any pure batched
+    step; a state is a dataclass of tensors, nested or not (see
+    :func:`map_state`).  With ``steps=K`` one replay runs K steps in turn:
+    chunks are [S, K, ...], chunk k feeding step k, and each output is
+    stacked to [K, S, ...].  The arithmetic is the eager steps' (the same
+    ops are recorded, not rewritten).  ``out`` and ``states`` are the
+    graph's own buffers: each call overwrites them, so read (or clone) what
+    is needed before the next call.  Chunks must keep the captured shape."""
 
     WARMUP_STEPS = 3
 
-    def __init__(self, step, states: StreamState, chunks: torch.Tensor):
+    def __init__(self, step, states, chunks: torch.Tensor, steps: int = 1):
         if not chunks.is_cuda:
             raise ValueError("a CUDA graph needs CUDA tensors; chunks are on "
                              f"{chunks.device}")
-        self.states = _map_state(torch.clone, states)
+        if steps > 1 and chunks.shape[1] != steps:
+            raise ValueError(f"chunks must be [S, {steps}, ...] for "
+                             f"{steps} steps a replay; got "
+                             f"{tuple(chunks.shape)}")
+        self.states = map_state(torch.clone, states)
         self._chunks = chunks.to(torch.float32).clone()
+
+        def run(st):
+            if steps == 1:
+                return step(st, self._chunks)
+            outs = []
+            for k in range(steps):
+                st, out = step(st, self._chunks[:, k])
+                outs.append(out)
+            return st, {key: torch.stack([o[key] for o in outs])
+                        for key in outs[0]}
+
         # warm up on a side stream, as capture asks (the step is pure:
         # nothing carries over)
         side = torch.cuda.Stream(chunks.device)
         side.wait_stream(torch.cuda.current_stream(chunks.device))
         with torch.cuda.stream(side):
             for _ in range(self.WARMUP_STEPS):
-                step(self.states, self._chunks)
+                run(self.states)
         torch.cuda.current_stream(chunks.device).wait_stream(side)
         self._graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self._graph):
-            new, self._out = step(self.states, self._chunks)
-            for name in STATE_NAMES:
-                getattr(self.states, name).copy_(getattr(new, name))
+            new, self._out = run(self.states)
+            for held, leaf in zip(state_leaves(self.states),
+                                  state_leaves(new)):
+                held.copy_(leaf)
 
     def __call__(self, chunks: torch.Tensor) -> dict:
         if chunks.shape != self._chunks.shape:

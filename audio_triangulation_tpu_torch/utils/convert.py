@@ -9,7 +9,10 @@ rows padding the lag axis.
 
 ``stream_state_from_reference`` and ``stream_state_to_numpy`` carry a
 streaming state across the same way, so one stream can be continued by
-either package mid-way.
+either package mid-way; ``track_state_*`` a tracker bank's state
+(``TrackState`` or ``ImmTrackState``) and ``tracked_state_*`` a tracked
+stream's (``TrackedStreamState``: both together), so a stream continues its
+tracks in either package.
 """
 
 from __future__ import annotations
@@ -83,3 +86,65 @@ def stream_state_to_numpy(state) -> dict:
     package's ``StreamState(**arrays)`` can be rebuilt."""
     return {name: getattr(state, name).detach().cpu().numpy()
             for name in _STATE_DTYPES}
+
+
+_TRACK_DTYPES = {
+    "x": torch.float32, "p": torch.float32,
+    "active": torch.bool, "hits": torch.int32, "last_t": torch.float32,
+    "state_t": torch.float32, "born_t": torch.float32,
+    "track_id": torch.int32, "next_id": torch.int32,
+    "dropped": torch.int32, "unassigned": torch.int32,
+}
+# the IMM bank: per-mode filters and mode beliefs in place of x and p
+_IMM_FILTERS = {"xm": torch.float32, "pm": torch.float32,
+                "mu": torch.float32}
+
+
+def _track_dtypes(imm: bool) -> dict:
+    if not imm:
+        return _TRACK_DTYPES
+    return {**_IMM_FILTERS, **{k: v for k, v in _TRACK_DTYPES.items()
+                               if k not in ("x", "p")}}
+
+
+def track_state_from_reference(arrays: dict, device):
+    """The port's ``TrackState`` (or ``ImmTrackState``, when ``arrays``
+    holds ``xm``) on ``device`` from the leaves of the JAX package's bank
+    state given as numpy arrays, one bank or stacked banks alike."""
+    from ..models.tracking import ImmTrackState, TrackState
+
+    imm = "xm" in arrays
+    dtypes = _track_dtypes(imm)
+    missing = sorted(set(dtypes) - set(arrays))
+    if missing:
+        raise ValueError(f"track state lacks {missing}")
+    return (ImmTrackState if imm else TrackState)(**{
+        name: torch.as_tensor(np.array(arrays[name], copy=True),
+                              device=device).to(dtype)
+        for name, dtype in dtypes.items()})
+
+
+def track_state_to_numpy(state) -> dict:
+    """{leaf name: numpy array} of a port ``TrackState`` or
+    ``ImmTrackState``, from which the JAX package's state class can be
+    rebuilt with ``(**arrays)``."""
+    return {name: getattr(state, name).detach().cpu().numpy()
+            for name in _track_dtypes(hasattr(state, "xm"))}
+
+
+def tracked_state_from_reference(arrays: dict, device):
+    """The port's ``TrackedStreamState`` from ``{"stream": {...}, "track":
+    {...}}``, the leaves of the JAX package's ``TrackedStreamState``."""
+    from ..models.tracked import TrackedStreamState
+
+    return TrackedStreamState(
+        stream=stream_state_from_reference(arrays["stream"], device),
+        track=track_state_from_reference(arrays["track"], device))
+
+
+def tracked_state_to_numpy(state) -> dict:
+    """``{"stream": {...}, "track": {...}}`` of a port
+    ``TrackedStreamState``, the form :func:`tracked_state_from_reference`
+    takes."""
+    return {"stream": stream_state_to_numpy(state.stream),
+            "track": track_state_to_numpy(state.track)}

@@ -6,7 +6,9 @@ For each of ``chip_smoke.py``'s Localizer paths at its full size (the three
 4 x 1,024 samples; the three 64-mic configurations on 256 frames of
 64 x 4,096 samples), and for one ``StreamingLocalizer.step_many`` step of
 its four streaming pipelines at 1,024 and 4,096 streams of 512-sample
-chunks (3 mics; 4 in ``xyz_tetra``), prints:
+chunks (3 mics; 4 in ``xyz_tetra``), and for one tracked step (the stream
+step and the tracker bank, ``TrackedStreamingLocalizer``) eager and
+replayed as one CUDA graph at the same stream counts, prints:
 
 - the median wall time of 7 unprofiled calls and the device-busy time of
   one profiled call (the sum of its kernels' device time), hence the
@@ -85,6 +87,23 @@ def main():
 
             profile_path(f"stream_{name}_{n_streams}", step,
                          watch=("detector_scan", "cumsum", "gemm"))
+
+    # the tracked step (the default bank), eager and as one CUDA graph
+    tsl = chip_smoke.tracked_banks()["nearest"]
+    for n_streams in (chip_smoke.STREAM_COUNTS[0],
+                      chip_smoke.STREAM_COUNTS[-1]):
+        carried = [tsl.init_states(n_streams)]
+        chunks = chip_smoke.quiet_chunks(rng, n_streams)
+
+        def step():
+            carried[0], out = tsl.step_many(carried[0], chunks)
+            return out
+
+        graphed = tsl.graph_step_many(tsl.init_states(n_streams), chunks)
+        for how, fn in (("eager", step), ("graphed", lambda: graphed(chunks))):
+            profile_path(f"stream_tracked_{how}_{n_streams}", fn,
+                         watch=("detector_scan", "gemm"))
+        del graphed
 
 
 def profile_path(name, fn, watch=()):

@@ -21,7 +21,14 @@ versions and driven through their tools.  The streaming path
 kernel) runs 2,048 streams of 3 mics for 24 chunks of 512 samples with planted
 events in its three bench pipelines, is checked against the planted events,
 the known sources, the port's CPU path and its own replay as a CUDA graph,
-and is timed at 1,024, 2,048 and 4,096 streams, eager and graphed.
+and is timed at 1,024, 2,048 and 4,096 streams, eager and graphed.  The
+tracked streaming path (``TrackedStreamingLocalizer``: the stream step and
+the Kalman tracker bank) runs 2,048 streams with three bursts of one source
+in every fourth, is checked against the untracked step (bit-equal
+localization), the planted sources, the port's CPU path (in three banks:
+nearest, IMM, soft association) and its replays as CUDA graphs of one and
+of four chunk steps, and is timed like the stream step, and as the
+four-step graph.
 
     python3 chip_smoke.py            # one CUDA card; exits non-zero on any failure
 
@@ -92,6 +99,17 @@ STREAM_STARTS = (300, 1211, 2750, 4100, 5632, 7000, 8801, 10000)
 STREAM_CPU_STREAMS = 32  # streams held to the port's CPU path
 STREAM_COUNTS = (1024, 2048, 4096)  # streams a timed step
 STREAM_TRIALS, STREAM_TIMED_STEPS = 7, 20
+# the tracked streaming path: the streaming check's shape with every fourth
+# stream holding three bursts of one source, the first at one of
+# TRACK_STARTS and each next one TRACK_BURST_GAP samples on (past the
+# detector's hold-off of a frame), the rest silent
+TRACK_SEED = SEED + 10
+TRACK_STARTS = (300, 1211, 2750)
+TRACK_BURST_GAP = 4100
+TRACK_BURSTS = 3
+TRACK_SCAN_K = 4  # chunk steps a replay of the K-step graph
+TRACK_SCAN_COUNTS = (1024, 2048)  # streams a timed K-step replay
+TRACK_IMM_Q = (0.05, 8.0)
 # the detector's prefix-sum kernel: the streaming window [S, 3, 1,535] and
 # row lengths that end inside a block, fill blocks exactly and take the block
 # totals past one tile of 16; values up to 2^15, so that the sums round
@@ -118,6 +136,12 @@ GRAPH_EQUAL_KEYS = ("event_trigger_abs", "events", "best_shift", "xy")
 STREAM_MEDIAN_BOUND_M = {"default": 0.011, "band_crop_phat": 0.018,
                          "band_auto_phat": 0.013, "xyz_tetra": 0.0024}
 STREAM_XYZ_MEDIAN_BOUND_M = 0.035
+# Median |track_xy - truth| bound of the planted streams' confirmed tracks at
+# the end of the tracked scene, twice the JAX package's own median on its
+# 512 planted streams on the CPU: 0.5207 cm (largest 1.8182 cm), every
+# planted stream ending with exactly one confirmed track; the port's CPU
+# path gives the same within 3.52e-6 m (tests/witness_stream.py tracked)
+TRACK_MEDIAN_BOUND_M = 0.0104
 # Median |xy - SOURCE_XY| bound per main-path configuration.  Full-band PHAT
 # whitens the out-of-band noise bins up to the chirp's level, which biases
 # it on this band-limited source: the JAX package's Localizer itself gives
@@ -938,7 +962,7 @@ PATH_KERNELS = {"bandcrop_800_6000": ("gcc_kernel", "gn_kernel"),
                                              "gcc_kernel"),
                 **{f"stream_{name}": ("detector_scan_kernel",)
                    for name in ("default", "band_crop_phat",
-                                "band_auto_phat", "xyz_tetra")}}
+                                "band_auto_phat", "xyz_tetra", "tracked")}}
 
 
 def launch_counts():
@@ -1223,8 +1247,6 @@ def phase_timing(card, locs, frames, large_locs, large, srp_args, results):
     from audio_triangulation_tpu_torch.ops.cuda import (
         gcc_kernel, gcc_large, srp_kernel)
 
-    import chip_variants
-
     for name, loc in locs:
         time_path(card, name, lambda: loc(frames), frames.shape[0])
     time_path(card, "srp_argmax_101x101",
@@ -1324,57 +1346,34 @@ def phase_timing(card, locs, frames, large_locs, large, srp_args, results):
             report("gcc_stats_kernel", name, k_ms, p_ms, bnd,
                    bound_ms_fp32_cores=cores["bound_ms"])
 
-    # row 5 on the band-crop line's Localizer, every form timed alike (CUDA
-    # events, in turns): the plain version, the split tail (the solve-only
-    # kernel through its own wrapper, then torch's covariance), that solve
-    # alone, and the kernel through its wrapper, which is the whole tail
+    # row 5 on the band-crop line's Localizer, both forms timed alike (CUDA
+    # events, in turns): the plain version and the kernel through its
+    # wrapper, which is the whole solver tail (PR 8's split tail is timed by
+    # ``chip_variants.py gn``)
     loc = locs[0][1]
     m_n, p_n = loc.mic_positions.shape[0], loc.pairs.shape[0]
     tau, init = gn_inputs(loc, b)
     iters = loc.solver.iterations
-    solve_only, split_tail = chip_variants.solve_only_gn_tail(loc)
     forms = {"plain": lambda: loc.gn.reference(tau, init),
-             "split_tail": lambda: split_tail(tau, init),
-             "solve_only": lambda: solve_only(tau, init),
              "tail": lambda: loc.gn(tau, init)}
     order = tuple(forms)
     t = {k: [] for k in forms}
     for k in (*order, *order[::-1]):
         t[k].append(cuda_ms(forms[k], REPS))
     ms = {k: float(np.mean(v)) for k, v in t.items()}
-    prof = {k: device_kernels(forms[k]) for k in order[1:]}
-    names = prof["tail"][2]
-    if prof["tail"][0] != 1 or not all("gn_kernel" in n for n in names):
+    launches, kernel_ms, names = device_kernels(forms["tail"])
+    if launches != 1 or not all("gn_kernel" in n for n in names):
         fail("5 timing", f"the solver tail launched {names}, not the GN "
              "kernel alone")
-    kernel_ms = prof["tail"][1]
-    for k, label in (("tail", "solver tail (the kernel through its "
-                              "wrapper)"),
-                     ("solve_only", "the solve-only kernel through its "
-                                    "own wrapper (no covariance)"),
-                     ("split_tail", "solver tail, split (the solve-only "
-                                    "kernel, then torch's "
-                                    "solution_covariance)")):
-        say("5 timing", f"gn_kernel {label}: {ms[k]:.4f} ms a call "
-            f"(CUDA events, {t[k][0]:.4f} / {t[k][1]:.4f} in turns), "
-            f"{prof[k][0]} kernel launches a call, {prof[k][1]:.4f} ms of "
-            f"device time ({card})")
-    # per frame and GN pass (iterations and the final one): the sphere
-    # projection (30), each mic's distance and two gradient terms (22),
-    # each pair's residual, Jacobian row and sums (16; 18 with the final
-    # pass's squared residual); the 2x2 solve per iteration (15); the
-    # covariance epilogue (22).  Bytes: tau and init read, xy, rms and cov
-    # written
+    say("5 timing", f"gn_kernel solver tail (the kernel through its "
+        f"wrapper): {ms['tail']:.4f} ms a call (CUDA events, "
+        f"{t['tail'][0]:.4f} / {t['tail'][1]:.4f} in turns), {launches} "
+        f"kernel launch a call, {kernel_ms:.4f} ms of device time ({card})")
     bnd = bound(b * ((iters + 1) * (30 + 22 * m_n + 16 * p_n) + 2 * p_n
                      + 15 * iters + 22), 4 * b * (p_n + 2 + 2 + 1 + 4))
     report("gn_kernel", f"({b} frames, through the wrapper)", ms["tail"],
            ms["plain"], bnd, device_ms=kernel_ms,
-           launches_per_call=prof["tail"][0],
-           solve_only_ms=ms["solve_only"],
-           solve_only_device_ms=prof["solve_only"][1],
-           split_tail_ms=ms["split_tail"],
-           split_tail_launches_per_call=prof["split_tail"][0],
-           split_tail_device_ms=prof["split_tail"][1])
+           launches_per_call=launches)
     pct = share_of_bound("5 timing", "gn_kernel device time", kernel_ms, bnd)
     say("5 timing", f"gn_kernel device time {kernel_ms:.4f} ms, {pct:.1f}% "
         f"of its bound ({card})")
@@ -2038,13 +2037,224 @@ def phase_stream(card, results):
                     f"({card})")
 
 
+def tracked_scene(n_streams=STREAM_CHECK_STREAMS, seed=TRACK_SEED):
+    """The tracked check's scene on the reference array: (streams [S, 3, T]
+    f32 ADC counts, planted stream indices [E], their sources' plane points
+    [E, 2]).  Every stream idles at 127-129 counts; every
+    ``STREAM_PLANT_EVERY``-th holds ``TRACK_BURSTS`` chirp bursts of one
+    source on the 1.2 m sphere (plane radius 0.3-1.0 m), each with its own
+    noise, ``TRACK_BURST_GAP`` samples apart, so that the default
+    ``confirm_hits=2`` confirms a track well inside ``max_coast_s``."""
+    from audio_triangulation_tpu_torch import geometry
+    from audio_triangulation_tpu_torch.utils import synth
+
+    rng = np.random.default_rng(seed)
+    mics = geometry.reference_array()
+    t_len = STREAM_STEPS * STREAM_CHUNK
+    x = rng.integers(127, 130, (n_streams, mics.shape[0], t_len),
+                     dtype=np.uint8).astype(np.float32)
+    planted = np.arange(0, n_streams, STREAM_PLANT_EVERY)
+    ang = rng.uniform(0, 2 * np.pi, planted.size)
+    rad = rng.uniform(0.3, 1.0, planted.size)
+    xy = np.stack([rad * np.cos(ang), rad * np.sin(ang)], axis=-1)
+    v = np.concatenate([xy, np.full((planted.size, 1), 1.2)], axis=1)
+    src = v * (1.2 / np.linalg.norm(v, axis=1, keepdims=True))
+    first = np.asarray(TRACK_STARTS)[np.arange(planted.size)
+                                     % len(TRACK_STARTS)]
+    for b in range(TRACK_BURSTS):
+        bursts = synth.synth_scene(src, mics, noise_rms=0.005,
+                                   seed=int(rng.integers(1 << 30)))
+        for at in TRACK_STARTS:
+            sel = first == at
+            x[planted[sel]] += (110.0 * synth.embed_burst_in_stream(
+                bursts[sel], t_len, at + b * TRACK_BURST_GAP)).astype(
+                    np.float32)
+    x[planted] = np.clip(np.round(x[planted]), 0, 255)
+    return x, planted, xy.astype(np.float32)
+
+
+def tracked_banks(device="cuda"):
+    """The tracked pipelines, name -> TrackedStreamingLocalizer on the
+    reference array at 512-sample chunks: the default bank (nearest
+    association), the IMM bank and soft association."""
+    from audio_triangulation_tpu_torch import (StreamConfig,
+                                               TrackedStreamingLocalizer,
+                                               TrackerConfig, geometry)
+
+    return {name: TrackedStreamingLocalizer.create(
+        geometry.reference_array(), stream=StreamConfig(
+            chunk_size=STREAM_CHUNK), tracker_cfg=cfg, device=device)
+        for name, cfg in (("nearest", None),
+                          ("imm", TrackerConfig(imm_q=TRACK_IMM_Q)),
+                          ("soft", TrackerConfig(association="soft")))}
+
+
+def confirmed_tracks(out):
+    """From one step's outputs: (confirmed tracks a stream [S], the first
+    confirmed track's position [S, 2])."""
+    import torch
+
+    conf = out["track_confirmed"]
+    slot = torch.argmax(conf.to(torch.uint8), dim=-1)
+    return conf.sum(dim=-1), out["track_xy"].gather(
+        1, slot[:, None, None].expand(-1, 1, 2))[:, 0]
+
+
+def phase_tracked(card, results):
+    """Tracked streaming (``TrackedStreamingLocalizer``: the stream step and
+    the Kalman tracker bank in one step) on the tracked scene, 2,048
+    streams x 24 chunks, checked: (a) every localization key equal bit for
+    bit to the untracked ``StreamingLocalizer``'s on the same chunks, the
+    reference's equality contract; (b) each planted stream ends with exactly
+    one confirmed track whose hits equal its accepted events, and a silent
+    stream holds no track and reports ``assigned == -1`` at every step; (c)
+    the median |track_xy - truth| of the planted streams under
+    ``TRACK_MEDIAN_BOUND_M``; (d) against the port's CPU path on the first
+    32 streams at every step: integer and bool outputs equal, ``track_xy``
+    within 2e-4 m, ``track_vel`` within 2e-3 m/s (``model_prob`` within
+    1e-4), for the default bank, the IMM bank and soft association; (e) the
+    step replayed as a CUDA graph, one chunk a replay and ``TRACK_SCAN_K``,
+    bit-equal to the eager steps.  The eager run's launches of the
+    detector's prefix-sum kernel are counted from 0.  Then the tracked step
+    is timed at 1,024 / 2,048 / 4,096 streams, eager and graphed, and the
+    K-step graph at 1,024 / 2,048 (per chunk step)."""
+    import torch
+    from audio_triangulation_tpu_torch.models.streaming import state_leaves
+    from audio_triangulation_tpu_torch.tools import bench_streaming
+
+    x_np, planted, truth = tracked_scene()
+    s_n, n_cpu = x_np.shape[0], STREAM_CPU_STREAMS
+    x = torch.from_numpy(x_np).cuda()
+    banks, cpu_banks = tracked_banks(), tracked_banks("cpu")
+    tsl = banks["nearest"]
+
+    def chunk(i):
+        return x[:, :, i * STREAM_CHUNK:(i + 1) * STREAM_CHUNK]
+
+    def run(sl, n_streams, source):
+        st, outs = sl.init_states(n_streams), []
+        for i in range(STREAM_STEPS):
+            st, out = sl.step_many(st, source(i))
+            outs.append(out)
+        return st, outs
+
+    st, outs = counted("stream_tracked", results,
+                       lambda: run(tsl, s_n, chunk))
+    torch.cuda.synchronize()
+    # (a) the equality contract: the untracked localizer inside
+    _, plain = run(tsl.sl, s_n, chunk)
+    contract = all(torch.equal(o[k], p[k]) for o, p in zip(outs, plain)
+                   for k in p)
+    del plain
+    # (b) confirmed tracks, hits and silent streams
+    events = torch.stack([o["event"] for o in outs]).sum(dim=0)
+    n_conf, track_xy = confirmed_tracks(outs[-1])
+    active = st.track.active
+    hits = (st.track.hits * active).sum(dim=-1)
+    silent = torch.ones(s_n, dtype=torch.bool, device="cuda")
+    silent[torch.from_numpy(planted).cuda()] = False
+    quiet_ok = all(bool((o["assigned"][silent] == -1).all()) for o in outs)
+    planted_t = torch.from_numpy(planted).cuda()
+    tracks_ok = (bool((n_conf[planted_t] == 1).all())
+                 and bool((active[planted_t].sum(dim=-1) == 1).all())
+                 and bool(torch.equal(hits, events))
+                 and not bool(active[silent].any()) and quiet_ok)
+    accepted = int(events[planted_t].sum())
+    # (c) position of the tracks
+    err = (track_xy[planted_t].cpu() - torch.from_numpy(truth)).norm(dim=-1)
+    med = float(err.median())
+    say("6 tracked", f"nearest: {s_n} streams x {STREAM_STEPS} chunks of "
+        f"{STREAM_CHUNK}: {planted.size} planted streams, accepted "
+        f"{accepted} of {planted.size * TRACK_BURSTS} bursts; localization "
+        f"keys equal to the untracked step's bit for bit: {contract}; one "
+        f"confirmed track a planted stream, hits = accepted events, silent "
+        f"streams trackless and unassigned: {tracks_ok}; median |track_xy - "
+        f"truth| {med * 100:.4f} cm (largest {float(err.max()) * 100:.4f})")
+    if not (contract and tracks_ok and med < TRACK_MEDIAN_BOUND_M
+            and accepted >= 0.98 * planted.size * TRACK_BURSTS
+            and bool(torch.isfinite(track_xy).all())):
+        fail("6 tracked", "nearest: result check failed")
+
+    # (d) against the CPU path, the three banks
+    def cpu_chunk(i):
+        return torch.from_numpy(
+            x_np[:n_cpu, :, i * STREAM_CHUNK:(i + 1) * STREAM_CHUNK])
+
+    tol = {"track_xy": 2e-4, "track_vel": 2e-3, "model_prob": 1e-4}
+    for name, bank in banks.items():
+        g_outs = outs if name == "nearest" else run(bank, s_n, chunk)[1]
+        _, c_outs = run(cpu_banks[name], n_cpu, cpu_chunk)
+        exact, worst = True, dict.fromkeys(tol, 0.0)
+        for g, c in zip(g_outs, c_outs):
+            for k in c:
+                got = g[k][:n_cpu].cpu()
+                if k in tol:
+                    worst[k] = max(worst[k], float((got - c[k]).abs().max()))
+                elif not got.is_floating_point():
+                    exact &= bool(torch.equal(got, c[k]))
+        say("6 tracked", f"{name}: vs CPU path on {n_cpu} streams, every "
+            f"chunk: integer and bool outputs equal {exact}, " + ", ".join(
+                f"{k} {v:.2e}" for k, v in worst.items() if k in c_outs[0]))
+        if not (exact and all(v <= tol[k] for k, v in worst.items())):
+            fail("6 tracked", f"{name}: disagrees with the CPU path")
+        del g_outs, c_outs
+
+    # (e) the graphed forms
+    one = tsl.graph_step_many(tsl.init_states(s_n), chunk(0))
+    same = True
+    for i in range(STREAM_STEPS):
+        gout = one(chunk(i))
+        same &= all(bool(torch.equal(gout[k], outs[i][k])) for k in gout)
+    k_n = TRACK_SCAN_K
+    kstep = tsl.graph_step_many_scan(
+        tsl.init_states(s_n), torch.stack([chunk(i) for i in range(k_n)], 1))
+    for j in range(0, STREAM_STEPS, k_n):
+        gout = kstep(torch.stack([chunk(i) for i in range(j, j + k_n)], 1))
+        same &= all(bool(torch.equal(gout[k][i], outs[j + i][k]))
+                    for k in gout for i in range(k_n))
+    for g in (one, kstep):
+        same &= all(bool(torch.equal(a, b)) for a, b in zip(
+            state_leaves(g.states), state_leaves(st)))
+    say("6 tracked", f"nearest: the step replayed as a CUDA graph, one chunk "
+        f"a replay and {k_n}, over the same chunks: every output and the "
+        f"final state equal to the eager steps' bit for bit: {same}")
+    if not same:
+        fail("6 tracked", "a graphed form disagrees with the eager step")
+    del one, kstep, outs, st, x
+
+    chunk_ms = STREAM_CHUNK / tsl.sl.pipeline.sample_rate_hz * 1e3
+    rng = np.random.default_rng(TRACK_SEED + 1)
+
+    def line(what, n_streams, med_s, q1, q3, k=1):
+        med_s, q1, q3 = med_s / k, q1 / k, q3 / k
+        say("5 timing", f"stream tracked {what} {n_streams} streams: "
+            f"step_ms {med_s * 1e3:.4f} median (per chunk step), IQR "
+            f"{q1 * 1e3:.4f}-{q3 * 1e3:.4f} over {STREAM_TRIALS} trials of "
+            f"{STREAM_TIMED_STEPS} calls; streams sustained in real time "
+            f"{chunk_ms / (med_s * 1e3) * n_streams:.1f} ({card})")
+
+    for n_streams in STREAM_COUNTS:
+        chunks = quiet_chunks(rng, n_streams)
+        line("eager", n_streams, *bench_streaming.time_steps(
+            tsl.step_many, tsl.init_states(n_streams), chunks,
+            STREAM_TRIALS, STREAM_TIMED_STEPS, "cuda"))
+        line("graphed", n_streams, *bench_streaming.time_graphed_steps(
+            tsl, n_streams, chunks, STREAM_TRIALS, STREAM_TIMED_STEPS))
+        if n_streams in TRACK_SCAN_COUNTS:
+            chunks = torch.stack([quiet_chunks(rng, n_streams)
+                                  for _ in range(TRACK_SCAN_K)], dim=1)
+            line(f"graphed K={TRACK_SCAN_K}", n_streams,
+                 *bench_streaming.time_graphed_steps(
+                     tsl, n_streams, chunks, STREAM_TRIALS,
+                     STREAM_TIMED_STEPS), k=TRACK_SCAN_K)
+
+
 # further keys of an entry that has them: what the library yardstick is, the
 # SRP-argmax kernel's other bound and its bf16 mode, the bf16 DFT product's
 # library form with f32 outputs
 EXTRA_KEYS = ("library", "bound_ms_fp32_cores", "bf16_ms", "bf16_plain_ms",
               "bf16_library_ms", "bf16_bound_ms", "library_f32_out_ms",
-              "device_ms", "launches_per_call", "split_tail_ms",
-              "split_tail_launches_per_call", "split_tail_device_ms")
+              "device_ms", "launches_per_call")
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
@@ -2072,6 +2282,7 @@ def main():
     phase_gcc_pipelined(card, rng, results)
     phase_tools(results)
     phase_stream(card, results)
+    phase_tracked(card, results)
 
     print(json.dumps({"kernels": [
         {k: results[n][k] for k in (*KERNEL_KEYS, *(

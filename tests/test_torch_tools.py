@@ -246,6 +246,27 @@ def test_bench_streaming_tool_runs_on_cpu(capsys):
                               "1", "--streams", "2", "--graph"])
 
 
+def test_bench_streaming_tracked_modes_run_on_cpu(capsys):
+    """The tracked modes' lines at a CPU size: one chunk a step and four a
+    call (per chunk step, with the four chunks' reporting latency)."""
+    recs = bench_streaming.main(["--device", "cpu", "--trials", "2",
+                                 "--steps", "2", "--streams", "4",
+                                 "--modes", "tracked_fused",
+                                 "tracked_fused_scan4"])
+    lines = [json.loads(ln) for ln in
+             capsys.readouterr().out.strip().splitlines()]
+    assert lines == recs
+    assert [(r["mode"], r["streams"], r["graphed"]) for r in recs] == [
+        ("tracked_fused", 4, False), ("tracked_fused_scan4", 4, False)]
+    for r in recs:
+        assert r["device"] == "cpu" and r["step_ms"] > 0
+        assert r["step_ms_iqr"][0] <= r["step_ms"] <= r["step_ms_iqr"][1]
+        assert r["realtime_capacity_streams"] == int(
+            10.24 / r["step_ms"] * 4)
+    assert "reporting_latency_ms" not in recs[0]
+    assert recs[1]["reporting_latency_ms"] == pytest.approx(40.96)
+
+
 # ----------------------------------------------------------------------
 @pytest.fixture
 def cuda_device():

@@ -7,7 +7,14 @@ planted events each accepted and the median |xy - truth| at the event step
 (and, with the free 3-D solve, the median |xyz - source|): the source of
 chip_smoke's ``STREAM_MEDIAN_BOUND_M`` and ``STREAM_XYZ_MEDIAN_BOUND_M``.
 
+With ``tracked``, the JAX package's ``TrackedStreamingLocalizer`` and the
+port's CPU path on the planted streams of chip_smoke's tracked scene
+(``chip_smoke.tracked_scene``, the default tracker bank): per package the
+streams that end with exactly one confirmed track and the median |track_xy
+- truth| of those tracks, the source of ``TRACK_MEDIAN_BOUND_M``.
+
     JAX_PLATFORMS=cpu python tests/witness_stream.py [n_streams [names]]
+    JAX_PLATFORMS=cpu python tests/witness_stream.py tracked [n_streams]
 
 Runs on the CPU (a minute or two a pipeline at the default 2,048-stream
 scene, of which the 512 planted streams are stepped).
@@ -22,7 +29,47 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 ".."))
 
 
+def tracked(n_streams):
+    import jax.numpy as jnp
+    import torch
+
+    import chip_smoke
+    from audio_triangulation_tpu.core import config as jcfg
+    from audio_triangulation_tpu.core import geometry
+    from audio_triangulation_tpu.models.tracked import (
+        TrackedStreamingLocalizer)
+
+    c = chip_smoke.STREAM_CHUNK
+    x, planted, truth = chip_smoke.tracked_scene(n_streams)
+    x = x[planted]
+    jsl = TrackedStreamingLocalizer.create(
+        geometry.reference_array(), jcfg.PipelineConfig(),
+        stream=jcfg.StreamConfig(chunk_size=c))
+    tsl = chip_smoke.tracked_banks("cpu")["nearest"]
+    jst, tst = jsl.init_states(len(planted)), tsl.init_states(len(planted))
+    for i in range(chip_smoke.STREAM_STEPS):
+        chunk = x[:, :, i * c:(i + 1) * c]
+        jst, jout = jsl.step_many(jst, jnp.asarray(chunk))
+        tst, tout = tsl.step_many(tst, torch.from_numpy(chunk))
+    jout = {k: torch.from_numpy(np.array(v)) for k, v in jout.items()}
+    got = {}
+    for label, out in (("JAX package", jout), ("port, CPU path", tout)):
+        n_conf, xy = chip_smoke.confirmed_tracks(out)
+        one = (n_conf == 1).numpy()
+        err = np.linalg.norm(xy.numpy()[one] - truth[one], axis=-1)
+        got[label] = xy.numpy()
+        print(f"tracked: {label}: {int(one.sum())} of {len(planted)} planted "
+              f"streams end with exactly one confirmed track, median "
+              f"|track_xy - truth| {np.median(err) * 100:.4f} cm, largest "
+              f"{err.max() * 100:.4f} cm", flush=True)
+    print(f"tracked: largest |track_xy port - track_xy JAX| "
+          f"{np.abs(got['JAX package'] - got['port, CPU path']).max():.2e} m",
+          flush=True)
+
+
 def main():
+    if sys.argv[1:2] == ["tracked"]:
+        return tracked(int(sys.argv[2]) if len(sys.argv) > 2 else 2048)
     import jax.numpy as jnp
     import torch
 
