@@ -1,6 +1,8 @@
 """PyTorch / CUDA port of audio_triangulation_tpu: the frame-batch localizer
-with its kernels written for Hopper, the streaming localizers and tracked
-streaming (a Kalman tracker bank on the streaming step).
+with its kernels written for Hopper (simultaneous sources through
+``Localizer.localize_multi``, moving ones through ``localize_moving``), the
+streaming localizers and tracked streaming (a Kalman tracker bank on the
+streaming step).
 
 The JAX package stays the reference; this package imports torch and never
 jax.  Quick start::

@@ -38,11 +38,18 @@ solver and ``solution_covariance`` do, as the reference's CPU route does
 The TPU dispatch knobs ``fused_kernel``, ``fused_tile_b``
 and ``fused_sub_tiles`` are accepted and change nothing; both
 ``dft_precision`` values compute in exact fp32.
+
+``Localizer.localize_multi`` resolves simultaneous sources of a planar
+array from raw correlograms (:func:`conditioned_correlograms`: the GCC
+kernel without peaks, or the large-array kernel, or the unfused engines),
+and ``Localizer.localize_moving`` adds the delay-Doppler velocity
+(``ops.caf``) to the pipeline's position.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 from typing import Optional
 
@@ -52,8 +59,9 @@ from torch import nn
 
 from ..core import geometry
 from ..core.config import GridConfig, PipelineConfig, SolverConfig
-from ..ops import conditioning, mxu_fft, srp, solver as solver_ops
-from ..ops import window as window_ops, xcorr
+from ..ops import caf, conditioning, multisource, mxu_fft, srp
+from ..ops import solver as solver_ops, window as window_ops, xcorr
+from ..ops._device import device_constant
 from ..ops.cuda import gcc_kernel, gcc_large, gn_kernel
 
 SAVE_FORMAT = "audio_triangulation_tpu.Localizer/1"
@@ -258,7 +266,7 @@ class Localizer(nn.Module):
         return LocalizerParams(**{n: getattr(self, n) for n in PARAM_NAMES})
 
     # ------------------------------------------------------------------
-    def forward(self, frames: torch.Tensor) -> dict:
+    def _check_frames(self, frames) -> None:
         m = self.mic_positions.shape[0]
         n = self.pipeline.frame_size
         if not isinstance(frames, torch.Tensor):
@@ -272,11 +280,77 @@ class Localizer(nn.Module):
                              f"lives on {self.window.device}")
         if frames.is_cuda:
             pin_fp32()
+
+    def forward(self, frames: torch.Tensor) -> dict:
+        self._check_frames(frames)
         return localize_frames(
             self.params, frames, cfg=self.pipeline, grid_cfg=self.grid,
             solver_cfg=self.solver, srp_form=self.srp_form,
             with_solver=self.with_solver, with_heatmap=self.with_heatmap,
             gn=self.gn)
+
+    def localize_multi(self, frames: torch.Tensor, n_sources: int = 2, *,
+                       min_separation_m: float = 0.4,
+                       assoc_window_samples: float = 3.0) -> dict:
+        """Up to ``n_sources`` simultaneous sources per frame of a planar
+        array (see :func:`localize_frames_multi` for the outputs: 'xy' is
+        [..., n_sources, 2], strongest first, and 'source_score' ranks the
+        slots)."""
+        self._check_frames(frames)
+        return localize_frames_multi(
+            self.params, frames, cfg=self.pipeline, grid_cfg=self.grid,
+            solver_cfg=self.solver, srp_form=self.srp_form,
+            n_sources=n_sources, min_separation_m=float(min_separation_m),
+            assoc_window_samples=float(assoc_window_samples))
+
+    def localize_moving(self, frames: torch.Tensor, *, v_max: float = 8.0,
+                        n_scales: int = 33) -> dict:
+        """Position and instantaneous velocity of moving sources: the
+        pipeline's outputs, and from the delay-Doppler CAF (``ops.caf``) on
+        the same frames 'velocity' ([..., 2] m/s, in the plane, for a
+        coplanar array, else [..., 3]), 'pair_rel_speed' and 'alpha'
+        [..., P], and 'tdoa_doppler' [..., P] (the best-scale TDOAs).  The
+        resampling operator is built on the localizer's device once per
+        (v_max, n_scales)."""
+        if not self.with_solver:
+            raise ValueError("localize_moving needs with_solver=True "
+                             "(the velocity model linearizes at the "
+                             "refined position)")
+        out = dict(self(frames))
+        resample, mic3, coplanar = self._moving_operator(float(v_max),
+                                                         int(n_scales))
+        dd = caf.estimate_delay_doppler(
+            frames, self.window, self.pairs, self.pipeline, v_max=v_max,
+            n_scales=n_scales, resample=resample)
+        xy = out["xy"]
+        pos3 = torch.cat([xy, torch.full_like(xy[..., :1],
+                                              self.grid.height_m)], dim=-1)
+        out.update({
+            "velocity": caf.solve_velocity(
+                pos3, dd["pair_rel_speed"], mic3, self.pairs,
+                in_plane=coplanar),
+            "pair_rel_speed": dd["pair_rel_speed"],
+            "alpha": dd["alpha"],
+            "tdoa_doppler": dd["tdoa_samples"]})
+        return out
+
+    def _moving_operator(self, v_max: float, n_scales: int):
+        """(resampling operator, mics [M, 3], coplanar) for
+        :meth:`localize_moving`, built once per (v_max, n_scales)."""
+        cache = self.__dict__.setdefault("_moving_cache", {})
+        key = (v_max, n_scales)
+        if key not in cache:
+            mics = self.mic_positions.cpu().numpy()
+            mic3 = np.zeros((mics.shape[0], 3), np.float32)
+            mic3[:, :mics.shape[1]] = mics
+            cfg = self.pipeline
+            cache[key] = (
+                caf.precompute_resample(
+                    cfg.frame_size, v_max, n_scales, cfg.speed_of_sound_mps,
+                    cfg=cfg, device=self.window.device),
+                torch.as_tensor(mic3, device=self.window.device),
+                bool(np.ptp(mic3[:, 2]) < 1e-6))
+        return cache[key]
 
     def save(self, path: str) -> str:
         """Write the exact configuration as JSON (the same format the JAX
@@ -396,6 +470,32 @@ def _phase_subsample(frames, params: LocalizerParams, cfg: PipelineConfig,
                        tdoa_par)
 
 
+def _flat_frames(frames: torch.Tensor, cfg: PipelineConfig) -> torch.Tensor:
+    """frames [..., M, N] as float32 [B, M, N], non-finite samples zeroed
+    under ``cfg.nan_guard``."""
+    m, n = frames.shape[-2:]
+    flat = frames.reshape(-1, m, n).float()
+    if cfg.nan_guard:
+        flat = torch.nan_to_num(flat, nan=0.0, posinf=0.0, neginf=0.0)
+    return flat
+
+
+def conditioned_correlograms(flat: torch.Tensor, params: LocalizerParams,
+                             cfg: PipelineConfig) -> torch.Tensor:
+    """Raw frames [B, M, N] (as :func:`_flat_frames` gives them) -> raw,
+    untapered correlograms [B, P, L]: the GCC kernel without peaks where
+    :func:`kernel_route` holds, the large-array kernel where
+    :func:`large_route` holds, else the unfused engines."""
+    p_n = params.pairs.shape[0]
+    if p_n <= LARGE_ARRAY_PAIRS and kernel_route(cfg):
+        return gcc_kernel.fused_gcc(flat, params.window, params.pairs, cfg,
+                                    with_peaks=False)
+    x = condition_frames(flat, params.window, cfg)
+    if large_route(cfg, p_n):
+        return gcc_large.xcorr_large(x, params.pairs, cfg)
+    return correlate_frames(x, params, cfg)
+
+
 def _srp_scores(corr_t, params: LocalizerParams, cfg: PipelineConfig,
                 srp_form: str, p_n: int) -> torch.Tensor:
     """SRP scores [..., G] of tapered correlograms, by the reference's
@@ -444,11 +544,8 @@ def localize_frames(
     """
     k = cfg.max_shift
     p_n = params.pairs.shape[0]
-    m, n = frames.shape[-2:]
     lead = frames.shape[:-2]
-    flat = frames.reshape(-1, m, n).float()
-    if cfg.nan_guard:
-        flat = torch.nan_to_num(flat, nan=0.0, posinf=0.0, neginf=0.0)
+    flat = _flat_frames(frames, cfg)
 
     refine = (grid_cfg.refine_peak == "on"
               or (grid_cfg.refine_peak == "auto" and not with_solver))
@@ -479,16 +576,7 @@ def localize_frames(
             tdoa_samples = _phase_subsample(flat, params, cfg, shifts,
                                             tdoa_samples)
     else:
-        if on_kernel:
-            corr = gcc_kernel.fused_gcc(flat, params.window, params.pairs,
-                                        cfg, with_peaks=False)
-        elif on_large:
-            corr = gcc_large.xcorr_large(
-                condition_frames(flat, params.window, cfg), params.pairs,
-                cfg)
-        else:
-            corr = correlate_frames(
-                condition_frames(flat, params.window, cfg), params, cfg)
+        corr = conditioned_correlograms(flat, params, cfg)
         shifts = xcorr.best_lag(corr, k)
         tdoa_samples, peak_val = xcorr.subsample_peak(corr, k)
         psr = xcorr.peak_confidence(corr, k)  # raw, pre-taper
@@ -549,4 +637,122 @@ def localize_frames(
                                    dtype=corr_t.dtype, device=corr_t.device)
 
     # restore the caller's leading batch dims
+    return {key: v.reshape(*lead, *v.shape[1:]) for key, v in out.items()}
+
+
+@functools.lru_cache(maxsize=16)
+def cell_xy(grid_cfg: GridConfig) -> np.ndarray:
+    """``multisource.cell_centers_xy`` as one array per grid, so its device
+    copy is made once (``device_constant`` keys on the array)."""
+    return multisource.cell_centers_xy(grid_cfg)
+
+
+def planar_mic3(mic_positions: torch.Tensor) -> torch.Tensor:
+    """Planar mics [M, 2] lifted to z = 0 [M, 3], on their device."""
+    return torch.cat([mic_positions, torch.zeros_like(mic_positions[:, :1])],
+                     dim=-1)
+
+
+def check_planar(mic_positions: torch.Tensor, what: str) -> None:
+    """Refuse a [M, 3] array where the reference's multi-source path takes
+    only planar [M, 2] ones (it lifts every mic to z = 0)."""
+    if mic_positions.shape[-1] != 2:
+        raise ValueError(
+            f"{what} takes planar [M, 2] arrays only (the simultaneous-"
+            f"source path lifts every mic to z = 0); got mics of shape "
+            f"{tuple(mic_positions.shape)}")
+
+
+def resolve_sources(
+    corr: torch.Tensor,
+    scores: torch.Tensor,
+    params: LocalizerParams,
+    *,
+    cfg: PipelineConfig,
+    grid_cfg: GridConfig,
+    solver_cfg: SolverConfig,
+    n_sources: int,
+    min_separation_m: float,
+    assoc_window_samples: float,
+) -> dict:
+    """Up to ``n_sources`` sources from raw correlograms corr [..., P, L]
+    and their SRP scores [..., G'] (the first G the grid's cells): the K
+    separated grid peaks (``srp.top_k_peaks``), each candidate's per-pair
+    TDOA re-measured within ``assoc_window_samples`` of the lag it predicts
+    (``multisource.windowed_subsample_peak``), and the batched Gauss-Newton
+    solve from it.  Returns (S = n_sources) 'xy' [..., S, 2] (strongest
+    first), 'xy_grid' [..., S, 2], 'tdoa_samples' [..., S, P],
+    'peak_value' [..., S, P], 'source_score' [..., S], 'rms_m' [..., S]
+    and 'xy_cov' [..., S, 2, 2]."""
+    fs = cfg.sample_rate_hz
+    cells = device_constant(cell_xy(grid_cfg), corr.device)
+    peak_xy, peak_score = srp.top_k_peaks(
+        scores[..., :grid_cfg.num_cells], cells, n_sources, min_separation_m)
+    pred_lags = solver_ops.predicted_tdoas(
+        peak_xy, planar_mic3(params.mic_positions), params.pairs,
+        cfg.speed_of_sound_mps, grid_cfg.height_m,
+        solver_cfg.constrain_to_sphere) * fs  # [..., S, P]
+    tdoa_samples, peak_val = multisource.windowed_subsample_peak(
+        corr[..., None, :, :], cfg.max_shift, pred_lags,
+        assoc_window_samples)
+    xy, rms = solver_ops.solve_tdoa_batched(
+        tdoa_samples / fs, params.mic_positions, params.pairs,
+        speed_of_sound=cfg.speed_of_sound_mps, height=grid_cfg.height_m,
+        init_xy=peak_xy, cfg=solver_cfg)
+    xy_cov = solver_ops.solution_covariance(
+        xy, rms, params.mic_positions, params.pairs,
+        height=grid_cfg.height_m, cfg=solver_cfg)
+    return {
+        "xy": xy,
+        "xy_grid": peak_xy,
+        "tdoa_samples": tdoa_samples,
+        "peak_value": peak_val,
+        "source_score": peak_score,
+        "rms_m": rms,
+        "xy_cov": xy_cov,
+    }
+
+
+def localize_frames_multi(
+    params: LocalizerParams,
+    frames: torch.Tensor,
+    *,
+    cfg: PipelineConfig,
+    grid_cfg: GridConfig,
+    solver_cfg: SolverConfig,
+    srp_form: str,
+    n_sources: int = 2,
+    min_separation_m: float = 0.4,
+    assoc_window_samples: float = 3.0,
+) -> dict:
+    """Up to ``n_sources`` simultaneous sources per frame, frames
+    [..., M, N] of a planar array:
+
+    1. raw (untapered: the taper would erase the weaker source's peak)
+       correlograms (:func:`conditioned_correlograms`) score the SRP grid;
+    2. ``srp.top_k_peaks`` takes K separated grid peaks;
+    3. each candidate's per-pair TDOA is re-measured as the correlogram's
+       local maximum within ``assoc_window_samples`` of the lag it predicts
+       (``multisource.windowed_subsample_peak``);
+    4. the batched Gauss-Newton solver refines each candidate.
+
+    Returns (leading dims kept, S = n_sources): 'xy' [..., S, 2] (strongest
+    first), 'xy_grid' [..., S, 2] (the grid candidates), 'tdoa_samples'
+    [..., S, P], 'peak_value' [..., S, P], 'source_score' [..., S] (the SRP
+    peak score), 'rms_m' [..., S], 'xy_cov' [..., S, 2, 2] and 'scores'
+    [..., G]."""
+    check_planar(params.mic_positions, "localize_multi")
+    p_n = params.pairs.shape[0]
+    lead = frames.shape[:-2]
+    flat = _flat_frames(frames, cfg)
+    corr = conditioned_correlograms(flat, params, cfg)  # [B, P, L]
+    scores = _srp_scores(corr, params, cfg, srp_form, p_n)
+    if params.score_bias is not None:
+        scores = scores + params.score_bias
+
+    out = resolve_sources(corr, scores, params, cfg=cfg, grid_cfg=grid_cfg,
+                          solver_cfg=solver_cfg, n_sources=n_sources,
+                          min_separation_m=min_separation_m,
+                          assoc_window_samples=assoc_window_samples)
+    out["scores"] = scores
     return {key: v.reshape(*lead, *v.shape[1:]) for key, v in out.items()}

@@ -33,8 +33,13 @@ the card runs them below a few thousand streams;
 a CUDA graph (the counterpart of the reference's single compiled program)
 and replays it per chunk.  ``solve_xyz`` adds the free 3-D position of the
 smoothed TDOAs (multi-start Gauss-Newton), in the two-rate localizer too.
-Not ported yet, each refused by name: ``n_sources > 1``,
-``solve_velocity`` and the two-rate ``with_audio``.
+``n_sources > 1`` resolves simultaneous sources in every event slot from
+its raw correlograms (``multi_*`` outputs), and ``solve_velocity`` adds the
+delay-Doppler velocity of the primary captured frame (``ops.caf``; its
+resampling operator is built once per localizer and captured with the
+graph).  The two-rate localizer accepts both fields and ignores them, as the
+reference's does.  Not ported yet, refused by name: the two-rate
+``with_audio``.
 """
 
 from __future__ import annotations
@@ -48,7 +53,8 @@ import torch
 
 from ..core.config import (GridConfig, PipelineConfig, SolverConfig,
                            StreamConfig)
-from ..ops import consistency, detector, solver as solver_ops, srp, xcorr
+from ..ops import (caf, consistency, detector,
+                   solver as solver_ops, srp, xcorr)
 from ..ops._device import device_constant
 from . import localizer as localizer_mod
 
@@ -91,18 +97,6 @@ def state_leaves(state) -> list:
         return [leaf for f in dataclasses.fields(state)
                 for leaf in state_leaves(getattr(state, f.name))]
     return [state]
-
-
-def check_ported(stream: StreamConfig) -> None:
-    """Refuse, by name, the stream options the port does not have yet."""
-    if stream.n_sources > 1:
-        raise NotImplementedError(
-            "StreamConfig.n_sources > 1 (simultaneous sources per event) is "
-            "not ported yet")
-    if stream.solve_velocity:
-        raise NotImplementedError(
-            "StreamConfig.solve_velocity (delay-Doppler velocity) is not "
-            "ported yet")
 
 
 def xyz_starts(stream: StreamConfig) -> Optional[tuple]:
@@ -156,7 +150,9 @@ class StreamingLocalizer:
 
     def __init__(self, base: localizer_mod.Localizer, stream: StreamConfig,
                  with_solver: bool = True):
-        check_ported(stream)
+        if stream.n_sources > 1:
+            localizer_mod.check_planar(base.mic_positions,
+                                       "StreamConfig.n_sources > 1")
         self.pipeline = base.pipeline
         self.grid = base.grid
         self.solver = base.solver
@@ -165,6 +161,20 @@ class StreamingLocalizer:
         self.srp_form = base.srp_form
         # Gauss-Newton refine of the smoothed peak each step
         self.with_solver = with_solver
+        # solve_velocity's resampling operator, built once on the device
+        # (the graphed step captures it), and whether the array is coplanar
+        # (then the velocity is solved in the plane)
+        self.caf_resample = None
+        self.velocity_in_plane = False
+        if stream.solve_velocity:
+            cfg = base.pipeline
+            self.caf_resample = caf.precompute_resample(
+                cfg.frame_size, stream.velocity_v_max,
+                stream.velocity_n_scales, cfg.speed_of_sound_mps, cfg=cfg,
+                device=base.window.device)
+            mics = base.mic_positions.cpu().numpy()
+            self.velocity_in_plane = mics.shape[1] < 3 or bool(
+                np.ptp(mics[:, 2]) < 1e-6)
 
     @classmethod
     def create(
@@ -181,7 +191,6 @@ class StreamingLocalizer:
     ) -> "StreamingLocalizer":
         """Build the constants on ``device``; ``kwargs`` go to
         ``Localizer.create`` (``srp_form``, ``init_grid_stride``)."""
-        check_ported(stream)
         base = localizer_mod.Localizer.create(
             mic_positions, pipeline, grid, solver, device=device, **kwargs)
         return cls(base, stream, with_solver)
@@ -204,7 +213,14 @@ class StreamingLocalizer:
             max_events=self.stream.max_events_per_chunk,
             refractory=self.stream.refractory_samples,
             with_solver=self.with_solver,
+            n_sources=self.stream.n_sources,
+            multi_min_separation_m=self.stream.multi_min_separation_m,
+            multi_assoc_window=self.stream.multi_assoc_window_samples,
             xyz_z_inits=xyz_starts(self.stream),
+            velocity_v_max=self.stream.velocity_v_max,
+            velocity_n_scales=self.stream.velocity_n_scales,
+            velocity_in_plane=self.velocity_in_plane,
+            caf_resample=self.caf_resample,
             health_weighting=self.stream.health_weighting,
             health_ratio=self.stream.health_ratio,
             health_floor_s=self.stream.health_floor_s)
@@ -381,7 +397,14 @@ def stream_step(
     max_events: int = 1,
     refractory: int = 0,
     with_solver: bool = False,
+    n_sources: int = 1,
+    multi_min_separation_m: float = 0.4,
+    multi_assoc_window: float = 3.0,
     xyz_z_inits: Optional[tuple] = None,
+    velocity_v_max: float = 8.0,
+    velocity_n_scales: int = 33,
+    velocity_in_plane: bool = False,
+    caf_resample=None,
     health_weighting: bool = False,
     health_ratio: float = 3.0,
     health_floor_s: float = 1e-5,
@@ -397,7 +420,21 @@ def stream_step(
     3-D position of the same TDOAs (``xyz``, ``xyz_rms_m``).
     Like ``xy``, they are computed for every stream at every step, from its
     smoothed state.  ``health_weighting`` turns the per-mic cycle-consistency
-    scores into pair weights on the SRP scoring and the solve."""
+    scores into pair weights on the SRP scoring and the solve.
+
+    With the solver, ``caf_resample`` (the operator of
+    ``caf.precompute_resample`` at ``velocity_v_max`` and
+    ``velocity_n_scales``; None: no velocity) adds the delay-Doppler
+    velocity of each stream's primary captured frame at that position
+    (``velocity`` [S, D], in the plane with ``velocity_in_plane``, and
+    ``pair_rel_speed`` [S, P]); it is computed every step and means
+    something where ``event`` is set.  ``n_sources`` > 1 resolves simultaneous sources in
+    every event slot from its raw correlograms (SRP top-K, per-source TDOA
+    re-measurement, batched solve; the scoring is f32 whatever
+    ``srp_dtype`` says, as in the reference): ``multi_xy`` [S, K, n, 2],
+    ``multi_score``, ``multi_rms_m`` [S, K, n], ``multi_tdoa_samples``
+    [S, K, n, P], ``multi_xy_cov`` [S, K, n, 2, 2] and ``multi_valid``
+    [S, K, n], sized for ``tracking.step_multi``."""
     n = cfg.frame_size
     c_len = chunks.shape[-1]
     fs = cfg.sample_rate_hz
@@ -539,6 +576,44 @@ def stream_step(
                     tdoa_s, params.mic_positions, params.pairs,
                     speed_of_sound=cfg.speed_of_sound_mps, init_xy=xy,
                     z_inits=xyz_z_inits))
+        if caf_resample is not None:
+            dd = caf.estimate_delay_doppler(
+                frames[:, 0], params.window, params.pairs, cfg,
+                v_max=velocity_v_max, n_scales=velocity_n_scales,
+                resample=caf_resample)
+            if xyz_z_inits is not None:
+                pos = out["xyz"]
+            else:
+                pos = torch.cat([xy, torch.full_like(xy[:, :1],
+                                                     grid_cfg.height_m)],
+                                dim=-1)
+            mic3 = params.mic_positions
+            if mic3.shape[-1] < 3:
+                mic3 = localizer_mod.planar_mic3(mic3)
+            out["velocity"] = caf.solve_velocity(
+                pos, dd["pair_rel_speed"], mic3, params.pairs,
+                in_plane=velocity_in_plane)
+            out["pair_rel_speed"] = dd["pair_rel_speed"]
+
+    if n_sources > 1:
+        # from the raw per-event correlograms: the tapered, smoothed state
+        # above keeps its single-source semantics
+        if srp_form == "matmul":
+            mscores = srp.srp_scores_matmul(corr, params.onehot)
+        else:
+            mscores = srp.srp_scores_gather(corr, params.lut_flat)
+        res = localizer_mod.resolve_sources(
+            corr, mscores, params, cfg=cfg, grid_cfg=grid_cfg,
+            solver_cfg=solver_cfg, n_sources=n_sources,
+            min_separation_m=multi_min_separation_m,
+            assoc_window_samples=multi_assoc_window)
+        out["multi_xy"] = res["xy"]  # [S, K, n, 2], strongest first
+        out["multi_score"] = res["source_score"]
+        out["multi_rms_m"] = res["rms_m"]
+        out["multi_tdoa_samples"] = res["tdoa_samples"]
+        out["multi_xy_cov"] = res["xy_cov"]
+        out["multi_valid"] = accepts[..., None] & torch.ones(
+            n_sources, dtype=torch.bool, device=accepts.device)
     return new_state, out
 
 
@@ -586,11 +661,12 @@ class TwoRateStreamingLocalizer:
     the mask: fixed shapes, no host round-trip), localizes the first
     ``event_capacity`` as one batch and scatters the updated EMA state back.
     Triggered streams beyond the capacity are dropped and counted
-    (``overflow``).  Detection and holdoff are :func:`stream_step`'s."""
+    (``overflow``).  Detection and holdoff are :func:`stream_step`'s.
+    ``StreamConfig.n_sources`` and ``solve_velocity`` are accepted and change
+    nothing here, as in the reference's two-rate localizer."""
 
     def __init__(self, base: localizer_mod.Localizer, stream: StreamConfig,
                  event_capacity: int = 64, with_solver: bool = True):
-        check_ported(stream)
         self.pipeline = base.pipeline
         self.grid = base.grid
         self.solver = base.solver
@@ -618,7 +694,6 @@ class TwoRateStreamingLocalizer:
         if with_audio:
             raise NotImplementedError(
                 "with_audio (beamformed event audio) is not ported yet")
-        check_ported(stream)
         base = localizer_mod.Localizer.create(
             mic_positions, pipeline, grid, solver, device=device, **kwargs)
         return cls(base, stream, event_capacity, with_solver)

@@ -17,12 +17,15 @@ Semantics per chunk:
   under ``StreamConfig.solve_xyz``), at the accepted trigger's stream time,
   masked by the accept flag;
 - chunks with no accepted event leave the tracker state untouched (the bank
-  is event-driven: coasting and drop decisions happen at the next event).
-
-Not ported yet, each refused by name when the localizer is built:
-``StreamConfig.n_sources > 1`` (joint updates of every event slot through
-``tracking.step_multi``, which is itself ported), ``solve_velocity`` and
-``fuse_velocity``.
+  is event-driven: coasting and drop decisions happen at the next event);
+- with ``StreamConfig.n_sources > 1`` every event slot's resolved sources
+  update the bank jointly through the JPDA ``tracking.step_multi``, one
+  slot after the other at each slot's trigger time (a slot without an
+  event runs at the previous time with every measurement invalid, and is
+  reverted);
+- with ``fuse_velocity`` (needs ``StreamConfig.solve_velocity``, a
+  single-model bank) the delay-Doppler velocity is a velocity measurement
+  (``tracking.step(z_vel=...)``).
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ from ..core.config import (GridConfig, PipelineConfig, SolverConfig,
                            StreamConfig)
 from . import tracking as tracking_mod
 from .streaming import (GraphedStep, StreamState, StreamingLocalizer,
-                        _check_chunks, check_ported, map_state, stream_step)
+                        _check_chunks, map_state, stream_step)
 from .tracking import Tracker, TrackerConfig
 
 
@@ -51,14 +54,27 @@ class TrackedStreamState:
     track: Any
 
 
+def _keep(mask: torch.Tensor, new: torch.Tensor,
+          old: torch.Tensor) -> torch.Tensor:
+    """``new`` where the per-stream ``mask`` [S] is set, else ``old``."""
+    return torch.where(mask.reshape(mask.shape + (1,) * (new.ndim - 1)),
+                       new, old)
+
+
+def _keep_state(mask, new, old):
+    return type(new)(**{f.name: _keep(mask, getattr(new, f.name),
+                                      getattr(old, f.name))
+                        for f in dataclasses.fields(new)})
+
+
 def tracked_stream_step(state: TrackedStreamState, chunks: torch.Tensor, *,
                         tracker_cfg: TrackerConfig, use_imm: bool,
-                        **stream_kwargs):
+                        fuse_velocity: bool = False, **stream_kwargs):
     """One tracked step of S stacked streams, chunks [S, M, C]: (new state,
     outputs).  ``outputs`` is ``stream_step``'s dict plus the tracker's
     ('track_xy', 'track_vel', 'track_active', 'track_confirmed',
-    'track_id', 'assigned', and 'model_prob' for the IMM bank).  Pure, like
-    both halves."""
+    'track_id', 'assigned', and 'model_prob' for the IMM bank or 'beta' for
+    the JPDA update).  Pure, like both halves."""
     s_state, out = stream_step(state.stream, chunks, **stream_kwargs)
     any_event = out["event"]  # [S]
     # measurement time: the last accepted event's stream time this chunk.
@@ -68,26 +84,43 @@ def tracked_stream_step(state: TrackedStreamState, chunks: torch.Tensor, *,
     # prediction), which the output passthrough below relies on
     t = torch.where(any_event, s_state.last_event_s,
                     state.stream.last_event_s)
-    if stream_kwargs.get("xyz_z_inits") is not None:
-        z, z_cov = out["xyz"], None  # the free 3-D solve has no covariance
+    if stream_kwargs.get("n_sources", 1) > 1:
+        # joint JPDA updates from every event slot's resolved sources, in
+        # slot order at each slot's trigger time; a slot without an event
+        # runs at the previous time with invalid measurements and is
+        # reverted, so it changes nothing
+        t_state, t_out = state.track, None
+        t_prev = state.stream.last_event_s
+        for k in range(out["multi_xy"].shape[1]):
+            ev_k = out["events"][:, k]
+            t_k = torch.where(ev_k, out["event_time_s"][:, k], t_prev)
+            s_new, o_k = tracking_mod.step_multi(
+                t_state, out["multi_xy"][:, k], t_k, out["multi_valid"][:, k],
+                tracker_cfg, z_covs=out["multi_xy_cov"][:, k])
+            t_state = _keep_state(ev_k, s_new, t_state)
+            t_out = o_k if t_out is None else {
+                kk: _keep(ev_k, o_k[kk], v) for kk, v in t_out.items()}
+            t_prev = t_k
     else:
-        z, z_cov = out["xy"], out["xy_cov"]
-    fn = tracking_mod.step_imm if use_imm else tracking_mod.step
-    t_state, t_out = fn(state.track, z, t, any_event, tracker_cfg,
-                        z_cov=z_cov)
+        if stream_kwargs.get("xyz_z_inits") is not None:
+            z, z_cov = out["xyz"], None  # the free 3-D solve has no cov
+        else:
+            z, z_cov = out["xy"], out["xy_cov"]
+        if use_imm:
+            t_state, t_out = tracking_mod.step_imm(
+                state.track, z, t, any_event, tracker_cfg, z_cov=z_cov)
+        else:
+            t_state, t_out = tracking_mod.step(
+                state.track, z, t, any_event, tracker_cfg, z_cov=z_cov,
+                z_vel=out["velocity"] if fuse_velocity else None)
 
     # event-driven bank: silence leaves the tracker untouched (a masked
     # revert, so the step stays free of branches on tensors)
-    def keep(new, old):
-        return torch.where(any_event.reshape(
-            any_event.shape + (1,) * (new.ndim - 1)), new, old)
-
-    t_state = type(t_state)(**{
-        f.name: keep(getattr(t_state, f.name), getattr(state.track, f.name))
-        for f in dataclasses.fields(t_state)})
+    t_state = _keep_state(any_event, t_state, state.track)
     # 'assigned' is -1 on a no-event chunk (nothing was associated); every
     # other output equals the carried state's there
-    t_out["assigned"] = torch.where(any_event, t_out["assigned"], -1)
+    t_out["assigned"] = _keep(any_event, t_out["assigned"],
+                              torch.full_like(t_out["assigned"], -1))
     out.update(t_out)
     return TrackedStreamState(stream=s_state, track=t_state), out
 
@@ -108,9 +141,12 @@ class TrackedStreamingLocalizer:
     ``Tracker.step``.
     """
 
-    def __init__(self, sl: StreamingLocalizer, tracker: Tracker):
+    def __init__(self, sl: StreamingLocalizer, tracker: Tracker,
+                 fuse_velocity: bool = False):
         self.sl = sl
         self.tracker = tracker
+        # the delay-Doppler velocity as a tracker measurement
+        self.fuse_velocity = fuse_velocity
 
     @classmethod
     def create(
@@ -151,14 +187,10 @@ class TrackedStreamingLocalizer:
         if fuse_velocity and tracker_cfg.imm_q:
             raise ValueError("velocity-measurement fusion is single-model "
                              "only (no imm_q)")
-        check_ported(stream)
-        if fuse_velocity:
-            raise NotImplementedError(
-                "fuse_velocity (the delay-Doppler velocity as a tracker "
-                "measurement) is not ported yet")
         sl = StreamingLocalizer.create(mic_positions, pipeline, grid, solver,
                                        stream, device=device, **kwargs)
-        return cls(sl, Tracker(tracker_cfg, sl.params.window.device))
+        return cls(sl, Tracker(tracker_cfg, sl.params.window.device),
+                   fuse_velocity)
 
     # ------------------------------------------------------------------
     def init_state(self) -> TrackedStreamState:
@@ -174,7 +206,8 @@ class TrackedStreamingLocalizer:
     def _step(self, states, chunks):
         return tracked_stream_step(
             states, chunks, tracker_cfg=self.tracker.cfg,
-            use_imm=bool(self.tracker.cfg.imm_q), **self.sl.step_kwargs())
+            use_imm=bool(self.tracker.cfg.imm_q),
+            fuse_velocity=self.fuse_velocity, **self.sl.step_kwargs())
 
     def __call__(self, state: TrackedStreamState, chunk: torch.Tensor):
         """One stream, one chunk [M, C]: (new state, outputs), both without

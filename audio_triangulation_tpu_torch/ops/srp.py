@@ -8,6 +8,7 @@ Counterpart of ``audio_triangulation_tpu.ops.srp`` (main-path subset):
   (``big_onehot_device`` / ``srp_scores_matmul_big``), or the pair axis a
   chunk at a time (``srp_scores_matmul_blocked`` / ``_gather_blocked``)
 - grid peak: first-max argmax, optional separable quadratic refinement
+- K separated peaks for simultaneous sources (``top_k_peaks``)
 
 The reference pads the lag axis of its large-array one-hots to a multiple
 of 8 for its memory layout; the zero rows add nothing to a score, so the
@@ -122,6 +123,28 @@ def grid_argmax(scores: torch.Tensor, grid_shape: tuple[int, int]):
     _, w = grid_shape
     flat_idx = scores.argmax(dim=-1).to(torch.int32)
     return torch.div(flat_idx, w, rounding_mode="floor"), flat_idx % w
+
+
+def top_k_peaks(scores: torch.Tensor, cell_xy: torch.Tensor, k: int,
+                min_separation_m: float):
+    """K spatially separated SRP peaks by greedy non-maximum suppression:
+    k rounds of (argmax, suppress the ``min_separation_m``-radius disc
+    around it).  scores [..., G], cell_xy [G, 2] meters.  Returns (peak_xy
+    [..., k, 2], peak_score [..., k]); the first maximum wins a tie, and
+    when fewer than k distinct sources exist later peaks repeat cells at
+    the suppressed floor (rank by peak_score)."""
+    neg = torch.full((), -3e38, dtype=scores.dtype, device=scores.device)
+    r2 = min_separation_m * min_separation_m
+    xys, vals = [], []
+    s = scores
+    for _ in range(k):
+        idx = s.argmax(dim=-1)
+        vals.append(s.gather(-1, idx[..., None])[..., 0])
+        xy = cell_xy[idx]  # [..., 2]
+        d2 = ((cell_xy - xy[..., None, :]) ** 2).sum(dim=-1)  # [..., G]
+        s = torch.where(d2 <= r2, neg, s)
+        xys.append(xy)
+    return torch.stack(xys, dim=-2), torch.stack(vals, dim=-1)
 
 
 def auto_srp_form(num_pairs: int, num_lags: int, num_cells: int,

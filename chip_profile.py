@@ -8,7 +8,12 @@ For each of ``chip_smoke.py``'s Localizer paths at its full size (the three
 its four streaming pipelines at 1,024 and 4,096 streams of 512-sample
 chunks (3 mics; 4 in ``xyz_tetra``), and for one tracked step (the stream
 step and the tracker bank, ``TrackedStreamingLocalizer``) eager and
-replayed as one CUDA graph at the same stream counts, prints:
+replayed as one CUDA graph at the same stream counts, and for the
+simultaneous and moving sources (``Localizer.localize_multi`` on
+chip_smoke's 16,384 two-source frames of 8 x 1,024; ``localize_moving`` on
+its 2,048 moving-source frames; the CAF stage alone on 1,024 frames of
+``reference_array()`` with the time-domain operator; graphed stream steps
+with ``n_sources=2`` and with ``solve_velocity`` at 1,024 streams), prints:
 
 - the median wall time of 7 unprofiled calls and the device-busy time of
   one profiled call (the sum of its kernels' device time), hence the
@@ -22,7 +27,8 @@ replayed as one CUDA graph at the same stream counts, prints:
   carries the profiler's own set-up ("Activity Buffer Request"), and the
   closing ``cudaDeviceSynchronize`` is the profiler window's own.
 
-    python3 chip_profile.py          # one CUDA card
+    python3 chip_profile.py [localizer] [stream] [tracked] [sources]
+                                     # one CUDA card; no argument: all
 
 Imports no JAX.
 """
@@ -41,20 +47,34 @@ TOP_KERNELS = 14
 SLOW_HOST_OP_US = 300.0
 
 
-def main():
+SECTIONS = ("localizer", "stream", "tracked", "sources")
+
+
+def main(argv=None):
     import torch
 
     if not torch.cuda.is_available():
         print("chip_profile: torch.cuda.is_available() is False", flush=True)
         sys.exit(2)
+    sections = (sys.argv[1:] if argv is None else argv) or SECTIONS
+    unknown = set(sections) - set(SECTIONS)
+    if unknown:
+        sys.exit(f"chip_profile: unknown sections {sorted(unknown)}; "
+                 f"choose from {SECTIONS}")
     sys.path.insert(0, HERE)
     import chip_smoke
+
+    print(torch.cuda.get_device_name(0), flush=True)
+    rng = np.random.default_rng(chip_smoke.SEED)
+    for section in sections:
+        globals()[f"profile_{section}"](chip_smoke, rng)
+
+
+def profile_localizer(chip_smoke, rng):
+    import torch
     from audio_triangulation_tpu_torch import Localizer, geometry
 
-    cpu = torch.autograd.DeviceType.CPU
     src = (*chip_smoke.SOURCE_XY, 1.2)
-    rng = np.random.default_rng(chip_smoke.SEED)
-    print(torch.cuda.get_device_name(0), flush=True)
     mics = geometry.square_array(0.3)
     frames = torch.from_numpy(chip_smoke.scene_frames(
         mics, chip_smoke.FRAMES, rng, fixed_source=src)).cuda()
@@ -73,7 +93,9 @@ def main():
         profile_path(name, lambda: loc(large))
     del large
 
-    # one streaming step: the state is carried from call to call
+
+def profile_stream(chip_smoke, rng):
+    """One streaming step: the state is carried from call to call."""
     for name, sl in chip_smoke.stream_localizers():
         for n_streams in (chip_smoke.STREAM_COUNTS[0],
                           chip_smoke.STREAM_COUNTS[-1]):
@@ -88,7 +110,8 @@ def main():
             profile_path(f"stream_{name}_{n_streams}", step,
                          watch=("detector_scan", "cumsum", "gemm"))
 
-    # the tracked step (the default bank), eager and as one CUDA graph
+def profile_tracked(chip_smoke, rng):
+    """The tracked step (the default bank), eager and as one CUDA graph."""
     tsl = chip_smoke.tracked_banks()["nearest"]
     for n_streams in (chip_smoke.STREAM_COUNTS[0],
                       chip_smoke.STREAM_COUNTS[-1]):
@@ -103,6 +126,53 @@ def main():
         for how, fn in (("eager", step), ("graphed", lambda: graphed(chunks))):
             profile_path(f"stream_tracked_{how}_{n_streams}", fn,
                          watch=("detector_scan", "gemm"))
+        del graphed
+
+
+def profile_sources(chip_smoke, rng):
+    """Simultaneous and moving sources at chip_smoke's sizes."""
+    import torch
+    from audio_triangulation_tpu_torch import (Localizer, PipelineConfig,
+                                               StreamConfig,
+                                               StreamingLocalizer, geometry)
+    from audio_triangulation_tpu_torch.ops import caf
+
+    mics = geometry.circular_array(8, 0.15)
+    frames = chip_smoke.noisy(chip_smoke.two_source_frame(mics),
+                              chip_smoke.MULTI_FRAMES, chip_smoke.SEED + 20)
+    loc = Localizer.create(mics, PipelineConfig(phat=True), device="cuda")
+    profile_path("multi_8mic", lambda: loc.localize_multi(frames),
+                 watch=("gcc_kernel", "gemm"))
+    del frames
+    mics, cfg = chip_smoke.moving_setup()
+    frames = chip_smoke.noisy(chip_smoke.moving_frame(mics),
+                              chip_smoke.MOVING_FRAMES, chip_smoke.SEED + 22)
+    loc = Localizer.create(mics, cfg, device="cuda")
+    profile_path("moving", lambda: loc.localize_moving(
+        frames, n_scales=chip_smoke.MOVING_SCALES), watch=("gemm",))
+    del frames
+    n = chip_smoke.VELOCITY_STREAM_COUNTS[-1]
+    sl = StreamingLocalizer.create(geometry.reference_array(),
+                                   stream=StreamConfig(
+                                       chunk_size=chip_smoke.STREAM_CHUNK,
+                                       solve_velocity=True), device="cuda")
+    frames = torch.from_numpy(chip_smoke.scene_frames(
+        geometry.reference_array(), n, rng)).cuda()
+    profile_path(f"caf_time_domain_{n}", lambda: caf.estimate_delay_doppler(
+        frames, sl.params.window, sl.params.pairs, sl.pipeline,
+        n_scales=sl.stream.velocity_n_scales, resample=sl.caf_resample),
+        watch=("gemm",))
+    for what, stream in (
+            ("n_sources2", StreamConfig(chunk_size=chip_smoke.STREAM_CHUNK,
+                                        n_sources=2)),
+            ("solve_velocity", sl.stream)):
+        sl = StreamingLocalizer.create(geometry.reference_array(),
+                                       stream=stream, device="cuda")
+        n = chip_smoke.SOURCE_STREAMS
+        chunks = chip_smoke.quiet_chunks(rng, n)
+        graphed = sl.graph_step_many(sl.init_states(n), chunks)
+        profile_path(f"stream_{what}_graphed_{n}", lambda: graphed(chunks),
+                     watch=("detector_scan", "gemm"))
         del graphed
 
 

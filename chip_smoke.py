@@ -28,7 +28,14 @@ in every fourth, is checked against the untracked step (bit-equal
 localization), the planted sources, the port's CPU path (in three banks:
 nearest, IMM, soft association) and its replays as CUDA graphs of one and
 of four chunk steps, and is timed like the stream step, and as the
-four-step graph.
+four-step graph.  Simultaneous and moving sources: ``localize_multi`` on
+16,384 two-source frames of an 8-mic array (the GCC kernel without peaks)
+and on 16 frames of the 64-mic array (the large-array kernel without
+peaks), ``localize_moving`` on 2,048 frames (33 scales), and the stream
+and tracked steps with ``n_sources=2``, ``solve_velocity``, the JPDA
+update and ``fuse_velocity`` on 1,024 streams, each checked against the
+known sources, the port's CPU path and, for the steps, their CUDA-graph
+replays, and timed.
 
     python3 chip_smoke.py            # one CUDA card; exits non-zero on any failure
 
@@ -342,6 +349,8 @@ def gcc_cases():
          PipelineConfig()),
         ("2mic_phat_per_pair", two,
          PipelineConfig(phat=True, fft_pad_mode="circular")),
+        # localize_moving's position pass: 15 pairs, no window
+        ("6mic_moving_bandcrop_700_9500", *moving_setup()),
     ]
 
 
@@ -574,7 +583,7 @@ GN_CHECK_SIZES = (CHECK_FRAMES, 1027, FRAMES + 27)  # and ragged batches
 
 def phase_gn(rng, results):
     """The GN kernel (solve and covariance) against its plain version on
-    3-, 4- and 11-mic arrays, sphere and plane, at batches no block divides
+    3-, 4-, 6- (``localize_moving``'s) and 11-mic arrays, sphere and plane, at batches no block divides
     too: xy within 1e-5 m, rms within 1e-6 m, cov within 1e-4 of itself
     plus 1e-6 of its largest entry.  The kernel rounds every operation as
     the plain version's tensor ops do, so the line names the outputs that
@@ -588,7 +597,7 @@ def phase_gn(rng, results):
 
     worst = 0.0
     for mics in (geometry.reference_array(), geometry.square_array(0.3),
-                 geometry.circular_array(11, 0.25)):
+                 moving_setup()[0], geometry.circular_array(11, 0.25)):
         pairs = geometry.mic_pairs(mics.shape[0])
         mic3 = torch.zeros((mics.shape[0], 3), device="cuda")
         mic3[:, :2] = torch.as_tensor(mics, device="cuda")
@@ -962,7 +971,12 @@ PATH_KERNELS = {"bandcrop_800_6000": ("gcc_kernel", "gn_kernel"),
                                              "gcc_kernel"),
                 **{f"stream_{name}": ("detector_scan_kernel",)
                    for name in ("default", "band_crop_phat",
-                                "band_auto_phat", "xyz_tetra", "tracked")}}
+                                "band_auto_phat", "xyz_tetra", "tracked",
+                                "multi", "velocity", "tracked_multi",
+                                "tracked_velocity")},
+                "multi_8mic": ("gcc_kernel",),
+                "multi_64mic": ("gcc_large_kernel",),
+                "moving": ("gcc_kernel", "gn_kernel")}
 
 
 def launch_counts():
@@ -1030,6 +1044,8 @@ def counted(name, results, fn):
     counts = launch_counts()
     for k, v in counts.items():
         results[k]["launches"] += v
+        if v:  # the path that launched it
+            results[k].setdefault("launches_by_path", {})[name] = v
     say("4 main", f"{name}: launches {counts}; calls outside the kernels "
         f"{calls}")
     if min(counts[k] for k in PATH_KERNELS[name]) < 1:
@@ -1197,7 +1213,7 @@ def time_path(card, name, fn, n_frames):
     q1, med, q3 = np.percentile(rates, [25, 50, 75])
     say("5 timing", f"{name}: {med:.1f} frames/s median, IQR "
         f"{q1:.1f}-{q3:.1f} over {TRIALS} trials of {n_frames} frames "
-        f"({card})")
+        f"({n_frames / med * 1e3:.4f} ms a call) ({card})")
 
 
 def gn_inputs(loc, b):
@@ -2037,6 +2053,16 @@ def phase_stream(card, results):
                     f"({card})")
 
 
+def run_steps(sl, n_streams, source):
+    """``STREAM_STEPS`` chained ``step_many`` calls of ``n_streams`` fresh
+    streams on chunks ``source(i)``: (final state, every step's outputs)."""
+    st, outs = sl.init_states(n_streams), []
+    for i in range(STREAM_STEPS):
+        st, out = sl.step_many(st, source(i))
+        outs.append(out)
+    return st, outs
+
+
 def tracked_scene(n_streams=STREAM_CHECK_STREAMS, seed=TRACK_SEED):
     """The tracked check's scene on the reference array: (streams [S, 3, T]
     f32 ADC counts, planted stream indices [E], their sources' plane points
@@ -2131,18 +2157,11 @@ def phase_tracked(card, results):
     def chunk(i):
         return x[:, :, i * STREAM_CHUNK:(i + 1) * STREAM_CHUNK]
 
-    def run(sl, n_streams, source):
-        st, outs = sl.init_states(n_streams), []
-        for i in range(STREAM_STEPS):
-            st, out = sl.step_many(st, source(i))
-            outs.append(out)
-        return st, outs
-
     st, outs = counted("stream_tracked", results,
-                       lambda: run(tsl, s_n, chunk))
+                       lambda: run_steps(tsl, s_n, chunk))
     torch.cuda.synchronize()
     # (a) the equality contract: the untracked localizer inside
-    _, plain = run(tsl.sl, s_n, chunk)
+    _, plain = run_steps(tsl.sl, s_n, chunk)
     contract = all(torch.equal(o[k], p[k]) for o, p in zip(outs, plain)
                    for k in p)
     del plain
@@ -2182,8 +2201,9 @@ def phase_tracked(card, results):
 
     tol = {"track_xy": 2e-4, "track_vel": 2e-3, "model_prob": 1e-4}
     for name, bank in banks.items():
-        g_outs = outs if name == "nearest" else run(bank, s_n, chunk)[1]
-        _, c_outs = run(cpu_banks[name], n_cpu, cpu_chunk)
+        g_outs = outs if name == "nearest" else run_steps(bank, s_n,
+                                                          chunk)[1]
+        _, c_outs = run_steps(cpu_banks[name], n_cpu, cpu_chunk)
         exact, worst = True, dict.fromkeys(tol, 0.0)
         for g, c in zip(g_outs, c_outs):
             for k in c:
@@ -2249,12 +2269,621 @@ def phase_tracked(card, results):
                      STREAM_TIMED_STEPS), k=TRACK_SCAN_K)
 
 
+# ---- simultaneous and moving sources -------------------------------------
+MULTI_FRAMES = 16384  # localize_multi: frames of 8 x 1,024 a call
+MULTI_CPU_FRAMES = 1024  # of them held to the port's CPU path
+# the two simultaneous sources' plane points (on the 1.2 m sphere): the JAX
+# package's tests/test_multisource.py scene, with fresh noise every frame
+MULTI_XY = ((0.5, 0.4), (-0.6, -0.3))
+MULTI_NOISE = 0.005
+MULTI64_FRAMES = 16  # the 64-mic localize_multi: frames of 64 x 4,096
+MULTI64_CPU_FRAMES = 2
+MOVING_FRAMES = 2048  # localize_moving: frames of 6 x 1,024 a call
+MOVING_CPU_FRAMES = 4
+MOVING_SCALES = 33
+MOVING_SOURCE = (0.3, 0.2, 1.2)  # examples/advanced.py's moving source
+MOVING_V = (2.5, -1.5, 0.0)
+# the JAX package's own bound on |velocity - truth| at 33 scales (its
+# tests/test_caf.py), held on the median
+MOVING_VEL_BOUND = 1.2
+# the card against the port's CPU path: velocity and pair_rel_speed (m/s),
+# alpha and tdoa_doppler (lags), the tests' tolerances against the JAX
+# package (tests/test_torch_caf.py); the largest gaps read on the H100 are
+# 3.58e-05 m/s, 5.96e-08 and 7.63e-06 lags
+VEL_TOL = {"velocity": 1e-3, "pair_rel_speed": 1e-3, "alpha": 1e-6,
+           "tdoa_doppler": 1e-3}
+SOURCE_STREAMS = 1024  # streams of the n_sources / solve_velocity checks
+SOURCE_CPU_STREAMS = 16  # of them held to the port's CPU path
+SOURCE_BURST_GAIN = 0.6 * 110.0  # two sources add up: keep inside 8 bits
+MULTI_STREAM_COUNTS = (1024, 4096)  # streams a timed n_sources=2 step
+VELOCITY_STREAM_COUNTS = (256, 1024)  # streams a timed solve_velocity step
+CAF_REPS = 5
+
+
+def place(xy, h=1.2):
+    """A plane point's projection on the radius-h sphere, [3]."""
+    p = np.array([xy[0], xy[1], h], np.float64)
+    return p * (h / np.linalg.norm(p))
+
+
+def two_source_frame(mics, n=1024):
+    """[M, n] f32: two simultaneous, spectrally distinct chirps from
+    ``MULTI_XY`` (the JAX package's multi-source test scene), no noise."""
+    from audio_triangulation_tpu_torch.utils import synth
+
+    f1 = synth.synth_scene(place(MULTI_XY[0]), mics, n=n)
+    sig2 = synth.chirp_burst(n, 50_000.0, f0=2000, f1=9000, center=0.45)
+    f2 = synth.synth_scene(place(MULTI_XY[1]), mics, n=n, signal=sig2)
+    return (f1 + f2)[0].astype(np.float32)
+
+
+def moving_frame(mics, at=MOVING_SOURCE):
+    """[M, 1,024] f32 of the source at ``at`` moving at ``MOVING_V`` (the
+    per-mic delay and Doppler scale of ``synth_moving_scene``), no noise."""
+    from audio_triangulation_tpu_torch.utils import synth
+
+    return synth.synth_moving_scene(np.asarray(at), np.asarray(MOVING_V),
+                                    mics)[0].astype(np.float32)
+
+
+def noisy(frame, n_frames, seed):
+    """[n_frames, M, N] on the card: ``frame`` plus fresh white noise of
+    rms ``MULTI_NOISE`` in every frame, drawn from ``seed``."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.from_numpy(frame).cuda() + MULTI_NOISE * torch.randn(
+        (n_frames, *frame.shape), device="cuda", generator=g)
+
+
+def same(a, b) -> bool:
+    """Bit-equal tensors (NaN where the other has NaN counts as equal)."""
+    import torch
+
+    if a.is_floating_point():
+        return a.shape == b.shape and bool(torch.equal(
+            torch.isnan(a), torch.isnan(b))) and bool(torch.equal(
+                torch.nan_to_num(a), torch.nan_to_num(b)))
+    return bool(torch.equal(a, b))
+
+
+def top_k_margin(scores, cells, k, radius):
+    """Per row of scores [B, G], the smallest gap over ``srp.top_k_peaks``'s
+    k rounds between the best live cell and the next: the rows whose
+    candidates no rounding of the scores can move are those where it is
+    clear of zero."""
+    import torch
+
+    s, gaps = scores.clone(), []
+    for _ in range(k):
+        top2 = s.topk(2, dim=-1)
+        gaps.append(top2.values[:, 0] - top2.values[:, 1])
+        xy = cells[top2.indices[:, 0]]
+        s = torch.where(((cells - xy[:, None]) ** 2).sum(-1) <= radius ** 2,
+                        torch.full_like(s, -3e38), s)
+    return torch.stack(gaps, -1).amin(-1)
+
+
+def found_sources(xy, tol=0.1):
+    """xy [B, S, 2] -> (share of rows with every ``MULTI_XY`` source within
+    ``tol`` of a slot, median distance per source [2])."""
+    import torch
+
+    truth = torch.tensor(MULTI_XY, device=xy.device, dtype=xy.dtype)
+    d = (xy[:, :, None, :] - truth).norm(dim=-1).amin(dim=1)  # [B, 2]
+    return (float((d < tol).all(dim=-1).float().mean()),
+            d.median(dim=0).values.tolist())
+
+
+def check_multi(out, ref, n_sources, radius):
+    """A localize_multi result against the port's CPU path on its first
+    rows: the grid candidates equal on the rows whose top-K decisions are
+    clear of a near tie (1e-3 of the score scale), xy within 2e-4 m on
+    those rows, source_score within 1e-3 of scale on every row.  Returns
+    the line's text and whether it passed."""
+    import torch
+    from audio_triangulation_tpu_torch.models.localizer import cell_xy
+
+    n = ref["xy"].shape[0]
+    scale = float(ref["scores"].abs().max())
+    cells = torch.from_numpy(cell_xy(ref["grid"]))
+    clear = top_k_margin(ref["scores"], cells, n_sources,
+                         radius) > 1e-3 * scale
+    grid_eq = (out["xy_grid"][:n].cpu() == ref["xy_grid"]).all(-1).all(-1)
+    dxy = float((out["xy"][:n].cpu() - ref["xy"]).abs().amax(
+        dim=(-1, -2))[clear].max()) if bool(clear.any()) else 0.0
+    dscore = float((out["source_score"][:n].cpu()
+                    - ref["source_score"]).abs().max()) / scale
+    ok = (bool(grid_eq[clear].all()) and dxy <= 2e-4 and dscore <= 1e-3
+          and bool(clear.any()))
+    return (f"vs CPU path on {n} frames: grid candidates equal on the "
+            f"{int(clear.sum())} rows clear of a near tie "
+            f"{bool(grid_eq[clear].all())} (equal on "
+            f"{int(grid_eq.sum())} of all {n}), xy {dxy:.2e} m there, "
+            f"source_score {dscore:.2e} of scale"), ok
+
+
+def phase_multi(card, results):
+    """``Localizer.localize_multi(n_sources=2)`` on the 8-mic circular array
+    (15 cm) at 16,384 frames of the two-source scene: the GCC kernel without
+    peaks (row 2) once a call, then top-K, the windowed TDOA re-measurement
+    and the batched solve.  Checked: both sources found within 10 cm in at
+    least 99% of frames (the JAX package's test bound), and against the
+    port's CPU path on 1,024 frames (``check_multi``).  Then a 64-mic
+    array (2,016 pairs, 4,096 samples) at 16 frames takes the large-array
+    kernel without peaks (row 6), held the same way on 2 frames.  Both
+    timed."""
+    import torch
+    from audio_triangulation_tpu_torch import (Localizer, PipelineConfig,
+                                               geometry)
+    from audio_triangulation_tpu_torch.ops.cuda import gcc_kernel
+
+    mics = geometry.circular_array(8, 0.15)
+    cfg = PipelineConfig(phat=True)
+    frames = noisy(two_source_frame(mics), MULTI_FRAMES, SEED + 20)
+    loc = Localizer.create(mics, cfg, device="cuda")
+    cpu_loc = Localizer.create(mics, cfg, device="cpu")
+    out = counted("multi_8mic", results, lambda: loc.localize_multi(frames))
+    n_launch = launch_counts()["gcc_kernel"]
+    share, med = found_sources(out["xy"])
+    ref = cpu_loc.localize_multi(frames[:MULTI_CPU_FRAMES].cpu())
+    ref["grid"] = loc.grid
+    text, cpu_ok = check_multi(out, ref, 2, 0.4)
+    say("7 multi", f"multi_8mic: {MULTI_FRAMES} frames of 8 x 1,024: GCC "
+        f"kernel launches (row 2, no peaks) {n_launch} in the call; both "
+        f"sources within 10 cm in {share * 100:.3f}% of frames, median "
+        f"|xy - truth| {med[0] * 100:.4f} / {med[1] * 100:.4f} cm; {text}")
+    if not (n_launch == 1 and share >= 0.99 and cpu_ok
+            and out["xy"].shape == (MULTI_FRAMES, 2, 2)
+            and bool(torch.isfinite(out["xy"]).all())):
+        fail("7 multi", "multi_8mic: result check failed")
+    del out, ref
+    time_path(card, "multi_8mic localize_multi(n_sources=2)",
+              lambda: loc.localize_multi(frames), MULTI_FRAMES)
+    # row 2 at this path's shapes, against its plain version in float64
+    # (phase 2's tolerance) and its bound
+    ops = (*gcc_kernel.operands(frames, loc.window, cfg), loc.pairs)
+    f, l = ops[1][2].shape
+    kw = dict(phat=cfg.phat, phat_eps=cfg.phat_eps, max_shift=cfg.max_shift,
+              taper_denom=cfg.taper_denom, with_peaks=False)
+    head = frames[:CHECK_FRAMES]
+    raw = gcc_kernel.launch(head, *ops, **kw)
+    raw64 = gcc_kernel.gcc_reference(
+        *(o.to(torch.float64) for o in (head, *ops[:2])), ops[2], **kw)
+    raw_err = float((raw.double() - raw64).abs().max()) / float(
+        raw64.abs().max())
+    say("7 multi", f"gcc_kernel multi_8mic without peaks: {CHECK_FRAMES} "
+        f"frames vs the plain version in float64: corr/scale err "
+        f"{raw_err:.2e} (tolerance 1e-4)")
+    if not raw_err <= 1e-4:
+        fail("7 multi", "multi_8mic: row 2 disagrees with its plain version")
+    results["gcc_kernel"]["max_abs_err"] = max(
+        results["gcc_kernel"]["max_abs_err"], raw_err)
+    del raw, raw64
+    k_ms, p_ms = alternate_ms(
+        lambda: gcc_kernel.gcc_reference(frames, *ops, **kw),
+        lambda: gcc_kernel.launch(frames, *ops, **kw))
+    p_n = loc.pairs.shape[0]
+    bnd = gcc_bound(MULTI_FRAMES, mics.shape[0], frames.shape[-1], f, p_n, l,
+                    with_peaks=False, split_products=True)
+    pct = share_of_bound("5 timing", "gcc_kernel multi_8mic", k_ms, bnd)
+    say("5 timing", f"gcc_kernel multi_8mic without peaks (row 2: "
+        f"{MULTI_FRAMES} frames of 8 x 1,024, {p_n} pairs, {f} bins, {l} "
+        f"lags): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+        f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']} (the DFT and the "
+        f"synthesis as three TF32 products each), {pct:.1f}% of it ({card})")
+    results["gcc_kernel"]["multi_8mic_no_peaks"] = dict(
+        ms=k_ms, plain_ms=p_ms, max_abs_err=raw_err, **bnd)
+    del frames
+
+    mics64, grid64, configs64 = large_configs()
+    cfg64 = configs64[0][1]
+    frames = noisy(two_source_frame(mics64, n=LARGE_SAMPLES),
+                   MULTI64_FRAMES, SEED + 21)
+    loc64 = Localizer.create(mics64, cfg64, grid64, device="cuda")
+    out = counted("multi_64mic", results,
+                  lambda: loc64.localize_multi(frames))
+    n_launch = launch_counts()["gcc_large_kernel"]
+    share, med = found_sources(out["xy"])
+    cpu64 = Localizer.create(mics64, cfg64, grid64, device="cpu")
+    ref = cpu64.localize_multi(frames[:MULTI64_CPU_FRAMES].cpu())
+    ref["grid"] = grid64
+    text, cpu_ok = check_multi(out, ref, 2, 0.4)
+    say("7 multi", f"multi_64mic: {MULTI64_FRAMES} frames of 64 x "
+        f"{LARGE_SAMPLES} (2,016 pairs): large-array kernel launches (row "
+        f"6, no peaks) {n_launch} in the call; both sources within 10 cm in "
+        f"{share * 100:.3f}% of frames, median {med[0] * 100:.4f} / "
+        f"{med[1] * 100:.4f} cm; {text}")
+    if not (n_launch >= 1 and share >= 0.99 and cpu_ok
+            and bool(torch.isfinite(out["xy"]).all())):
+        fail("7 multi", "multi_64mic: result check failed")
+    time_path(card, "multi_64mic localize_multi(n_sources=2)",
+              lambda: loc64.localize_multi(frames), MULTI64_FRAMES)
+
+
+def caf_bound(b, m, n, f, p, l, s, spectral) -> dict:
+    """Bound of one ``caf.estimate_delay_doppler`` call on [b, m, n] frames
+    at s scales, f bins, p pairs, l lags, on the fp32 CUDA cores: the
+    unscaled spectra (re and im), the scaled ones (one product against the
+    spectral fold, or the resampling product and then the DFT), the
+    whitened cross-power and the lag synthesis of every (scale, pair); the
+    frames and the operator read once, the CAF written once."""
+    flops = 4 * b * m * n * f  # unscaled spectra
+    if spectral:
+        flops += 4 * s * b * m * n * f
+        op_bytes = 4 * 2 * s * n * f
+    else:
+        flops += 2 * s * b * m * n * n + 4 * s * b * m * n * f
+        op_bytes = 4 * s * n * n
+    flops += s * b * (6 * p * f + 4 * p * f * l)
+    nbytes = 4 * (b * m * n + b * p * s * l) + op_bytes
+    return bound(flops, nbytes)
+
+
+def time_caf(card, name, window, frames, pairs, cfg, resample, n_scales):
+    """The CAF stage alone (``caf.estimate_delay_doppler``) on ``frames``,
+    timed with CUDA events beside its fp32 bound."""
+    from audio_triangulation_tpu_torch.ops import caf, mxu_fft
+
+    b, m, n = frames.shape
+    crop = mxu_fft.crop_bins(cfg)
+    f = (crop[1] - crop[0]) if crop else cfg.fft_length // 2 + 1
+    ms = cuda_ms(lambda: caf.estimate_delay_doppler(
+        frames, window, pairs, cfg, v_max=8.0, n_scales=n_scales,
+        resample=resample), CAF_REPS)
+    bnd = caf_bound(b, m, n, f, pairs.shape[0], cfg.num_lags, n_scales,
+                    isinstance(resample, tuple))
+    say("5 timing", f"{name}: CAF stage (caf.estimate_delay_doppler, "
+        f"{n_scales} scales, {b} frames of {m} x {n}, "
+        f"{'spectral fold' if isinstance(resample, tuple) else 'time-domain resampling'}"
+        f") {ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms by "
+        f"{bnd['bound_by']} at the fp32 CUDA-core rate "
+        f"({100 * bnd['bound_ms'] / ms:.1f}% of it) ({card})")
+    return ms, bnd
+
+
+def moving_setup():
+    """(mics, PipelineConfig) of the moving source: ``circular_array(6,
+    0.35)`` with the 700-9,500 Hz band crop of ``examples/advanced.py``."""
+    from audio_triangulation_tpu_torch import PipelineConfig, geometry
+
+    mics = geometry.circular_array(6, 0.35)
+    return mics, PipelineConfig(
+        phat=True, window_enabled=False, band_hz=(700.0, 9500.0),
+        band_crop=True,
+        max_shift_samples=geometry.max_lag_for_array(mics, PipelineConfig()))
+
+
+def phase_moving(card, results):
+    """``Localizer.localize_moving`` on ``circular_array(6, 0.35)`` with the
+    700-9,500 Hz band crop of ``examples/advanced.py``, 33 scales, at 2,048
+    frames of the moving source (fresh noise a frame): the position pass
+    through the GCC kernel with peaks (row 1) and the GN kernel (row 5),
+    then the CAF (spectral fold) and the velocity solve.  Checked: the
+    median |velocity - truth| under ``MOVING_VEL_BOUND``, and against the
+    port's CPU path on 4 frames: velocity, pair_rel_speed, alpha and
+    tdoa_doppler within ``VEL_TOL``, xy within 2e-4 m.  Timed per call, and the CAF stage alone beside its
+    bound."""
+    import torch
+    from audio_triangulation_tpu_torch import Localizer
+
+    mics, cfg = moving_setup()
+    frames = noisy(moving_frame(mics), MOVING_FRAMES, SEED + 22)
+    loc = Localizer.create(mics, cfg, device="cuda")
+    out = counted("moving", results, lambda: loc.localize_moving(
+        frames, n_scales=MOVING_SCALES))
+    v_true = torch.tensor(MOVING_V[:2], device="cuda")
+    v_err = (out["velocity"] - v_true).norm(dim=-1)
+    xy_err = (out["xy"] - torch.tensor(MOVING_SOURCE[:2],
+                                       device="cuda")).norm(dim=-1)
+    cpu = Localizer.create(mics, cfg, device="cpu")
+    ref = cpu.localize_moving(frames[:MOVING_CPU_FRAMES].cpu(),
+                              n_scales=MOVING_SCALES)
+    diff = {k: float((out[k][:MOVING_CPU_FRAMES].cpu() - ref[k]).abs().max())
+            for k in (*VEL_TOL, "xy")}
+    tol = {**VEL_TOL, "xy": 2e-4}
+    say("7 moving", f"moving: {MOVING_FRAMES} frames of 6 x 1,024, "
+        f"{MOVING_SCALES} scales: median |velocity - (2.5, -1.5)| "
+        f"{float(v_err.median()):.4f} m/s (largest "
+        f"{float(v_err.max()):.4f}), median |xy - truth| "
+        f"{float(xy_err.median()) * 100:.4f} cm; vs CPU path on "
+        f"{MOVING_CPU_FRAMES} frames: " + ", ".join(
+            f"{k} {v:.2e}" for k, v in diff.items()))
+    if not (float(v_err.median()) < MOVING_VEL_BOUND
+            and out["velocity"].shape == (MOVING_FRAMES, 2)
+            and bool(torch.isfinite(out["velocity"]).all())
+            and all(diff[k] <= tol[k] for k in tol)):
+        fail("7 moving", "moving: result check failed")
+    del out, ref
+    time_path(card, f"moving localize_moving(n_scales={MOVING_SCALES})",
+              lambda: loc.localize_moving(frames, n_scales=MOVING_SCALES),
+              MOVING_FRAMES)
+    resample = loc._moving_operator(8.0, MOVING_SCALES)[0]
+    time_caf(card, "moving", loc.window, frames, loc.pairs, cfg, resample,
+             MOVING_SCALES)
+
+
+def source_stream(mics, bursts, n_streams=SOURCE_STREAMS, seed=SEED + 30):
+    """[S, M, T] f32 ADC counts on the host: every stream idles at 127-129
+    counts; every ``STREAM_PLANT_EVERY``-th holds the bursts [E, M, 1,024]
+    (burst e at one of ``TRACK_STARTS`` plus e ``TRACK_BURST_GAP``), scaled
+    by ``SOURCE_BURST_GAIN``.  Returns (streams, planted indices)."""
+    rng = np.random.default_rng(seed)
+    t_len = STREAM_STEPS * STREAM_CHUNK
+    x = rng.integers(127, 130, (n_streams, mics.shape[0], t_len)).astype(
+        np.float32)
+    planted = np.arange(0, n_streams, STREAM_PLANT_EVERY)
+    first = np.asarray(TRACK_STARTS)[np.arange(planted.size)
+                                     % len(TRACK_STARTS)]
+    for e, burst in enumerate(bursts):
+        for p, at in zip(planted, first + e * TRACK_BURST_GAP):
+            x[p, :, at:at + burst.shape[-1]] += SOURCE_BURST_GAIN * burst
+    x[planted] = np.clip(np.round(x[planted]), 0, 255)
+    return x, planted
+
+
+def source_setups():
+    """name -> (mics, PipelineConfig, StreamConfig, bursts of the scene):
+    two simultaneous sources on the 8-mic circular array, and the moving
+    source on ``circular_array(6, 0.35)`` with the velocity band crop (the
+    spectral fold), 33 scales."""
+    from audio_triangulation_tpu_torch import (PipelineConfig, StreamConfig,
+                                               geometry)
+
+    mics8 = geometry.circular_array(8, 0.15)
+    mics6, cfg6 = moving_setup()
+    gap_s = TRACK_BURST_GAP / 50_000.0
+    moving = [moving_frame(mics6, np.asarray(MOVING_SOURCE)
+                           + np.asarray(MOVING_V) * e * gap_s)
+              for e in range(TRACK_BURSTS)]
+    return {
+        "multi": (mics8, PipelineConfig(phat=True), StreamConfig(
+            chunk_size=STREAM_CHUNK, n_sources=2),
+            [two_source_frame(mics8)] * TRACK_BURSTS),
+        "velocity": (mics6, cfg6, StreamConfig(
+            chunk_size=STREAM_CHUNK, solve_velocity=True,
+            velocity_n_scales=MOVING_SCALES), moving),
+    }
+
+
+def held_diff(outs, cpu_outs, n_cpu, keys):
+    """Largest |card - CPU| per key over the steps, on accepted events
+    (``multi_*`` on valid slots), and whether the integer and bool outputs
+    are equal."""
+    import torch
+
+    worst, exact = dict.fromkeys(keys, 0.0), True
+    for g, c in zip(outs, cpu_outs):
+        for k in c:
+            got = g[k][:n_cpu].cpu()
+            if k in keys:
+                held = c["multi_valid" if k.startswith("multi_")
+                         else "event"]
+                if bool(held.any()):
+                    worst[k] = max(worst[k], float(
+                        (got[held] - c[k][held]).abs().max()))
+            elif not got.is_floating_point():
+                exact &= bool(torch.equal(got, c[k]))
+    return worst, exact
+
+
+def phase_stream_sources(card, results):
+    """The stream step with ``n_sources=2`` and with ``solve_velocity``, and
+    the tracked step with the JPDA update and with ``fuse_velocity``, on
+    1,024 streams x 24 chunks of ``source_setups``' scenes (three bursts
+    in every fourth stream).  Checked, per class: the planted events
+    accepted; the sources found (two within 10 cm of ``MULTI_XY`` in each
+    accepted slot, or the median |velocity - truth| under
+    ``MOVING_VEL_BOUND``); against the port's CPU path on 16 streams,
+    integer and bool outputs equal, multi_xy within 2e-4 m and multi_score
+    within 1e-3 of scale on valid slots, velocity and pair_rel_speed within
+    ``VEL_TOL`` on events (track_xy 2e-4 m, track_vel 1e-3 m/s); the
+    eager run's detector launches counted from 0; the step replayed as a
+    CUDA graph (and the tracked K-step graph) bit-equal to the eager steps;
+    the tracked localization keys bit-equal to the untracked step's; the
+    two-rate class with both fields the same as without.  Then timed:
+    ``n_sources=2`` at 1,024 / 4,096 streams and ``solve_velocity`` at 256
+    / 1,024 streams of ``reference_array()`` (default pipeline: the CAF's
+    time-domain operator), eager and graphed, the CAF stage alone at 1,024
+    streams beside its bound, and the tracked graphs at 1,024 streams."""
+    import torch
+    from audio_triangulation_tpu_torch import (
+        StreamConfig, StreamingLocalizer, TrackedStreamingLocalizer,
+        TrackerConfig, TwoRateStreamingLocalizer, geometry)
+    from audio_triangulation_tpu_torch.models.streaming import state_leaves
+    from audio_triangulation_tpu_torch.tools import bench_streaming
+
+    n_cpu = SOURCE_CPU_STREAMS
+    tracker_cfgs = {"multi": TrackerConfig(max_tracks=4, confirm_hits=2),
+                    "velocity": TrackerConfig(velocity_noise=0.6)}
+    for name, (mics, cfg, stream, bursts) in source_setups().items():
+        x_np, planted = source_stream(mics, bursts)
+        x = torch.from_numpy(x_np).cuda()
+        s_n = x.shape[0]
+
+        def chunk(i):
+            return x[:, :, i * STREAM_CHUNK:(i + 1) * STREAM_CHUNK]
+
+        def cpu_chunk(i):
+            return torch.from_numpy(
+                x_np[:n_cpu, :, i * STREAM_CHUNK:(i + 1) * STREAM_CHUNK])
+
+        sl = StreamingLocalizer.create(mics, cfg, stream=stream,
+                                       device="cuda")
+        st, outs = counted(f"stream_{name}", results,
+                           lambda: run_steps(sl, s_n, chunk))
+        torch.cuda.synchronize()
+        events = torch.stack([o["event"] for o in outs])  # [T, S]
+        n_acc = int(events[:, planted].sum())
+        stray = int(events.sum()) - n_acc
+        if name == "multi":
+            share = [found_sources(o["multi_xy"][o["event"]][:, 0])[0]
+                     for o in outs if bool(o["event"].any())]
+            quality = (f"both sources within 10 cm of the truth in "
+                       f"{min(share) * 100:.3f}% of the accepted slots "
+                       f"(worst step)")
+            good = min(share) >= 0.99
+            keys = ("multi_xy", "multi_score")
+        else:
+            v = torch.cat([o["velocity"][o["event"]] for o in outs])
+            v_err = float((v - torch.tensor(MOVING_V[:2],
+                                            device="cuda")).norm(
+                                                dim=-1).median())
+            quality = f"median |velocity - truth| {v_err:.4f} m/s"
+            good = v_err < MOVING_VEL_BOUND
+            keys = ("velocity", "pair_rel_speed")
+        cpu_sl = StreamingLocalizer.create(mics, cfg, stream=stream,
+                                           device="cpu")
+        _, c_outs = run_steps(cpu_sl, n_cpu, cpu_chunk)
+        worst, exact = held_diff(outs, c_outs, n_cpu, keys)
+        if name == "multi":
+            scale = max(float(c["multi_score"].abs().max()) for c in c_outs)
+            worst["multi_score"] /= scale
+        tol = {"multi_xy": 2e-4, "multi_score": 1e-3, **VEL_TOL}
+        graphed = sl.graph_step_many(sl.init_states(s_n), chunk(0))
+        g_same = all(same(v, outs[i][k]) for i in range(STREAM_STEPS)
+                     for k, v in graphed(chunk(i)).items())
+        say("8 sources", f"stream_{name}: {s_n} streams x {STREAM_STEPS} "
+            f"chunks: accepted {n_acc} of {planted.size * TRACK_BURSTS} "
+            f"planted bursts, {stray} elsewhere; {quality}; vs CPU path on "
+            f"{n_cpu} streams: integer and bool outputs equal {exact}, "
+            + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+            + f"; the step replayed as a CUDA graph: every output equal to "
+            f"the eager step's bit for bit: {g_same}")
+        if not (n_acc >= 0.98 * planted.size * TRACK_BURSTS and stray == 0
+                and good and exact and g_same
+                and all(worst[k] <= tol[k] for k in keys)):
+            fail("8 sources", f"stream_{name}: result check failed")
+        del graphed
+
+        # the two-rate class takes both fields and ignores them
+        plain_stream = StreamConfig(chunk_size=STREAM_CHUNK)
+        tr_out = []
+        for stc in (stream, plain_stream):
+            tr = TwoRateStreamingLocalizer.create(mics, cfg, stream=stc,
+                                                  device="cuda")
+            tst, evs = tr.init_states(s_n), []
+            for i in range(STREAM_STEPS):
+                tst, det = tr.detect_many(tst, chunk(i))
+                tst, ev = tr.localize_triggered(tst, det)
+                evs.append(ev)
+            tr_out.append(evs)
+        tr_same = all(same(a[k], b[k]) for a, b in zip(*tr_out) for k in a)
+        say("8 sources", f"two-rate with {name}'s StreamConfig: every "
+            f"output equal to the default StreamConfig's: {tr_same}")
+        if not tr_same:
+            fail("8 sources", f"two-rate {name}: the fields changed a result")
+        del tr_out
+
+        # the tracked step
+        tsl = TrackedStreamingLocalizer.create(
+            mics, cfg, stream=stream, tracker_cfg=tracker_cfgs[name],
+            fuse_velocity=name == "velocity", device="cuda")
+        t_st, t_outs = counted(f"stream_tracked_{name}", results,
+                               lambda: run_steps(tsl, s_n, chunk))
+        contract = all(same(o[k], p[k]) for o, p in zip(t_outs, outs)
+                       for k in p)
+        conf = t_outs[-1]["track_confirmed"]
+        want = 2 if name == "multi" else 1
+        n_ok = int((conf[planted].sum(dim=-1) == want).sum())
+        silent = torch.ones(s_n, dtype=torch.bool, device="cuda")
+        silent[torch.from_numpy(planted).cuda()] = False
+        cpu_tsl = TrackedStreamingLocalizer.create(
+            mics, cfg, stream=stream, tracker_cfg=tracker_cfgs[name],
+            fuse_velocity=name == "velocity", device="cpu")
+        _, ct_outs = run_steps(cpu_tsl, n_cpu, cpu_chunk)
+        t_tol = {"track_xy": 2e-4, "track_vel": VEL_TOL["velocity"]}
+        t_worst, t_exact = dict.fromkeys(t_tol, 0.0), True
+        for g, c in zip(t_outs, ct_outs):
+            for k in t_tol:
+                t_worst[k] = max(t_worst[k], float(
+                    (g[k][:n_cpu].cpu() - c[k]).abs().max()))
+            for k in ("track_active", "track_confirmed", "track_id",
+                      "assigned", "events"):
+                t_exact &= bool(torch.equal(g[k][:n_cpu].cpu(), c[k]))
+        one = tsl.graph_step_many(tsl.init_states(s_n), chunk(0))
+        g_same = True
+        for i in range(STREAM_STEPS):
+            g_same &= all(same(v, t_outs[i][k])
+                          for k, v in one(chunk(i)).items())
+        k_n = TRACK_SCAN_K
+        kstep = tsl.graph_step_many_scan(
+            tsl.init_states(s_n),
+            torch.stack([chunk(i) for i in range(k_n)], 1))
+        for j in range(0, STREAM_STEPS, k_n):
+            gout = kstep(torch.stack([chunk(i) for i in range(j, j + k_n)],
+                                     1))
+            g_same &= all(same(gout[k][i], t_outs[j + i][k])
+                          for k in gout for i in range(k_n))
+        for g in (one, kstep):
+            g_same &= all(same(a, b) for a, b in zip(
+                state_leaves(g.states), state_leaves(t_st)))
+        say("8 sources", f"stream_tracked_{name}: localization keys equal to "
+            f"the untracked step's bit for bit: {contract}; planted streams "
+            f"ending with {want} confirmed track(s) {n_ok} of {planted.size}"
+            f", silent streams trackless "
+            f"{not bool(conf[silent].any())}; vs CPU path on {n_cpu} "
+            f"streams: integer outputs equal {t_exact}, " + ", ".join(
+                f"{k} {v:.2e}" for k, v in t_worst.items())
+            + f"; one-chunk and {k_n}-chunk graphs bit-equal to the eager "
+            f"steps: {g_same}")
+        if not (contract and n_ok >= 0.98 * planted.size and t_exact
+                and not bool(conf[silent].any()) and g_same
+                and all(t_worst[k] <= t_tol[k] for k in t_tol)):
+            fail("8 sources", f"stream_tracked_{name}: result check failed")
+        chunks = quiet_chunks(np.random.default_rng(SEED + 31),
+                              SOURCE_STREAMS, mics.shape[0])
+        med_s, q1, q3 = bench_streaming.time_graphed_steps(
+            tsl, SOURCE_STREAMS, chunks, STREAM_TRIALS, STREAM_TIMED_STEPS)
+        say("5 timing", f"stream tracked_{name} {SOURCE_STREAMS} streams, "
+            f"graphed: step_ms {med_s * 1e3:.4f} median, IQR "
+            f"{q1 * 1e3:.4f}-{q3 * 1e3:.4f} over {STREAM_TRIALS} trials of "
+            f"{STREAM_TIMED_STEPS} steps ({card})")
+        del one, kstep, t_outs, ct_outs, outs, c_outs, x, st, t_st
+
+    # timing on the reference array, default pipeline
+    rng = np.random.default_rng(SEED + 32)
+    chunk_ms = STREAM_CHUNK / 50_000.0 * 1e3
+    for what, stream, counts in (
+            ("n_sources=2", StreamConfig(chunk_size=STREAM_CHUNK,
+                                         n_sources=2), MULTI_STREAM_COUNTS),
+            ("solve_velocity", StreamConfig(chunk_size=STREAM_CHUNK,
+                                            solve_velocity=True),
+             VELOCITY_STREAM_COUNTS)):
+        sl = StreamingLocalizer.create(geometry.reference_array(),
+                                       stream=stream, device="cuda")
+        for n_streams in counts:
+            chunks = quiet_chunks(rng, n_streams)
+            for how, timer in (
+                    ("eager", lambda: bench_streaming.time_steps(
+                        sl.step_many, sl.init_states(n_streams), chunks,
+                        STREAM_TRIALS, STREAM_TIMED_STEPS, "cuda")),
+                    ("graphed", lambda: bench_streaming.time_graphed_steps(
+                        sl, n_streams, chunks, STREAM_TRIALS,
+                        STREAM_TIMED_STEPS))):
+                med_s, q1, q3 = timer()
+                say("5 timing", f"stream {what} {n_streams} streams, {how}: "
+                    f"step_ms {med_s * 1e3:.4f} median, IQR "
+                    f"{q1 * 1e3:.4f}-{q3 * 1e3:.4f} over {STREAM_TRIALS} "
+                    f"trials of {STREAM_TIMED_STEPS} steps; streams "
+                    f"sustained in real time "
+                    f"{chunk_ms / (med_s * 1e3) * n_streams:.1f} ({card})")
+        if stream.solve_velocity:
+            frames = torch.from_numpy(scene_frames(
+                geometry.reference_array(), counts[-1], rng)).cuda()
+            time_caf(card, f"stream solve_velocity {counts[-1]} streams",
+                     sl.params.window, frames, sl.params.pairs,
+                     sl.pipeline, sl.caf_resample,
+                     stream.velocity_n_scales)
+
+
 # further keys of an entry that has them: what the library yardstick is, the
 # SRP-argmax kernel's other bound and its bf16 mode, the bf16 DFT product's
 # library form with f32 outputs
 EXTRA_KEYS = ("library", "bound_ms_fp32_cores", "bf16_ms", "bf16_plain_ms",
               "bf16_library_ms", "bf16_bound_ms", "library_f32_out_ms",
-              "device_ms", "launches_per_call")
+              "device_ms", "launches_per_call", "launches_by_path",
+              "multi_8mic_no_peaks")
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
@@ -2283,6 +2912,9 @@ def main():
     phase_tools(results)
     phase_stream(card, results)
     phase_tracked(card, results)
+    phase_multi(card, results)
+    phase_moving(card, results)
+    phase_stream_sources(card, results)
 
     print(json.dumps({"kernels": [
         {k: results[n][k] for k in (*KERNEL_KEYS, *(

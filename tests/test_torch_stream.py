@@ -13,7 +13,12 @@ relative.  The free 3-D position ``xyz`` is held in measurement space:
 its float64 predicted TDOAs within 3e-7 s of the reference's, ``xyz_rms_m``
 within 5e-5 m (the 30 cm array's range is ill-conditioned; each package's
 float32 solve is up to 1.2e-7 s and 2.4e-5 m from the float64 solution,
-``tests/test_torch_solver_xyz.py``)."""
+``tests/test_torch_solver_xyz.py``).  The outputs of ``n_sources=2`` and
+``solve_velocity`` are held on accepted events only (elsewhere they are
+read off idle noise): ``multi_valid`` exactly, ``multi_xy`` within 1e-4
+m, ``multi_tdoa_samples`` within 5e-3 lags, ``multi_score`` within 2e-3
+of its scale, ``multi_rms_m`` within 1e-5 m, ``multi_xy_cov`` 1e-3
+relative, ``velocity`` and ``pair_rel_speed`` within 1e-3 m/s."""
 
 import dataclasses
 
@@ -29,15 +34,23 @@ from audio_triangulation_tpu.utils import synth as jsynth
 from audio_triangulation_tpu_torch.core import config as tcfg
 from audio_triangulation_tpu_torch.models import streaming as tstream
 from audio_triangulation_tpu_torch.utils import convert
+from test_torch_multi import two_source_frames
 
 EXACT = ("event", "triggered", "trigger_abs", "events", "events_found",
-         "event_trigger_abs", "event_shifts", "best_shift", "event_count")
+         "event_trigger_abs", "event_shifts", "best_shift", "event_count",
+         "multi_valid")
 # key -> (rtol, atol)
 FLOAT = {"event_time_s": (0, 1e-6), "tdoa_samples": (0, 1e-3),
          "xy_grid": (0, 1e-4), "xy": (0, 1e-4), "rms_m": (0, 1e-5),
          "xy_cov": (1e-3, 1e-9), "consistency_rms": (0, 2e-8),
          "mic_consistency": (0, 2e-8), "pair_weight": (5e-3, 1e-5),
          "mic_weight": (5e-3, 1e-5), "xyz_rms_m": (0, 5e-5)}
+# the simultaneous-source and velocity outputs: key -> (rtol, atol), held on
+# accepted events only (``multi_score``'s atol is relative to its scale)
+SOURCE_FLOAT = {"multi_xy": (0, 1e-4), "multi_tdoa_samples": (0, 5e-3),
+                "multi_score": (0, 2e-3), "multi_rms_m": (0, 1e-5),
+                "multi_xy_cov": (1e-3, 1e-10), "velocity": (0, 1e-3),
+                "pair_rel_speed": (0, 1e-3)}
 
 
 def _source(i):
@@ -45,16 +58,23 @@ def _source(i):
     return p * (1.2 / np.linalg.norm(p))
 
 
-def _streams(mics, n_streams, t_len, events, seed=0, dead=None):
+def _streams(mics, n_streams, t_len, events, seed=0, dead=None,
+             burst=None):
     """[S, M, T] f32 ADC counts: idle level +-1 with chirp events planted;
-    ``events[s]`` lists the start samples of stream s (none: silent)."""
+    ``events[s]`` lists the start samples of stream s (none: silent).
+    ``burst(s, i, seed)`` gives event i of stream s as [M, 1024] (default:
+    one chirp from ``_source(s + i)``)."""
     rng = np.random.default_rng(seed)
     m = mics.shape[0]
     x = rng.integers(127, 130, size=(n_streams, m, t_len)).astype(np.float64)
     for s, starts in enumerate(events):
         for i, at in enumerate(starts):
-            fr = jsynth.synth_scene(_source(s + i), mics, noise_rms=0.005,
-                                    seed=seed + 10 * s + i)[0]
+            if burst is not None:
+                fr = burst(s, i, seed + 10 * s + i)
+            else:
+                fr = jsynth.synth_scene(_source(s + i), mics,
+                                        noise_rms=0.005,
+                                        seed=seed + 10 * s + i)[0]
             if dead is not None and s == dead[0]:
                 fr[dead[1]] = rng.normal(0, 0.3, fr.shape[-1])
             x[s, :, at:at + 1024] += 110.0 * fr
@@ -105,8 +125,8 @@ def _predicted_tdoas(xyz, mics):
     return (d[..., pairs[:, 1]] - d[..., pairs[:, 0]]) / 343.0
 
 
-def _pair(name):
-    mics, pkw, skw, ckw, chunk, events = CASES[name]
+def _pair(name, cases=CASES):
+    mics, pkw, skw, ckw, chunk = cases[name][:5]
     skw = dict(chunk_size=chunk, **skw)
     jsl = jstream.StreamingLocalizer.create(
         mics, jcfg.PipelineConfig(**pkw), stream=jcfg.StreamConfig(**skw),
@@ -128,7 +148,9 @@ def _compare_out(ref, got, where, mics=MICS3):
     for k in ref:
         r, g = np.asarray(ref[k]), got[k].numpy()
         assert g.shape == r.shape, (where, k, g.shape, r.shape)
-        if k == "xyz":
+        if k in SOURCE_FLOAT:
+            compare_source_key(ref, k, g, where)
+        elif k == "xyz":
             np.testing.assert_allclose(
                 _predicted_tdoas(g, mics), _predicted_tdoas(r, mics),
                 atol=3e-7, err_msg=f"{where} {k}")
@@ -138,6 +160,20 @@ def _compare_out(ref, got, where, mics=MICS3):
             rtol, atol = FLOAT[k]
             np.testing.assert_allclose(g, r, rtol=rtol, atol=atol,
                                        err_msg=f"{where} {k}")
+
+
+def compare_source_key(ref, k, got, where):
+    """A simultaneous-source or velocity output held where it means
+    something: on the slots and sources of accepted events (elsewhere it
+    is read off idle noise)."""
+    held = np.asarray(ref["multi_valid" if k.startswith("multi_")
+                          else "event"])
+    r, g = np.asarray(ref[k])[held], got[held]
+    rtol, atol = SOURCE_FLOAT[k]
+    if k == "multi_score":
+        atol *= max(np.abs(r).max(initial=0.0), 1e-30)
+    np.testing.assert_allclose(g, r, rtol=rtol, atol=atol,
+                               err_msg=f"{where} {k}")
 
 
 def _compare_state(jstate, tstate, where):
@@ -180,6 +216,142 @@ def test_step_many_matches_reference(name):
     assert most_in_a_chunk == skw.get("max_events_per_chunk", 1)
     if name == "health6":  # the dead channel of stream 1 is found
         assert int(tout["mic_weight"][1].argmin()) == 3
+
+
+MICS8 = jgeo.circular_array(8, 0.15)
+MICS6W = jgeo.circular_array(6, 0.35)
+# the moving-source scene's array given as [M, 3] at z = 1 m: coplanar, so
+# its velocity is solved in the plane
+MICS6W_3D = np.concatenate([MICS6W, np.ones((6, 1), np.float32)], axis=1)
+MULTI_XY = ((0.9, 0.3), (-0.7, -0.6))
+MOVING_V = np.array([2.5, -1.5, 0.0])
+
+
+def two_source_burst(s, i, seed):
+    """Two simultaneous sources (``MULTI_XY``), 0.6 of full amplitude."""
+    return 0.6 * two_source_frames(MICS8, *MULTI_XY, seed=seed)[0]
+
+
+def moving_burst(mics, z=0.0):
+    """A source at (0.45, 0.30) on the 1.2 m plane (``z`` above the mics'
+    own plane) moving at ``MOVING_V``."""
+    def burst(s, i, seed):
+        return jsynth.synth_moving_scene(np.array([0.45, 0.30, 1.2 + z]),
+                                         MOVING_V, mics, seed=seed)[0]
+    return burst
+
+
+def _velocity_kw(mics, band_crop):
+    return dict(phat=True, window_enabled=False, band_hz=(700.0, 9500.0),
+                band_crop=band_crop, max_shift_samples=jgeo.max_lag_for_array(
+                    mics, jcfg.PipelineConfig()))
+
+
+# name -> CASES' fields and the burst of an event
+SOURCE_CASES = {
+    "multi2": (MICS8, dict(phat=True), dict(n_sources=2), {}, 512, EV4,
+               two_source_burst),
+    # two event slots a chunk, and the gather form of the scoring
+    "multi2_two_slots_gather": (
+        MICS8, dict(phat=True), dict(n_sources=2, max_events_per_chunk=2,
+                                     refractory_samples=100),
+        dict(srp_form="gather"), 2560,
+        [(2700, 4000), (300, 1800, 4400), (), (5200, 6600)],
+        two_source_burst),
+    # the spectral fold of the resampling operator
+    "velocity_bandcrop": (MICS6W, _velocity_kw(MICS6W, True),
+                          dict(solve_velocity=True, velocity_n_scales=9), {},
+                          2048, EV4, moving_burst(MICS6W)),
+    # the time-domain operator, on a planar array given as [M, 3]
+    "velocity_planar_as_3d": (
+        MICS6W_3D, _velocity_kw(MICS6W_3D, False),
+        dict(solve_velocity=True, velocity_n_scales=9), {}, 2048, EV4,
+        moving_burst(MICS6W_3D, z=1.0)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SOURCE_CASES))
+def test_multi_and_velocity_match_reference(name):
+    """``n_sources=2`` and ``solve_velocity``: 4 stacked streams over 6 or
+    more chunks, every output of every step (the new ones on accepted
+    events) and the carried state; the sources found within 10 cm, and the
+    band-cropped velocity within 1.5 m/s of the truth."""
+    mics, _, skw, _, chunk, events, burst = SOURCE_CASES[name]
+    n_chunks = max(6, -(-8200 // chunk))
+    x = _streams(mics, 4, n_chunks * chunk, events, burst=burst)
+    jsl, tsl = _pair(name, SOURCE_CASES)
+    jst, tst = jsl.init_states(4), tsl.init_states(4)
+    n_events = np.zeros(4, int)
+    for i in range(n_chunks):
+        c = x[:, :, i * chunk:(i + 1) * chunk]
+        jst, jout = jsl.step_many(jst, jnp.asarray(c))
+        tst, tout = tsl.step_many(tst, torch.from_numpy(c))
+        _compare_out(jout, tout, f"{name} chunk {i}", mics)
+        n_events += tout["events"].numpy().sum(axis=-1)
+        if "multi_xy" in tout:
+            valid = tout["multi_valid"].numpy()
+            assert tout["multi_xy"].shape == (4, skw.get(
+                "max_events_per_chunk", 1), 2, 2)
+            for target in MULTI_XY:
+                err = np.linalg.norm(tout["multi_xy"].numpy()
+                                     - np.asarray(target), axis=-1).min(-1)
+                assert (err[valid[..., 0]] < 0.1).all(), (i, target, err)
+        else:
+            ev = tout["event"].numpy()
+            assert tout["velocity"].shape == (4, 2)  # in the plane
+            err = np.linalg.norm(tout["velocity"].numpy()[ev] - MOVING_V[:2],
+                                 axis=-1)
+            # at 9 scales (2 m/s steps) the band-cropped CAF resolves it;
+            # the full band's whitened out-of-band bins blur it to ~2 m/s
+            assert name != "velocity_bandcrop" or (err < 1.5).all(), (i, err)
+    _compare_state(jst, tst, name)
+    assert n_events.tolist() == [len(e) for e in events]
+
+
+def test_two_rate_accepts_and_ignores_sources_and_velocity():
+    """The two-rate localizer with ``n_sources=2`` and ``solve_velocity``
+    set gives what it gives with the default StreamConfig, in both
+    packages (the reference's two-rate path reads neither field)."""
+    ev = [(700,), (700, 2900), (), (700,)]
+    x = _streams(MICS3, 4, 8 * 512, ev)
+    both = dict(n_sources=2, solve_velocity=True, velocity_n_scales=5)
+    runs = {}
+    for pkg, cfgs, kw in ((jstream, jcfg, {}), (tstream, tcfg,
+                                                dict(device="cpu"))):
+        for name, skw in (("default", {}), ("both", both)):
+            tr = pkg.TwoRateStreamingLocalizer.create(
+                MICS3, cfgs.PipelineConfig(phat=True),
+                stream=cfgs.StreamConfig(chunk_size=512, **skw),
+                event_capacity=3, **kw)
+            st, outs = tr.init_states(4), []
+            for i in range(8):
+                c = x[:, :, i * 512:(i + 1) * 512]
+                c = jnp.asarray(c) if pkg is jstream else torch.from_numpy(c)
+                st, det = tr.detect_many(st, c)
+                st, evs = tr.localize_triggered(st, det)
+                outs.append({k: np.asarray(v) for k, v in evs.items()})
+            runs[pkg.__name__, name] = outs
+    for pkg in (jstream, tstream):
+        for a, b in zip(runs[pkg.__name__, "default"],
+                        runs[pkg.__name__, "both"]):
+            assert sorted(a) == sorted(b)
+            for k in a:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    n_acc = 0
+    for a, b in zip(runs[jstream.__name__, "both"],
+                    runs[tstream.__name__, "both"]):
+        for k in ("stream_idx", "accepted", "triggered", "event_shifts"):
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        np.testing.assert_allclose(a["xy"], b["xy"], atol=1e-4)
+        n_acc += int(b["accepted"].sum())
+    assert n_acc == 4
+
+
+def test_multi_source_refuses_a_3d_array():
+    """The reference lifts every mic to z = 0 on this path."""
+    with pytest.raises(ValueError, match=r"planar \[M, 2\]"):
+        tstream.StreamingLocalizer.create(
+            TETRA, stream=tcfg.StreamConfig(n_sources=2), device="cpu")
 
 
 def test_single_stream_call_and_run_match_reference():
@@ -328,18 +500,6 @@ def test_two_rate_solve_xyz_matches_one_rate():
     assert n_acc == 4  # one of the five triggers of chunk 2 overflows
 
 
-# ids as they were while solve_xyz was refused too
-@pytest.mark.parametrize("kw,word", [
-    pytest.param(dict(n_sources=2), "n_sources", id="kw0-n_sources"),
-    pytest.param(dict(solve_velocity=True), "solve_velocity",
-                 id="kw2-solve_velocity")])
-def test_unported_stream_options_raise(kw, word):
-    for cls in (tstream.StreamingLocalizer,
-                tstream.TwoRateStreamingLocalizer):
-        with pytest.raises(NotImplementedError, match=word):
-            cls.create(MICS3, stream=tcfg.StreamConfig(**kw), device="cpu")
-
-
 def test_with_audio_raises_and_device_is_required():
     with pytest.raises(NotImplementedError, match="with_audio"):
         tstream.TwoRateStreamingLocalizer.create(MICS3, device="cpu",
@@ -427,3 +587,37 @@ def test_cuda_graphed_step_solve_xyz_equals_eager_step():
         gout = graphed(c)
         for k in ("xyz", "xyz_rms_m", "xy", "events"):
             assert torch.equal(gout[k], out[k]), (i, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["multi2", "velocity_bandcrop",
+                                  "velocity_planar_as_3d"])
+def test_cuda_graphed_multi_and_velocity_steps_equal_eager_step(name):
+    """The ``n_sources=2`` and ``solve_velocity`` steps captured as a CUDA
+    graph (no step waits for the host: the velocity's linear solve makes no
+    check) and replayed: every output and the carried state bit-equal to
+    the eager step's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (a CUDA graph has no CPU mode)")
+    mics, pkw, skw, ckw, chunk, events, burst = SOURCE_CASES[name]
+    n_chunks = max(6, -(-8200 // chunk))
+    x = torch.from_numpy(_streams(mics, 4, n_chunks * chunk, events,
+                                  burst=burst)).cuda()
+    sl = tstream.StreamingLocalizer.create(
+        mics, tcfg.PipelineConfig(**pkw),
+        stream=tcfg.StreamConfig(chunk_size=chunk, **skw), device="cuda",
+        **ckw)
+    st = sl.init_states(4)
+    graphed = sl.graph_step_many(sl.init_states(4), x[:, :, :chunk])
+    n_events = 0
+    for i in range(n_chunks):
+        c = x[:, :, i * chunk:(i + 1) * chunk]
+        st, out = sl.step_many(st, c)
+        gout = graphed(c)
+        assert set(gout) == set(out)
+        for k in out:
+            assert torch.equal(gout[k], out[k]), (i, k)
+        n_events += int(out["events"].sum())
+    assert n_events == sum(len(e) for e in events)
+    for k in tstream.STATE_NAMES:
+        assert torch.equal(getattr(graphed.states, k), getattr(st, k)), k

@@ -16,8 +16,12 @@ ill-conditioned range, where the two packages' solves differ, and a blend
 of points on one surface of equal TDOAs leaves it by the surface's
 curvature over that spread (about 1e-6 s here).  And the port's tracked
 step against its own untracked step (bit-equal localization), its K-step
-call, silent chunks, the refusals and ``utils/convert``.  ``gpu`` cases
-hold the CUDA-graph forms to the eager step on a card."""
+call, silent chunks, the refusals and ``utils/convert``.  The JPDA update
+of two simultaneous sources (8 mics, one and two event slots a chunk) and
+the fused delay-Doppler velocity of a moving source (6 mics) against the
+JAX package's, their decisions checked clear of their thresholds; the association weights ``beta``
+within 1e-4.  ``gpu`` cases hold the CUDA-graph forms to the eager step
+on a card."""
 
 import dataclasses
 
@@ -35,20 +39,28 @@ from audio_triangulation_tpu_torch.models import streaming as tstream
 from audio_triangulation_tpu_torch.models import tracked as ttracked
 from audio_triangulation_tpu_torch.models import tracking as ttr
 from audio_triangulation_tpu_torch.utils import convert
-from test_torch_stream import EXACT, FLOAT, _predicted_tdoas
+from test_torch_stream import (EXACT, FLOAT, MICS6W, MICS8, MOVING_V,
+                               MULTI_XY, SOURCE_FLOAT, _predicted_tdoas,
+                               _velocity_kw, compare_source_key,
+                               two_source_burst)
 from test_torch_tracking import _check_margins
 
 MICS3 = jgeo.reference_array()
 TETRA = jgeo.tetrahedral_array(0.3)
 CHUNK, N_STREAMS, N_CHUNKS = 512, 8, 24
 SILENT = (3, 7)
-TRACK_TOL = {"track_xy": 2e-4, "track_vel": 2e-3, "model_prob": 1e-4}
+TRACK_TOL = {"track_xy": 2e-4, "track_vel": 2e-3, "model_prob": 1e-4,
+             "beta": 1e-4}
+BURST_GAP = 4100
 
 
-def _scene(mics, n_streams=N_STREAMS, seed=0):
+def _scene(mics, n_streams=N_STREAMS, seed=0, burst=None, first=300,
+           stagger=250, gaps=(BURST_GAP, BURST_GAP)):
     """[S, M, T] f32 ADC counts: idle level +-1, and in every stream but
-    ``SILENT`` three bursts of one source on the 1.2 m sphere, 4,100
-    samples apart (past the detector's hold-off)."""
+    ``SILENT`` three bursts, the first at ``first + stagger * s``, then
+    ``gaps`` samples apart (by default past the detector's hold-off): of
+    one source on the 1.2 m sphere, or ``burst(s, i, seed)`` [M, 1024] for
+    burst i of stream s."""
     rng = np.random.default_rng(seed)
     t_len = N_CHUNKS * CHUNK
     x = rng.integers(127, 130, (n_streams, mics.shape[0], t_len)).astype(
@@ -58,12 +70,23 @@ def _scene(mics, n_streams=N_STREAMS, seed=0):
             continue
         ang, rad = rng.uniform(0, 2 * np.pi), rng.uniform(0.3, 1.0)
         v = np.array([rad * np.cos(ang), rad * np.sin(ang), 1.2])
-        first = 300 + 250 * s
-        for i, at in enumerate((first, first + 4100, first + 8200)):
-            fr = jsynth.synth_scene(v * 1.2 / np.linalg.norm(v), mics,
-                                    noise_rms=0.005, seed=seed + 10 * s + i)
-            x[s, :, at:at + 1024] += 110.0 * fr[0]
+        starts = first + stagger * s + np.cumsum((0, *gaps))
+        for i, at in enumerate(starts):
+            if burst is not None:
+                fr = burst(s, i, seed + 10 * s + i)
+            else:
+                fr = jsynth.synth_scene(v * 1.2 / np.linalg.norm(v), mics,
+                                        noise_rms=0.005,
+                                        seed=seed + 10 * s + i)[0]
+            x[s, :, at:at + 1024] += 110.0 * fr
     return np.clip(np.round(x), 0, 255).astype(np.float32)
+
+
+def moving_track_burst(s, i, seed):
+    """Burst i of a source moving at ``MOVING_V`` from (0.3, 0.2) on the
+    1.2 m plane, where it is at burst i's time."""
+    at = np.array([0.3, 0.2, 1.2]) + MOVING_V * (i * BURST_GAP / 50_000.0)
+    return jsynth.synth_moving_scene(at, MOVING_V, MICS6W, seed=seed)[0]
 
 
 # name -> (mics, pipeline kw, stream kw, TrackerConfig kw or None)
@@ -79,6 +102,43 @@ CASES = {
 }
 
 
+# name -> CASES' fields, fuse_velocity, the burst of the scene and the
+# scene's burst times (``_scene``'s keywords)
+SOURCE_CASES = {
+    # two simultaneous sources a burst: the JPDA update
+    "jpda": (MICS8, dict(phat=True), dict(n_sources=2),
+             dict(max_tracks=4, confirm_hits=2), False, two_source_burst,
+             {}),
+    # two event slots a 2,560-sample chunk: the first two bursts 1,300
+    # samples apart (the hold-off is a frame plus the refractory: 1,124),
+    # in one chunk in every planted stream but the last, whose second
+    # burst ends past it; one JPDA update a slot at its trigger time
+    "jpda_two_slots": (MICS8, dict(phat=True), dict(
+        n_sources=2, max_events_per_chunk=2, refractory_samples=100,
+        chunk_size=2560), dict(max_tracks=4, confirm_hits=2), False,
+        two_source_burst, dict(first=2600, stagger=40, gaps=(1300, 4100))),
+    # a moving source: its delay-Doppler velocity fused as a measurement
+    "fuse_velocity": (MICS6W, _velocity_kw(MICS6W, True),
+                      dict(solve_velocity=True, velocity_n_scales=9),
+                      dict(velocity_noise=0.6), True, moving_track_burst,
+                      {}),
+}
+
+
+def _case(name):
+    """(mics, pipeline kw, stream kw, tracker kw, fuse_velocity, burst,
+    scene kw)."""
+    if name in SOURCE_CASES:
+        return SOURCE_CASES[name]
+    return (*CASES[name], False, None, {})
+
+
+def _case_chunks(name, x):
+    """(chunk size, chunks in the scene x) of a case."""
+    chunk = _case(name)[2].get("chunk_size", CHUNK)
+    return chunk, x.shape[-1] // chunk
+
+
 @pytest.fixture(scope="module")
 def localizers():
     """name -> (JAX localizer, port localizer), built once per module."""
@@ -86,26 +146,27 @@ def localizers():
 
     def get(name):
         if name not in made:
-            mics, pkw, skw, trk = CASES[name]
-            skw = dict(chunk_size=CHUNK, **skw)
+            mics, pkw, skw, trk, fuse = _case(name)[:5]
+            skw = {"chunk_size": CHUNK, **skw}
             made[name] = (
                 jtracked.TrackedStreamingLocalizer.create(
                     mics, jcfg.PipelineConfig(**pkw),
                     stream=jcfg.StreamConfig(**skw),
                     tracker_cfg=None if trk is None
-                    else jtr.TrackerConfig(**trk)),
+                    else jtr.TrackerConfig(**trk), fuse_velocity=fuse),
                 ttracked.TrackedStreamingLocalizer.create(
                     mics, tcfg.PipelineConfig(**pkw),
                     stream=tcfg.StreamConfig(**skw),
                     tracker_cfg=None if trk is None
-                    else ttr.TrackerConfig(**trk), device="cpu"))
+                    else ttr.TrackerConfig(**trk), fuse_velocity=fuse,
+                    device="cpu"))
         return made[name]
 
     return get
 
 
-def _chunk(x, i):
-    return x[:, :, i * CHUNK:(i + 1) * CHUNK]
+def _chunk(x, i, chunk=CHUNK):
+    return x[:, :, i * chunk:(i + 1) * chunk]
 
 
 def _compare_out(ref, got, where, mics):
@@ -113,7 +174,9 @@ def _compare_out(ref, got, where, mics):
     for k in ref:
         r, g = np.asarray(ref[k]), got[k].numpy()
         assert g.shape == r.shape, (where, k, g.shape, r.shape)
-        if k == "xyz" or (k == "track_xy" and g.shape[-1] == 3):
+        if k in SOURCE_FLOAT:
+            compare_source_key(ref, k, g, where)
+        elif k == "xyz" or (k == "track_xy" and g.shape[-1] == 3):
             np.testing.assert_allclose(
                 _predicted_tdoas(g, mics), _predicted_tdoas(r, mics),
                 atol=3e-7 if k == "xyz" else 3e-6, err_msg=f"{where} {k}")
@@ -159,15 +222,29 @@ def _compare_track(jtrack, ttrack, where):
 
 def _margins(tsl, before, out, where):
     """The tracker's decisions in this chunk, recomputed by the port's
-    bank on its own measurements, are clear of their thresholds."""
+    bank on its own measurements, are clear of their thresholds (the
+    JPDA update's slot by slot, each from the bank the slots before it
+    left)."""
     cfg = tsl.tracker.cfg
     if not bool(out["event"].any()):
         return
+    t = torch.where(out["event"], out["event_time_s"][:, 0], 0.0)
+    if "multi_xy" in out:
+        track = before.track
+        for k in range(out["multi_xy"].shape[1]):
+            ev_k, valid = out["events"][:, k], out["multi_valid"][:, k]
+            t_k = torch.where(ev_k, out["event_time_s"][:, k], 0.0)
+            new, _, terms = ttr._step_multi(
+                track, out["multi_xy"][:, k], t_k, valid, cfg,
+                out["multi_xy_cov"][:, k])
+            _check_margins(terms, cfg, valid, f"{where} slot {k}")
+            track = ttracked._keep_state(ev_k, new, track)
+        return
     fn = ttr._step_imm if cfg.imm_q else ttr._step
     z = out["xyz"] if "xyz" in out else out["xy"]
-    t = torch.where(out["event"], out["event_time_s"][:, 0], 0.0)
+    kw = {"z_vel": out["velocity"]} if tsl.fuse_velocity else {}
     _, _, terms = fn(before.track, z, t, out["event"], cfg,
-                     z_cov=None if "xyz" in out else out["xy_cov"])
+                     z_cov=None if "xyz" in out else out["xy_cov"], **kw)
     _check_margins(terms, cfg, out["event"], where)
 
 
@@ -205,6 +282,57 @@ def test_tracked_matches_reference(name, localizers):
     hits = (tst.track.hits.numpy() * active).sum(axis=-1)
     np.testing.assert_array_equal(hits, n_events)
     assert bool(tout["track_confirmed"][planted].any(dim=-1).all())
+
+
+@pytest.mark.parametrize("name", sorted(SOURCE_CASES))
+def test_tracked_sources_match_reference(name, localizers):
+    """The JPDA update of two simultaneous sources and the fused velocity
+    of a moving one: every output of every chunk and the final bank
+    against the reference, the localization bit-equal to the untracked
+    step's; at the end two confirmed tracks a planted stream within 10 cm
+    of the sources (JPDA), or one whose velocity is within 1 m/s of the
+    truth (fused velocity).  With two event slots, a chunk holds two
+    accepted events."""
+    mics, _, skw, _, _, burst, scene_kw = SOURCE_CASES[name]
+    x = _scene(mics, burst=burst, **scene_kw)
+    chunk, n_chunks = _case_chunks(name, x)
+    jtsl, ttsl = localizers(name)
+    jst, tst = jtsl.init_states(N_STREAMS), ttsl.init_states(N_STREAMS)
+    ust = ttsl.sl.init_states(N_STREAMS)
+    n_events = np.zeros(N_STREAMS, int)
+    most_in_a_chunk = 0
+    for i in range(n_chunks):
+        c = _chunk(x, i, chunk)
+        before = tst
+        jst, jout = jtsl.step_many(jst, jnp.asarray(c))
+        tst, tout = ttsl.step_many(tst, torch.from_numpy(c))
+        _margins(ttsl, before, tout, f"{name} chunk {i}")
+        _compare_out(jout, tout, f"{name} chunk {i}", mics)
+        ust, uout = ttsl.sl.step_many(ust, torch.from_numpy(c))
+        for k, v in uout.items():
+            assert torch.equal(tout[k], v), (i, k)
+        n_events += tout["events"].numpy().sum(axis=-1)
+        most_in_a_chunk = max(most_in_a_chunk,
+                              int(tout["events"].sum(dim=-1).max()))
+    _compare_track(jst.track, tst.track, name)
+    planted = np.setdiff1d(np.arange(N_STREAMS), SILENT)
+    assert (n_events[planted] == 3).all() and (n_events[list(SILENT)] == 0
+                                                ).all()
+    assert most_in_a_chunk == skw.get("max_events_per_chunk", 1)
+    conf = tout["track_confirmed"].numpy()
+    assert not conf[list(SILENT)].any()
+    if name.startswith("jpda"):
+        assert tout["beta"].shape == (N_STREAMS, 2, 4)
+        assert (conf[planted].sum(axis=-1) == 2).all()
+        txy = tout["track_xy"].numpy()
+        for s in planted:
+            for target in MULTI_XY:
+                err = np.linalg.norm(txy[s][conf[s]] - target, axis=-1)
+                assert err.min() < 0.1, (s, target, err)
+    else:
+        assert (conf[planted].sum(axis=-1) == 1).all()
+        vel = tout["track_vel"].numpy()[conf]
+        assert (np.linalg.norm(vel - MOVING_V[:2], axis=-1) < 1.0).all(), vel
 
 
 def test_silent_chunks_leave_state_untouched(localizers):
@@ -266,14 +394,7 @@ def test_step_many_scan_equals_step_many(localizers):
 
 def test_refusals_by_name_and_reference_value_errors():
     mk = ttracked.TrackedStreamingLocalizer.create
-    for kw, word in ((dict(n_sources=2), "n_sources"),
-                     (dict(solve_velocity=True), "solve_velocity")):
-        with pytest.raises(NotImplementedError, match=word):
-            mk(MICS3, stream=tcfg.StreamConfig(**kw), device="cpu")
-    with pytest.raises(NotImplementedError, match="solve_velocity"):
-        mk(MICS3, stream=tcfg.StreamConfig(solve_velocity=True),
-           fuse_velocity=True, device="cpu")
-    # the reference's ValueErrors, before any refusal
+    # the reference's ValueErrors
     with pytest.raises(ValueError, match="dim must be 3"):
         mk(TETRA, stream=tcfg.StreamConfig(solve_xyz=True),
            tracker_cfg=ttr.TrackerConfig(dim=2), device="cpu")
@@ -284,6 +405,10 @@ def test_refusals_by_name_and_reference_value_errors():
         mk(MICS3, fuse_velocity=True, device="cpu")
     with pytest.raises(ValueError, match="n_sources"):
         mk(MICS3, stream=tcfg.StreamConfig(n_sources=2, solve_velocity=True),
+           fuse_velocity=True, device="cpu")
+    with pytest.raises(ValueError, match="single-model"):
+        mk(MICS3, stream=tcfg.StreamConfig(solve_velocity=True),
+           tracker_cfg=ttr.TrackerConfig(imm_q=(0.1, 4.0)),
            fuse_velocity=True, device="cpu")
     with pytest.raises(TypeError):
         mk(MICS3)  # the device is not optional
@@ -331,35 +456,38 @@ def test_state_converted_midstream_continues_equal(localizers):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["nearest", "imm"])
+@pytest.mark.parametrize("name", ["nearest", "imm", "jpda", "jpda_two_slots",
+                                  "fuse_velocity"])
 def test_cuda_graphed_forms_equal_eager_step(name):
     """On the card: the step replayed as a CUDA graph, one chunk a replay
     and four, against the eager step: every output and the carried state
-    bit-equal."""
+    bit-equal (the JPDA and fused-velocity steps too: nothing in them waits
+    for the host)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (a CUDA graph has no CPU mode)")
-    mics, pkw, skw, trk = CASES[name]
+    mics, pkw, skw, trk, fuse, burst, scene_kw = _case(name)
     tsl = ttracked.TrackedStreamingLocalizer.create(
         mics, tcfg.PipelineConfig(**pkw),
-        stream=tcfg.StreamConfig(chunk_size=CHUNK, **skw),
+        stream=tcfg.StreamConfig(**{"chunk_size": CHUNK, **skw}),
         tracker_cfg=None if trk is None else ttr.TrackerConfig(**trk),
-        device="cuda")
-    x = torch.from_numpy(_scene(mics)).cuda()
+        fuse_velocity=fuse, device="cuda")
+    x = torch.from_numpy(_scene(mics, burst=burst, **scene_kw)).cuda()
+    chunk, n_chunks = _case_chunks(name, x)
     st = tsl.init_states(N_STREAMS)
-    one = tsl.graph_step_many(tsl.init_states(N_STREAMS), x[:, :, :CHUNK])
+    one = tsl.graph_step_many(tsl.init_states(N_STREAMS), x[:, :, :chunk])
     four = tsl.graph_step_many_scan(
         tsl.init_states(N_STREAMS),
-        torch.stack([_chunk(x, i) for i in range(4)], dim=1))
+        torch.stack([_chunk(x, i, chunk) for i in range(4)], dim=1))
     eager = []
-    for i in range(N_CHUNKS):
-        st, out = tsl.step_many(st, _chunk(x, i))
-        gout = one(_chunk(x, i))
+    for i in range(n_chunks):
+        st, out = tsl.step_many(st, _chunk(x, i, chunk))
+        gout = one(_chunk(x, i, chunk))
         for k in out:
             assert torch.equal(gout[k], out[k]), (i, k)
         eager.append(out)
-    for j in range(0, N_CHUNKS, 4):
-        gout = four(torch.stack([_chunk(x, i) for i in range(j, j + 4)],
-                                dim=1))
+    for j in range(0, n_chunks, 4):
+        gout = four(torch.stack([_chunk(x, i, chunk)
+                                 for i in range(j, j + 4)], dim=1))
         for i in range(4):
             for k in eager[j + i]:
                 assert torch.equal(gout[k][i], eager[j + i][k]), (j + i, k)

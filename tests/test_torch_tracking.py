@@ -363,3 +363,12 @@ def test_converted_track_state_continues_equal():
     _compare(jout, tout, "handed back")
     with pytest.raises(ValueError, match="lacks"):
         convert.track_state_from_reference({"x": z[0]}, "cpu")
+
+
+def test_tracker_defaults_to_the_card():
+    """An entry point runs on the card unless the caller asks for the CPU:
+    ``Tracker(cfg)`` takes device 'cuda', and nothing falls back to the CPU
+    when no card is found (``test_tracker_refusals``)."""
+    assert ttr.Tracker(ttr.TrackerConfig()).device == "cuda"
+    assert ttr.Tracker(ttr.TrackerConfig(dim=3)).device == "cuda"
+    assert ttr.Tracker(ttr.TrackerConfig(), "cpu").device == "cpu"
