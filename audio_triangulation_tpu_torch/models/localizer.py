@@ -44,6 +44,12 @@ array from raw correlograms (:func:`conditioned_correlograms`: the GCC
 kernel without peaks, or the large-array kernel, or the unfused engines),
 and ``Localizer.localize_moving`` adds the delay-Doppler velocity
 (``ops.caf``) to the pipeline's position.
+
+:func:`localize_stream` runs a whole raw [M, T] stream on the device:
+every trigger of the variance detector, the frame ending at each, and the
+localizer on that batch.  :func:`localize_frames_int` is the firmware's
+fixed-point event burst in torch integers, bit-exact against
+``utils.golden``; like the reference's, it is plain tensor ops (no kernel).
 """
 
 from __future__ import annotations
@@ -59,7 +65,7 @@ from torch import nn
 
 from ..core import geometry
 from ..core.config import GridConfig, PipelineConfig, SolverConfig
-from ..ops import caf, conditioning, multisource, mxu_fft, srp
+from ..ops import caf, conditioning, detector, multisource, mxu_fft, srp
 from ..ops import solver as solver_ops, window as window_ops, xcorr
 from ..ops._device import device_constant
 from ..ops.cuda import gcc_kernel, gcc_large, gn_kernel
@@ -756,3 +762,74 @@ def localize_frames_multi(
                           assoc_window_samples=assoc_window_samples)
     out["scores"] = scores
     return {key: v.reshape(*lead, *v.shape[1:]) for key, v in out.items()}
+
+
+# ----------------------------------------------------------------------
+# One-shot offline stream and the bit-exact integer pipeline
+# ----------------------------------------------------------------------
+
+def localize_stream(loc: Localizer, stream: torch.Tensor, *,
+                    max_events: int = 16, refractory: int = 0) -> dict:
+    """A raw [M, T] stream on the localizer's device -> every detected
+    event -> one batched localization, with no read back to the host.
+
+    The detector runs on the stream cast to int64 (its exact integer
+    prefix sums; a float stream's fractions are truncated), up to
+    ``max_events`` triggers with a holdoff of ``refractory`` samples (a
+    frame when 0).  The frame ending at each trigger (its start clamped to
+    0) is cut from the stream as float32 and localized.  Returns the
+    localizer's outputs for the [max_events] batch plus 'trigger_idx'
+    [max_events] and 'valid' [max_events]: absent events are masked, not
+    dropped."""
+    if stream.device != loc.window.device:
+        raise ValueError(f"the stream is on {stream.device}; the localizer "
+                         f"lives on {loc.window.device}")
+    n = loc.pipeline.frame_size
+    idxs, valid = detector.all_triggers_capped(
+        stream.to(torch.int64)[None], loc.pipeline, max_events=max_events,
+        refractory=refractory)
+    idxs, valid = idxs[0], valid[0]
+    start = (idxs - (n - 1)).clamp(0, stream.shape[-1] - n)
+    cols = start[:, None] + torch.arange(n, device=stream.device)
+    frames = stream.to(torch.float32)[:, cols].transpose(0, 1)  # [E, M, N]
+    out = dict(loc(frames.contiguous()))
+    out["trigger_idx"] = idxs
+    out["valid"] = valid
+    return out
+
+
+def localize_frames_int(frames_u8: torch.Tensor, pairs: torch.Tensor,
+                        window_q15: torch.Tensor, lut_flat: torch.Tensor,
+                        cfg: PipelineConfig) -> dict:
+    """The firmware's exact fixed-point event burst on raw 8-bit frames
+    [..., M, N] (values 0..255 as the ADC delivers them), on their device:
+
+    DC removal (sum >> bits) -> int16 <<8 -> Q15 window -> int64 xcorr ->
+    first-max argmax -> float32 Gaussian taper truncated to int64 -> shift
+    gate -> int64 SRP scores + 4-level heat colours.
+
+    The heaviest transients at 16,384 frames of 3 pairs and 10,201 cells:
+    the correlation's lag windows (``xcorr.XCORR_INT_CHUNK_BYTES`` at a
+    time) and the scores' [B, P, G] int64 gather (4.0 GB)."""
+    x = frames_u8.to(torch.int16)
+    x = conditioning.dc_remove_int(x, cfg.frame_size_bits)
+    x = conditioning.normalize_shift8_int(x)
+    x = window_ops.apply_window_q15(x, window_q15)
+
+    corr = xcorr.xcorr_time_int(x, pairs, cfg.max_shift)
+    shifts = xcorr.best_lag(corr, cfg.max_shift)
+    corr_t = xcorr.peak_taper_int(corr, cfg.max_shift, cfg.taper_denom)
+
+    s64 = shifts.to(torch.int64)
+    gate = (s64 * s64).sum(dim=-1) > cfg.shift_gate
+
+    scores = srp.srp_scores_int(corr_t, lut_flat)
+    return {
+        "frames_conditioned": x,
+        "correlograms": corr_t,
+        "correlograms_raw": corr,
+        "best_shift": shifts,
+        "gate": gate,
+        "scores": scores,
+        "heat_levels": srp.quantize_heatmap(scores),
+    }

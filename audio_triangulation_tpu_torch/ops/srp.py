@@ -3,7 +3,9 @@
 Counterpart of ``audio_triangulation_tpu.ops.srp`` (main-path subset):
 
 - matmul form: scores[B, G] = corr[B, P*L] @ onehot[P*L, G]
-- gather form: sum over pairs of corr[..., p, lut[p, g]]
+- gather form: sum over pairs of corr[..., p, lut[p, g]], and in int64
+  for the bit-exact heatmap path (``srp_scores_int``, whose 4-level
+  colours ``quantize_heatmap`` gives)
 - large arrays: one product against a steering matrix built on the device
   (``big_onehot_device`` / ``srp_scores_matmul_big``), or the pair axis a
   chunk at a time (``srp_scores_matmul_blocked`` / ``_gather_blocked``)
@@ -39,6 +41,12 @@ def srp_scores_gather(correlograms: torch.Tensor,
     """scores [..., G] via a per-pair gather; lut_flat is int [P, G]."""
     idx = lut_flat.long().expand(*correlograms.shape[:-2], *lut_flat.shape)
     return correlograms.gather(-1, idx).sum(dim=-2)
+
+
+def srp_scores_int(correlograms: torch.Tensor,
+                   lut_flat: torch.Tensor) -> torch.Tensor:
+    """int64 scores [..., G] of the bit-exact heatmap path."""
+    return srp_scores_gather(correlograms.to(torch.int64), lut_flat)
 
 
 def _round(x: torch.Tensor, dtype: str) -> torch.Tensor:

@@ -1,6 +1,6 @@
-"""Analysis windows: the unit-peak DPSS window (scipy) and its float
-application.  Counterpart of ``audio_triangulation_tpu.ops.window``; the
-Q15 integer form belongs to the integer validation path, not ported yet."""
+"""Analysis windows: the unit-peak DPSS window (scipy), its float
+application, and the firmware's Q15 integer form for the bit-exact
+validation path.  Counterpart of ``audio_triangulation_tpu.ops.window``."""
 
 from __future__ import annotations
 
@@ -43,3 +43,18 @@ def window_for(cfg, dtype=np.float32) -> np.ndarray:
 def apply_window(frames: torch.Tensor, window: torch.Tensor) -> torch.Tensor:
     """Float windowing of frames [..., N] by window [N]."""
     return frames * window
+
+
+def q15_quantize(window: np.ndarray) -> np.ndarray:
+    """Round a unit-peak window to Q15 int32 (window.ipynb ``to_int16``)."""
+    w = window / np.max(np.abs(window))
+    return np.round(w * 32767).astype(np.int32)
+
+
+def apply_window_q15(frames: torch.Tensor,
+                     window_q15: torch.Tensor) -> torch.Tensor:
+    """Bit-exact integer windowing, ``buffer.c:8-9``:
+    int16((int32(x) * w) >> 15), an arithmetic shift (a floor on negative
+    products) and a narrowing that keeps the low 16 bits."""
+    tmp = frames.to(torch.int32) * window_q15.to(torch.int32)
+    return (tmp >> 15).to(torch.int16)

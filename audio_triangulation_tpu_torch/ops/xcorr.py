@@ -3,14 +3,17 @@
 Counterpart of ``audio_triangulation_tpu.ops.xcorr``:
 
 - the FFT engine (``rfft_frames``, ``whiten_spectra``, ``cross_power``,
-  ``gcc_weight``, ``correlogram_from_cross_power``, ``xcorr_fft``) and the
-  float time-domain engine (``xcorr_time``);
+  ``gcc_weight``, ``correlogram_from_cross_power``, ``xcorr_fft``), the
+  float time-domain engine (``xcorr_time``) and its bit-exact integer form
+  (``xcorr_time_int``);
 - the smoothed spectral estimates behind the hands-free configuration:
   ``freq_smooth``, ``smoothed_cross_stats``, the per-event auto band
   (``auto_band_weight``, ``auto_band_weight_reim``) and the phase-slope
   sub-sample TDOA (``tdoa_phase_slope``);
-- the peak ops: first-max argmax, the Gaussian peak taper, 3-point
-  parabolic sub-sample interpolation and the peak-to-sidelobe ratio.
+- the peak ops: first-max argmax, the Gaussian peak taper (and its
+  integer form ``peak_taper_int``), 3-point parabolic sub-sample
+  interpolation and the peak-to-sidelobe ratio;
+- the correlogram EMA, float and integer (``ema_update_int``).
 
 The peak ops are also the plain versions of the GCC kernel's peak stage.
 Complex spectra are torch complex tensors (the reference's jnp complex).
@@ -294,6 +297,45 @@ def xcorr_time(frames: torch.Tensor, pairs: torch.Tensor,
     return torch.einsum("...n,...ln->...l", a, bp[..., idx])
 
 
+# the integer engine's lag windows [frames, P, 2K+1, N] are formed at most
+# this many bytes at a time
+XCORR_INT_CHUNK_BYTES = 1 << 30
+SMALL_INT_TYPES = (torch.int16, torch.int8, torch.uint8)
+
+
+def xcorr_time_int(frames: torch.Tensor, pairs: torch.Tensor,
+                   max_shift: int) -> torch.Tensor:
+    """Bit-exact int64 correlogram [..., P, 2K+1] of integer frames of at
+    most 16 bits: corr[l] = sum_n a[n] b_pad[n + l], the firmware's int16
+    products summed in int64 (``correlations.c:16``).
+
+    CUDA has no int64 matmul, so the products are summed in float64, which
+    is exact here: |x| <= 2^15, so a product is at most 2^30 and a sum of
+    N < 2^23 of them less than 2^53; every partial sum is then an integer
+    that float64 holds exactly, in any order of additions (FMA included),
+    and the CPU and the card agree bit for bit.  The lag windows, 2K+1
+    copies of each frame, are formed a chunk of frames at a time of at
+    most ``XCORR_INT_CHUNK_BYTES`` (at 16,384 frames of 3 pairs and
+    K = 46 they would take 37.5 GB at once)."""
+    if frames.dtype not in SMALL_INT_TYPES:
+        raise TypeError("xcorr_time_int takes int16 / int8 / uint8 frames "
+                        f"(float64 sums are exact for them); got "
+                        f"{frames.dtype}")
+    n = frames.shape[-1]
+    if n >= 1 << 23:
+        raise ValueError(f"{n} samples a frame: float64 sums are exact "
+                         "below 2^23")
+    lead, p = frames.shape[:-2], pairs.shape[0]
+    a = _take(frames, pairs[:, 0]).to(torch.float64).reshape(-1, p, n, 1)
+    b = _take(frames, pairs[:, 1]).to(torch.float64).reshape(-1, p, n)
+    bp = torch.nn.functional.pad(b, (max_shift, max_shift))
+    chunk = max(1, XCORR_INT_CHUNK_BYTES // (p * (2 * max_shift + 1) * n * 8))
+    out = torch.cat([
+        torch.matmul(bp[i: i + chunk].unfold(-1, n, 1), a[i: i + chunk])
+        for i in range(0, a.shape[0], chunk)])
+    return out[..., 0].to(torch.int64).reshape(*lead, p, 2 * max_shift + 1)
+
+
 # ----------------------------------------------------------------------
 # Peak handling
 # ----------------------------------------------------------------------
@@ -314,6 +356,30 @@ def peak_taper(correlograms: torch.Tensor, max_shift: int,
                         device=correlograms.device)
     d = lags - shifts[..., None].to(correlograms.dtype)
     return correlograms * torch.exp(-(d * d) / denom)
+
+
+@functools.lru_cache(maxsize=16)
+def _taper_table(max_shift: int, denom: float) -> np.ndarray:
+    """exp(-d^2 / denom) for every d = s - s_best in [-2K, 2K], as the C
+    computes it: a float32 argument, a float64 exp, narrowed to float32."""
+    diffs = np.arange(-2 * max_shift, 2 * max_shift + 1, dtype=np.int64)
+    args = np.float32(-(diffs * diffs)) / np.float32(denom)
+    return np.exp(args.astype(np.float64)).astype(np.float32)
+
+
+def peak_taper_int(correlograms: torch.Tensor, max_shift: int,
+                   denom: float = 36.0) -> torch.Tensor:
+    """Bit-exact integer taper (``correlations.c:26-33``): each int64 bin
+    rounded to float32 (to nearest), times the host-built float32 scale of
+    its distance from the first-max lag, truncated back to int64."""
+    shifts = best_lag(correlograms, max_shift)
+    table = device_constant(_taper_table(max_shift, float(denom)),
+                            correlograms.device)
+    lags = torch.arange(-max_shift, max_shift + 1,
+                        device=correlograms.device)
+    scale = table[lags - shifts[..., None] + 2 * max_shift]
+    return torch.trunc(correlograms.to(torch.float32) * scale).to(
+        torch.int64)
 
 
 def subsample_peak(correlograms: torch.Tensor, max_shift: int):
@@ -392,3 +458,14 @@ def ema_update(state: torch.Tensor, new: torch.Tensor,
                decay: torch.Tensor) -> torch.Tensor:
     """state + (new - state) * decay."""
     return state + (new - state) * decay
+
+
+def ema_update_int(state: torch.Tensor, new: torch.Tensor, dt_s: float,
+                   tau_s: float = 0.5) -> torch.Tensor:
+    """Bit-exact integer EMA (``correlations.c:45-49``): the float32 delta
+    and sum truncated to int64.  The decay is a host float32 built as the C
+    builds it: a float32 argument, a float64 exp, narrowed to float32."""
+    arg = np.float64(-np.float32(dt_s) / np.float32(tau_s))
+    decay = float(np.float32(np.float64(1.0) - np.exp(arg)))
+    delta = (new - state).to(torch.float32) * decay
+    return torch.trunc(state.to(torch.float32) + delta).to(torch.int64)

@@ -1,1 +1,2 @@
-"""Numpy-only helpers: synthetic scenes and reference-parameter conversion."""
+"""Numpy-only helpers: synthetic scenes, reference-parameter conversion
+and the golden model of the firmware's integer arithmetic."""

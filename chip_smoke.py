@@ -35,7 +35,16 @@ peaks), ``localize_moving`` on 2,048 frames (33 scales), and the stream
 and tracked steps with ``n_sources=2``, ``solve_velocity``, the JPDA
 update and ``fuse_velocity`` on 1,024 streams, each checked against the
 known sources, the port's CPU path and, for the steps, their CUDA-graph
-replays, and timed.
+replays, and timed.  The firmware's integer path: ``localize_frames_int``
+on 16,384 8-bit frames of 3 x 1,024 samples (the golden 101 x 101 LUT),
+every output bit-equal to the port's CPU path and to the golden model,
+timed with its peak device memory, and ``localize_stream`` on a 60 s
+stream of 3 x 3,000,000 samples against the CPU path.  Then the port's
+tools: the accuracy sweep (``tools/bench_accuracy``, each scene against
+the CPU path, each row's medians against the JAX package's rows), the
+frame-batch bench (``tools/bench``, whose timing function phase 5 shares)
+and a tracked soak (``tools/soak_streaming``: 2,048 streams, 200 graphed
+steps, a dead channel half-way; every gate).
 
     python3 chip_smoke.py            # one CUDA card; exits non-zero on any failure
 
@@ -312,14 +321,12 @@ def phase_device():
     sys.path.insert(0, HERE)
     from audio_triangulation_tpu_torch import Localizer, geometry
     from audio_triangulation_tpu_torch.ops.cuda import _build
+    from audio_triangulation_tpu_torch.tools.bench import smi_line
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    if smi.returncode != 0 or not smi.stdout.strip():
-        fail("1 device", f"nvidia-smi failed: {smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0].strip()
+    try:
+        card = smi_line(0)
+    except (OSError, IndexError, subprocess.SubprocessError) as e:
+        fail("1 device", f"nvidia-smi failed: {e}")
     print(card, flush=True)
     Localizer.create(geometry.square_array(0.3), device="cuda")
     if (torch.backends.cuda.matmul.allow_tf32
@@ -976,7 +983,20 @@ PATH_KERNELS = {"bandcrop_800_6000": ("gcc_kernel", "gn_kernel"),
                                 "tracked_velocity")},
                 "multi_8mic": ("gcc_kernel",),
                 "multi_64mic": ("gcc_large_kernel",),
-                "moving": ("gcc_kernel", "gn_kernel")}
+                "moving": ("gcc_kernel", "gn_kernel"),
+                # the port's tools: the accuracy sweep's five methods and
+                # the bench's three configurations (base and stats modes),
+                # the tracked soak's stream step
+                "tool_bench_accuracy": ("gcc_kernel", "gcc_stats_kernel",
+                                        "gn_kernel"),
+                "tool_bench": ("gcc_kernel", "gcc_stats_kernel",
+                               "gn_kernel"),
+                "tool_soak_streaming": ("detector_scan_kernel",),
+                # the integer path is plain torch (no kernel: its count is
+                # recorded); the offline stream's events go through the
+                # Localizer's GCC base mode and GN kernel
+                "localize_frames_int": (),
+                "localize_stream": ("gcc_kernel", "gn_kernel")}
 
 
 def launch_counts():
@@ -1048,7 +1068,7 @@ def counted(name, results, fn):
             results[k].setdefault("launches_by_path", {})[name] = v
     say("4 main", f"{name}: launches {counts}; calls outside the kernels "
         f"{calls}")
-    if min(counts[k] for k in PATH_KERNELS[name]) < 1:
+    if any(counts[k] < 1 for k in PATH_KERNELS[name]):
         fail("4 main", f"{name}: a kernel of its path was never launched")
     if "gcc_srp_kernel" in PATH_KERNELS[name] and calls["srp_scores_matmul"]:
         fail("4 main", f"{name}: the scores were formed again outside the "
@@ -1197,21 +1217,13 @@ def phase_main(rng, results):
     return locs, frames, large_locs, large, srp_args
 
 
-def time_path(card, name, fn, n_frames):
-    import torch
+def time_path(card, name, fn, n_frames, phase="5 timing"):
+    """Frames/s of ``fn()`` by the bench tool's timing function (median and
+    quartiles of ``TRIALS`` calls, host clock around a synchronise)."""
+    from audio_triangulation_tpu_torch.tools.bench import frames_per_s
 
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    rates = []
-    for _ in range(TRIALS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        rates.append(n_frames / (time.perf_counter() - t0))
-    q1, med, q3 = np.percentile(rates, [25, 50, 75])
-    say("5 timing", f"{name}: {med:.1f} frames/s median, IQR "
+    med, q1, q3 = frames_per_s(fn, n_frames, TRIALS, "cuda")
+    say(phase, f"{name}: {med:.1f} frames/s median, IQR "
         f"{q1:.1f}-{q3:.1f} over {TRIALS} trials of {n_frames} frames "
         f"({n_frames / med * 1e3:.4f} ms a call) ({card})")
 
@@ -1263,8 +1275,17 @@ def phase_timing(card, locs, frames, large_locs, large, srp_args, results):
     from audio_triangulation_tpu_torch.ops.cuda import (
         gcc_kernel, gcc_large, srp_kernel)
 
+    from audio_triangulation_tpu_torch.tools import bench
+
+    # each 4-mic path on this run's scene frames (a noise draw a frame),
+    # then on the bench tool's own input (one event replicated), so that
+    # the tool's lines in phase 11 have their counterpart here
+    replicated = bench.bench_frames(frames.shape[0], "cuda")
     for name, loc in locs:
         time_path(card, name, lambda: loc(frames), frames.shape[0])
+        time_path(card, f"{name} on the bench tool's frames",
+                  lambda: loc(replicated), frames.shape[0])
+    del replicated
     time_path(card, "srp_argmax_101x101",
               lambda: srp_kernel.srp_argmax(*srp_args), frames.shape[0])
     for name, loc in large_locs:
@@ -2877,6 +2898,214 @@ def phase_stream_sources(card, results):
                      stream.velocity_n_scales)
 
 
+GOLDEN_FRAMES = 16384  # localize_frames_int: 8-bit frames of 3 x 1,024
+GOLDEN_CPU_FRAMES = 1024  # of them held to the port's CPU path
+GOLDEN_MODEL_FRAMES = 64  # and to the golden model
+GOLDEN_SATURATED = 8  # frames of square waves between the rails
+GOLDEN_STREAM_SAMPLES = 3_000_000  # localize_stream: 60 s at 50 kHz
+GOLDEN_STREAM_BURSTS = 12
+GOLDEN_INT_KEYS = ("frames_conditioned", "correlograms", "correlograms_raw",
+                   "best_shift", "gate", "scores", "heat_levels")
+SOAK_ARGS = ["--streams", "2048", "--steps", "200", "--track",
+             "--fault-at", "0.5"]
+
+
+def golden_frames(mics, rng):
+    """[GOLDEN_FRAMES, 3, 1,024] uint8 as the ADC delivers them: chirps from
+    random sources (``to_adc_u8``), the first ``GOLDEN_SATURATED`` square
+    waves between 0 and 255, each mic a few samples after the one before
+    (the largest correlation sums)."""
+    from audio_triangulation_tpu_torch.utils import synth
+
+    u8 = synth.to_adc_u8(scene_frames(mics, GOLDEN_FRAMES, rng))
+    t = np.arange(u8.shape[-1])
+    for i in range(GOLDEN_SATURATED):
+        for j in range(3):
+            u8[i, j] = np.where(((t + 3 * j + i) // (5 + i)) % 2, 255, 0)
+    return u8
+
+
+def phase_golden(card, results):
+    """The firmware's integer path on the card at full width:
+    ``localize_frames_int`` on 16,384 8-bit frames (the golden model's
+    mics, Q15 window and 101 x 101 LUT, +-46 shifts), all seven outputs
+    equal (``torch.equal``) to the port's CPU path on 1,024 of them and to
+    the golden model on 64, timed, with its peak device memory.  Then
+    ``localize_stream`` on a 60 s stream with planted bursts: trigger
+    indices and valid flags equal to the CPU path's, xy within 2e-4 m.
+    The first call of each is counted (``PATH_KERNELS``): the stream's
+    events must go through the GCC and GN kernels."""
+    import torch
+    from audio_triangulation_tpu_torch import (Localizer, PipelineConfig,
+                                               geometry)
+    from audio_triangulation_tpu_torch.models.localizer import (
+        localize_frames_int, localize_stream)
+    from audio_triangulation_tpu_torch.utils import golden, synth
+    from audio_triangulation_tpu_torch.utils.golden_event import golden_event
+
+    rng = np.random.default_rng(SEED + 40)
+    cfg = PipelineConfig()
+    mics = golden.mic_locations()
+    table = golden.window_table_q15()
+    luts = golden.heatmap_luts(mics)
+    host = (golden_frames(mics, rng), np.asarray(((0, 1), (0, 2), (1, 2)),
+                                                 np.int32),
+            table, luts.reshape(3, -1).astype(np.int32))
+    args = [torch.from_numpy(a).cuda() for a in host]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    out = counted("localize_frames_int", results,
+                  lambda: localize_frames_int(*args, cfg))
+    torch.cuda.synchronize()
+    peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+    cpu = localize_frames_int(
+        torch.from_numpy(host[0][:GOLDEN_CPU_FRAMES]),
+        *[torch.from_numpy(a) for a in host[1:]], cfg)
+    cpu_eq = [k for k in GOLDEN_INT_KEYS
+              if not torch.equal(out[k][:GOLDEN_CPU_FRAMES].cpu(), cpu[k])]
+    model_eq = []
+    for b in range(GOLDEN_MODEL_FRAMES):
+        ref = golden_event(host[0][b], luts)
+        model_eq += [(b, k) for k in GOLDEN_INT_KEYS
+                     if not np.array_equal(out[k][b].cpu().numpy(), ref[k])
+                     or out[k].dtype != torch.from_numpy(
+                         np.asarray(ref[k])).dtype]
+    say("9 golden", f"localize_frames_int: {GOLDEN_FRAMES} frames of 3 x "
+        f"1,024 8-bit samples, {luts[0].size} cells, +-{cfg.max_shift} "
+        f"shifts; outputs unequal to the CPU path on {GOLDEN_CPU_FRAMES} "
+        f"frames: {cpu_eq or 'none'}; to the golden model on "
+        f"{GOLDEN_MODEL_FRAMES}: {model_eq[:4] or 'none'}; gate open on "
+        f"{float(out['gate'].float().mean()) * 100:.1f}% of frames, "
+        f"|raw correlogram| up to {int(out['correlograms_raw'].abs().max())}"
+        f"; peak device memory {peak_gb:.3f} GB above its inputs "
+        f"({torch.cuda.max_memory_allocated() / 1e9:.3f} GB in all)")
+    if cpu_eq or model_eq:
+        fail("9 golden", "the integer path differs from the CPU path or the "
+             "golden model")
+    del out, cpu
+    time_path(card, "localize_frames_int",
+              lambda: localize_frames_int(*args, cfg), GOLDEN_FRAMES,
+              phase="9 golden")
+    del args
+
+    # ---- localize_stream: a 60 s stream, bursts from known sources --------
+    arr = geometry.reference_array()
+    stream = rng.integers(127, 130, (3, GOLDEN_STREAM_SAMPLES)).astype(
+        np.float64)
+    starts = np.linspace(50_000, GOLDEN_STREAM_SAMPLES - 60_000,
+                         GOLDEN_STREAM_BURSTS).astype(np.int64)
+    planes = rng.uniform(-0.8, 0.8, (GOLDEN_STREAM_BURSTS, 2))
+    v = np.concatenate([planes, np.full((len(planes), 1), 1.2)], axis=1)
+    src = v * (1.2 / np.linalg.norm(v, axis=1, keepdims=True))
+    bursts = synth.synth_scene(src, arr, noise_rms=0.0, seed=SEED + 41)
+    for at, fr in zip(starts, bursts):
+        stream[:, at: at + fr.shape[-1]] += 110.0 * fr
+    stream = torch.from_numpy(np.clip(np.round(stream), 0, 255).astype(
+        np.float32))
+    loc = Localizer.create(arr, cfg, device="cuda")
+    sc = stream.cuda()
+    got = counted("localize_stream", results,
+                  lambda: localize_stream(loc, sc))
+    ref = localize_stream(Localizer.create(arr, cfg, device="cpu"), stream)
+    valid = ref["valid"]
+    same = (torch.equal(got["trigger_idx"].cpu(), ref["trigger_idx"])
+            and torch.equal(got["valid"].cpu(), valid))
+    dxy = float((got["xy"].cpu()[valid] - ref["xy"][valid]).abs().max())
+    err = (float(np.abs(got["xy"].cpu()[valid].numpy() - planes).max())
+           if int(valid.sum()) == GOLDEN_STREAM_BURSTS else float("inf"))
+    say("9 golden", f"localize_stream: [3, {GOLDEN_STREAM_SAMPLES}] samples, "
+        f"{int(valid.sum())} of {GOLDEN_STREAM_BURSTS} bursts found; "
+        f"triggers and valid flags equal to the CPU path {same}; xy "
+        f"{dxy:.2e} m from it, {err * 100:.2f} cm from the sources at most")
+    if not (same and dxy <= 2e-4 and err < 0.25):
+        fail("9 golden", "localize_stream: result check failed")
+    time_path(card, "localize_stream (calls/s)",
+              lambda: localize_stream(loc, sc), 1, phase="9 golden")
+
+
+def phase_accuracy(card, results):
+    """The port's accuracy sweep on the card (``tools/bench_accuracy``: 256
+    scenes, six SNRs, five methods, strides 1 and 3, the 8-bit ADC row),
+    launches counted.  Each scene held to the port's CPU path on the same
+    frames (xy within 2e-4 m, tdoa within 1e-3 samples) where its best lags
+    and grid cell are 1e-3 of scale clear of the next; each row's medians
+    to the JAX package's rows (``off_reference``).  Near ties are counted;
+    fewer than a tenth of the scenes may be (3.5% on the CPU: PHAT at low
+    SNR flattens the grid)."""
+    import torch
+    from audio_triangulation_tpu_torch import Localizer, geometry
+    from audio_triangulation_tpu_torch.tools import bench_accuracy
+
+    keep = ("xy", "tdoa_samples")
+    points = counted("tool_bench_accuracy", results, lambda: [
+        (row, {k: out[k].cpu() for k in keep}, frames, loc.pipeline, stride)
+        for row, out, frames, loc, stride in bench_accuracy.points(
+            device="cuda")])
+    mics = geometry.square_array(0.3)
+    rows, worst, ties = [], [0.0, 0.0], 0
+    for row, out, frames, cfg, stride in points:
+        ref = Localizer.create(mics, cfg, device="cpu",
+                               init_grid_stride=stride)(
+            torch.from_numpy(frames))
+        clear = bench_accuracy.clear_of_ties(ref["correlograms"],
+                                             ref["scores"])
+        ties += int((~clear).sum())
+        worst[0] = max(worst[0], float(
+            (out["xy"] - ref["xy"])[clear].abs().max()))
+        worst[1] = max(worst[1], float(
+            (out["tdoa_samples"] - ref["tdoa_samples"])[clear].abs().max()))
+        rows.append(row)
+    off = bench_accuracy.off_reference(rows)
+    for snr in bench_accuracy.SNRS:
+        say("10 accuracy", f"SNR {snr} dB, median tdoa (samples) / xy (cm) "
+            "by method at strides 1, 3: " + "; ".join(
+                f"{r['method']}:{r['init_grid_stride']} "
+                f"{r['tdoa_err_median_samples']} / {r['xy_err_median_cm']}"
+                for r in rows if r["snr_db"] == snr))
+    adc = rows[-1]
+    n_scenes = sum(r["scenes"] for r in rows)
+    say("10 accuracy", f"8-bit ADC: {adc['tdoa_err_median_samples']} / "
+        f"{adc['xy_err_median_cm']}; {len(rows)} rows; against the CPU path "
+        f"on {n_scenes - ties} of {n_scenes} scenes clear of a near tie: xy "
+        f"{worst[0]:.2e} m, tdoa {worst[1]:.2e} samples; rows off the JAX "
+        f"package's by more than {bench_accuracy.MEDIAN_TOLERANCE}: "
+        f"{off or 'none'} ({card})")
+    if not (worst[0] <= 2e-4 and worst[1] <= 1e-3 and not off
+            and ties <= 0.1 * n_scenes):
+        fail("10 accuracy", "the sweep differs from the CPU path or from the "
+             "JAX package's rows")
+
+
+def phase_bench(results):
+    """The frame-batch bench tool as a user runs it: its three lines, from
+    the timing function phase 5 shares, with launches counted."""
+    from audio_triangulation_tpu_torch.tools import bench
+
+    lines = counted("tool_bench", results, lambda: bench.main([]))
+    names = [ln["metric"] for ln in lines]
+    if not (len(lines) == 3 and names[-1] == bench.METRIC
+            and all(ln["value"] > 0 and ln["unit"] == "frames/s"
+                    and ln["trials"] >= 5 and ln["power_limit_w"]
+                    and "vs_baseline" not in ln for ln in lines)):
+        fail("11 bench", f"malformed lines: {lines}")
+    say("11 bench", "three lines, the band-cropped headline last")
+
+
+def phase_soak(results):
+    """The tracked soak tool on the card: 2,048 streams, 200 graphed steps,
+    channel 1 dead after half of them; every gate must pass."""
+    from audio_triangulation_tpu_torch.tools import soak_streaming
+
+    res = counted("tool_soak_streaming", results,
+                  lambda: soak_streaming.main(SOAK_ARGS))
+    say("12 soak", f"gates {res['gates']}; step_ms p50 "
+        f"{res['step_ms_p50']:.4f}, VmRSS growth {res['rss_growth_mb']} MB, "
+        f"device memory growth {res['device_mem_growth_mb']} MB")
+    if not (res["ok"] and res["graphed"] and res["steps"] == 200):
+        fail("12 soak", "a gate failed")
+
+
 # further keys of an entry that has them: what the library yardstick is, the
 # SRP-argmax kernel's other bound and its bf16 mode, the bf16 DFT product's
 # library form with f32 outputs
@@ -2915,6 +3144,10 @@ def main():
     phase_multi(card, results)
     phase_moving(card, results)
     phase_stream_sources(card, results)
+    phase_golden(card, results)
+    phase_accuracy(card, results)
+    phase_bench(results)
+    phase_soak(results)
 
     print(json.dumps({"kernels": [
         {k: results[n][k] for k in (*KERNEL_KEYS, *(
