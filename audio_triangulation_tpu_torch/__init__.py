@@ -2,7 +2,10 @@
 with its kernels written for Hopper (simultaneous sources through
 ``Localizer.localize_multi``, moving ones through ``localize_moving``), the
 streaming localizers and tracked streaming (a Kalman tracker bank on the
-streaming step).
+streaming step), and the estimators beside them: direction of arrival
+(``models.doa``), volumetric 3-D (``VolumeLocalizer``), multi-array fusion
+(``models.fusion``) and the frequency-domain and subspace spectra
+(``ops.srp_freq``).
 
 The JAX package stays the reference; this package imports torch and never
 jax.  Quick start::
@@ -23,17 +26,22 @@ jax.  Quick start::
                                            device="cuda")
     g = tsl.graph_step_many(tsl.init_states(2048), chunks)
     out = g(chunks)          # out["track_xy"] [2048, 4, 2]; one graph replay
+
+    vl = VolumeLocalizer.create(geometry.tetrahedral_array(0.3),
+                                device="cuda")
+    out = vl(frames)         # out["xyz"] [B, 3]
 """
 
 from .core import geometry
 from .core.config import (GridConfig, PipelineConfig, SolverConfig,
-                          StreamConfig)
+                          StreamConfig, VolumeConfig)
 from .models.localizer import Localizer
 from .models.streaming import StreamingLocalizer, TwoRateStreamingLocalizer
 from .models.tracked import TrackedStreamingLocalizer
 from .models.tracking import Tracker, TrackerConfig
+from .models.volume import VolumeLocalizer
 
 __all__ = ["Localizer", "StreamingLocalizer", "TwoRateStreamingLocalizer",
            "TrackedStreamingLocalizer", "Tracker", "TrackerConfig",
-           "PipelineConfig", "GridConfig", "SolverConfig", "StreamConfig",
-           "geometry"]
+           "VolumeLocalizer", "PipelineConfig", "GridConfig", "SolverConfig",
+           "StreamConfig", "VolumeConfig", "geometry"]

@@ -1,8 +1,8 @@
 """Configuration dataclasses of the PyTorch port.
 
 Field for field the same as ``audio_triangulation_tpu.core.config``
-(``PipelineConfig``, ``GridConfig``, ``SolverConfig``, ``StreamConfig``): the
-same names,
+(``PipelineConfig``, ``GridConfig``, ``VolumeConfig``, ``SolverConfig``,
+``StreamConfig``): the same names,
 defaults, validation and derived properties, so a configuration saved by
 either package loads in the other.  The reference module is numpy-only,
 but importing it runs the JAX package's ``__init__``, so it is copied here.
@@ -227,6 +227,48 @@ class GridConfig:
     @property
     def num_cells(self) -> int:
         return self.width * self.height
+
+
+@dataclasses.dataclass(frozen=True)
+class VolumeConfig:
+    """Volumetric (3-D) SRP grid: (2*half_cells_x+1) x (2*half_cells_y+1)
+    x z_cells points, x / y centred on the array as in ``GridConfig``, z
+    spanning [z_min_m, z_max_m] inclusive."""
+
+    half_cells_x: int = 20
+    half_cells_y: int = 20
+    cells_per_m: float = 10.0
+    z_min_m: float = 0.2
+    z_max_m: float = 2.2
+    z_cells: int = 21
+
+    def __post_init__(self):
+        if self.z_cells < 1:
+            raise ValueError("z_cells must be >= 1")
+        if self.z_max_m < self.z_min_m:
+            raise ValueError("z_max_m < z_min_m")
+
+    @property
+    def width(self) -> int:
+        return 2 * self.half_cells_x + 1
+
+    @property
+    def height(self) -> int:
+        return 2 * self.half_cells_y + 1
+
+    @property
+    def depth(self) -> int:
+        return self.z_cells
+
+    @property
+    def num_cells(self) -> int:
+        return self.width * self.height * self.depth
+
+    @property
+    def z_step_m(self) -> float:
+        if self.z_cells == 1:
+            return 0.0
+        return (self.z_max_m - self.z_min_m) / (self.z_cells - 1)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .config import GridConfig, PipelineConfig
+from .config import GridConfig, PipelineConfig, VolumeConfig
 
 
 def triangle_from_distances(
@@ -158,6 +158,37 @@ def lag_lut(
     k = pipeline.max_shift
     shifts = np.clip(shifts, -k, k)
     return np.transpose(shifts + k, (2, 0, 1)).astype(np.int32)
+
+
+def volume_points(vol: VolumeConfig, dtype=np.float32) -> np.ndarray:
+    """Candidate source points [D, H, W, 3] of the volumetric grid: x / y
+    as in :func:`grid_points`, z over [z_min_m, z_max_m] in ``z_cells``
+    steps (no sphere or plane projection)."""
+    xs = (np.arange(vol.width, dtype=dtype)
+          - vol.half_cells_x) / dtype(vol.cells_per_m)
+    ys = (vol.half_cells_y
+          - np.arange(vol.height, dtype=dtype)) / dtype(vol.cells_per_m)
+    zs = (np.float64(vol.z_min_m)
+          + np.arange(vol.depth, dtype=np.float64) * vol.z_step_m)
+    gz, gy, gx = np.meshgrid(zs.astype(dtype), ys, xs, indexing="ij")
+    return np.stack([gx, gy, gz], axis=-1).astype(dtype)
+
+
+def volume_lag_lut(
+    vol: VolumeConfig,
+    positions: np.ndarray,
+    pairs: np.ndarray,
+    pipeline: PipelineConfig,
+) -> np.ndarray:
+    """Integer lag-index LUT [P, D, H, W] of the volumetric grid, with
+    :func:`lag_lut`'s rounding, clamp and offset."""
+    pts = volume_points(vol)
+    dt = expected_tdoas(pts, positions, pairs, pipeline.speed_of_sound_mps)
+    v = dt * np.float32(pipeline.sample_rate_hz)
+    shifts = np.trunc(v + np.copysign(np.float32(0.5), v)).astype(np.int32)
+    k = pipeline.max_shift
+    shifts = np.clip(shifts, -k, k)
+    return np.transpose(shifts + k, (3, 0, 1, 2)).astype(np.int32)
 
 
 def lag_onehot(lut: np.ndarray, num_lags: int, dtype=np.float32) -> np.ndarray:

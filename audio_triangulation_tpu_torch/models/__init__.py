@@ -1,4 +1,5 @@
-"""Model families of the port: frame-batch, streaming, tracking."""
+"""Model families of the port: frame-batch, streaming, tracking, DoA,
+volumetric and multi-array fusion."""
 
 from .localizer import (  # noqa: F401
     Localizer, LocalizerParams, localize_frames)
@@ -8,3 +9,6 @@ from .tracked import (  # noqa: F401
     TrackedStreamingLocalizer, TrackedStreamState)
 from .tracking import (Tracker, TrackerConfig, TrackState,  # noqa: F401
                        rts_smooth)
+from .doa import DoaEstimator  # noqa: F401
+from .fusion import ArrayFusionLocalizer  # noqa: F401
+from .volume import VolumeLocalizer, localize_frames_volume  # noqa: F401

@@ -487,13 +487,15 @@ def _flat_frames(frames: torch.Tensor, cfg: PipelineConfig) -> torch.Tensor:
 
 
 def conditioned_correlograms(flat: torch.Tensor, params: LocalizerParams,
-                             cfg: PipelineConfig) -> torch.Tensor:
+                             cfg: PipelineConfig, *,
+                             kernel_fits: bool = True) -> torch.Tensor:
     """Raw frames [B, M, N] (as :func:`_flat_frames` gives them) -> raw,
     untapered correlograms [B, P, L]: the GCC kernel without peaks where
-    :func:`kernel_route` holds, the large-array kernel where
-    :func:`large_route` holds, else the unfused engines."""
+    :func:`kernel_route` holds (and ``kernel_fits``: the caller's
+    ``gcc_kernel.base_mode_fits`` of the shape), the large-array kernel
+    where :func:`large_route` holds, else the unfused engines."""
     p_n = params.pairs.shape[0]
-    if p_n <= LARGE_ARRAY_PAIRS and kernel_route(cfg):
+    if p_n <= LARGE_ARRAY_PAIRS and kernel_route(cfg) and kernel_fits:
         return gcc_kernel.fused_gcc(flat, params.window, params.pairs, cfg,
                                     with_peaks=False)
     x = condition_frames(flat, params.window, cfg)

@@ -580,6 +580,18 @@ def fused_gcc_pipelined(frames: torch.Tensor, window: torch.Tensor,
     return launch_pipelined(frames, *ops, pairs, **kw)
 
 
+def base_mode_fits(device, n_mics: int, n_pairs: int, n_lags: int) -> bool:
+    """Whether the base mode takes frames of ``n_mics`` mics, ``n_pairs``
+    pairs and ``n_lags`` lags on ``device``: on a CUDA device one frame's
+    correlograms must fit a block's shared memory (8 mics x 28 pairs fit
+    up to 1,469 lags); the plain version on the CPU has no limit.
+    Asked once, when an estimator is built, so the route follows the shape
+    and never a launch error."""
+    if torch.device(device).type != "cuda":
+        return True
+    return _lib().att_gcc_frames_per_block(n_mics, n_pairs, n_lags) >= 1
+
+
 def srp_mode_fits(frames: torch.Tensor, cfg: PipelineConfig,
                   n_pairs: int) -> bool:
     """Whether the SRP mode takes these frames [B, M, N]: on a CUDA device

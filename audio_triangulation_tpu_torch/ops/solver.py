@@ -1,8 +1,8 @@
 """TDOA source solvers: damped Gauss-Newton on the sphere or plane model,
-its position covariance, the free 3-D solve and the far-field bearing.
+its position covariance, the free 3-D solve, the joint solve of positions
+and clock offsets across unsynchronised arrays and the far-field bearing.
 
-Counterpart of ``audio_triangulation_tpu.ops.solver`` (all but
-``solve_tdoa_sync``, which belongs with multi-array fusion).  In the
+Counterpart of ``audio_triangulation_tpu.ops.solver``.  In the
 constrained solves the source lies on the radius-h sphere around the array
 center or on the z = h plane; residuals are r_p = (|x - m_j| - |x - m_i|)
 - c tau_p.  The batched iterations work on the M-space sufficient
@@ -297,6 +297,120 @@ def solve_tdoa_xyz_multistart(
     pick = rms.argmin(dim=0)  # [B]
     rows = torch.arange(b, device=pick.device)
     return xyz[pick, rows], rms[pick, rows]
+
+
+def solve_tdoa_sync(
+    tdoas: torch.Tensor,
+    mic_positions: torch.Tensor,
+    pairs: torch.Tensor,
+    mic_array_id: torch.Tensor,
+    n_arrays: int,
+    *,
+    speed_of_sound: float,
+    height: float,
+    init_xy: torch.Tensor,
+    init_offsets_s: torch.Tensor | None = None,
+    weights: torch.Tensor | None = None,
+    event_times_s: torch.Tensor | None = None,
+    iterations: int = 12,
+    damping: float = 1e-3,
+):
+    """Joint positions of E events and clock offsets of arrays 1..K-1
+    (array 0 is the time reference) from TDOAs over pairs of the
+    concatenated mics, where a pair spanning arrays a(i) != a(j) reads
+    tau = (|s - m_j| - |s - m_i|) / c + delta_a(j) - delta_a(i).  Damped
+    Gauss-Newton on the plane model z = ``height``: each iteration
+    eliminates the per-event 2 x 2 position blocks in closed form and
+    solves the small shared Schur complement (``solve_ex``: no read back).
+    With ``event_times_s`` [E] each clock error is delta_k + rho_k (t -
+    mean t) and the drifts rho are solved too.
+
+    tdoas [E, P] seconds, mic_positions [Mall, 2], mic_array_id [Mall],
+    init_xy [E, 2], weights [P] (optional).  Returns (xy [E, 2], offsets_s
+    [K-1], rms [E]), or (xy, offsets_s, drift_s_per_s [K-1], rms) with
+    event times."""
+    if n_arrays < 2:
+        raise ValueError("solve_tdoa_sync needs >= 2 arrays")
+    dt = init_xy.dtype
+    dev = init_xy.device
+    m = mic_positions.shape[0]
+    mic3 = _mic3(mic_positions, dt)
+    c = float(speed_of_sound)
+    target = tdoas.to(dt) * c  # [E, P] meters
+    kk = n_arrays - 1
+    with_drift = event_times_s is not None
+    n_shared = 2 * kk if with_drift else kk
+
+    sel = consistency.pair_selection(pairs, m, dt)  # [P, M] +-1
+    # offset-difference design D [P, K-1]: delta_a(j) - delta_a(i), delta_0 = 0
+    a_of = mic_array_id.long()
+    aj = a_of[pairs[:, 1].long()]
+    ai = a_of[pairs[:, 0].long()]
+    ks = torch.arange(1, n_arrays, device=dev)
+    d_mat = ((aj[:, None] == ks).to(dt)
+             - (ai[:, None] == ks).to(dt))  # [P, K-1]
+    w = None if weights is None else weights.to(dt)  # [P]
+    e_events = tdoas.shape[0]
+    # the shared block's Jacobian [E, P, S]: c D, and c D (t - mean t) for
+    # the drifts (centred times keep the two groups near-orthogonal)
+    if with_drift:
+        t = event_times_s.to(dt)
+        t = t - t.mean()
+        jd = torch.cat([
+            (c * d_mat).expand(e_events, *d_mat.shape),
+            c * d_mat * t[:, None, None]], dim=-1)
+    else:
+        jd = (c * d_mat).expand(e_events, *d_mat.shape)
+    jd_w = jd if w is None else jd * w[:, None]
+    eye = torch.eye(n_shared, dtype=dt, device=dev)
+
+    def raw_residual(xy, shared):
+        d, gd = _dist_grad(xy, height, mic3, False)
+        r = (torch.einsum("pm,em->ep", sel, d)
+             + torch.einsum("eps,s->ep", jd, shared) - target)  # [E, P]
+        return r, gd
+
+    def step(xy, shared):
+        r, gd = raw_residual(xy, shared)
+        jp = torch.einsum("pm,emj->epj", sel, gd)  # [E, P, 2]
+        if w is not None:
+            r = r * w
+            jp = jp * w[:, None]
+        a = torch.einsum("epi,epj->eij", jp, jp)  # [E, 2, 2]
+        b = torch.einsum("epi,eps->eis", jp, jd_w)  # [E, 2, S]
+        bp = torch.einsum("epi,ep->ei", jp, r)  # [E, 2]
+        cmat = torch.einsum("eps,epq->sq", jd_w, jd_w)  # [S, S]
+        bd = torch.einsum("eps,ep->s", jd_w, r)  # [S]
+        a00 = a[:, 0, 0] + damping
+        a11 = a[:, 1, 1] + damping
+        a01 = a[:, 0, 1]
+        det = (a00 * a11 - a01 * a01).abs().clamp_min(1e-20)
+        inv = torch.stack([torch.stack([a11, -a01], dim=-1),
+                           torch.stack([-a01, a00], dim=-1)],
+                          dim=-2) / det[:, None, None]
+        ainv_b = torch.einsum("eij,ejs->eis", inv, b)  # [E, 2, S]
+        ainv_bp = torch.einsum("eij,ej->ei", inv, bp)  # [E, 2]
+        schur = (cmat - torch.einsum("eis,eiq->sq", b, ainv_b)
+                 + damping * eye)
+        rhs = bd - torch.einsum("eis,ei->s", b, ainv_bp)
+        d_sh = torch.linalg.solve_ex(schur, rhs[:, None])[0][:, 0]  # [S]
+        d_xy = ainv_bp - torch.einsum("eis,s->ei", ainv_b, d_sh)
+        return xy - d_xy, shared - d_sh
+
+    xy = init_xy
+    shared = torch.zeros((n_shared,), dtype=dt, device=dev)
+    if init_offsets_s is not None:
+        shared = torch.cat([init_offsets_s.to(dt), shared[kk:]])
+    for _ in range(iterations):
+        xy, shared = step(xy, shared)
+
+    r, _ = raw_residual(xy, shared)
+    if w is not None:
+        r = r * w
+    rms = torch.sqrt(torch.mean(r * r, dim=-1))
+    if with_drift:
+        return xy, shared[:kk], shared[kk:], rms
+    return xy, shared, rms
 
 
 def farfield_bearing(

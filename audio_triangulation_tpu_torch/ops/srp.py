@@ -3,7 +3,8 @@
 Counterpart of ``audio_triangulation_tpu.ops.srp`` (main-path subset):
 
 - matmul form: scores[B, G] = corr[B, P*L] @ onehot[P*L, G]
-- gather form: sum over pairs of corr[..., p, lut[p, g]], and in int64
+- gather form: sum over pairs of corr[..., p, lut[p, g]] (a slice of the
+  batch at a time: ``srp_scores_gather_batched``), and in int64
   for the bit-exact heatmap path (``srp_scores_int``, whose 4-level
   colours ``quantize_heatmap`` gives)
 - large arrays: one product against a steering matrix built on the device
@@ -41,6 +42,25 @@ def srp_scores_gather(correlograms: torch.Tensor,
     """scores [..., G] via a per-pair gather; lut_flat is int [P, G]."""
     idx = lut_flat.long().expand(*correlograms.shape[:-2], *lut_flat.shape)
     return correlograms.gather(-1, idx).sum(dim=-2)
+
+
+def srp_scores_gather_batched(correlograms: torch.Tensor,
+                              lut_flat: torch.Tensor,
+                              slice_bytes: int) -> torch.Tensor:
+    """:func:`srp_scores_gather` of correlograms [B, P, L] a slice of the
+    batch at a time, so that no slice's [b, P, G] gather holds more than
+    ``slice_bytes`` (16,384 frames of 28 pairs and 12,005 cells would take
+    22 GB at once).  Each score sums its pairs in the same order."""
+    b = correlograms.shape[0]
+    per_frame = lut_flat.numel() * correlograms.element_size()
+    step = max(1, slice_bytes // max(per_frame, 1))
+    if step >= b:
+        return srp_scores_gather(correlograms, lut_flat)
+    out = correlograms.new_empty((b, lut_flat.shape[-1]))
+    for i in range(0, b, step):
+        out[i:i + step] = srp_scores_gather(correlograms[i:i + step],
+                                            lut_flat)
+    return out
 
 
 def srp_scores_int(correlograms: torch.Tensor,

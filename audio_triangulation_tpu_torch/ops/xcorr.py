@@ -10,6 +10,8 @@ Counterpart of ``audio_triangulation_tpu.ops.xcorr``:
   ``freq_smooth``, ``smoothed_cross_stats``, the per-event auto band
   (``auto_band_weight``, ``auto_band_weight_reim``) and the phase-slope
   sub-sample TDOA (``tdoa_phase_slope``);
+- ``restrict_bins_to_band``, the static band of the frequency-domain and
+  subspace estimators;
 - the peak ops: first-max argmax, the Gaussian peak taper (and its
   integer form ``peak_taper_int``), 3-point parabolic sub-sample
   interpolation and the peak-to-sidelobe ratio;
@@ -75,6 +77,28 @@ def cross_power(spectra: torch.Tensor, pairs: torch.Tensor, *,
         else:
             r = r * (mag2 + phat_eps * phat_eps) ** (-0.5 * phat_beta)
     return r
+
+
+def restrict_bins_to_band(bins: np.ndarray,
+                          cfg: PipelineConfig) -> np.ndarray:
+    """The rfft bin indices ``bins`` inside ``cfg.band_hz`` (all of them
+    without a band).  Raises for ``band_hz='auto'`` (its bins are chosen
+    per event) and when the band keeps none of them."""
+    if cfg.band_hz is None:
+        return bins
+    if cfg.band_auto:
+        raise ValueError(
+            "band_hz='auto' selects bins per event at runtime; the "
+            "subspace/frequency-domain estimators need a static bin set — "
+            "pass an explicit (lo_hz, hi_hz) band")
+    freqs = bins * (cfg.sample_rate_hz / cfg.fft_length)
+    lo, hi = cfg.band_hz
+    keep = (freqs >= lo) & (freqs <= hi)
+    if not keep.any():
+        raise ValueError(
+            f"band_hz={cfg.band_hz} covers none of the {bins.size} "
+            f"candidate bins (stride too coarse or band too narrow)")
+    return bins[keep]
 
 
 def band_mask(cfg: PipelineConfig) -> np.ndarray | None:

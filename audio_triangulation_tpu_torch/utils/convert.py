@@ -5,7 +5,14 @@ dict of numpy arrays (for example ``{k: np.asarray(v) for k, v in
 vars(params).items()}``) and returns the port's buffers on ``device``.
 ``onehot_big`` (the large-array steering matrix, bf16 or f32 there) comes
 across as float32; ``onehot_pad`` is dropped: it is ``onehot`` with zero
-rows padding the lag axis.
+rows padding the lag axis.  A ``VolumeLocalizer``'s constants are its
+``LocalizerParams`` and take the same function.
+
+``doa_from_reference`` (a ``DoaEstimator``'s ``params`` with its
+``onehot_az``, ``merge`` and ``disp``), ``doa3d_from_reference`` (a
+``Doa3dEstimator``'s ``params`` with ``dirs`` and ``onehot_sph``) and
+``fusion_params_from_reference`` (``FusionParams``) carry the other
+estimators' constants across the same way.
 
 ``stream_state_from_reference`` and ``stream_state_to_numpy`` carry a
 streaming state across the same way, so one stream can be continued by
@@ -50,6 +57,72 @@ def params_from_reference(arrays: dict, device) -> dict:
         out[name] = (None if a is None else torch.as_tensor(
             np.array(a, copy=True), device=device).to(dtype))
     return out
+
+
+def doa_from_reference(arrays: dict, device):
+    """({buffer name: tensor or None}, disp numpy or None) of the port's
+    ``DoaEstimator`` from a JAX ``DoaEstimator``'s ``params`` fields plus
+    ``onehot_az``, ``merge`` and ``disp`` (the last two None unless
+    ``smp``), as numpy arrays."""
+    out = params_from_reference(arrays, device)
+    missing = [k for k in ("onehot_az", "lut_flat") if arrays.get(k) is None]
+    if missing:
+        raise ValueError(f"DoA constants lack {missing}")
+    out["onehot_az"] = _f32(arrays["onehot_az"], device)
+    merge, disp = arrays.get("merge"), arrays.get("disp")
+    if (merge is None) != (disp is None):
+        raise ValueError("merge and disp come together (smp) or not at all")
+    out["merge"] = None if merge is None else _f32(merge, device)
+    return out, None if disp is None else np.array(disp, np.float32)
+
+
+def doa3d_from_reference(arrays: dict, device) -> dict:
+    """{buffer name: tensor} of the port's ``Doa3dEstimator`` from a JAX
+    ``Doa3dEstimator``'s ``params`` fields (mics [M, 3]) plus ``dirs`` and
+    ``onehot_sph``, as numpy arrays."""
+    out = params_from_reference(arrays, device)
+    missing = [k for k in ("dirs", "onehot_sph", "lut_flat")
+               if arrays.get(k) is None]
+    if missing:
+        raise ValueError(f"spherical DoA constants lack {missing}")
+    out["dirs"] = _f32(arrays["dirs"], device)
+    out["onehot_sph"] = _f32(arrays["onehot_sph"], device)
+    return out
+
+
+_FUSION_DTYPES = {
+    "mic_world": torch.float32,
+    "pairs": torch.int32,
+    "window": torch.float32,
+    "onehot": torch.float32,
+    "cat_mics": torch.float32,
+    "cat_pairs": torch.int32,
+    "cross_pairs": torch.int32,
+    "mic_array_id": torch.int32,
+}
+
+
+def fusion_params_from_reference(arrays: dict, device) -> dict:
+    """{name: tensor} for the port's ``FusionParams`` from the JAX
+    package's ``FusionParams`` fields as numpy arrays.  Every pair index is
+    checked here (the GCC kernel reads mics by them unchecked)."""
+    missing = sorted(set(_FUSION_DTYPES) - set(arrays))
+    if missing:
+        raise ValueError(f"fusion constants lack {missing}")
+    k, m = np.shape(arrays["mic_world"])[:2]
+    for name, n in (("pairs", m), ("cat_pairs", k * m),
+                    ("cross_pairs", k * m)):
+        pr = np.asarray(arrays[name])
+        if (pr.ndim != 2 or pr.shape[1] != 2 or len(pr) < 1
+                or pr.min() < 0 or pr.max() >= n):
+            raise ValueError(f"{name} must be [P, 2] indices of {n} mics")
+    return {name: torch.as_tensor(np.array(arrays[name], copy=True),
+                                  device=device).to(dtype)
+            for name, dtype in _FUSION_DTYPES.items()}
+
+
+def _f32(a, device) -> torch.Tensor:
+    return torch.as_tensor(np.array(a, np.float32), device=device)
 
 
 _STATE_DTYPES = {

@@ -13,7 +13,11 @@ simultaneous and moving sources (``Localizer.localize_multi`` on
 chip_smoke's 16,384 two-source frames of 8 x 1,024; ``localize_moving`` on
 its 2,048 moving-source frames; the CAF stage alone on 1,024 frames of
 ``reference_array()`` with the time-domain operator; graphed stream steps
-with ``n_sources=2`` and with ``solve_velocity`` at 1,024 streams), prints:
+with ``n_sources=2`` and with ``solve_velocity`` at 1,024 streams), and
+for the four frame-batch estimator paths of chip_smoke's phase 13
+(``doa_8mic``, ``doa3d_tetra``, ``volume_8mic``, ``fusion_2x4``: 16,384
+frames or events a call, row 2 of the kernel table once; and the SMP path,
+no kernel), prints:
 
 - the median wall time of 7 unprofiled calls and the device-busy time of
   one profiled call (the sum of its kernels' device time), hence the
@@ -28,6 +32,7 @@ with ``n_sources=2`` and with ``solve_velocity`` at 1,024 streams), prints:
   closing ``cudaDeviceSynchronize`` is the profiler window's own.
 
     python3 chip_profile.py [localizer] [stream] [tracked] [sources]
+                            [estimators]
                                      # one CUDA card; no argument: all
 
 Imports no JAX.
@@ -47,7 +52,7 @@ TOP_KERNELS = 14
 SLOW_HOST_OP_US = 300.0
 
 
-SECTIONS = ("localizer", "stream", "tracked", "sources")
+SECTIONS = ("localizer", "stream", "tracked", "sources", "estimators")
 
 
 def main(argv=None):
@@ -174,6 +179,19 @@ def profile_sources(chip_smoke, rng):
         profile_path(f"stream_{what}_graphed_{n}", lambda: graphed(chunks),
                      watch=("detector_scan", "gemm"))
         del graphed
+
+
+def profile_estimators(chip_smoke, rng):
+    """The frame-batch estimators at chip_smoke's phase-13 sizes: the GCC
+    kernel (row 2), the scoring product or gather, the solvers."""
+    for seed, (name, (make, event, _)) in enumerate(
+            chip_smoke.estimator_paths().items()):
+        est = make("cuda")
+        frames = chip_smoke.noisy(event, chip_smoke.EST_FRAMES,
+                                  chip_smoke.SEED + 40 + seed)
+        profile_path(name, lambda: est(frames),
+                     watch=("gcc_kernel", "gemm", "gather", "reduce"))
+        del frames, est
 
 
 def profile_path(name, fn, watch=()):

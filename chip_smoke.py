@@ -44,7 +44,20 @@ tools: the accuracy sweep (``tools/bench_accuracy``, each scene against
 the CPU path, each row's medians against the JAX package's rows), the
 frame-batch bench (``tools/bench``, whose timing function phase 5 shares)
 and a tracked soak (``tools/soak_streaming``: 2,048 streams, 200 graphed
-steps, a dead channel half-way; every gate).
+steps, a dead channel half-way; every gate).  Last, phase 13: the
+estimators beside the localizer at the JAX package's published widths:
+``DoaEstimator`` (8-mic circle, and ``smp=True`` on an 8-mic line),
+``Doa3dEstimator`` (the CLI's tetrahedron, 2,048 bearings),
+``VolumeLocalizer`` (``examples/advanced.py``'s 12,005-cell box in its
+gather form, peak device memory recorded) and ``ArrayFusionLocalizer`` (two
+squares 2 m apart) on 16,384 frames or events a call, ``localize_sync`` on
+256 events of three free-running arrays (offset only and with drift), the
+subspace and frequency-domain spectra (MUSIC, MUSIC with MDL source
+counting, MVDR, frequency SRP, CSSM, azimuth MUSIC) and
+``register_arrays``, each against the planted truth, the port's CPU path
+and its launch table (the GCC kernel without peaks once a call on the
+row-2 paths), and timed; row 2 at these shapes against float64 and its
+bound.
 
     python3 chip_smoke.py            # one CUDA card; exits non-zero on any failure
 
@@ -996,7 +1009,16 @@ PATH_KERNELS = {"bandcrop_800_6000": ("gcc_kernel", "gn_kernel"),
                 # recorded); the offline stream's events go through the
                 # Localizer's GCC base mode and GN kernel
                 "localize_frames_int": (),
-                "localize_stream": ("gcc_kernel", "gn_kernel")}
+                "localize_stream": ("gcc_kernel", "gn_kernel"),
+                # phase 13: row 2 once a call on the four frame-batch
+                # estimators and the sync fusion, no kernel elsewhere
+                **{name: ("gcc_kernel",) for name in (
+                    "doa_8mic", "doa3d_tetra", "volume_8mic", "fusion_2x4",
+                    "fusion_sync_3x4", "fusion_sync_3x4_drift")},
+                **{name: () for name in (
+                    "doa_smp_line8", "music_8mic", "music_8mic_auto",
+                    "mvdr_8mic", "freq_8mic", "music_coherent", "doa_music",
+                    "register")}}
 
 
 def launch_counts():
@@ -3106,13 +3128,616 @@ def phase_soak(results):
         fail("12 soak", "a gate failed")
 
 
+# ---- phase 13: the estimators beside the localizer --------------------------
+
+EST_FRAMES = 16384  # frames (fusion: events) a call of the row-2 paths
+EST_CPU_FRAMES = 256  # of them held to the port's CPU path
+EST_KERNEL_REPS = 5  # launches per timing of row 2 at these shapes
+EST_SNAPSHOTS = 12  # snapshots of the subspace scenes (examples/advanced.py)
+FREQ_FRAMES = 1024  # frames a localize_freq call
+SYNC_EVENTS = 256  # events a localize_sync call
+SYNC_DURATION_S = 30.0  # capture times of the drift call
+SYNC_OFFSETS = (0.0, 3.7, -2.2)  # clock offsets (samples), array 0 the reference
+SYNC_DRIFTS = (0.0, 25e-6, -40e-6)  # clock drifts (s/s)
+SYNC_SOURCES = ((0.8, 0.9), (-0.6, 1.6), (1.8, -0.4), (0.2, 2.2),
+                (-1.2, -0.8), (2.4, 1.2), (0.5, 0.2), (-1.8, 1.0))
+REG_ARRAYS, REG_EVENTS = 4, 64
+DOA_AZ = 117.0  # examples/advanced.py's far-field bearing
+SMP_AZ = 60.0
+DOA3D_BEARING = (310.0, 40.0)  # (azimuth, elevation) degrees
+VOLUME_SOURCE = (0.3, 0.2, 0.8)  # examples/advanced.py's 3-D source
+FUSION_SOURCE = (0.3, 1.5)  # examples/advanced.py's fusion source
+SUBSPACE_SOURCES = ((0.9, 0.3), (-0.7, -0.6))  # examples/advanced.py:37-38
+MUSIC_DOA_AZ = (60.0, 200.0)
+# the JAX package's test bounds on the planted truth (tests/test_doa*.py,
+# test_smp_doa.py, test_volume.py, test_fusion.py, test_sync_fusion.py,
+# test_srp_freq.py, test_registration.py)
+EST_TRUTH = {"doa_deg": 3.0, "smp_deg": 4.0, "doa3d_deg": 3.0,
+             "volume_m": 0.05, "fusion_m": 0.08, "sync_m": 0.08,
+             "sync_offset_samples": 0.6, "sync_drift": 3e-6,
+             "spectrum_m": 0.15, "music_doa_deg": 6.0, "reg_rot": 5e-3,
+             "reg_trans_m": 0.02}
+
+
+def plane_wave_frame(mics, az_deg, el_deg=0.0):
+    """[M, 1,024] f32: a chirp from the far-field bearing (az, el), per-mic
+    delays -m.u/c (the JAX package's tests/test_doa3d.py scene), no noise."""
+    from audio_triangulation_tpu_torch.utils import synth
+
+    az, el = np.radians(az_deg), np.radians(el_deg)
+    u = np.array([np.cos(el) * np.cos(az), np.cos(el) * np.sin(az),
+                  np.sin(el)])
+    m3 = np.zeros((mics.shape[0], 3))
+    m3[:, :mics.shape[1]] = mics
+    tau = -(m3 @ u) / 343.0 * 50_000.0
+    return synth.fractional_delay(np.broadcast_to(
+        synth.chirp_burst(1024, 50_000.0), (mics.shape[0], 1024)),
+        tau).astype(np.float32)
+
+
+def estimator_paths():
+    """The frame-batch estimator paths of phase 13: {name: (make(device) ->
+    estimator, one noise-free event [.., M, 1,024] f32, kernels a call)}.
+    The row-2 paths launch the GCC kernel without peaks once a call; the
+    SMP path runs unfused spectra (no kernel)."""
+    from audio_triangulation_tpu_torch import (PipelineConfig, VolumeConfig,
+                                               VolumeLocalizer, geometry)
+    from audio_triangulation_tpu_torch.models import doa
+    from audio_triangulation_tpu_torch.models.fusion import (
+        ArrayFusionLocalizer)
+    from audio_triangulation_tpu_torch.utils import synth
+
+    mics8 = geometry.circular_array(8, 0.15)
+    line8 = np.zeros((8, 2), np.float32)
+    line8[:, 0] = (np.arange(8) - 3.5) * 0.04
+    tetra = geometry.tetrahedral_array(0.3)
+    big8 = geometry.circular_array(8, 0.5)
+    vol = VolumeConfig(half_cells_x=24, half_cells_y=24, cells_per_m=16.0,
+                       z_min_m=0.4, z_max_m=1.2, z_cells=5)
+    arrays = [geometry.square_array(0.25) + np.array([-1.0, 0.0], np.float32),
+              geometry.square_array(0.25) + np.array([1.0, 0.0], np.float32)]
+    src_far = 50.0 * np.array([np.cos(np.radians(DOA_AZ)),
+                               np.sin(np.radians(DOA_AZ)), 0.0])
+    fusion_event = synth.synth_scene(
+        np.array([*FUSION_SOURCE, 1.2]), np.concatenate(arrays))[0]
+    cli3d = PipelineConfig(phat=True, window_enabled=False)
+    return {
+        "doa_8mic": (lambda dev: doa.DoaEstimator.create(mics8, device=dev),
+                     synth.synth_scene(src_far, mics8)[0].astype(np.float32),
+                     ("gcc_kernel",)),
+        "doa_smp_line8": (
+            lambda dev: doa.DoaEstimator.create(line8, smp=True, device=dev),
+            plane_wave_frame(line8, SMP_AZ), ()),
+        "doa3d_tetra": (
+            lambda dev: doa.Doa3dEstimator.create(tetra, cli3d, n_dirs=2048,
+                                                  device=dev),
+            plane_wave_frame(tetra, *DOA3D_BEARING), ("gcc_kernel",)),
+        "volume_8mic": (
+            lambda dev: VolumeLocalizer.create(big8, PipelineConfig(), vol,
+                                               device=dev),
+            synth.synth_scene(np.array(VOLUME_SOURCE), big8)[0].astype(
+                np.float32), ("gcc_kernel",)),
+        "fusion_2x4": (
+            lambda dev: ArrayFusionLocalizer.create(
+                arrays, PipelineConfig(phat=True), device=dev),
+            fusion_event.reshape(2, 4, 1024).astype(np.float32),
+            ("gcc_kernel",)),
+    }
+
+
+def sync_arrays():
+    """tests/test_sync_fusion.py's three 4-mic squares."""
+    from audio_triangulation_tpu_torch import geometry
+
+    return [geometry.square_array(0.3),
+            geometry.square_array(0.3) + np.array([3.0, 0.5], np.float32),
+            geometry.square_array(0.3) + np.array([-1.0, 3.0], np.float32)]
+
+
+def sync_scene(n_events, seed, drift):
+    """(frames [E, 3, 4, 1,024] f32, capture times [E] or None, sources
+    [E, 2]): tests/test_sync_fusion.py's eight sources in turn, the arrays'
+    clock offsets applied, with drift over ``SYNC_DURATION_S`` when asked."""
+    from audio_triangulation_tpu_torch.utils import synth
+
+    cat = np.concatenate(sync_arrays())
+    aid = np.repeat(np.arange(3), 4)
+    src = np.resize(np.array(SYNC_SOURCES), (n_events, 2))
+    times = np.linspace(0.0, SYNC_DURATION_S, n_events) if drift else None
+    clean = synth.synth_scene(np.concatenate(
+        [src, np.full((n_events, 1), 1.2)], -1), cat, noise_rms=0.004,
+        seed=seed)
+    clock = np.asarray(SYNC_OFFSETS)[None] / 50_000.0
+    if drift:
+        clock = clock + np.asarray(SYNC_DRIFTS)[None] * times[:, None]
+    ev = synth.fractional_delay(clean, np.broadcast_to(
+        clock[:, aid] * 50_000.0, clean.shape[:-1]))
+    return ev.reshape(n_events, 3, 4, 1024).astype(np.float32), times, src
+
+
+def est_truth(name, out) -> tuple[str, bool]:
+    """Share of rows within the JAX package's test bound of the planted
+    truth (its tests hold one noise draw each), and the median error:
+    (text, whether the median and 95% of rows are within it)."""
+    import torch
+
+    def ang(a, b):
+        return ((a - b + 180.0) % 360.0 - 180.0).abs()
+
+    if name == "doa_8mic":
+        err = ang(out["azimuth_deg"], DOA_AZ)
+        bound, unit = EST_TRUTH["doa_deg"], "deg"
+    elif name == "doa_smp_line8":  # a line cannot tell u from its mirror
+        err = torch.minimum(ang(out["azimuth_deg"], SMP_AZ),
+                            ang(out["azimuth_deg"], -SMP_AZ))
+        bound, unit = EST_TRUTH["smp_deg"], "deg"
+    elif name == "doa3d_tetra":
+        err = torch.maximum(ang(out["azimuth_deg"], DOA3D_BEARING[0]),
+                            (out["elevation_deg"] - DOA3D_BEARING[1]).abs())
+        bound, unit = EST_TRUTH["doa3d_deg"], "deg"
+    elif name == "volume_8mic":
+        err = (out["xyz"] - torch.tensor(VOLUME_SOURCE, device=out[
+            "xyz"].device)).norm(dim=-1)
+        bound, unit = EST_TRUTH["volume_m"], "m"
+    else:
+        err = (out["xy"] - torch.tensor(FUSION_SOURCE, device=out[
+            "xy"].device)).norm(dim=-1)
+        bound, unit = EST_TRUTH["fusion_m"], "m"
+    share = float((err < bound).float().mean())
+    med = float(err.median())
+    return (f"{share * 100:.3f}% of rows within {bound} {unit} of the "
+            f"truth, median {med:.5f} {unit}"), share >= 0.95 and med < bound
+
+
+def predicted_samples(xyz, mics):
+    """TDOAs in samples [B, P] (float64) of sources xyz [B, 3]."""
+    import torch
+    from audio_triangulation_tpu_torch import geometry
+
+    m3 = torch.zeros((mics.shape[0], 3), dtype=torch.float64)
+    m3[:, :mics.shape[1]] = torch.as_tensor(mics, dtype=torch.float64)
+    d = (xyz.double()[:, None] - m3).norm(dim=-1)
+    pairs = torch.as_tensor(geometry.mic_pairs(mics.shape[0])).long()
+    return (d[:, pairs[:, 1]] - d[:, pairs[:, 0]]) / 343.0 * 50_000.0
+
+
+def est_cpu_check(name, cpu_est, frames, out) -> tuple[str, bool]:
+    """A row-2 / SMP path's card result against the port's CPU path on its
+    first ``EST_CPU_FRAMES`` rows, at the Tier-1 tests' tolerances, on the
+    rows where both paths take the same integer decisions (every best
+    shift and the score argmax; at least 95% of rows: the others hold a
+    near tie that fp32 rounding decides): TDOAs 1e-3 samples (5e-3 under
+    PHAT over the full band, which amplifies the products' rounding, as in
+    tests/test_torch_multi.py), scores 1e-4
+    of scale (5e-3 for the CLI's spherical configuration, PHAT over the
+    full band of unwindowed frames, where each fp32 path lies up to 1.9e-3
+    of scale from float64: 3.55e-3 apart on the H100), angles 1e-3 degrees, bearings 1e-5, grid peaks 1e-6 m, xy
+    2e-4 m, free 3-D positions in measurement space (0.01 samples) and 2e-3
+    m, rms 1e-5 m (5e-5 for the 3-D solve)."""
+    import torch
+
+    n = EST_CPU_FRAMES
+    ref = cpu_est(frames[:n].cpu())
+    got = {k: v[:n].cpu() for k, v in out.items()}
+    shifts = got["best_shift"].reshape(n, -1) == ref["best_shift"].reshape(
+        n, -1)
+    clear = shifts.all(dim=-1) & (got["scores"].argmax(-1)
+                                  == ref["scores"].argmax(-1))
+    errs = {}
+
+    def held(key, tol, *, rel_scale=False, rows=True):
+        a, b = got[key].double(), ref[key].double()
+        if rows:
+            a, b = a[clear], b[clear]
+        d = float((a - b).abs().max()) if a.numel() else 0.0
+        if rel_scale:
+            d /= float(ref[key].abs().max())
+        errs[key] = d
+        return d <= tol
+
+    cfg = cpu_est.pipeline
+    ok = bool(clear.float().mean() >= 0.95)
+    ok &= held("tdoa_samples", 5e-3 if cfg.phat and cfg.band_hz is None
+               else 1e-3)
+    ok &= held("scores", 5e-3 if name == "doa3d_tetra" else 1e-4,
+               rel_scale=True)
+    if name.startswith("doa"):
+        for k in ("azimuth_deg", "elevation_deg"):
+            if k in ref:
+                d = ((got[k] - ref[k] + 180.0) % 360.0 - 180.0)[clear].abs()
+                errs[k] = float(d.max()) if d.numel() else 0.0
+                ok &= errs[k] <= 1e-3
+        ok &= held("bearing", 1e-5)
+    elif name == "volume_8mic":
+        mics = cpu_est.mic_positions.numpy()
+        ok &= held("xyz_grid", 1e-6)
+        dp = float((predicted_samples(got["xyz"][clear], mics)
+                    - predicted_samples(ref["xyz"][clear], mics)).abs().max())
+        errs["xyz_predicted_tdoa"] = dp
+        ok &= dp <= 1e-2 and held("xyz", 2e-3) and held("rms_m", 5e-5)
+    else:
+        ok &= held("xy_grid", 1e-6) and held("xy", 2e-4)
+        ok &= held("rms_m", 1e-5)
+        c = (got["confidence"][clear] / ref["confidence"][clear] - 1).abs()
+        errs["confidence_rel"] = float(c.max()) if c.numel() else 0.0
+        ok &= errs["confidence_rel"] <= 1e-4
+    text = (f"vs CPU path on {n} rows (same integer decisions on "
+            f"{int(clear.sum())}): " + ", ".join(
+                f"{k} {v:.2e}" for k, v in errs.items()))
+    return text, bool(ok)
+
+
+def row2_at_shape(card, results, name, flat, window, pairs, cfg,
+                  float64_check):
+    """Row 2 (the GCC kernel without peaks) at a path's shape: held to its
+    plain version in float64 on ``CHECK_FRAMES`` frames when asked, at
+    phase 2's 1e-4 of scale or within twice the plain version's own fp32
+    distance from float64 where that is larger (PHAT over the full band of
+    unwindowed frames: fp32 itself lies 1e-3 of scale away there), then
+    timed in turns with the plain version against its bound."""
+    import torch
+    from audio_triangulation_tpu_torch.ops.cuda import gcc_kernel
+
+    ops = (*gcc_kernel.operands(flat, window, cfg), pairs)
+    f, l = ops[1][2].shape
+    kw = dict(phat=cfg.phat, phat_eps=cfg.phat_eps, max_shift=cfg.max_shift,
+              taper_denom=cfg.taper_denom, with_peaks=False)
+    entry = {}
+    if float64_check:
+        head = flat[:CHECK_FRAMES]
+        raw = gcc_kernel.launch(head, *ops, **kw)
+        raw64 = gcc_kernel.gcc_reference(
+            *(o.to(torch.float64) for o in (head, *ops[:2])), ops[2], **kw)
+        scale = float(raw64.abs().max())
+        err = float((raw.double() - raw64).abs().max()) / scale
+        plain = gcc_kernel.gcc_reference(head, *ops, **kw)
+        plain_err = float((plain.double() - raw64).abs().max()) / scale
+        tol = max(1e-4, 2.0 * plain_err)
+        say("13 estimators", f"gcc_kernel {name} without peaks: "
+            f"{CHECK_FRAMES} frames vs the plain version in float64: "
+            f"corr/scale err {err:.2e} (the plain version in fp32 "
+            f"{plain_err:.2e}; tolerance {tol:.2e})")
+        if not err <= tol:
+            fail("13 estimators", f"{name}: row 2 disagrees with its plain "
+                 "version")
+        results["gcc_kernel"]["max_abs_err"] = max(
+            results["gcc_kernel"]["max_abs_err"], err)
+        entry["max_abs_err"] = err
+        del raw, raw64, plain
+    k_ms, p_ms = alternate_ms(
+        lambda: gcc_kernel.gcc_reference(flat, *ops, **kw),
+        lambda: gcc_kernel.launch(flat, *ops, **kw), reps=EST_KERNEL_REPS)
+    b, m, n = flat.shape
+    bnd = gcc_bound(b, m, n, f, pairs.shape[0], l, with_peaks=False,
+                    split_products=True)
+    pct = share_of_bound("13 estimators", f"gcc_kernel {name}", k_ms, bnd)
+    say("13 estimators", f"gcc_kernel {name} without peaks (row 2: {b} "
+        f"frames of {m} x {n}, {pairs.shape[0]} pairs, {f} bins, {l} lags; "
+        f"{gcc_kernel._lib().att_gcc_frames_per_block(m, pairs.shape[0], l)}"
+        f" frames a block): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+        f"bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} (split), "
+        f"{pct:.1f}% of it ({card})")
+    results["gcc_kernel"][f"{name}_no_peaks"] = dict(
+        ms=k_ms, plain_ms=p_ms, **entry, **bnd)
+
+
+def expect_counts(name, kernels) -> str:
+    """Fail unless this call's launches equal the table: each of
+    ``kernels`` once, every other kernel never."""
+    counts = launch_counts()
+    want = {k: int(k in kernels) for k in counts}
+    if counts != want:
+        fail("13 estimators", f"{name}: launches {counts}, expected "
+             f"{ {k: v for k, v in want.items() if v} or 'none'}")
+    return ", ".join(f"{k} x1" for k in kernels) or "no kernel"
+
+
+def host_reads(fn):
+    """(fn(), the device-to-host reads it made): each synchronising op
+    warns under ``torch.cuda.set_sync_debug_mode('warn')``."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in seen)
+
+
+def subspace_snapshots(mics, n_snap=EST_SNAPSHOTS):
+    """[S, M, 1,024] f32: ``examples/advanced.py``'s two independent sources
+    on the 1.2 m sphere, a colored burst each per snapshot, noise 0.02."""
+    from audio_triangulation_tpu_torch.utils import synth
+
+    rng = np.random.default_rng(7)
+    out = []
+    for t in range(n_snap):
+        acc = np.zeros((mics.shape[0], 1024))
+        for k, xy in enumerate(SUBSPACE_SOURCES):
+            sig = synth.colored_burst(1024, 50_000.0, seed=100 * (k + 1) + t)
+            acc = acc + synth.synth_scene(place(xy), mics, signal=sig)[0]
+        out.append(acc + rng.normal(0, 0.02, acc.shape))
+    return np.stack(out).astype(np.float32)
+
+
+def far_snapshots(mics, az_list, n_snap=EST_SNAPSHOTS):
+    """[S, M, 1,024] f32: tests/test_doa_multisource.py's MUSIC scene,
+    sources 60 m away with independent bursts (1,500 Hz tilt)."""
+    from audio_triangulation_tpu_torch.utils import synth
+
+    rng = np.random.default_rng(3)
+    out = []
+    for s in range(n_snap):
+        acc = np.zeros((mics.shape[0], 1024))
+        for k, az in enumerate(az_list):
+            sig = synth.colored_burst(1024, 50_000.0, cutoff_hz=1500.0,
+                                      seed=3 + 1000 * (k + 1) + s)
+            a = np.radians(az)
+            acc = acc + synth.synth_scene(
+                np.array([60.0 * np.cos(a), 60.0 * np.sin(a), 0.0]), mics,
+                signal=sig)[0]
+        out.append(acc + rng.normal(0, 0.02, acc.shape))
+    return np.stack(out).astype(np.float32)
+
+
+def spectrum_check(kind, got, ref, grid=None) -> tuple[str, bool]:
+    """A subspace or frequency spectrum on the card against the port's CPU
+    path at the Tier-1 tests' tolerances: MVDR 1e-4 relative per cell;
+    frequency SRP 1e-4 of scale; MUSIC and CSSM their reciprocal within
+    2e-3 (across devices the DFT's other summation order moves them as a
+    degenerate scene's rounding does: tests/test_torch_srp_freq.py);
+    the refined peak within 2e-4 m, or the bearings equal, where the top
+    cell is 1e-3 of scale clear."""
+    g, r = got["scores"].double().cpu(), ref["scores"].double()
+    if kind == "mvdr":
+        err = float(((g - r).abs() / r.abs()).max())
+        ok = err <= 1e-4
+    elif kind == "freq":
+        err = float((g - r).abs().max() / r.abs().max())
+        ok = err <= 1e-4
+    else:  # MUSIC and CSSM: the degenerate scene's rule of the tests
+        err = float((1.0 / g - 1.0 / r).abs().max())
+        rel = float(((g - r).abs() / r).max())
+        ok = err <= 2e-3
+    flat = r.reshape(-1, r.shape[-1])
+    top = flat.topk(2, dim=-1).values
+    clear = (top[:, 0] - top[:, 1]) > DECISION_MARGIN * float(flat.abs().max())
+    if "azimuth_deg" in ref:
+        peak_ok = bool(np.array_equal(got["azimuth_deg"], ref["azimuth_deg"]))
+        dpeak = 0.0 if peak_ok else float("inf")
+    else:
+        gxy = got["xy_grid"].cpu().reshape(-1, 2)[clear]
+        rxy = ref["xy_grid"].reshape(-1, 2)[clear]
+        dpeak = float((gxy - rxy).abs().max()) if gxy.numel() else 0.0
+        peak_ok = dpeak <= 2e-4
+    unit = {"mvdr": "rel", "freq": "of scale"}.get(
+        kind, f"reciprocal abs ({rel:.2e} rel)" if kind in ("music", "cssm")
+        else "")
+    return (f"vs CPU path: spectrum {err:.2e} {unit}, peak {dpeak:.2e} on "
+            f"{int(clear.sum())} of {clear.numel()} clear"), (
+                ok and peak_ok and bool(clear.any()))
+
+
+def phase_estimators(card, results):
+    """The estimators beside the localizer at the published widths: the
+    four row-2 frame-batch paths (``DoaEstimator``, ``Doa3dEstimator``,
+    ``VolumeLocalizer`` in its gather form, ``ArrayFusionLocalizer``) and
+    the SMP path at 16,384 frames, ``localize_sync`` on 256 events of three
+    unsynchronised arrays (offset only and with drift), the subspace and
+    frequency-domain spectra on ``examples/advanced.py``'s snapshots and
+    ``register_arrays``.  Each path against the planted truth (the JAX
+    package's test bounds) and the port's CPU path, its launches counted
+    from 0 against the table (row 2 once a call on the row-2 paths, no
+    kernel elsewhere), timed (median and IQR of 7 trials); row 2 held to
+    float64 at the volume and spherical shapes and timed at all four."""
+    import torch
+    from audio_triangulation_tpu_torch import GridConfig, PipelineConfig
+    from audio_triangulation_tpu_torch import geometry
+    from audio_triangulation_tpu_torch.models import doa, fusion
+    from audio_triangulation_tpu_torch.models.fusion import (
+        ArrayFusionLocalizer)
+    from audio_triangulation_tpu_torch.ops import srp_freq
+    from audio_triangulation_tpu_torch.utils import synth
+
+    t0 = time.perf_counter()
+    phase = "13 estimators"
+    failures = []  # every path runs; the phase fails at its end
+    for seed, (name, (make, event, kernels)) in enumerate(
+            estimator_paths().items()):
+        est, cpu_est = make("cuda"), make("cpu")
+        frames = noisy(event, EST_FRAMES, SEED + 40 + seed)
+        extra = ""
+        if name == "volume_8mic":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        out = counted(name, results, lambda: est(frames))
+        calls = expect_counts(name, kernels)
+        if name == "volume_8mic":
+            peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+            g = est.pairs.shape[0] * est.volume.num_cells * 4 * EST_FRAMES
+            extra = (f"; peak device memory {peak:.3f} GB above its inputs "
+                     f"(the whole [B, P, G] gather would be {g / 1e9:.1f} GB)")
+            if peak > 8.0:  # the whole gather never formed
+                failures.append(f"{name} memory")
+        truth, truth_ok = est_truth(name, out)
+        text, cpu_ok = est_cpu_check(name, cpu_est, frames, out)
+        finite = all(bool(torch.isfinite(v).all()) for v in out.values()
+                     if v.is_floating_point())
+        say(phase, f"{name}: {EST_FRAMES} x {tuple(event.shape)}: {calls} "
+            f"in the call; {truth}; {text}{extra}")
+        if not (truth_ok and cpu_ok and finite):
+            failures.append(name)
+        del out
+        time_path(card, name, lambda: est(frames), EST_FRAMES, phase)
+        if kernels:
+            flat = frames.reshape(-1, *event.shape[-2:])
+            row2_at_shape(card, results, name, flat, est.window, est.pairs,
+                          est.pipeline, name in ("volume_8mic",
+                                                 "doa3d_tetra"))
+        del frames, est
+        torch.cuda.empty_cache()
+
+    # ---- localize_sync: 256 events of three free-running arrays ------------
+    cfg = PipelineConfig(phat=True, band_hz=(700.0, 7000.0))
+    fus = ArrayFusionLocalizer.create(sync_arrays(), cfg, device="cuda")
+    cpu_fus = ArrayFusionLocalizer.create(sync_arrays(), cfg, device="cpu")
+    for name, drift in (("fusion_sync_3x4", False),
+                        ("fusion_sync_3x4_drift", True)):
+        # the truth on the JAX package's own scenes (tests/test_sync_fusion.py:
+        # six events offset only, eight over 30 s with drift), whose bounds
+        # hold there; parity and timing on 256 events of its eight sources
+        n_small = 8 if drift else 6
+        small, t_small, src_small = sync_scene(n_small, 11 if drift else 7,
+                                               drift)
+        res = fus.localize_sync(torch.from_numpy(small).cuda(),
+                                event_times_s=t_small)
+        e_xy = float((res["xy_sync"].cpu() - torch.from_numpy(
+            src_small).float()).norm(dim=-1).max())
+        if drift:
+            e_clock = float((res["clock_drift"].cpu().double() - torch.tensor(
+                SYNC_DRIFTS[1:])).abs().max())
+            truth_ok = e_clock < EST_TRUTH["sync_drift"]
+            truth = f"drift {e_clock:.2e} s/s"
+        else:
+            e_clock = float((res["clock_offsets_s"].cpu().double()
+                             - torch.tensor(SYNC_OFFSETS[1:]) / 50_000.0)
+                            .abs().max()) * 50_000.0
+            truth_ok = e_clock < EST_TRUTH["sync_offset_samples"]
+            truth = f"offsets {e_clock:.4f} samples"
+        truth_ok &= e_xy < EST_TRUTH["sync_m"]
+        ev, t, src = sync_scene(SYNC_EVENTS, SEED + 51, drift)
+        frames = torch.from_numpy(ev).cuda()
+        out = counted(name, results,
+                      lambda: fus.localize_sync(frames, event_times_s=t))
+        calls = expect_counts(name, ("gcc_kernel",))
+        ref = cpu_fus.localize_sync(frames.cpu(), event_times_s=t)
+        got = {k: v.cpu() for k, v in out.items()}
+        errs = {"clock_offsets_samples": float(
+            (got["clock_offsets_s"] - ref["clock_offsets_s"]).abs().max())
+            * 50_000.0}
+        for k, tol in (("xy_sync", 2e-4), ("tdoa_cross", 1e-3),
+                       ("sync_rms_m", 1e-5), ("clock_drift", 1e-9)):
+            if k in ref:
+                errs[k] = float((got[k] - ref[k]).abs().max())
+        ok = (errs["clock_offsets_samples"] <= 1e-3 and errs["xy_sync"] <= 2e-4
+              and errs["tdoa_cross"] <= 1e-3 and errs["sync_rms_m"] <= 1e-5
+              and errs.get("clock_drift", 0.0) <= 1e-9)
+        err = (got["xy_sync"] - torch.from_numpy(src).float()).norm(dim=-1)
+        share = float((err < EST_TRUTH["sync_m"]).float().mean())
+        say(phase, f"{name}: {SYNC_EVENTS} events of 3 x 4 x 1,024: {calls}"
+            f" in the call; the JAX package's {n_small}-event scene: {truth}"
+            f" and xy_sync {e_xy:.4f} m from the truth; here xy_sync within "
+            f"8 cm on {share * 100:.2f}% (median {float(err.median()):.4f} "
+            f"m); vs CPU path on the whole scene: " + ", ".join(
+                f"{k} {v:.2e}" for k, v in errs.items()))
+        if not (ok and truth_ok and float(err.median()) < EST_TRUTH["sync_m"]):
+            failures.append(name)
+        time_path(card, name, lambda: fus.localize_sync(
+            frames, event_times_s=t), SYNC_EVENTS, phase)
+
+    # ---- the subspace and frequency-domain spectra (no kernel) -------------
+    mics8 = geometry.circular_array(8, 0.15)
+    grid = GridConfig(half_cells_x=40, half_cells_y=40, cells_per_m=20.0)
+    snaps = subspace_snapshots(mics8)
+    far = far_snapshots(mics8, MUSIC_DOA_AZ)
+    s1 = synth.synth_scene(place(SUBSPACE_SOURCES[0]), mics8)[0].astype(
+        np.float32)
+    freq_frames = noisy(s1, FREQ_FRAMES, SEED + 52)
+    band = PipelineConfig(band_hz=(800.0, 6000.0))
+    spectra = {
+        "music_8mic": ("music", snaps, lambda f: srp_freq.localize_music(
+            f, mics8, grid, PipelineConfig(), n_sources=2)),
+        "music_8mic_auto": ("music", snaps, lambda f: srp_freq.localize_music(
+            f, mics8, grid, PipelineConfig(), n_sources="auto")),
+        "mvdr_8mic": ("mvdr", snaps, lambda f: srp_freq.localize_mvdr(
+            f, mics8, grid, PipelineConfig())),
+        "freq_8mic": ("freq", None, lambda f: srp_freq.localize_freq(
+            f, mics8, grid, PipelineConfig(phat=True))),
+        "music_coherent": ("cssm", snaps, lambda f: srp_freq.localize_music(
+            f, mics8, grid, band, n_sources=2, coherent=True)),
+        "doa_music": ("music", far, lambda f: doa.estimate_doa_music(
+            f, mics8, PipelineConfig(), n_sources=2)),
+    }
+    for name, (kind, frames_np, fn) in spectra.items():
+        frames = (freq_frames if frames_np is None
+                  else torch.from_numpy(frames_np).cuda())
+        fn(frames)  # the constants on the card, once
+        torch.cuda.synchronize()
+        (out, reads) = counted(name, results, lambda: host_reads(
+            lambda: fn(frames)))
+        calls = expect_counts(name, ())
+        ref = fn(frames.cpu())
+        text, ok = spectrum_check(kind, out, ref)
+        if name == "doa_music":
+            err = max(float(np.abs((out["azimuth_deg"] - az + 180.0) % 360.0
+                                   - 180.0).min()) for az in MUSIC_DOA_AZ)
+            truth_ok = err < EST_TRUTH["music_doa_deg"]
+            truth = f"bearings {out['azimuth_deg']}, {err:.2f} deg off"
+        else:
+            xy = out["xy_grid"].reshape(-1, 2).cpu()
+            d = torch.stack([(xy - torch.tensor(s)).norm(dim=-1)
+                             for s in SUBSPACE_SOURCES]).amin(0)
+            truth_ok = float((d < EST_TRUTH["spectrum_m"]).float().mean()
+                             ) >= 0.99
+            truth = (f"peak within {float(d.median()):.4f} m of a source "
+                     f"(median)")
+        n_src = out.get("n_sources_estimated", out.get("n_sources", ""))
+        say(phase, f"{name}: {tuple(frames.shape)}: {calls}; host reads "
+            f"{reads}; sources {n_src}; {truth}; {text}")
+        if not (ok and truth_ok):
+            failures.append(name)
+        time_path(card, name, lambda: fn(frames), frames.shape[0], phase)
+
+    # ---- register_arrays: K = 4 arrays, E = 64 events ----------------------
+    rng = np.random.default_rng(SEED + 53)
+    angs = rng.uniform(-np.pi, np.pi, REG_ARRAYS)
+    angs[0] = 0.0
+    trs = rng.uniform(-2.0, 2.0, (REG_ARRAYS, 2))
+    trs[0] = 0.0
+    world = rng.uniform(-2.0, 2.0, (REG_EVENTS, 2))
+    local = np.stack([(world - t) @ np.array([[np.cos(a), -np.sin(a)],
+                                               [np.sin(a), np.cos(a)]])
+                      for a, t in zip(angs, trs)])
+    local = (local + rng.normal(0, 0.01, local.shape)).astype(np.float32)
+    local_t = torch.from_numpy(local).cuda()
+    out = counted("register", results,
+                  lambda: fusion.register_arrays(local_t))
+    calls = expect_counts("register", ())
+    ref = fusion.register_arrays(torch.from_numpy(local))
+    d = max(float((out[k].cpu() - ref[k]).abs().max()) for k in ref)
+    rot_true = np.stack([[[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]]
+                         for a in angs])
+    e_rot = float(np.abs(out["rot"].cpu().numpy() - rot_true).max())
+    e_tr = float(np.abs(out["trans"].cpu().numpy() - trs).max())
+    say(phase, f"register: {REG_ARRAYS} arrays x {REG_EVENTS} events: "
+        f"{calls}; rot {e_rot:.2e}, trans {e_tr:.2e} m from the truth; vs "
+        f"CPU path {d:.2e}")
+    if not (d <= 1e-5 and e_rot < EST_TRUTH["reg_rot"]
+            and e_tr < EST_TRUTH["reg_trans_m"]):
+        failures.append("register")
+    time_path(card, "register", lambda: fusion.register_arrays(local_t),
+              REG_EVENTS, phase)
+    say(phase, f"wall time {time.perf_counter() - t0:.1f} s")
+    if failures:
+        fail(phase, f"result checks failed: {failures}")
+
+
 # further keys of an entry that has them: what the library yardstick is, the
 # SRP-argmax kernel's other bound and its bf16 mode, the bf16 DFT product's
 # library form with f32 outputs
 EXTRA_KEYS = ("library", "bound_ms_fp32_cores", "bf16_ms", "bf16_plain_ms",
               "bf16_library_ms", "bf16_bound_ms", "library_f32_out_ms",
               "device_ms", "launches_per_call", "launches_by_path",
-              "multi_8mic_no_peaks")
+              "multi_8mic_no_peaks", "doa_8mic_no_peaks",
+              "doa3d_tetra_no_peaks", "volume_8mic_no_peaks",
+              "fusion_2x4_no_peaks")
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                "library_ms")
@@ -3148,6 +3773,7 @@ def main():
     phase_accuracy(card, results)
     phase_bench(results)
     phase_soak(results)
+    phase_estimators(card, results)
 
     print(json.dumps({"kernels": [
         {k: results[n][k] for k in (*KERNEL_KEYS, *(
