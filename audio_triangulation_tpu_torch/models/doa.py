@@ -4,15 +4,15 @@ azimuth MUSIC and spherical (azimuth + elevation) SRP.
 Counterpart of ``audio_triangulation_tpu.models.doa``.  Each azimuth a of
 the circle has pair TDOAs tau_p(a) = -(m_j - m_i) . u(a) / c; the raw
 correlograms (``localizer.conditioned_correlograms``: the GCC kernel
-without peaks where the configuration and shape take it, row 2 of the
-kernel table) are tapered and scored against a one-hot steering matrix
-[P * L, A], the peak refined by circular parabolic interpolation and a
-least-squares bearing solve.  :class:`Doa3dEstimator` scores a Fibonacci
-lattice of unit bearings the same way.  With ``smp=True`` pairs of equal
-displacement are merged before the lag synthesis (Grondin et al.,
-arXiv:2203.14409): unfused spectra, no kernel, as in the reference.
-:func:`estimate_doa_music` is the azimuth form of
-``ops.srp_freq.music_spectrum``.
+without peaks, row 2 of the kernel table, where the configuration takes
+it; the large-array kernel for a frame too large for it) are tapered and
+scored against a one-hot steering matrix [P * L, A], the peak refined by
+circular parabolic interpolation and a least-squares bearing solve.
+:class:`Doa3dEstimator` scores a Fibonacci lattice of unit bearings the
+same way.  With ``smp=True`` pairs of equal displacement are merged before
+the lag synthesis (Grondin et al., arXiv:2203.14409): unfused spectra, no
+kernel, as in the reference.  :func:`estimate_doa_music` is the
+azimuth form of ``ops.srp_freq.music_spectrum``.
 
 The estimators are ``nn.Module`` s whose buffers live on the device given
 to ``create``; every lag window widens to the array's aperture unless
@@ -33,7 +33,6 @@ from ..core.config import PipelineConfig
 from ..ops import mxu_fft, srp, srp_freq, xcorr
 from ..ops import solver as solver_ops, window as window_ops
 from ..ops._device import device_constant
-from ..ops.cuda import gcc_kernel
 from . import localizer as localizer_mod
 
 
@@ -155,9 +154,6 @@ class DoaEstimator(nn.Module):
                                                                 device=dev))
             self.register_buffer("pseudo_pairs", torch.as_tensor(
                 pairs_p, device=dev))
-        self.kernel_fits = gcc_kernel.base_mode_fits(
-            dev, self.mic_positions.shape[0], self.pairs.shape[0],
-            pipeline.num_lags)
         if self.window.is_cuda:
             localizer_mod.pin_fp32()
 
@@ -217,7 +213,7 @@ class DoaEstimator(nn.Module):
         if self.merge is None:
             return estimate_doa(
                 self.params, self.onehot_az, frames, cfg=self.pipeline,
-                n_azimuths=self.n_azimuths, kernel_fits=self.kernel_fits)
+                n_azimuths=self.n_azimuths)
         return estimate_doa_smp(
             self.params, self.onehot_az, self.merge, frames,
             cfg=self.pipeline, n_azimuths=self.n_azimuths,
@@ -259,11 +255,11 @@ def _lead(out: dict, lead) -> dict:
     return {k: v.reshape(*lead, *v.shape[1:]) for k, v in out.items()}
 
 
-def _raw_correlograms(params, frames, cfg, kernel_fits):
+def _raw_correlograms(params, frames, cfg):
     """frames [..., M, N] -> (flat raw correlograms [B, P, L], lead)."""
     flat = localizer_mod._flat_frames(frames, cfg)
     return localizer_mod.conditioned_correlograms(
-        flat, params, cfg, kernel_fits=kernel_fits), frames.shape[:-2]
+        flat, params, cfg), frames.shape[:-2]
 
 
 def estimate_doa(
@@ -273,12 +269,11 @@ def estimate_doa(
     *,
     cfg: PipelineConfig,
     n_azimuths: int,
-    kernel_fits: bool = True,
 ) -> dict:
     """frames [..., M, N] -> 'azimuth_deg' [...], 'scores' [..., A],
     'bearing' [..., 2], 'tdoa_samples' and 'best_shift' [..., P]."""
     k = cfg.max_shift
-    corr, lead = _raw_correlograms(params, frames, cfg, kernel_fits)
+    corr, lead = _raw_correlograms(params, frames, cfg)
     shifts = xcorr.best_lag(corr, k)
     corr_t = (xcorr.peak_taper(corr, k, cfg.taper_denom, shifts)
               if cfg.taper_enabled else corr)
@@ -478,9 +473,6 @@ class Doa3dEstimator(nn.Module):
             self.register_buffer(name, tensors[name])
         mics = self.mic_positions.cpu().numpy()
         self.coplanar = bool(np.ptp(mics[:, 2]) < 1e-6)
-        self.kernel_fits = gcc_kernel.base_mode_fits(
-            self.window.device, mics.shape[0], self.pairs.shape[0],
-            pipeline.num_lags)
         if self.window.is_cuda:
             localizer_mod.pin_fp32()
 
@@ -529,8 +521,7 @@ class Doa3dEstimator(nn.Module):
                       self.pipeline.frame_size)
         return estimate_doa_3d(
             self.params, self.onehot_sph, self.dirs, frames,
-            cfg=self.pipeline, coplanar=self.coplanar,
-            kernel_fits=self.kernel_fits)
+            cfg=self.pipeline, coplanar=self.coplanar)
 
 
 def estimate_doa_3d(
@@ -541,7 +532,6 @@ def estimate_doa_3d(
     *,
     cfg: PipelineConfig,
     coplanar: bool = False,
-    kernel_fits: bool = True,
 ) -> dict:
     """frames [..., M, N] -> 'azimuth_deg' / 'elevation_deg' [...],
     'bearing' [..., 3] (refined), 'bearing_grid' [..., 3] (lattice peak),
@@ -549,7 +539,7 @@ def estimate_doa_3d(
     takes both angles from the least-squares bearing; ``coplanar`` keeps
     its azimuth and the lattice peak's elevation."""
     k = cfg.max_shift
-    corr, lead = _raw_correlograms(params, frames, cfg, kernel_fits)
+    corr, lead = _raw_correlograms(params, frames, cfg)
     shifts = xcorr.best_lag(corr, k)
     corr_t = (xcorr.peak_taper(corr, k, cfg.taper_denom, shifts)
               if cfg.taper_enabled else corr)

@@ -3,14 +3,14 @@ clock-synchronised fusion and array registration.
 
 Counterpart of ``audio_triangulation_tpu.models.fusion``.  Frames [..., K,
 M, N] fold the array axis into the batch for the raw correlograms
-(``localizer.conditioned_correlograms``: the GCC kernel without peaks
-where the configuration and shape take it, row 2 of the kernel table);
-each array scores the world grid through its own steering matrix and the
-per-array maps are fused, with weights, in one product; a joint
-Gauss-Newton solve over all K * P TDOAs refines the peak
-(:class:`ArrayFusionLocalizer`).  ``localize_sync`` adds the cross-array
-TDOAs (``xcorr.xcorr_fft`` on a lag window that covers the world
-aperture) and solves every event's position with the arrays' clock
+(``localizer.conditioned_correlograms``: the GCC kernel without peaks, row
+2 of the kernel table, where the configuration takes it; the large-array
+kernel for a frame too large for it); each array scores the world grid
+through its own steering matrix and the per-array maps are fused, with
+weights, in one product; a joint Gauss-Newton solve over all K * P TDOAs
+refines the peak (:class:`ArrayFusionLocalizer`).  ``localize_sync`` adds
+the cross-array TDOAs (``xcorr.xcorr_fft`` on a lag window that covers the
+world aperture) and solves every event's position with the arrays' clock
 offsets, and drifts given event times (``ops.solver.solve_tdoa_sync``).
 :func:`register_arrays` recovers each array's pose from events they all
 localized (weighted Kabsch).  The world grid is the plane projection: the
@@ -30,7 +30,6 @@ from ..core import geometry
 from ..core.config import GridConfig, PipelineConfig, SolverConfig
 from ..ops import solver as solver_ops
 from ..ops import srp, window as window_ops, xcorr
-from ..ops.cuda import gcc_kernel
 from . import localizer as localizer_mod
 
 
@@ -72,9 +71,6 @@ class ArrayFusionLocalizer(nn.Module):
         self.sync_max_shift = sync_max_shift
         for name in FUSION_PARAM_NAMES:
             self.register_buffer(name, getattr(params, name))
-        self.kernel_fits = gcc_kernel.base_mode_fits(
-            self.window.device, self.mic_world.shape[1],
-            self.pairs.shape[0], pipeline.num_lags)
         if self.window.is_cuda:
             localizer_mod.pin_fp32()
 
@@ -192,7 +188,7 @@ class ArrayFusionLocalizer(nn.Module):
         return fuse_frames(
             self.params, frames, self._weights(weights), cfg=self.pipeline,
             grid_cfg=self.grid, solver_cfg=self.solver,
-            with_solver=self.with_solver, kernel_fits=self.kernel_fits)
+            with_solver=self.with_solver)
 
     def localize_sync(self, frames: torch.Tensor, weights=None,
                       event_times_s=None) -> dict:
@@ -208,7 +204,7 @@ class ArrayFusionLocalizer(nn.Module):
         return fuse_frames_sync(
             self.params, frames, self._weights(weights), times,
             cfg=self.pipeline, grid_cfg=self.grid, solver_cfg=self.solver,
-            sync_max_shift=self.sync_max_shift, kernel_fits=self.kernel_fits)
+            sync_max_shift=self.sync_max_shift)
 
 
 # ----------------------------------------------------------------------
@@ -216,7 +212,7 @@ class ArrayFusionLocalizer(nn.Module):
 # ----------------------------------------------------------------------
 
 def fusion_correlograms(params: FusionParams, frames: torch.Tensor,
-                        cfg: PipelineConfig, *, kernel_fits: bool = True):
+                        cfg: PipelineConfig):
     """frames [..., K, M, N] -> (tapered correlograms [..., K, P, L], best
     shifts, sub-sample TDOAs [..., K, P], peak-to-sidelobe ratios), the
     array axis riding the batch through the GCC engines."""
@@ -225,8 +221,7 @@ def fusion_correlograms(params: FusionParams, frames: torch.Tensor,
         mic_positions=params.cat_mics, pairs=params.pairs,
         window=params.window, lut_flat=None, onehot=None)
     flat = localizer_mod._flat_frames(frames, cfg)
-    corr = localizer_mod.conditioned_correlograms(
-        flat, loc_params, cfg, kernel_fits=kernel_fits)
+    corr = localizer_mod.conditioned_correlograms(flat, loc_params, cfg)
     corr = corr.reshape(*lead, *corr.shape[1:])
     kk = cfg.max_shift
     shifts = xcorr.best_lag(corr, kk)
@@ -262,15 +257,13 @@ def fuse_frames(
     grid_cfg: GridConfig,
     solver_cfg: SolverConfig,
     with_solver: bool = True,
-    kernel_fits: bool = True,
 ) -> dict:
     """Fusion pipeline on frames [..., K, M, N]: 'tdoa_samples' and
     'best_shift' [..., K, P], 'scores' [..., G] (fused), 'xy_grid' [..., 2],
     'confidence' [..., K] (each array's weakest-pair PSR), and 'xy' [...,
     2], 'rms_m' [...] and 'xy_cov' [..., 2, 2] of the joint solve (the grid
     peak without the solver)."""
-    corr_t, shifts, tdoa, psr = fusion_correlograms(
-        params, frames, cfg, kernel_fits=kernel_fits)
+    corr_t, shifts, tdoa, psr = fusion_correlograms(params, frames, cfg)
     scores = fused_scores(corr_t, params.onehot, weights, cfg.srp_dtype)
     refine = (grid_cfg.refine_peak == "on"
               or (grid_cfg.refine_peak == "auto" and not with_solver))
@@ -341,7 +334,6 @@ def fuse_frames_sync(
     grid_cfg: GridConfig,
     solver_cfg: SolverConfig,
     sync_max_shift: int,
-    kernel_fits: bool = True,
 ) -> dict:
     """Fusion of unsynchronised arrays, frames [E, K, M, N]: the intra-array
     pipeline (offset-free: a pair inside one array shares its clock) seeds
@@ -349,8 +341,7 @@ def fuse_frames_sync(
     drifts with ``event_times_s``) over the intra and cross pairs; a cross
     pair weighs the geometric mean of its arrays' weights."""
     out = fuse_frames(params, frames, weights, cfg=cfg, grid_cfg=grid_cfg,
-                      solver_cfg=solver_cfg, with_solver=True,
-                      kernel_fits=kernel_fits)
+                      solver_cfg=solver_cfg, with_solver=True)
     tdoa_cross = cross_array_tdoas(params, frames, cfg, sync_max_shift)
     out["tdoa_cross"] = tdoa_cross
 

@@ -22,7 +22,9 @@ with in-kernel peaks when taper and sub-sample are both on, else plain
 peak ops after it; ``fused_srp='on'`` adds SRP scoring and the grid argmax
 to that kernel under :func:`in_kernel_srp`'s conditions.  Past that pair
 count :func:`large_route` says when the large-array kernel serves it, again
-with in-kernel peaks when taper and sub-sample are both on.
+with in-kernel peaks when taper and sub-sample are both on; that kernel
+also takes a frame too large for the GCC kernel's shared memory
+(:func:`gcc_routes`, asked from the shape).
 Configurations neither kernel takes run the unfused engines
 (:func:`correlate_frames`, a chunk of pairs at a time under ``pair_chunk``
 or past ``LARGE_ARRAY_PAIRS``), then the plain peak ops and, for
@@ -486,20 +488,33 @@ def _flat_frames(frames: torch.Tensor, cfg: PipelineConfig) -> torch.Tensor:
     return flat
 
 
+def gcc_routes(flat: torch.Tensor, cfg: PipelineConfig, n_pairs: int,
+               with_peaks: bool) -> tuple[bool, bool]:
+    """(on the GCC kernel, on the large-array kernel) for frames [B, M, N]
+    (as :func:`_flat_frames` gives them): the GCC kernel where
+    :func:`kernel_route` holds and a frame fits it
+    (``gcc_kernel.fits``, asked from the shape); the large-array kernel
+    where :func:`large_route` holds, and in the GCC kernel's place for a
+    frame too large for its shared memory; neither: the unfused engines."""
+    on_kernel = n_pairs <= LARGE_ARRAY_PAIRS and kernel_route(cfg)
+    if on_kernel and not gcc_kernel.fits(flat, cfg, n_pairs, with_peaks):
+        return False, True
+    return on_kernel, large_route(cfg, n_pairs)
+
+
 def conditioned_correlograms(flat: torch.Tensor, params: LocalizerParams,
-                             cfg: PipelineConfig, *,
-                             kernel_fits: bool = True) -> torch.Tensor:
+                             cfg: PipelineConfig) -> torch.Tensor:
     """Raw frames [B, M, N] (as :func:`_flat_frames` gives them) -> raw,
-    untapered correlograms [B, P, L]: the GCC kernel without peaks where
-    :func:`kernel_route` holds (and ``kernel_fits``: the caller's
-    ``gcc_kernel.base_mode_fits`` of the shape), the large-array kernel
-    where :func:`large_route` holds, else the unfused engines."""
-    p_n = params.pairs.shape[0]
-    if p_n <= LARGE_ARRAY_PAIRS and kernel_route(cfg) and kernel_fits:
+    untapered correlograms [B, P, L]: the GCC kernel without peaks, the
+    large-array kernel or the unfused engines, as :func:`gcc_routes`
+    says."""
+    on_kernel, on_large = gcc_routes(flat, cfg, params.pairs.shape[0],
+                                     with_peaks=False)
+    if on_kernel:
         return gcc_kernel.fused_gcc(flat, params.window, params.pairs, cfg,
                                     with_peaks=False)
     x = condition_frames(flat, params.window, cfg)
-    if large_route(cfg, p_n):
+    if on_large:
         return gcc_large.xcorr_large(x, params.pairs, cfg)
     return correlate_frames(x, params, cfg)
 
@@ -557,9 +572,8 @@ def localize_frames(
 
     refine = (grid_cfg.refine_peak == "on"
               or (grid_cfg.refine_peak == "auto" and not with_solver))
-    on_kernel = p_n <= LARGE_ARRAY_PAIRS and kernel_route(cfg)
-    on_large = large_route(cfg, p_n)
     in_kernel_peaks = cfg.taper_enabled and cfg.subsample_peak
+    on_kernel, on_large = gcc_routes(flat, cfg, p_n, in_kernel_peaks)
     best_cell = scores = None
     if on_kernel and in_kernel_peaks:
         # taper, argmax, sub-sample peak and PSR inside the GCC kernel

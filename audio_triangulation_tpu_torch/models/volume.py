@@ -3,12 +3,13 @@ fixed-height grid, refined by the free (x, y, z) Gauss-Newton solve.
 
 Counterpart of ``audio_triangulation_tpu.models.volume``.  The raw
 correlograms come from ``localizer.conditioned_correlograms`` (the GCC
-kernel without peaks where the configuration and shape take it, row 2 of
-the kernel table); the box's D x H x W cells are scored in the
-reference's form, the one-hot product when its steering matrix fits 256
-MB (``srp.auto_srp_form``) and else the per-pair gather, here a slice of
-the batch at a time (``srp.srp_scores_gather_batched``) so that the [B, P,
-G] gather is never whole; the peak is refined per axis, or the solver
+kernel without peaks, row 2 of the kernel table, where the configuration
+takes it; the large-array kernel for a frame too large for it); the box's
+D x H x W cells are scored in the reference's form, the one-hot product
+when its steering matrix fits 256 MB (``srp.auto_srp_form``) and else the
+per-pair gather, here a slice of the batch at a time
+(``srp.srp_scores_gather_batched``) so that the [B, P, G] gather is never
+whole; the peak is refined per axis, or the solver
 (``ops.solver.solve_tdoa_xyz``) starts from it.  Use a non-coplanar array
 where height matters: a planar one cannot tell +-z apart.
 """
@@ -25,7 +26,6 @@ from ..core import geometry
 from ..core.config import PipelineConfig, SolverConfig, VolumeConfig
 from ..ops import srp, xcorr
 from ..ops import solver as solver_ops, window as window_ops
-from ..ops.cuda import gcc_kernel
 from . import localizer as localizer_mod
 
 # bytes of the [b, P, G] gather a slice of the batch may form
@@ -56,9 +56,6 @@ class VolumeLocalizer(nn.Module):
         self.with_solver = with_solver
         for name in localizer_mod.PARAM_NAMES:
             self.register_buffer(name, getattr(params, name))
-        self.kernel_fits = gcc_kernel.base_mode_fits(
-            self.window.device, self.mic_positions.shape[0],
-            self.pairs.shape[0], pipeline.num_lags)
         if self.window.is_cuda:
             localizer_mod.pin_fp32()
 
@@ -143,7 +140,7 @@ class VolumeLocalizer(nn.Module):
         return localize_frames_volume(
             self.params, frames, cfg=self.pipeline, volume=self.volume,
             solver_cfg=self.solver, srp_form=self.srp_form,
-            with_solver=self.with_solver, kernel_fits=self.kernel_fits)
+            with_solver=self.with_solver)
 
 
 def volume_peak_xyz(
@@ -202,7 +199,6 @@ def localize_frames_volume(
     solver_cfg: SolverConfig,
     srp_form: str,
     with_solver: bool = True,
-    kernel_fits: bool = True,
 ) -> dict:
     """Volumetric pipeline on frames [..., M, N].  Returns 'tdoa_samples'
     and 'best_shift' [..., P], 'correlograms' [..., P, L] (tapered),
@@ -213,8 +209,7 @@ def localize_frames_volume(
     k = cfg.max_shift
     lead = frames.shape[:-2]
     flat = localizer_mod._flat_frames(frames, cfg)
-    corr = localizer_mod.conditioned_correlograms(
-        flat, params, cfg, kernel_fits=kernel_fits)
+    corr = localizer_mod.conditioned_correlograms(flat, params, cfg)
     shifts = xcorr.best_lag(corr, k)
     tdoa_samples, peak_val = xcorr.subsample_peak(corr, k)
     if not cfg.subsample_peak:

@@ -580,16 +580,21 @@ def fused_gcc_pipelined(frames: torch.Tensor, window: torch.Tensor,
     return launch_pipelined(frames, *ops, pairs, **kw)
 
 
-def base_mode_fits(device, n_mics: int, n_pairs: int, n_lags: int) -> bool:
-    """Whether the base mode takes frames of ``n_mics`` mics, ``n_pairs``
-    pairs and ``n_lags`` lags on ``device``: on a CUDA device one frame's
-    correlograms must fit a block's shared memory (8 mics x 28 pairs fit
-    up to 1,469 lags); the plain version on the CPU has no limit.
-    Asked once, when an estimator is built, so the route follows the shape
-    and never a launch error."""
-    if torch.device(device).type != "cuda":
+def fits(frames: torch.Tensor, cfg: PipelineConfig, n_pairs: int,
+         with_peaks: bool) -> bool:
+    """Whether :func:`fused_gcc` takes these frames [B, M, N] of
+    ``n_pairs`` pairs in the mode ``cfg`` needs: on a CUDA device one
+    frame must fit a block's shared memory (in the base mode 8 mics x 28
+    pairs fit up to 1,469 lags); the plain version on the CPU has no
+    limit.  The routes ask it from the shape
+    (``models.localizer.gcc_routes``), never from a launch error."""
+    if frames.device.type != "cuda":
         return True
-    return _lib().att_gcc_frames_per_block(n_mics, n_pairs, n_lags) >= 1
+    m = frames.shape[-2]
+    f, l = _matrices(cfg, frames.shape[-1], str(frames.device)).sync.shape
+    if needs_stats(cfg, with_peaks):
+        return _lib().att_gcc_stats_frames_per_block(m, f, l, n_pairs) >= 1
+    return _lib().att_gcc_frames_per_block(m, n_pairs, l) >= 1
 
 
 def srp_mode_fits(frames: torch.Tensor, cfg: PipelineConfig,

@@ -302,9 +302,13 @@ def music_spectrum_coherent(
 
 
 def _spectra(frames: torch.Tensor, cfg: PipelineConfig):
-    """Conditioned frames' matmul-DFT spectra (re, im) [..., M, F]."""
-    from ..models.localizer import condition_frames
+    """Conditioned frames' matmul-DFT spectra (re, im) [..., M, F].  Every
+    entry point of the module starts here, so on the card TF32 is turned
+    off here (``localizer.pin_fp32``), as the estimators' ``create`` does."""
+    from ..models.localizer import condition_frames, pin_fp32
 
+    if frames.is_cuda:
+        pin_fp32()
     win = device_constant(window_ops.window_for(cfg), frames.device)
     x = condition_frames(frames, win, cfg)
     return mxu_fft.forward_spectra(x, cfg.fft_length, cfg.matmul_dtype)

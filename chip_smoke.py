@@ -3488,20 +3488,22 @@ def far_snapshots(mics, az_list, n_snap=EST_SNAPSHOTS):
 
 def spectrum_check(kind, got, ref, grid=None) -> tuple[str, bool]:
     """A subspace or frequency spectrum on the card against the port's CPU
-    path at the Tier-1 tests' tolerances: MVDR 1e-4 relative per cell;
-    frequency SRP 1e-4 of scale; MUSIC and CSSM their reciprocal within
-    2e-3 (across devices the DFT's other summation order moves them as a
-    degenerate scene's rounding does: tests/test_torch_srp_freq.py);
-    the refined peak within 2e-4 m, or the bearings equal, where the top
-    cell is 1e-3 of scale clear."""
+    path at the Tier-1 tests' tolerances: MVDR and CSSM (a band-limited
+    configuration) per cell within 1e-4 and 1e-3 relative; frequency SRP
+    1e-4 of scale; MUSIC over the full band its reciprocal within 2e-3
+    (the fp32 eigensolvers of the CPU and the card each move the cells
+    near the floor by up to 2e-2 and 3.4e-2 relative of float64:
+    chip_precision.py, tests/test_torch_srp_freq.py); the refined peak
+    within 2e-4 m, or the bearings equal, where the top cell is 1e-3 of
+    scale clear."""
     g, r = got["scores"].double().cpu(), ref["scores"].double()
-    if kind == "mvdr":
+    if kind in ("mvdr", "cssm"):
         err = float(((g - r).abs() / r.abs()).max())
-        ok = err <= 1e-4
+        ok = err <= {"mvdr": 1e-4, "cssm": 1e-3}[kind]
     elif kind == "freq":
         err = float((g - r).abs().max() / r.abs().max())
         ok = err <= 1e-4
-    else:  # MUSIC and CSSM: the degenerate scene's rule of the tests
+    else:  # MUSIC over the full band: its reciprocal
         err = float((1.0 / g - 1.0 / r).abs().max())
         rel = float(((g - r).abs() / r).max())
         ok = err <= 2e-3
@@ -3516,9 +3518,8 @@ def spectrum_check(kind, got, ref, grid=None) -> tuple[str, bool]:
         rxy = ref["xy_grid"].reshape(-1, 2)[clear]
         dpeak = float((gxy - rxy).abs().max()) if gxy.numel() else 0.0
         peak_ok = dpeak <= 2e-4
-    unit = {"mvdr": "rel", "freq": "of scale"}.get(
-        kind, f"reciprocal abs ({rel:.2e} rel)" if kind in ("music", "cssm")
-        else "")
+    unit = (f"reciprocal abs ({rel:.2e} rel)" if kind == "music" else
+            {"mvdr": "rel", "cssm": "rel", "freq": "of scale"}[kind])
     return (f"vs CPU path: spectrum {err:.2e} {unit}, peak {dpeak:.2e} on "
             f"{int(clear.sum())} of {clear.numel()} clear"), (
                 ok and peak_ok and bool(clear.any()))

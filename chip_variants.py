@@ -20,9 +20,14 @@ band-crop line, at one block an SM, with bin chunks of 128 (four column
 tiles a warp; the outputs stay bit-equal), with the coefficient loads left
 to the compiler's placement, and with its DFT cut to the first 32 samples,
 its samples loaded for the first chunk only, or its synthesis cut out (DFT,
-means and peaks only).
+means and peaks only).  The base mode without peaks (``rowtwo``: row 2 of
+the kernel table) runs on the 16,384 frames of each frame-batch estimator
+path of ``chip_smoke.py``'s phase 13 as it is, with its DFT cut to the
+first 32 samples and with its synthesis cut out, which splits its time
+between the DFT and the lag synthesis at each shape.
 
     python3 chip_variants.py [srp] [large] [stats] [base] [dft] [scan] [gn]
+                             [rowtwo]
 
 (one CUDA card).  The DFT-product kernel's f32 mode (``dft_matmul.cu``)
 runs at the tool's 65,536 x 1,024 x 512 with its sums flushed into fp32
@@ -118,6 +123,11 @@ BASE_VARIANTS = {
         "gcc_kernel.cu", "for (int fb = 0; fb < nbs; fb += kSub) {",
         "for (int fb = 0; fb < 0; fb += kSub) {"),
 }
+# row 2 (the base mode without peaks) at the estimators' shapes: the whole
+# kernel, its DFT cut to the first 32 samples, its synthesis cut out
+ROW_TWO_VARIANTS = {k: BASE_VARIANTS[k] for k in (
+    "as_committed", "timing_only_dft_first_32_samples",
+    "timing_only_no_synthesis")}
 # the DFT-product kernel's f32 mode: how often the tensor cores' sums go
 # into fp32 registers (outputs compared with float64, not with each other)
 DFT_VARIANTS = {
@@ -353,13 +363,16 @@ def main():
     import dataclasses
 
     from audio_triangulation_tpu_torch import Localizer, geometry
+    from audio_triangulation_tpu_torch.models import (
+        localizer as localizer_mod)
     from audio_triangulation_tpu_torch.ops.cuda import (
         _build, detector_scan, dft_matmul, gcc_kernel, gcc_large, srp_kernel)
     from audio_triangulation_tpu_torch.tools import int8_microbench
 
     groups = {"srp": SRP_VARIANTS, "large": LARGE_VARIANTS,
               "stats": STATS_VARIANTS, "base": BASE_VARIANTS,
-              "dft": DFT_VARIANTS, "scan": SCAN_VARIANTS}
+              "dft": DFT_VARIANTS, "scan": SCAN_VARIANTS,
+              "rowtwo": ROW_TWO_VARIANTS}
     asked = sys.argv[1:] or [*groups, "gn"]
     if not set(asked) <= {*groups, "gn"}:
         sys.exit(f"chip_variants: groups are {sorted(groups) + ['gn']}; "
@@ -376,6 +389,7 @@ def main():
     srp_variants, large_variants = chosen["srp"], chosen["large"]
     stats_variants, base_variants = chosen["stats"], chosen["base"]
     dft_variants, scan_variants = chosen["dft"], chosen["scan"]
+    row_two_variants = chosen["rowtwo"]
     committed = _build.CSRC_DIR
     libs = {}
     with tempfile.TemporaryDirectory() as root:
@@ -441,6 +455,21 @@ def main():
                 frames4, bloc.window, bcfg), dict(
                     phat=bcfg.phat, phat_eps=bcfg.phat_eps,
                     max_shift=bcfg.max_shift, taper_denom=bcfg.taper_denom))
+        # row 2 as the estimators launch it, on their frames
+        row_two_cases = {}
+        for seed, (ename, (make, event, kernels)) in enumerate(
+                chip_smoke.estimator_paths().items()):
+            if not row_two_variants or not kernels:
+                continue
+            est = make("cuda")
+            ecfg = est.pipeline
+            eflat = localizer_mod._flat_frames(chip_smoke.noisy(
+                event, chip_smoke.EST_FRAMES, chip_smoke.SEED + 40 + seed),
+                ecfg)
+            row_two_cases[ename] = (eflat, gcc_kernel.operands(
+                eflat, est.window, ecfg), est.pairs, dict(
+                    phat=ecfg.phat, phat_eps=ecfg.phat_eps,
+                    max_shift=ecfg.max_shift, taper_denom=ecfg.taper_denom))
         corr = torch.from_numpy(rng.standard_normal(
             (chip_smoke.FRAMES, 6, 93), dtype=np.float32)).cuda()
         onehot, cells = chip_smoke.srp_inputs(corr)
@@ -544,6 +573,29 @@ def main():
                                                  for a, b in zip(ref, got))}
                 print(rnd, "gcc_kernel base / SRP mode", name,
                       json.dumps(row), flush=True)
+            for name in row_two_variants:
+                use(libs["rowtwo_" + name])
+                row = {}
+                for ename, (eflat, eops, epairs, ekw) in row_two_cases.items():
+                    def run():
+                        return gcc_kernel.launch(eflat, *eops, epairs, **ekw,
+                                                 with_peaks=False)
+                    got = run()
+                    torch.cuda.synchronize()
+                    ref = first.setdefault("rowtwo_" + ename, got)
+                    b, m, _ = eflat.shape
+                    row[ename] = {
+                        "ms": round(chip_smoke.cuda_ms(run,
+                                                       chip_smoke.REPS), 4),
+                        "frames": b, "mics": m, "pairs": int(epairs.shape[0]),
+                        "lags": int(got.shape[-1]),
+                        "frames_a_block": gcc_kernel._lib()
+                        .att_gcc_frames_per_block(m, int(epairs.shape[0]),
+                                                  int(got.shape[-1])),
+                        "outputs_equal": bool(torch.equal(ref, got))}
+                    del got
+                print(rnd, "gcc_kernel row 2", name, json.dumps(row),
+                      flush=True)
             for name in stats_variants:
                 use(libs["stats_" + name])
 

@@ -356,6 +356,36 @@ def test_large_routes():
     assert tloc._pair_chunk(tcfg.PipelineConfig(pair_chunk=7), 2016) == 7
 
 
+@pytest.mark.parametrize("taper", [True, False], ids=["peaks", "no_peaks"])
+def test_frame_too_large_for_the_gcc_kernel_takes_the_large_kernel(
+        rng, monkeypatch, taper):
+    """Where ``gcc_kernel.fits`` says a frame does not fit the GCC kernel's
+    shared memory (on the CPU it always fits, so it is patched here), the
+    Localizer takes the large-array kernel in its place, with its peak
+    stage or without, and gives what the GCC kernel's route gives: shifts
+    equal, TDOAs within 1e-3 samples, xy within 2e-4 m."""
+    mics = jgeo.circular_array(8, 0.25)
+    cfg = tcfg.PipelineConfig(phat=True, taper_enabled=taper)
+    loc = Localizer.create(mics, cfg, device="cpu", init_grid_stride=3)
+    frames = torch.from_numpy(_scene(rng, mics, 1024, b=3))
+    want = loc(frames)
+    calls = []
+    for name in ("xcorr_large", "xcorr_large_peaks"):
+        real = getattr(tlarge, name)
+        monkeypatch.setattr(tlarge, name, lambda *a, _r=real, _n=name, **k: (
+            calls.append(_n) or _r(*a, **k)))
+    monkeypatch.setattr(tloc.gcc_kernel, "fits", lambda *a, **k: False)
+    monkeypatch.setattr(tloc.gcc_kernel, "fused_gcc", None)
+    assert tloc.gcc_routes(frames, cfg, 28, taper) == (False, True)
+    got = loc(frames)
+    assert calls == ["xcorr_large_peaks" if taper else "xcorr_large"]
+    torch.testing.assert_close(got["best_shift"], want["best_shift"],
+                               rtol=0, atol=0)
+    torch.testing.assert_close(got["tdoa_samples"], want["tdoa_samples"],
+                               rtol=0, atol=1e-3)
+    torch.testing.assert_close(got["xy"], want["xy"], rtol=0, atol=2e-4)
+
+
 def test_large_cpu_path_counts_no_launch_and_non_cpu_never_falls_back(rng):
     frames = torch.from_numpy(_frames(rng, 12, 256, b=2))
     pairs = torch.from_numpy(jgeo.mic_pairs(12))

@@ -35,7 +35,7 @@ from audio_triangulation_tpu_torch import VolumeConfig, VolumeLocalizer
 from audio_triangulation_tpu_torch.core import config as tcfg, geometry
 from audio_triangulation_tpu_torch.models import volume
 from audio_triangulation_tpu_torch.ops import srp
-from audio_triangulation_tpu_torch.ops.cuda import gcc_kernel
+from audio_triangulation_tpu_torch.ops.cuda import gcc_kernel, gcc_large
 
 TETRA = jgeo.tetrahedral_array(0.3)
 MICS8 = jgeo.circular_array(8, 0.5)
@@ -298,6 +298,29 @@ def test_batched_gather_equals_whole(monkeypatch):
     assert torch.equal(sliced["scores"], full["scores"])
 
 
+def test_volume_frame_too_large_for_the_gcc_kernel_takes_the_large_kernel(
+        monkeypatch):
+    """Where ``gcc_kernel.fits`` says a frame does not fit the GCC kernel's
+    shared memory (on the CPU it always fits, so it is patched here), the
+    volume's raw correlograms come from the large-array kernel, as on the
+    card at 20 mics, and the outputs equal the GCC kernel's route's
+    (TDOAs within 1e-3 samples, scores within 1e-4 of scale, the grid
+    peak within 1e-6 m, 'xyz' as the reference comparison holds it)."""
+    _, frames = _tetra_frames()
+    port = VolumeLocalizer.create(TETRA, tcfg.PipelineConfig(**CFG_T),
+                                  VolumeConfig(**VOL_T), device="cpu")
+    want = {k: v.numpy() for k, v in port(torch.from_numpy(frames)).items()}
+    calls = []
+    real = gcc_large.xcorr_large
+    monkeypatch.setattr(gcc_large, "xcorr_large", lambda *a, **k: (
+        calls.append(1) or real(*a, **k)))
+    monkeypatch.setattr(gcc_kernel, "fits", lambda *a, **k: False)
+    monkeypatch.setattr(gcc_kernel, "fused_gcc", None)
+    got = port(torch.from_numpy(frames))
+    assert calls == [1]
+    _compare(want, got, TETRA, "large-array kernel route")
+
+
 def test_volume_refusals():
     port = VolumeLocalizer.create(TETRA, tcfg.PipelineConfig(**CFG_T),
                                   VolumeConfig(**VOL_T), device="cpu")
@@ -342,20 +365,23 @@ def test_volume_card_matches_cpu(cuda_device, mics):
 @pytest.mark.gpu
 def test_volume_route_past_the_kernels_shared_memory(cuda_device):
     """20 mics on the 0.5 m circle: 190 pairs of 295 lags do not fit the
-    GCC kernel's shared memory, so the localizer is built on the unfused
-    engines (decided from the shape, no launch) and equals the CPU path."""
+    GCC kernel's shared memory, so the localizer takes the large-array
+    kernel (decided from the shape, ``gcc_kernel.fits``) and equals the
+    CPU path."""
     mics = jgeo.circular_array(20, 0.5)
     vol = VolumeConfig(half_cells_x=6, half_cells_y=6, cells_per_m=8.0,
                        z_min_m=0.4, z_max_m=1.2, z_cells=3)
     card = VolumeLocalizer.create(mics, tcfg.PipelineConfig(), vol,
                                   device=cuda_device)
-    assert not card.kernel_fits
     cpu = VolumeLocalizer.create(mics, tcfg.PipelineConfig(), vol,
                                  device="cpu")
     frames = jsynth.synth_scene(np.array([[0.3, 0.2, 0.8]]), mics,
                                 noise_rms=0.01, seed=3).astype(np.float32)
-    before = gcc_kernel.launches
-    g = card(torch.from_numpy(frames).to(cuda_device))
-    assert gcc_kernel.launches == before
+    x = torch.from_numpy(frames).to(cuda_device)
+    assert not gcc_kernel.fits(x, card.pipeline, 190, with_peaks=False)
+    before = gcc_kernel.launches, gcc_large.launches
+    g = card(x)
+    assert (gcc_kernel.launches, gcc_large.launches) == (
+        before[0], before[1] + 1)
     r = {k: v.numpy() for k, v in cpu(torch.from_numpy(frames)).items()}
     _compare(r, {k: v.cpu() for k, v in g.items()}, mics, "20 mics")
