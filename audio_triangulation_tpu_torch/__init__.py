@@ -5,7 +5,11 @@ streaming localizers and tracked streaming (a Kalman tracker bank on the
 streaming step), and the estimators beside them: direction of arrival
 (``models.doa``), volumetric 3-D (``VolumeLocalizer``), multi-array fusion
 (``models.fusion``) and the frequency-domain and subspace spectra
-(``ops.srp_freq``).
+(``ops.srp_freq``); and for reverberant rooms the image-source simulator
+(``utils.room``), WPE dereverberation (``ops.dereverb``), beamformed source
+extraction (``ops.beamform``, ``Localizer.extract``, the streaming
+``models.extraction.StreamingExtractor``) and reflector mapping
+(``ops.echo``, ``models.mapping.ReflectorMapper``).
 
 The JAX package stays the reference; this package imports torch and never
 jax.  Quick start::

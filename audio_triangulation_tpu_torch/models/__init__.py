@@ -1,5 +1,6 @@
 """Model families of the port: frame-batch, streaming, tracking, DoA,
-volumetric and multi-array fusion."""
+volumetric, multi-array fusion, streaming source extraction and reflector
+mapping."""
 
 from .localizer import (  # noqa: F401
     Localizer, LocalizerParams, localize_frames)
@@ -12,3 +13,5 @@ from .tracking import (Tracker, TrackerConfig, TrackState,  # noqa: F401
 from .doa import DoaEstimator  # noqa: F401
 from .fusion import ArrayFusionLocalizer  # noqa: F401
 from .volume import VolumeLocalizer, localize_frames_volume  # noqa: F401
+from .extraction import StreamingExtractor, ExtractorState  # noqa: F401
+from .mapping import ReflectorMapper, WallEstimate  # noqa: F401

@@ -360,6 +360,29 @@ class Localizer(nn.Module):
                 bool(np.ptp(mic3[:, 2]) < 1e-6))
         return cache[key]
 
+    def extract(self, frames: torch.Tensor, xy=None, *, method: str = "das",
+                **kwargs) -> torch.Tensor:
+        """Beamformed source audio [..., N] at position(s) ``xy`` (localized
+        from ``frames`` when omitted): delay-and-sum ('das') or adaptive
+        MVDR ('mvdr'; ``kwargs`` go to ``ops.beamform.extract_mvdr``).  It
+        steers at the solver's own 3-D lift (its height and
+        ``constrain_to_sphere``), as the reference does."""
+        from ..ops import beamform
+
+        fn = {"das": beamform.extract_das,
+              "mvdr": beamform.extract_mvdr}[method]
+        if xy is None:
+            xy = self(frames)["xy"]
+        elif (not isinstance(frames, torch.Tensor)
+              or frames.device != self.window.device):
+            raise ValueError("frames must be a torch.Tensor on the "
+                             f"localizer's device ({self.window.device})")
+        delays = beamform.source_delays(
+            torch.as_tensor(xy, dtype=torch.float32, device=frames.device),
+            self.mic_positions, self.pipeline, height=self.grid.height_m,
+            constrain_sphere=self.solver.constrain_to_sphere)
+        return fn(frames, delays, self.pipeline, **kwargs)
+
     def save(self, path: str) -> str:
         """Write the exact configuration as JSON (the same format the JAX
         package writes; every tensor is derived from it)."""

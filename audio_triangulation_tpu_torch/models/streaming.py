@@ -38,8 +38,8 @@ its raw correlograms (``multi_*`` outputs), and ``solve_velocity`` adds the
 delay-Doppler velocity of the primary captured frame (``ops.caf``; its
 resampling operator is built once per localizer and captured with the
 graph).  The two-rate localizer accepts both fields and ignores them, as the
-reference's does.  Not ported yet, refused by name: the two-rate
-``with_audio``.
+reference's does; its ``with_audio`` adds each event slot's delay-and-sum
+waveform at its position (``ops.beamform``).
 """
 
 from __future__ import annotations
@@ -53,7 +53,7 @@ import torch
 
 from ..core.config import (GridConfig, PipelineConfig, SolverConfig,
                            StreamConfig)
-from ..ops import (caf, consistency, detector,
+from ..ops import (beamform, caf, consistency, detector,
                    solver as solver_ops, srp, xcorr)
 from ..ops._device import device_constant
 from . import localizer as localizer_mod
@@ -663,10 +663,13 @@ class TwoRateStreamingLocalizer:
     Triggered streams beyond the capacity are dropped and counted
     (``overflow``).  Detection and holdoff are :func:`stream_step`'s.
     ``StreamConfig.n_sources`` and ``solve_velocity`` are accepted and change
-    nothing here, as in the reference's two-rate localizer."""
+    nothing here, as in the reference's two-rate localizer.  ``with_audio``
+    also returns 'audio' [E, N]: the delay-and-sum waveform of each slot's
+    raw frame at its position ('xy', or 'xy_grid' without the solver)."""
 
     def __init__(self, base: localizer_mod.Localizer, stream: StreamConfig,
-                 event_capacity: int = 64, with_solver: bool = True):
+                 event_capacity: int = 64, with_solver: bool = True,
+                 with_audio: bool = False):
         self.pipeline = base.pipeline
         self.grid = base.grid
         self.solver = base.solver
@@ -675,6 +678,7 @@ class TwoRateStreamingLocalizer:
         self.srp_form = base.srp_form
         self.event_capacity = event_capacity
         self.with_solver = with_solver
+        self.with_audio = with_audio
 
     @classmethod
     def create(
@@ -691,12 +695,9 @@ class TwoRateStreamingLocalizer:
         with_audio: bool = False,
         **kwargs,
     ) -> "TwoRateStreamingLocalizer":
-        if with_audio:
-            raise NotImplementedError(
-                "with_audio (beamformed event audio) is not ported yet")
         base = localizer_mod.Localizer.create(
             mic_positions, pipeline, grid, solver, device=device, **kwargs)
-        return cls(base, stream, event_capacity, with_solver)
+        return cls(base, stream, event_capacity, with_solver, with_audio)
 
     def init_states(self, n_streams: int) -> StreamState:
         return _init_state(self.params, self.pipeline, (n_streams,))
@@ -713,21 +714,22 @@ class TwoRateStreamingLocalizer:
         events dict with [E]-shaped fields): 'stream_idx', 'accepted'
         (triggered AND past the shift gate), 'triggered', 'event_shifts',
         'tdoa_samples', 'xy_grid', 'confidence', 'xy' / 'rms_m' with the
-        solver (and 'xyz' / 'xyz_rms_m' with ``solve_xyz``), and the scalar
-        'overflow'."""
+        solver (and 'xyz' / 'xyz_rms_m' with ``solve_xyz``), 'audio' [E, N]
+        with ``with_audio``, and the scalar 'overflow'."""
         return _localize_triggered(
             states, det["triggered"], det["frame"], det["trig_time"],
             params=self.params, cfg=self.pipeline, grid_cfg=self.grid,
             solver_cfg=self.solver, srp_form=self.srp_form,
             capacity=self.event_capacity, with_solver=self.with_solver,
-            xyz_z_inits=xyz_starts(self.stream))
+            xyz_z_inits=xyz_starts(self.stream), with_audio=self.with_audio)
 
 
 def _localize_triggered(states: StreamState, triggered, frames, trig_times,
                         *, params, cfg: PipelineConfig, grid_cfg: GridConfig,
                         solver_cfg: SolverConfig, srp_form: str,
                         capacity: int, with_solver: bool,
-                        xyz_z_inits: Optional[tuple]):
+                        xyz_z_inits: Optional[tuple],
+                        with_audio: bool = False):
     k = cfg.max_shift
     # stable sort: triggered streams first, in stream order
     order = torch.argsort((~triggered).to(torch.uint8), stable=True)
@@ -786,6 +788,14 @@ def _localize_triggered(states: StreamState, triggered, frames, trig_times,
                     tdoa_s, params.mic_positions, params.pairs,
                     speed_of_sound=cfg.speed_of_sound_mps, init_xy=xy,
                     z_inits=xyz_z_inits))
+    if with_audio:
+        # each slot's raw frame steered at its solved (or grid) position,
+        # at the solver's 3-D lift
+        delays = beamform.source_delays(
+            out.get("xy", out["xy_grid"]), params.mic_positions, cfg,
+            height=grid_cfg.height_m,
+            constrain_sphere=solver_cfg.constrain_to_sphere)
+        out["audio"] = beamform.extract_das(f_sel, delays, cfg)  # [E, N]
 
     # scatter the merged state back (slots not accepted write their old
     # values; sel has no duplicates)

@@ -32,3 +32,29 @@ def device_constant(arr: np.ndarray, device, dtype=torch.float32):
         hit = (arr, torch.as_tensor(arr, dtype=dtype, device=device))
         _cache[key] = hit
     return hit[1]
+
+
+def pin_fp32_for(x: torch.Tensor) -> None:
+    """Turn TF32 off (``models.localizer.pin_fp32``) when ``x`` lies on a
+    CUDA device: the entry points of plain-torch paths call this."""
+    if x.is_cuda:
+        from ..models.localizer import pin_fp32
+
+        pin_fp32()
+
+
+def irfft(spec: torch.Tensor, n: int) -> torch.Tensor:
+    """``torch.fft.irfft`` over the last dim of a one-sided spectrum, its
+    DC and (for even ``n``) Nyquist bins read as real on every device.
+
+    The CPU's FFT reads only those bins' real parts, as numpy's and the
+    JAX package's do; cuFFT's batched complex-to-real transform (2,048
+    transforms or more, measured on an H100) adds their imaginary parts
+    into the output (2% of scale on random spectra).  A spectrum that is
+    not Hermitian there (a phase-shifted or filtered one) is made so
+    first, on a copy."""
+    spec = spec.clone(memory_format=torch.contiguous_format)
+    spec[..., 0].imag.zero_()
+    if n % 2 == 0 and spec.shape[-1] > n // 2:
+        spec[..., n // 2].imag.zero_()
+    return torch.fft.irfft(spec, n=n, dim=-1)

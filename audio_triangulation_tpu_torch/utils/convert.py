@@ -19,7 +19,9 @@ streaming state across the same way, so one stream can be continued by
 either package mid-way; ``track_state_*`` a tracker bank's state
 (``TrackState`` or ``ImmTrackState``) and ``tracked_state_*`` a tracked
 stream's (``TrackedStreamState``: both together), so a stream continues its
-tracks in either package.
+tracks in either package; ``dereverb_state_*`` a ``StreamingDereverb``'s
+state (``DereverbState`` with its ``WpeState``) and ``extractor_state_*`` a
+``StreamingExtractor``'s (``ExtractorState``).
 """
 
 from __future__ import annotations
@@ -221,3 +223,63 @@ def tracked_state_to_numpy(state) -> dict:
     takes."""
     return {"stream": stream_state_to_numpy(state.stream),
             "track": track_state_to_numpy(state.track)}
+
+
+def _tensors(arrays: dict, dtypes: dict, what: str, device) -> dict:
+    missing = sorted(set(dtypes) - set(arrays))
+    if missing:
+        raise ValueError(f"{what} lacks {missing}")
+    return {name: torch.as_tensor(np.array(arrays[name], copy=True),
+                                  device=device).to(dtype)
+            for name, dtype in dtypes.items()}
+
+
+def _numpy(state, dtypes: dict) -> dict:
+    return {name: getattr(state, name).detach().cpu().numpy()
+            for name in dtypes}
+
+
+_WPE_DTYPES = {"kinv": torch.complex64, "g": torch.complex64,
+               "hist": torch.complex64}
+_TAIL_DTYPES = {"in_tail": torch.float32, "out_tail": torch.float32}
+
+
+def dereverb_state_from_reference(arrays: dict, device):
+    """The port's ``DereverbState`` on ``device`` from ``{"wpe": {"kinv",
+    "g", "hist"}, "in_tail", "out_tail"}``, the leaves of the JAX
+    package's ``DereverbState`` as numpy arrays (one stream or stacked
+    streams alike)."""
+    from ..ops.dereverb import DereverbState, WpeState
+
+    if "wpe" not in arrays:
+        raise ValueError("dereverb state lacks ['wpe']")
+    return DereverbState(
+        wpe=WpeState(**_tensors(arrays["wpe"], _WPE_DTYPES, "WPE state",
+                                device)),
+        **_tensors(arrays, _TAIL_DTYPES, "dereverb state", device))
+
+
+def dereverb_state_to_numpy(state) -> dict:
+    """``{"wpe": {...}, "in_tail", "out_tail"}`` of a port
+    ``DereverbState``, the form :func:`dereverb_state_from_reference`
+    takes."""
+    return {"wpe": _numpy(state.wpe, _WPE_DTYPES),
+            **_numpy(state, _TAIL_DTYPES)}
+
+
+_EXTRACTOR_DTYPES = {"in_tail": torch.float32, "out_tail": torch.float32,
+                     "delays": torch.float32}
+
+
+def extractor_state_from_reference(arrays: dict, device):
+    """The port's ``ExtractorState`` on ``device`` from the leaves of the
+    JAX package's ``ExtractorState`` as numpy arrays."""
+    from ..models.extraction import ExtractorState
+
+    return ExtractorState(**_tensors(arrays, _EXTRACTOR_DTYPES,
+                                     "extractor state", device))
+
+
+def extractor_state_to_numpy(state) -> dict:
+    """{leaf name: numpy array} of a port ``ExtractorState``."""
+    return _numpy(state, _EXTRACTOR_DTYPES)

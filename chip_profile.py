@@ -17,7 +17,9 @@ with ``n_sources=2`` and with ``solve_velocity`` at 1,024 streams), and
 for the four frame-batch estimator paths of chip_smoke's phase 13
 (``doa_8mic``, ``doa3d_tetra``, ``volume_8mic``, ``fusion_2x4``: 16,384
 frames or events a call, row 2 of the kernel table once; and the SMP path,
-no kernel), prints:
+no kernel), and for three paths of phase 14 (a ``StreamingDereverb`` step
+at 1,024 streams, MVDR extraction on 4,096 frames of 8 mics, block WPE on
+64 recordings of 4 x 16,384 samples; no kernel), prints:
 
 - the median wall time of 7 unprofiled calls and the device-busy time of
   one profiled call (the sum of its kernels' device time), hence the
@@ -32,7 +34,7 @@ no kernel), prints:
   closing ``cudaDeviceSynchronize`` is the profiler window's own.
 
     python3 chip_profile.py [localizer] [stream] [tracked] [sources]
-                            [estimators]
+                            [estimators] [reverb]
                                      # one CUDA card; no argument: all
 
 Imports no JAX.
@@ -52,7 +54,8 @@ TOP_KERNELS = 14
 SLOW_HOST_OP_US = 300.0
 
 
-SECTIONS = ("localizer", "stream", "tracked", "sources", "estimators")
+SECTIONS = ("localizer", "stream", "tracked", "sources", "estimators",
+            "reverb")
 
 
 def main(argv=None):
@@ -192,6 +195,43 @@ def profile_estimators(chip_smoke, rng):
         profile_path(name, lambda: est(frames),
                      watch=("gcc_kernel", "gemm", "gather", "reduce"))
         del frames, est
+
+
+def profile_reverb(chip_smoke, rng):
+    """Phase 14's heaviest paths at its sizes: one ``StreamingDereverb``
+    step at 1,024 streams (the state carried from call to call), MVDR
+    extraction at a given position on 4,096 frames of the 8-mic circle,
+    and block WPE on 64 recordings of 4 x 16,384 samples."""
+    import torch
+    from audio_triangulation_tpu_torch import PipelineConfig, geometry
+    from audio_triangulation_tpu_torch.ops import beamform, dereverb
+
+    n = chip_smoke.DVB_COUNTS[-1]
+    sd = dereverb.StreamingDereverb(3, frame=1024, hop=256, device="cuda")
+    chunks = chip_smoke.quiet_chunks(rng, n) - 128.0
+    profile_path(f"dereverb_stream_{n}", chip_smoke.carried(
+        lambda s: sd.step_many(s, chunks), sd.init_states(n)),
+        watch=("gemm", "gemv", "elementwise", "fft"))
+    del sd, chunks
+    torch.cuda.empty_cache()
+    mics8 = geometry.circular_array(8, 0.15)
+    cfg = PipelineConfig(phat=True)
+    frames = chip_smoke.noisy(chip_smoke.advanced_two_sources(mics8)[0],
+                              chip_smoke.EXTRACT_MVDR_FRAMES,
+                              chip_smoke.SEED + 63)
+    delays = beamform.source_delays(
+        torch.tensor([0.9, 0.3], device="cuda").expand(frames.shape[0], 2),
+        mics8, cfg)
+    profile_path("extract_mvdr", lambda: beamform.extract_mvdr(
+        frames, delays, cfg), watch=("getrf", "getrs", "elementwise", "fft"))
+    del frames
+    torch.cuda.empty_cache()
+    wet = torch.from_numpy(chip_smoke.wpe_example_scene().astype(
+        np.float32)).cuda()
+    batch = wet.expand(chip_smoke.WPE_BATCH, *wet.shape).contiguous()
+    profile_path("wpe_block", lambda: dereverb.wpe(batch,
+                                                   **chip_smoke.WPE_KW),
+                 watch=("gemm", "getrf", "getrs", "elementwise", "fft"))
 
 
 def profile_path(name, fn, watch=()):

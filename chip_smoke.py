@@ -57,7 +57,17 @@ counting, MVDR, frequency SRP, CSSM, azimuth MUSIC) and
 ``register_arrays``, each against the planted truth, the port's CPU path
 and its launch table (the GCC kernel without peaks once a call on the
 row-2 paths), and timed; row 2 at these shapes against float64 and its
-bound.
+bound.  Phase 14, the reverberant-room slice at its published widths:
+``room.simulate_batch`` (1,024 sources, ``max_order=6``), block WPE (64
+recordings of 4 x 16,384 samples and one of 2^21), ``StreamingDereverb``
+at 1 / 256 / 1,024 streams feeding ``StreamingLocalizer.step_many``,
+``Localizer.extract`` (DAS and MVDR on the 8-mic two-source scene, rows 1
+and 5 once a call), ``StreamingExtractor.step_many`` at 1,024 streams,
+the two-rate localizer's event audio at 1,024 streams and
+``ReflectorMapper`` (echo delays at 16,384 frames, the map of 64 events);
+each against the JAX tests' bounds and the port's CPU path on a cut
+(block WPE against float64), its launches counted, timed, its peak
+device memory recorded.
 
     python3 chip_smoke.py            # one CUDA card; exits non-zero on any failure
 
@@ -1018,7 +1028,18 @@ PATH_KERNELS = {"bandcrop_800_6000": ("gcc_kernel", "gn_kernel"),
                 **{name: () for name in (
                     "doa_smp_line8", "music_8mic", "music_8mic_auto",
                     "mvdr_8mic", "freq_8mic", "music_coherent", "doa_music",
-                    "register")}}
+                    "register")},
+                # phase 14: rows 1 and 5 once a Localizer call, the scan
+                # once a stream step, no kernel elsewhere
+                **{name: ("gcc_kernel", "gn_kernel") for name in (
+                    "extract_8mic_das", "extract_8mic_mvdr",
+                    "mapping_6mic")},
+                **{name: ("detector_scan_kernel",) for name in (
+                    "dereverb_stream", "tworate_audio")},
+                **{name: () for name in (
+                    "room_batch", "wpe_block", "wpe_long",
+                    "extractor_stream_das", "extractor_stream_mvdr",
+                    "mapping_echo")}}
 
 
 def launch_counts():
@@ -3421,15 +3442,10 @@ def row2_at_shape(card, results, name, flat, window, pairs, cfg,
         ms=k_ms, plain_ms=p_ms, **entry, **bnd)
 
 
-def expect_counts(name, kernels) -> str:
+def expect_counts(name, kernels, phase="13 estimators") -> str:
     """Fail unless this call's launches equal the table: each of
     ``kernels`` once, every other kernel never."""
-    counts = launch_counts()
-    want = {k: int(k in kernels) for k in counts}
-    if counts != want:
-        fail("13 estimators", f"{name}: launches {counts}, expected "
-             f"{ {k: v for k, v in want.items() if v} or 'none'}")
-    return ", ".join(f"{k} x1" for k in kernels) or "no kernel"
+    return count_only(phase, name, dict.fromkeys(kernels, 1))
 
 
 def host_reads(fn):
@@ -3730,6 +3746,859 @@ def phase_estimators(card, results):
         fail(phase, f"result checks failed: {failures}")
 
 
+ROOM_SOURCES = 1024  # simulate_batch: sources of 1,024 samples a call
+ROOM_SHIFT = (3.0, 2.5, 0.3)  # examples/advanced.py: the array in the room
+ROOM_CPU_SOURCES = 8  # of them held to the port's CPU path
+ROOM_NUMPY_SOURCES = 4  # and to the float64 numpy simulate
+WPE_BATCH = 64  # wpe: recordings of 4 x WPE_SAMPLES a call
+WPE_SAMPLES = 16384
+WPE_LONG_SAMPLES = 1 << 21  # and one recording of 42 s
+WPE_KW = dict(frame=1024, hop=256, taps=10, delay=4)  # iters: the default 3
+WPE_TAIL = slice(6000, 16000)  # the example's reverberant tail
+# the JAX package's float32 cut of the example's tail (tests/witness_wpe.py)
+WPE_TAIL_FLOOR_DB = 20.60
+DVB_COUNTS = (256, 1024)  # streams a timed StreamingDereverb.step_many
+DVB_STREAMS = 1024  # dereverbed streams fed to the StreamingLocalizer
+DVB_CPU_STREAMS = 8  # of them held to the port's CPU path
+DVB_CPU_CHUNKS = 4  # chunks held to it: 8 RLS frames
+DVB_DRIFT_CHUNKS = 200  # one stream, card and CPU: the RLS drift
+EXTRACT_DAS_FRAMES = 16384  # Localizer.extract, xy omitted
+EXTRACT_MVDR_FRAMES = 4096
+EXTRACT_CPU_FRAMES = 8
+EXTRACTOR_STREAMS = 1024  # StreamingExtractor.step_many
+EXTRACTOR_CPU_STREAMS = 4
+EXTRACTOR_SAMPLES = 8192  # examples/production.py's stream
+TWORATE_STREAMS = 1024  # TwoRateStreamingLocalizer with_audio
+TWORATE_BURST_EVERY = 16
+TWORATE_CPU_STREAMS = 64
+MAP_FRAMES = 16384  # ReflectorMapper.echo_delays
+MAP_EVENTS = 64  # ReflectorMapper.map
+# the JAX tests' two-wall room (tests/test_mapping.py:124-136): walls at
+# 1.2 m along +x and 1.5 m along -y of the array
+MAP_CENTER = (4.8, 1.5)
+MAP_ABSORPTION = (0.99, 0.02, 0.02, 0.99, 0.99, 0.99)
+MAP_TEST_SOURCES = ((0.3, 0.2), (0.1, -0.4), (-0.4, 0.35))
+MAP_WALLS = (((1.0, 0.0), 1.2, 0.2), ((0.0, -1.0), 1.5, 0.2))
+
+
+def time_ms(fn):
+    """(median, q1, q3) ms a call of ``fn()`` over ``TRIALS`` calls: the
+    bench tool's host clock around a synchronised device."""
+    from audio_triangulation_tpu_torch.tools.bench import frames_per_s
+
+    med, q1, q3 = frames_per_s(fn, 1, TRIALS, "cuda")
+    return 1e3 / med, 1e3 / q3, 1e3 / q1
+
+
+def ms_text(t) -> str:
+    return f"{t[0]:.4f} ms a call (IQR {t[1]:.4f}-{t[2]:.4f}, {TRIALS} trials)"
+
+
+def peak_gb(fn):
+    """(fn(), its peak device memory in GB above what was allocated
+    before)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def rel_gap(got, ref) -> float:
+    """max |got - ref| over ref's largest magnitude, on the CPU."""
+    import torch
+
+    ref = torch.as_tensor(ref).cpu().to(torch.float64)
+    got = torch.as_tensor(got).cpu().to(torch.float64)
+    return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def count_only(phase, name, want) -> str:
+    """Fail unless this run's launches equal ``want`` ({kernel: n}, every
+    other kernel 0)."""
+    counts = launch_counts()
+    full = {k: want.get(k, 0) for k in counts}
+    if counts != full:
+        fail(phase, f"{name}: launches {counts}, expected "
+             f"{ {k: v for k, v in full.items() if v} or 'none'}")
+    return ", ".join(f"{k} x{v}" for k, v in want.items()) or "no kernel"
+
+
+def wpe_example_scene():
+    """[4, 16,384] float64: ``examples/advanced.py``'s WPE scene: a tiled
+    chirp at (4.2, 3.4, 1.2) in the 6 x 5 x 3 m room of RT60 0.45 s
+    (``max_order=6``), 4 mics of a 0.25 m circle at 1.2 m, noise 0.002."""
+    from audio_triangulation_tpu_torch import geometry
+    from audio_triangulation_tpu_torch.utils import room, synth
+
+    size = (6.0, 5.0, 3.0)
+    rm = room.ShoeboxRoom(size=size, absorption=room.absorption_for_rt60(
+        size, 0.45), max_order=6)
+    return room.simulate(np.array([4.2, 3.4, 1.2]), wpe_mics3(), rm,
+                         n=WPE_SAMPLES, signal=np.tile(
+                             synth.chirp_burst(4096, 50_000.0), 4),
+                         noise_rms=0.002)[0]
+
+
+def wpe_mics3():
+    from audio_triangulation_tpu_torch import geometry
+
+    mic3 = np.zeros((4, 3), np.float32)
+    mic3[:, :2] = np.asarray(geometry.circular_array(4, 0.25)) + [3.0, 2.5]
+    mic3[:, 2] = 1.2
+    return mic3
+
+
+def tail_cut_db(wet, dry) -> float:
+    """The example's print: how far WPE cut the reverberant tail, in dB."""
+    wet, dry = np.asarray(wet, np.float64), np.asarray(dry, np.float64)
+    return float(-10 * np.log10(np.mean(dry[..., WPE_TAIL] ** 2)
+                                / np.mean(wet[..., WPE_TAIL] ** 2)))
+
+
+def reverb_room(phase, card, results, failures):
+    """``room.simulate_batch``: 1,024 sources in the example's room."""
+    import torch
+    from audio_triangulation_tpu_torch import geometry
+    from audio_triangulation_tpu_torch.utils import room, synth
+
+    mic3 = np.zeros((4, 3))
+    mic3[:, :2] = geometry.square_array(0.3)
+    mic3 += ROOM_SHIFT
+    rm = room.ShoeboxRoom(size=(6.0, 5.0, 3.0), absorption=0.3, max_order=6)
+    rng = np.random.default_rng(SEED + 60)
+    src = np.concatenate([rng.uniform(-1.0, 1.0, (ROOM_SOURCES, 2)),
+                          np.full((ROOM_SOURCES, 1), 1.2)], 1) + ROOM_SHIFT
+    sig = synth.colored_burst(1024, 50_000.0, seed=5)
+
+    def run():
+        return room.simulate_batch(src, mic3, rm, signal=sig, device="cuda")
+
+    out, peak = peak_gb(lambda: counted("room_batch", results, run))
+    calls = count_only(phase, "room_batch", {})
+    k = room.image_sources(src[0], rm)[0].shape[0]
+    per = room.slice_sources(4, k, 513)
+    ref64 = np.concatenate([room.simulate(s, mic3, rm, signal=sig)
+                            for s in src[:ROOM_NUMPY_SOURCES]])
+    e64 = float(np.abs(out[:ROOM_NUMPY_SOURCES].cpu().numpy() - ref64).max())
+    cpu = room.simulate_batch(src[:ROOM_CPU_SOURCES], mic3, rm, signal=sig,
+                              device="cpu")
+    ecpu = rel_gap(out[:ROOM_CPU_SOURCES], cpu)
+    finite = bool(torch.isfinite(out).all()) and out.shape == (
+        ROOM_SOURCES, 4, 1024)
+    t = time_ms(run)
+    say(phase, f"room_batch: {ROOM_SOURCES} sources x 4 mics x 1,024, "
+        f"{k} images, {per} sources a slice ({-(-ROOM_SOURCES // per)} "
+        f"slice(s)): {calls}; vs float64 simulate on "
+        f"{ROOM_NUMPY_SOURCES}: {e64:.2e} (JAX test bound 2e-4); vs CPU path "
+        f"on {ROOM_CPU_SOURCES}: {ecpu:.2e} of scale (1e-4); {ms_text(t)}; "
+        f"peak {peak:.3f} GB ({card})")
+    if not (finite and e64 < 2e-4 and ecpu <= 1e-4):
+        failures.append("room_batch")
+
+
+def reverb_wpe(phase, card, results, failures):
+    """Block WPE at the example's configuration: 64 recordings of 16,384
+    samples a call, and one of 2^21."""
+    import torch
+    from audio_triangulation_tpu_torch.ops import dereverb
+    from audio_triangulation_tpu_torch.utils import room, synth
+
+    wet = wpe_example_scene()
+    wet_t = torch.from_numpy(wet.astype(np.float32)).cuda()
+    dry = dereverb.wpe(wet_t, **WPE_KW)
+    cut = tail_cut_db(wet, dry.cpu().numpy())
+    # placed in float64: the port's CPU float32 and the card against the
+    # CPU float64 recursion (float32 block WPE is unstable here)
+    cpu32 = dereverb.wpe(wet_t.cpu(), **WPE_KW)
+    f64 = dereverb.wpe(torch.from_numpy(wet), **WPE_KW)
+    g_card, g_cpu = rel_gap(dry, f64), rel_gap(cpu32, f64)
+    placed = g_card <= 4.0 * g_cpu + 1e-5
+    say(phase, f"wpe_block: the example's scene: tail cut {cut:.2f} dB on "
+        f"the card (floor {WPE_TAIL_FLOOR_DB} dB: the JAX package's float32;"
+        f" port CPU float32 {tail_cut_db(wet, cpu32.numpy()):.2f}, float64 "
+        f"{tail_cut_db(wet, f64.numpy()):.2f}); from float64, of scale: card "
+        f"{g_card:.3e}, CPU float32 {g_cpu:.3e}, card vs CPU "
+        f"{rel_gap(dry, cpu32):.3e} (the card within 4x the CPU's: "
+        f"{placed})")
+    if not (cut >= WPE_TAIL_FLOOR_DB and placed
+            and bool(torch.isfinite(dry).all())):
+        failures.append("wpe_block example")
+    # 64 recordings: the example's chirp from 64 points near its source
+    rng = np.random.default_rng(SEED + 61)
+    src = np.array([4.2, 3.4, 1.2]) + np.concatenate(
+        [rng.uniform(-0.4, 0.4, (WPE_BATCH, 2)), np.zeros((WPE_BATCH, 1))],
+        1)
+    size = (6.0, 5.0, 3.0)
+    rm = room.ShoeboxRoom(size=size, absorption=room.absorption_for_rt60(
+        size, 0.45), max_order=6)
+    batch = room.simulate_batch(src, wpe_mics3(), rm, n=WPE_SAMPLES,
+                                signal=np.tile(synth.chirp_burst(
+                                    4096, 50_000.0), 4), device="cuda")
+    batch += torch.from_numpy(rng.normal(0.0, 0.002, batch.shape).astype(
+        np.float32)).cuda()
+    out, peak = peak_gb(lambda: counted(
+        "wpe_block", results, lambda: dereverb.wpe(batch, **WPE_KW)))
+    calls = count_only(phase, "wpe_block", {})
+    cuts = [tail_cut_db(w, d) for w, d in zip(batch.cpu().numpy(),
+                                              out.cpu().numpy())]
+    t = time_ms(lambda: dereverb.wpe(batch, **WPE_KW))
+    say(phase, f"wpe_block: {WPE_BATCH} x 4 x {WPE_SAMPLES} (61 frames, 513"
+        f" bins, MK = 40, 3 passes): {calls}; tail cut median "
+        f"{np.median(cuts):.2f} dB (min {min(cuts):.2f}); {ms_text(t)}; "
+        f"peak {peak:.3f} GB ({card})")
+    if not (bool(torch.isfinite(out).all()) and min(cuts) > 0.0):
+        failures.append("wpe_block batch")
+    del batch, out
+    reps = WPE_LONG_SAMPLES // WPE_SAMPLES
+    long = wet_t.repeat(1, reps)  # the chirp train is periodic: exact
+    long += torch.from_numpy(rng.normal(0.0, 0.002, long.shape).astype(
+        np.float32)).cuda()
+    out, peak = peak_gb(lambda: counted(
+        "wpe_long", results, lambda: dereverb.wpe(long, **WPE_KW)))
+    calls = count_only(phase, "wpe_long", {})
+    t = time_ms(lambda: dereverb.wpe(long, **WPE_KW))
+    say(phase, f"wpe_long: 4 x {WPE_LONG_SAMPLES} ({WPE_LONG_SAMPLES / 5e4:.1f}"
+        f" s, {(WPE_LONG_SAMPLES - 1024) // 256 + 1} frames): {calls}; tail "
+        f"cut of its first period "
+        f"{tail_cut_db(long[:, :WPE_SAMPLES].cpu(), out[:, :WPE_SAMPLES].cpu()):.2f}"
+        f" dB; {ms_text(t)}; peak {peak:.3f} GB ({card})")
+    if not bool(torch.isfinite(out).all()):
+        failures.append("wpe_long")
+
+
+def carried(step, states):
+    """A call that steps ``states`` on: ``step(states) -> (states, out)``."""
+    box = [states]
+
+    def call():
+        box[0], out = step(box[0])
+        return out
+
+    return call
+
+
+def reverb_dereverb_stream(phase, card, results, failures):
+    """``StreamingDereverb`` (the CLI's ``stream --dereverb``) on the
+    reference array, its chunks fed to ``StreamingLocalizer.step_many``."""
+    import torch
+    from audio_triangulation_tpu_torch import (StreamConfig,
+                                               StreamingLocalizer, geometry)
+    from audio_triangulation_tpu_torch.ops import dereverb
+    from audio_triangulation_tpu_torch.utils import convert
+
+    c = STREAM_CHUNK
+    sd = dereverb.StreamingDereverb(3, frame=1024, hop=256, device="cuda")
+    cpu_sd = dereverb.StreamingDereverb(3, frame=1024, hop=256, device="cpu")
+    x, planted, xy_true, _ = stream_scene(DVB_STREAMS, SEED + 62)
+    # samples about the ADC's midpoint, led by two chunks of idle samples:
+    # the dereverberator's first latency_samples out are zeros, and the
+    # localizer starts on its third chunk out, past that edge
+    lead = np.random.default_rng(SEED + 62).integers(
+        127, 130, (DVB_STREAMS, 3, 2 * c)).astype(np.float32)
+    x = torch.from_numpy(np.concatenate([lead, x], -1) - 128.0).cuda()
+    n_steps = x.shape[-1] // c
+    # (1) the JAX tests' properties: the stream equals one long wpe_rls over
+    # the lead-padded samples (1e-6 of scale), step_many equals a loop of
+    # step (1e-6)
+    one = x[0, :, :16 * c]
+    st, ys = sd.init_state(), []
+    for i in range(16):
+        st, y = sd.step(st, one[:, i * c:(i + 1) * c])
+        ys.append(y)
+    lat = sd.latency_samples
+    full, _ = dereverb.wpe_rls(torch.nn.functional.pad(one, (lat, 0)),
+                               frame=1024, hop=256, taps=10, delay=4,
+                               alpha=0.998)
+    span = 16 * c - 1024  # the JAX test's span: all but the last frame
+    e_oneshot = rel_gap(torch.cat(ys, -1)[:, lat:lat + span],
+                        full[:, lat:lat + span])
+    sts = sd.init_states(4)
+    sts, ym = sd.step_many(sts, x[:4, :, :c])
+    sts, ym = sd.step_many(sts, x[:4, :, c:2 * c])
+    e_loop = 0.0
+    for i in range(4):
+        s1, _ = sd.step(sd.init_state(), x[i, :, :c])
+        s1, y1 = sd.step(s1, x[i, :, c:2 * c])
+        e_loop = max(e_loop, float((ym[i] - y1).abs().max()))
+    # (2) the CPU path on a cut: 8 streams x 4 chunks (8 RLS frames)
+    g_st, c_st = sd.init_states(DVB_CPU_STREAMS), cpu_sd.init_states(
+        DVB_CPU_STREAMS)
+    gys, cys = [], []
+    for i in range(DVB_CPU_CHUNKS):
+        chunk = x[:DVB_CPU_STREAMS, :, i * c:(i + 1) * c]
+        g_st, gy = sd.step_many(g_st, chunk)
+        c_st, cy = cpu_sd.step_many(c_st, chunk.cpu())
+        gys.append(gy)
+        cys.append(cy)
+    e_cpu = rel_gap(torch.cat(gys, -1), torch.cat(cys, -1))
+    ok = e_oneshot <= 1e-6 and e_loop <= 1e-6 and e_cpu <= 1e-4
+    # (3) the RLS drift over a long run, placed in float64: one stream
+    # (its 24 chunks in a cycle) through wpe_rls, the stream's recursion
+    kw = dict(frame=1024, hop=256, taps=10, delay=4, alpha=0.998)
+    src = x[planted[0]].repeat(1, -(-DVB_DRIFT_CHUNKS // n_steps))[
+        :, :DVB_DRIFT_CHUNKS * c]
+    yg, sg = dereverb.wpe_rls(src, **kw)
+    yc, _ = dereverb.wpe_rls(src.cpu(), **kw)
+    y64, _ = dereverb.wpe_rls(src.cpu().double(), **kw)
+    scale = float(y64.abs().max())
+    drift = []
+    for n in sorted({4, 25, 100, DVB_DRIFT_CHUNKS}):
+        if n > DVB_DRIFT_CHUNKS:
+            continue
+        seg = slice((n - 1) * c, n * c)
+        drift.append(f"{n}: " + " / ".join(
+            f"{float((a[:, seg].cpu().double() - b[:, seg]).abs().max()) / scale:.2e}"
+            for a, b in ((yg, yc), (yg, y64), (yc, y64))))
+    kinv = convert.dereverb_state_to_numpy(
+        dereverb.DereverbState(wpe=sg, in_tail=src, out_tail=src))[
+            "wpe"]["kinv"]
+    herm = float(np.abs(kinv - np.conj(np.swapaxes(kinv, -1, -2))).max()
+                 / np.abs(kinv).max())
+    say(phase, f"dereverb_stream: vs one long wpe_rls {e_oneshot:.2e} of "
+        f"scale (JAX test bound 1e-6); step_many vs step {e_loop:.2e} "
+        f"(1e-6); vs CPU path on {DVB_CPU_STREAMS} streams x "
+        f"{DVB_CPU_CHUNKS} chunks {e_cpu:.2e} of scale (1e-4); the RLS "
+        f"drift on one stream, in chunk n, card vs CPU / card vs float64 / "
+        f"CPU vs float64, of scale: " + ", ".join(drift) + f"; the card's "
+        f"kinv's departure from Hermitian after {DVB_DRIFT_CHUNKS} chunks "
+        f"{herm:.2e} of scale")
+    if not ok:
+        failures.append("dereverb_stream checks")
+    # (4) dereverbed chunks through the streaming localizer, launches counted
+    sl = StreamingLocalizer.create(geometry.reference_array(),
+                                   stream=StreamConfig(chunk_size=c),
+                                   device="cuda")
+
+    def run():
+        dst, lst, events = sd.init_states(DVB_STREAMS), sl.init_states(
+            DVB_STREAMS), []
+        for i in range(n_steps):
+            dst, y = sd.step_many(dst, x[:, :, i * c:(i + 1) * c])
+            if i >= 2:
+                lst, out = sl.step_many(lst, y)
+                events.append((out["event"], out["xy"]))
+        return events
+
+    events, peak = peak_gb(lambda: counted("dereverb_stream", results, run))
+    calls = count_only(phase, "dereverb_stream",
+                       {"detector_scan_kernel": n_steps - 2})
+    ev = torch.stack([e for e, _ in events]).cpu().numpy()  # [T, S]
+    xy = torch.stack([p for _, p in events]).cpu().numpy()  # [T, S, 2]
+    # each burst's event: the first in the chunks where the burst (at
+    # `start` in the scene, `start + lat` in the localizer's input) can
+    # trigger; the RLS's output noise grows on idle input (the reference's
+    # too: tests/witness_wpe.py), so idle streams may trigger elsewhere
+    starts = np.asarray(STREAM_STARTS)[np.arange(planted.size)
+                                       % len(STREAM_STARTS)]
+    found, err = 0, []
+    for s_idx, at, truth in zip(planted, starts, xy_true):
+        lo = (at + lat) // c
+        hits = np.nonzero(ev[lo:lo + 4, s_idx])[0]
+        if hits.size:
+            found += 1
+            err.append(np.linalg.norm(xy[lo + hits[0], s_idx] - truth))
+    quiet = np.setdiff1d(np.arange(DVB_STREAMS), planted)
+    med = float(np.median(err)) if err else float("nan")
+    say(phase, f"dereverb_stream -> StreamingLocalizer: {DVB_STREAMS} "
+        f"streams x {n_steps} chunks of {c} (the localizer on the last "
+        f"{n_steps - 2}): {calls}; the burst's event on {found} of "
+        f"{planted.size} planted streams, median |xy - truth| "
+        f"{med * 100:.4f} cm (bound "
+        f"{STREAM_MEDIAN_BOUND_M['default'] * 100:.1f} cm); events on {int(ev[:, quiet].any(0).sum())} of {quiet.size} "
+        f"idle streams; peak {peak:.3f} GB")
+    if not (found == planted.size
+            and med < STREAM_MEDIAN_BOUND_M["default"]):
+        failures.append("dereverb_stream events")
+    st1 = sd.init_state()
+    t1 = time_ms(carried(lambda s: sd.step(s, x[0, :, :c]), st1))
+    line = [f"step on 1 stream {ms_text(t1)}"]
+    for n in DVB_COUNTS:
+        t = time_ms(carried(lambda s: sd.step_many(s, x[:n, :, :c]),
+                            sd.init_states(n)))
+        line.append(f"step_many at {n} streams {ms_text(t)}, "
+                    f"{n * 10.24 / t[0]:.0f} streams in real time")
+    say(phase, "dereverb_stream: " + "; ".join(line) + f" ({card})")
+
+
+SOURCE1_XY = (0.9, 0.3)  # examples/advanced.py's two sources
+SOURCE2_XY = (-0.7, -0.6)
+
+
+def advanced_two_sources(mics8):
+    """``examples/advanced.py:36-42``: source 1 (a chirp) and source 2 (a
+    2-9 kHz chirp) on the 1.2 m sphere: (both [M, 1,024] f32, source 1
+    alone, source 1's emitted burst)."""
+    from audio_triangulation_tpu_torch.utils import synth
+
+    sig2 = synth.chirp_burst(1024, 50_000.0, f0=2000, f1=9000, center=0.45)
+    one = synth.synth_scene(place(SOURCE1_XY), mics8, seed=2)[0]
+    mixed = one + synth.synth_scene(place(SOURCE2_XY), mics8, signal=sig2,
+                                    seed=3)[0]
+    return (mixed.astype(np.float32), one.astype(np.float32),
+            synth.chirp_burst(1024, 50_000.0))
+
+
+def corr_peak(a, b) -> float:
+    """tests/test_beamform.py's alignment-free similarity."""
+    a, b = a - a.mean(), b - b.mean()
+    c = np.correlate(a, b, mode="full")
+    return float(np.max(np.abs(c)) / (np.linalg.norm(a) * np.linalg.norm(b)
+                                       + 1e-12))
+
+
+def loc_vs_cpu(loc, cpu_loc, frames) -> tuple[str, bool]:
+    """Rows 1 and 5 on the card against their plain versions (the CPU
+    path) on the same frames: xy within 2e-4 m, tdoa within 1e-3 samples,
+    best shifts equal."""
+    import torch
+
+    out, ref = loc(frames), cpu_loc(frames.cpu())
+    dxy = float((out["xy"].cpu() - ref["xy"]).abs().max())
+    dt = float((out["tdoa_samples"].cpu() - ref["tdoa_samples"]).abs().max())
+    eq = bool(torch.equal(out["best_shift"].cpu(), ref["best_shift"]))
+    return (f"rows 1 and 5 vs their plain versions on {frames.shape[0]} "
+            f"frames: xy {dxy:.2e} m, tdoa {dt:.2e} samples, shifts equal "
+            f"{eq}", dxy <= 2e-4 and dt <= 1e-3 and eq)
+
+
+def route_text(loc) -> str:
+    from audio_triangulation_tpu_torch.models.localizer import kernel_route
+
+    return (f"route: GCC kernel {kernel_route(loc.pipeline)}, GN kernel "
+            f"{loc.gn is not None}")
+
+
+def reverb_extract(phase, card, results, failures):
+    """``Localizer.extract`` with ``xy`` omitted on the 8-mic circle."""
+    import torch
+    from audio_triangulation_tpu_torch import (Localizer, PipelineConfig,
+                                               geometry)
+    from audio_triangulation_tpu_torch.ops import beamform
+
+    mics8 = geometry.circular_array(8, 0.15)
+    cfg = PipelineConfig(phat=True)
+    loc = Localizer.create(mics8, cfg, device="cuda")
+    cpu_loc = Localizer.create(mics8, cfg, device="cpu")
+    mixed, source1, sig1 = advanced_two_sources(mics8)
+    frames = noisy(mixed, EXTRACT_DAS_FRAMES, SEED + 63)
+    text, ok = loc_vs_cpu(loc, cpu_loc, frames[:256])
+    say(phase, f"extract_8mic: {route_text(loc)}; {text}")
+    head = frames[:EXTRACT_CPU_FRAMES]
+    xy_head = loc(head)["xy"]
+    fid = {}
+    for method, n in (("das", EXTRACT_DAS_FRAMES),
+                      ("mvdr", EXTRACT_MVDR_FRAMES)):
+        name = f"extract_8mic_{method}"
+        f = frames[:n]
+        out, peak = peak_gb(lambda: counted(
+            name, results, lambda: loc.extract(f, method=method)))
+        calls = expect_counts(name, ("gcc_kernel", "gn_kernel"), phase)
+        fid[method] = np.median([corr_peak(y, sig1)
+                                 for y in out[:64].cpu().numpy()])
+        # the beamformer alone against the CPU path: the card's positions
+        # given to both
+        e_cpu = rel_gap(loc.extract(head, xy_head, method=method),
+                        cpu_loc.extract(head.cpu(), xy_head.cpu(),
+                                        method=method))
+        t = time_ms(lambda: loc.extract(f, method=method))
+        say(phase, f"{name}: {n} frames of 8 x 1,024, xy omitted: {calls};"
+            f" fidelity to source 1's burst, median of 64 frames "
+            f"{fid[method]:.3f}; at the same positions vs CPU path on "
+            f"{EXTRACT_CPU_FRAMES} frames {e_cpu:.2e} of scale (1e-4); "
+            f"{ms_text(t)}; peak {peak:.3f} GB ({card})")
+        ok &= e_cpu <= 1e-4 and bool(torch.isfinite(out).all())
+        del out
+    # tests/test_beamform.py's fidelity and suppression, steered at source
+    # 1's position as the test steers: MVDR's fidelity over 0.6, its
+    # residual after the target's projection under 0.6 of DAS's
+    f = frames[:64]
+    xy1 = torch.tensor(SOURCE1_XY, device="cuda").expand(64, 2)
+    das = loc.extract(f, xy1).cpu().numpy()
+    mv = loc.extract(f, xy1, method="mvdr").cpu().numpy()
+    delays = beamform.source_delays(xy1[:1], loc.mic_positions, cfg,
+                                    height=loc.grid.height_m)
+    s1 = torch.from_numpy(source1).cuda()
+    ref = beamform.extract_das(s1, delays[0], cfg).cpu().numpy()
+
+    def resid(v):
+        return float(np.var(v - ref * (np.dot(v, ref) / np.dot(ref, ref))))
+
+    c_mv = float(np.median([corr_peak(y, sig1) for y in mv]))
+    c_das = float(np.median([corr_peak(y, sig1) for y in das]))
+    ratio = float(np.median([resid(a) / resid(b) for a, b in zip(mv, das)]))
+    xy_med = loc(f)["xy"].median(0).values.cpu().numpy()
+    say(phase, f"extract_8mic: steered at source 1 {SOURCE1_XY}, medians "
+        f"of 64 frames: fidelity mvdr {c_mv:.3f}, das {c_das:.3f}; source "
+        f"2's residual, mvdr / das {ratio:.3f} (bounds 0.6, 0.6); with xy "
+        f"omitted the localizer puts the two-source frames at "
+        f"{np.round(xy_med, 3)} (median), between the sources")
+    if not (ok and c_mv > 0.6 and ratio < 0.6):
+        failures.append("extract_8mic")
+
+
+def production_stream():
+    """``examples/production.py:117-145``: band-limited noise (300-8,000
+    Hz) from (0.5, 0.4, 1.0) at the 4-mic square, fractional delays;
+    (source [T], clean [4, T]) float32."""
+    from audio_triangulation_tpu_torch import geometry
+
+    rng = np.random.default_rng(SEED + 64)
+    t_len, fs = EXTRACTOR_SAMPLES, 50_000.0
+    sig = rng.standard_normal(t_len)
+    spec = np.fft.rfft(sig)
+    f_hz = np.fft.rfftfreq(t_len, 1 / fs)
+    spec[(f_hz < 300) | (f_hz > 8000)] = 0
+    sig = np.fft.irfft(spec, t_len).astype(np.float32)
+    mic3 = np.zeros((4, 3), np.float32)
+    mic3[:, :2] = geometry.square_array(0.3)
+    d = np.linalg.norm(np.array([0.5, 0.4, 1.0]) - mic3, axis=-1)
+    tau = (d - d.mean()) / 343.0 * fs
+    clean = np.stack([np.fft.irfft(np.fft.rfft(sig) * np.exp(
+        -2j * np.pi * np.fft.rfftfreq(t_len) * tau[m]), t_len)
+        for m in range(4)]).astype(np.float32)
+    return sig, clean
+
+
+def snr_db(ref, x) -> float:
+    """examples/production.py's scale-invariant SNR of x against ref."""
+    g = np.dot(x, ref) / np.dot(ref, ref)
+    e = x - g * ref
+    return float(10 * np.log10(np.dot(x, x) / np.dot(e, e)))
+
+
+def interferer_stream():
+    """tests/test_extraction_streaming.py's MVDR scene: band-limited noise
+    (300-8,000 Hz) from (0.5, 0.4, 1.0) at the 4-mic square, three times
+    as loud an interferer from (-0.6, -0.5, 1.0), noise 0.01; (source
+    [T], stream [4, T]) float32, T = 8,192."""
+    from audio_triangulation_tpu_torch import geometry
+
+    t_len, fs = 8192, 50_000.0
+    mic3 = np.zeros((4, 3), np.float32)
+    mic3[:, :2] = geometry.square_array(0.3)
+    out, sigs = np.zeros((4, t_len), np.float32), []
+    for seed, xy, gain in ((4, (0.5, 0.4), 1.0), (5, (-0.6, -0.5), 3.0)):
+        rng = np.random.default_rng(seed)
+        sig = rng.standard_normal(t_len).astype(np.float32)
+        spec = np.fft.rfft(sig)
+        f = np.fft.rfftfreq(t_len, 1 / fs)
+        spec[(f < 300) | (f > 8000)] = 0
+        sig = np.fft.irfft(spec, t_len).astype(np.float32)
+        d = np.linalg.norm(np.array([*xy, 1.0], np.float32) - mic3, axis=-1)
+        tau = (d - d.mean()) / 343.0 * fs
+        for m in range(4):
+            out[m] += gain * np.fft.irfft(np.fft.rfft(sig) * np.exp(
+                -2j * np.pi * np.fft.rfftfreq(t_len) * tau[m]), t_len)
+        sigs.append(sig)
+    out += 0.01 * np.random.default_rng(6).standard_normal(
+        out.shape).astype(np.float32)
+    return sigs[0], out
+
+
+def reverb_extractor(phase, card, results, failures):
+    """``StreamingExtractor.step_many`` at 1,024 streams, DAS and MVDR."""
+    import torch
+    from audio_triangulation_tpu_torch import geometry
+    from audio_triangulation_tpu_torch.models.extraction import (
+        StreamingExtractor)
+    from audio_triangulation_tpu_torch.ops import beamform
+
+    mics4 = geometry.square_array(0.3)
+    sig, clean = production_stream()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 65)
+    streams = torch.from_numpy(clean).cuda() + 0.3 * torch.randn(
+        (EXTRACTOR_STREAMS, *clean.shape), device="cuda", generator=g)
+    c = STREAM_CHUNK
+    streams = torch.nn.functional.pad(streams, (0, c))  # flush the latency
+    xys = torch.tensor([0.5, 0.4], device="cuda").expand(
+        EXTRACTOR_STREAMS, 2)
+    in_snr = 10 * np.log10(np.var(clean[0]) / 0.09)
+    sl = slice(1024, EXTRACTOR_SAMPLES - 1024)
+    i_sig, i_stream = interferer_stream()
+    i_snr = {}
+    for method in ("das", "mvdr"):
+        name = f"extractor_stream_{method}"
+        kw = dict(height=1.0, constrain_sphere=False, method=method)
+        ex = StreamingExtractor.create(mics4, device="cuda", **kw)
+        cpu_ex = StreamingExtractor.create(mics4, device="cpu", **kw)
+
+        def run():
+            st, ys = ex.init_states(EXTRACTOR_STREAMS), []
+            for i in range(streams.shape[-1] // c):
+                st, y = ex.step_many(st, streams[..., i * c:(i + 1) * c], xys)
+                ys.append(y)
+            return torch.cat(ys, -1)[:, ex.latency_samples:][
+                :, :EXTRACTOR_SAMPLES]
+
+        out, peak = peak_gb(lambda: counted(name, results, run))
+        calls = count_only(phase, name, {})
+        n = EXTRACTOR_CPU_STREAMS
+        st, ys = cpu_ex.init_states(n), []
+        for i in range(streams.shape[-1] // c):
+            st, y = cpu_ex.step_many(
+                st, streams[:n, :, i * c:(i + 1) * c].cpu(), xys[:n].cpu())
+            ys.append(y)
+        ref = torch.cat(ys, -1)[:, ex.latency_samples:][:, :EXTRACTOR_SAMPLES]
+        e_cpu = rel_gap(out[:n], ref)
+        # each device rounds the mic distances (~1.1 m) to its own last
+        # bit; centred, that moves a delay by ~1e-10 s and the phase of the
+        # top bins by up to ~5e-5 rad: hence 1e-4 of scale, as extract_8mic
+        tgt = [beamform.source_delays(xys[:1].to(dev), mics4, ex.pipeline,
+                                      height=1.0, constrain_sphere=False)
+               for dev in ("cuda", "cpu")]
+        e_delay = float((tgt[0].cpu() - tgt[1]).abs().max())
+        gains = [snr_db(sig[sl], y[sl]) - in_snr
+                 for y in out[:64].cpu().numpy()]
+        t = time_ms(carried(lambda s: ex.step_many(s, streams[..., :c], xys),
+                            ex.init_states(EXTRACTOR_STREAMS)))
+        i_snr[method] = snr_db(i_sig[sl], ex.run(i_stream, np.array(
+            [0.5, 0.4], np.float32), chunk_size=c)[sl])
+        say(phase, f"{name}: {EXTRACTOR_STREAMS} streams x 4 mics, chunks "
+            f"of {c}: {calls}; the example's scene: SNR gain over one mic's "
+            f"{in_snr:.2f} dB: median {np.median(gains):.2f} dB on 64 "
+            f"streams (min {min(gains):.2f}); the JAX test's interferer "
+            f"scene: SNR {i_snr[method]:.2f} dB; vs CPU path on {n} streams "
+            f"{e_cpu:.2e} of scale (1e-4; the delays differ by {e_delay:.1e}"
+            f" s); step_many {ms_text(t)}, "
+            f"{EXTRACTOR_STREAMS * 10.24 / t[0]:.0f} streams in real time; "
+            f"peak {peak:.3f} GB ({card})")
+        # the JAX tests' bounds: DAS gains 4 dB over one mic in white noise,
+        # MVDR beats DAS by 1 dB on the interferer
+        truth = (min(gains) > 4.0 if method == "das"
+                 else i_snr["mvdr"] > i_snr["das"] + 1.0)
+        if not (truth and e_cpu <= 1e-4):
+            failures.append(name)
+
+
+def tworate_scene(n_streams, seed):
+    """tests/test_tworate.py's scene on the reference array: idle noise
+    (0.001) everywhere, a burst (x30) in every ``TWORATE_BURST_EVERY``-th
+    stream at one of four staggered starts; (streams [S, 3, T] f32, burst
+    streams)."""
+    from audio_triangulation_tpu_torch import geometry
+    from audio_triangulation_tpu_torch.utils import synth
+
+    rng = np.random.default_rng(seed)
+    mics = geometry.reference_array()
+    t_len = 8 * STREAM_CHUNK
+    base = rng.normal(size=(n_streams, 3, t_len)).astype(np.float32) * 1e-3
+    src = np.array([0.5, -0.4, 1.2])
+    frame = synth.synth_scene(src / np.linalg.norm(src) * 1.2, mics,
+                              noise_rms=0.01, seed=3)[0]
+    bursts = np.arange(0, n_streams, TWORATE_BURST_EVERY)
+    for i, s in enumerate(bursts):
+        at = 1500 + 300 * (i % 4)
+        base[s, :, at:at + 1024] += frame * 30
+    return base, bursts
+
+
+def reverb_tworate(phase, card, results, failures):
+    """The two-rate localizer with ``with_audio`` at 1,024 streams."""
+    import torch
+    from audio_triangulation_tpu_torch import (PipelineConfig, StreamConfig,
+                                               TwoRateStreamingLocalizer,
+                                               geometry)
+    from audio_triangulation_tpu_torch.utils import synth
+
+    kw = dict(stream=StreamConfig(chunk_size=STREAM_CHUNK),
+              event_capacity=64, with_audio=True)
+    cfg = PipelineConfig(fft_pad_mode="circular")
+    tr = TwoRateStreamingLocalizer.create(geometry.reference_array(), cfg,
+                                          device="cuda", **kw)
+    cpu_tr = TwoRateStreamingLocalizer.create(geometry.reference_array(),
+                                              cfg, device="cpu", **kw)
+    x_np, bursts = tworate_scene(TWORATE_STREAMS, SEED + 66)
+    x = torch.from_numpy(x_np).cuda()
+    c = STREAM_CHUNK
+    n_steps = x.shape[-1] // c
+
+    def run(tr, x):
+        st, evs = tr.init_states(x.shape[0]), []
+        for i in range(n_steps):
+            st, det = tr.detect_many(st, x[..., i * c:(i + 1) * c])
+            if bool(det["triggered"].any()):
+                st, ev = tr.localize_triggered(st, det)
+                evs.append((i, det, ev))
+        return st, evs
+
+    (_, evs), peak = peak_gb(lambda: counted("tworate_audio", results,
+                                             lambda: run(tr, x)))
+    calls = count_only(phase, "tworate_audio",
+                       {"detector_scan_kernel": n_steps})
+    sig = synth.chirp_burst(1024, 50_000.0)
+    corrs, got, overflow = [], set(), 0
+    shaped = all(ev["audio"].shape == (64, 1024) for _, _, ev in evs)
+    for _, _, ev in evs:
+        audio = ev["audio"].cpu().numpy()
+        overflow += int(ev["overflow"])
+        for slot in torch.nonzero(ev["accepted"])[:, 0].tolist():
+            got.add(int(ev["stream_idx"][slot]))
+            corrs.append(corr_peak(audio[slot], sig))
+    # the CPU path on the first streams: slot order, audio
+    _, cpu_evs = run(cpu_tr, x[:TWORATE_CPU_STREAMS].cpu())
+    _, g_evs = run(tr, x[:TWORATE_CPU_STREAMS])
+    order_eq = [i for i, _, _ in cpu_evs] == [i for i, _, _ in g_evs]
+    e_audio = 0.0
+    for (_, _, a), (_, _, b) in zip(g_evs, cpu_evs):
+        order_eq &= bool(torch.equal(a["stream_idx"].cpu(), b["stream_idx"])
+                         and torch.equal(a["accepted"].cpu(), b["accepted"]))
+        on = b["triggered"]
+        e_audio = max(e_audio, rel_gap(a["audio"].cpu()[on], b["audio"][on]))
+    # timing: the chunk rate (detect_many) and one event-rate call at E = 64
+    det = evs[0][1]
+    st = tr.init_states(TWORATE_STREAMS)
+    t_det = time_ms(carried(lambda s: tr.detect_many(s, x[..., :c]), st))
+    t_loc = time_ms(lambda: tr.localize_triggered(st, det))
+    say(phase, f"tworate_audio: {TWORATE_STREAMS} streams x {n_steps} chunks"
+        f" of {c}, capacity 64: {calls}; events on {len(got)} of "
+        f"{bursts.size} burst streams (those exactly: "
+        f"{got == set(bursts.tolist())}), overflow {overflow}; burst "
+        f"correlation min {min(corrs):.3f} (bound 0.8); vs CPU path on "
+        f"{TWORATE_CPU_STREAMS} streams: slot order equal {order_eq}, audio "
+        f"{e_audio:.2e} of scale (1e-4); detect_many {ms_text(t_det)}; "
+        f"localize_triggered with audio {ms_text(t_loc)}; peak {peak:.3f} "
+        f"GB ({card})")
+    if not (shaped and got == set(bursts.tolist()) and overflow == 0
+            and min(corrs) > 0.8 and order_eq and e_audio <= 1e-4):
+        failures.append("tworate_audio")
+
+
+def mapping_setup(device):
+    """tests/test_mapping.py's localizer: the 6-mic circle, a plane grid of
+    81 x 81 cells at 24 cells/m, 700-7,000 Hz, window off, the lag window
+    of the array's aperture, the solver off the sphere."""
+    from audio_triangulation_tpu_torch import (GridConfig, Localizer,
+                                               PipelineConfig, SolverConfig,
+                                               geometry)
+
+    mics = geometry.circular_array(6, 0.25)
+    cfg = PipelineConfig(phat=True, band_hz=(700.0, 7000.0),
+                         window_enabled=False,
+                         max_shift_samples=geometry.max_lag_for_array(
+                             mics, PipelineConfig()))
+    grid = GridConfig(projection="plane", height_m=0.0, cells_per_m=24.0,
+                      half_cells_x=40, half_cells_y=40)
+    return Localizer.create(mics, cfg, grid,
+                            SolverConfig(constrain_to_sphere=False),
+                            device=device)
+
+
+def mapping_events(sources, seed):
+    """[E, 6, 1,024] f32 events of the two-wall room (``max_order=1``) at
+    in-plane offsets ``sources`` from the array, tests/test_mapping.py's
+    broadband burst, noise 0.003."""
+    from audio_triangulation_tpu_torch import geometry
+    from audio_triangulation_tpu_torch.utils import room
+
+    mics = geometry.circular_array(6, 0.25)
+    center = np.array([*MAP_CENTER, 1.2])
+    mic3 = np.zeros((6, 3))
+    mic3[:, :2] = mics + center[:2]
+    mic3[:, 2] = center[2]
+    rm = room.ShoeboxRoom(size=(6.0, 5.0, 3.0), absorption=MAP_ABSORPTION,
+                          max_order=1)
+    n, start, length = 1024, 50, 400
+    sig = np.zeros(n)
+    sweep = 800.0 + (7000.0 - 800.0) * np.arange(length) / length
+    sig[start:start + length] = np.hanning(length) * np.sin(
+        2 * np.pi * np.cumsum(sweep) / 50_000.0)
+    return np.concatenate([room.simulate(
+        np.array([sx + center[0], sy + center[1], center[2]]), mic3, rm,
+        noise_rms=0.003, seed=seed + i, signal=sig)
+        for i, (sx, sy) in enumerate(sources)]).astype(np.float32)
+
+
+def walls_found(walls) -> tuple[str, bool]:
+    """tests/test_mapping.py's two-wall bounds."""
+    ok, parts = True, []
+    for normal, dist, tol in MAP_WALLS:
+        hits = [w for w in walls if w.normal @ np.asarray(normal) > 0.95]
+        d = hits[0].distance if hits else float("nan")
+        parts.append(f"{normal}: {d:.4f} m (truth {dist}, support "
+                     f"{hits[0].support if hits else 0})")
+        ok &= bool(hits) and abs(d - dist) < tol
+    return "; ".join(parts), ok
+
+
+def reverb_mapping(phase, card, results, failures):
+    """``ReflectorMapper``: echo delays at 16,384 frames, the map of 64
+    events."""
+    import torch
+    from audio_triangulation_tpu_torch.models.mapping import ReflectorMapper
+
+    loc, cpu_loc = mapping_setup("cuda"), mapping_setup("cpu")
+    mapper = ReflectorMapper(loc, n_echoes=2, q_max=900)
+    cpu_mapper = ReflectorMapper(cpu_loc, n_echoes=2, q_max=900)
+    rng = np.random.default_rng(SEED + 67)
+    ev = torch.from_numpy(mapping_events(
+        rng.uniform(-0.5, 0.5, (MAP_EVENTS, 2)), SEED + 68)).cuda()
+    text, ok = loc_vs_cpu(loc, cpu_loc, ev)
+    say(phase, f"mapping_6mic: {route_text(loc)}; {text}")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 69)
+    big = ev.repeat(MAP_FRAMES // MAP_EVENTS, 1, 1)
+    big += 0.003 * torch.randn(big.shape, device="cuda", generator=g)
+    (d, a), peak = peak_gb(lambda: counted(
+        "mapping_echo", results, lambda: mapper.echo_delays(big)))
+    calls = count_only(phase, "mapping_echo", {})
+    dc, ac = cpu_mapper.echo_delays(big[:256].cpu())
+    lag_eq = bool(torch.equal(d[:256].cpu().round(), dc.round()))
+    e_d = float((d[:256].cpu() - dc).abs().max())
+    t = time_ms(lambda: mapper.echo_delays(big))
+    say(phase, f"mapping_echo: echo_delays on {MAP_FRAMES} x 6 x 1,024: "
+        f"{calls}; vs CPU path on 256 frames: integer lags equal {lag_eq}, "
+        f"delays {e_d:.2e} samples; {ms_text(t)}; peak {peak:.3f} GB ({card})")
+    ok &= lag_eq and e_d <= 1e-3
+    res, peak = peak_gb(lambda: counted("mapping_6mic", results,
+                                        lambda: mapper.map(ev)))
+    calls = expect_counts("mapping_6mic", ("gcc_kernel", "gn_kernel"), phase)
+    walls, ok_walls = walls_found(res["walls"])
+    t = time_ms(lambda: mapper.map(ev))
+    t_dev = time_ms(lambda: (loc(ev), mapper.echo_delays(ev)))
+    # the CPU path on the JAX tests' three events: the same walls
+    small = torch.from_numpy(mapping_events(MAP_TEST_SOURCES, 0))
+    r_g, r_c = mapper.map(small.cuda()), cpu_mapper.map(small)
+    same_walls = len(r_g["walls"]) == len(r_c["walls"]) and all(
+        a.support == b.support and abs(a.distance - b.distance) <= 1e-4
+        for a, b in zip(r_g["walls"], r_c["walls"]))
+    say(phase, f"mapping_6mic: map on {MAP_EVENTS} events: {calls}; "
+        f"{len(res['walls'])} walls, {walls}; {ms_text(t)}, of which the "
+        f"localizer and echo_delays {t_dev[0]:.4f} ms, the host "
+        f"{(t[0] - t_dev[0]) / MAP_EVENTS:.4f} ms an event; peak {peak:.3f} "
+        f"GB; the JAX tests' 3 events: card and CPU path give the same walls "
+        f"{same_walls} ({card})")
+    if not (ok and ok_walls and same_walls):
+        failures.append("mapping_6mic")
+
+
+def phase_reverb(card, results):
+    """Phase 14: the reverberant-room slice at the published widths: the
+    batched image-source simulator, block WPE, the streaming dereverberator
+    feeding the streaming localizer, ``Localizer.extract`` (DAS, MVDR), the
+    streaming extractor, the two-rate localizer's event audio and the
+    reflector mapper.  Each path timed (ms a call, median and IQR of 7),
+    its peak device memory, its launches (rows 1 and 5 once a
+    ``Localizer`` call, the scan once a stream step, none elsewhere), its
+    truth at the JAX tests' bounds and the port's CPU path on a cut; every
+    path runs and the phase fails at its end."""
+    import torch
+
+    t0 = time.perf_counter()
+    phase = "14 reverb"
+    failures = []
+    for part in (reverb_room, reverb_wpe, reverb_dereverb_stream,
+                 reverb_extract, reverb_extractor, reverb_tworate,
+                 reverb_mapping):
+        part(phase, card, results, failures)
+        torch.cuda.empty_cache()
+    say(phase, f"wall time {time.perf_counter() - t0:.1f} s")
+    if failures:
+        fail(phase, f"result checks failed: {failures}")
+
+
 # further keys of an entry that has them: what the library yardstick is, the
 # SRP-argmax kernel's other bound and its bf16 mode, the bf16 DFT product's
 # library form with f32 outputs
@@ -3775,6 +4644,7 @@ def main():
     phase_bench(results)
     phase_soak(results)
     phase_estimators(card, results)
+    phase_reverb(card, results)
 
     print(json.dumps({"kernels": [
         {k: results[n][k] for k in (*KERNEL_KEYS, *(

@@ -500,10 +500,22 @@ def test_two_rate_solve_xyz_matches_one_rate():
     assert n_acc == 4  # one of the five triggers of chunk 2 overflows
 
 
-def test_with_audio_raises_and_device_is_required():
-    with pytest.raises(NotImplementedError, match="with_audio"):
-        tstream.TwoRateStreamingLocalizer.create(MICS3, device="cpu",
-                                                 with_audio=True)
+def test_with_audio_returns_event_audio_and_device_is_required():
+    """``with_audio=True`` builds, and ``localize_triggered`` returns the
+    event audio [E, N] (held to the JAX package's in
+    ``tests/test_torch_beamform.py``)."""
+    x = _streams(MICS3, 4, 4 * 512, [(700,), (), (), (900,)])
+    tr = tstream.TwoRateStreamingLocalizer.create(
+        MICS3, device="cpu", event_capacity=3, with_audio=True)
+    st, n_ev = tr.init_states(4), 0
+    for i in range(4):
+        st, det = tr.detect_many(
+            st, torch.from_numpy(x[:, :, i * 512:(i + 1) * 512]))
+        st, ev = tr.localize_triggered(st, det)
+        assert ev["audio"].shape == (3, 1024)
+        assert bool(torch.isfinite(ev["audio"]).all())
+        n_ev += int(ev["accepted"].sum())
+    assert n_ev == 2
     with pytest.raises(TypeError):
         tstream.StreamingLocalizer.create(MICS3)
     sl = tstream.StreamingLocalizer.create(MICS3, device="cpu")
