@@ -9,7 +9,10 @@ streaming step), and the estimators beside them: direction of arrival
 (``utils.room``), WPE dereverberation (``ops.dereverb``), beamformed source
 extraction (``ops.beamform``, ``Localizer.extract``, the streaming
 ``models.extraction.StreamingExtractor``) and reflector mapping
-(``ops.echo``, ``models.mapping.ReflectorMapper``).
+(``ops.echo``, ``models.mapping.ReflectorMapper``); and the training side:
+array self-calibration (``models.calibration.Calibrator``), the learned
+localizer (``models.neural.NeuralLocalizer``) and array design
+(``core.design``), through ``torch.autograd`` and ``torch.optim.Adam``.
 
 The JAX package stays the reference; this package imports torch and never
 jax.  Quick start::
@@ -34,18 +37,24 @@ jax.  Quick start::
     vl = VolumeLocalizer.create(geometry.tetrahedral_array(0.3),
                                 device="cuda")
     out = vl(frames)         # out["xyz"] [B, 3]
+
+    calib = Calibrator.create(8, device="cuda")
+    params, opt = calib.init(mic_xy_guess)
+    params, opt, loss = calib.train_step(params, opt, batch)  # CalibBatch
 """
 
 from .core import geometry
 from .core.config import (GridConfig, PipelineConfig, SolverConfig,
                           StreamConfig, VolumeConfig)
+from .models.calibration import Calibrator
 from .models.localizer import Localizer
+from .models.neural import NeuralLocalizer
 from .models.streaming import StreamingLocalizer, TwoRateStreamingLocalizer
 from .models.tracked import TrackedStreamingLocalizer
 from .models.tracking import Tracker, TrackerConfig
 from .models.volume import VolumeLocalizer
 
-__all__ = ["Localizer", "StreamingLocalizer", "TwoRateStreamingLocalizer",
+__all__ = ["Localizer", "Calibrator", "NeuralLocalizer", "StreamingLocalizer", "TwoRateStreamingLocalizer",
            "TrackedStreamingLocalizer", "Tracker", "TrackerConfig",
            "VolumeLocalizer", "PipelineConfig", "GridConfig", "SolverConfig",
            "StreamConfig", "VolumeConfig", "geometry"]

@@ -1,1 +1,2 @@
-"""Configuration and array geometry."""
+"""Configuration, array geometry and array design (``design``: CRLB maps
+and gradient-based mic placement)."""

@@ -103,6 +103,18 @@ def load_library(build_dir: Path = BUILD_DIR) -> ctypes.CDLL:
         return _loaded[key]
 
 
+def refuse_grad(kernel: str, *inputs) -> None:
+    """Raise ValueError when an input of ``kernel`` requires grad: a
+    kernel's outputs carry no autograd graph and no kernel has a backward
+    pass, so a gradient through it would be cut without a word.  The plain
+    versions keep their autograd."""
+    if any(getattr(t, "requires_grad", False) for t in inputs):
+        raise ValueError(
+            f"{kernel}: an input requires grad, and the kernel has no "
+            "backward pass (its outputs would carry no gradient); detach the "
+            "input, or differentiate through the plain version")
+
+
 def check(err: int, what: str, lib: ctypes.CDLL) -> None:
     """Raise when a C entry point returned a non-zero ``cudaError_t``."""
     if err != 0:

@@ -92,6 +92,7 @@ def launch(x: torch.Tensor):
     :func:`prefix_sums_reference`, f32 only); raises on anything it does
     not take."""
     global launches
+    _build.refuse_grad("detector_scan_kernel", x)
     if x.device.type != "cuda":
         raise ValueError(f"the detector scan kernel needs a CUDA tensor; x "
                          f"is on {x.device}")

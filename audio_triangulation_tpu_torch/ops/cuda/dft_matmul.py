@@ -127,6 +127,7 @@ def split_k_major(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
     version on CPU tensors."""
     if w1.device.type == "cpu":
         return split_k_major_reference(w1, w2)
+    _build.refuse_grad("split_pack_kernel", w1, w2)
     n, f = w1.shape
     if (w1.device.type != "cuda" or w2.device != w1.device
             or w2.shape != w1.shape or w1.dtype != torch.float32
@@ -158,6 +159,7 @@ def k_major(w1: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
     the plain version on CPU tensors."""
     if w1.device.type == "cpu":
         return k_major_reference(w1, w2)
+    _build.refuse_grad("k_major_kernel", w1, w2)
     n, f = w1.shape
     if (w1.device.type != "cuda" or w2.device != w1.device
             or w2.shape != w1.shape or w2.dtype != w1.dtype
@@ -183,6 +185,7 @@ def launch(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     """Run ``csrc/dft_matmul.cu`` on CUDA tensors (same contract as
     :func:`dft_matmul_reference`); raises on anything it does not take:
     N must be a multiple of 64 and F of 16."""
+    _build.refuse_grad("dft_matmul_kernel", x, w1, w2, s)
     name, acc_dt, code = _checked(x, w1, w2, s)
     r, n = x.shape
     f = w1.shape[1]

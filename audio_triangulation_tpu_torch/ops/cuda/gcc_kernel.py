@@ -609,10 +609,13 @@ def srp_mode_fits(frames: torch.Tensor, cfg: PipelineConfig,
         frames.shape[-2], n_pairs, l) >= 1)
 
 
-def _checked(frames, win_gain, mats: GccMatrices, pairs):
+def _checked(frames, win_gain, mats: GccMatrices, pairs, kernel: str):
     """The launch operands on ``frames``' CUDA device, checked against the
     frames: (dims (b, m, n, f, fp, p, l), frames, [win_gain, the packed DFT
-    matrix, sync, syns], pairs int32)."""
+    matrix, sync, syns], pairs int32).  Refuses inputs that require grad
+    (``_build.refuse_grad``)."""
+    _build.refuse_grad(kernel, frames, win_gain, mats.dft, mats.sync,
+                       mats.syns, mats.synp)
     if frames.device.type != "cuda":
         raise ValueError(f"the GCC kernel needs CUDA tensors; frames are on "
                          f"{frames.device}")
@@ -651,7 +654,7 @@ def launch(frames, win_gain, mats: GccMatrices, pairs, *, phat: bool,
     and ``params_from_reference`` ensure."""
     global launches
     (b, m, n, f, fp, p, l), frames, ins, pairs32 = _checked(
-        frames, win_gain, mats, pairs)
+        frames, win_gain, mats, pairs, "gcc_kernel")
     lib = _lib()
     if lib.att_gcc_frames_per_block(m, p, l) < 1:
         raise ValueError(f"one frame of {m} mics, {p} pairs x {l} lags does "
@@ -683,7 +686,7 @@ def launch_pipelined(frames, win_gain, mats: GccMatrices, pairs, *,
     floats, a multiple of 16 bytes) must fit a block's shared memory."""
     global pipelined_launches
     (b, m, n, f, fp, p, l), frames, ins, pairs32 = _checked(
-        frames, win_gain, mats, pairs)
+        frames, win_gain, mats, pairs, "gcc_pipelined_kernel")
     lib = _lib()
     if (m * n) % 4 or lib.att_gcc_pipelined_frames_per_block(m, n, p, l) < 1:
         raise ValueError(f"one frame of {m} mics x {n} samples, {p} pairs "
@@ -715,7 +718,7 @@ def launch_srp(frames, win_gain, mats: GccMatrices, pairs, lut_flat, *,
     range-checked."""
     global srp_launches
     (b, m, n, f, fp, p, l), frames, ins, pairs32 = _checked(
-        frames, win_gain, mats, pairs)
+        frames, win_gain, mats, pairs, "gcc_srp_kernel")
     dev = frames.device
     lut32 = lut_flat.to(device=dev, dtype=torch.int32).contiguous()
     if lut32.ndim != 2 or lut32.shape[0] != p or lut32.shape[1] < 1:
@@ -754,7 +757,7 @@ def launch_stats(frames, win_gain, mats: GccMatrices, pairs,
     not take, a frame too large for its shared memory included."""
     global stats_launches
     (b, m, n, f, fp, p, l), frames, ins, pairs32 = _checked(
-        frames, win_gain, mats, pairs)
+        frames, win_gain, mats, pairs, "gcc_stats_kernel")
     if sp.phase and not with_peaks:
         raise ValueError("the phase-slope TDOA needs the peak stage")
     if f != sp.fft_length // 2 + 1:

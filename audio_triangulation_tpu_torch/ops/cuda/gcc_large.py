@@ -191,6 +191,7 @@ def launch(re, im, pairs, sync, syns, *, packed: torch.Tensor, bf16: bool,
     indices are not range-checked here (that would sync with the device):
     they must index the M mics."""
     global launches
+    _build.refuse_grad("gcc_large_kernel", re, im, sync, syns, packed)
     if re.device.type != "cuda":
         raise ValueError(f"the large-array GCC kernel needs CUDA tensors; "
                          f"the spectra are on {re.device}")

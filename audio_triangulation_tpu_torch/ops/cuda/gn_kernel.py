@@ -167,6 +167,7 @@ class GnSolver:
         [B, 2] float32, contiguous, on one device; raises on anything
         else.  One kernel launch, no other work on the device."""
         global launches
+        _build.refuse_grad("gn_kernel", tau, init)
         if tau.device.type != "cuda" or init.device != tau.device:
             raise ValueError(f"the GN kernel needs CUDA tensors on one "
                              f"device; tau is on {tau.device}, init on "

@@ -91,6 +91,7 @@ def launch(flat: torch.Tensor, matrix: torch.Tensor, num_cells: int, *,
     """Run ``csrc/srp_kernel.cu`` on CUDA tensors (same contract as
     :func:`srp_argmax_reference`); raises on anything it does not take."""
     global launches
+    _build.refuse_grad("srp_argmax_kernel", flat, matrix)
     if flat.device.type != "cuda":
         raise ValueError(f"the SRP argmax kernel needs CUDA tensors; the "
                          f"correlograms are on {flat.device}")

@@ -22,9 +22,15 @@ stream's (``TrackedStreamState``: both together), so a stream continues its
 tracks in either package; ``dereverb_state_*`` a ``StreamingDereverb``'s
 state (``DereverbState`` with its ``WpeState``) and ``extractor_state_*`` a
 ``StreamingExtractor``'s (``ExtractorState``).
+
+``calib_params_from_reference`` takes a calibration's trainable
+parameters (``CalibParams``, ``JointParams``, ``TrackedParams``) and
+``mlp_params_from_reference`` a neural localizer's MLP weights.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -283,3 +289,50 @@ def extractor_state_from_reference(arrays: dict, device):
 def extractor_state_to_numpy(state) -> dict:
     """{leaf name: numpy array} of a port ``ExtractorState``."""
     return _numpy(state, _EXTRACTOR_DTYPES)
+
+
+def calib_params_from_reference(arrays: dict, device):
+    """The port's ``CalibParams``, ``JointParams`` or ``TrackedParams`` (by
+    the fields given: ``mic_xy`` and ``log_gain``, plus ``source_xy`` or
+    ``traj_coeffs``) on ``device`` from the JAX package's as numpy arrays;
+    float32 leaf tensors that require grad."""
+    from ..models import calibration
+
+    extra = {"source_xy": calibration.JointParams,
+             "traj_coeffs": calibration.TrackedParams}
+    given = [k for k in extra if arrays.get(k) is not None]
+    if len(given) > 1:
+        raise ValueError(f"calibration parameters hold {given}: at most one "
+                         "of source_xy (joint) and traj_coeffs (tracked)")
+    cls = extra[given[0]] if given else calibration.CalibParams
+    names = [f.name for f in dataclasses.fields(cls)]
+    missing = [k for k in names if arrays.get(k) is None]
+    if missing:
+        raise ValueError(f"{cls.__name__} lacks {missing}")
+    return cls(**{k: torch.tensor(np.asarray(arrays[k], np.float32),
+                                  device=device, requires_grad=True)
+                  for k in names})
+
+
+def mlp_params_from_reference(params: dict, device):
+    """The port's ``models.neural.MLP`` on ``device`` from the JAX package's
+    ``{layer_i: {w [in, out], b [out]}}`` as numpy arrays: each
+    ``nn.Linear`` weight is ``w`` transposed to [out, in]."""
+    from ..models.neural import MLP
+
+    n = len(params)
+    if sorted(params) != sorted(f"layer_{i}" for i in range(n)):
+        raise ValueError(f"MLP parameters must be layer_0..layer_{n - 1}; "
+                         f"got {sorted(params)}")
+    ws = [np.asarray(params[f"layer_{i}"]["w"], np.float32) for i in range(n)]
+    sizes = (ws[0].shape[0], *(w.shape[1] for w in ws))
+    if any(a.shape[1] != b.shape[0] for a, b in zip(ws[:-1], ws[1:])):
+        raise ValueError(f"layer widths do not chain: "
+                         f"{[w.shape for w in ws]}")
+    mlp = MLP(sizes)
+    with torch.no_grad():
+        for i, layer in enumerate(mlp.children()):
+            layer.weight.copy_(torch.from_numpy(ws[i].T.copy()))
+            layer.bias.copy_(torch.from_numpy(
+                np.array(params[f"layer_{i}"]["b"], np.float32)))
+    return mlp.to(device)

@@ -19,7 +19,10 @@ for the four frame-batch estimator paths of chip_smoke's phase 13
 frames or events a call, row 2 of the kernel table once; and the SMP path,
 no kernel), and for three paths of phase 14 (a ``StreamingDereverb`` step
 at 1,024 streams, MVDR extraction on 4,096 frames of 8 mics, block WPE on
-64 recordings of 4 x 16,384 samples; no kernel), prints:
+64 recordings of 4 x 16,384 samples; no kernel), and for two paths of
+phase 15 (one ``Calibrator.train_step`` on 4,096 events of 8 x 1,024, no
+kernel; one ``NeuralLocalizer.train_step`` on 1,024 frames of 4 x 1,024,
+and one ``predict`` on 16,384, row 2 once each), prints:
 
 - the median wall time of 7 unprofiled calls and the device-busy time of
   one profiled call (the sum of its kernels' device time), hence the
@@ -34,7 +37,7 @@ at 1,024 streams, MVDR extraction on 4,096 frames of 8 mics, block WPE on
   closing ``cudaDeviceSynchronize`` is the profiler window's own.
 
     python3 chip_profile.py [localizer] [stream] [tracked] [sources]
-                            [estimators] [reverb]
+                            [estimators] [reverb] [training]
                                      # one CUDA card; no argument: all
 
 Imports no JAX.
@@ -55,7 +58,7 @@ SLOW_HOST_OP_US = 300.0
 
 
 SECTIONS = ("localizer", "stream", "tracked", "sources", "estimators",
-            "reverb")
+            "reverb", "training")
 
 
 def main(argv=None):
@@ -232,6 +235,44 @@ def profile_reverb(chip_smoke, rng):
     profile_path("wpe_block", lambda: dereverb.wpe(batch,
                                                    **chip_smoke.WPE_KW),
                  watch=("gemm", "getrf", "getrs", "elementwise", "fft"))
+
+
+def profile_training(chip_smoke, rng):
+    """Phase 15's step paths at its sizes: a calibration step (the GCC
+    chain forward, its recomputation and backward under autograd, Adam),
+    a neural step (row 2, the MLP forward and backward, Adam) and a
+    neural prediction (row 2, the features, the MLP)."""
+    import torch
+    from audio_triangulation_tpu_torch import PipelineConfig, geometry
+    from audio_triangulation_tpu_torch.models import calibration, neural
+
+    mics8 = geometry.circular_array(8, 0.2)
+    frames, planes, guess = chip_smoke.calib_scene(
+        mics8, chip_smoke.CALIB_EVENTS, chip_smoke.SEED + 70, noise=0.01,
+        guess_std=0.01)
+    calib = calibration.Calibrator.create(8, device="cuda")
+    params, opt = calib.init(guess)
+    batch = calibration.CalibBatch(torch.from_numpy(frames).cuda(),
+                                   torch.from_numpy(planes).cuda())
+    profile_path("calib_step_8mic",
+                 lambda: calib.train_step(params, opt, batch),
+                 watch=("fft", "index", "elementwise", "reduce", "adam"))
+    del batch, frames
+    torch.cuda.empty_cache()
+    mics = geometry.square_array(0.3)
+    cfg = PipelineConfig(phat=True)
+    net = neural.NeuralLocalizer.create(mics, cfg, device="cuda")
+    f, xy = next(neural.synthetic_batches(
+        mics, n_batches=1, batch_size=chip_smoke.NEURAL_BATCH, pipeline=cfg,
+        seed=chip_smoke.SEED + 80))
+    f, xy = torch.from_numpy(f).cuda(), torch.from_numpy(xy).cuda()
+    mlp, nopt = net.init(seed=0)
+    profile_path("neural_train",
+                 lambda: net.train_step(mlp, nopt, f, xy),
+                 watch=("gcc_kernel", "gemm", "adam"))
+    big = f.repeat(chip_smoke.NEURAL_PREDICT_FRAMES // len(f), 1, 1)
+    profile_path("neural_predict", lambda: net.predict(mlp, big),
+                 watch=("gcc_kernel", "gemm", "softmax", "reduce"))
 
 
 def profile_path(name, fn, watch=()):

@@ -67,7 +67,18 @@ the two-rate localizer's event audio at 1,024 streams and
 ``ReflectorMapper`` (echo delays at 16,384 frames, the map of 64 events);
 each against the JAX tests' bounds and the port's CPU path on a cut
 (block WPE against float64), its launches counted, timed, its peak
-device memory recorded.
+device memory recorded.  Phase 15, the training side at the JAX
+package's published sizes: ``Calibrator.train_step`` on 4,096 events of
+8 x 1,024 (no kernel; peak memory with and without the checkpoint; the
+card against the CPU path on 64 events and on all 4,096), the CLI's
+``calibrate`` defaults, ``fit_em`` (256 events, 3 x 50 steps; rows 1 and
+5 once a round) and ``fit_tracked`` (36 events, 250 steps; rows 1 and 5
+once) against the reference tests' gates, ``estimate_speed_of_sound`` on
+4,096 events, ``NeuralLocalizer.train_step`` on 1,024 frames (row 2 once
+a step; the loss falling over 50 steps) and ``predict`` on 16,384 frames
+against row 2's plain version, and the CLI's ``design`` defaults with a
+201 x 201 CRLB map; each timed, its peak memory and launches recorded
+and held to the CPU path.
 
     python3 chip_smoke.py            # one CUDA card; exits non-zero on any failure
 
@@ -1036,6 +1047,16 @@ PATH_KERNELS = {"bandcrop_800_6000": ("gcc_kernel", "gn_kernel"),
                     "mapping_6mic")},
                 **{name: ("detector_scan_kernel",) for name in (
                     "dereverb_stream", "tworate_audio")},
+                # phase 15: rows 1 and 5 once a Localizer call of the EM and
+                # tracked calibrations, row 2 once a neural step and
+                # prediction, no kernel on the gradient paths
+                **{name: ("gcc_kernel", "gn_kernel") for name in (
+                    "calib_em_8mic", "calib_tracked_8mic")},
+                **{name: ("gcc_kernel",) for name in (
+                    "neural_train", "neural_predict")},
+                **{name: () for name in (
+                    "calib_step_8mic", "calib_cli", "speed_of_sound",
+                    "design_cli", "design_crlb_map")},
                 **{name: () for name in (
                     "room_batch", "wpe_block", "wpe_long",
                     "extractor_stream_das", "extractor_stream_mvdr",
@@ -1291,19 +1312,26 @@ def gn_inputs(loc, b):
 
 def device_kernels(fn):
     """One call of ``fn()`` under torch.profiler: (kernels launched, their
-    device milliseconds, their names)."""
+    device milliseconds, their names).  The first profiler session of a
+    process has been seen to record no device activity at all (an empty
+    trace of a call whose wrapper counted its launch), so a session that
+    recorded none is taken again, up to three sessions; a call that
+    launches nothing still reads as nothing."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     cpu = torch.autograd.DeviceType.CPU
-    kernels = [e for e in prof.key_averages() if e.device_type != cpu
-               and e.self_device_time_total > 0]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type != cpu
+                   and e.self_device_time_total > 0]
+        if kernels:
+            break
     return (sum(e.count for e in kernels),
             sum(e.self_device_time_total for e in kernels) / 1e3,
             [e.key for e in kernels])
@@ -4599,6 +4627,476 @@ def phase_reverb(card, results):
         fail(phase, f"result checks failed: {failures}")
 
 
+# phase 15: the training side at the JAX package's published sizes
+CALIB_EVENTS = 4096  # calib_step_8mic: events of 8 x 1,024 a step
+CALIB_CPU_EVENTS = 64  # of them held to the CPU path step by step
+CLI_EVENTS, CLI_STEPS = 48, 200  # cli/main.py's calibrate defaults
+EM_EVENTS, EM_ROUNDS, EM_STEPS = 256, 3, 50  # tests/test_sharding.py:123-150
+TRACKED_EVENTS, TRACKED_STEPS = 36, 250  # test_calibration_tracked.py:20-42
+SOS_EVENTS = 4096  # estimate_speed_of_sound
+NEURAL_BATCH = 1024  # neural_train: frames of 4 x 1,024 a step
+NEURAL_BATCHES = 10  # distinct batches made before timing, cycled
+NEURAL_STEPS = 50
+NEURAL_CPU_FRAMES = 256  # a step held to the CPU path
+NEURAL_PREDICT_FRAMES = 16384
+DESIGN_CELLS, DESIGN_STEPS = 16, 300  # cli/main.py's design defaults
+CRLB_MAP_SIDE = 201  # crlb_rms_m on 201 x 201 points
+# the card against the CPU path (tests/test_torch_calibration.py's and
+# test_torch_design.py's tolerances; under PHAT row 2 is held to 1e-4 of
+# scale of float64, so the features within 2e-4)
+CALIB_LOSS_REL, CALIB_GRAD_REL, GAIN_GRAD_SHARE = 1e-5, 2e-5, 1e-5
+FIT_MIC_M, FIT_LOSS_REL = 2e-5, 1e-4
+NEURAL_FEAT_ABS, NEURAL_LOSS_REL, NEURAL_PRED_M = 2e-4, 1e-4, 1e-3
+DESIGN_HIST_REL, DESIGN_POS_M = 1e-4, 1e-5
+
+
+def calib_scene(mics, n_events, seed, noise=0.003, guess_std=0.012):
+    """(frames [B, M, 1,024] f32, plane points [B, 2], a guess of the mics
+    [M, 2] f32): events at uniform plane points in +-1 m."""
+    from audio_triangulation_tpu_torch.utils import synth
+
+    rng = np.random.default_rng(seed)
+    planes = rng.uniform(-1.0, 1.0, (n_events, 2))
+    frames = synth.synth_scene(np.stack([place(p) for p in planes]), mics,
+                               noise_rms=noise, seed=seed + 1)
+    guess = (mics + rng.normal(0, guess_std, mics.shape)).astype(np.float32)
+    return frames.astype(np.float32), planes.astype(np.float32), guess
+
+
+def calib_grads(calib, guess, frames, planes):
+    """(loss, mic_xy gradient, log_gain gradient) of ``calib_loss`` at the
+    guess on the calibrator's device, on the host."""
+    import torch
+    from audio_triangulation_tpu_torch.models import calibration
+
+    params = calibration.init_params(guess, calib.device)
+    batch = calibration.CalibBatch(
+        torch.as_tensor(frames, device=calib.device),
+        torch.as_tensor(planes, device=calib.device))
+    loss = calibration.calib_loss(params, batch, calib.pairs, calib.window,
+                                  calib.pipeline)
+    loss.backward()
+    return (loss.item(), params.mic_xy.grad.cpu().numpy(),
+            params.log_gain.grad.cpu().numpy())
+
+
+def grads_held(got, ref) -> tuple[str, bool]:
+    """Loss and mic gradient of ``got`` against ``ref`` (both from
+    :func:`calib_grads`), and the log_gain gradient's share of the mic
+    gradient in each (the reference's trap: rounding noise)."""
+    loss_rel = abs(got[0] - ref[0]) / abs(ref[0])
+    scale = np.abs(ref[1]).max()
+    grad_rel = float(np.abs(got[1] - ref[1]).max() / scale)
+    gain = max(np.abs(got[2]).max(), np.abs(ref[2]).max()) / scale
+    ok = (loss_rel <= CALIB_LOSS_REL and grad_rel <= CALIB_GRAD_REL
+          and gain < GAIN_GRAD_SHARE)
+    return (f"loss {loss_rel:.2e} rel, mic gradient {grad_rel:.2e} of "
+            f"scale, log_gain gradient {gain:.2e} of the mic gradient"), ok
+
+
+def training_calib_step(phase, card, results, failures):
+    """``Calibrator.train_step`` on 4,096 events of the 8-mic circle: no
+    kernel (the GCC chain is plain torch under autograd), its peak memory
+    with and without the checkpoint, the card against the CPU path on 64
+    events and on the whole batch (past the 2,048 transforms where cuFFT's
+    batched inverse would read the DC and Nyquist imaginary parts)."""
+    import torch
+    from audio_triangulation_tpu_torch import geometry
+    from audio_triangulation_tpu_torch.models import calibration
+
+    mics = geometry.circular_array(8, 0.2)
+    frames, planes, guess = calib_scene(mics, CALIB_EVENTS, SEED + 70,
+                                        noise=0.01, guess_std=0.01)
+    calib = calibration.Calibrator.create(8, device="cuda")
+    cpu_calib = calibration.Calibrator.create(8, device="cpu")
+    n = CALIB_CPU_EVENTS
+    text_s, ok_s = grads_held(calib_grads(calib, guess, frames[:n],
+                                          planes[:n]),
+                              calib_grads(cpu_calib, guess, frames[:n],
+                                          planes[:n]))
+    text_b, ok_b = grads_held(calib_grads(calib, guess, frames, planes),
+                              calib_grads(cpu_calib, guess, frames, planes))
+    params, opt = calib.init(guess)
+    batch = calibration.CalibBatch(torch.from_numpy(frames).cuda(),
+                                   torch.from_numpy(planes).cuda())
+
+    def step():
+        return calib.train_step(params, opt, batch)
+
+    def step_kept():
+        opt.zero_grad(set_to_none=True)
+        loss = calibration.calib_loss(params, batch, calib.pairs,
+                                      calib.window, calib.pipeline,
+                                      checkpoint=False)
+        loss.backward()
+        opt.step()
+
+    (_, _, loss0), peak = peak_gb(lambda: counted("calib_step_8mic",
+                                                   results, step))
+    calls = count_only(phase, "calib_step_8mic", {})
+    _, peak_kept = peak_gb(step_kept)
+    t = time_ms(step)
+    t_kept = time_ms(step_kept)
+    loss_end = step()[2]  # after the 20 steps of the timing
+    falling = bool(loss_end < loss0)
+    say(phase, f"calib_step_8mic: train_step on {CALIB_EVENTS} events x 8 "
+        f"mics x 1,024 (28 pairs, F = 1,025): {calls}; {ms_text(t)}, peak "
+        f"{peak:.3f} GB with the checkpoint; without it {t_kept[0]:.4f} ms, "
+        f"peak {peak_kept:.3f} GB; vs CPU path on {n} events: {text_s}; on "
+        f"all {CALIB_EVENTS}: {text_b}; loss {float(loss0):.4f} -> "
+        f"{float(loss_end):.4f} over the timed steps ({card})")
+    if not (ok_s and ok_b and falling):
+        failures.append("calib_step_8mic")
+
+
+def training_calib_cli(phase, card, results, failures):
+    """The CLI's ``calibrate`` defaults: ``reference_array()``, 48 events,
+    200 steps, perturbation 0.01 m, noise 0.01, seed 0
+    (``cli/main.py:898-928``), on the card and on the CPU path."""
+    import torch
+    from audio_triangulation_tpu_torch import geometry
+    from audio_triangulation_tpu_torch.models import calibration
+    from audio_triangulation_tpu_torch.utils import synth
+
+    mics = geometry.reference_array()
+    rng = np.random.default_rng(0)
+    planes = rng.uniform(-1.0, 1.0, (CLI_EVENTS, 2))
+    frames = synth.synth_scene(np.stack([place(p) for p in planes]), mics,
+                               noise_rms=0.01, seed=0)
+    guess = mics + rng.normal(0, 0.01, mics.shape).astype(np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        calib = calibration.Calibrator.create(mics.shape[0], device=dev)
+        batch = calibration.CalibBatch(
+            *(torch.as_tensor(a, dtype=torch.float32, device=dev)
+              for a in (frames, planes)))
+
+        def fit():
+            return calib.fit(guess, [batch], steps_per_batch=CLI_STEPS)
+
+        if dev == "cuda":
+            t_fit = time.perf_counter()
+            (params, losses), peak = peak_gb(lambda: counted(
+                "calib_cli", results, fit))
+            t_fit = (time.perf_counter() - t_fit) * 1e3
+            calls = count_only(phase, "calib_cli", {})
+            p1, o1 = calib.init(guess)
+            t = time_ms(lambda: calib.train_step(p1, o1, batch))
+        else:
+            params, losses = fit()
+        out[dev] = params.mic_xy.detach().cpu().numpy(), np.asarray(losses)
+    err0 = np.abs(guess - mics).mean() * 1e3
+    err1 = np.abs(out["cuda"][0] - mics).mean() * 1e3
+    d_mic = float(np.abs(out["cuda"][0] - out["cpu"][0]).max())
+    d_loss = float(np.abs(out["cuda"][1] / out["cpu"][1] - 1).max())
+    say(phase, f"calib_cli: {CLI_STEPS} steps on {CLI_EVENTS} events of "
+        f"reference_array(): {calls}; {ms_text(t)} a step, the whole fit "
+        f"{t_fit:.4f} ms once; peak {peak:.3f} GB; geometry error {err0:.2f} "
+        f"mm -> {err1:.2f} mm; vs CPU path: mics {d_mic:.2e} m, losses "
+        f"{d_loss:.2e} rel ({card})")
+    if not (err1 < err0 and d_mic <= FIT_MIC_M and d_loss <= FIT_LOSS_REL):
+        failures.append("calib_cli")
+
+
+def training_calib_em(phase, card, results, failures):
+    """``fit_em``: ``tests/test_sharding.py:123-150``'s scene at 256
+    events, 3 rounds x 50 steps; rows 1 and 5 once a round."""
+    import torch
+    from audio_triangulation_tpu_torch import geometry
+    from audio_triangulation_tpu_torch.models import calibration
+
+    mics = geometry.circular_array(8, 0.2)
+    frames, _, guess = calib_scene(mics, EM_EVENTS, 33)
+    calib = calibration.Calibrator.create(8, device="cuda")
+    cpu_calib = calibration.Calibrator.create(8, device="cpu")
+    frames_t = torch.from_numpy(frames).cuda()
+
+    def fit():
+        return calib.fit_em(guess, frames_t, em_rounds=EM_ROUNDS,
+                            inner_steps=EM_STEPS)
+
+    (mic_est, losses), peak = peak_gb(lambda: counted(
+        "calib_em_8mic", results, fit))
+    calls = count_only(phase, "calib_em_8mic", {
+        "gcc_kernel": EM_ROUNDS, "gn_kernel": EM_ROUNDS})
+    t = time_ms(fit)
+    cpu_est, cpu_losses = cpu_calib.fit_em(guess, frames,
+                                           em_rounds=EM_ROUNDS,
+                                           inner_steps=EM_STEPS)
+    err0 = np.abs(guess - mics).mean()
+    err1 = np.abs(mic_est - mics).mean()
+    d_mic = float(np.abs(mic_est - cpu_est).max())
+    d_loss = float(np.abs(np.asarray(losses) / np.asarray(cpu_losses)
+                          - 1).max())
+    say(phase, f"calib_em_8mic: fit_em on {EM_EVENTS} events, {EM_ROUNDS} "
+        f"rounds x {EM_STEPS} steps: {calls}; {ms_text(t)}; peak "
+        f"{peak:.3f} GB; geometry error {err0 * 1e3:.3f} -> "
+        f"{err1 * 1e3:.3f} mm (ratio {err1 / err0:.3f}, gate 0.85); vs CPU "
+        f"path: mics {d_mic:.2e} m, round losses {d_loss:.2e} rel ({card})")
+    if not (err1 < 0.85 * err0 and d_mic <= FIT_MIC_M
+            and d_loss <= FIT_LOSS_REL):
+        failures.append("calib_em_8mic")
+
+
+def training_calib_tracked(phase, card, results, failures):
+    """``fit_tracked``: ``tests/test_calibration_tracked.py:20-42``'s
+    moving source (36 events, 250 steps); rows 1 and 5 once."""
+    import torch
+    from audio_triangulation_tpu_torch import geometry
+    from audio_triangulation_tpu_torch.models import calibration
+    from audio_triangulation_tpu_torch.utils import synth
+
+    mics = geometry.circular_array(8, 0.2)
+    rng = np.random.default_rng(55)
+    p0, v = np.array([-0.8, -0.3]), np.array([0.55, 0.3])
+    times = np.sort(rng.uniform(0.0, 2.2, TRACKED_EVENTS)).astype(np.float32)
+    traj = p0[None, :] + times[:, None] * v[None, :]
+    frames = synth.synth_scene(np.stack([place(p) for p in traj]), mics,
+                               noise_rms=0.003, seed=56).astype(np.float32)
+    guess = (mics + rng.normal(0, 0.012, mics.shape)).astype(np.float32)
+    calib = calibration.Calibrator.create(8, device="cuda")
+    frames_t = torch.from_numpy(frames).cuda()
+
+    def fit():
+        return calib.fit_tracked(guess, frames_t, times, traj_order=1,
+                                 steps=TRACKED_STEPS)
+
+    (mic_est, coeffs, losses), peak = peak_gb(lambda: counted(
+        "calib_tracked_8mic", results, fit))
+    calls = count_only(phase, "calib_tracked_8mic", {
+        "gcc_kernel": 1, "gn_kernel": 1})
+    t = time_ms(fit)
+    cpu = calibration.Calibrator.create(8, device="cpu").fit_tracked(
+        guess, frames, times, traj_order=1, steps=TRACKED_STEPS)
+    err0 = np.abs(guess - mics).mean()
+    err1 = np.abs(mic_est - mics).mean()
+    v_err = float(np.abs(coeffs[1] - v).max())
+    d_mic = float(np.abs(mic_est - cpu[0]).max())
+    d_coef = float(np.abs(coeffs - cpu[1]).max())
+    d_loss = float(np.abs(np.asarray(losses) / np.asarray(cpu[2]) - 1).max())
+    say(phase, f"calib_tracked_8mic: fit_tracked on {TRACKED_EVENTS} events,"
+        f" {TRACKED_STEPS} steps: {calls}; {ms_text(t)}; peak {peak:.3f} "
+        f"GB; geometry error ratio {err1 / err0:.3f} (gate 0.85), velocity "
+        f"{v_err:.3f} m/s from the truth (gate 0.15), loss "
+        f"{losses[0]:.3f} -> {losses[-1]:.3f}; vs CPU path: mics "
+        f"{d_mic:.2e} m, trajectory {d_coef:.2e}, losses {d_loss:.2e} rel "
+        f"({card})")
+    if not (err1 < 0.85 * err0 and v_err < 0.15 and losses[-1] < losses[0]
+            and d_mic <= FIT_MIC_M and d_coef <= 10 * FIT_MIC_M
+            and d_loss <= FIT_LOSS_REL):
+        failures.append("calib_tracked_8mic")
+
+
+def training_speed_of_sound(phase, card, results, failures):
+    """``estimate_speed_of_sound`` on 4,096 events synthesized at c = 350
+    m/s (``tests/test_calibration_tracked.py:45-70``'s scene)."""
+    import torch
+    from audio_triangulation_tpu_torch import PipelineConfig, geometry
+    from audio_triangulation_tpu_torch.models import calibration
+    from audio_triangulation_tpu_torch.utils import synth
+
+    mics = geometry.square_array(0.3)
+    rng = np.random.default_rng(31)
+    planes = rng.uniform(-0.8, 0.8, (SOS_EVENTS, 2))
+    frames = synth.synth_scene(np.stack([place(p) for p in planes]), mics,
+                               speed_of_sound=350.0, noise_rms=0.005,
+                               seed=32).astype(np.float32)
+    frames_t = torch.from_numpy(frames).cuda()
+
+    def run():
+        return calibration.estimate_speed_of_sound(
+            frames_t, planes, mics, PipelineConfig())
+
+    (c, diag), peak = peak_gb(lambda: counted("speed_of_sound", results,
+                                              run))
+    calls = count_only(phase, "speed_of_sound", {})
+    t = time_ms(run)
+    c_cpu, d_cpu = calibration.estimate_speed_of_sound(
+        frames, planes, mics, PipelineConfig(), device="cpu")
+    say(phase, f"speed_of_sound: {SOS_EVENTS} events x 4 mics: {calls}; "
+        f"{ms_text(t)}; peak {peak:.3f} GB; c {c:.4f} m/s (truth 350, gate "
+        f"1), {diag['n_used']} pairs used, rms {diag['rms_samples']:.4f} "
+        f"samples; vs CPU path: c {abs(c - c_cpu):.2e} m/s, n_used "
+        f"{diag['n_used']} / {d_cpu['n_used']} ({card})")
+    if not (abs(c - 350.0) < 1.0 and abs(c - c_cpu) <= 1e-3
+            and diag["n_used"] == d_cpu["n_used"]):
+        failures.append("speed_of_sound")
+
+
+def row2_plain():
+    """Context manager: row 2's launcher replaced by its plain version on
+    the same CUDA operands (``gcc_reference``): the plain route on the
+    card."""
+    import contextlib
+
+    from audio_triangulation_tpu_torch.ops.cuda import gcc_kernel
+
+    @contextlib.contextmanager
+    def swap():
+        launch = gcc_kernel.launch
+        gcc_kernel.launch = gcc_kernel.gcc_reference
+        try:
+            yield
+        finally:
+            gcc_kernel.launch = launch
+
+    return swap()
+
+
+def training_neural(phase, card, results, failures):
+    """``NeuralLocalizer`` on ``square_array(0.3)`` with PHAT and the
+    default (256, 128) MLP: ``train_step`` on batches of 1,024 frames made
+    before timing (row 2 once a step), 50 steps; ``predict`` on 16,384
+    frames (row 2 once) against the plain route on the card."""
+    import torch
+    from audio_triangulation_tpu_torch import PipelineConfig, geometry
+    from audio_triangulation_tpu_torch.models import neural
+
+    mics = geometry.square_array(0.3)
+    cfg = PipelineConfig(phat=True)
+    net = neural.NeuralLocalizer.create(mics, cfg, device="cuda")
+    cpu_net = neural.NeuralLocalizer.create(mics, cfg, device="cpu")
+    data = [(torch.from_numpy(f).cuda(), torch.from_numpy(xy).cuda())
+            for f, xy in neural.synthetic_batches(
+                mics, n_batches=NEURAL_BATCHES, batch_size=NEURAL_BATCH,
+                pipeline=cfg, bank=2 * NEURAL_BATCH, seed=SEED + 80)]
+    # one step from the same weights on both devices
+    n = NEURAL_CPU_FRAMES
+    f0, xy0 = data[0][0][:n], data[0][1][:n]
+    feats = {"cuda": net.features(f0), "cpu": cpu_net.features(f0.cpu())}
+    d_feat = float((feats["cuda"].cpu() - feats["cpu"]).abs().max())
+    step_loss = {}
+    for dev, nt in (("cuda", net), ("cpu", cpu_net)):
+        mlp = neural.init_mlp(0, nt.sizes, dev)
+        step_loss[dev] = float(nt.train_step(mlp, nt.optimizer(mlp),
+                                             f0.to(dev), xy0.to(dev))[2])
+    d_loss = abs(step_loss["cuda"] / step_loss["cpu"] - 1)
+    params, opt = net.init(seed=0)
+    i = [0]
+
+    def step():
+        frames, xy = data[i[0] % NEURAL_BATCHES]
+        i[0] += 1
+        return net.train_step(params, opt, frames, xy)
+
+    _, peak = peak_gb(lambda: counted("neural_train", results, step))
+    calls = count_only(phase, "neural_train", {"gcc_kernel": 1})
+    losses = [step()[2] for _ in range(NEURAL_STEPS - 1)]
+    curve = torch.stack(losses).cpu().numpy()
+    falling = bool(curve[-5:].mean() < 0.5 * curve[:5].mean())
+    t = time_ms(step)
+    say(phase, f"neural_train: train_step on {NEURAL_BATCH} frames x 4 x "
+        f"1,024, PHAT, MLP {net.sizes}: {calls} a step; {ms_text(t)}; peak "
+        f"{peak:.3f} GB; loss over {NEURAL_STEPS} steps {curve[0]:.4f} -> "
+        f"{curve[-1]:.4f} (last 5 under half the first 5: {falling}); vs "
+        f"CPU path on {n} frames: features {d_feat:.2e}, a step's loss "
+        f"{d_loss:.2e} rel ({card})")
+    if not (falling and d_feat <= NEURAL_FEAT_ABS
+            and d_loss <= NEURAL_LOSS_REL):
+        failures.append("neural_train")
+
+    reps = NEURAL_PREDICT_FRAMES // NEURAL_BATCH
+    big = torch.cat([f for f, _ in data[:reps]] * (
+        -(-reps // NEURAL_BATCHES)))[:NEURAL_PREDICT_FRAMES]
+    pred, peak = peak_gb(lambda: counted(
+        "neural_predict", results, lambda: net.predict(params, big)))
+    calls = count_only(phase, "neural_predict", {"gcc_kernel": 1})
+    t = time_ms(lambda: net.predict(params, big))
+    with row2_plain():
+        plain = net.predict(params, big)
+        t_plain = time_ms(lambda: net.predict(params, big))
+    d_pred = float((pred - plain).abs().max())
+    truth = torch.cat([xy for _, xy in data[:reps]] * (
+        -(-reps // NEURAL_BATCHES)))[:NEURAL_PREDICT_FRAMES]
+    rms = float(((pred - truth) ** 2).sum(-1).mean().sqrt())
+    say(phase, f"neural_predict: {NEURAL_PREDICT_FRAMES} frames: {calls}; "
+        f"{ms_text(t)} ({NEURAL_PREDICT_FRAMES / t[0] * 1e3:.1f} frames/s); "
+        f"with row 2's plain version {t_plain[0]:.4f} ms; peak {peak:.3f} "
+        f"GB; vs the plain route on the card: {d_pred:.2e} m; rms error "
+        f"after {NEURAL_STEPS} steps {rms:.3f} m ({card})")
+    if not (bool(torch.isfinite(pred).all()) and d_pred <= NEURAL_PRED_M):
+        failures.append("neural_predict")
+
+
+def training_design(phase, card, results, failures):
+    """The CLI's ``design`` defaults (``cli/main.py:931-952``): 4 mics,
+    aperture 0.15 m, separation 0.05 m, 33 x 33 coverage points over +-1.5
+    m, 300 steps, 2 us; then ``crlb_rms_m`` of the result on 201 x 201
+    points."""
+    import torch
+    from audio_triangulation_tpu_torch.core import design
+
+    k, ext, ap = DESIGN_CELLS, 1.5, 0.15
+    xs = np.linspace(-ext, ext, 2 * k + 1)
+    pts = np.stack(np.meshgrid(xs, xs), -1).reshape(-1, 2).astype(np.float32)
+    init = np.random.default_rng(0).uniform(-ap / 3, ap / 3, (4, 2)).astype(
+        np.float32)
+    kw = dict(aperture_m=ap, min_separation_m=0.05, steps=DESIGN_STEPS,
+              sigma_tau_s=2e-6)
+
+    def run():
+        return design.optimize_array(init, pts, device="cuda", **kw)
+
+    (pos, hist), peak = peak_gb(lambda: counted("design_cli", results, run))
+    calls = count_only(phase, "design_cli", {})
+    t = time_ms(run)
+    pos_c, hist_c = design.optimize_array(init, pts, device="cpu", **kw)
+    d_hist = float(np.abs(hist / hist_c - 1).max())
+    d_pos = float(np.abs(pos - pos_c).max())
+    side = np.linspace(-ext, ext, CRLB_MAP_SIDE)
+    grid = np.stack(np.meshgrid(side, side), -1).reshape(-1, 2).astype(
+        np.float32)
+    mics_t, grid_t = torch.from_numpy(pos).cuda(), torch.from_numpy(grid)
+
+    def crlb_map():
+        return design.crlb_rms_m(mics_t, grid_t.cuda(), sigma_tau_s=2e-6)
+
+    rms_map, peak_map = peak_gb(lambda: counted("design_crlb_map", results,
+                                                crlb_map))
+    count_only(phase, "design_crlb_map", {})
+    t_map = time_ms(crlb_map)
+    cpu_map = design.crlb_rms_m(torch.from_numpy(pos), grid_t,
+                                sigma_tau_s=2e-6)
+    d_map = rel_gap(rms_map, cpu_map)
+    say(phase, f"design_cli: optimize_array, {DESIGN_STEPS} steps on "
+        f"{len(pts)} points: {calls}; {ms_text(t)} "
+        f"({t[0] / DESIGN_STEPS:.4f} ms a step); peak {peak:.3f} GB; mean "
+        f"CRLB rms {hist[0] * 100:.2f} -> {hist[-1] * 100:.2f} cm; vs CPU "
+        f"path: history {d_hist:.2e} rel, positions {d_pos:.2e} m; "
+        f"crlb_rms_m on {len(grid)} points {ms_text(t_map)}, peak "
+        f"{peak_map:.3f} GB, vs CPU path {d_map:.2e} of scale ({card})")
+    if not (hist[-1] < hist[0] and d_hist <= DESIGN_HIST_REL
+            and d_pos <= DESIGN_POS_M and d_map <= DESIGN_HIST_REL):
+        failures.append("design_cli")
+
+
+def phase_training(card, results):
+    """Phase 15: the training side at the JAX package's published sizes:
+    ``Calibrator.train_step`` on 4,096 events of 8 mics, the CLI's
+    ``calibrate``, ``fit_em`` and ``fit_tracked`` on the reference tests'
+    scenes, ``estimate_speed_of_sound`` on 4,096 events, the neural
+    localizer's ``train_step`` and ``predict`` and the CLI's ``design``.
+    Each path timed (ms a step or call, median and IQR of 7), its peak
+    device memory, its launches (none on the calibration steps and the
+    design, rows 1 and 5 once a ``Localizer`` call, row 2 once a neural
+    step and prediction), its gates (the reference tests') and the card
+    against the CPU path; every path runs and the phase fails at its
+    end."""
+    import torch
+
+    t0 = time.perf_counter()
+    phase = "15 training"
+    failures = []
+    for part in (training_calib_step, training_calib_cli, training_calib_em,
+                 training_calib_tracked, training_speed_of_sound,
+                 training_neural, training_design):
+        part(phase, card, results, failures)
+        torch.cuda.empty_cache()
+    say(phase, f"wall time {time.perf_counter() - t0:.1f} s")
+    if failures:
+        fail(phase, f"result checks failed: {failures}")
+
+
 # further keys of an entry that has them: what the library yardstick is, the
 # SRP-argmax kernel's other bound and its bf16 mode, the bf16 DFT product's
 # library form with f32 outputs
@@ -4645,6 +5143,7 @@ def main():
     phase_soak(results)
     phase_estimators(card, results)
     phase_reverb(card, results)
+    phase_training(card, results)
 
     print(json.dumps({"kernels": [
         {k: results[n][k] for k in (*KERNEL_KEYS, *(
