@@ -12,7 +12,12 @@ extraction (``ops.beamform``, ``Localizer.extract``, the streaming
 (``ops.echo``, ``models.mapping.ReflectorMapper``); and the training side:
 array self-calibration (``models.calibration.Calibrator``), the learned
 localizer (``models.neural.NeuralLocalizer``) and array design
-(``core.design``), through ``torch.autograd`` and ``torch.optim.Adam``.
+(``core.design``), through ``torch.autograd`` and ``torch.optim.Adam``;
+and live serving: the native ingest runtime and its transports
+(``runtime.native_rt``, ``runtime.transport``), the feeder and event pump
+(``runtime.feeder``), the HTTP server (``runtime.server``), export and
+graph capture (``utils.serving``), checkpoints (``utils.checkpoint``) and
+profiling (``utils.profiling``).
 
 The JAX package stays the reference; this package imports torch and never
 jax.  Quick start::
@@ -41,20 +46,25 @@ jax.  Quick start::
     calib = Calibrator.create(8, device="cuda")
     params, opt = calib.init(mic_xy_guess)
     params, opt, loss = calib.train_step(params, opt, batch)  # CalibBatch
+
+    from audio_triangulation_tpu_torch.runtime.server import LocalizerServer
+    srv = LocalizerServer(loc, port=8080).start()   # POST /localize, /streams
 """
 
 from .core import geometry
 from .core.config import (GridConfig, PipelineConfig, SolverConfig,
                           StreamConfig, VolumeConfig)
 from .models.calibration import Calibrator
-from .models.localizer import Localizer
+from .models.localizer import Localizer, LocalizerParams, localize_frames
 from .models.neural import NeuralLocalizer
 from .models.streaming import StreamingLocalizer, TwoRateStreamingLocalizer
 from .models.tracked import TrackedStreamingLocalizer
 from .models.tracking import Tracker, TrackerConfig
 from .models.volume import VolumeLocalizer
 
-__all__ = ["Localizer", "Calibrator", "NeuralLocalizer", "StreamingLocalizer", "TwoRateStreamingLocalizer",
-           "TrackedStreamingLocalizer", "Tracker", "TrackerConfig",
-           "VolumeLocalizer", "PipelineConfig", "GridConfig", "SolverConfig",
-           "StreamConfig", "VolumeConfig", "geometry"]
+__all__ = ["Localizer", "LocalizerParams", "localize_frames", "Calibrator",
+           "NeuralLocalizer", "StreamingLocalizer",
+           "TwoRateStreamingLocalizer", "TrackedStreamingLocalizer",
+           "Tracker", "TrackerConfig", "VolumeLocalizer", "PipelineConfig",
+           "GridConfig", "SolverConfig", "StreamConfig", "VolumeConfig",
+           "geometry"]

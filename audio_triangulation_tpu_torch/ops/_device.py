@@ -9,11 +9,14 @@ device copies are kept, keyed by the array object itself.
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
 MAX_ENTRIES = 32
 _cache: dict = {}
+_lock = threading.Lock()  # threads of one server share the cache
 
 
 def device_constant(arr: np.ndarray, device, dtype=torch.float32):
@@ -25,12 +28,13 @@ def device_constant(arr: np.ndarray, device, dtype=torch.float32):
     if device.type == "cpu":
         return torch.as_tensor(arr, dtype=dtype)
     key = (id(arr), str(device), dtype)
-    hit = _cache.get(key)
-    if hit is None or hit[0] is not arr:  # the id of a freed array can recur
-        while len(_cache) >= MAX_ENTRIES:
-            _cache.pop(next(iter(_cache)))
-        hit = (arr, torch.as_tensor(arr, dtype=dtype, device=device))
-        _cache[key] = hit
+    with _lock:
+        hit = _cache.get(key)
+        if hit is None or hit[0] is not arr:  # a freed array's id can recur
+            while len(_cache) >= MAX_ENTRIES:
+                _cache.pop(next(iter(_cache)))
+            hit = (arr, torch.as_tensor(arr, dtype=dtype, device=device))
+            _cache[key] = hit
     return hit[1]
 
 

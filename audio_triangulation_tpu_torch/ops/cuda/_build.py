@@ -29,6 +29,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _loaded: dict = {}
+# the wrappers' launch counters and their ctypes bindings are shared by
+# every thread that calls a kernel (the HTTP server runs requests on many)
+count_lock = threading.Lock()
+bind_lock = threading.Lock()
 
 
 def find_nvcc() -> str:
@@ -94,9 +98,12 @@ def build(build_dir: Path = BUILD_DIR) -> Path:
     return out
 
 
-def load_library(build_dir: Path = BUILD_DIR) -> ctypes.CDLL:
-    """The built kernel library, building it first when needed."""
+def load_library(build_dir=None) -> ctypes.CDLL:
+    """The built kernel library, building it first when needed; in
+    ``BUILD_DIR`` as it stands at the call unless ``build_dir`` is given
+    (``utils.serving.enable_compilation_cache`` moves it)."""
     with _lock:
+        build_dir = BUILD_DIR if build_dir is None else build_dir
         key = str(build_dir)
         if key not in _loaded:
             _loaded[key] = ctypes.CDLL(str(build(build_dir)))

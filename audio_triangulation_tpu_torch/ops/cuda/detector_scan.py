@@ -114,7 +114,8 @@ def launch(x: torch.Tensor):
             err = lib.att_detector_scan(
                 x.data_ptr(), out1.data_ptr(), out2.data_ptr(), rows, t_len,
                 torch.cuda.current_stream(x.device).cuda_stream)
-        launches += 1
+        with _build.count_lock:
+            launches += 1
         _build.check(err, "detector_scan_kernel launch", lib)
     return out1, out2
 
@@ -130,8 +131,9 @@ def prefix_sums(x: torch.Tensor):
 
 def _lib():
     lib = _build.load_library()
-    if lib.att_detector_scan.argtypes is None:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.att_detector_scan.argtypes = [vp] * 3 + [ci] * 2 + [vp]
-        lib.att_detector_scan.restype = ci
+    with _build.bind_lock:  # threads may ask at once
+        if lib.att_detector_scan.argtypes is None:
+            vp, ci = ctypes.c_void_p, ctypes.c_int
+            lib.att_detector_scan.argtypes = [vp] * 3 + [ci] * 2 + [vp]
+            lib.att_detector_scan.restype = ci
     return lib

@@ -215,7 +215,8 @@ def launch(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
             f"dft_matmul_kernel {name}: cuTensorMapEncodeTiled was not found "
             f"in libcuda.so.1 or refused x {tuple(x.shape)}, w [{f}, {n}]; "
             "nothing was launched")
-    launches[name] += 1
+    with _build.count_lock:
+        launches[name] += 1
     _build.check(err, "dft_matmul_kernel launch", lib)
     return out
 
@@ -231,12 +232,13 @@ def dft_matmul(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
 
 def _lib():
     lib = _build.load_library()
-    if lib.att_dft_matmul.argtypes is None:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.att_dft_matmul.argtypes = [vp] * 5 + [ci] * 4 + [vp]
-        lib.att_dft_matmul.restype = ci
-        lib.att_dft_k_major.argtypes = [vp] * 3 + [ci] * 3 + [vp]
-        lib.att_dft_k_major.restype = ci
-        lib.att_dft_split_pack.argtypes = [vp] * 3 + [ci] * 2 + [vp]
-        lib.att_dft_split_pack.restype = ci
+    with _build.bind_lock:  # threads may ask at once
+        if lib.att_dft_matmul.argtypes is None:
+            vp, ci = ctypes.c_void_p, ctypes.c_int
+            lib.att_dft_matmul.argtypes = [vp] * 5 + [ci] * 4 + [vp]
+            lib.att_dft_matmul.restype = ci
+            lib.att_dft_k_major.argtypes = [vp] * 3 + [ci] * 3 + [vp]
+            lib.att_dft_k_major.restype = ci
+            lib.att_dft_split_pack.argtypes = [vp] * 3 + [ci] * 2 + [vp]
+            lib.att_dft_split_pack.restype = ci
     return lib

@@ -671,7 +671,8 @@ def launch(frames, win_gain, mats: GccMatrices, pairs, *, phat: bool,
                 *ptr, *optr, b, m, n, f, fp, p, l, int(phat), int(per_mic),
                 phat_eps, taper_denom, int(with_peaks),
                 torch.cuda.current_stream(frames.device).cuda_stream)
-        launches += 1
+        with _build.count_lock:
+            launches += 1
         _build.check(err, "gcc_kernel launch", lib)
     return outs if with_peaks else outs[0]
 
@@ -701,7 +702,8 @@ def launch_pipelined(frames, win_gain, mats: GccMatrices, pairs, *,
                 *ptr, b, m, n, f, fp, p, l, int(phat), int(per_mic),
                 phat_eps, taper_denom, 1, None,
                 torch.cuda.current_stream(frames.device).cuda_stream)
-        pipelined_launches += 1
+        with _build.count_lock:
+            pipelined_launches += 1
         _build.check(err, "gcc_kernel pipelined launch", lib)
     return outs
 
@@ -743,7 +745,8 @@ def launch_srp(frames, win_gain, mats: GccMatrices, pairs, lut_flat, *,
                 *ptr, *optr, b, m, n, f, fp, p, l, lut32.shape[1], int(phat),
                 int(per_mic), phat_eps, taper_denom,
                 torch.cuda.current_stream(dev).cuda_stream)
-        srp_launches += 1
+        with _build.count_lock:
+            srp_launches += 1
         _build.check(err, "gcc_kernel SRP launch", lib)
     return (*outs, cell, score, scores)
 
@@ -787,7 +790,8 @@ def launch_stats(frames, win_gain, mats: GccMatrices, pairs,
                 int(sp.phase), int(sp.hybrid), sp.half_width, sp.min_bins,
                 sp.lo, sp.hi, sp.fft_length, sp.rel, sp.floor, sp.hybrid_min,
                 torch.cuda.current_stream(dev).cuda_stream)
-        stats_launches += 1
+        with _build.count_lock:
+            stats_launches += 1
         _build.check(err, "gcc_kernel stats launch", lib)
     extra = (band,) if with_band else ()
     if not with_peaks:
@@ -797,22 +801,23 @@ def launch_stats(frames, win_gain, mats: GccMatrices, pairs,
 
 def _lib():
     lib = _build.load_library()
-    if lib.att_gcc.argtypes is None:
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.att_gcc.argtypes = ([vp] * 11 + [ci] * 9 + [cf, cf, ci, vp])
-        lib.att_gcc.restype = ci
-        lib.att_gcc_stats.argtypes = ([vp] * 13 + [ci] * 9 + [cf, cf]
-                                      + [ci] * 9 + [cf] * 3 + [vp])
-        lib.att_gcc_stats.restype = ci
-        lib.att_gcc_frames_per_block.argtypes = [ci, ci, ci]
-        lib.att_gcc_frames_per_block.restype = ci
-        lib.att_gcc_stats_frames_per_block.argtypes = [ci] * 4
-        lib.att_gcc_stats_frames_per_block.restype = ci
-        lib.att_gcc_srp.argtypes = [vp] * 15 + [ci] * 10 + [cf, cf, vp]
-        lib.att_gcc_srp.restype = ci
-        lib.att_gcc_pipelined.argtypes = ([vp] * 11 + [ci] * 9
-                                          + [cf, cf, ci, vp, vp])
-        lib.att_gcc_pipelined.restype = ci
-        lib.att_gcc_pipelined_frames_per_block.argtypes = [ci] * 4
-        lib.att_gcc_pipelined_frames_per_block.restype = ci
+    with _build.bind_lock:  # threads may ask at once
+        if lib.att_gcc.argtypes is None:
+            vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.att_gcc.argtypes = ([vp] * 11 + [ci] * 9 + [cf, cf, ci, vp])
+            lib.att_gcc.restype = ci
+            lib.att_gcc_stats.argtypes = ([vp] * 13 + [ci] * 9 + [cf, cf]
+                                          + [ci] * 9 + [cf] * 3 + [vp])
+            lib.att_gcc_stats.restype = ci
+            lib.att_gcc_frames_per_block.argtypes = [ci, ci, ci]
+            lib.att_gcc_frames_per_block.restype = ci
+            lib.att_gcc_stats_frames_per_block.argtypes = [ci] * 4
+            lib.att_gcc_stats_frames_per_block.restype = ci
+            lib.att_gcc_srp.argtypes = [vp] * 15 + [ci] * 10 + [cf, cf, vp]
+            lib.att_gcc_srp.restype = ci
+            lib.att_gcc_pipelined.argtypes = ([vp] * 11 + [ci] * 9
+                                              + [cf, cf, ci, vp, vp])
+            lib.att_gcc_pipelined.restype = ci
+            lib.att_gcc_pipelined_frames_per_block.argtypes = [ci] * 4
+            lib.att_gcc_pipelined_frames_per_block.restype = ci
     return lib

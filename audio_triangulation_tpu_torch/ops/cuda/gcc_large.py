@@ -232,7 +232,8 @@ def launch(re, im, pairs, sync, syns, *, packed: torch.Tensor, bf16: bool,
         if err == TENSOR_MAP_ERROR:
             raise RuntimeError("gcc_large_kernel: the TMA tensor map of the "
                                "packed synthesis matrix could not be encoded")
-        launches += 1
+        with _build.count_lock:
+            launches += 1
         _build.check(err, "gcc_large_kernel launch", lib)
     return outs if with_peaks else outs[0]
 
@@ -287,10 +288,11 @@ def xcorr_large_peaks(frames: torch.Tensor, pairs, cfg: PipelineConfig, *,
 
 def _lib():
     lib = _build.load_library()
-    if lib.att_gcc_large.argtypes is None:
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.att_gcc_large.argtypes = [vp] * 9 + [ci] * 8 + [cf, vp]
-        lib.att_gcc_large.restype = ci
-        lib.att_gcc_large_fits.argtypes = [ci, ci]
-        lib.att_gcc_large_fits.restype = ci
+    with _build.bind_lock:  # threads may ask at once
+        if lib.att_gcc_large.argtypes is None:
+            vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.att_gcc_large.argtypes = [vp] * 9 + [ci] * 8 + [cf, vp]
+            lib.att_gcc_large.restype = ci
+            lib.att_gcc_large_fits.argtypes = [ci, ci]
+            lib.att_gcc_large_fits.restype = ci
     return lib

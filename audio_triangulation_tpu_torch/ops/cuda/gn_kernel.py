@@ -53,8 +53,8 @@ def refusal(mic_positions: np.ndarray, pairs: np.ndarray,
 def gn_reference(tau, init, mics, pairs, *, c: float, h: float, iters: int,
                  damping: float, sphere: bool):
     """Plain PyTorch version of the kernel.  tau [B, P] seconds, init
-    [B, 2], mics [M, 2+], pairs [P, 2] -> (xy [B, 2], rms [B] meters,
-    cov [B, 2, 2] square meters)."""
+    [B, 2], mics [M, 2+] and pairs [P, 2] (host arrays or tensors) -> (xy
+    [B, 2], rms [B] meters, cov [B, 2, 2] square meters)."""
     mic_xy = [(float(a), float(b)) for a, b in mics[:, :2].tolist()]
     pair_ij = [(int(i), int(j)) for i, j in pairs.tolist()]
     n_pairs = len(pair_ij)
@@ -158,9 +158,10 @@ class GnSolver:
 
     def reference(self, tau: torch.Tensor, init: torch.Tensor):
         """:func:`gn_reference` with this solver's constants, on the device
-        of ``tau``."""
-        return gn_reference(tau, init, torch.from_numpy(self.mics),
-                            torch.from_numpy(self.pairs), **self.kw)
+        of ``tau``.  The constants go in as the host arrays they are: a
+        tensor made here would be read back to the host, which
+        ``torch.export`` cannot trace (``utils.serving``)."""
+        return gn_reference(tau, init, self.mics, self.pairs, **self.kw)
 
     def launch(self, tau: torch.Tensor, init: torch.Tensor):
         """Run ``csrc/gn_kernel.cu`` on CUDA tensors: tau [B, P] and init
@@ -200,16 +201,18 @@ class GnSolver:
                              int(kw["sphere"]),
                              torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, "gn_kernel launch", lib)
-        launches += 1
+        with _build.count_lock:
+            launches += 1
         return xy, rms, cov
 
 
 def _lib():
     lib = _build.load_library()
-    if lib.att_gn.argtypes is None:
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.att_gn.argtypes = ([vp, vp, ctypes.POINTER(ctypes.c_float),
-                                vp, vp, vp, ci, ci, cf, cf, cf, ci, cf, ci,
-                                vp])
-        lib.att_gn.restype = ci
+    with _build.bind_lock:  # threads may ask at once
+        if lib.att_gn.argtypes is None:
+            vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.att_gn.argtypes = ([vp, vp, ctypes.POINTER(ctypes.c_float),
+                                    vp, vp, vp, ci, ci, cf, cf, cf, ci, cf, ci,
+                                    vp])
+            lib.att_gn.restype = ci
     return lib

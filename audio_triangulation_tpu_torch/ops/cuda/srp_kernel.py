@@ -116,7 +116,8 @@ def launch(flat: torch.Tensor, matrix: torch.Tensor, num_cells: int, *,
                 flat.data_ptr(), matrix.data_ptr(), val.data_ptr(),
                 cell.data_ptr(), b, k, g, num_cells, int(bf16),
                 torch.cuda.current_stream(dev).cuda_stream)
-        launches += 1
+        with _build.count_lock:
+            launches += 1
         _build.check(err, "srp_argmax_kernel launch", lib)
     return val, cell
 
@@ -142,8 +143,9 @@ def srp_argmax(correlograms: torch.Tensor, onehot: torch.Tensor,
 
 def _lib():
     lib = _build.load_library()
-    if lib.att_srp_argmax.argtypes is None:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.att_srp_argmax.argtypes = [vp] * 4 + [ci] * 5 + [vp]
-        lib.att_srp_argmax.restype = ci
+    with _build.bind_lock:  # threads may ask at once
+        if lib.att_srp_argmax.argtypes is None:
+            vp, ci = ctypes.c_void_p, ctypes.c_int
+            lib.att_srp_argmax.argtypes = [vp] * 4 + [ci] * 5 + [vp]
+            lib.att_srp_argmax.restype = ci
     return lib

@@ -25,12 +25,17 @@ state (``DereverbState`` with its ``WpeState``) and ``extractor_state_*`` a
 
 ``calib_params_from_reference`` takes a calibration's trainable
 parameters (``CalibParams``, ``JointParams``, ``TrackedParams``) and
-``mlp_params_from_reference`` a neural localizer's MLP weights.
+``mlp_params_from_reference`` a neural localizer's MLP weights;
+``adam_state_to_reference`` / ``adam_state_from_reference`` carry a
+calibration's Adam state (optax's ``mu``, ``nu``, ``count`` against
+``torch.optim.Adam``'s ``exp_avg``, ``exp_avg_sq``, ``step``), so that
+``utils.checkpoint`` archives of ``(params, opt_state)`` cross both ways.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -336,3 +341,68 @@ def mlp_params_from_reference(params: dict, device):
             layer.bias.copy_(torch.from_numpy(
                 np.array(params[f"layer_{i}"]["b"], np.float32)))
     return mlp.to(device)
+
+
+class AdamState(NamedTuple):
+    """optax's ``ScaleByAdamState`` fields, for a port Adam's state as the
+    JAX package holds it: ``count`` int32, ``mu`` and ``nu`` each a
+    parameter dataclass of the moments."""
+
+    count: torch.Tensor
+    mu: Any
+    nu: Any
+
+
+def adam_state_to_reference(opt: torch.optim.Adam, params) -> tuple:
+    """``opt``'s state as ``optax.adam``'s, ``(AdamState(count, mu, nu),
+    ())``, the last the key-path-free ``EmptyState``: so ``(params,
+    adam_state_to_reference(opt, params))`` has the key paths of the JAX
+    package's ``(params, opt_state)`` for a ``Calibrator`` and crosses
+    through ``utils.checkpoint``.  ``exp_avg`` -> ``mu``, ``exp_avg_sq`` ->
+    ``nu``, ``step`` -> ``count``; a fresh optimizer gives zeros.  ``opt``
+    must be over the fields of ``params`` in order (``Calibrator.optimizer``
+    makes it so)."""
+    fields = dataclasses.fields(params)
+    group = opt.param_groups[0]["params"]
+    if len(opt.param_groups) != 1 or len(group) != len(fields) or any(
+            t is not getattr(params, f.name) for t, f in zip(group, fields)):
+        raise ValueError("the optimizer is not over the fields of params, "
+                         "in order")
+    moments = {}
+    step = 0
+    for key in ("exp_avg", "exp_avg_sq"):
+        vals = {}
+        for t, f in zip(group, fields):
+            st = opt.state.get(t, {})
+            vals[f.name] = (st[key].detach().clone() if key in st
+                            else torch.zeros_like(t.detach()))
+            step = int(st["step"]) if "step" in st else step
+        moments[key] = type(params)(**vals)
+    return (AdamState(count=torch.tensor(step, dtype=torch.int32),
+                      mu=moments["exp_avg"], nu=moments["exp_avg_sq"]), ())
+
+
+def adam_state_from_reference(state, opt: torch.optim.Adam) -> None:
+    """Load an ``optax.adam`` state into ``opt`` (its ``state_dict``):
+    ``state`` is ``(ScaleByAdamState, EmptyState)`` or the
+    ``ScaleByAdamState`` alone, from the JAX package (as numpy arrays, or
+    restored by ``utils.checkpoint`` into :func:`adam_state_to_reference`'s
+    structure), with ``mu`` and ``nu`` holding the fields of the parameter
+    dataclass that ``opt`` is over, in order."""
+    adam = state[0] if not hasattr(state, "mu") else state
+    names = [f.name for f in dataclasses.fields(adam.mu)]
+    group = opt.param_groups[0]["params"]
+    if len(group) != len(names):
+        raise ValueError(f"the Adam state holds {names}; the optimizer has "
+                         f"{len(group)} parameters")
+    sd = opt.state_dict()
+    step = float(np.asarray(adam.count))
+    for i, (t, name) in enumerate(zip(group, names)):
+        def moment(tree):
+            return torch.as_tensor(np.asarray(getattr(tree, name)),
+                                   dtype=t.dtype).to(t.device)
+
+        sd["state"][i] = {"step": torch.tensor(step, dtype=torch.float32),
+                          "exp_avg": moment(adam.mu),
+                          "exp_avg_sq": moment(adam.nu)}
+    opt.load_state_dict(sd)

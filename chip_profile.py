@@ -22,7 +22,8 @@ at 1,024 streams, MVDR extraction on 4,096 frames of 8 mics, block WPE on
 64 recordings of 4 x 16,384 samples; no kernel), and for two paths of
 phase 15 (one ``Calibrator.train_step`` on 4,096 events of 8 x 1,024, no
 kernel; one ``NeuralLocalizer.train_step`` on 1,024 frames of 4 x 1,024,
-and one ``predict`` on 16,384, row 2 once each), prints:
+and one ``predict`` on 16,384, row 2 once each), and for one POST
+/localize to phase 16's server at 64 and 4,096 frames, prints:
 
 - the median wall time of 7 unprofiled calls and the device-busy time of
   one profiled call (the sum of its kernels' device time), hence the
@@ -37,8 +38,13 @@ and one ``predict`` on 16,384, row 2 once each), prints:
   closing ``cudaDeviceSynchronize`` is the profiler window's own.
 
     python3 chip_profile.py [localizer] [stream] [tracked] [sources]
-                            [estimators] [reverb] [training]
+                            [estimators] [reverb] [training] [serving]
+                            [sessions]
                                      # one CUDA card; no argument: all
+
+``sessions`` counts the profiler sessions that lose the record of their
+one kernel launch, with and without ``chip_smoke.PROFILE_PAD_S`` of host
+time inside the session around the call.
 
 Imports no JAX.
 """
@@ -58,7 +64,8 @@ SLOW_HOST_OP_US = 300.0
 
 
 SECTIONS = ("localizer", "stream", "tracked", "sources", "estimators",
-            "reverb", "training")
+            "reverb", "training", "serving", "sessions")
+SESSION_TRIALS = 1200  # profiler sessions a padding, in turns
 
 
 def main(argv=None):
@@ -273,6 +280,56 @@ def profile_training(chip_smoke, rng):
     big = f.repeat(chip_smoke.NEURAL_PREDICT_FRAMES // len(f), 1, 1)
     profile_path("neural_predict", lambda: net.predict(mlp, big),
                  watch=("gcc_kernel", "gemm", "softmax", "reduce"))
+
+
+def profile_serving(chip_smoke, rng):
+    """One POST /localize to a ``LocalizerServer`` on the card (the
+    Localizer of the CLI's ``serve --array square --phat``) at 64 and 4,096
+    frames, from a client thread of this process: the request's wall time
+    against the card's busy time."""
+    from audio_triangulation_tpu_torch import (Localizer, PipelineConfig,
+                                               geometry)
+    from audio_triangulation_tpu_torch.runtime.server import LocalizerServer
+
+    mics = geometry.square_array(0.3)
+    loc = Localizer.create(mics, PipelineConfig(phat=True), device="cuda")
+    srv = LocalizerServer(loc, port=0).start()
+    try:
+        for b in (64, 4096):
+            req = chip_smoke.octet(chip_smoke.scene_frames(mics, b, rng))
+            profile_path(f"serve_localize_b{b}",
+                         lambda: chip_smoke.http(srv, "/localize", **req),
+                         watch=("gcc_kernel", "gn_kernel"))
+    finally:
+        srv.stop()
+
+
+def profile_sessions(chip_smoke, rng):
+    """How often a profiler session loses the record of its one launch:
+    ``SESSION_TRIALS`` sessions around one GN-kernel launch (the solver
+    tail of chip_smoke's phase 5, 16,384 frames) with no host time around
+    the call and with ``chip_smoke.PROFILE_PAD_S`` before and after it, in
+    turns (``chip_smoke.profiled_kernels``)."""
+    from audio_triangulation_tpu_torch import Localizer, geometry
+
+    cfg = dict(chip_smoke.main_configs())["bandcrop_800_6000"]
+    loc = Localizer.create(geometry.square_array(0.3), cfg, device="cuda",
+                           init_grid_stride=3)
+    tau, init = chip_smoke.gn_inputs(loc, chip_smoke.FRAMES)
+    pad = chip_smoke.PROFILE_PAD_S
+    lost = {0.0: 0, pad: 0}
+    try:
+        for _ in range(SESSION_TRIALS):
+            for p in lost:
+                chip_smoke.PROFILE_PAD_S = p
+                n, _ = chip_smoke.profiled_kernels(lambda: loc.gn(tau, init))
+                lost[p] += n == 0
+    finally:
+        chip_smoke.PROFILE_PAD_S = pad
+    for p, n in lost.items():
+        print(f"[sessions] {p * 1e3:.0f} ms of host time before and after "
+              f"one GN-kernel launch: {n} of {SESSION_TRIALS} sessions "
+              "recorded no device activity", flush=True)
 
 
 def profile_path(name, fn, watch=()):

@@ -355,6 +355,7 @@ def phase_device():
     sys.path.insert(0, HERE)
     from audio_triangulation_tpu_torch import Localizer, geometry
     from audio_triangulation_tpu_torch.ops.cuda import _build
+    from audio_triangulation_tpu_torch.runtime import native_rt
     from audio_triangulation_tpu_torch.tools.bench import smi_line
 
     try:
@@ -373,6 +374,13 @@ def phase_device():
         f"{torch.cuda.device_count()}, torch {torch.__version__} "
         f"cuda {torch.version.cuda}; TF32 off; kernels built in "
         f"{time.perf_counter() - t0:.1f} s -> {os.path.relpath(path, HERE)}")
+    t0 = time.perf_counter()
+    try:
+        native = native_rt.build()
+    except RuntimeError as e:
+        fail("1 device", f"the native ingest runtime did not build: {e}")
+    say("1 device", f"native ingest runtime built with g++ in "
+        f"{time.perf_counter() - t0:.1f} s -> {os.path.relpath(native, HERE)}")
     return card
 
 
@@ -1060,7 +1068,15 @@ PATH_KERNELS = {"bandcrop_800_6000": ("gcc_kernel", "gn_kernel"),
                 **{name: () for name in (
                     "room_batch", "wpe_block", "wpe_long",
                     "extractor_stream_das", "extractor_stream_mvdr",
-                    "mapping_echo")}}
+                    "mapping_echo")},
+                # phase 16: rows 1 and 5 once a /localize request and an
+                # EventPump or feeder batch, the scan once a session step
+                **{name: ("gcc_kernel", "gn_kernel") for name in (
+                    "serve_pump", "serve_localize_b1", "serve_localize_b64",
+                    "serve_localize_b4096", "serve_clients",
+                    "serve_feeder")},
+                **{name: ("detector_scan_kernel",) for name in (
+                    "serve_sessions", "serve_checkpoint")}}
 
 
 def launch_counts():
@@ -1094,14 +1110,14 @@ def reset_counts():
         dft_matmul.launches[t] = 0
 
 
-def counted(name, results, fn):
+def counted(name, results, fn, phase="4 main"):
     """Run ``fn`` with every launch count set to 0 just before and read just
     after; add the counts to the results and fail if a kernel of the path
-    ``name`` was not launched.  Calls of the SRP scoring product and of the
-    batched solver and covariance outside the kernels are counted too: a
-    path whose kernel scores must make no scoring product, and a path that
-    takes the GN kernel neither solver call (the kernel writes the
-    covariance)."""
+    ``name`` was not launched (the lines carry ``phase``).  Calls of the
+    SRP scoring product and of the batched solver and covariance outside
+    the kernels are counted too: a path whose kernel scores must make no
+    scoring product, and a path that takes the GN kernel neither solver
+    call (the kernel writes the covariance)."""
     import torch
     from audio_triangulation_tpu_torch.ops import solver, srp
 
@@ -1130,16 +1146,16 @@ def counted(name, results, fn):
         results[k]["launches"] += v
         if v:  # the path that launched it
             results[k].setdefault("launches_by_path", {})[name] = v
-    say("4 main", f"{name}: launches {counts}; calls outside the kernels "
+    say(phase, f"{name}: launches {counts}; calls outside the kernels "
         f"{calls}")
     if any(counts[k] < 1 for k in PATH_KERNELS[name]):
-        fail("4 main", f"{name}: a kernel of its path was never launched")
+        fail(phase, f"{name}: a kernel of its path was never launched")
     if "gcc_srp_kernel" in PATH_KERNELS[name] and calls["srp_scores_matmul"]:
-        fail("4 main", f"{name}: the scores were formed again outside the "
+        fail(phase, f"{name}: the scores were formed again outside the "
              "kernel")
     if "gn_kernel" in PATH_KERNELS[name] and (
             calls["solve_tdoa_batched"] or calls["solution_covariance"]):
-        fail("4 main", f"{name}: the solve or the covariance ran outside the "
+        fail(phase, f"{name}: the solve or the covariance ran outside the "
              "GN kernel")
     return out
 
@@ -1310,30 +1326,50 @@ def gn_inputs(loc, b):
     return tau.contiguous(), (xy0 * 0.9 + 0.02).contiguous()
 
 
-def device_kernels(fn):
-    """One call of ``fn()`` under torch.profiler: (kernels launched, their
-    device milliseconds, their names).  The first profiler session of a
-    process has been seen to record no device activity at all (an empty
-    trace of a call whose wrapper counted its launch), so a session that
-    recorded none is taken again, up to three sessions; a call that
-    launches nothing still reads as nothing."""
+# host time inside a profiler session before and after the call it traces:
+# a session of a few microseconds around one launch now and then records
+# no device activity, one with this padding has not (``python3
+# chip_profile.py sessions`` counts both; PERF.md, PR 16)
+PROFILE_PAD_S = 0.01
+
+
+def profiled_kernels(fn):
+    """(kernels a torch.profiler session recorded during ``fn()``, the
+    session's key averages of them).  The session holds ``PROFILE_PAD_S``
+    of host time before and after the call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+    cpu = torch.autograd.DeviceType.CPU
+    kernels = [e for e in prof.key_averages() if e.device_type != cpu
+               and e.self_device_time_total > 0]
+    return sum(e.count for e in kernels), kernels
+
+
+def device_kernels(fn):
+    """One call of ``fn()`` under torch.profiler (``profiled_kernels``):
+    (kernels launched, their device milliseconds, their names).  Fails with
+    a reason when the trace holds fewer kernel launches than the wrappers
+    counted in that call: an empty or short trace must not read as
+    "launched nothing"."""
+    import torch
+
     fn()
     torch.cuda.synchronize()
-    cpu = torch.autograd.DeviceType.CPU
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages() if e.device_type != cpu
-                   and e.self_device_time_total > 0]
-        if kernels:
-            break
-    return (sum(e.count for e in kernels),
-            sum(e.self_device_time_total for e in kernels) / 1e3,
+    reset_counts()
+    launches, kernels = profiled_kernels(fn)
+    want = {k: v for k, v in launch_counts().items() if v}
+    if launches < sum(want.values()):
+        fail("5 timing", f"the profiler recorded {launches} kernel launches "
+             f"where the wrappers counted {want}: the trace lost device "
+             "activity")
+    return (launches, sum(e.self_device_time_total for e in kernels) / 1e3,
             [e.key for e in kernels])
 
 
@@ -2981,6 +3017,27 @@ SOAK_ARGS = ["--streams", "2048", "--steps", "200", "--track",
              "--fault-at", "0.5"]
 
 
+def burst_stream(rng, n_bursts, seed, n_samples=GOLDEN_STREAM_SAMPLES):
+    """A live stream of ``geometry.reference_array()`` at 50 kHz: 8-bit
+    idle noise (127..129) with ``n_bursts`` chirps from random plane points
+    added at even spacing, rounded and clipped to 0..255.  (stream [3, T]
+    float64, plane points [n_bursts, 2])."""
+    from audio_triangulation_tpu_torch import geometry
+    from audio_triangulation_tpu_torch.utils import synth
+
+    stream = rng.integers(127, 130, (3, n_samples)).astype(np.float64)
+    starts = np.linspace(50_000, n_samples - 60_000, n_bursts).astype(
+        np.int64)
+    planes = rng.uniform(-0.8, 0.8, (n_bursts, 2))
+    v = np.concatenate([planes, np.full((len(planes), 1), 1.2)], axis=1)
+    src = v * (1.2 / np.linalg.norm(v, axis=1, keepdims=True))
+    bursts = synth.synth_scene(src, geometry.reference_array(),
+                               noise_rms=0.0, seed=seed)
+    for at, fr in zip(starts, bursts):
+        stream[:, at: at + fr.shape[-1]] += 110.0 * fr
+    return np.clip(np.round(stream), 0, 255), planes
+
+
 def golden_frames(mics, rng):
     """[GOLDEN_FRAMES, 3, 1,024] uint8 as the ADC delivers them: chirps from
     random sources (``to_adc_u8``), the first ``GOLDEN_SATURATED`` square
@@ -3011,7 +3068,7 @@ def phase_golden(card, results):
                                                geometry)
     from audio_triangulation_tpu_torch.models.localizer import (
         localize_frames_int, localize_stream)
-    from audio_triangulation_tpu_torch.utils import golden, synth
+    from audio_triangulation_tpu_torch.utils import golden
     from audio_triangulation_tpu_torch.utils.golden_event import golden_event
 
     rng = np.random.default_rng(SEED + 40)
@@ -3062,18 +3119,8 @@ def phase_golden(card, results):
 
     # ---- localize_stream: a 60 s stream, bursts from known sources --------
     arr = geometry.reference_array()
-    stream = rng.integers(127, 130, (3, GOLDEN_STREAM_SAMPLES)).astype(
-        np.float64)
-    starts = np.linspace(50_000, GOLDEN_STREAM_SAMPLES - 60_000,
-                         GOLDEN_STREAM_BURSTS).astype(np.int64)
-    planes = rng.uniform(-0.8, 0.8, (GOLDEN_STREAM_BURSTS, 2))
-    v = np.concatenate([planes, np.full((len(planes), 1), 1.2)], axis=1)
-    src = v * (1.2 / np.linalg.norm(v, axis=1, keepdims=True))
-    bursts = synth.synth_scene(src, arr, noise_rms=0.0, seed=SEED + 41)
-    for at, fr in zip(starts, bursts):
-        stream[:, at: at + fr.shape[-1]] += 110.0 * fr
-    stream = torch.from_numpy(np.clip(np.round(stream), 0, 255).astype(
-        np.float32))
+    stream, planes = burst_stream(rng, GOLDEN_STREAM_BURSTS, SEED + 41)
+    stream = torch.from_numpy(stream.astype(np.float32))
     loc = Localizer.create(arr, cfg, device="cuda")
     sc = stream.cuda()
     got = counted("localize_stream", results,
@@ -5097,6 +5144,611 @@ def phase_training(card, results):
         fail(phase, f"result checks failed: {failures}")
 
 
+SERVE_SEED = SEED + 90
+SERVE_BURSTS = 96  # planted events in the 60 s ingest stream
+SERVE_PUMP_BATCH = 64  # EventPump batches: one full, one padded
+SERVE_QUEUE = 256  # the ingest runtime's event queue holds every event
+SERVE_BATCHES = (1, 64, 4096)  # frames a POST /localize (4,096: 64 MiB)
+SERVE_REQUESTS = {1: 64, 64: 32, 4096: 6}  # timed requests per batch size
+SERVE_CLIENTS = 8  # client threads at once
+SERVE_CLIENT_REQUESTS = 4  # batch-64 requests each
+SERVE_SESSIONS = 16  # streaming sessions stepped at once
+SERVE_CHUNKS = 16  # 512-sample chunks a session
+FEED_BATCHES = 32  # DoubleBufferedFeeder: batches of 4,096 x 4 x 1,024
+FEED_DISTINCT = 4  # distinct host batches, cycled
+AOT_BATCH = 4096
+EXPORT_BATCHES = (3, 4096)
+CKPT_STREAMS = 256  # streams of the checkpointed card state
+CKPT_CHUNKS = 12  # chunks stepped; the state is saved after half
+SERVE_KEYS = ("xy", "tdoa_samples", "best_shift", "rms_m", "xy_cov")
+
+
+def ingest_reference(kind):
+    """The events of phase 16's 60 s stream by the port's NumPy runtime
+    (``kind="python"``: with its counters) or by the golden model
+    (``"golden"``: the detector restarted after each trigger, as the runtime
+    resets its rings): ([(frame [3, 1,024] int16, stamp)], counters or
+    None).  Both take about a minute of one host core, so ``main`` runs them
+    in worker processes from its start."""
+    from audio_triangulation_tpu_torch.runtime import native_rt
+    from audio_triangulation_tpu_torch.utils import golden
+
+    stream, _ = burst_stream(np.random.default_rng(SERVE_SEED), SERVE_BURSTS,
+                             SERVE_SEED + 1)
+    if kind == "python":
+        rt = native_rt.PyIngestRuntime(3, queue_capacity=SERVE_QUEUE)
+        rt.push(stream.T.astype(np.int16))
+        events = []
+        while (ev := rt.poll()) is not None:
+            events.append(ev)
+        return events, (rt.sample_count, rt.events_detected,
+                        rt.events_dropped)
+    u8 = stream.astype(np.uint8)
+    events, start = [], 0
+    while True:
+        gp = golden.GoldenPipeline()
+        idx = gp.detect_index(u8[:, start:])
+        if idx is None:
+            return events, None
+        events.append((np.stack([
+            np.concatenate([r.buffer[r.head:], r.buffer[:r.head]])
+            for r in gp.rings]).astype(np.int16), start + idx))
+        start += idx + 1
+
+
+def start_ingest_reference():
+    """The two ``ingest_reference`` runs in worker processes (spawned: the
+    card stays in this process): (pool, {kind: future})."""
+    import concurrent.futures
+    import multiprocessing
+
+    pool = concurrent.futures.ProcessPoolExecutor(
+        2, mp_context=multiprocessing.get_context("spawn"))
+    return pool, {k: pool.submit(ingest_reference, k)
+                  for k in ("python", "golden")}
+
+
+def http(srv, path, data=None, headers=None, method=None):
+    """(status, JSON body) of one request to a server on 127.0.0.1."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{srv.port}{path}", data=data,
+        method=method or ("POST" if data is not None else "GET"))
+    for k, v in (headers or {}).items():
+        req.add_header(k, v)
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def octet(arr) -> dict:
+    """Request arguments of a float32 array as an octet-stream body."""
+    return dict(data=np.ascontiguousarray(arr, np.float32).tobytes(),
+                headers={"Content-Type": "application/octet-stream",
+                         "X-Shape": ",".join(str(d) for d in arr.shape)})
+
+
+def served_equal(resp, out) -> bool:
+    """Whether a /localize response holds exactly ``out``'s values."""
+    import torch
+
+    return all(k in resp and torch.equal(
+        torch.tensor(resp[k], dtype=out[k].dtype), out[k].cpu())
+        for k in ("xy", "tdoa_samples", "best_shift", "rms_m"))
+
+
+def pct(times_s, q) -> float:
+    return float(np.percentile(np.asarray(times_s) * 1e3, q))
+
+
+def serving_ingest(phase, card, results, failures, refs):
+    """A 60 s, 50 kHz PCM stream of ``reference_array()`` with 96 planted
+    bursts through a FIFO into the native ingest runtime
+    (``transport.open_source``), its events through ``EventPump(batch_size=
+    64)`` into the card's Localizer: stamps and frames equal to the port's
+    NumPy runtime and to the golden model, positions within phase 9's bound
+    for this scene and equal to the CPU path's, rows 1 and 5 once a batch."""
+    import shutil
+    import tempfile
+
+    import torch
+    from audio_triangulation_tpu_torch import (Localizer, PipelineConfig,
+                                               geometry)
+    from audio_triangulation_tpu_torch.runtime import native_rt, transport
+    from audio_triangulation_tpu_torch.runtime.feeder import EventPump
+
+    stream, planes = burst_stream(np.random.default_rng(SERVE_SEED),
+                                  SERVE_BURSTS, SERVE_SEED + 1)
+    pcm = np.ascontiguousarray(stream.T.astype(np.int16))
+    rt = native_rt.create_ingest_runtime(3, queue_capacity=SERVE_QUEUE)
+    if not isinstance(rt, native_rt.NativeIngestRuntime):
+        fail(phase, f"create_ingest_runtime gave {type(rt).__name__}: the "
+             "native runtime did not build")
+    cfg = PipelineConfig()
+    loc = Localizer.create(geometry.reference_array(), cfg, device="cuda")
+    batches = []
+
+    def on_batch(arr, stamps, valid):
+        out = loc(arr)
+        batches.append((arr, stamps, valid, {k: out[k] for k in SERVE_KEYS}))
+
+    tmp = tempfile.mkdtemp()
+    try:
+        path = os.path.join(tmp, "pcm.fifo")
+        os.mkfifo(path)
+
+        def ingest():
+            src = transport.open_source(rt, f"fifo://{path}")
+            if not isinstance(src, native_rt.NativeSource):
+                fail(phase, "the FIFO source is not the native reader")
+            writer = transport.stream_pcm_to_fifo(path, pcm)
+            pump = EventPump(rt, batch_size=SERVE_PUMP_BATCH,
+                             on_batch=on_batch)
+            deadline = time.time() + 120
+            while src.running and time.time() < deadline:
+                pump.pump()
+                time.sleep(0.002)
+            pump.pump(flush=True)
+            writer.join(timeout=30)
+            src.stop()
+            return src
+
+        t0 = time.perf_counter()
+        src = counted("serve_pump", results, ingest, phase)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp)
+    calls = count_only(phase, "serve_pump", {
+        "gcc_kernel": len(batches), "gn_kernel": len(batches)})
+    valid = [v for _, _, v, _ in batches]
+    stamps = np.concatenate([s[v] for (_, s, v, _) in batches])
+    frames = torch.cat([a[torch.from_numpy(v).cuda()]
+                        for (a, _, v, _) in batches]).cpu().numpy()
+    native = [(f.astype(np.int16), int(t)) for f, t in zip(frames, stamps)]
+    py_events, py_counters = refs["python"].result(timeout=900)
+    gold_events, _ = refs["golden"].result(timeout=900)
+
+    def same(a, b):
+        return len(a) == len(b) and all(
+            sa == sb and np.array_equal(fa, fb)
+            for (fa, sa), (fb, sb) in zip(a, b))
+
+    counters = (rt.sample_count, rt.events_detected, rt.events_dropped)
+    eq_py, eq_gold = same(native, py_events), same(native, gold_events)
+    xy = torch.cat([o["xy"][torch.from_numpy(v).cuda()]
+                    for (_, _, v, o) in batches]).cpu()
+    err = (float(np.abs(xy.numpy() - planes).max())
+           if xy.shape[0] == SERVE_BURSTS else float("inf"))
+    cpu_loc = Localizer.create(geometry.reference_array(), cfg, device="cpu")
+    ref = cpu_loc(torch.from_numpy(frames.astype(np.float32)))
+    dxy = float((xy - ref["xy"]).abs().max())
+    got_tdoa = torch.cat([o["tdoa_samples"][torch.from_numpy(v).cuda()]
+                          for (_, _, v, o) in batches]).cpu()
+    dtdoa = float((got_tdoa - ref["tdoa_samples"]).abs().max())
+    seconds = pcm.shape[0] / 50_000
+    say(phase, f"serve_pump: [3, {pcm.shape[0]}] samples ({seconds:.0f} s "
+        f"at 50 kHz) "
+        f"through fifo:// into the native runtime ({type(rt).__name__}, "
+        f"{src.tuples_pushed} tuples, {src.bytes_read} bytes), counters "
+        f"{counters}, {len(batches)} EventPump batches of "
+        f"{SERVE_PUMP_BATCH} ({[int(v.sum()) for v in valid]} valid): "
+        f"{calls}; stamps and frames equal to PyIngestRuntime {eq_py} "
+        f"(counters {py_counters}), to the golden model {eq_gold} "
+        f"({len(gold_events)} events); |xy - source| {err * 100:.2f} cm at "
+        f"most (phase 9's bound 25 cm); vs CPU path xy {dxy:.2e} m, tdoa "
+        f"{dtdoa:.2e} samples; {wall:.3f} s wall for the stream "
+        f"({seconds / wall:.1f}x real time) ({card})")
+    if not (eq_py and eq_gold and counters == py_counters
+            and counters[1] == SERVE_BURSTS and counters[2] == 0
+            and src.tuples_pushed == pcm.shape[0] and err < 0.25
+            and dxy <= 2e-4 and dtdoa <= 1e-3):
+        failures.append("serve_pump")
+    rt.close()
+
+
+def serving_http(phase, card, results, failures):
+    """``LocalizerServer`` on the card, on port 0 of 127.0.0.1, serving the
+    Localizer of the CLI's ``serve --array square --phat``: /healthz, POST
+    /localize at 1, 64 and 4,096 frames (64 MiB, the default body cap) as
+    octet-stream, bit-equal to the library call, rows 1 and 5 once a
+    request, timed (p50 / p99 latency, requests/s); 8 client threads at
+    once; 16 sessions stepping 512-sample chunks at once, each equal to the
+    same chunks stepped in series, the scan once a step; 256 sessions and
+    the 257th refused."""
+    import threading
+
+    import torch
+    from audio_triangulation_tpu_torch import (Localizer, PipelineConfig,
+                                               geometry)
+    from audio_triangulation_tpu_torch.models.streaming import (
+        StreamingLocalizer)
+    from audio_triangulation_tpu_torch.runtime.server import LocalizerServer
+    from audio_triangulation_tpu_torch.utils import synth
+
+    mics = geometry.square_array(0.3)
+    loc = Localizer.create(mics, PipelineConfig(phat=True), device="cuda")
+    srv = LocalizerServer(loc, host="127.0.0.1", port=0).start()
+    rng = np.random.default_rng(SERVE_SEED + 2)
+    try:
+        code, health = http(srv, "/healthz")
+        say(phase, f"serve_http: /healthz {code} {health}; body cap "
+            f"{srv.max_body_bytes} B, max_batch {srv.max_batch}, "
+            f"max_sessions {srv.max_sessions}")
+        if (code, health) != (200, {"ok": True, "backend": "gpu",
+                                    "mics": 4}):
+            failures.append("serve_healthz")
+        for b in SERVE_BATCHES:
+            frames = scene_frames(mics, b, rng)
+            req = octet(frames)
+            name = f"serve_localize_b{b}"
+            code, resp = counted(name, results,
+                                 lambda: http(srv, "/localize", **req), phase)
+            calls = count_only(phase, name, {"gcc_kernel": 1,
+                                             "gn_kernel": 1})
+            equal = code == 200 and served_equal(
+                resp, loc(torch.from_numpy(frames).cuda()))
+            times = []
+            for _ in range(SERVE_REQUESTS[b]):
+                t0 = time.perf_counter()
+                code_t, _ = http(srv, "/localize", **req)
+                times.append(time.perf_counter() - t0)
+                equal &= code_t == 200
+            say(phase, f"{name}: {len(req['data'])} B body; {calls} a "
+                f"request; bit-equal to loc(frames) on the card {equal}; "
+                f"latency p50 {pct(times, 50):.3f} ms, p99 "
+                f"{pct(times, 99):.3f} ms over {len(times)} requests in "
+                f"turn, {len(times) / sum(times):.1f} requests/s, "
+                f"{b * len(times) / sum(times):.1f} frames/s ({card})")
+            if not equal:
+                failures.append(name)
+
+        # 8 clients at once, each its own frames
+        client_frames = [scene_frames(mics, 64, rng)
+                         for _ in range(SERVE_CLIENTS)]
+        want = [{k: v.cpu() for k, v in loc(torch.from_numpy(f).cuda())
+                 .items()} for f in client_frames]
+        ok = [True] * SERVE_CLIENTS
+
+        def client(k):
+            for _ in range(SERVE_CLIENT_REQUESTS):
+                code, resp = http(srv, "/localize", **octet(client_frames[k]))
+                ok[k] &= code == 200 and served_equal(resp, want[k])
+
+        def clients():
+            threads = [threading.Thread(target=client, args=(k,))
+                       for k in range(SERVE_CLIENTS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            return all(not t.is_alive() for t in threads)
+
+        t0 = time.perf_counter()
+        done = counted("serve_clients", results, clients, phase)
+        wall = time.perf_counter() - t0
+        n_req = SERVE_CLIENTS * SERVE_CLIENT_REQUESTS
+        calls = count_only(phase, "serve_clients", {
+            "gcc_kernel": n_req, "gn_kernel": n_req})
+        say(phase, f"serve_clients: {SERVE_CLIENTS} threads x "
+            f"{SERVE_CLIENT_REQUESTS} requests of 64 frames at once: all "
+            f"bit-equal to the library call {all(ok) and done}; {calls}; "
+            f"{n_req / wall:.1f} requests/s ({card})")
+        if not (all(ok) and done):
+            failures.append("serve_clients")
+
+        # 16 sessions at once against the same chunks stepped in series
+        sl = StreamingLocalizer.create(mics, loc.pipeline, loc.grid,
+                                       loc.solver, device="cuda")
+        n = SERVE_CHUNKS * STREAM_CHUNK
+        src = np.array([0.8, 0.5, 1.2]) * (1.2 / np.linalg.norm([0.8, 0.5,
+                                                                  1.2]))
+        burst = synth.synth_scene(src, mics, noise_rms=0.0,
+                                  seed=SERVE_SEED + 3)[0]
+        streams = rng.integers(127, 130, (SERVE_SESSIONS, 4, n)).astype(
+            np.float64)
+        streams[::2, :, 3000:3000 + 1024] += 110.0 * burst
+        streams = np.clip(np.round(streams), 0, 255).astype(np.float32)
+        series = []
+        series_t0 = time.perf_counter()
+        for s in range(SERVE_SESSIONS):
+            state, outs = sl.init_state(), []
+            for c in range(SERVE_CHUNKS):
+                state, out = sl(state, torch.from_numpy(
+                    streams[s, :, c * STREAM_CHUNK:(c + 1) * STREAM_CHUNK]
+                ).cuda())
+                outs.append({
+                    "event": bool(out["event"]),
+                    "event_count": int(out["event_count"]),
+                    "xy_grid": out["xy_grid"].cpu().numpy().tolist(),
+                    "consistency_rms": float(out["consistency_rms"]),
+                    **{k: out[k].cpu().numpy().tolist()
+                       for k in ("xy", "xy_cov") if k in out}})
+            series.append(outs)
+        series_ms = ((time.perf_counter() - series_t0) * 1e3
+                     / (SERVE_SESSIONS * SERVE_CHUNKS))
+        ids = [http(srv, "/streams", b"{}", {"Content-Type":
+                                              "application/json"})[1]["id"]
+               for _ in range(SERVE_SESSIONS)]
+        served = [[None] * SERVE_CHUNKS for _ in range(SERVE_SESSIONS)]
+        step_times = []
+
+        def session(s):
+            for c in range(SERVE_CHUNKS):
+                t0 = time.perf_counter()
+                _, served[s][c] = http(srv, f"/streams/{ids[s]}", **octet(
+                    streams[s, :, c * STREAM_CHUNK:(c + 1) * STREAM_CHUNK]))
+                step_times.append(time.perf_counter() - t0)
+
+        def sessions():
+            threads = [threading.Thread(target=session, args=(s,))
+                       for s in range(SERVE_SESSIONS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            return all(not t.is_alive() for t in threads)
+
+        t0 = time.perf_counter()
+        done = counted("serve_sessions", results, sessions, phase)
+        wall = time.perf_counter() - t0
+        steps = SERVE_SESSIONS * SERVE_CHUNKS
+        calls = count_only(phase, "serve_sessions",
+                           {"detector_scan_kernel": steps})
+        equal = done and served == series
+        events = sum(o["event"] for outs in series for o in outs)
+        say(phase, f"serve_sessions: {SERVE_SESSIONS} sessions x "
+            f"{SERVE_CHUNKS} chunks of 4 x {STREAM_CHUNK} at once: outputs "
+            f"equal to the same chunks stepped in series {equal} ({events} "
+            f"events); {calls}; step latency p50 {pct(step_times, 50):.3f} "
+            f"ms, p99 {pct(step_times, 99):.3f} ms, {steps / wall:.1f} "
+            f"steps/s; the same steps in series in this process, outputs "
+            f"read back: {series_ms:.3f} ms a step ({card})")
+        if not equal:
+            failures.append("serve_sessions")
+        for sid in ids:
+            http(srv, f"/streams/{sid}", method="DELETE")
+
+        # the session limit
+        codes = [http(srv, "/streams", b"{}", {"Content-Type":
+                                                "application/json"})[0]
+                 for _ in range(srv.max_sessions + 1)]
+        say(phase, f"serve_session_limit: {codes.count(200)} sessions "
+            f"created, the next answered {codes[-1]}")
+        if codes != [200] * srv.max_sessions + [400]:
+            failures.append("serve_session_limit")
+    finally:
+        srv.stop()
+
+
+def serving_feeder(phase, card, results, failures):
+    """32 batches of 4,096 x 4 x 1,024 (64 MiB each) through
+    ``DoubleBufferedFeeder`` into the Localizer: wall times of feeder plus
+    compute, copies alone and compute alone, the pinned copy's rate, every
+    output equal to the unfed call, rows 1 and 5 once a batch."""
+    import torch
+    from audio_triangulation_tpu_torch import (Localizer, PipelineConfig,
+                                               geometry)
+    from audio_triangulation_tpu_torch.runtime.feeder import (
+        DoubleBufferedFeeder)
+
+    mics = geometry.square_array(0.3)
+    loc = Localizer.create(mics, PipelineConfig(phat=True), device="cuda")
+    rng = np.random.default_rng(SERVE_SEED + 4)
+    host = [scene_frames(mics, 4096, rng) for _ in range(FEED_DISTINCT)]
+    dev = [torch.from_numpy(h).cuda() for h in host]
+    want = [{k: v for k, v in loc(d).items() if k in SERVE_KEYS}
+            for d in dev]
+
+    def batches():
+        for k in range(FEED_BATCHES):
+            yield host[k % FEED_DISTINCT]
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def fed():
+        return [{k: v for k, v in loc(b).items() if k in SERVE_KEYS}
+                for b in DoubleBufferedFeeder(batches())]
+
+    outs, t_fed = wall(lambda: counted("serve_feeder", results, fed, phase))
+    calls = count_only(phase, "serve_feeder", {
+        "gcc_kernel": FEED_BATCHES, "gn_kernel": FEED_BATCHES})
+    _, t_copy = wall(lambda: [b for b in DoubleBufferedFeeder(batches())])
+    _, t_compute = wall(lambda: [
+        {k: v for k, v in loc(dev[i % FEED_DISTINCT]).items()
+         if k in SERVE_KEYS} for i in range(FEED_BATCHES)])
+    equal = len(outs) == FEED_BATCHES and all(
+        torch.equal(o[k], want[i % FEED_DISTINCT][k])
+        for i, o in enumerate(outs) for k in SERVE_KEYS)
+    # the link and the host staging copy, alone
+    pinned = torch.empty(host[0].shape, pin_memory=True)
+    staging_ms = time_ms(lambda: pinned.copy_(torch.from_numpy(host[0])))
+    h2d_ms = cuda_ms(lambda: dev[0].copy_(pinned, non_blocking=True), 10)
+    nbytes = host[0].nbytes
+    say(phase, f"serve_feeder: {FEED_BATCHES} batches of 4,096 x 4 x 1,024 "
+        f"({nbytes / 2**20:.0f} MiB each): {calls}; outputs equal to the "
+        f"unfed calls {equal}; wall {t_fed:.1f} ms feeder + compute, "
+        f"{t_copy:.1f} ms copies alone, {t_compute:.1f} ms compute alone "
+        f"({t_fed / FEED_BATCHES:.3f} / {t_copy / FEED_BATCHES:.3f} / "
+        f"{t_compute / FEED_BATCHES:.3f} ms a batch); reckoning: one pinned "
+        f"copy {h2d_ms:.3f} ms ({nbytes / h2d_ms / 1e6:.1f} GB/s over the "
+        f"host link), the host's pageable-to-pinned staging copy "
+        f"{staging_ms[0]:.3f} ms a batch, compute "
+        f"{t_compute / FEED_BATCHES:.3f} ms a batch ({card})")
+    if not equal:
+        failures.append("serve_feeder")
+
+
+def serving_export(phase, card, results, failures):
+    """``aot_compile`` at 4,096 frames (the replay bit-equal to the eager
+    call, both timed) and ``export_localizer``'s artifact loaded and run on
+    the card at two batch sizes (within the CPU path's tolerance of the
+    kernel route: xy 2e-4 m, tdoa 1e-3 samples; no kernel launched)."""
+    import torch
+    from audio_triangulation_tpu_torch import (Localizer, PipelineConfig,
+                                               geometry)
+    from audio_triangulation_tpu_torch.utils import serving
+
+    mics = geometry.square_array(0.3)
+    loc = Localizer.create(mics, PipelineConfig(phat=True), device="cuda")
+    frames = torch.from_numpy(scene_frames(
+        mics, AOT_BATCH, np.random.default_rng(SERVE_SEED + 5))).cuda()
+    t0 = time.perf_counter()
+    g = serving.aot_compile(loc, AOT_BATCH)
+    t_capture = time.perf_counter() - t0
+    eager = loc(frames)
+    replay = g(frames)
+    bit_equal = sorted(replay) == sorted(eager) and all(
+        torch.equal(replay[k], eager[k]) for k in eager)
+    t_eager, t_graph = time_ms(lambda: loc(frames)), time_ms(
+        lambda: g(frames))
+    say(phase, f"serve_aot: capture at {AOT_BATCH} frames {t_capture:.2f} "
+        f"s (kernels built, warm-up on a side stream); replay bit-equal to "
+        f"the eager call on every output {bit_equal}; eager "
+        f"{ms_text(t_eager)}, graph replay {ms_text(t_graph)} ({card})")
+    if not bit_equal:
+        failures.append("serve_aot")
+
+    t0 = time.perf_counter()
+    blob = serving.export_localizer(loc)
+    t_export = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fn = serving.load_exported(blob)
+    t_load = time.perf_counter() - t0
+    ok = True
+    for b in EXPORT_BATCHES:
+        reset_counts()
+        got = fn(frames[:b])
+        torch.cuda.synchronize()
+        calls = count_only(phase, f"serve_export_b{b}", {})
+        want = loc(frames[:b])
+        dxy = float((got["xy"] - want["xy"]).abs().max())
+        dtdoa = float((got["tdoa_samples"]
+                       - want["tdoa_samples"]).abs().max())
+        shifts = int((got["best_shift"] != want["best_shift"]).sum())
+        on_card = got["xy"].is_cuda and got["xy"].shape == (b, 2)
+        say(phase, f"serve_export_b{b}: the artifact on the card "
+            f"({on_card}): {calls}; vs the kernel route xy {dxy:.2e} m, "
+            f"tdoa {dtdoa:.2e} samples, {shifts} best shifts differ")
+        ok &= on_card and dxy <= 2e-4 and dtdoa <= 1e-3
+    t_fn = time_ms(lambda: fn(frames))
+    say(phase, f"serve_export: {len(blob)} B artifact, exported in "
+        f"{t_export:.2f} s, loaded in {t_load:.2f} s; {AOT_BATCH} frames "
+        f"on the plain-torch route {ms_text(t_fn)} ({card})")
+    if not ok:
+        failures.append("serve_export")
+
+
+def serving_checkpoint(phase, card, results, failures):
+    """A card stream state of 256 streams saved mid-stream
+    (``utils.checkpoint``), restored into a fresh template and continued:
+    every output of the next steps equal to the uninterrupted run's."""
+    import shutil
+    import tempfile
+
+    import torch
+    from audio_triangulation_tpu_torch import (PipelineConfig, StreamConfig,
+                                               geometry)
+    from audio_triangulation_tpu_torch.models.streaming import (
+        StreamingLocalizer, state_leaves)
+    from audio_triangulation_tpu_torch.utils import checkpoint, synth
+
+    mics = geometry.square_array(0.3)
+    sl = StreamingLocalizer.create(mics, PipelineConfig(phat=True),
+                                   stream=StreamConfig(chunk_size=512),
+                                   device="cuda")
+    rng = np.random.default_rng(SERVE_SEED + 6)
+    n = CKPT_CHUNKS * STREAM_CHUNK
+    x = rng.integers(127, 130, (CKPT_STREAMS, 4, n)).astype(np.float64)
+    src = np.array([-0.6, 0.3, 1.2]) * (1.2 / np.linalg.norm([-0.6, 0.3,
+                                                              1.2]))
+    burst = synth.synth_scene(src, mics, noise_rms=0.0,
+                              seed=SERVE_SEED + 7)[0]
+    for at in (1000, 4000):
+        x[::4, :, at:at + 1024] += 110.0 * burst
+    x = torch.from_numpy(np.clip(np.round(x), 0, 255).astype(
+        np.float32)).cuda()
+    chunks = [x[..., c * STREAM_CHUNK:(c + 1) * STREAM_CHUNK]
+              for c in range(CKPT_CHUNKS)]
+    half = CKPT_CHUNKS // 2
+    states = sl.init_states(CKPT_STREAMS)
+    for c in chunks[:half]:
+        states, _ = sl.step_many(states, c)
+    tmp = tempfile.mkdtemp()
+    try:
+        path = checkpoint.save(os.path.join(tmp, "stream"), states)
+        restored = checkpoint.restore(path, sl.init_states(CKPT_STREAMS))
+    finally:
+        shutil.rmtree(tmp)
+    same_state = all(a.device == b.device and a.dtype == b.dtype
+                     and torch.equal(a, b) for a, b in zip(
+                         state_leaves(states), state_leaves(restored)))
+
+    def run(st):
+        outs = []
+        for c in chunks[half:]:
+            st, out = sl.step_many(st, c)
+            outs.append(out)
+        return st, outs
+
+    end, want = run(states)
+    end_r, got = counted("serve_checkpoint", results, lambda: run(restored),
+                         phase)
+    calls = count_only(phase, "serve_checkpoint", {
+        "detector_scan_kernel": CKPT_CHUNKS - half})
+    equal = all(sorted(a) == sorted(b) and all(torch.equal(a[k], b[k])
+                                               for k in a)
+                for a, b in zip(got, want)) and all(
+        torch.equal(a, b) for a, b in zip(state_leaves(end),
+                                          state_leaves(end_r)))
+    events = int(sum(int(o["event"].sum()) for o in want))
+    say(phase, f"serve_checkpoint: {CKPT_STREAMS} card streams saved after "
+        f"{half} of {CKPT_CHUNKS} chunks, restored leaf for leaf on the card "
+        f"{same_state}; the continued run equal to the uninterrupted one "
+        f"{equal} ({events} events after the restore); {calls}")
+    if not (same_state and equal and events > 0):
+        failures.append("serve_checkpoint")
+
+
+def phase_serving(card, results, refs):
+    """Phase 16: the live serving path on the card: the HTTP server
+    (requests, concurrent clients and sessions, the session limit), the
+    feeder, graph capture and the exported artifact, a checkpointed stream
+    state, and native ingest through a FIFO into ``EventPump`` and the
+    Localizer (last: its references come from ``main``'s workers).
+    Every part runs; the phase fails at its end if any part failed (an
+    exception in a part is printed and recorded as its failure)."""
+    import traceback
+
+    import torch
+
+    t0 = time.perf_counter()
+    phase = "16 serving"
+    failures = []
+    parts = [serving_http, serving_feeder, serving_export,
+             serving_checkpoint, lambda *a: serving_ingest(*a, refs)]
+    names = ["serving_http", "serving_feeder", "serving_export",
+             "serving_checkpoint", "serving_ingest"]
+    for name, part in zip(names, parts):
+        try:
+            part(phase, card, results, failures)
+        except (Exception, SystemExit):  # recorded; the phase fails below
+            traceback.print_exc()
+            failures.append(name)
+        torch.cuda.empty_cache()
+    say(phase, f"wall time {time.perf_counter() - t0:.1f} s")
+    if failures:
+        fail(phase, f"result checks failed: {failures}")
+
+
 # further keys of an entry that has them: what the library yardstick is, the
 # SRP-argmax kernel's other bound and its bf16 mode, the bf16 DFT product's
 # library form with f32 outputs
@@ -5114,6 +5766,8 @@ KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
 def main():
     card = phase_device()
     import torch
+
+    ingest_pool, ingest_refs = start_ingest_reference()
 
     rng = np.random.default_rng(SEED)
     results = {k: {"name": k, "route": "cuda", **v}
@@ -5144,6 +5798,8 @@ def main():
     phase_estimators(card, results)
     phase_reverb(card, results)
     phase_training(card, results)
+    phase_serving(card, results, ingest_refs)
+    ingest_pool.shutdown()
 
     print(json.dumps({"kernels": [
         {k: results[n][k] for k in (*KERNEL_KEYS, *(

@@ -215,6 +215,12 @@ def test_port_import_leaves_jax_unloaded():
             "import audio_triangulation_tpu_torch.tools.int8_microbench; "
             "import audio_triangulation_tpu_torch.tools.emit_pipeline_probe; "
             "import audio_triangulation_tpu_torch.tools.bench_streaming; "
+            "import audio_triangulation_tpu_torch.runtime.server; "
+            "import audio_triangulation_tpu_torch.runtime.feeder; "
+            "import audio_triangulation_tpu_torch.runtime.transport; "
+            "import audio_triangulation_tpu_torch.utils.serving; "
+            "import audio_triangulation_tpu_torch.utils.checkpoint; "
+            "import audio_triangulation_tpu_torch.utils.profiling; "
             "print(sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('audio_triangulation_tpu.')"
             " or m == 'audio_triangulation_tpu'))")

@@ -56,6 +56,23 @@ def _frames(rng, m, n, b=4, band_limited=False):
     return (x + 0.05 * rng.normal(size=(b, m, n))).astype(np.float32)
 
 
+def _float64_correlograms(frames, pairs, cfg, with_peaks):
+    """The correlograms (tapered with peaks) in float64: numpy's rFFT, the
+    per-mic PHAT, and the kernel's plain version on float64 operands."""
+    from audio_triangulation_tpu_torch.ops import mxu_fft
+
+    spec = np.fft.rfft(frames.astype(np.float64), n=cfg.fft_length)
+    re, im = torch.from_numpy(spec.real), torch.from_numpy(spec.imag)
+    if cfg.phat:
+        re, im = mxu_fft.whiten_reim(re, im, cfg.phat_eps, cfg.phat_beta)
+    sync, syns = tlarge.synthesis(cfg, "cpu")
+    out = tlarge.gcc_large_reference(
+        re, im, torch.from_numpy(pairs), sync.double(), syns.double(),
+        bf16=False, with_peaks=with_peaks, max_shift=cfg.max_shift,
+        taper_denom=cfg.taper_denom, taper_enabled=cfg.taper_enabled)
+    return (out[0] if with_peaks else out).numpy()
+
+
 @pytest.mark.parametrize("with_peaks", [False, True],
                          ids=["no_peaks", "peaks"])
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -64,7 +81,9 @@ def test_large_matches_pallas_interpret(rng, case, with_peaks):
     1e-5 lags (f32 on both sides; only the order of the sums differs).  The
     auto band needs band-limited frames, whose broad peaks condition the
     parabola worse: 2e-5 of scale and 2e-4 lags there; a static band
-    broadens them too (1e-4 lags)."""
+    broadens them too (1e-4 lags).  Without a band option each package is
+    also held within 1e-5 of scale of a float64 evaluation (measured: at
+    most 1.5e-6 on both sides)."""
     m, n, chunk, kw = CASES[case]
     auto = kw.get("band_hz") == "auto"
     tdoa_tol = 2e-4 if auto else 1e-4 if "band_hz" in kw else 1e-5
@@ -83,6 +102,15 @@ def test_large_matches_pallas_interpret(rng, case, with_peaks):
     assert got[0].shape == ref[0].shape == (4, len(pairs),
                                             2 * kw["max_shift_samples"] + 1)
     scale = np.abs(ref[0]).max()
+    if "band_hz" not in kw:
+        # each package against one float64 evaluation of the same math
+        # first, so that a failure names the package that left it (both
+        # sit within 1.5e-6 of scale of it on every case here)
+        f64 = _float64_correlograms(frames, pairs, tcfg.PipelineConfig(**kw),
+                                    with_peaks)
+        for name, arr in (("port", got[0]), ("JAX package", ref[0])):
+            gap = np.abs(arr - f64).max() / scale
+            assert gap <= 1e-5, f"{name}: {gap:.2e} of scale from float64"
     np.testing.assert_allclose(got[0] / scale, ref[0] / scale,
                                atol=2e-5 if auto else 1e-5)
     if with_peaks:
