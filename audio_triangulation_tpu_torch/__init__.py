@@ -17,7 +17,10 @@ and live serving: the native ingest runtime and its transports
 (``runtime.native_rt``, ``runtime.transport``), the feeder and event pump
 (``runtime.feeder``), the HTTP server (``runtime.server``), export and
 graph capture (``utils.serving``), checkpoints (``utils.checkpoint``) and
-profiling (``utils.profiling``).
+profiling (``utils.profiling``); multi-device execution on
+``torch.distributed`` (``parallel.mesh``, ``parallel.sharded``,
+``parallel.spmd``), the renderers (``viz``) and the command line
+(``python -m audio_triangulation_tpu_torch``, ``cli.main``).
 
 The JAX package stays the reference; this package imports torch and never
 jax.  Quick start::
@@ -52,8 +55,8 @@ jax.  Quick start::
 """
 
 from .core import geometry
-from .core.config import (GridConfig, PipelineConfig, SolverConfig,
-                          StreamConfig, VolumeConfig)
+from .core.config import (GridConfig, PipelineConfig, ShardingConfig,
+                          SolverConfig, StreamConfig, VolumeConfig)
 from .models.calibration import Calibrator
 from .models.localizer import Localizer, LocalizerParams, localize_frames
 from .models.neural import NeuralLocalizer
@@ -66,5 +69,5 @@ __all__ = ["Localizer", "LocalizerParams", "localize_frames", "Calibrator",
            "NeuralLocalizer", "StreamingLocalizer",
            "TwoRateStreamingLocalizer", "TrackedStreamingLocalizer",
            "Tracker", "TrackerConfig", "VolumeLocalizer", "PipelineConfig",
-           "GridConfig", "SolverConfig", "StreamConfig", "VolumeConfig",
-           "geometry"]
+           "GridConfig", "SolverConfig", "StreamConfig", "ShardingConfig",
+           "VolumeConfig", "geometry"]

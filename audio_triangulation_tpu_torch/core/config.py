@@ -2,7 +2,7 @@
 
 Field for field the same as ``audio_triangulation_tpu.core.config``
 (``PipelineConfig``, ``GridConfig``, ``VolumeConfig``, ``SolverConfig``,
-``StreamConfig``): the same names,
+``StreamConfig``, ``ShardingConfig``): the same names,
 defaults, validation and derived properties, so a configuration saved by
 either package loads in the other.  The reference module is numpy-only,
 but importing it runs the JAX package's ``__init__``, so it is copied here.
@@ -16,7 +16,7 @@ change nothing, as ``models.localizer`` states; likewise
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 
 def _next_pow2(n: int) -> int:
@@ -317,6 +317,15 @@ class StreamConfig:
     health_weighting: bool = False
     health_ratio: float = 3.0
     health_floor_s: float = 1e-5
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingConfig:
+    """Multi-device execution layout (``parallel.mesh.make_mesh``)."""
+
+    data_axis: str = "data"  # frames/batch axis
+    model_axis: str = "model"  # SRP grid / pair axis
+    mesh_shape: Optional[Tuple[int, ...]] = None  # None -> all ranks on data
 
 
 # Reference mic geometry: AB, BC, CA in meters

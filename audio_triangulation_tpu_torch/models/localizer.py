@@ -560,6 +560,67 @@ def _srp_scores(corr_t, params: LocalizerParams, cfg: PipelineConfig,
     return srp.srp_scores_gather(corr_t, params.lut_flat)
 
 
+def gcc_peaks(flat: torch.Tensor, params: LocalizerParams,
+              cfg: PipelineConfig):
+    """Raw frames [B, M, N] (as :func:`_flat_frames` gives them) ->
+    (tapered correlograms [B, P, L], best shifts [B, P], sub-sample TDOAs
+    [B, P] in lags, raw peak values [B, P], peak-to-sidelobe ratios
+    [B, P]): the GCC kernel or the large-array kernel with their peak stage
+    when taper and sub-sample are both on, else the correlograms as
+    :func:`conditioned_correlograms` gives them and the plain peak ops; for
+    phase/hybrid the reference's unfused phase-slope branch after them."""
+    k = cfg.max_shift
+    in_kernel_peaks = cfg.taper_enabled and cfg.subsample_peak
+    on_kernel, on_large = gcc_routes(flat, cfg, params.pairs.shape[0],
+                                     in_kernel_peaks)
+    if on_kernel and in_kernel_peaks:
+        # taper, argmax, sub-sample peak and PSR inside the GCC kernel
+        return gcc_kernel.fused_gcc(flat, params.window, params.pairs, cfg,
+                                    with_peaks=True)
+    if on_large and in_kernel_peaks:
+        # the same peak stage inside the large-array kernel
+        corr_t, shifts, tdoa_samples, peak_val, psr = (
+            gcc_large.xcorr_large_peaks(
+                condition_frames(flat, params.window, cfg), params.pairs,
+                cfg))
+        if cfg.subsample_method in ("phase", "hybrid"):
+            tdoa_samples = _phase_subsample(flat, params, cfg, shifts,
+                                            tdoa_samples)
+        return corr_t, shifts, tdoa_samples, peak_val, psr
+    corr = conditioned_correlograms(flat, params, cfg)
+    shifts = xcorr.best_lag(corr, k)
+    tdoa_samples, peak_val = xcorr.subsample_peak(corr, k)
+    psr = xcorr.peak_confidence(corr, k)  # raw, pre-taper
+    if not cfg.subsample_peak:
+        tdoa_samples = shifts.to(corr.dtype)
+    elif cfg.subsample_method in ("phase", "hybrid"):
+        tdoa_samples = _phase_subsample(flat, params, cfg, shifts,
+                                        tdoa_samples)
+    corr_t = (xcorr.peak_taper(corr, k, cfg.taper_denom, shifts)
+              if cfg.taper_enabled else corr)
+    return corr_t, shifts, tdoa_samples, peak_val, psr
+
+
+def solve_tail(tdoa_samples: torch.Tensor, xy_grid: torch.Tensor,
+               params: LocalizerParams, *, cfg: PipelineConfig,
+               grid_cfg: GridConfig, solver_cfg: SolverConfig,
+               gn: Optional[gn_kernel.GnSolver]):
+    """(xy, rms_m, xy_cov) of the solver tail from TDOAs [B, P] in samples
+    and the grid peak [B, 2]: the GN kernel ``gn`` when given, else the
+    batched solver and ``solution_covariance``."""
+    tdoa_s = tdoa_samples / cfg.sample_rate_hz
+    if gn is not None:
+        return gn(tdoa_s, xy_grid)
+    xy, rms = solver_ops.solve_tdoa_batched(
+        tdoa_s, params.mic_positions, params.pairs,
+        speed_of_sound=cfg.speed_of_sound_mps,
+        height=grid_cfg.height_m, init_xy=xy_grid, cfg=solver_cfg)
+    cov = solver_ops.solution_covariance(
+        xy, rms, params.mic_positions, params.pairs,
+        height=grid_cfg.height_m, cfg=solver_cfg)
+    return xy, rms, cov
+
+
 def localize_frames(
     params: LocalizerParams,
     frames: torch.Tensor,
@@ -596,42 +657,20 @@ def localize_frames(
     refine = (grid_cfg.refine_peak == "on"
               or (grid_cfg.refine_peak == "auto" and not with_solver))
     in_kernel_peaks = cfg.taper_enabled and cfg.subsample_peak
-    on_kernel, on_large = gcc_routes(flat, cfg, p_n, in_kernel_peaks)
+    on_kernel, _ = gcc_routes(flat, cfg, p_n, in_kernel_peaks)
     best_cell = scores = None
-    if on_kernel and in_kernel_peaks:
-        # taper, argmax, sub-sample peak and PSR inside the GCC kernel
-        if (in_kernel_srp(cfg, srp_form, refine,
-                          params.score_bias is not None)
-                and gcc_kernel.srp_mode_fits(flat, cfg, p_n)):
-            # and the SRP scores and grid argmax too
-            (corr_t, shifts, tdoa_samples, peak_val, psr, best_cell, _,
-             scores) = gcc_kernel.fused_gcc_srp(
-                 flat, params.window, params.pairs, params.lut_flat, cfg)
-        else:
-            (corr_t, shifts, tdoa_samples, peak_val,
-             psr) = gcc_kernel.fused_gcc(
-                 flat, params.window, params.pairs, cfg, with_peaks=True)
-    elif on_large and in_kernel_peaks:
-        # the same peak stage inside the large-array kernel
-        corr_t, shifts, tdoa_samples, peak_val, psr = (
-            gcc_large.xcorr_large_peaks(
-                condition_frames(flat, params.window, cfg), params.pairs,
-                cfg))
-        if cfg.subsample_method in ("phase", "hybrid"):
-            tdoa_samples = _phase_subsample(flat, params, cfg, shifts,
-                                            tdoa_samples)
+    if (on_kernel and in_kernel_peaks
+            and in_kernel_srp(cfg, srp_form, refine,
+                              params.score_bias is not None)
+            and gcc_kernel.srp_mode_fits(flat, cfg, p_n)):
+        # taper, argmax, sub-sample peak, PSR, the SRP scores and the grid
+        # argmax inside the GCC kernel
+        (corr_t, shifts, tdoa_samples, peak_val, psr, best_cell, _,
+         scores) = gcc_kernel.fused_gcc_srp(
+             flat, params.window, params.pairs, params.lut_flat, cfg)
     else:
-        corr = conditioned_correlograms(flat, params, cfg)
-        shifts = xcorr.best_lag(corr, k)
-        tdoa_samples, peak_val = xcorr.subsample_peak(corr, k)
-        psr = xcorr.peak_confidence(corr, k)  # raw, pre-taper
-        if not cfg.subsample_peak:
-            tdoa_samples = shifts.to(corr.dtype)
-        elif cfg.subsample_method in ("phase", "hybrid"):
-            tdoa_samples = _phase_subsample(flat, params, cfg, shifts,
-                                            tdoa_samples)
-        corr_t = (xcorr.peak_taper(corr, k, cfg.taper_denom, shifts)
-                  if cfg.taper_enabled else corr)
+        corr_t, shifts, tdoa_samples, peak_val, psr = gcc_peaks(
+            flat, params, cfg)
 
     # with the in-kernel SRP the scores come from the kernel: the one-hot
     # product's sums, in pair order
@@ -662,20 +701,9 @@ def localize_frames(
         out["heat_levels"] = srp.quantize_heatmap(scores)
 
     if with_solver:
-        tdoa_s = tdoa_samples / cfg.sample_rate_hz
-        if gn is not None:
-            xy, rms, cov = gn(tdoa_s, xy_grid)
-        else:
-            xy, rms = solver_ops.solve_tdoa_batched(
-                tdoa_s, params.mic_positions, params.pairs,
-                speed_of_sound=cfg.speed_of_sound_mps,
-                height=grid_cfg.height_m, init_xy=xy_grid, cfg=solver_cfg)
-            cov = solver_ops.solution_covariance(
-                xy, rms, params.mic_positions, params.pairs,
-                height=grid_cfg.height_m, cfg=solver_cfg)
-        out["xy"] = xy
-        out["rms_m"] = rms
-        out["xy_cov"] = cov
+        out["xy"], out["rms_m"], out["xy_cov"] = solve_tail(
+            tdoa_samples, xy_grid, params, cfg=cfg, grid_cfg=grid_cfg,
+            solver_cfg=solver_cfg, gn=gn)
     else:
         out["xy"] = xy_grid
         out["rms_m"] = torch.zeros(tdoa_samples.shape[:-1],

@@ -12,6 +12,9 @@ Counterpart of ``audio_triangulation_tpu.ops.srp`` (main-path subset):
   chunk at a time (``srp_scores_matmul_blocked`` / ``_gather_blocked``)
 - grid peak: first-max argmax, optional separable quadratic refinement
 - K separated peaks for simultaneous sources (``top_k_peaks``)
+- the grid axis padded to a multiple of a mesh axis, with a bias that
+  keeps the padding from ever winning (``pad_grid_axis``,
+  ``pad_scores_bias``; numpy, as the reference's)
 
 The reference pads the lag axis of its large-array one-hots to a multiple
 of 8 for its memory layout; the zero rows add nothing to a score, so the
@@ -20,6 +23,7 @@ port builds them unpadded and takes a padded matrix when it is given one.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -210,6 +214,42 @@ def cell_to_xy(cell: torch.Tensor, width: int, half_cells: tuple[int, int],
     return torch.stack([x_m, y_m], dim=-1)
 
 
+def peak_neighbours(flat_idx: torch.Tensor,
+                    grid_shape: tuple[int, int]) -> torch.Tensor:
+    """The cells [..., 6] a quadratic peak fit at ``flat_idx`` reads: left,
+    centre, right, then up, centre, down, each axis's centre clamped off the
+    grid's edge (the fit is zeroed there)."""
+    h, w = grid_shape
+    row = torch.div(flat_idx, w, rounding_mode="floor")
+    col = flat_idx % w
+    out = []
+    for center, axis_len, stride in ((col, w, 1), (row, h, w)):
+        base = flat_idx + (center.clamp(1, axis_len - 2) - center) * stride
+        out += [base - stride, base, base + stride]
+    return torch.stack(out, dim=-1)
+
+
+def peak_offsets(flat_idx: torch.Tensor, values: torch.Tensor,
+                 grid_shape: tuple[int, int]):
+    """(dx, dy) sub-cell offsets of the 3-point quadratic fit along each
+    axis from the scores ``values`` [..., 6] at :func:`peak_neighbours`;
+    zero on the grid's edge, clipped to +-0.5 cell."""
+    h, w = grid_shape
+    row = torch.div(flat_idx, w, rounding_mode="floor")
+    col = flat_idx % w
+
+    def frac(center, axis_len, vm, v0, vp):
+        den = vm - 2.0 * v0 + vp
+        d = torch.where(den.abs() > 1e-20, 0.5 * (vm - vp) / den,
+                        torch.zeros_like(den))
+        d = torch.where((center >= 1) & (center <= axis_len - 2), d,
+                        torch.zeros_like(d))
+        return d.clamp(-0.5, 0.5)
+
+    v = values.unbind(dim=-1)
+    return frac(col, w, *v[:3]), frac(row, h, *v[3:])
+
+
 def grid_peak_xy(scores: torch.Tensor, grid_shape: tuple[int, int],
                  half_cells: tuple[int, int], cells_per_m: float,
                  refine: bool = True) -> torch.Tensor:
@@ -218,26 +258,32 @@ def grid_peak_xy(scores: torch.Tensor, grid_shape: tuple[int, int],
     (interior cells only, clipped to +-0.5 cell)."""
     h, w = grid_shape
     flat_idx = scores.argmax(dim=-1)
-    row = torch.div(flat_idx, w, rounding_mode="floor")
-    col = flat_idx % w
-
-    def take(idx):
-        return scores.gather(-1, idx[..., None])[..., 0]
-
-    def frac(center, axis_len, stride):
-        c = center.clamp(1, axis_len - 2)
-        base = flat_idx + (c - center) * stride
-        vm, v0, vp = take(base - stride), take(base), take(base + stride)
-        den = vm - 2.0 * v0 + vp
-        d = torch.where(den.abs() > 1e-20, 0.5 * (vm - vp) / den,
-                        torch.zeros_like(den))
-        d = torch.where((center >= 1) & (center <= axis_len - 2), d,
-                        torch.zeros_like(d))
-        return d.clamp(-0.5, 0.5)
-
     if refine:
-        dx, dy = frac(col, w, 1), frac(row, h, w)
+        values = scores.gather(-1, peak_neighbours(flat_idx, grid_shape))
+        dx, dy = peak_offsets(flat_idx, values, grid_shape)
     else:
         dx = dy = torch.zeros(flat_idx.shape, dtype=scores.dtype,
                               device=scores.device)
     return cell_to_xy(flat_idx, w, half_cells, cells_per_m, dx, dy)
+
+
+def pad_grid_axis(arr: np.ndarray, multiple: int, axis: int = -1,
+                  fill=0.0) -> np.ndarray:
+    """Pad the grid axis up to a multiple (for sharding G over a mesh
+    axis)."""
+    g = arr.shape[axis]
+    pad = (-g) % multiple
+    if pad == 0:
+        return arr
+    widths = [(0, 0)] * arr.ndim
+    widths[axis] = (0, pad)
+    return np.pad(arr, widths, constant_values=fill)
+
+
+def pad_scores_bias(num_cells: int, padded: int,
+                    dtype=np.float32) -> np.ndarray:
+    """Additive bias [padded]: 0 on valid cells, -3e38 on pad cells so they
+    can never win the argmax."""
+    b = np.zeros((padded,), dtype=dtype)
+    b[num_cells:] = -3e38
+    return b

@@ -78,7 +78,18 @@ once) against the reference tests' gates, ``estimate_speed_of_sound`` on
 a step; the loss falling over 50 steps) and ``predict`` on 16,384 frames
 against row 2's plain version, and the CLI's ``design`` defaults with a
 201 x 201 CRLB map; each timed, its peak memory and launches recorded
-and held to the CPU path.
+and held to the CPU path.  Phase 16 serves (HTTP, the feeder, graph
+capture and export, checkpoints, native ingest).  Phase 17, multi-device
+execution: an NCCL world of one runs grid-parallel localize (row 7 a
+rank), pair sharding of the 64-mic array (row 6), ``fusion_2x4``, sharded
+streaming (plain, and tracked with health and velocity) and data-parallel
+calibration and neural steps, each held to the unsharded call; then the
+grid, pair and fusion model axes run four ways on the one card, shard by
+shard, held to the world of one (a world of two or more cards runs only
+where there are that many).  Phase 18, the command line: each subcommand
+in process on the card against ``--device cpu``, ``serve`` in a
+subprocess answering one request bit-equal to ``loc(frames)``, a FIFO
+source, ``bench`` and the module entry.
 
     python3 chip_smoke.py            # one CUDA card; exits non-zero on any failure
 
@@ -107,6 +118,10 @@ CHECK_FRAMES = 1024  # frames per kernel-vs-plain comparison
 # value lies further than this from the threshold.
 DECISION_MARGIN = 1e-3
 TRIALS = 7  # timed trials of the main path per configuration
+# timed trials (after one warm-up) of the calls that take seconds: the EM
+# and tracked fits and the array design, so that the script keeps to about
+# half of its time limit
+LONG_TRIALS = 3
 REPS = 20  # launches per kernel timing
 SEED = 0
 # the large-array paths: grid_array(8, 8, 0.05), 64 mics, 2,016 pairs
@@ -1076,7 +1091,20 @@ PATH_KERNELS = {"bandcrop_800_6000": ("gcc_kernel", "gn_kernel"),
                     "serve_localize_b4096", "serve_clients",
                     "serve_feeder")},
                 **{name: ("detector_scan_kernel",) for name in (
-                    "serve_sessions", "serve_checkpoint")}}
+                    "serve_sessions", "serve_checkpoint")},
+                # phase 17: the parallel paths in a world of one, and the
+                # model axis four ways on the card (rows 7, 6 and 2 at the
+                # shards' shapes)
+                "par_grid": ("gcc_kernel", "srp_argmax_kernel", "gn_kernel"),
+                "par_spmd_grid": ("gcc_kernel", "srp_argmax_kernel"),
+                "par4_grid": ("srp_argmax_kernel",),
+                **{name: ("gcc_large_kernel",) for name in (
+                    "par_pairs_64mic", "par4_pairs")},
+                **{name: ("gcc_kernel",) for name in (
+                    "par_fusion_2x4", "par4_fusion", "par_neural_step")},
+                **{name: ("detector_scan_kernel",) for name in (
+                    "par_stream", "par_stream_tracked")},
+                "par_calib_step_8mic": ()}
 
 
 def launch_counts():
@@ -3856,17 +3884,19 @@ MAP_TEST_SOURCES = ((0.3, 0.2), (0.1, -0.4), (-0.4, 0.35))
 MAP_WALLS = (((1.0, 0.0), 1.2, 0.2), ((0.0, -1.0), 1.5, 0.2))
 
 
-def time_ms(fn):
-    """(median, q1, q3) ms a call of ``fn()`` over ``TRIALS`` calls: the
-    bench tool's host clock around a synchronised device."""
+def time_ms(fn, trials=TRIALS, warmup=2):
+    """(median, q1, q3 ms a call, trials) of ``fn()`` over ``trials``
+    calls after ``warmup``: the bench tool's host clock around a
+    synchronised device."""
     from audio_triangulation_tpu_torch.tools.bench import frames_per_s
 
-    med, q1, q3 = frames_per_s(fn, 1, TRIALS, "cuda")
-    return 1e3 / med, 1e3 / q3, 1e3 / q1
+    med, q1, q3 = frames_per_s(fn, 1, trials, "cuda", warmup=warmup)
+    return 1e3 / med, 1e3 / q3, 1e3 / q1, trials
 
 
 def ms_text(t) -> str:
-    return f"{t[0]:.4f} ms a call (IQR {t[1]:.4f}-{t[2]:.4f}, {TRIALS} trials)"
+    return (f"{t[0]:.4f} ms a call (IQR {t[1]:.4f}-{t[2]:.4f}, {t[3]} "
+            "trials)")
 
 
 def peak_gb(fn):
@@ -4866,7 +4896,7 @@ def training_calib_em(phase, card, results, failures):
         "calib_em_8mic", results, fit))
     calls = count_only(phase, "calib_em_8mic", {
         "gcc_kernel": EM_ROUNDS, "gn_kernel": EM_ROUNDS})
-    t = time_ms(fit)
+    t = time_ms(fit, LONG_TRIALS, warmup=1)
     cpu_est, cpu_losses = cpu_calib.fit_em(guess, frames,
                                            em_rounds=EM_ROUNDS,
                                            inner_steps=EM_STEPS)
@@ -4912,7 +4942,7 @@ def training_calib_tracked(phase, card, results, failures):
         "calib_tracked_8mic", results, fit))
     calls = count_only(phase, "calib_tracked_8mic", {
         "gcc_kernel": 1, "gn_kernel": 1})
-    t = time_ms(fit)
+    t = time_ms(fit, LONG_TRIALS, warmup=1)
     cpu = calibration.Calibrator.create(8, device="cpu").fit_tracked(
         guess, frames, times, traj_order=1, steps=TRACKED_STEPS)
     err0 = np.abs(guess - mics).mean()
@@ -5086,7 +5116,7 @@ def training_design(phase, card, results, failures):
 
     (pos, hist), peak = peak_gb(lambda: counted("design_cli", results, run))
     calls = count_only(phase, "design_cli", {})
-    t = time_ms(run)
+    t = time_ms(run, LONG_TRIALS, warmup=1)
     pos_c, hist_c = design.optimize_array(init, pts, device="cpu", **kw)
     d_hist = float(np.abs(hist / hist_c - 1).max())
     d_pos = float(np.abs(pos - pos_c).max())
@@ -5749,6 +5779,756 @@ def phase_serving(card, results, refs):
         fail(phase, f"result checks failed: {failures}")
 
 
+PAR_FRAMES = 4096  # frames (fusion: events) a call of the parallel paths
+PAR_STREAMS = 1024  # streams of the sharded streaming paths
+PAR_WAYS = 4  # model-axis shards run in turn on the one card
+PAR_CALIB_MICS = 8
+PAR_NEURAL_FRAMES = 1024
+PAR_TOL_M = 2e-4  # the Localizer tests' xy tolerance (card vs CPU too)
+PAR_SCORE_REL = 1e-4  # scores: of their scale (fp32 PHAT: 1.4e-4)
+
+
+def par_time(card, what, sharded, plain=None):
+    """Say ``what``'s sharded call time and, when given, the unsharded
+    call's (median of ``TRIALS`` on the host clock around a synchronised
+    card)."""
+    t = time_ms(sharded)
+    line = f"{what}: sharded {ms_text(t)}"
+    if plain is not None:
+        line += f"; unsharded {ms_text(time_ms(plain))}"
+    return line + f" ({card})"
+
+
+def clear_rows(scores, margin=DECISION_MARGIN):
+    """Rows [B] whose best score beats the runner-up by more than
+    ``margin`` of the scores' scale (their argmax is a decision no fp32
+    rounding flips)."""
+    import torch
+
+    top2 = scores.topk(2, dim=-1).values
+    return (top2[:, 0] - top2[:, 1]) > margin * float(scores.abs().max())
+
+
+def parallel_grid(phase, card, results, failures, mesh):
+    """Grid-parallel localize (``make_sharded_localize``, grid_parallel)
+    and the explicit SPMD grid localizer on the reference array's 101 x 101
+    grid at ``PAR_FRAMES`` frames, against the unsharded call."""
+    import torch
+    from audio_triangulation_tpu_torch import Localizer, geometry
+    from audio_triangulation_tpu_torch.parallel import sharded, spmd
+
+    rng = np.random.default_rng(SEED + 170)
+    mics = geometry.reference_array()
+    loc = Localizer.create(mics, srp_form="matmul", device="cuda")
+    frames = torch.from_numpy(scene_frames(mics, PAR_FRAMES, rng)).cuda()
+    fn, params = sharded.make_sharded_localize(loc, mesh, grid_parallel=True)
+    out = counted("par_grid", results, lambda: fn(params, frames), phase)
+    ref = loc(frames)
+    clear = clear_rows(ref["scores"])
+    cell_ok = torch.equal(out["best_cell"][clear],
+                          ref["scores"].argmax(dim=-1)[clear])
+    same_cell = out["best_cell"] == ref["scores"].argmax(dim=-1)
+    d_xy = float((out["xy"] - ref["xy"]).abs().max())
+    xy_equal = torch.equal(out["xy"][same_cell], ref["xy"][same_cell])
+    ints = all(torch.equal(out[k], ref[k]) for k in ("best_shift",))
+    ok = cell_ok and ints and xy_equal and d_xy <= PAR_TOL_M
+    say(phase, f"par_grid: {PAR_FRAMES} frames of 3 x 1,024, 101 x 101 "
+        f"cells, mesh 1x1 (NCCL world of one): best cell equal to the "
+        f"unsharded argmax on the {int(clear.sum())} clear rows {cell_ok} "
+        f"(on {int(same_cell.sum())} of {PAR_FRAMES} rows overall), shifts "
+        f"equal {ints}, xy bit-equal where the cell is {xy_equal}, xy within "
+        f"{d_xy:.2e} m")
+    if not ok:
+        failures.append("par_grid")
+    say(phase, par_time(card, "par_grid", lambda: fn(params, frames),
+                        lambda: loc(frames)))
+    sfn = spmd.make_spmd_grid_localizer(loc, mesh)
+    sout = counted("par_spmd_grid", results, lambda: sfn(frames), phase)
+    ok = (torch.equal(sout["best_cell"], out["best_cell"])
+          and torch.equal(sout["tdoa_samples"], ref["tdoa_samples"]))
+    say(phase, f"par_spmd_grid: cell equal to the sharded localize's and "
+        f"TDOAs bit-equal to the unsharded call's {ok}")
+    if not ok:
+        failures.append("par_spmd_grid")
+    return loc, frames, out
+
+
+def parallel_grid_ways(phase, card, results, failures, loc, frames):
+    """The grid's model axis ``PAR_WAYS`` ways on the one card: each
+    shard's SRP-argmax kernel at the shard's shape and its neighbour
+    scores, then the combines; against the world of one (one shard)."""
+    import torch
+    from audio_triangulation_tpu_torch.models import localizer as lm
+    from audio_triangulation_tpu_torch.ops import srp
+    from audio_triangulation_tpu_torch.parallel import spmd
+
+    cfg, grid, params = loc.pipeline, loc.grid, loc.params
+    flat = lm._flat_frames(frames, cfg)
+    corr_t = lm.gcc_peaks(flat, params, cfg)[0]
+    hw = (grid.height, grid.width)
+
+    def run(ways):
+        shards = [spmd.grid_shard(params, cfg, grid.num_cells, ways, i)
+                  for i in range(ways)]
+        vals, cells = zip(*[spmd.grid_argmax_body(corr_t, s)
+                            for s in shards])
+        best, cell = spmd.argmax_combine(vals, cells)
+        idx = srp.peak_neighbours(cell, hw)
+        nb = spmd.sum_combine([spmd.neighbour_body(corr_t, s, idx)
+                               for s in shards])
+        return best, cell, spmd.refined_xy(cell, nb, grid), shards
+
+    best4, cell4, xy4, shards = counted("par4_grid", results,
+                                        lambda: run(PAR_WAYS), phase)
+    best1, cell1, xy1, _ = run(1)
+    scores = srp.srp_scores_matmul(corr_t, params.onehot)
+    xy_plain = srp.grid_peak_xy(scores, hw, (grid.half_cells_x,
+                                             grid.half_cells_y),
+                                grid.cells_per_m, refine=True)
+    edge = [s.start + s.onehot.shape[1] for s in shards[:-1]]
+    ok = (torch.equal(cell4, cell1) and torch.equal(best4, best1)
+          and torch.equal(xy4, xy1))
+    d_plain = float((xy1 - xy_plain).abs().max())
+    ok = ok and d_plain <= 1e-4
+    say(phase, f"par4_grid: {PAR_WAYS} shards of "
+        f"{shards[0].onehot.shape[1]} cells (edges at {edge}) on one card, "
+        f"srp_argmax_kernel at [{PAR_FRAMES}, {corr_t[0].numel()}] x "
+        f"[{corr_t[0].numel()}, {shards[0].onehot.shape[1]}] each: best "
+        f"cell, score and refined peak equal to one shard's {ok}; "
+        f"the refined peak within {d_plain:.2e} m of the peak fit on the "
+        f"whole [B, G] scores")
+    if not ok:
+        failures.append("par4_grid")
+    say(phase, par_time(card, "par4_grid (4 shards in turn)",
+                        lambda: run(PAR_WAYS), lambda: run(1)))
+
+
+def parallel_pairs(phase, card, results, failures, mesh):
+    """Pair sharding of the 64-mic array (2,016 pairs) at
+    ``LARGE_FRAMES`` frames of 4,096: the world of one against the
+    unsharded call, then ``PAR_WAYS`` pair shards in turn on the card
+    (the large-array kernel at the shard's shape each, precomputed
+    steering shards) against the world of one."""
+    import torch
+    from audio_triangulation_tpu_torch import Localizer
+    from audio_triangulation_tpu_torch.models import localizer as lm
+    from audio_triangulation_tpu_torch.parallel import spmd
+
+    mics, grid, configs = large_configs()
+    cfg = configs[0][1]
+    rng = np.random.default_rng(SEED + 171)
+    loc = Localizer.create(mics, cfg, grid, with_solver=False, device="cuda")
+    frames = torch.from_numpy(scene_frames(
+        mics, LARGE_FRAMES, rng, fixed_source=(0.4, -0.3, 1.2),
+        n=cfg.frame_size)).cuda()
+    fn = spmd.make_spmd_pair_localizer(loc, mesh)
+    out = counted("par_pairs_64mic", results, lambda: fn(frames), phase)
+    ref = loc(frames)
+    scale = float(ref["scores"].abs().max())
+    d_ref = float((out["scores"] - ref["scores"]).abs().max()) / scale
+    cell_ok = torch.equal(out["scores"].argmax(-1), ref["scores"].argmax(-1))
+    d_xy = float((out["xy_grid"] - ref["xy_grid"]).abs().max())
+    ok = d_ref <= PAR_SCORE_REL and cell_ok and d_xy <= 1e-5
+    say(phase, f"par_pairs_64mic: {LARGE_FRAMES} frames of 64 x 4,096, "
+        f"2,016 pairs, 63 x 63 cells, mesh 1x1, steering "
+        f"{'precomputed' if fn.big_steering else 'pair-blocked'}: scores "
+        f"within {d_ref:.2e} of scale of the unsharded call's (bound "
+        f"{PAR_SCORE_REL}), grid cell equal {cell_ok}, xy_grid within "
+        f"{d_xy:.2e} m")
+    if not ok:
+        failures.append("par_pairs_64mic")
+    flat = lm._flat_frames(frames, cfg)
+    p, g = loc.params.lut_flat.shape
+    steer = spmd.big_steering(cfg, p, g, PAR_WAYS)
+    shards = [spmd.pair_shard(loc.params, cfg, PAR_WAYS, i, steer=steer)
+              for i in range(PAR_WAYS)]
+
+    def run():
+        return spmd.pair_finish(spmd.sum_combine(
+            [spmd.pair_scores_body(flat, loc.window, s, cfg, loc.pairs)
+             for s in shards]), grid)
+
+    out4 = counted("par4_pairs", results, run, phase)
+    d4 = float((out4["scores"] - out["scores"]).abs().max()) / scale
+    cell4 = torch.equal(out4["scores"].argmax(-1), out["scores"].argmax(-1))
+    d4_xy = float((out4["xy_grid"] - out["xy_grid"]).abs().max())
+    ok = d4 <= PAR_SCORE_REL and cell4 and d4_xy <= 1e-5
+    say(phase, f"par4_pairs: {PAR_WAYS} shards of "
+        f"{shards[0].pairs.shape[0]} pairs on one card, gcc_large_kernel at "
+        f"[{LARGE_FRAMES}, 64 mics, {shards[0].pairs.shape[0]} pairs] each, "
+        f"steering {'precomputed' if steer else 'pair-blocked'} "
+        f"([{shards[0].pairs.shape[0] * cfg.num_lags}, {g}] a shard): "
+        f"summed scores within {d4:.2e} of scale of the world of one's, "
+        f"grid cell equal {cell4}, xy_grid within {d4_xy:.2e} m")
+    if not ok:
+        failures.append("par4_pairs")
+    say(phase, par_time(card, "par_pairs_64mic", lambda: fn(frames),
+                        lambda: loc(frames)))
+    say(phase, par_time(card, "par4_pairs (4 shards in turn)", run))
+    del shards
+    torch.cuda.empty_cache()
+
+
+def parallel_fusion(phase, card, results, failures, mesh):
+    """``make_fusion_spmd`` on phase 13's ``fusion_2x4`` at ``PAR_FRAMES``
+    events in the world of one, against the unsharded call; then four
+    squares (``fusion_4x4``) with the array axis ``PAR_WAYS`` ways on the
+    card (the GCC kernel without peaks at one array a shard), against the
+    world of one."""
+    import torch
+    from audio_triangulation_tpu_torch import PipelineConfig, geometry
+    from audio_triangulation_tpu_torch.models.fusion import (
+        ArrayFusionLocalizer)
+    from audio_triangulation_tpu_torch.parallel import spmd
+    from audio_triangulation_tpu_torch.utils import synth
+
+    make, event, _ = estimator_paths()["fusion_2x4"]
+    fus = make("cuda")
+    frames = noisy(event, PAR_FRAMES, SEED + 172)
+    fn = spmd.make_fusion_spmd(fus, mesh)
+    out = counted("par_fusion_2x4", results, lambda: fn(frames), phase)
+    ref = fus(frames)
+    ok = all(torch.equal(out[k], ref[k])
+             for k in ("scores", "xy_grid", "xy", "tdoa_samples"))
+    say(phase, f"par_fusion_2x4: {PAR_FRAMES} events of 2 arrays x 4 x "
+        f"1,024, mesh 1x1: scores, xy_grid, xy and TDOAs bit-equal to the "
+        f"unsharded call's {ok}")
+    if not ok:
+        failures.append("par_fusion_2x4")
+    say(phase, par_time(card, "par_fusion_2x4", lambda: fn(frames),
+                        lambda: fus(frames)))
+
+    sq = geometry.square_array(0.25)
+    arrays = [sq + np.array(o, np.float32)
+              for o in ((-1.0, 0.0), (1.0, 0.0), (0.0, -1.0), (0.0, 1.0))]
+    fus4 = ArrayFusionLocalizer.create(arrays, PipelineConfig(phat=True),
+                                       device="cuda")
+    ev = synth.synth_scene(np.array([*FUSION_SOURCE, 1.2]),
+                           np.concatenate(arrays))[0].astype(np.float32)
+    frames4 = noisy(ev.reshape(4, 4, 1024), PAR_FRAMES, SEED + 173)
+    one = spmd.make_fusion_spmd(fus4, mesh)(frames4)
+    w = fus4._weights(None)
+
+    def run():
+        parts = [spmd.fusion_body(fus4, frames4[:, i:i + 1], (i, i + 1), w)
+                 for i in range(PAR_WAYS)]
+        return spmd.fusion_finish(
+            fus4, spmd.sum_combine([p for p, _ in parts]),
+            torch.cat([t for _, t in parts], dim=1), w)
+
+    out4 = counted("par4_fusion", results, run, phase)
+    scale = float(one["scores"].abs().max())
+    d_s = float((out4["scores"] - one["scores"]).abs().max()) / scale
+    d_xy = float((out4["xy"] - one["xy"]).abs().max())
+    ok = (torch.equal(out4["tdoa_samples"], one["tdoa_samples"])
+          and torch.equal(out4["xy_grid"], one["xy_grid"])
+          and d_s <= PAR_SCORE_REL and d_xy <= PAR_TOL_M)
+    say(phase, f"par4_fusion: 4 squares, {PAR_WAYS} array shards on one "
+        f"card (gcc_kernel at [{PAR_FRAMES}, 4 mics] each): TDOAs and "
+        f"grid peak equal to the world of one's "
+        f"{ok}, scores within {d_s:.2e} of scale, xy within {d_xy:.2e} m")
+    if not ok:
+        failures.append("par4_fusion")
+    say(phase, par_time(card, "par4_fusion (4 shards in turn)", run,
+                        lambda: fus4(frames4)))
+
+
+def parallel_streams(phase, card, results, failures, mesh):
+    """``make_sharded_stream_step`` at ``PAR_STREAMS`` streams of the
+    streaming scene, plain and tracked with health weights and the CAF
+    velocity fused into the bank, against ``step_many`` on the same
+    chunks."""
+    import torch
+    from audio_triangulation_tpu_torch import (StreamConfig,
+                                               StreamingLocalizer,
+                                               TrackedStreamingLocalizer,
+                                               geometry)
+    from audio_triangulation_tpu_torch.models.streaming import state_leaves
+    from audio_triangulation_tpu_torch.parallel import sharded
+
+    x = torch.from_numpy(stream_scene(PAR_STREAMS, seed=SEED + 174)[0]).cuda()
+    mics = geometry.reference_array()
+    for name, sl in (
+            ("par_stream", StreamingLocalizer.create(
+                mics, stream=StreamConfig(chunk_size=STREAM_CHUNK),
+                device="cuda")),
+            ("par_stream_tracked", TrackedStreamingLocalizer.create(
+                mics, stream=StreamConfig(chunk_size=STREAM_CHUNK,
+                                          health_weighting=True,
+                                          solve_velocity=True),
+                fuse_velocity=True, device="cuda"))):
+        fn, init_states = sharded.make_sharded_stream_step(sl, mesh)
+        chunks = [x[..., i:i + STREAM_CHUNK]
+                  for i in range(0, x.shape[-1], STREAM_CHUNK)]
+
+        def run(step, states):
+            outs = []
+            for c in chunks:
+                states, out = step(states, c)
+                outs.append(out)
+            return states, outs
+
+        st, outs = counted(name, results,
+                           lambda: run(fn, init_states(PAR_STREAMS)), phase)
+        st_ref, ref = run(sl.step_many, sl.init_states(PAR_STREAMS))
+        ok = all(same(a[k], b[k]) for a, b in zip(outs, ref) for k in a)
+        ok = ok and all(same(a, b) for a, b in zip(state_leaves(st),
+                                                   state_leaves(st_ref)))
+        events = int(sum(int(o["event"].sum()) for o in outs))
+        say(phase, f"{name}: {PAR_STREAMS} streams x {len(chunks)} chunks "
+            f"of 3 x {STREAM_CHUNK}, mesh 1x1: every output and the final "
+            f"state bit-equal to step_many's {ok} ({events} events)")
+        if not ok:
+            failures.append(name)
+        state = [init_states(PAR_STREAMS)]
+
+        def one_step(step=fn):
+            state[0], _ = step(state[0], chunks[0])
+
+        say(phase, par_time(card, f"{name} step", one_step,
+                            lambda: one_step(sl.step_many)))
+
+
+def parallel_training(phase, card, results, failures, mesh):
+    """``data_parallel_step`` around ``Calibrator.train_step`` on phase
+    15's ``calib_step_8mic`` scene (4,096 events) and around
+    ``NeuralLocalizer.train_step`` (``PAR_NEURAL_FRAMES`` frames), one step
+    each, against the plain step from the same parameters."""
+    import torch
+    from audio_triangulation_tpu_torch import PipelineConfig, geometry
+    from audio_triangulation_tpu_torch.models import calibration, neural
+    from audio_triangulation_tpu_torch.parallel import sharded
+
+    mics = geometry.circular_array(PAR_CALIB_MICS, 0.2)
+    frames, planes, guess = calib_scene(mics, CALIB_EVENTS, SEED + 175)
+    calib = calibration.Calibrator.create(PAR_CALIB_MICS, device="cuda")
+    batch = calibration.CalibBatch(torch.from_numpy(frames).cuda(),
+                                   torch.from_numpy(planes).cuda())
+    got = {}
+    for run, step in (("dp", sharded.data_parallel_step(calib.train_step,
+                                                        mesh)),
+                      ("plain", calib.train_step)):
+        params, opt = calib.init(guess)
+        fn = (lambda: step(params, opt, batch))
+        _, _, loss = (counted("par_calib_step_8mic", results, fn, phase)
+                      if run == "dp" else fn())
+        got[run] = (loss, params.mic_xy.detach().clone())
+    ok = (torch.equal(got["dp"][0], got["plain"][0])
+          and torch.equal(got["dp"][1], got["plain"][1]))
+    say(phase, f"par_calib_step_8mic: data_parallel_step on {CALIB_EVENTS} "
+        f"events x 8 mics, mesh 1x1: loss and mics bit-equal to the plain "
+        f"step's {ok}")
+    if not ok:
+        failures.append("par_calib_step_8mic")
+    params, opt = calib.init(guess)
+    step = sharded.data_parallel_step(calib.train_step, mesh)
+    say(phase, par_time(card, "par_calib_step_8mic",
+                        lambda: step(params, opt, batch),
+                        lambda: calib.train_step(params, opt, batch)))
+
+    sq = geometry.square_array(0.3)
+    net = neural.NeuralLocalizer.create(sq, PipelineConfig(phat=True),
+                                        device="cuda")
+    rng = np.random.default_rng(SEED + 176)
+    xy = rng.uniform(-0.9, 0.9, (PAR_NEURAL_FRAMES, 2)).astype(np.float32)
+    nf = torch.from_numpy(scene_frames(
+        sq, PAR_NEURAL_FRAMES, rng)).cuda()
+    nxy = torch.from_numpy(xy).cuda()
+    got = {}
+    for run, maker in (("dp", lambda: sharded.data_parallel_step(
+            net.train_step, mesh)), ("plain", lambda: net.train_step)):
+        params, opt = net.init(seed=0)
+        step = maker()
+        fn = (lambda: step(params, opt, nf, nxy))
+        _, _, loss = (counted("par_neural_step", results, fn, phase)
+                      if run == "dp" else fn())
+        got[run] = (loss, [p.detach().clone() for p in params.parameters()])
+    ok = torch.equal(got["dp"][0], got["plain"][0]) and all(
+        torch.equal(a, b) for a, b in zip(got["dp"][1], got["plain"][1]))
+    say(phase, f"par_neural_step: data_parallel_step on "
+        f"{PAR_NEURAL_FRAMES} frames, mesh 1x1: loss and weights bit-equal "
+        f"to the plain step's {ok}")
+    if not ok:
+        failures.append("par_neural_step")
+
+
+def parallel_multi_gpu(phase, failures):
+    """An NCCL world of min(4, cards) running the dry run's seven steps
+    where there are two cards or more; otherwise one line saying so."""
+    import torch
+    from audio_triangulation_tpu_torch.parallel import dryrun
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        say(phase, f"multi-GPU NCCL world: not run ({n} card on this "
+            "machine; it needs two or more): multi-GPU collectives are "
+            "neither measured nor claimed here")
+        return
+    t0 = time.perf_counter()
+    try:
+        dryrun.dryrun_multichip(min(4, n), device="cuda")
+    except Exception as e:  # recorded; the phase fails
+        say(phase, f"multi-GPU dry run failed: {e}")
+        failures.append("multi_gpu_dryrun")
+        return
+    say(phase, f"multi-GPU dry run: {min(4, n)} NCCL ranks, seven steps "
+        f"ok in {time.perf_counter() - t0:.1f} s (not a speed claim)")
+
+
+def phase_parallel(card, results):
+    """Phase 17: multi-device execution on the card.  An NCCL world of one
+    (a ``file://`` store in a temporary directory) runs every entry point
+    of ``parallel``: grid-parallel localize and the SPMD grid localizer,
+    pair sharding at 64 mics, ``fusion_2x4``, sharded streaming (plain and
+    tracked with health and velocity), data-parallel calibration and
+    neural steps, each held to the unsharded call; then the grid, pair and
+    fusion model axes run four ways on the one card, shard by shard, and
+    are held to the world of one.  Each path's wall time and launches are
+    printed; every part runs and the phase fails at its end if any part
+    failed."""
+    import tempfile
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+    from audio_triangulation_tpu_torch.parallel import mesh as mesh_lib
+
+    t0 = time.perf_counter()
+    phase = "17 parallel"
+    failures = []
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                world_size=1, rank=0)
+        try:
+            mesh = mesh_lib.make_mesh((1, 1), device="cuda")
+            say(phase, f"NCCL world of one: backend {dist.get_backend()}, "
+                f"mesh {tuple(mesh.mesh.shape)} {mesh.mesh_dim_names}")
+            grid_state = []
+            parts = [
+                ("par_grid", lambda: grid_state.append(parallel_grid(
+                    phase, card, results, failures, mesh))),
+                ("par4_grid", lambda: parallel_grid_ways(
+                    phase, card, results, failures, *grid_state[0][:2])),
+                ("par_pairs", lambda: parallel_pairs(
+                    phase, card, results, failures, mesh)),
+                ("par_fusion", lambda: parallel_fusion(
+                    phase, card, results, failures, mesh)),
+                ("par_streams", lambda: parallel_streams(
+                    phase, card, results, failures, mesh)),
+                ("par_training", lambda: parallel_training(
+                    phase, card, results, failures, mesh))]
+            for name, part in parts:
+                try:
+                    part()
+                except (Exception, SystemExit):  # recorded; fails below
+                    traceback.print_exc()
+                    failures.append(name)
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    parallel_multi_gpu(phase, failures)
+    say(phase, f"wall time {time.perf_counter() - t0:.1f} s")
+    if failures:
+        fail(phase, f"result checks failed: {failures}")
+
+
+# ----------------------------------------------------------------------
+# Phase 18: the command line
+# ----------------------------------------------------------------------
+
+CLI_TIMING = (r"\(\d+\.\d+s\)", r"ingest rate: \d+k samples/s")
+# the CLI's event WAV: floor noise with bursts of the reference array's
+# source at these samples (localize-wav)
+CLI_WAV_EVENTS = (4000, 16000, 28000)
+
+
+def cli_compare(ref: str, got: str, tol: float, rel: float = 0.0,
+                skip=()) -> tuple[bool, float, str]:
+    """(agree, largest decimal gap, the first disagreement) of two
+    printouts: the same lines with numbers masked, integers (shifts,
+    trigger samples, counts) equal, decimals within ``tol`` + ``rel``
+    times their size.  Host timings are masked; lines matching ``skip``
+    are left out."""
+    import re
+
+    num = re.compile(r"[-+]?\d+(?:\.\d*)?(?:[eE][-+]?\d+)?")
+
+    def lines(text):
+        out = []
+        for ln in text.splitlines():
+            if any(re.search(s, ln) for s in skip):
+                continue
+            for pat in CLI_TIMING:
+                ln = re.sub(pat, "<t>", ln)
+            out.append(ln)
+        return out
+
+    a, b = lines(ref), lines(got)
+    if len(a) != len(b):
+        return False, 0.0, f"{len(a)} lines against {len(b)}"
+    worst = 0.0
+    for la, lb in zip(a, b):
+        if (re.sub(r"\s+", "", num.sub("#", la))
+                != re.sub(r"\s+", "", num.sub("#", lb))):
+            return False, worst, f"{la!r} / {lb!r}"
+        for ta, tb in zip(num.findall(la), num.findall(lb)):
+            if not any(c in ta + tb for c in ".eE"):
+                if int(ta) != int(tb):
+                    return False, worst, f"{la!r} / {lb!r}"
+                continue
+            gap = abs(float(ta) - float(tb))
+            worst = max(worst, gap)
+            if gap > tol + rel * abs(float(ta)):
+                return False, worst, f"{la!r} / {lb!r}"
+    return True, worst, ""
+
+
+def cli_run(argv) -> tuple[str, dict, float]:
+    """(printout, launches by kernel, wall seconds) of one in-process run
+    of the port's CLI."""
+    import contextlib
+    import io
+
+    import torch
+    from audio_triangulation_tpu_torch.cli import main as cli
+
+    buf = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(list(argv))
+    torch.cuda.synchronize()
+    return buf.getvalue(), launch_counts(), time.perf_counter() - t0
+
+
+def cli_wav(path: str) -> None:
+    """A 3-channel WAV of floor noise with one event burst at each of
+    ``CLI_WAV_EVENTS``."""
+    from audio_triangulation_tpu_torch import geometry
+    from audio_triangulation_tpu_torch.utils import io as audio_io
+    from audio_triangulation_tpu_torch.utils import synth
+
+    rng = np.random.default_rng(SEED + 180)
+    mics = geometry.reference_array()
+    x = rng.integers(127, 130, size=(3, 40000)).astype(np.float64)
+    for i, at in enumerate(CLI_WAV_EVENTS):
+        src = place(rng.uniform(-0.9, 0.9, 2))
+        x[:, at:at + 1024] += 110.0 * synth.synth_scene(
+            src, mics, seed=SEED + 181 + i)[0]
+    audio_io.write_wav(path, np.clip(np.round(x), 0, 255).astype(np.int16),
+                       50_000)
+
+
+def cli_commands(tmp: str) -> list:
+    """(name, argv, kernels its card run must launch, decimal tolerance,
+    relative tolerance, lines left out of the comparison) of every
+    subcommand at the reference's defaults, and three variants: doa's
+    MUSIC and elevation, localize-wav's diagnosis."""
+    wav = os.path.join(tmp, "events.wav")
+    cli_wav(wav)
+    manifest = os.path.join(HERE, "tests", "data", "eval", "manifest.json")
+    loc_k = ("gcc_kernel", "gn_kernel")
+    return [
+        ("simulate", ["simulate", "--out", os.path.join(tmp, "dash.png")],
+         loc_k, 0.011, 0.0, ("dashboard ->",)),
+        ("evaluate", ["evaluate", manifest], loc_k, 0.03, 0.0, ()),
+        ("stream", ["stream"], ("detector_scan_kernel",), 1.5e-3, 0.0, ()),
+        ("doa", ["doa"], ("gcc_kernel",), 0.02, 0.0, ()),
+        ("doa_music", ["doa", "--method", "music"], (), 0.02, 0.0, ()),
+        ("doa_elevation", ["doa", "--elevation", "30"], ("gcc_kernel",),
+         0.02, 0.0, ()),
+        ("gen_window", ["gen-window"], (), 0.0, 0.0, ()),
+        ("localize_wav", ["localize-wav", wav, "--diagnose"], loc_k, 0.011,
+         1e-2, ()),
+        ("calibrate", ["calibrate"], (), 0.011, 1e-4, ()),
+        ("design", ["design"], (), 0.011, 0.0, ()),
+        ("map_room", ["map-room"], loc_k, 0.011, 0.05, ()),
+    ]
+
+
+def cli_serve(phase, card, failures):
+    """``serve`` in a subprocess on a free port (the card, its default):
+    /healthz, then one /localize of 64 frames, bit-equal to ``loc(frames)``
+    here on the card; every wait bounded."""
+    import select
+    import urllib.request
+
+    import torch
+    from audio_triangulation_tpu_torch import Localizer, geometry
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "audio_triangulation_tpu_torch", "serve",
+         "--port", "0"], cwd=HERE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, bufsize=1)
+    try:
+        deadline = time.time() + 120
+        line = ""
+        while "serving on" not in line:
+            left = deadline - time.time()
+            if left <= 0 or proc.poll() is not None:
+                raise RuntimeError(f"no serving line within 120 s "
+                                   f"({proc.poll()})")
+            ready, _, _ = select.select([proc.stdout], [], [], left)
+            if ready:
+                line = proc.stdout.readline()
+        url = line.split()[2]
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        mics = geometry.reference_array()
+        frames = scene_frames(mics, 64, np.random.default_rng(SEED + 182))
+        req = urllib.request.Request(url + "/localize", **octet(frames))
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=120) as r:
+            body = json.loads(r.read())
+        ms = (time.perf_counter() - t0) * 1e3
+        loc = Localizer.create(mics, device="cuda")
+        out = loc(torch.from_numpy(frames).cuda())
+        ok = health.get("backend") == "gpu" and served_equal(body, out)
+        say(phase, f"cli_serve: subprocess on {url}: /healthz {health}; "
+            f"/localize of 64 frames in {ms:.1f} ms (its first request), "
+            f"bit-equal to loc(frames) on this card {ok} (launches in the "
+            f"server's process are not counted here) ({card})")
+        if not ok:
+            failures.append("cli_serve")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+        proc.stdout.close()
+        proc.stderr.close()
+
+
+def cli_fifo(phase, card, failures):
+    """``stream --source fifo://...`` on the card and on the CPU: a FIFO
+    of transported PCM (one event burst) through the native detector, each
+    event localized; the printouts agree."""
+    import tempfile
+
+    from audio_triangulation_tpu_torch import geometry
+    from audio_triangulation_tpu_torch.runtime import transport
+    from audio_triangulation_tpu_torch.utils import synth
+
+    rng = np.random.default_rng(SEED + 183)
+    x = rng.integers(127, 130, size=(3, 30000)).astype(np.float64)
+    x[:, 9000:10024] += 110.0 * synth.synth_scene(
+        place((0.5, 0.4)), geometry.reference_array(), noise_rms=0.0)[0]
+    pcm = np.clip(np.round(x), 0, 255).astype(np.int16).T.copy()
+    outs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dev in ("cuda", "cpu"):
+            path = os.path.join(tmp, f"{dev}.fifo")
+            os.mkfifo(path)
+            transport.stream_pcm_to_fifo(path, pcm)
+            outs[dev] = cli_run(["stream", "--source", f"fifo://{path}",
+                                 "--max-seconds", "20", "--device", dev])
+    text, counts, wall = outs["cuda"]
+    agree, gap, why = cli_compare(outs["cpu"][0], text, 1.5e-3,
+                                  skip=("attached",))
+    events = [ln for ln in text.splitlines() if ln.startswith("event @")]
+    ok = (agree and len(events) == 1 and counts["gcc_kernel"] >= 1
+          and counts["gn_kernel"] >= 1)
+    say(phase, f"cli_stream_fifo: {len(events)} event through the FIFO, "
+        f"launches {fmt_counts(counts)}; card vs CPU printouts agree "
+        f"{agree} (largest gap {gap:.2e}){'' if agree else ': ' + why}; "
+        f"{wall:.2f} s on the card, {outs['cpu'][2]:.2f} s on the CPU "
+        f"({card})")
+    if not ok:
+        failures.append("cli_stream_fifo")
+
+
+def fmt_counts(counts: dict) -> str:
+    return ", ".join(f"{k} x{v}" for k, v in counts.items() if v) or \
+        "no kernel"
+
+
+def phase_cli(card, results):
+    """Phase 18: the command line on the card.  Each of the eleven
+    subcommands runs in this process through ``cli.main([...,
+    "--device", "cuda"])`` at the reference's defaults, its launches
+    counted, and is held to the same command under ``--device cpu``
+    (printed positions within the tests' tolerances; shifts, trigger
+    samples, cells and counts equal); ``serve`` runs in a subprocess on a
+    free port and answers one /localize bit-equal to ``loc(frames)``;
+    ``stream --source fifo://`` reads a FIFO; ``bench`` runs once on the
+    card; one subprocess proves the module entry.  Every part runs; the
+    phase fails at its end if any part failed."""
+    import tempfile
+    import traceback
+
+    t0 = time.perf_counter()
+    phase = "18 cli"
+    failures = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, argv, kernels, tol, rel, skip in cli_commands(tmp):
+            try:
+                text, counts, wall = cli_run([*argv, "--device", "cuda"])
+                ref, _, cpu_wall = cli_run([*argv, "--device", "cpu"])
+                agree, gap, why = cli_compare(ref, text, tol, rel, skip)
+                launched = all(counts[k] >= 1 for k in kernels)
+                say(phase, f"cli_{name}: launches {fmt_counts(counts)}; "
+                    f"card vs CPU printouts agree {agree} (largest decimal "
+                    f"gap {gap:.2e}, bound {tol} + {rel} rel)"
+                    f"{'' if agree else ': ' + why}; {wall:.2f} s on the "
+                    f"card, {cpu_wall:.2f} s on the CPU ({card})")
+                for k, v in counts.items():
+                    results[k]["launches"] += v
+                    if v:
+                        results[k].setdefault("launches_by_path", {})[
+                            f"cli_{name}"] = v
+                if not (agree and launched):
+                    failures.append(f"cli_{name}")
+            except (Exception, SystemExit):  # recorded; fails below
+                traceback.print_exc()
+                failures.append(f"cli_{name}")
+        for name, part in (("cli_stream_fifo", cli_fifo),
+                           ("cli_serve", cli_serve)):
+            try:
+                part(phase, card, failures)
+            except (Exception, SystemExit):
+                traceback.print_exc()
+                failures.append(name)
+        try:
+            text, counts, wall = cli_run(["bench", "--device", "cuda"])
+            lines = [json.loads(ln) for ln in text.splitlines()]
+            ok = len(lines) == 3 and all(
+                np.isfinite(ln["value"]) and ln["value"] > 0 for ln in lines)
+            say(phase, f"cli_bench: launches {fmt_counts(counts)}; "
+                + "; ".join(f"{ln['metric']} {ln['value']:.1f} frames/s"
+                            for ln in lines)
+                + f"; {wall:.2f} s ({card})")
+            if not ok:
+                failures.append("cli_bench")
+        except (Exception, SystemExit):
+            traceback.print_exc()
+            failures.append("cli_bench")
+        try:
+            png = os.path.join(tmp, "module.png")
+            t1 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "audio_triangulation_tpu_torch",
+                 "simulate", "--out", png], cwd=HERE, capture_output=True,
+                text=True, timeout=300)
+            inproc, _, _ = cli_run(["simulate", "--out", png])
+            agree = cli_compare(inproc, proc.stdout, 0.011,
+                                skip=("dashboard ->",))[0]
+            ok = proc.returncode == 0 and os.path.getsize(png) > 100 and agree
+            say(phase, f"cli_module_entry: python3 -m "
+                f"audio_triangulation_tpu_torch simulate: rc "
+                f"{proc.returncode}, the same printout as in process "
+                f"{agree}, {time.perf_counter() - t1:.1f} s")
+            if not ok:
+                failures.append("cli_module_entry")
+        except (Exception, SystemExit):
+            traceback.print_exc()
+            failures.append("cli_module_entry")
+    say(phase, f"wall time {time.perf_counter() - t0:.1f} s")
+    if failures:
+        fail(phase, f"result checks failed: {failures}")
+
+
 # further keys of an entry that has them: what the library yardstick is, the
 # SRP-argmax kernel's other bound and its bf16 mode, the bf16 DFT product's
 # library form with f32 outputs
@@ -5800,6 +6580,8 @@ def main():
     phase_training(card, results)
     phase_serving(card, results, ingest_refs)
     ingest_pool.shutdown()
+    phase_parallel(card, results)
+    phase_cli(card, results)
 
     print(json.dumps({"kernels": [
         {k: results[n][k] for k in (*KERNEL_KEYS, *(

@@ -221,6 +221,12 @@ def test_port_import_leaves_jax_unloaded():
             "import audio_triangulation_tpu_torch.utils.serving; "
             "import audio_triangulation_tpu_torch.utils.checkpoint; "
             "import audio_triangulation_tpu_torch.utils.profiling; "
+            "import audio_triangulation_tpu_torch.parallel.spmd; "
+            "import audio_triangulation_tpu_torch.parallel.dryrun; "
+            "import audio_triangulation_tpu_torch.parallel.distributed; "
+            "import audio_triangulation_tpu_torch.viz.render; "
+            "import audio_triangulation_tpu_torch.viz.terminal; "
+            "import audio_triangulation_tpu_torch.cli.main; "
             "print(sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('audio_triangulation_tpu.')"
             " or m == 'audio_triangulation_tpu'))")

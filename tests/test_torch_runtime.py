@@ -28,7 +28,7 @@ from audio_triangulation_tpu_torch.utils import io as tio
 
 MICS = geometry.reference_array()
 # the JAX package's root names that wait for a later slice of the port
-WAITING_EXPORTS = {"ShardingConfig": "the parallel slice"}
+WAITING_EXPORTS = {}
 
 
 @pytest.fixture
