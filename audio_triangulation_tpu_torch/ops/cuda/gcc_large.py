@@ -254,15 +254,12 @@ def operands(frames: torch.Tensor, pairs: torch.Tensor,
     return re, im, sync, syns, kw
 
 
-def _run(frames, pairs, cfg: PipelineConfig, chunk: int, with_peaks: bool,
-         band_pairs=None):
+def _run(frames, pairs, cfg: PipelineConfig, chunk: int, with_peaks: bool):
     if frames.ndim != 3:
         raise ValueError(f"frames must be [B, M, N]; got "
                          f"{tuple(frames.shape)}")
     pairs = torch.as_tensor(pairs, device=frames.device)
-    band_pairs = (pairs if band_pairs is None
-                  else torch.as_tensor(band_pairs, device=frames.device))
-    re, im, sync, syns, kw = operands(frames, band_pairs, cfg)
+    re, im, sync, syns, kw = operands(frames, pairs, cfg)
     if frames.device.type == "cpu":
         return gcc_large_reference(re, im, pairs, sync, syns, **kw,
                                    with_peaks=with_peaks, pair_chunk=chunk)
@@ -271,15 +268,12 @@ def _run(frames, pairs, cfg: PipelineConfig, chunk: int, with_peaks: bool,
 
 
 def xcorr_large(frames: torch.Tensor, pairs, cfg: PipelineConfig, *,
-                tile_b: int = 4, chunk: int = 64,
-                band_pairs=None) -> torch.Tensor:
+                tile_b: int = 4, chunk: int = 64) -> torch.Tensor:
     """Correlograms [B, P, 2K+1] of conditioned (windowed) frames
     [B, M, N] for large pair counts.  ``tile_b`` is the reference's batch
     tile and changes nothing here (any B is taken); ``chunk`` is the pair
-    chunk of the plain version on the CPU.  ``band_pairs`` (default
-    ``pairs``) are the pairs the auto band of ``band_hz='auto'`` is
-    estimated from: the whole array's when ``pairs`` is a shard of it."""
-    return _run(frames, pairs, cfg, chunk, False, band_pairs)
+    chunk of the plain version on the CPU."""
+    return _run(frames, pairs, cfg, chunk, False)
 
 
 def xcorr_large_peaks(frames: torch.Tensor, pairs, cfg: PipelineConfig, *,

@@ -14,7 +14,7 @@ Counterpart of ``audio_triangulation_tpu.ops.srp`` (main-path subset):
 - K separated peaks for simultaneous sources (``top_k_peaks``)
 - the grid axis padded to a multiple of a mesh axis, with a bias that
   keeps the padding from ever winning (``pad_grid_axis``,
-  ``pad_scores_bias``; numpy, as the reference's)
+  ``pad_scores_bias``)
 
 The reference pads the lag axis of its large-array one-hots to a multiple
 of 8 for its memory layout; the zero rows add nothing to a score, so the
@@ -23,7 +23,6 @@ port builds them unpadded and takes a padded matrix when it is given one.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 
@@ -267,23 +266,18 @@ def grid_peak_xy(scores: torch.Tensor, grid_shape: tuple[int, int],
     return cell_to_xy(flat_idx, w, half_cells, cells_per_m, dx, dy)
 
 
-def pad_grid_axis(arr: np.ndarray, multiple: int, axis: int = -1,
-                  fill=0.0) -> np.ndarray:
-    """Pad the grid axis up to a multiple (for sharding G over a mesh
-    axis)."""
-    g = arr.shape[axis]
-    pad = (-g) % multiple
-    if pad == 0:
-        return arr
-    widths = [(0, 0)] * arr.ndim
-    widths[axis] = (0, pad)
-    return np.pad(arr, widths, constant_values=fill)
+def pad_grid_axis(x: torch.Tensor, multiple: int,
+                  fill=0.0) -> torch.Tensor:
+    """The last (grid) axis of ``x`` padded with ``fill`` up to a multiple
+    (for sharding G over a mesh axis), on ``x``'s device."""
+    pad = (-x.shape[-1]) % multiple
+    return torch.nn.functional.pad(x, (0, pad), value=fill) if pad else x
 
 
 def pad_scores_bias(num_cells: int, padded: int,
-                    dtype=np.float32) -> np.ndarray:
-    """Additive bias [padded]: 0 on valid cells, -3e38 on pad cells so they
-    can never win the argmax."""
-    b = np.zeros((padded,), dtype=dtype)
+                    device=None) -> torch.Tensor:
+    """Additive bias [padded] f32: 0 on valid cells, -3e38 on pad cells so
+    they can never win the argmax."""
+    b = torch.zeros(padded, dtype=torch.float32, device=device)
     b[num_cells:] = -3e38
     return b

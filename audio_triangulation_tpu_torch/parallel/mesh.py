@@ -10,7 +10,7 @@ its own shard (SPMD as torch writes it):
 - ``model`` — SRP grid / pair / array axis
 
 The reference's shardings become plain functions that say which slice a
-rank holds (:func:`frames_shard`, :func:`grid_shard`, :func:`pair_shard`),
+rank holds (:func:`frames_shard`, :func:`grid_range`, :func:`pair_range`),
 and :func:`gather_batch` assembles a batch-sharded result across the data
 axis for callers that want the global array.  The backend follows the
 device: NCCL on the card, gloo on the CPU.
@@ -127,27 +127,27 @@ def frames_shard(mesh, frames, axis: str = DATA_AXIS):
     return frames[i * (b // n):(i + 1) * (b // n)]
 
 
-def grid_shard(mesh, g: int) -> tuple[int, int]:
+def grid_range(mesh, g: int) -> tuple[int, int]:
     """The rank's [start, stop) of ``g`` grid cells on the model axis, in
     the padded grid (cells from ``g`` on are padding)."""
     return shard_range(g, axis_size(mesh, MODEL_AXIS),
                        axis_index(mesh, MODEL_AXIS))
 
 
-def pair_shard(mesh, p: int) -> tuple[int, int]:
+def pair_range(mesh, p: int) -> tuple[int, int]:
     """The rank's [start, stop) of ``p`` pairs on the model axis, in the
     padded pair list (pairs from ``p`` on are padding)."""
     return shard_range(p, axis_size(mesh, MODEL_AXIS),
                        axis_index(mesh, MODEL_AXIS))
 
 
-def _gather(x: torch.Tensor, group, n: int) -> torch.Tensor:
-    """``x`` from every rank of ``group`` concatenated on dim 0."""
+def all_gather(x: torch.Tensor, group, n: int) -> list:
+    """``x`` from each of the ``n`` ranks of ``group``, in rank order."""
     if n == 1:
-        return x
+        return [x]
     parts = [torch.empty_like(x) for _ in range(n)]
     dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts, dim=0)
+    return parts
 
 
 def gather_batch(mesh, x, axis: str = DATA_AXIS):
@@ -157,7 +157,7 @@ def gather_batch(mesh, x, axis: str = DATA_AXIS):
     value (a collective: every rank of the axis must call it)."""
     group, n = mesh.get_group(axis), axis_size(mesh, axis)
     if isinstance(x, torch.Tensor):
-        return _gather(x, group, n)
+        return torch.cat(all_gather(x, group, n), dim=0)
     if isinstance(x, dict):
         return {k: gather_batch(mesh, v, axis) for k, v in x.items()}
     if isinstance(x, (list, tuple)):

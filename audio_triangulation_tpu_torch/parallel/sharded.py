@@ -49,14 +49,11 @@ def shard_params(params: localizer_mod.LocalizerParams, mesh,
                          "config (its lag count)")
     _, index, parts = spmd.model_group(mesh)
     g = params.lut_flat.shape[-1]
-    start, stop = mesh_lib.shard_range(g, parts, index)
+    start, stop = mesh_lib.grid_range(mesh, g)
     shard = spmd.grid_shard(params, cfg, g, parts, index)
-    dev = params.lut_flat.device
-    lut = torch.as_tensor(srp.pad_grid_axis(
-        params.lut_flat.cpu().numpy(), parts)[:, start:stop], device=dev)
-    bias = torch.as_tensor(
-        srp.pad_scores_bias(g, -(-g // parts) * parts)[start:stop],
-        device=dev)
+    lut = srp.pad_grid_axis(params.lut_flat, parts)[:, start:stop]
+    bias = srp.pad_scores_bias(g, -(-g // parts) * parts,
+                               params.lut_flat.device)[start:stop]
     return dataclasses.replace(params, lut_flat=lut, onehot=shard.onehot,
                                score_bias=bias, onehot_big=None)
 
@@ -84,9 +81,8 @@ def make_sharded_localize(loc: localizer_mod.Localizer, mesh,
         return fn, params
 
     spmd.check_grid_parallel(loc)
-    _, index, parts = spmd.model_group(mesh)
     g = loc.grid.num_cells
-    start, stop = mesh_lib.shard_range(g, parts, index)
+    start, stop = mesh_lib.grid_range(mesh, g)
     real = max(0, min(stop, g) - start)
     refine = (loc.grid.refine_peak == "on"
               or (loc.grid.refine_peak == "auto" and not loc.with_solver))

@@ -295,16 +295,24 @@ def pair_shard(params: localizer_mod.LocalizerParams, cfg, parts: int,
     return PairShard(pairs, valid, lut, rows)
 
 
+def pair_path_cfg(cfg):
+    """The settings the pair-sharded path correlates with, as the
+    reference's does: the full band (its cross-power and lag synthesis
+    take no ``band_hz`` / ``band_crop``) and full PHAT (no
+    ``phat_beta``)."""
+    return dataclasses.replace(cfg, band_hz=None, band_crop=False,
+                               phat_beta=1.0)
+
+
 def pair_scores_body(frames: torch.Tensor, window: torch.Tensor,
-                     shard: PairShard, cfg,
-                     band_pairs: torch.Tensor) -> torch.Tensor:
+                     shard: PairShard, cfg) -> torch.Tensor:
     """The rank's partial scores [B, G] from its pairs: the frames
-    conditioned, the large-array kernel on the shard's pairs (its auto band
-    estimated from ``band_pairs``, the whole array's, so every shard
-    weights alike), the reference's peak taper, padded pairs zeroed, then
+    conditioned, the large-array kernel on the shard's pairs with
+    :func:`pair_path_cfg`'s settings, the reference's peak taper (whatever
+    ``taper_enabled`` says, as the reference), padded pairs zeroed, then
     the shard's steering product."""
     x = localizer_mod.condition_frames(frames, window, cfg)
-    corr = gcc_large.xcorr_large(x, shard.pairs, cfg, band_pairs=band_pairs)
+    corr = gcc_large.xcorr_large(x, shard.pairs, pair_path_cfg(cfg))
     k = cfg.max_shift
     corr_t = xcorr.peak_taper(corr, k, cfg.taper_denom,
                               xcorr.best_lag(corr, k))
@@ -333,18 +341,21 @@ def make_spmd_pair_localizer(loc: localizer_mod.Localizer, mesh):
     rank correlates its pairs and scores the whole grid from them, and one
     SUM over the model axis completes the sum over pairs (SRP's pair sum is
     associative).  ``fn.big_steering`` says whether each rank holds a
-    precomputed steering shard or builds it a pair chunk at a time."""
+    precomputed steering shard or builds it a pair chunk at a time.  As
+    the reference's, it ignores ``band_hz``, ``band_crop`` and
+    ``phat_beta`` (:func:`pair_path_cfg`) and always tapers: with any of
+    them set it differs from ``loc(frames)``, and without it equals it."""
     cfg = loc.pipeline
     group, index, parts = model_group(mesh)
     p, g = loc.params.lut_flat.shape
     steer = big_steering(cfg, p, g, parts)
     shard = pair_shard(loc.params, cfg, parts, index, steer=steer)
-    window, band_pairs = loc.params.window, loc.params.pairs
+    window = loc.params.window
 
     def fn(frames: torch.Tensor) -> dict:
         loc._check_frames(frames)
         flat = localizer_mod._flat_frames(frames, cfg)
-        part = pair_scores_body(flat, window, shard, cfg, band_pairs)
+        part = pair_scores_body(flat, window, shard, cfg)
         return pair_finish(sum_allreduce(part, group), loc.grid)
 
     fn.big_steering = steer
@@ -415,17 +426,9 @@ def make_fusion_spmd(fus, mesh):
             frames = frames[..., a0:a1, :, :]
         partial, tdoa = fusion_body(fus, frames, (a0, a1), w)
         scores = sum_allreduce(partial, group)
-        tdoa_all = torch.cat(
-            _all_gather(tdoa.contiguous(), group, parts), dim=1)
+        tdoa_all = torch.cat(mesh_lib.all_gather(tdoa, group, parts),
+                             dim=1)
         return fusion_finish(fus, scores, tdoa_all, w)
 
     return fn
-
-
-def _all_gather(x: torch.Tensor, group, parts: int) -> list:
-    if parts == 1:
-        return [x]
-    out = [torch.empty_like(x) for _ in range(parts)]
-    dist.all_gather(out, x, group=group)
-    return out
 

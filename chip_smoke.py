@@ -118,10 +118,6 @@ CHECK_FRAMES = 1024  # frames per kernel-vs-plain comparison
 # value lies further than this from the threshold.
 DECISION_MARGIN = 1e-3
 TRIALS = 7  # timed trials of the main path per configuration
-# timed trials (after one warm-up) of the calls that take seconds: the EM
-# and tracked fits and the array design, so that the script keeps to about
-# half of its time limit
-LONG_TRIALS = 3
 REPS = 20  # launches per kernel timing
 SEED = 0
 # the large-array paths: grid_array(8, 8, 0.05), 64 mics, 2,016 pairs
@@ -3884,19 +3880,17 @@ MAP_TEST_SOURCES = ((0.3, 0.2), (0.1, -0.4), (-0.4, 0.35))
 MAP_WALLS = (((1.0, 0.0), 1.2, 0.2), ((0.0, -1.0), 1.5, 0.2))
 
 
-def time_ms(fn, trials=TRIALS, warmup=2):
-    """(median, q1, q3 ms a call, trials) of ``fn()`` over ``trials``
-    calls after ``warmup``: the bench tool's host clock around a
-    synchronised device."""
+def time_ms(fn):
+    """(median, q1, q3) ms a call of ``fn()`` over ``TRIALS`` calls: the
+    bench tool's host clock around a synchronised device."""
     from audio_triangulation_tpu_torch.tools.bench import frames_per_s
 
-    med, q1, q3 = frames_per_s(fn, 1, trials, "cuda", warmup=warmup)
-    return 1e3 / med, 1e3 / q3, 1e3 / q1, trials
+    med, q1, q3 = frames_per_s(fn, 1, TRIALS, "cuda")
+    return 1e3 / med, 1e3 / q3, 1e3 / q1
 
 
 def ms_text(t) -> str:
-    return (f"{t[0]:.4f} ms a call (IQR {t[1]:.4f}-{t[2]:.4f}, {t[3]} "
-            "trials)")
+    return f"{t[0]:.4f} ms a call (IQR {t[1]:.4f}-{t[2]:.4f}, {TRIALS} trials)"
 
 
 def peak_gb(fn):
@@ -4896,7 +4890,7 @@ def training_calib_em(phase, card, results, failures):
         "calib_em_8mic", results, fit))
     calls = count_only(phase, "calib_em_8mic", {
         "gcc_kernel": EM_ROUNDS, "gn_kernel": EM_ROUNDS})
-    t = time_ms(fit, LONG_TRIALS, warmup=1)
+    t = time_ms(fit)
     cpu_est, cpu_losses = cpu_calib.fit_em(guess, frames,
                                            em_rounds=EM_ROUNDS,
                                            inner_steps=EM_STEPS)
@@ -4942,7 +4936,7 @@ def training_calib_tracked(phase, card, results, failures):
         "calib_tracked_8mic", results, fit))
     calls = count_only(phase, "calib_tracked_8mic", {
         "gcc_kernel": 1, "gn_kernel": 1})
-    t = time_ms(fit, LONG_TRIALS, warmup=1)
+    t = time_ms(fit)
     cpu = calibration.Calibrator.create(8, device="cpu").fit_tracked(
         guess, frames, times, traj_order=1, steps=TRACKED_STEPS)
     err0 = np.abs(guess - mics).mean()
@@ -5116,7 +5110,7 @@ def training_design(phase, card, results, failures):
 
     (pos, hist), peak = peak_gb(lambda: counted("design_cli", results, run))
     calls = count_only(phase, "design_cli", {})
-    t = time_ms(run, LONG_TRIALS, warmup=1)
+    t = time_ms(run)
     pos_c, hist_c = design.optimize_array(init, pts, device="cpu", **kw)
     d_hist = float(np.abs(hist / hist_c - 1).max())
     d_pos = float(np.abs(pos - pos_c).max())
@@ -5945,7 +5939,7 @@ def parallel_pairs(phase, card, results, failures, mesh):
 
     def run():
         return spmd.pair_finish(spmd.sum_combine(
-            [spmd.pair_scores_body(flat, loc.window, s, cfg, loc.pairs)
+            [spmd.pair_scores_body(flat, loc.window, s, cfg)
              for s in shards]), grid)
 
     out4 = counted("par4_pairs", results, run, phase)
@@ -6236,51 +6230,9 @@ def phase_parallel(card, results):
 # Phase 18: the command line
 # ----------------------------------------------------------------------
 
-CLI_TIMING = (r"\(\d+\.\d+s\)", r"ingest rate: \d+k samples/s")
 # the CLI's event WAV: floor noise with bursts of the reference array's
 # source at these samples (localize-wav)
 CLI_WAV_EVENTS = (4000, 16000, 28000)
-
-
-def cli_compare(ref: str, got: str, tol: float, rel: float = 0.0,
-                skip=()) -> tuple[bool, float, str]:
-    """(agree, largest decimal gap, the first disagreement) of two
-    printouts: the same lines with numbers masked, integers (shifts,
-    trigger samples, counts) equal, decimals within ``tol`` + ``rel``
-    times their size.  Host timings are masked; lines matching ``skip``
-    are left out."""
-    import re
-
-    num = re.compile(r"[-+]?\d+(?:\.\d*)?(?:[eE][-+]?\d+)?")
-
-    def lines(text):
-        out = []
-        for ln in text.splitlines():
-            if any(re.search(s, ln) for s in skip):
-                continue
-            for pat in CLI_TIMING:
-                ln = re.sub(pat, "<t>", ln)
-            out.append(ln)
-        return out
-
-    a, b = lines(ref), lines(got)
-    if len(a) != len(b):
-        return False, 0.0, f"{len(a)} lines against {len(b)}"
-    worst = 0.0
-    for la, lb in zip(a, b):
-        if (re.sub(r"\s+", "", num.sub("#", la))
-                != re.sub(r"\s+", "", num.sub("#", lb))):
-            return False, worst, f"{la!r} / {lb!r}"
-        for ta, tb in zip(num.findall(la), num.findall(lb)):
-            if not any(c in ta + tb for c in ".eE"):
-                if int(ta) != int(tb):
-                    return False, worst, f"{la!r} / {lb!r}"
-                continue
-            gap = abs(float(ta) - float(tb))
-            worst = max(worst, gap)
-            if gap > tol + rel * abs(float(ta)):
-                return False, worst, f"{la!r} / {lb!r}"
-    return True, worst, ""
 
 
 def cli_run(argv) -> tuple[str, dict, float]:
@@ -6408,6 +6360,7 @@ def cli_fifo(phase, card, failures):
     import tempfile
 
     from audio_triangulation_tpu_torch import geometry
+    from audio_triangulation_tpu_torch.cli.compare import compare_printouts
     from audio_triangulation_tpu_torch.runtime import transport
     from audio_triangulation_tpu_torch.utils import synth
 
@@ -6425,8 +6378,8 @@ def cli_fifo(phase, card, failures):
             outs[dev] = cli_run(["stream", "--source", f"fifo://{path}",
                                  "--max-seconds", "20", "--device", dev])
     text, counts, wall = outs["cuda"]
-    agree, gap, why = cli_compare(outs["cpu"][0], text, 1.5e-3,
-                                  skip=("attached",))
+    agree, gap, why = compare_printouts(outs["cpu"][0], text,
+                                        skip=("attached",))
     events = [ln for ln in text.splitlines() if ln.startswith("event @")]
     ok = (agree and len(events) == 1 and counts["gcc_kernel"] >= 1
           and counts["gn_kernel"] >= 1)
@@ -6458,6 +6411,8 @@ def phase_cli(card, results):
     import tempfile
     import traceback
 
+    from audio_triangulation_tpu_torch.cli.compare import compare_printouts
+
     t0 = time.perf_counter()
     phase = "18 cli"
     failures = []
@@ -6466,7 +6421,8 @@ def phase_cli(card, results):
             try:
                 text, counts, wall = cli_run([*argv, "--device", "cuda"])
                 ref, _, cpu_wall = cli_run([*argv, "--device", "cpu"])
-                agree, gap, why = cli_compare(ref, text, tol, rel, skip)
+                agree, gap, why = compare_printouts(ref, text, tol=tol,
+                                                    rel=rel, skip=skip)
                 launched = all(counts[k] >= 1 for k in kernels)
                 say(phase, f"cli_{name}: launches {fmt_counts(counts)}; "
                     f"card vs CPU printouts agree {agree} (largest decimal "
@@ -6512,8 +6468,8 @@ def phase_cli(card, results):
                  "simulate", "--out", png], cwd=HERE, capture_output=True,
                 text=True, timeout=300)
             inproc, _, _ = cli_run(["simulate", "--out", png])
-            agree = cli_compare(inproc, proc.stdout, 0.011,
-                                skip=("dashboard ->",))[0]
+            agree = compare_printouts(inproc, proc.stdout, tol=0.011,
+                                      skip=("dashboard ->",))[0]
             ok = proc.returncode == 0 and os.path.getsize(png) > 100 and agree
             say(phase, f"cli_module_entry: python3 -m "
                 f"audio_triangulation_tpu_torch simulate: rc "

@@ -214,6 +214,14 @@ def test_mesh_construction(worlds, world):
     assert r["shape2"] == {"data": world // 2, "model": 2}
     assert "ranks" in r["bad"]
     assert jmesh.make_mesh().devices.shape == (8, 1)
+    # each rank's grid and pair range: the reference's model-axis slices
+    # of the padded axes (11 cells -> 12, 5 pairs -> 6, over 2)
+    spec = jax.sharding.NamedSharding(jmesh.make_mesh((4, 2)),
+                                      jax.sharding.PartitionSpec("model"))
+    for n, k in ((12, 0), (6, 1)):
+        ref = {(s[0].start, s[0].stop)
+               for s in spec.devices_indices_map((n,)).values()}
+        assert {rg[k] for rg in r["ranges"]} == ref
 
 
 def test_data_parallel_matches_single_device(worlds):
@@ -516,6 +524,46 @@ def test_spmd_pair_blocked_fallback_matches_big(worlds):
                                r["big"]["out"]["xy_grid"], atol=1e-5)
     np.testing.assert_allclose(s / scale, np.asarray(ref["scores"]) / scale,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("band", ["auto", "crop"])
+def test_spmd_pair_band_follows_reference(worlds, band):
+    """The pair-sharded path ignores ``band_hz``, ``band_crop`` and
+    ``phat_beta`` as the reference's does: with the auto band and partial
+    PHAT, or a cropped band, its scores are bit-equal to its own at full
+    band, and within 1e-4 of scale of the JAX package's pair path under the
+    same settings (the full-band case's tolerance)."""
+    r = part(worlds, 4, "spmd_pairs")
+    np.testing.assert_array_equal(r[band]["out"]["scores"],
+                                  r["big"]["out"]["scores"])
+    kw = (dict(band_hz="auto", phat_beta=0.8) if band == "auto"
+          else dict(band_hz=(500.0, 4000.0), band_crop=True))
+    inputs = dict(worlds["inputs"]["pairs24"])
+    inputs["cfg"] = dict(inputs["cfg"], **kw)
+    _, ref = _jax_pairs(inputs, jmesh.make_mesh((2, 4)))
+    s_ref = np.asarray(ref["scores"])
+    scale = np.abs(s_ref).max()
+    np.testing.assert_allclose(r[band]["out"]["scores"] / scale,
+                               s_ref / scale, atol=1e-4)
+    np.testing.assert_allclose(r[band]["out"]["xy_grid"],
+                               np.asarray(ref["xy_grid"]), atol=1e-4)
+
+
+def test_pad_helpers_match_reference():
+    """``srp.pad_grid_axis`` / ``pad_scores_bias`` equal the reference's
+    numpy helpers (zero or ``fill`` columns, a -3e38 bias on padding)."""
+    import torch
+
+    from audio_triangulation_tpu.ops import srp as jsrp
+    from audio_triangulation_tpu_torch.ops import srp as tsrp
+
+    lut = np.random.default_rng(5).integers(0, 9, (3, 11)).astype(np.int32)
+    for multiple, fill in ((4, 0.0), (11, 0.0), (3, 7)):
+        got = tsrp.pad_grid_axis(torch.from_numpy(lut), multiple, fill=fill)
+        np.testing.assert_array_equal(
+            got.numpy(), jsrp.pad_grid_axis(lut, multiple, fill=fill))
+    np.testing.assert_array_equal(tsrp.pad_scores_bias(11, 12).numpy(),
+                                  jsrp.pad_scores_bias(11, 12))
 
 
 def test_fusion_spmd_matches_single_device(worlds, jax_mesh):

@@ -3,22 +3,19 @@ command through the JAX package's CLI and through the port's
 (``--device cpu``) in this process, and compare what they print with one
 parser.
 
-``compare_output`` holds two printouts line by line: the same lines once
-numbers are masked, every integer equal (shifts, trigger samples, counts,
-ids), every decimal within ``tol`` (absolute) or ``rel`` (relative).
-Lines that differ by design are normalised first: host timings are masked
-and the JAX CLI's "jax events" count is the port's "device events"."""
+``compare_output`` holds two printouts to each other by the port's own
+comparator (``cli.compare.compare_printouts``: the same lines once
+numbers are masked, every integer equal, every decimal within ``tol``
+(absolute) or ``rel`` (relative), host timings masked).  The one line that
+differs by design is normalised first: the JAX CLI's "jax events" count is
+the port's "device events"."""
 
 from __future__ import annotations
 
-import re
-
 import numpy as np
 
-NUMBER = re.compile(r"[-+]?\d+(?:\.\d*)?(?:[eE][-+]?\d+)?")
-# host timings: "(1.2s)", "ingest rate: 15k samples/s"
-TIMING = (re.compile(r"\(\d+\.\d+s\)"),
-          re.compile(r"ingest rate: \d+k samples/s"))
+from audio_triangulation_tpu_torch.cli.compare import (NUMBER,
+                                                       compare_printouts)
 
 
 def run_both(capsys, argv, *, extra_port=()):
@@ -34,45 +31,15 @@ def run_both(capsys, argv, *, extra_port=()):
     return ref, got
 
 
-def normalise(text: str, skip=()) -> list:
-    lines = []
-    for line in text.splitlines():
-        if any(re.search(s, line) for s in skip):
-            continue
-        line = line.replace("jax events", "device events")
-        for pat in TIMING:
-            line = pat.sub("<t>", line)
-        lines.append(line)
-    return lines
-
-
-def skeleton(line: str) -> str:
-    """The line with its numbers masked and its spacing dropped (numpy
-    pads printed arrays to the widest value)."""
-    return re.sub(r"\s+", "", NUMBER.sub("#", line))
-
-
-def is_int(token: str) -> bool:
-    return not any(c in token for c in ".eE")
-
-
 def compare_output(ref: str, got: str, *, tol: float = 1.5e-3,
                    rel: float = 0.0, skip=()) -> float:
     """Assert the printouts agree (see the module docstring); returns the
     largest gap of a decimal."""
-    a, b = normalise(ref, skip), normalise(got, skip)
-    assert len(a) == len(b), (a, b)
-    worst = 0.0
-    for la, lb in zip(a, b):
-        assert skeleton(la) == skeleton(lb), (la, lb)
-        for ta, tb in zip(NUMBER.findall(la), NUMBER.findall(lb)):
-            if is_int(ta) and is_int(tb):
-                assert int(ta) == int(tb), (la, lb)
-                continue
-            fa, fb = float(ta), float(tb)
-            gap = abs(fa - fb)
-            worst = max(worst, gap)
-            assert gap <= tol + rel * abs(fa), (la, lb, gap)
+    agree, worst, why = compare_printouts(
+        ref.replace("jax events", "device events"),
+        got.replace("jax events", "device events"), tol=tol, rel=rel,
+        skip=skip)
+    assert agree, why
     return worst
 
 

@@ -49,9 +49,12 @@ def mesh_construction(inp):
         bad = "no error"
     except ValueError as e:
         bad = str(e)
+    ranges = [None] * n
+    dist.all_gather_object(ranges, (mesh_lib.grid_range(m2, 11),
+                                    mesh_lib.pair_range(m2, 5)))
     return {"default": tuple(m.mesh.shape), "names": m.mesh_dim_names,
             "shape2": {k: mesh_lib.axis_size(m2, k) for k in
-                       ("data", "model")}, "bad": bad}
+                       ("data", "model")}, "bad": bad, "ranges": ranges}
 
 
 def hybrid_mesh(inp):
@@ -296,7 +299,7 @@ def spmd_grid(inp):
     return {"out": _np(out), "single": _np(loc(frames))}
 
 
-def _pair_case(inp, key, mesh_shape, budget_zero=False):
+def _pair_case(inp, key, mesh_shape, budget_zero=False, **cfg_kw):
     import dataclasses
 
     from audio_triangulation_tpu_torch import (GridConfig, Localizer,
@@ -305,7 +308,7 @@ def _pair_case(inp, key, mesh_shape, budget_zero=False):
     from audio_triangulation_tpu_torch.parallel import spmd
 
     d = inp[key]
-    cfg = PipelineConfig(**d["cfg"])
+    cfg = PipelineConfig(**d["cfg"], **cfg_kw)
     if budget_zero:
         cfg = dataclasses.replace(cfg, srp_big_matmul_budget_bytes=0)
     loc = Localizer.create(d["mics"], cfg, GridConfig(**d["grid"]),
@@ -316,7 +319,7 @@ def _pair_case(inp, key, mesh_shape, budget_zero=False):
     frames = _t(d["frames"])
     out = mesh_lib.gather_batch(m, fn(mesh_lib.frames_shard(m, frames)))
     res = {"out": _np(out), "big": fn.big_steering}
-    if not budget_zero:
+    if not (budget_zero or cfg_kw):
         res["single"] = _np(loc(frames))
     return res
 
@@ -326,7 +329,11 @@ def spmd_pairs(inp):
     return {"large": _pair_case(inp, "pairs36", (n // 4, 4)),
             "big": _pair_case(inp, "pairs24", (n // 4, 4)),
             "blocked": _pair_case(inp, "pairs24", (n // 4, 4),
-                                  budget_zero=True)}
+                                  budget_zero=True),
+            "auto": _pair_case(inp, "pairs24", (n // 4, 4),
+                               band_hz="auto", phat_beta=0.8),
+            "crop": _pair_case(inp, "pairs24", (n // 4, 4),
+                               band_hz=(500.0, 4000.0), band_crop=True)}
 
 
 def fusion(inp):
