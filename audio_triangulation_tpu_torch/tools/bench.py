@@ -48,6 +48,17 @@ CONFIGS = (("_fullband", None, "parabolic"),
 INIT_GRID_STRIDE = 3  # the coarse SRP init grid; the solver refines
 
 
+def require_device(device: str) -> str:
+    """``device`` for a tool's ``--device``: the card unless "cpu"; asked for
+    the card without one, the tool stops with the reason, as the command
+    line does."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(
+            "no CUDA device is available: this tool runs on the card unless "
+            "given --device cpu")
+    return device
+
+
 def smi_line(index: int = 0) -> str:
     """The card's name and power limit as ``nvidia-smi --query-gpu=name,
     power.limit --format=csv,noheader`` prints them (e.g. "NVIDIA H100
@@ -107,8 +118,11 @@ def bench_frames(n_frames: int, device) -> torch.Tensor:
     mics = geometry.square_array(0.3)
     src = np.array([0.5, 0.4, 1.2]) * (1.2 / np.linalg.norm([0.5, 0.4, 1.2]))
     frame = synth.synth_scene(src, mics, noise_rms=0.01, seed=0)
-    return torch.from_numpy(np.broadcast_to(
-        frame, (n_frames, *frame.shape[1:])).astype(np.float32)).to(device)
+    # C order, as the reference's arrays are on its device: numpy's astype
+    # of the broadcast view keeps the batch axis fastest, and each call
+    # then paid a transposing copy of the frames
+    return torch.from_numpy(np.ascontiguousarray(np.broadcast_to(
+        frame, (n_frames, *frame.shape[1:])), dtype=np.float32)).to(device)
 
 
 def make_localizer(band, subsample, device) -> Localizer:

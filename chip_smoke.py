@@ -89,7 +89,17 @@ shard, held to the world of one (a world of two or more cards runs only
 where there are that many).  Phase 18, the command line: each subcommand
 in process on the card against ``--device cpu``, ``serve`` in a
 subprocess answering one request bit-equal to ``loc(frames)``, a FIFO
-source, ``bench`` and the module entry.
+source, ``bench`` and the module entry.  Phase 19, the root tools, benches
+and examples: ``tools/bench_configs`` (the seven records of the five
+``BASELINE.json`` configurations, each held to the CPU path on 256 frames),
+``tools/bench_latency`` (1 and 1,024 streams, the device step under the
+synchronized p50), ``tools/bench_robustness`` (20 rows against its CPU
+run), ``tools/int8_dft_accuracy`` (row 8's int8 mode bit-equal to numpy's
+int32 products), 30 s of ``tools/soak_transport``, ``tools/make_eval_dataset``
+(within one count of the committed WAVs, then ``evaluate`` inside its
+floors) and the five examples against ``--device cpu``; then the
+replicated-frames probe (one event replicated against a noise draw a
+frame, timed in turns and profiled).
 
     python3 chip_smoke.py            # one CUDA card; exits non-zero on any failure
 
@@ -6485,6 +6495,512 @@ def phase_cli(card, results):
         fail(phase, f"result checks failed: {failures}")
 
 
+# ---- phase 19: the root tools, benches and examples -------------------------
+
+TOOLS_CHECK_FRAMES = 256  # frames of a bench_configs record held to the CPU
+TOOLS_CPU_LARGE_FRAMES = 2  # CPU frames of a replicated 64-mic record
+TOOLS_TOL_M = 2e-4  # the Localizer tests' xy tolerance
+TOOLS_NOISE_RTOL = 5e-4  # and of a noise frame's distance (record 3)
+# tdoa of the 64-mic records (samples): of 2,016 pairs a few have a peak
+# whose three values lie within rounding of each other, and their parabola
+# moves by up to 3.6e-3 between the devices (the solved xy by 2e-6 m)
+TOOLS_LARGE_TDOA = 1e-2
+ROBUST_MEDIAN_TOL_CM = 0.05  # card vs CPU rows of bench_robustness
+INT8_TOL = 1.5e-5  # one unit of the int8 line's fifth decimal
+TOOLS_SOAK_MINUTES = 0.5
+EVAL_FLOORS_CM = {"anechoic_hi": 1.0, "anechoic_lo": 2.0,
+                  "reverb_light": 8.0, "reverb_mod": 15.0}
+EXAMPLE_TOL, EXAMPLE_REL = 0.011, 0.01  # tests/test_torch_examples.py's
+# lines left out of the card-vs-CPU comparison: the server's port, and block
+# WPE in float32, unstable on both devices (held to its floor instead)
+EXAMPLE_SKIP = {"serving_http": ("server up at",),
+                "advanced": ("^dereverb:",)}
+EXAMPLE_KERNELS = {
+    "quickstart": ("gcc_kernel", "gn_kernel", "detector_scan_kernel"),
+    "advanced": ("gcc_kernel", "gn_kernel"),
+    "production": ("gcc_kernel", "gn_kernel", "detector_scan_kernel"),
+    "robustness": ("gcc_kernel", "gcc_stats_kernel", "gn_kernel"),
+    "serving_http": ("gcc_kernel", "gn_kernel", "detector_scan_kernel")}
+REPLICATED_FRAMES = 16384  # the replicated-frames probe's batch
+
+
+def tool_counted(results, failures, name, kernels, fn):
+    """(result of ``fn()``, launches by kernel) with the counts from 0,
+    added to the results under ``name``; ``name`` fails if a kernel of
+    ``kernels`` was not launched."""
+    import torch
+
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for k, v in counts.items():
+        results[k]["launches"] += v
+        if v:
+            results[k].setdefault("launches_by_path", {})[name] = v
+    if any(counts[k] < 1 for k in kernels):
+        failures.append(f"{name}: a kernel of its path was never launched "
+                        f"({fmt_counts(counts)})")
+    return out, counts
+
+
+def printed(fn):
+    """(what ``fn()`` printed, its return value)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ret = fn()
+    return buf.getvalue(), ret
+
+
+def decided_rows(corr, scores, margin=DECISION_MARGIN):
+    """[B] bool: the frames whose best lags are ``margin`` of scale clear of
+    the runner-up in every pair, and whose best grid score is ``margin`` of
+    scale clear of the best lower score.  Unlike ``bench_accuracy
+    .clear_of_ties`` an exact tie of cells is kept: cells that share every
+    pair's lag score alike on any device, and the first of them wins."""
+    import torch
+
+    top2 = corr.topk(2, dim=-1).values
+    scale = corr.abs().amax(dim=(-1, -2))
+    lag_gap = ((top2[..., 0] - top2[..., 1]) / scale[:, None]).amin(-1)
+    top = scores.amax(-1, keepdim=True)
+    below = torch.where(scores < top, scores,
+                        torch.full_like(scores, -float("inf"))).amax(-1)
+    cell_gap = (top[:, 0] - below) / scores.abs().amax(-1)
+    return (lag_gap >= margin) & (cell_gap >= margin)
+
+
+def tools_bench_configs(phase, card, results, failures):
+    """The seven records on the card (7 trials each), then each record's
+    outputs on ``TOOLS_CHECK_FRAMES`` frames of the card held to the CPU
+    path: xy within ``TOOLS_TOL_M`` (tdoa 1e-3 samples), best shifts and
+    grid cells equal; record 3's noise frames off near ties, xy also within
+    ``TOOLS_NOISE_RTOL`` of its distance."""
+    import torch
+    from audio_triangulation_tpu_torch.tools import bench_configs
+
+    _, (recs, counts) = printed(lambda: tool_counted(
+        results, failures, "tool_bench_configs",
+        ("gcc_kernel", "gn_kernel", "gcc_large_kernel"),
+        lambda: bench_configs.main([])))
+    for r in recs:
+        say(phase, f"bench_configs {r['config']}: {r['frames_per_sec']:.1f} "
+            f"frames/s (IQR {r['iqr'][0]:.1f}-{r['iqr'][1]:.1f}, "
+            f"{r['trials']} trials of {r['batch']}); route {r['route']}"
+            + (f"; single frame {r['single_frame_latency_us']:.1f} us"
+               if "single_frame_latency_us" in r else "") + f" ({card})")
+    if not (len(recs) == 7 and all(
+            r["frames_per_sec"] > 0 and r["trials"] == 7
+            and r["power_limit_w"] for r in recs)
+            and [r["config"] for r in recs]
+            == [n for n, _ in bench_configs.RECORDS]):
+        failures.append("tool_bench_configs: malformed records")
+    say(phase, f"bench_configs launches {fmt_counts(counts)}")
+    for name, _ in bench_configs.RECORDS:
+        n_cpu = (TOOLS_CPU_LARGE_FRAMES if name.startswith("5")
+                 else TOOLS_CHECK_FRAMES)
+        card_c = bench_configs.make_config(name, "cuda", TOOLS_CHECK_FRAMES)
+        cpu_c = bench_configs.make_config(name, "cpu", n_cpu)
+        if card_c.loc is None:  # record 1: the unfused engine's tdoa
+            gap = float((card_c.call()["tdoa_samples"].cpu()
+                         - cpu_c.call()["tdoa_samples"]).abs().max())
+            ok = gap <= 1e-3
+            say(phase, f"bench_configs {name}: card vs CPU tdoa {gap:.2e} "
+                "samples")
+        else:
+            if name == bench_configs.RECORDS[2][0]:
+                frames = [bench_configs.framing.frame_multichannel_lanes(
+                    c.frames, 1024, bench_configs.HOP)[0]
+                    for c in (card_c, cpu_c)]
+            else:
+                frames = [card_c.frames, cpu_c.frames]
+            got = {k: v.cpu() for k, v in card_c.loc(frames[0]).items()}
+            ref = cpu_c.loc(frames[1])
+            rows = torch.arange(TOOLS_CHECK_FRAMES) % n_cpu
+            ref = {k: v[rows] for k, v in ref.items()}
+            clear = decided_rows(ref["correlograms"], ref["scores"])
+            dxy = (got["xy"] - ref["xy"])[clear].abs()
+            allowed = TOOLS_TOL_M + (TOOLS_NOISE_RTOL * ref["xy"][clear].abs()
+                                     if name == bench_configs.RECORDS[2][0]
+                                     else 0.0)
+            shift_rows = clear[:, None].expand_as(ref["best_shift"])
+            if name.startswith("5"):  # 2,016 pairs: ties of raw lags too
+                shift_rows = shift_rows & large_clear_rows(
+                    cpu_c.loc, cpu_c.frames)[rows]
+            shifts = bool(torch.equal(got["best_shift"][shift_rows],
+                                      ref["best_shift"][shift_rows]))
+            dtdoa = float((got["tdoa_samples"] - ref["tdoa_samples"])[
+                shift_rows].abs().max())
+            # the same cells: the cell-to-meters division may differ by
+            # an ulp between the devices
+            cell_gap = float((got["xy_grid"] - ref["xy_grid"])[clear].abs()
+                             .max())
+            ok = (shifts and cell_gap <= 1e-6
+                  and dtdoa <= (TOOLS_LARGE_TDOA if name.startswith("5")
+                                else 1e-3)
+                  and bool((dxy <= allowed).all())
+                  and float(clear.float().mean()) >= 0.75)
+            say(phase, f"bench_configs {name}: card vs CPU on "
+                f"{int(clear.sum())} of {TOOLS_CHECK_FRAMES} frames clear of "
+                f"a near tie: xy {float(dxy.max()):.2e} m, tdoa "
+                f"{dtdoa:.2e} samples, best shifts equal {shifts} (off raw "
+                f"near ties: {int(shift_rows.sum())} of "
+                f"{shift_rows.numel()} pairs), grid peaks {cell_gap:.2e} m "
+                "apart")
+        if not ok:
+            failures.append(f"tool_bench_configs {name}: card vs CPU")
+        del card_c, cpu_c
+        torch.cuda.empty_cache()
+
+
+def tools_bench_latency(phase, card, results, failures):
+    """Both load points on the card, the scan kernel once a step; the
+    device step must be under the synchronized p50 (``realtime_ok`` is
+    reported)."""
+    from audio_triangulation_tpu_torch.tools import bench_latency
+
+    _, (res, counts) = printed(lambda: tool_counted(
+        results, failures, "tool_bench_latency",
+        ("detector_scan_kernel",), lambda: bench_latency.main([])))
+    # synchronized steps, then a warm-up, a lead-in, 29 traced steps and a
+    # lead-out
+    steps = sum(n + 32 for n in (220, 60))
+    for tag, p in res.items():
+        if not isinstance(p, dict):
+            continue
+        s = p["synchronized"]
+        say(phase, f"bench_latency {tag}: synchronized p50 / p90 / p99 / "
+            f"max {s['p50_ms']:.4f} / {s['p90_ms']:.4f} / {s['p99_ms']:.4f} "
+            f"/ {s['max_ms']:.4f} ms over {s['n']} chunks, realtime_ok "
+            f"{s['realtime_ok']}; device step {p['device_step_ms']} ms "
+            f"(profiler; {p['scan_kernels_traced']} scan records of 29 "
+            f"steps), span {p['span_step_ms']} ms a step between CUDA "
+            f"events ({card})")
+        if not (p["device_step_ms"] and p["scan_kernels_traced"] == 29
+                and p["device_step_ms"] <= p["span_step_ms"]
+                and p["device_step_ms"] < s["p50_ms"]):
+            failures.append(f"tool_bench_latency {tag}: the device step is "
+                            "not under the synchronized p50, or its trace "
+                            "lost records")
+    say(phase, f"bench_latency launches {fmt_counts(counts)} for {steps} "
+        "steps")
+    if counts["detector_scan_kernel"] != steps:
+        failures.append("tool_bench_latency: the scan kernel did not run "
+                        "once a step")
+
+
+def tools_bench_robustness(phase, card, results, failures):
+    """The 20 rows on the card, held to the same tool on the CPU: hit rates
+    equal, medians and p90 within ``ROBUST_MEDIAN_TOL_CM``."""
+    from audio_triangulation_tpu_torch.tools import bench_robustness
+
+    _, (rows, counts) = printed(lambda: tool_counted(
+        results, failures, "tool_bench_robustness",
+        ("gcc_kernel", "gcc_stats_kernel", "gn_kernel"),
+        lambda: bench_robustness.main([])))
+    t0 = time.perf_counter()
+    _, cpu = printed(lambda: bench_robustness.main(["--device", "cpu"]))
+    cpu_s = time.perf_counter() - t0
+    worst, hits = 0.0, True
+    for r, c in zip(rows, cpu):
+        hits &= r["hit_rate_lt_10cm"] == c["hit_rate_lt_10cm"]
+        worst = max(worst, abs(r["xy_err_median_cm"] - c["xy_err_median_cm"]),
+                    abs(r["xy_err_p90_cm"] - c["xy_err_p90_cm"]))
+    for cond in ("anechoic_10db", "reverb_rt60_0.25"):
+        say(phase, f"bench_robustness {cond}, median / p90 cm, hit rate: "
+            + "; ".join(f"{r['method']} {r['xy_err_median_cm']:.4f} / "
+                        f"{r['xy_err_p90_cm']:.4f}, {r['hit_rate_lt_10cm']}"
+                        for r in rows if r["condition"] == cond))
+    say(phase, f"bench_robustness: {len(rows)} rows, routes "
+        + "; ".join(f"{r['method']}: {r['route']}" for r in rows[::2])
+        + f"; launches {fmt_counts(counts)}; hit rates equal to the CPU run "
+        f"{hits}, medians and p90 {worst:.2e} cm from it (CPU run "
+        f"{cpu_s:.1f} s) ({card})")
+    if not (len(rows) == len(cpu) == 20 and hits
+            and worst <= ROBUST_MEDIAN_TOL_CM):
+        failures.append("tool_bench_robustness: card vs CPU rows")
+
+
+def tools_int8(phase, card, results, failures):
+    """The int8 line on the card (row 8's int8 mode twice), its products
+    bit-equal to numpy's int32 products, the line within ``INT8_TOL`` of
+    the CPU run's (integers and keys equal)."""
+    from audio_triangulation_tpu_torch.tools import int8_dft_accuracy
+
+    _, (line, counts) = printed(lambda: tool_counted(
+        results, failures, "tool_int8_dft_accuracy",
+        ("dft_matmul_kernel_int8",), lambda: int8_dft_accuracy.main([])))
+    _, prod = int8_dft_accuracy.measure("cuda")
+    exact = int8_dft_accuracy.products_exact(prod)
+    _, cpu = printed(lambda: int8_dft_accuracy.main(["--device", "cpu"]))
+    same = list(line) == list(cpu) and all(
+        abs(v - cpu[k]) <= INT8_TOL if isinstance(v, float) else v == cpu[k]
+        for k, v in line.items())
+    say(phase, f"int8_dft_accuracy: {json.dumps(line)}; launches "
+        f"{fmt_counts(counts)}; int8 products bit-equal to numpy's int32 "
+        f"{exact} ({prod['re'].shape[0]} x {prod['re'].shape[1]} each); the "
+        f"CPU run's line {'equal' if line == cpu else 'within ' + str(INT8_TOL)}"
+        f" {same}")
+    if not (exact and same and counts["dft_matmul_kernel_int8"] == 2):
+        failures.append("tool_int8_dft_accuracy")
+
+
+def tools_soak_transport(phase, card, results, failures):
+    """``TOOLS_SOAK_MINUTES`` of the FIFO soak on the card: every block's
+    event found and within tolerance, every gate."""
+    from audio_triangulation_tpu_torch.tools import soak_transport
+
+    _, (res, counts) = printed(lambda: tool_counted(
+        results, failures, "tool_soak_transport",
+        ("gcc_kernel", "gn_kernel"), lambda: soak_transport.main(
+            ["--minutes", str(TOOLS_SOAK_MINUTES)])))
+    say(phase, f"soak_transport: {res['blocks']} blocks, {res['events']} "
+        f"events, {res['spurious']} spurious, {res['reconnects']} "
+        f"reconnects, error median / max {res['median_err_m']:.4f} / "
+        f"{res['max_err_m']:.4f} m, peak RSS {res['rss_start_mb']:.1f} -> "
+        f"{res['rss_end_mb']:.1f} MB, ok {res['ok']}; launches "
+        f"{fmt_counts(counts)} ({card})")
+    if not (res["ok"] and res["events"] == res["blocks"] > 0
+            and counts["gcc_kernel"] == res["events"] + 1):
+        failures.append("tool_soak_transport")
+
+
+def tools_eval_dataset(phase, card, results, failures):
+    """The dataset regenerated into a temporary directory, within one count
+    of the committed WAVs, then ``evaluate`` on it on the card inside
+    ``tests/test_eval_dataset.py``'s floors."""
+    import tempfile
+
+    from audio_triangulation_tpu_torch.cli import main as cli
+    from audio_triangulation_tpu_torch.tools import make_eval_dataset
+    from audio_triangulation_tpu_torch.utils import io as audio_io
+
+    committed = os.path.join(HERE, "tests", "data", "eval")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "eval")
+        _, entries = printed(lambda: make_eval_dataset.main(
+            ["--out", out]))
+        with open(os.path.join(committed, "manifest.json")) as f:
+            manifest_equal = entries == json.load(f)
+        worst = max(int(np.abs(
+            audio_io.read_wav(os.path.join(out, e["wav"]))[0].astype(np.int64)
+            - audio_io.read_wav(os.path.join(committed, e["wav"]))[0].astype(
+                np.int64)).max()) for e in entries)
+        report = os.path.join(tmp, "report.json")
+        _, (_, counts) = printed(lambda: tool_counted(
+            results, failures, "tool_make_eval_dataset",
+            ("gcc_kernel", "gn_kernel"), lambda: cli.main(
+                ["evaluate", os.path.join(out, "manifest.json"), "--out",
+                 report, "--device", "cuda"])))
+        with open(report) as f:
+            rep = json.load(f)
+    kinds = {e["wav"]: e["kind"] for e in entries}
+    errs = {}
+    for row in rep["rows"]:
+        if row.get("detected"):
+            errs.setdefault(kinds[row["wav"]], []).append(row["err_cm"])
+    meds = {k: float(np.median(v)) for k, v in errs.items()}
+    summ = rep["summary"]
+    ok = (manifest_equal and worst <= 1 and summ["detection_rate"] >= 0.95
+          and summ["xy_err_median_cm"] < 2.0 and summ["xy_err_p90_cm"] < 20.0
+          and all(k in meds and meds[k] < f
+                  for k, f in EVAL_FLOORS_CM.items()))
+    say(phase, f"make_eval_dataset: {len(entries)} scenes, manifest equal "
+        f"{manifest_equal}, largest sample gap {worst} count(s); evaluate on "
+        f"the card: detection {summ['detection_rate']}, median / p90 "
+        f"{summ['xy_err_median_cm']:.4f} / {summ['xy_err_p90_cm']:.4f} cm, "
+        f"by condition {meds}; launches {fmt_counts(counts)}")
+    if not ok:
+        failures.append("tool_make_eval_dataset")
+
+
+def example_main(name, device):
+    """A call of example ``name``'s ``main`` on ``device``: (printout,
+    None)."""
+    import importlib
+
+    mod = importlib.import_module(
+        f"audio_triangulation_tpu_torch.examples.{name}")
+    return printed(lambda: mod.main(["--device", device]))
+
+
+def tools_examples(phase, card, results, failures):
+    """The five examples on the card, each printout held to ``--device
+    cpu`` (``cli.compare.compare_printouts`` at the examples test's
+    tolerances), their launches counted; the WPE line held to the JAX
+    example's 20.6 dB floor."""
+    import re
+
+    from audio_triangulation_tpu_torch.cli.compare import compare_printouts
+
+    for name, kernels in EXAMPLE_KERNELS.items():
+        try:
+            t0 = time.perf_counter()
+            (text, _), counts = tool_counted(
+                results, failures, f"example_{name}", kernels,
+                lambda: example_main(name, "cuda"))
+            wall = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ref, _ = example_main(name, "cpu")
+            cpu_wall = time.perf_counter() - t0
+            agree, gap, why = compare_printouts(
+                ref, text, tol=EXAMPLE_TOL, rel=EXAMPLE_REL,
+                skip=EXAMPLE_SKIP.get(name, ()))
+            extra = ""
+            if name == "advanced":
+                cuts = [float(re.findall(r"by ([\d.]+) dB", t)[0])
+                        for t in (text, ref)]
+                agree &= cuts[0] > WPE_TAIL_FLOOR_DB
+                extra = f"; WPE tail cut {cuts[0]} dB (CPU {cuts[1]})"
+            say(phase, f"example {name}: launches {fmt_counts(counts)}; card "
+                f"vs CPU printouts agree {agree} (largest decimal gap "
+                f"{gap:.2e}){'' if agree else ': ' + why}{extra}; "
+                f"{wall:.2f} s on the card, {cpu_wall:.2f} s on the CPU "
+                f"({card})")
+            if not agree:
+                failures.append(f"example_{name}")
+        except (Exception, SystemExit):
+            import traceback
+
+            traceback.print_exc()
+            failures.append(f"example_{name}")
+
+
+def drawn_frames(frame, n_frames, noise, seed):
+    """[n_frames, M, N] on the card: the clean event ``frame`` [M, N] plus
+    a white noise draw of rms ``noise`` in every frame."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.from_numpy(frame.astype(np.float32)).cuda() + noise * \
+        torch.randn((n_frames, *frame.shape), device="cuda", generator=g)
+
+
+def stage_fns(loc, frames) -> dict:
+    """{stage: fn} of one ``loc(frames)`` call split as
+    ``models.localizer.localize_frames`` runs it (no in-kernel SRP): the
+    GCC kernel with its peaks, the SRP scores, the grid peak, the solver
+    tail; each stage's inputs made once by the stages before it."""
+    from audio_triangulation_tpu_torch.models import localizer as lm
+    from audio_triangulation_tpu_torch.ops import srp
+
+    cfg, grid, params = loc.pipeline, loc.grid, loc.params
+    p_n = params.pairs.shape[0]
+    flat = lm._flat_frames(frames, cfg)
+    corr_t, _, tdoa, _, _ = lm.gcc_peaks(flat, params, cfg)
+    scores = lm._srp_scores(corr_t, params, cfg, loc.srp_form, p_n)
+    cells = ((grid.height, grid.width), (grid.half_cells_x,
+                                         grid.half_cells_y),
+             grid.cells_per_m)
+    xy_grid = srp.grid_peak_xy(scores, *cells, refine=False)
+    return {
+        "gcc_peaks": lambda: lm.gcc_peaks(flat, params, cfg),
+        "srp_scores": lambda: lm._srp_scores(corr_t, params, cfg,
+                                             loc.srp_form, p_n),
+        "grid_peak": lambda: srp.grid_peak_xy(scores, *cells, refine=False),
+        "solve_tail": lambda: lm.solve_tail(
+            tdoa, xy_grid, params, cfg=cfg, grid_cfg=grid,
+            solver_cfg=loc.solver, gn=loc.gn),
+        "whole_call": lambda: loc(frames)}
+
+
+def strided_copy(frames):
+    """``frames`` in the layout numpy's astype of a broadcast view gives
+    (the batch axis fastest), which the tools' replicated frames had until
+    ``tools.bench.bench_frames`` made them C order."""
+    import torch
+
+    one = frames[:1].cpu().numpy()
+    return torch.from_numpy(np.broadcast_to(one, tuple(frames.shape)).astype(
+        np.float32)).to(frames.device)
+
+
+def tools_replicated(phase, card, results, failures):
+    """The open fault "the bench tool's frames are not placed": record 2's
+    localizer and the bench tool's three 4-mic localizers at 16,384 frames
+    on one event replicated (the tools' frames, C order), on the same
+    replicated frames in the layout the tools had before (``strided_copy``:
+    batch axis fastest), and on the event with a noise draw in every frame.
+    In this call: frames/s in turns (``TRIALS`` each), and each stage of the
+    call (``stage_fns``) in device ms by CUDA events, in turns likewise
+    (``REPS`` launches each)."""
+    from audio_triangulation_tpu_torch import geometry
+    from audio_triangulation_tpu_torch.tools import bench, bench_configs
+    from audio_triangulation_tpu_torch.tools.bench import frames_per_s
+    from audio_triangulation_tpu_torch.utils import synth
+
+    n = REPLICATED_FRAMES
+    src4 = np.array([0.5, 0.4, 1.2]) * (1.2 / np.linalg.norm([0.5, 0.4, 1.2]))
+    clean4 = synth.synth_scene(src4, geometry.square_array(0.3),
+                               noise_rms=0.0, seed=0)[0]
+    cfg2 = bench_configs.make_config(bench_configs.RECORDS[1][0], "cuda", n)
+    clean3 = synth.synth_scene(bench_configs.source_point(),
+                               geometry.reference_array(), noise_rms=0.0,
+                               seed=1)[0]
+    cases = [("2_3mic_triangulation", cfg2.loc, cfg2.frames,
+              drawn_frames(clean3, n, 0.01, SEED + 190))]
+    rep4 = bench.bench_frames(n, "cuda")
+    drawn4 = drawn_frames(clean4, n, 0.01, SEED + 191)
+    for suffix, band, sub in bench.CONFIGS:
+        cases.append(("bench" + (suffix or "_bandcrop"),
+                      bench.make_localizer(band, sub, "cuda"), rep4, drawn4))
+    kinds = ("rep", "strided", "drawn")
+    order = kinds + kinds[::-1]
+    for name, loc, rep, drawn in cases:
+        inputs = {"rep": rep, "strided": strided_copy(rep), "drawn": drawn}
+        rates = {k: [] for k in kinds}
+        for kind in order:
+            frames = inputs[kind]
+            rates[kind].append(frames_per_s(lambda: loc(frames), n, TRIALS,
+                                            "cuda")[0])
+        fps = {k: float(np.mean(v)) for k, v in rates.items()}
+        fns = {k: stage_fns(loc, f) for k, f in inputs.items()}
+        ms = {k: {s: [] for s in fns[k]} for k in kinds}
+        for kind in order:
+            for stage, fn in fns[kind].items():
+                ms[kind][stage].append(cuda_ms(fn, REPS))
+        ms = {k: {s: float(np.mean(v)) for s, v in d.items()}
+              for k, d in ms.items()}
+        say(phase, f"replicated frames, {name}: frames/s replicated (C "
+            f"order) / strided / drawn {fps['rep']:.1f} / "
+            f"{fps['strided']:.1f} / {fps['drawn']:.1f} (drawn "
+            f"{(fps['drawn'] / fps['rep'] - 1) * 100:+.2f}% and "
+            f"{(fps['drawn'] / fps['strided'] - 1) * 100:+.2f}% against "
+            "them); device ms a stage by CUDA events (replicated / strided "
+            "/ drawn): " + "; ".join(
+                f"{s} {ms['rep'][s]:.4f} / {ms['strided'][s]:.4f} / "
+                f"{ms['drawn'][s]:.4f}" for s in ms["rep"]) + f" ({card})")
+    del cases, rep4, drawn4, fns, inputs
+
+
+def phase_root_tools(card, results):
+    """Phase 19: the port's counterparts of the root benches, tools and
+    examples on the card as a user runs them, launches counted, each held
+    to its CPU run; then the replicated-frames probe.  Every part runs; the
+    phase fails at its end if any part failed."""
+    import traceback
+
+    phase = "19 tools"
+    t0 = time.perf_counter()
+    failures = []
+    for part in (tools_bench_configs, tools_bench_latency,
+                 tools_bench_robustness, tools_int8, tools_soak_transport,
+                 tools_eval_dataset, tools_examples, tools_replicated):
+        t1 = time.perf_counter()
+        try:
+            part(phase, card, results, failures)
+        except (Exception, SystemExit):
+            traceback.print_exc()
+            failures.append(part.__name__)
+        say(phase, f"{part.__name__}: {time.perf_counter() - t1:.1f} s")
+    say(phase, f"wall time {time.perf_counter() - t0:.1f} s")
+    if failures:
+        fail(phase, f"result checks failed: {failures}")
+
+
 # further keys of an entry that has them: what the library yardstick is, the
 # SRP-argmax kernel's other bound and its bf16 mode, the bf16 DFT product's
 # library form with f32 outputs
@@ -6538,6 +7054,7 @@ def main():
     ingest_pool.shutdown()
     phase_parallel(card, results)
     phase_cli(card, results)
+    phase_root_tools(card, results)
 
     print(json.dumps({"kernels": [
         {k: results[n][k] for k in (*KERNEL_KEYS, *(

@@ -227,6 +227,17 @@ def test_port_import_leaves_jax_unloaded():
             "import audio_triangulation_tpu_torch.viz.render; "
             "import audio_triangulation_tpu_torch.viz.terminal; "
             "import audio_triangulation_tpu_torch.cli.main; "
+            "import audio_triangulation_tpu_torch.tools.bench_configs; "
+            "import audio_triangulation_tpu_torch.tools.bench_latency; "
+            "import audio_triangulation_tpu_torch.tools.bench_robustness; "
+            "import audio_triangulation_tpu_torch.tools.int8_dft_accuracy; "
+            "import audio_triangulation_tpu_torch.tools.soak_transport; "
+            "import audio_triangulation_tpu_torch.tools.make_eval_dataset; "
+            "import audio_triangulation_tpu_torch.examples.quickstart; "
+            "import audio_triangulation_tpu_torch.examples.advanced; "
+            "import audio_triangulation_tpu_torch.examples.production; "
+            "import audio_triangulation_tpu_torch.examples.robustness; "
+            "import audio_triangulation_tpu_torch.examples.serving_http; "
             "print(sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('audio_triangulation_tpu.')"
             " or m == 'audio_triangulation_tpu'))")
