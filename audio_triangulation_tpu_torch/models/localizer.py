@@ -71,6 +71,7 @@ from ..ops import caf, conditioning, detector, multisource, mxu_fft, srp
 from ..ops import solver as solver_ops, window as window_ops, xcorr
 from ..ops._device import device_constant
 from ..ops.cuda import gcc_kernel, gcc_large, gn_kernel
+from ..utils import profiling
 
 SAVE_FORMAT = "audio_triangulation_tpu.Localizer/1"
 # more pairs than this take the large-array routes (the reference's rule for
@@ -290,12 +291,13 @@ class Localizer(nn.Module):
             pin_fp32()
 
     def forward(self, frames: torch.Tensor) -> dict:
-        self._check_frames(frames)
-        return localize_frames(
-            self.params, frames, cfg=self.pipeline, grid_cfg=self.grid,
-            solver_cfg=self.solver, srp_form=self.srp_form,
-            with_solver=self.with_solver, with_heatmap=self.with_heatmap,
-            gn=self.gn)
+        with profiling.annotate("loc.forward"):
+            self._check_frames(frames)
+            return localize_frames(
+                self.params, frames, cfg=self.pipeline, grid_cfg=self.grid,
+                solver_cfg=self.solver, srp_form=self.srp_form,
+                with_solver=self.with_solver, with_heatmap=self.with_heatmap,
+                gn=self.gn)
 
     def localize_multi(self, frames: torch.Tensor, n_sources: int = 2, *,
                        min_separation_m: float = 0.4,
@@ -659,34 +661,37 @@ def localize_frames(
     in_kernel_peaks = cfg.taper_enabled and cfg.subsample_peak
     on_kernel, _ = gcc_routes(flat, cfg, p_n, in_kernel_peaks)
     best_cell = scores = None
-    if (on_kernel and in_kernel_peaks
-            and in_kernel_srp(cfg, srp_form, refine,
-                              params.score_bias is not None)
-            and gcc_kernel.srp_mode_fits(flat, cfg, p_n)):
-        # taper, argmax, sub-sample peak, PSR, the SRP scores and the grid
-        # argmax inside the GCC kernel
-        (corr_t, shifts, tdoa_samples, peak_val, psr, best_cell, _,
-         scores) = gcc_kernel.fused_gcc_srp(
-             flat, params.window, params.pairs, params.lut_flat, cfg)
-    else:
-        corr_t, shifts, tdoa_samples, peak_val, psr = gcc_peaks(
-            flat, params, cfg)
+    call = profiling.call_id()
+    with profiling.annotate("loc.gcc", flat.device, call):
+        if (on_kernel and in_kernel_peaks
+                and in_kernel_srp(cfg, srp_form, refine,
+                                  params.score_bias is not None)
+                and gcc_kernel.srp_mode_fits(flat, cfg, p_n)):
+            # taper, argmax, sub-sample peak, PSR, the SRP scores and the
+            # grid argmax inside the GCC kernel
+            (corr_t, shifts, tdoa_samples, peak_val, psr, best_cell, _,
+             scores) = gcc_kernel.fused_gcc_srp(
+                 flat, params.window, params.pairs, params.lut_flat, cfg)
+        else:
+            corr_t, shifts, tdoa_samples, peak_val, psr = gcc_peaks(
+                flat, params, cfg)
 
-    # with the in-kernel SRP the scores come from the kernel: the one-hot
-    # product's sums, in pair order
-    if scores is None:
-        scores = _srp_scores(corr_t, params, cfg, srp_form, p_n)
-    if params.score_bias is not None:
-        scores = scores + params.score_bias
+    with profiling.annotate("loc.srp", flat.device, call):
+        # with the in-kernel SRP the scores come from the kernel: the
+        # one-hot product's sums, in pair order
+        if scores is None:
+            scores = _srp_scores(corr_t, params, cfg, srp_form, p_n)
+        if params.score_bias is not None:
+            scores = scores + params.score_bias
 
-    half_cells = (grid_cfg.half_cells_x, grid_cfg.half_cells_y)
-    if best_cell is not None:
-        xy_grid = srp.cell_to_xy(best_cell, grid_cfg.width, half_cells,
-                                 grid_cfg.cells_per_m)
-    else:
-        xy_grid = srp.grid_peak_xy(
-            scores, (grid_cfg.height, grid_cfg.width), half_cells,
-            grid_cfg.cells_per_m, refine=refine)
+        half_cells = (grid_cfg.half_cells_x, grid_cfg.half_cells_y)
+        if best_cell is not None:
+            xy_grid = srp.cell_to_xy(best_cell, grid_cfg.width, half_cells,
+                                     grid_cfg.cells_per_m)
+        else:
+            xy_grid = srp.grid_peak_xy(
+                scores, (grid_cfg.height, grid_cfg.width), half_cells,
+                grid_cfg.cells_per_m, refine=refine)
 
     out = {
         "tdoa_samples": tdoa_samples,

@@ -56,6 +56,7 @@ from ..core.config import (GridConfig, PipelineConfig, SolverConfig,
 from ..ops import (beamform, caf, consistency, detector,
                    solver as solver_ops, srp, xcorr)
 from ..ops._device import device_constant
+from ..utils import profiling
 from . import localizer as localizer_mod
 
 
@@ -283,7 +284,17 @@ class GraphedStep:
     stacked to [K, S, ...].  The arithmetic is the eager steps' (the same
     ops are recorded, not rewritten).  ``out`` and ``states`` are the
     graph's own buffers: each call overwrites them, so read (or clone) what
-    is needed before the next call.  Chunks must keep the captured shape."""
+    is needed before the next call.  Chunks must keep the captured shape.
+
+    A call opens the spans ``stream.ingest`` (the chunk's copy) and
+    ``stream.replay`` (``utils.profiling``).  Captured with tracing on, the
+    step's own spans are event nodes of the graph: each replay made with
+    tracing on yields one record a span, a child of ``stream.replay``,
+    whose device time is read at the next call (waiting for the replay) or
+    when the records are read; and it counts the frames the step
+    correlates (``stream.frames_correlated``, an [S, K] ``events`` output's
+    size a step) and the events it accepted (``stream.events_accepted``,
+    from the states' ``event_count``)."""
 
     WARMUP_STEPS = 3
 
@@ -317,19 +328,61 @@ class GraphedStep:
                 run(self.states)
         torch.cuda.current_stream(chunks.device).wait_stream(side)
         self._graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self._graph):
+        # with tracing on, the step's spans are captured as event nodes
+        with (profiling.capture() as self._spans,
+              torch.cuda.graph(self._graph)):
             new, self._out = run(self.states)
             for held, leaf in zip(state_leaves(self.states),
                                   state_leaves(new)):
                 held.copy_(leaf)
+        self._replayed = []
+        # a stream step correlates one frame an event slot: [S, K] a step
+        events = self._out.get("events")
+        self._frames = 0 if events is None else events.numel()
+        self._event_count = _leaf(self.states, "event_count")
+        self._counted = None
 
     def __call__(self, chunks: torch.Tensor) -> dict:
         if chunks.shape != self._chunks.shape:
             raise ValueError(f"chunks must be {tuple(self._chunks.shape)}, "
                              f"the captured shape; got {tuple(chunks.shape)}")
-        self._chunks.copy_(chunks)
-        self._graph.replay()
+        # the last replay's stage times, read before this one records over
+        # its events
+        profiling.resolve(self._replayed)
+        if profiling.enabled() and self._event_count is not None:
+            self._count()
+        call = profiling.call_id()
+        with profiling.annotate("stream.ingest", call=call):
+            self._chunks.copy_(chunks)
+        with profiling.annotate("stream.replay", call=call):
+            self._graph.replay()
+            self._replayed = profiling.replayed(self._spans)
         return self._out
+
+    def _count(self) -> None:
+        """Frames correlated, counted on the host each traced replay, and
+        events accepted from the first on: the change in the states'
+        ``event_count`` since then, read when the counts are read."""
+        if self._counted != profiling.generation():
+            self._counted = profiling.generation()
+            held, base = self._event_count, self._event_count.clone()
+            profiling.count_at_read(
+                "stream.events_accepted",
+                lambda: int((held - base).sum()))
+        profiling.count("stream.frames_correlated", self._frames)
+
+
+def _leaf(state, name: str):
+    """The tensor field ``name`` of a state or of a state inside it (see
+    :func:`map_state`), or None."""
+    if not dataclasses.is_dataclass(state):
+        return None
+    for f in dataclasses.fields(state):
+        value = getattr(state, f.name)
+        found = value if f.name == name else _leaf(value, name)
+        if found is not None:
+            return found
+    return None
 
 
 # ----------------------------------------------------------------------
@@ -440,85 +493,102 @@ def stream_step(
     fs = cfg.sample_rate_hz
     k_max = cfg.max_shift
 
-    window, founds, t_rels, frames, trig_times, arm = _detect_and_capture(
-        state, chunks, cfg=cfg, max_events=max_events, refractory=refractory)
+    dev, call = chunks.device, profiling.call_id()
+    with profiling.annotate("stream.detect", dev, call):
+        window, founds, t_rels, frames, trig_times, arm = \
+            _detect_and_capture(state, chunks, cfg=cfg,
+                                max_events=max_events, refractory=refractory)
 
     # --- correlation bursts (computed every step, masked into the state) ---
-    x = localizer_mod.condition_frames(frames, params.window, cfg)
-    corr = localizer_mod.correlate_frames(x, params, cfg)  # [S, K, P, L]
-    shifts = xcorr.best_lag(corr, k_max)  # [S, K, P]
-    corr_t = (xcorr.peak_taper(corr, k_max, cfg.taper_denom, shifts)
-              if cfg.taper_enabled else corr)
+    with profiling.annotate("stream.correlate", dev, call):
+        x = localizer_mod.condition_frames(frames, params.window, cfg)
+        corr = localizer_mod.correlate_frames(x, params, cfg)  # [S, K, P, L]
 
-    gates = (shifts * shifts).sum(dim=-1) > cfg.shift_gate
-    accepts = founds & gates  # [S, K]
+    with profiling.annotate("stream.smooth", dev, call):
+        shifts = xcorr.best_lag(corr, k_max)  # [S, K, P]
+        corr_t = (xcorr.peak_taper(corr, k_max, cfg.taper_denom, shifts)
+                  if cfg.taper_enabled else corr)
 
-    # EMA with the real dt since the last accepted event, applied in stream
-    # order (dt chains through accepted events)
-    ema_corr = state.ema_corr
-    last_event = state.last_event_s
-    for k in range(max_events):
-        dt = (trig_times[:, k] - last_event).clamp_min(0.0)
-        decay = xcorr.ema_decay(dt, cfg.ema_tau_s)[:, None, None]
-        ema_new = xcorr.ema_update(ema_corr, corr_t[:, k], decay)
-        ema_corr = torch.where(accepts[:, k, None, None], ema_new, ema_corr)
-        last_event = torch.where(accepts[:, k], trig_times[:, k], last_event)
-    any_accept = accepts.any(dim=-1)
-    best = torch.where(any_accept[:, None], xcorr.best_lag(ema_corr, k_max),
-                       state.best_shift)
+        gates = (shifts * shifts).sum(dim=-1) > cfg.shift_gate
+        accepts = founds & gates  # [S, K]
+
+        # EMA with the real dt since the last accepted event, applied in
+        # stream order (dt chains through accepted events)
+        ema_corr = state.ema_corr
+        last_event = state.last_event_s
+        for k in range(max_events):
+            dt = (trig_times[:, k] - last_event).clamp_min(0.0)
+            decay = xcorr.ema_decay(dt, cfg.ema_tau_s)[:, None, None]
+            ema_new = xcorr.ema_update(ema_corr, corr_t[:, k], decay)
+            ema_corr = torch.where(accepts[:, k, None, None], ema_new,
+                                   ema_corr)
+            last_event = torch.where(accepts[:, k], trig_times[:, k],
+                                     last_event)
+        any_accept = accepts.any(dim=-1)
+        best = torch.where(any_accept[:, None],
+                           xcorr.best_lag(ema_corr, k_max), state.best_shift)
 
     # --- array health (every step): the TDOA cycle-consistency residual of
     # the smoothed correlogram peaks, in seconds
-    n_mics = params.mic_positions.shape[0]
-    tdoa_samples = xcorr.subsample_peak(ema_corr, k_max)[0]  # [S, P]
-    if cfg.subsample_peak and cfg.subsample_method in ("phase", "hybrid"):
-        # on EVENT steps, from the PRIMARY captured frame's spectra: the EMA
-        # state carries no phase, but right after an accepted event its peak
-        # tracks that event's correlogram, so the phase-slope refinement
-        # anchors on the smoothed integer peak.  Other steps (and, under
-        # 'hybrid', low-coherence pairs) keep the parabolic estimate.
-        spectra = xcorr.rfft_frames(x[:, 0], cfg.fft_length)  # [S, M, F]
-        wm = _band_mask(cfg)
-        if wm is not None:
-            wm = device_constant(wm, spectra.device)
-        elif cfg.band_auto:
-            wm = xcorr.auto_band_weight(
-                spectra, params.pairs, cfg)[..., None, :]
-        tdoa_phase = xcorr.tdoa_phase_slope(
-            spectra, params.pairs, best, fft_length=cfg.fft_length,
-            half_width=cfg.coherence_bins, eps=cfg.phat_eps, weight_mask=wm)
-        use_phase = accepts[:, :1]
-        if cfg.subsample_method == "hybrid":
-            _, _, _, g2 = xcorr.smoothed_cross_stats(
-                spectra, params.pairs, cfg.coherence_bins, eps=cfg.phat_eps)
-            w_bins = (torch.ones_like(g2) if wm is None
-                      else wm.to(g2.dtype).expand_as(g2))
-            coh = ((g2 * w_bins).sum(dim=-1)
-                   / w_bins.sum(dim=-1).clamp_min(1e-12))
-            use_phase = use_phase & (coh >= cfg.hybrid_coherence_min)
-        tdoa_samples = torch.where(use_phase, tdoa_phase, tdoa_samples)
-    _, _, c_resid = consistency.project_consistent(
-        tdoa_samples / fs, params.pairs, n_mics)
-    mic_scores = consistency.mic_consistency_scores(
-        c_resid, params.pairs, n_mics)
-    w2_health = None
-    if health_weighting:
-        # leave-one-mic-out mic weights and seeded per-pair IRLS: a failing
-        # channel's pairs are suppressed in BOTH the SRP init grid and the
-        # solve (a dead mic is fully absorbed from 5 mics on)
-        w2_health, tdoa_clean_s, w_mic = consistency.fault_weights(
-            tdoa_samples / fs, params.pairs, n_mics, ratio=health_ratio,
-            floor=health_floor_s)
+    with profiling.annotate("stream.health", dev, call):
+        n_mics = params.mic_positions.shape[0]
+        tdoa_samples = xcorr.subsample_peak(ema_corr, k_max)[0]  # [S, P]
+        if (cfg.subsample_peak
+                and cfg.subsample_method in ("phase", "hybrid")):
+            # on EVENT steps, from the PRIMARY captured frame's spectra: the
+            # EMA state carries no phase, but right after an accepted event
+            # its peak tracks that event's correlogram, so the phase-slope
+            # refinement anchors on the smoothed integer peak.  Other steps
+            # (and, under 'hybrid', low-coherence pairs) keep the parabolic
+            # estimate.
+            spectra = xcorr.rfft_frames(x[:, 0], cfg.fft_length)  # [S, M, F]
+            wm = _band_mask(cfg)
+            if wm is not None:
+                wm = device_constant(wm, spectra.device)
+            elif cfg.band_auto:
+                wm = xcorr.auto_band_weight(
+                    spectra, params.pairs, cfg)[..., None, :]
+            tdoa_phase = xcorr.tdoa_phase_slope(
+                spectra, params.pairs, best, fft_length=cfg.fft_length,
+                half_width=cfg.coherence_bins, eps=cfg.phat_eps,
+                weight_mask=wm)
+            use_phase = accepts[:, :1]
+            if cfg.subsample_method == "hybrid":
+                _, _, _, g2 = xcorr.smoothed_cross_stats(
+                    spectra, params.pairs, cfg.coherence_bins,
+                    eps=cfg.phat_eps)
+                w_bins = (torch.ones_like(g2) if wm is None
+                          else wm.to(g2.dtype).expand_as(g2))
+                coh = ((g2 * w_bins).sum(dim=-1)
+                       / w_bins.sum(dim=-1).clamp_min(1e-12))
+                use_phase = use_phase & (coh >= cfg.hybrid_coherence_min)
+            tdoa_samples = torch.where(use_phase, tdoa_phase, tdoa_samples)
+        _, _, c_resid = consistency.project_consistent(
+            tdoa_samples / fs, params.pairs, n_mics)
+        mic_scores = consistency.mic_consistency_scores(
+            c_resid, params.pairs, n_mics)
+        w2_health = None
+        if health_weighting:
+            # leave-one-mic-out mic weights and seeded per-pair IRLS: a
+            # failing channel's pairs are suppressed in BOTH the SRP init
+            # grid and the solve (a dead mic is fully absorbed from 5 mics
+            # on)
+            w2_health, tdoa_clean_s, w_mic = consistency.fault_weights(
+                tdoa_samples / fs, params.pairs, n_mics, ratio=health_ratio,
+                floor=health_floor_s)
 
     # --- localization from the smoothed correlograms ---
-    srp_in = ema_corr if w2_health is None else ema_corr * w2_health[..., None]
-    if srp_form == "matmul":
-        scores = srp.srp_scores_matmul(srp_in, params.onehot)
-    else:
-        scores = srp.srp_scores_gather(srp_in, params.lut_flat)
-    xy_grid = srp.grid_peak_xy(
-        scores, (grid_cfg.height, grid_cfg.width),
-        (grid_cfg.half_cells_x, grid_cfg.half_cells_y), grid_cfg.cells_per_m)
+    with profiling.annotate("stream.srp", dev, call):
+        srp_in = (ema_corr if w2_health is None
+                  else ema_corr * w2_health[..., None])
+        if srp_form == "matmul":
+            scores = srp.srp_scores_matmul(srp_in, params.onehot)
+        else:
+            scores = srp.srp_scores_gather(srp_in, params.lut_flat)
+        xy_grid = srp.grid_peak_xy(
+            scores, (grid_cfg.height, grid_cfg.width),
+            (grid_cfg.half_cells_x, grid_cfg.half_cells_y),
+            grid_cfg.cells_per_m)
 
     new_state = StreamState(
         context=window[..., -(n - 1):],
@@ -556,44 +626,47 @@ def stream_step(
         out["pair_weight"] = w2_health  # [S, P] fault-tolerance weights
         out["mic_weight"] = w_mic  # [S, M] leave-one-out mic weights
     if with_solver:
-        # health path: solve the DENOISED TDOAs (every pair re-synthesized
-        # from arrival times fitted to the healthy pairs) with the IRLS
-        # weights; the solver squares its weights, so it gets their root
-        tdoa_s = tdoa_samples / fs if w2_health is None else tdoa_clean_s
-        xy, rms = solver_ops.solve_tdoa_batched(
-            tdoa_s, params.mic_positions, params.pairs,
-            speed_of_sound=cfg.speed_of_sound_mps, height=grid_cfg.height_m,
-            weights=None if w2_health is None else torch.sqrt(w2_health),
-            init_xy=xy_grid, cfg=solver_cfg)
-        out["xy"] = xy
-        out["rms_m"] = rms
-        out["xy_cov"] = solver_ops.solution_covariance(
-            xy, rms, params.mic_positions, params.pairs,
-            height=grid_cfg.height_m, cfg=solver_cfg)
-        if xyz_z_inits is not None:
-            out["xyz"], out["xyz_rms_m"] = (
-                solver_ops.solve_tdoa_xyz_multistart(
-                    tdoa_s, params.mic_positions, params.pairs,
-                    speed_of_sound=cfg.speed_of_sound_mps, init_xy=xy,
-                    z_inits=xyz_z_inits))
-        if caf_resample is not None:
-            dd = caf.estimate_delay_doppler(
-                frames[:, 0], params.window, params.pairs, cfg,
-                v_max=velocity_v_max, n_scales=velocity_n_scales,
-                resample=caf_resample)
+        with profiling.annotate("stream.solve", dev, call):
+            # health path: solve the DENOISED TDOAs (every pair
+            # re-synthesized from arrival times fitted to the healthy pairs)
+            # with the IRLS weights; the solver squares its weights, so it
+            # gets their root
+            tdoa_s = tdoa_samples / fs if w2_health is None else tdoa_clean_s
+            xy, rms = solver_ops.solve_tdoa_batched(
+                tdoa_s, params.mic_positions, params.pairs,
+                speed_of_sound=cfg.speed_of_sound_mps,
+                height=grid_cfg.height_m,
+                weights=None if w2_health is None else torch.sqrt(w2_health),
+                init_xy=xy_grid, cfg=solver_cfg)
+            out["xy"] = xy
+            out["rms_m"] = rms
+            out["xy_cov"] = solver_ops.solution_covariance(
+                xy, rms, params.mic_positions, params.pairs,
+                height=grid_cfg.height_m, cfg=solver_cfg)
             if xyz_z_inits is not None:
-                pos = out["xyz"]
-            else:
-                pos = torch.cat([xy, torch.full_like(xy[:, :1],
-                                                     grid_cfg.height_m)],
-                                dim=-1)
-            mic3 = params.mic_positions
-            if mic3.shape[-1] < 3:
-                mic3 = localizer_mod.planar_mic3(mic3)
-            out["velocity"] = caf.solve_velocity(
-                pos, dd["pair_rel_speed"], mic3, params.pairs,
-                in_plane=velocity_in_plane)
-            out["pair_rel_speed"] = dd["pair_rel_speed"]
+                out["xyz"], out["xyz_rms_m"] = (
+                    solver_ops.solve_tdoa_xyz_multistart(
+                        tdoa_s, params.mic_positions, params.pairs,
+                        speed_of_sound=cfg.speed_of_sound_mps, init_xy=xy,
+                        z_inits=xyz_z_inits))
+            if caf_resample is not None:
+                dd = caf.estimate_delay_doppler(
+                    frames[:, 0], params.window, params.pairs, cfg,
+                    v_max=velocity_v_max, n_scales=velocity_n_scales,
+                    resample=caf_resample)
+                if xyz_z_inits is not None:
+                    pos = out["xyz"]
+                else:
+                    pos = torch.cat([xy, torch.full_like(xy[:, :1],
+                                                         grid_cfg.height_m)],
+                                    dim=-1)
+                mic3 = params.mic_positions
+                if mic3.shape[-1] < 3:
+                    mic3 = localizer_mod.planar_mic3(mic3)
+                out["velocity"] = caf.solve_velocity(
+                    pos, dd["pair_rel_speed"], mic3, params.pairs,
+                    in_plane=velocity_in_plane)
+                out["pair_rel_speed"] = dd["pair_rel_speed"]
 
     if n_sources > 1:
         # from the raw per-event correlograms: the tapered, smoothed state

@@ -1,0 +1,10 @@
+"""The stream step's ``stream.detect`` stage: the detector and the capture
+of the triggered frames (``_detect_and_capture``).  Its device time a
+graph replay, from the span's CUDA events captured in the graph, the
+median over the traced stretch's replays."""
+
+from benchmark.spans import replay_stage_ms
+
+
+def read(r):
+    return replay_stage_ms(r, "stream.detect")

@@ -1,0 +1,10 @@
+"""The stream step's ``stream.health`` stage: the sub-sample peaks, the
+phase branch, the consistency terms and the fault weights.  Its device
+time a graph replay, from the span's CUDA events captured in the graph,
+the median over the traced stretch's replays."""
+
+from benchmark.spans import replay_stage_ms
+
+
+def read(r):
+    return replay_stage_ms(r, "stream.health")
