@@ -6,35 +6,41 @@
 // its spectral-stats mode (row 3, below).  Base mode, per frame [M, N]:
 //
 //   mean removal, x (window * gain)
-//   Re/Im DFT against the host-packed cos / -sin matrix (pack_dft)
+//   Re/Im DFT against cos / -sin, split and packed by the host (pack_dft_split)
 //   PHAT: per mic (M >= 3) or per pair (M = 2), rsqrt(re^2 + im^2 + eps^2)
 //   per-pair cross-power, lag synthesis against sync / syns [F, L]
 //   optional peaks: first-max argmax, parabolic sub-sample (interior peaks,
 //   |den| > 1e-20, delta clipped to +-0.5), PSR (guard 3, floor 1e-20) on the
 //   raw correlogram, then the Gaussian taper exp(-d^2 / taper_denom)
 //
-// What bounds the base mode on an H100: the DFT, N*F*M*2 multiply-adds a
-// frame (8.4 MFLOP at N = 1024, F = 513, M = 4), nine tenths of the work.
-// On the fp32 CUDA cores it ran at a quarter of the fp32 rate, because a
-// block could hold the whole spectra of only 16 (frame, mic) rows, so every
-// block streamed the whole DFT matrix from L2 for 16 rows (17 GB of L2 reads
-// a 16,384-frame full-band call).  So the base body (base_tile) streams the
-// bins instead of holding the spectra: a block takes up to 64 (frame, mic)
-// rows (16 frames of 4 mics) and walks the bins in chunks of kChunkBins.
-// Every bin's PHAT, cross-power and share of the lag synthesis is local to
-// that bin, and the correlogram is a sum over bins, so per chunk it
+// The base body (base_tile) streams the bins instead of holding the spectra:
+// a block takes up to 128 (frame, mic) rows (32 frames of 4 mics, 42 of 3)
+// and walks the bins in chunks of kChunkBins.  Every bin's PHAT,
+// cross-power and share of the lag synthesis is local to that bin, and the
+// correlogram is a sum over bins, so per chunk it
 //   computes the chunk's spectra of all its rows on the tensor cores, as a
-//   split-fp32 product (mma.sync m16n8k8, TF32 operands; see hopper.cuh):
-//   the conditioned samples are staged 32 at a time, split into TF32 hi / lo
-//   parts once and stored in mma fragment order; each warp owns two column
-//   tiles (8 bins) of the chunk for all four row tiles, so every coefficient
-//   it loads from the packed matrix in L2 (8 bytes a lane, a step ahead of
-//   its use) is split once and feeds 64 rows, in one block (no cluster);
-//   a step's three products (x_lo w_hi, x_hi w_lo, x_hi w_hi) are summed
-//   in the tensor cores from zero and the steps are added on the CUDA cores,
+//   split-fp32 product (wgmma m64n64k8, TF32 operands; see hopper.cuh).
+//   The wrapper splits (cos, -sin) into TF32 hi and lo parts once per
+//   configuration and stores them K-major (pack_dft_split).  Thread 0 keeps
+//   a ring of 3 or 4 stages full by TMA, signalled through mbarriers: a
+//   stage is 16 samples of the block's frames (128 rows, unswizzled) and of
+//   the chunk's hi and lo coefficients (128 columns each, 64-byte swizzle),
+//   24 KB; no thread loads or splits a coefficient.  Warpgroup w owns rows
+//   64 w .. 64 w + 63 and the chunk's 128 columns as two halves of 64: a
+//   thread reads its fragment's samples from the stage (a step's K slots t
+//   and t + 4 hold samples 2 t and 2 t + 1), removes the mean, applies
+//   window x gain, splits them into TF32 parts in registers, and issues for
+//   each step of 8 samples the three products x_lo w_hi, x_hi w_lo,
+//   x_hi w_hi with A from registers.  The tensor cores sum kTcSteps (2)
+//   steps from zero; the CUDA cores then add that sum, and the sums are
 //   flushed into the chunk's spectra in shared memory every kFlushSteps
-//   steps (the tensor cores cut where the CUDA cores round, and PHAT lifts
-//   that on weak bins);
+//   steps.  The tensor cores cut where the CUDA cores round, and PHAT lifts
+//   that on weak bins, so their sums stay short: 16 steps in them read
+//   9e-05 of scale in the stats mode, 1 step 1.2e-05; 2 steps here read at
+//   most 1.8e-05 of scale from float64 and 1.6e-05 from the plain version
+//   in the same arithmetic (bench chirps at 2-4 mics, full band, band crop,
+//   linear; NVIDIA H100 80GB HBM3, 700 W).  The halves take turns: one's
+//   sum is added while the other's products run;
 //   whitens the chunk (per mic), forms the cross-power of every (frame,
 //   pair) row (per-pair PHAT for 2-mic arrays) 16 bins at a time, and adds
 //   those bins' lag synthesis into the correlograms [frames x P, L], which
@@ -42,13 +48,30 @@
 //   fp32 CUDA cores, a bin at a time in ascending order per lag: a thread
 //   owns 4 rows x up to 4 lags and reads one staged (cos, sin) pair a lag
 //   and one broadcast cross-power value a row for 8 FMAs.
-// The frames are read once per bin chunk (from L2 after the first), the DFT
-// matrix once per block.  A bin that would take a column tile to itself
-// (F = L/2 + 1 with L a power of two leaves bin F - 1 alone) is summed over
-// the samples by the warp that computes its row's mean.  Rows are
-// independent in every stage, so a row's outputs do not depend on which
-// other rows share its block: the SRP mode and the pipelined instance, run
-// at other tile sizes or with more shared memory, stay bit-equal to it.
+// The frames are read once for the means and once per bin chunk, the split
+// matrix once per block.  A bin that would take a chunk to itself (F = L/2
+// + 1 with L a power of two leaves bin F - 1 alone) is summed over the
+// samples by the warp that computes its row's mean, from its unsplit
+// coefficients.  Rows are independent in every stage, so a row's outputs
+// do not depend on which other rows share its block: the SRP mode and the
+// pipelined instance, run at other tile sizes or with more shared memory,
+// stay bit-equal to it.
+// What bounds it now.  Per multiply-add a block pulls 0.021 bytes of
+// coefficients from L2 (128 rows share each) and 0.010 bytes of frames
+// (from memory: a wave's 128 rows a block are 66 MB); at the F = 1,025 of a
+// linear-padded 1,024-sample frame that is 6.5 GB and 3.2 GB a 16,384-frame
+// 3-mic call, against 1.25 ms of TF32 products.  What holds the products
+// back is how few are in flight: every group of steps needs its own
+// accumulators until the CUDA cores have added them, and the registers
+// hold two groups a warpgroup (the same issue pattern alone reaches 71-74%
+// of the TF32 rate on this card); per step, forming A from shared memory
+// adds ~180 cycles a warp.  Phase clocks of a block (16 chunks, F = 1,025,
+// the DFT summing 1 step in the tensor cores): DFT 71%, synthesis 24%,
+// means 4%, peaks 1%; one block fills an SM, so the synthesis does not run
+// beside another block's DFT.  Left on the table: the synthesis beside the
+// DFT (warp-specialised, or spectra double-buffered), wider chunks (N = 256
+// would need twice the accumulators, or sums 16 steps long in the tensor
+// cores), and the band crop's padding (106 bins take 2 chunks of 64).
 //
 // Dropped from the TPU kernel, because they existed for Mosaic or the MXU:
 // the Nyquist fold (all F = L/2 + 1 bins are carried), the 128-lane padding
@@ -130,22 +153,22 @@
 // Persistent, self-pipelined instance (gcc_pipelined_kernel; replaces
 // tools/emit_pipeline_probe.py::outer, which drives the same body through
 // pltpu.emit_pipeline as one program step).  The base mode takes one tile of
-// frames per block and leaves the overlap of one tile's synthesis and peak
-// stage with the next tile's loads to the hardware scheduler running two
-// blocks an SM.  Here (SM count x blocks an SM) blocks each walk the tiles
+// frames per block, one block an SM, and its next tile's frames are read
+// only once the next block starts.  Here (SM count x blocks an SM) blocks each walk the tiles
 // blockIdx.x, blockIdx.x + gridDim.x, ... themselves: a tile's frames arrive
-// by cp.async in a staging buffer in shared memory (tb x M x N floats), the
+// by cp.async in a staging buffer in shared memory (tb x M rows), the
 // mean and DFT stages read them from there, and as soon as the last bin
 // chunk's DFT is done the next tile's copy is issued into the same buffer,
 // so it runs under the current tile's last synthesis and peak stage.  The
 // TPU probe's "weights resident" has no shared-memory form on this card: the
 // band-crop DFT matrices alone are 1,024 x 106 x 2 floats = 868 KB against
-// 227 KB a block, so they stay where the base mode reads them from (L2).  The
+// 227 KB a block, so they stay where the base mode copies them from (L2).  The
 // body is the base mode's (base_tile), at the tile that fits beside the
-// staging buffer (8 frames of 4 x 1,024 where the base mode takes 16); rows
-// are independent in it, so the outputs are bit-equal.  What it costs: the
-// smaller tile shares each coefficient among fewer rows, and the staging
-// buffer leaves one block an SM.
+// staging buffer (7 frames of 4 x 1,024 where the base mode takes 32; its
+// rows padded to N + 8 floats, so that a warp's fragment loads hit distinct
+// banks); rows are independent in it, so the outputs are bit-equal.  What it
+// costs: the smaller tile leaves the second warpgroup's products out and
+// shares each coefficient stage among fewer rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -159,27 +182,44 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 // ---- the base body (base_tile: base, SRP and pipelined instances) ----------
-// A block holds up to kBlockRows (frame, mic) rows, kRowTiles mma row tiles
-// of 16.  The bins go in chunks of kChunkBins: each warp owns kWarpTiles
-// column tiles (4 bins as (re, im) column pairs) of a chunk for every row
-// tile.  The conditioned samples are staged kSampSteps mma steps (8 samples
-// each) at a time, split into TF32 hi and lo parts, in fragment order.
-constexpr int kRowTiles = 4;
-constexpr int kBlockRows = 16 * kRowTiles;
-constexpr int kWarpTiles = 2;
-constexpr int kChunkTiles = kWarps * kWarpTiles;
-constexpr int kChunkBins = 4 * kChunkTiles;
-constexpr int kSampSteps = 4;
-constexpr int kSampChunk = 8 * kSampSteps;
-// floats of one staged part (hi or lo) of one buffer
-constexpr int kStageFloats = kSampSteps * kRowTiles * 32 * 4;
-static_assert(kBlockRows * kSampChunk == 8 * kThreads, "8 staged samples a thread");
+// A block holds up to kBlockRows (frame, mic) rows: warpgroup w (threads
+// 128 w ..) owns rows 64 w .. 64 w + 63, one wgmma row tile.  The bins go in
+// chunks of kChunkBins, kChunkCols columns as (re, im) pairs, which each
+// warpgroup multiplies as two halves of kHalfCols (one wgmma m64n64k8
+// each).  The operands arrive by TMA, kKStage samples a ring stage: the
+// block's frames tile (kBlockRows rows of kKStage samples, unswizzled),
+// then the coefficients' hi tile and lo tile (kChunkCols rows of kKStage
+// samples each under the 64-byte swizzle).  The ring has as many stages as
+// shared memory holds, kMinRing to kMaxRing.
+constexpr int kBlockRows = 128;
+constexpr int kChunkBins = 64;    // ops/cuda/gcc_kernel.py CHUNK_BINS
+constexpr int kChunkCols = 2 * kChunkBins;
+constexpr int kHalfCols = kChunkCols / 2;
+static_assert(kBlockRows == 64 * (kThreads / 128), "a warpgroup a row tile of 64");
+constexpr int kKStage = 16;       // ops/cuda/gcc_kernel.py SPLIT_STAGE_SAMPLES
+constexpr int kStageSteps = kKStage / 8;
+constexpr int kRowBytes = kKStage * 4;
+constexpr int kXTileBytes = kBlockRows * kRowBytes;
+constexpr int kBTileBytes = kChunkCols * kRowBytes;
+constexpr int kStageBytes = kXTileBytes + 2 * kBTileBytes;
+constexpr int kMinRing = 3, kMaxRing = 4;
+static_assert(kRowBytes == 64 && kXTileBytes % 512 == 0 && kBTileBytes % 512 == 0 &&
+                  (kHalfCols * kRowBytes) % 512 == 0,
+              "64-byte swizzled tiles and halves start on 512-byte boundaries");
 constexpr int kFlushSteps = 16;   // ops/cuda/gcc_kernel.py DFT_FLUSH_STEPS
-// a spectrum row of the chunk: its bins and the lone tail bin (float2)
-constexpr int kSpecStride = kChunkBins + 2;
+// steps (of 8 samples) the base body's tensor cores sum from zero before the
+// CUDA cores add them (ops/cuda/gcc_kernel.py DFT_TC_STEPS)
+constexpr int kTcSteps = 2;
+static_assert(kStageSteps % kTcSteps == 0 && kFlushSteps % kTcSteps == 0,
+              "whole groups of steps a stage and a flush");
+// a spectrum row of the chunk: its bins, the lone tail bin and padding, 8
+// words apart modulo the banks, so that a warp's flush of 8 rows x 4 bins
+// hits every bank once a half-warp
+constexpr int kSpecStride = kChunkBins + 4;
 constexpr int kSub = 16;          // bins of a synthesis step
 constexpr int kLagBlock = 128;    // lags per synthesis block
 constexpr int kLagsPerLane = kLagBlock / 32;
+static_assert(kSub * kLagBlock % kThreads == 0, "whole staging loads a thread");
 constexpr int kRowsPerGroup = 4;  // (frame, pair) rows a warp synthesises together
 constexpr int kSrpFrames = 8;     // frames a thread scores at a time
 // ---- the stats mode (stats_tile) -------------------------------------------
@@ -232,24 +272,62 @@ size_t stats_smem_floats(int tb, int m, int f, int l, int p) {
          (size_t)tb * f;
 }
 
-// The base body's staging region (floats, a multiple of 4): the two sample
-// buffers of the DFT; then a synthesis step's lag matrices and cross-power of
-// rp (frame, pair) rows, padded to whole row groups; then the SRP mode's LUT
-// chunk.
-__host__ __device__ inline size_t base_stage_floats(int rp) {
-  const size_t rows = (size_t)(rp + kRowsPerGroup - 1) / kRowsPerGroup * kRowsPerGroup;
-  const size_t syn = 2 * (size_t)kSub * kLagBlock + 2 * rows * kSub;
-  const size_t dft = 4 * (size_t)kStageFloats;
-  return ((syn > dft ? syn : dft) + 3) & ~(size_t)3;
+// The base body's dynamic shared memory for TB frames of m mics and p pairs
+// x l lags with a ring of `ring` stages, in bytes from a 1,024-byte
+// boundary, in layout order: the staging region (the DFT's ring; then a
+// synthesis step's lag matrices and cross-power of the (frame, pair) rows,
+// padded to whole row groups; then the SRP mode's LUT chunk), the ring's
+// full and empty barriers, chunk spectra [TB m][kSpecStride] float2, tail
+// bins [TB m] float2, means [TB m], the SRP argmax's reduction (kWarps x
+// kSrpFrames scores and cells), correlograms [TB p][l].
+struct BaseLayout {
+  size_t bars, spec, tail, mean, red, corr, end;
+  __host__ __device__ BaseLayout(int TB, int m, int p, int l, int ring) {
+    const size_t rows = (size_t)TB * m;
+    const size_t rp = ((size_t)TB * p + kRowsPerGroup - 1) / kRowsPerGroup * kRowsPerGroup;
+    const size_t syn = 4 * (2 * (size_t)kSub * kLagBlock + 2 * rp * kSub);
+    const size_t dft = (size_t)ring * kStageBytes;
+    bars = ((syn > dft ? syn : dft) + 15) & ~(size_t)15;
+    spec = bars + 2 * kMaxRing * sizeof(uint64_t);
+    tail = spec + rows * kSpecStride * sizeof(float2);
+    mean = tail + rows * sizeof(float2);
+    red = mean + rows * sizeof(float);
+    corr = red + 2 * (size_t)kWarps * kSrpFrames * sizeof(float);
+    end = corr + (size_t)TB * p * l * sizeof(float);
+  }
+};
+
+// what a block asks for: the layout, the slack that aligns its start and
+// `extra` bytes after it (16-byte aligned)
+__host__ __device__ inline size_t base_smem_bytes(int TB, int m, int p, int l, int ring,
+                                                  size_t extra = 0) {
+  return 1024 + ((BaseLayout(TB, m, p, l, ring).end + 15) & ~(size_t)15) + extra;
 }
 
-// Floats of the base body's dynamic shared memory for tb frames of m mics
-// and p pairs: staging region, chunk spectra [kBlockRows][kSpecStride]
-// float2, tail bins [kBlockRows] float2, means, the SRP argmax's reduction
-// (kWarps x kSrpFrames scores and cells), correlograms [tb * p][l].
-__host__ __device__ inline size_t base_smem_floats(int tb, int p, int l) {
-  return base_stage_floats(tb * p) + 2 * (size_t)kBlockRows * kSpecStride +
-         3 * (size_t)kBlockRows + 2 * (size_t)kWarps * kSrpFrames + (size_t)tb * p * l;
+// The ring stages that fit beside the rest (and `extra` bytes), at most
+// kMaxRing; fewer than kMinRing: the frames do not fit.
+__host__ __device__ inline int ring_stages(int TB, int m, int p, int l, size_t extra = 0) {
+  int ring = kMaxRing;
+  while (ring >= kMinRing && base_smem_bytes(TB, m, p, l, ring, extra) > kMaxSmem) --ring;
+  return ring;
+}
+
+__device__ __forceinline__ uint8_t* smem_base() {
+  extern __shared__ uint8_t smem_raw[];
+  return reinterpret_cast<uint8_t*>(((uintptr_t)smem_raw + 1023) & ~(uintptr_t)1023);
+}
+
+// The ring's barriers, once a block: full (one arrival, the TMA bytes),
+// empty (every warp of the block).
+__device__ __forceinline__ void init_ring(uint64_t* bars) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kMaxRing; ++i) {
+      hopper::mbar_init(bars + i, 1);
+      hopper::mbar_init(bars + kMaxRing + i, kWarps);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
 }
 
 // The stats mode's settings.
@@ -582,26 +660,6 @@ __device__ void row_peaks(float* c, int L, float* __restrict__ out, size_t grow,
   }
 }
 
-// A load as a volatile statement: it keeps its place ahead of the mma.sync
-// statements (volatile too) that follow it, so the next step's coefficients
-// are in flight while the current step multiplies, and the compiler does not
-// sink the load to its use.
-__device__ __forceinline__ float2 ldg_early(const float2* p) {
-  float2 v;
-  asm volatile("ld.global.nc.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "l"(p));
-  return v;
-}
-
-// Where sample k (of kSampChunk) of row `row` goes in a staged part: the
-// mma A fragment of its step q and row tile rt, [q][rt][lane 4 g + t][4] =
-// (A[g][t], A[g + 8][t], A[g][t + 4], A[g + 8][t + 4]), so that a lane loads
-// its fragment with one 16-byte load.
-__device__ __forceinline__ int frag_at(int row, int k) {
-  const int q = k >> 3, t = k & 3, hi4 = (k >> 2) & 1;
-  const int rt = row >> 4, g = row & 7, h8 = (row >> 3) & 1;
-  return (((q * kRowTiles + rt) * 32 + 4 * g + t) << 2) + h8 + 2 * hi4;
-}
-
 // A warp adds the staged bins (fmax of them) into the correlograms of the
 // kRowsPerGroup (frame, pair) rows from r0 (staged cross-power xp [rows][kSub],
 // zero past RP), a lane owning the lags l0 + lane + 32 j, j < kJ, of the lag
@@ -642,14 +700,22 @@ __device__ __forceinline__ void synth_rows(float* corr, const float2* xp, const 
 
 // One tile of tb frames in the base mode (kSrp: and the SRP scores), by the
 // whole block; see the note at the top.  x0 points at the tile's frames
-// [tb, M, N] (device memory, or the pipelined instance's staging buffer), b0
-// is its first frame's index in the outputs.  after_dft() is called by every
-// thread once the last bin chunk's DFT is done and x0 is spent.
-template <bool kSrp, typename AfterDft>
+// [tb, M, N], rows ld floats apart (device memory, or with !kXTma the
+// pipelined instance's staging buffer, from which the DFT also reads them),
+// b0 is its first frame's index in the outputs.  The shared memory at sm is
+// laid out for TB frames and `nring` ring stages (BaseLayout), its ring
+// barriers initialised (init_ring); ring counts the ring's stages loaded so
+// far by this block, across tiles.  wmap: the split coefficients (the
+// wrapper's pack_dft_split) as a [2 cp, K] matrix, hi rows then lo rows;
+// xmap (kXTma): the frames as [B M, ld], the tile's rows from xrow.
+// after_dft() is called by every thread once the last bin chunk's DFT is
+// done and x0 is spent.
+template <bool kXTma, bool kSrp, typename AfterDft>
 __device__ __forceinline__ void
-base_tile(const float* x0, int b0, int tb,
+base_tile(const float* x0, int ld, int b0, int tb, int TB, uint8_t* sm, int nring,
+          uint32_t& ring, const CUtensorMap* wmap, int cp, const CUtensorMap* xmap, int xrow,
           const float* __restrict__ win,      // [N] window * gain
-          const float2* __restrict__ wp,      // packed DFT [N / 8, Fp / 4, 32] float2
+          const float2* __restrict__ wtail,   // [N] (cos, -sin) of bin F - 1
           const float* __restrict__ sync,     // [F, L]
           const float* __restrict__ syns,     // [F, L]
           const int* __restrict__ pairs,      // [P, 2]
@@ -658,60 +724,81 @@ base_tile(const float* x0, int b0, int tb,
           float* __restrict__ tdoa_out,
           float* __restrict__ peak_out,
           float* __restrict__ psr_out,
-          int M, int N, int F, int Fp, int P, int L,
+          int M, int N, int F, int P, int L,
           int phat, int per_mic, float eps2, float taper_denom, int with_peaks,
           Srp srp, AfterDft after_dft) {
-  extern __shared__ float4 smem4[];
+  const BaseLayout lay(TB, M, P, L, nring);
   const int R = tb * M;    // (frame, mic) rows of this tile, at most kBlockRows
   const int RP = tb * P;   // (frame, pair) rows of this tile
-  const size_t stage_n = base_stage_floats(RP);
-  float* stage = reinterpret_cast<float*>(smem4);
-  float2* spec = reinterpret_cast<float2*>(stage + stage_n);   // [kBlockRows][kSpecStride]
-  float2* tailv = spec + kBlockRows * kSpecStride;              // [kBlockRows]
-  float* mean = reinterpret_cast<float*>(tailv + kBlockRows);
-  float* red = mean + kBlockRows;                               // [2][kWarps][kSrpFrames]
-  float* corr = red + 2 * kWarps * kSrpFrames;                  // [RP][L]
+  const size_t stage_n = lay.bars / sizeof(float);
+  float* stage = reinterpret_cast<float*>(sm);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + lay.bars);
+  uint64_t* empty = full + kMaxRing;
+  float2* spec = reinterpret_cast<float2*>(sm + lay.spec);      // [R][kSpecStride]
+  float2* tailv = reinterpret_cast<float2*>(sm + lay.tail);     // [R]
+  float* mean = reinterpret_cast<float*>(sm + lay.mean);
+  float* red = reinterpret_cast<float*>(sm + lay.red);          // [2][kWarps][kSrpFrames]
+  float* corr = reinterpret_cast<float*>(sm + lay.corr);        // [RP][L]
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int g_ = lane >> 2, t_ = lane & 3;   // the fragments' row and column index
-  const int nt_all = Fp / 4;                 // column tiles of the packed matrix
   const int tail = (F > 1 && F % 4 == 1) ? 1 : 0;
   const int Fd = F - tail;                   // bins of the DFT chunks
-  const int nt = (Fd + 3) / 4;
-  const int n_chunks = (nt + kChunkTiles - 1) / kChunkTiles;
-  const int n_steps = (N + 7) / 8;
-  const int n_samp = (N + kSampChunk - 1) / kSampChunk;
-  const int nrt = (R + 15) / 16;
+  const int n_chunks = (Fd + kChunkBins - 1) / kChunkBins;
+  const int nkb = (N + kKStage - 1) / kKStage;   // ring stages a chunk
+  const uint32_t xbytes = kXTma ? kXTileBytes : 0;
+
+  // Stage kb of chunk c into the ring's slot for the block's k-th load (by
+  // thread 0), once every warp has released the slot's previous load: the
+  // frames tile (kXTma) and the coefficients' hi and lo tiles.
+  auto issue = [&](uint32_t k, int kb, int c) {
+    const int slot = k % nring;
+    if (!hopper::mbar_wait_bounded(empty + slot, ((k / nring) & 1) ^ 1)) __trap();
+    uint8_t* dst = sm + slot * kStageBytes;
+    hopper::mbar_expect_tx(full + slot, xbytes + 2 * kBTileBytes);
+    if (kXTma) hopper::tma_load_2d(dst, xmap, full + slot, kKStage * kb, xrow);
+    dst += kXTileBytes;
+    hopper::tma_load_2d(dst, wmap, full + slot, kKStage * kb, kChunkCols * c);
+    hopper::tma_load_2d(dst + kBTileBytes, wmap, full + slot, kKStage * kb,
+                        cp + kChunkCols * c);
+  };
+  // a warp's release of the slot of the k-th load
+  auto release = [&](uint32_t k) {
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(empty + k % nring);
+  };
+  // the staging region's last generic accesses come before the copies into it
+  auto sync_block = [&] {
+    hopper::fence_proxy_async();
+    __syncthreads();
+  };
+  sync_block();
+  if (tid == 0)
+    for (int kb = 0; kb < nring && kb < nkb; ++kb) issue(ring + kb, kb, 0);
 
   // ---- 1. per-row mean, and a bin that would have a column tile to itself -
-  // With F = L/2 + 1 and L a power of two, F - 1 is whole column tiles of 4
-  // bins and the Nyquist bin would cost a further tile for one bin.  The
-  // warp that has just read the row sums that bin instead, over the samples
-  // (32 strided terms a lane, then across the lanes).
-  for (int r = warp; r < kBlockRows; r += kWarps) {
+  // With F = L/2 + 1 and L a power of two, F - 1 is whole chunks of bins and
+  // the Nyquist bin would cost a further chunk for one bin.  The warp that
+  // has just read the row sums that bin instead, over the samples (32
+  // strided terms a lane, then across the lanes), against its unsplit
+  // coefficients.
+  for (int r = warp; r < R; r += kWarps) {
     float mu = 0.f, re0 = 0.f, im0 = 0.f;
-    if (r < R) {
-      const float* xr = x0 + (size_t)r * N;
-      float s = 0.f;
-      for (int n = lane; n < N; n += 32) s += xr[n];
-      mu = warp_sum(s) / (float)N;
-      if (tail) {
-        // bin F - 1 is column pair 0 of tile (F - 1) / 4: lanes t (re) and
-        // 4 + t (im) of sample n's step, half n / 4 % 2
-        const float2* wt = wp + (size_t)((F - 1) / 4) * 32;
-        for (int n = lane; n < N; n += 32) {
-          const float v = (xr[n] - mu) * __ldg(win + n);
-          const float2* at = wt + (size_t)(n / 8) * nt_all * 32 + n % 4;
-          const float2 cr = __ldg(at), ci = __ldg(at + 4);
-          const bool hi = (n & 4) != 0;
-          re0 = fmaf(v, hi ? cr.y : cr.x, re0);
-          im0 = fmaf(v, hi ? ci.y : ci.x, im0);
-        }
-        re0 = warp_sum(re0);
-        im0 = warp_sum(im0);
+    const float* xr = x0 + (size_t)r * ld;
+    float s = 0.f;
+    for (int n = lane; n < N; n += 32) s += xr[n];
+    mu = warp_sum(s) / (float)N;
+    if (tail) {
+      for (int n = lane; n < N; n += 32) {
+        const float v = (xr[n] - mu) * __ldg(win + n);
+        const float2 w = __ldg(wtail + n);
+        re0 = fmaf(v, w.x, re0);
+        im0 = fmaf(v, w.y, im0);
       }
+      re0 = warp_sum(re0);
+      im0 = warp_sum(im0);
     }
     if (lane == 0) {
       mean[r] = mu;
@@ -721,83 +808,53 @@ base_tile(const float* x0, int b0, int tb,
   for (int e = tid; e < RP * L; e += kThreads) corr[e] = 0.f;
   __syncthreads();
 
-  // The staged samples: a thread loads 8 of a chunk, lanes taking 8
-  // consecutive samples of 4 rows (32-byte segments), then conditions them
-  // and stores each split where its fragment wants it (no two lanes on one
-  // bank).  The next chunk's samples are loaded into registers before the
-  // current chunk multiplies.
-  float xr[8];
-  auto sample_row = [&](int i) {
-    const int combo = warp + kWarps * i;
-    return 16 * (combo >> 4) + 2 * ((combo >> 2) & 3) + ((lane >> 3) & 1) + 8 * (lane >> 4);
-  };
-  auto sample_k = [&](int i) { return 8 * ((warp + kWarps * i) & 3) + (lane & 7); };
-  auto fetch = [&](int sc) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int row = sample_row(i), n = sc * kSampChunk + sample_k(i);
-      xr[i] = (row < R && n < N) ? x0[(size_t)row * N + n] : 0.f;
-    }
-  };
-  auto put = [&](int sc) {
-    float* hi = stage + (sc & 1) * 2 * kStageFloats;
-    float* lo = hi + kStageFloats;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int row = sample_row(i), n = sc * kSampChunk + sample_k(i);
-      const int at = frag_at(row, sample_k(i));
-      const float v = (row < R && n < N) ? (xr[i] - mean[row]) * __ldg(win + n) : 0.f;
-      uint32_t h, l;
-      hopper::tf32_split(v, h, l);
-      hi[at] = __uint_as_float(h);
-      lo[at] = __uint_as_float(l);
-    }
-  };
+  // This thread's DFT rows: rows ra and ra + 8 of its warp's 16 in its
+  // warpgroup's row tile.  A step of 8 samples holds sample 8 s + 2 t in K
+  // slot t and 8 s + 2 t + 1 in slot t + 4 (pack_dft_split orders the
+  // coefficients so), so a lane reads its four A values as two 8-byte pairs
+  // of shared memory.
+  const int wg = warp >> 2;
+  const int ra = 64 * wg + 16 * (warp & 3) + g_, rb = ra + 8;
+  const bool ok_a = ra < R, ok_b = rb < R;
+  const float mu_a = ok_a ? mean[ra] : 0.f, mu_b = ok_b ? mean[rb] : 0.f;
 
   for (int c = 0; c < n_chunks; ++c) {
-    const int j0 = c * kChunkTiles;            // the chunk's first column tile
-    const int f0 = 4 * j0;                     // and bin
+    const int f0 = kChunkBins * c;             // the chunk's first bin
     const int nb = min(kChunkBins, Fd - f0);   // its DFT bins
     const bool last = c + 1 == n_chunks;
     const int nbs = nb + (last ? tail : 0);    // and the bins it synthesises
+    if (c > 0) {
+      // the synthesis's writes to the staging region come before the copies
+      sync_block();
+      if (tid == 0)
+        for (int kb = 0; kb < nring && kb < nkb; ++kb) issue(ring + kb, kb, c);
+    }
 
     // ---- 2. the chunk's spectra on the tensor cores ----------------------
-    // [R rows, N] x [N, 2 nb] as a split-fp32 product (mma.sync m16n8k8):
-    // this warp's column tiles j0 + warp + kWarps ct for all row tiles; a
-    // step's three products from zero, small terms first, then added on the
-    // CUDA cores, and the sum flushed into the spectra every kFlushSteps.
-    bool live[kWarpTiles];
+    // [R rows, N] x [N, 2 nb] as a split-fp32 product: each warpgroup its 64
+    // rows x kChunkCols columns as two halves (wgmma m64n64k8, A from
+    // registers, B from the ring).  A step's three products are summed in
+    // the tensor cores from zero, small terms first; the step is then added
+    // on the CUDA cores (which round where the tensor cores cut), and the
+    // sum flushed into the spectra every kFlushSteps steps.  The halves take
+    // turns: while one half's products run, the other's sum of the step
+    // before is added, so one group of products is always in flight.
+    float acc0[32], acc1[32], part[64];
 #pragma unroll
-    for (int ct = 0; ct < kWarpTiles; ++ct) live[ct] = j0 + warp + kWarps * ct < nt;
-    float part[kRowTiles][kWarpTiles][4];
-#pragma unroll
-    for (int rt = 0; rt < kRowTiles; ++rt)
-#pragma unroll
-      for (int ct = 0; ct < kWarpTiles; ++ct)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) part[rt][ct][k] = 0.f;
-    auto load_b = [&](float2 (&dst)[kWarpTiles], int s) {
-#pragma unroll
-      for (int ct = 0; ct < kWarpTiles; ++ct) {
-        const int j = j0 + warp + kWarps * ct;
-        dst[ct] = (live[ct] && s < n_steps) ? ldg_early(wp + ((size_t)s * nt_all + j) * 32 + lane)
-                                            : make_float2(0.f, 0.f);
-      }
-    };
-    // fragment rows g and g + 8 of each row tile, columns (re, im) of bin
-    // 4 j + t
+    for (int i = 0; i < 32; ++i) acc0[i] = acc1[i] = part[i] = part[32 + i] = 0.f;
+    // two groups' fragments: one multiplies, one is formed
+    uint32_t ah[2][kTcSteps][4], al[2][kTcSteps][4];
+    // half h's fragment rows ra and rb, columns (re, im) of bin 32 h + 4 j + t
     auto flush = [&](bool first) {
 #pragma unroll
-      for (int rt = 0; rt < kRowTiles; ++rt) {
-        if (rt >= nrt) break;
-#pragma unroll
-        for (int ct = 0; ct < kWarpTiles; ++ct) {
-          const int col = 4 * (warp + kWarps * ct) + t_;
-          if (!live[ct] || col >= nb) continue;
+      for (int j = 0; j < 16; ++j) {
+        const int bin = 32 * (j / 8) + 4 * (j % 8) + t_;
+        if (bin < nb) {
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            float2* at = spec + (16 * rt + g_ + 8 * h) * kSpecStride + col;
-            float2 v = make_float2(part[rt][ct][2 * h], part[rt][ct][2 * h + 1]);
+            if (!(h ? ok_b : ok_a)) continue;
+            float2* at = spec + (h ? rb : ra) * kSpecStride + bin;
+            float2 v = make_float2(part[4 * j + 2 * h], part[4 * j + 2 * h + 1]);
             if (!first) {
               const float2 o = *at;
               v.x += o.x;
@@ -805,71 +862,109 @@ base_tile(const float* x0, int b0, int tb,
             }
             *at = v;
           }
-#pragma unroll
-          for (int k = 0; k < 4; ++k) part[rt][ct][k] = 0.f;
         }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) part[4 * j + k] = 0.f;
       }
     };
-    float2 bcur[kWarpTiles], bnxt[kWarpTiles];
-    load_b(bcur, 0);
-    fetch(0);
-    for (int sc = 0; sc < n_samp; ++sc) {
-      put(sc);
-      __syncthreads();   // the buffer of chunk sc - 1 is free again after the next one
-      if (sc + 1 < n_samp) fetch(sc + 1);
-      const float4* ah4 = reinterpret_cast<const float4*>(stage + (sc & 1) * 2 * kStageFloats);
-      const float4* al4 = ah4 + kStageFloats / 4;
+    // two stages a turn, so that a group's fragment buffer is known at
+    // compile time
+    for (int kb0 = 0; kb0 < nkb; kb0 += 2) {
 #pragma unroll
-      for (int q = 0; q < kSampSteps; ++q) {
-        const int s = sc * kSampSteps + q;
-        if (s >= n_steps) break;
-        load_b(bnxt, s + 1);
-        uint32_t bh[kWarpTiles][2], bl[kWarpTiles][2];
+      for (int u = 0; u < 2; ++u) {
+        const int kb = kb0 + u;
+        if (kb >= nkb) break;
+        const int s0 = kStageSteps * kb;
+        const uint32_t k = ring + kb;
+        const uint8_t* st = sm + (k % nring) * kStageBytes;
+        // a copy that never lands is a fault of a tensor map or the card: stop
+        // the kernel with an error where waiting on would hang it
+        if (!hopper::mbar_wait_bounded(full + k % nring, (k / nring) & 1)) __trap();
+        // this stage's samples of rows ra and rb: the frames tile, or the
+        // staging buffer
+        const float* xa = kXTma ? reinterpret_cast<const float*>(st) + ra * kKStage
+                                : x0 + (size_t)(ok_a ? ra : 0) * ld + kKStage * kb;
+        const float* xb = kXTma ? reinterpret_cast<const float*>(st) + rb * kKStage
+                                : x0 + (size_t)(ok_b ? rb : 0) * ld + kKStage * kb;
+        const uint64_t dh = hopper::wgmma_desc_k64(st + kXTileBytes);
+        const uint64_t dl = hopper::wgmma_desc_k64(st + kXTileBytes + kBTileBytes);
+        constexpr uint64_t kHalf = (kHalfCols * kRowBytes) >> 4;   // descriptor units
 #pragma unroll
-        for (int ct = 0; ct < kWarpTiles; ++ct) {
-          hopper::tf32_split(bcur[ct].x, bh[ct][0], bl[ct][0]);
-          hopper::tf32_split(bcur[ct].y, bh[ct][1], bl[ct][1]);
-        }
-        // two row tiles at a time: four independent products in flight
+        for (int gq = 0; gq < kStageSteps / kTcSteps; ++gq) {
+          const int sg = s0 + kTcSteps * gq;   // the group's first step
+          const int b = (u * (kStageSteps / kTcSteps) + gq) & 1;
+          // the group's A fragments: samples 8 s + 2 t and + 1 of each step
+          // (zero past N, or outside the tile)
 #pragma unroll
-        for (int rt0 = 0; rt0 < kRowTiles; rt0 += 2) {
-          if (rt0 >= nrt) break;
-          uint32_t ah[2][4], al[2][4];
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            hopper::lds128(ah[h], ah4 + (q * kRowTiles + rt0 + h) * 32 + lane);
-            hopper::lds128(al[h], al4 + (q * kRowTiles + rt0 + h) * 32 + lane);
+          for (int j = 0; j < kTcSteps; ++j) {
+            const int n = 8 * (sg + j) + 2 * t_;
+            const bool i0 = n < N, i1 = n + 1 < N;
+            const int o = 8 * (kTcSteps * gq + j) + 2 * t_;
+            const float2 va =
+                make_float2(ok_a && i0 ? xa[o] : 0.f, ok_a && i1 ? xa[o + 1] : 0.f);
+            const float2 vb =
+                make_float2(ok_b && i0 ? xb[o] : 0.f, ok_b && i1 ? xb[o + 1] : 0.f);
+            const float2 w =
+                make_float2(i0 ? __ldg(win + n) : 0.f, i1 ? __ldg(win + n + 1) : 0.f);
+            hopper::tf32_split((va.x - mu_a) * w.x, ah[b][j][0], al[b][j][0]);
+            hopper::tf32_split((vb.x - mu_b) * w.x, ah[b][j][1], al[b][j][1]);
+            hopper::tf32_split((va.y - mu_a) * w.y, ah[b][j][2], al[b][j][2]);
+            hopper::tf32_split((vb.y - mu_b) * w.y, ah[b][j][3], al[b][j][3]);
           }
-          float stp[2][kWarpTiles][4];
+          // half h's products of the group: each step's three in today's
+          // order, the first from zero
+          auto products = [&](float (&acc)[32], uint64_t off) {
 #pragma unroll
-          for (int h = 0; h < 2; ++h)
+            for (int i = 0; i < 32; ++i) hopper::keep(acc[i]);
+            hopper::wgmma_fence();
 #pragma unroll
-            for (int ct = 0; ct < kWarpTiles; ++ct)
-              if (live[ct]) hopper::mma_tf32_zero(stp[h][ct], al[h], bh[ct]);
+            for (int j = 0; j < kTcSteps; ++j) {
+              const int q = kTcSteps * gq + j;   // the step within the stage
+              hopper::wgmma_m64n64_tf32(acc, al[b][j], dh + off + 2 * q, j > 0);
+              hopper::wgmma_m64n64_tf32(acc, ah[b][j], dl + off + 2 * q);
+              hopper::wgmma_m64n64_tf32(acc, ah[b][j], dh + off + 2 * q);
+            }
+            hopper::wgmma_commit();
+          };
+          products(acc0, 0);
+          if (sg > 0) {
+            // half 1 of the group before is done: its sum, the flush of the
+            // steps before sg, the release of the stage that ended there and
+            // the next copy into its slot
+            hopper::wgmma_wait<1>();
 #pragma unroll
-          for (int h = 0; h < 2; ++h)
-#pragma unroll
-            for (int ct = 0; ct < kWarpTiles; ++ct)
-              if (live[ct]) hopper::mma_tf32(stp[h][ct], ah[h], bl[ct]);
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-#pragma unroll
-            for (int ct = 0; ct < kWarpTiles; ++ct)
-              if (live[ct]) hopper::mma_tf32(stp[h][ct], ah[h], bh[ct]);
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-#pragma unroll
-            for (int ct = 0; ct < kWarpTiles; ++ct)
-              if (live[ct]) {
-#pragma unroll
-                for (int k = 0; k < 4; ++k) part[rt0 + h][ct][k] += stp[h][ct][k];
+            for (int i = 0; i < 32; ++i) {
+              hopper::keep(acc1[i]);
+              part[32 + i] += acc1[i];
+            }
+            if (sg % kFlushSteps == 0) flush(sg == kFlushSteps);
+            if (gq == 0) {
+              release(k - 1);
+              if (kb + nring - 1 < nkb) {
+                if (tid == 0) issue(k + nring - 1, kb + nring - 1, c);
+                __syncwarp();
               }
-        }
+            }
+          }
+          products(acc1, kHalf);
+          hopper::wgmma_wait<1>();   // half 0 of the group is done
 #pragma unroll
-        for (int ct = 0; ct < kWarpTiles; ++ct) bcur[ct] = bnxt[ct];
-        if ((s + 1) % kFlushSteps == 0 || s + 1 == n_steps) flush(s < kFlushSteps);
+          for (int i = 0; i < 32; ++i) {
+            hopper::keep(acc0[i]);
+            part[i] += acc0[i];
+          }
+        }
       }
     }
+    hopper::wgmma_wait0();
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      hopper::keep(acc1[i]);
+      part[32 + i] += acc1[i];
+    }
+    flush(kStageSteps * nkb <= kFlushSteps);
+    release(ring + nkb - 1);
+    ring += nkb;
     __syncthreads();   // the chunk's spectra are whole; the staging region is free
     if (last) after_dft();
 
@@ -917,7 +1012,10 @@ base_tile(const float* x0, int b0, int tb,
         xp[e] = make_float2(rr, jj);
       }
       for (int l0 = 0; l0 < L; l0 += kLagBlock) {
-        for (int e = tid; e < kSub * kLagBlock; e += kThreads) {
+        // every load of the step in flight at once
+#pragma unroll
+        for (int i = 0; i < kSub * kLagBlock / kThreads; ++i) {
+          const int e = tid + i * kThreads;
           const int ff = e / kLagBlock, l = l0 + e % kLagBlock;
           const size_t f = (size_t)f0 + fb + ff;
           syn[e] = (ff < fmax && l < L)
@@ -1337,24 +1435,29 @@ stats_tile(const float* x0, int b0, int tb,
   }
 }
 
-// The base and SRP modes.  Two blocks an SM (128 registers a thread, about
-// 100 KB of shared memory a block at 4 mics) let one block's synthesis and
-// peak stage run beside the other's DFT.
+// The base and SRP modes: one block an SM (up to 128 rows, about 220 KB of
+// shared memory), the frames and the split coefficients by TMA.
 template <bool kSrp>
-__global__ void __launch_bounds__(kThreads, 2)
-gcc_kernel(const float* __restrict__ frames,   // [B, M, N]
-           const float* __restrict__ win, const float2* __restrict__ wp,
+__global__ void __launch_bounds__(kThreads, 1)
+gcc_kernel(const __grid_constant__ CUtensorMap wmap, int cp,
+           const __grid_constant__ CUtensorMap xmap, int ld, int nring,
+           const float* __restrict__ frames,   // [B, M, N], rows ld floats apart
+           const float* __restrict__ win, const float2* __restrict__ wtail,
            const float* __restrict__ sync, const float* __restrict__ syns,
            const int* __restrict__ pairs, float* __restrict__ corr_out,
            int* __restrict__ shift_out, float* __restrict__ tdoa_out,
            float* __restrict__ peak_out, float* __restrict__ psr_out,
-           int B, int M, int N, int F, int Fp, int P, int L, int TB,
+           int B, int M, int N, int F, int P, int L, int TB,
            int phat, int per_mic, float eps2, float taper_denom, int with_peaks,
            Srp srp) {
+  uint8_t* sm = smem_base();
+  init_ring(reinterpret_cast<uint64_t*>(sm + BaseLayout(TB, M, P, L, nring).bars));
   const int b0 = blockIdx.x * TB;
-  base_tile<kSrp>(frames + (size_t)b0 * M * N, b0, min(TB, B - b0), win, wp, sync, syns,
-                  pairs, corr_out, shift_out, tdoa_out, peak_out, psr_out, M, N, F, Fp, P,
-                  L, phat, per_mic, eps2, taper_denom, with_peaks, srp, [] {});
+  uint32_t ring = 0;
+  base_tile<true, kSrp>(frames + (size_t)b0 * M * ld, ld, b0, min(TB, B - b0), TB, sm, nring,
+                        ring, &wmap, cp, &xmap, b0 * M, win, wtail, sync, syns, pairs,
+                        corr_out, shift_out, tdoa_out, peak_out, psr_out, M, N, F, P, L, phat,
+                        per_mic, eps2, taper_denom, with_peaks, srp, [] {});
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -1372,52 +1475,69 @@ gcc_stats_kernel(const float* __restrict__ frames,   // [B, M, N]
              eps2, taper_denom, with_peaks, st);
 }
 
+// The pipelined instance's frames staging buffer: rows of N samples padded to
+// stage_ld(N) floats (8 more: a warp's fragment loads of 8 rows hit distinct
+// banks), after the base body's shared memory.
+__host__ __device__ inline int stage_ld(int n) { return n + 8; }
+__host__ __device__ inline size_t stage_bytes(int tb, int m, int n) {
+  return (size_t)tb * m * stage_ld(n) * sizeof(float);
+}
+
 // The base mode as a persistent block that walks the tiles itself, each
-// tile's frames staged in shared memory (at float4 offset stage_off of the
-// dynamic shared memory) one tile ahead of the last synthesis and peak stage.
-__global__ void __launch_bounds__(kThreads)
-gcc_pipelined_kernel(const float* __restrict__ frames,   // [B, M, N], 16-byte aligned
-                     const float* __restrict__ win, const float2* __restrict__ wp,
+// tile's frames staged in shared memory one tile ahead of the last synthesis
+// and peak stage; the DFT reads them there (its ring carries only the
+// coefficients).
+__global__ void __launch_bounds__(kThreads, 1)
+gcc_pipelined_kernel(const __grid_constant__ CUtensorMap wmap, int cp, int nring,
+                     const float* __restrict__ frames,   // [B, M, N], 16-byte aligned
+                     const float* __restrict__ win, const float2* __restrict__ wtail,
                      const float* __restrict__ sync, const float* __restrict__ syns,
                      const int* __restrict__ pairs, float* __restrict__ corr_out,
                      int* __restrict__ shift_out, float* __restrict__ tdoa_out,
                      float* __restrict__ peak_out, float* __restrict__ psr_out,
-                     int B, int M, int N, int F, int Fp, int P, int L, int TB,
+                     int B, int M, int N, int F, int P, int L, int TB,
                      int phat, int per_mic, float eps2, float taper_denom,
-                     int with_peaks, int stage_off) {
-  extern __shared__ float4 smem4[];
-  float4* stage = smem4 + stage_off;
+                     int with_peaks) {
+  uint8_t* sm = smem_base();
+  const BaseLayout lay(TB, M, P, L, nring);
+  init_ring(reinterpret_cast<uint64_t*>(sm + lay.bars));
+  float* stage = reinterpret_cast<float*>(sm + ((lay.end + 15) & ~(size_t)15));
+  const int ld = stage_ld(N), q4 = N / 4;
   const int n_tiles = (B + TB - 1) / TB;
   auto prefetch = [&](int tile) {
     if (tile < n_tiles) {
       const int b0 = tile * TB;
-      const int n16 = min(TB, B - b0) * M * N / 4;
+      const int n16 = min(TB, B - b0) * M * q4;
       const float4* src = reinterpret_cast<const float4*>(frames + (size_t)b0 * M * N);
       for (int e = threadIdx.x; e < n16; e += kThreads)
-        hopper::cp_async16(stage + e, src + e);
+        hopper::cp_async16(stage + (size_t)(e / q4) * ld + 4 * (e % q4), src + e);
     }
     hopper::cp_async_commit();
   };
+  uint32_t ring = 0;
   prefetch(blockIdx.x);
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     // the tile's frames have arrived, and every warp has left the tile before
     asm volatile("cp.async.wait_all;\n" ::: "memory");
     __syncthreads();
     const int b0 = tile * TB;
-    base_tile<false>(reinterpret_cast<const float*>(stage), b0, min(TB, B - b0), win, wp,
-                     sync, syns, pairs, corr_out, shift_out, tdoa_out, peak_out, psr_out,
-                     M, N, F, Fp, P, L, phat, per_mic, eps2, taper_denom, with_peaks,
-                     Srp{}, [&] { prefetch(tile + gridDim.x); });
+    base_tile<false, false>(stage, ld, b0, min(TB, B - b0), TB, sm, nring, ring, &wmap, cp,
+                            nullptr, 0, win, wtail, sync, syns, pairs, corr_out, shift_out,
+                            tdoa_out, peak_out, psr_out, M, N, F, P, L, phat, per_mic, eps2,
+                            taper_denom, with_peaks, Srp{},
+                            [&] { prefetch(tile + gridDim.x); });
   }
 }
 
-// Frames per block of the base body: up to kBlockRows (frame, mic) rows,
-// fewer when the correlograms of their pairs would not fit shared memory.
+// Frames per block of the base body (and its ring stages): up to kBlockRows
+// (frame, mic) rows, fewer when the correlograms of their pairs and a ring
+// of kMinRing stages would not fit shared memory (with `extra` bytes more).
 // Returns 0 when one frame does not fit.
-int frames_per_block(int m, int p, int l) {
+int frames_per_block(int m, int p, int l, size_t extra_per_frame = 0, int* nring = nullptr) {
   if (m < 1 || m > kBlockRows) return 0;
   int tb = kBlockRows / m;
-  while (tb > 0 && base_smem_floats(tb, p, l) * sizeof(float) > kMaxSmem) --tb;
+  while (tb > 0 && ring_stages(tb, m, p, l, tb * extra_per_frame) < kMinRing) --tb;
+  if (nring) *nring = tb > 0 ? ring_stages(tb, m, p, l, tb * extra_per_frame) : 0;
   return tb;
 }
 
@@ -1429,39 +1549,51 @@ int stats_frames_per_block(int m, int f, int l, int p) {
   return tb;
 }
 
+// Columns of a part (hi or lo) of the split coefficient matrix: (re, im) of
+// every bin, padded to whole chunks (ops/cuda/gcc_kernel.py pack_dft_split).
+int split_cols(int f) { return (2 * f + kChunkCols - 1) / kChunkCols * kChunkCols; }
+// its K: samples padded to whole ring stages
+int split_k(int n) { return (n + kKStage - 1) / kKStage * kKStage; }
+
+// The tensor map of the split coefficients [2 cp, K], read a stage (kKStage
+// samples x kChunkCols columns) at a time under the 64-byte swizzle.
+bool split_map(CUtensorMap* map, const void* wk, int n, int f) {
+  return ((uintptr_t)wk & 15) == 0 &&
+         hopper::make_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, wk, 2 * split_cols(f),
+                          split_k(n), kChunkCols, kRowBytes);
+}
+
 template <bool kSrp>
-int launch(const void* frames, const void* win, const void* wp, const void* sync,
-           const void* syns, const void* pairs, void* corr_out, void* shift_out,
-           void* tdoa_out, void* peak_out, void* psr_out, int B, int M, int N,
-           int F, int Fp, int P, int L, int phat, int per_mic, float eps,
+int launch(const void* frames, int ld, const void* win, const void* wtail, const void* wk,
+           const void* sync, const void* syns, const void* pairs, void* corr_out,
+           void* shift_out, void* tdoa_out, void* peak_out, void* psr_out, int B, int M,
+           int N, int F, int P, int L, int phat, int per_mic, float eps,
            float taper_denom, int with_peaks, void* stream, const Srp& srp) {
-  const int tb = frames_per_block(M, P, L);
-  if (tb < 1 || Fp % 4 != 0 || Fp < F) return (int)cudaErrorInvalidValue;
-  const size_t smem = base_smem_floats(tb, P, L) * sizeof(float);
+  int nring = 0;
+  const int tb = frames_per_block(M, P, L, 0, &nring);
+  if (tb < 1 || F < 1 || ld < N || ld % 4 != 0 || ((uintptr_t)frames & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap wmap, xmap;
+  if (!split_map(&wmap, wk, N, F) ||
+      !hopper::make_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, frames, B * M, ld,
+                        kBlockRows, 0, kRowBytes))
+    return hopper::kErrTensorMap;
+  const size_t smem = base_smem_bytes(tb, M, P, L, nring);
   cudaError_t err = cudaFuncSetAttribute(
       gcc_kernel<kSrp>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (B + tb - 1) / tb;
   gcc_kernel<kSrp><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)frames, (const float*)win, (const float2*)wp,
-      (const float*)sync, (const float*)syns, (const int*)pairs,
+      wmap, split_cols(F), xmap, ld, nring, (const float*)frames, (const float*)win,
+      (const float2*)wtail, (const float*)sync, (const float*)syns, (const int*)pairs,
       (float*)corr_out, (int*)shift_out, (float*)tdoa_out, (float*)peak_out,
-      (float*)psr_out, B, M, N, F, Fp, P, L, tb, phat, per_mic, eps * eps,
+      (float*)psr_out, B, M, N, F, P, L, tb, phat, per_mic, eps * eps,
       taper_denom, with_peaks, srp);
   return (int)cudaGetLastError();
 }
 
-// The pipelined instance's shared memory: the base body's, rounded to 16
-// bytes, then the staging buffer of one tile's frames.
-size_t pipelined_stage_off(int tb, int p, int l) {
-  return (base_smem_floats(tb, p, l) + 3) / 4;   // in float4s
-}
-
-int pipelined_frames_per_block(int m, int n, int p, int l) {
-  if (m < 1 || m > kBlockRows) return 0;
-  int tb = kBlockRows / m;
-  while (tb > 0 && pipelined_stage_off(tb, p, l) * 16 + (size_t)tb * m * n * 4 > kMaxSmem) --tb;
-  return tb;
+int pipelined_frames_per_block(int m, int n, int p, int l, int* nring = nullptr) {
+  return frames_per_block(m, p, l, (size_t)m * stage_ld(n) * sizeof(float), nring);
 }
 
 }  // namespace
@@ -1470,22 +1602,24 @@ extern "C" int att_gcc_pipelined_frames_per_block(int m, int n, int p, int l) {
   return pipelined_frames_per_block(m, n, p, l);
 }
 
-// The pipelined instance of the base mode: att_gcc's operands and outputs.
-// blocks_out (host, may be null) receives the grid size it launched.
-extern "C" int att_gcc_pipelined(const void* frames, const void* win, const void* wp,
-                                 const void* sync, const void* syns,
+// The pipelined instance of the base mode: att_gcc's operands and outputs
+// (frames rows of N floats, 16-byte aligned).  blocks_out (host, may be null)
+// receives the grid size it launched.
+extern "C" int att_gcc_pipelined(const void* frames, const void* win, const void* wtail,
+                                 const void* wk, const void* sync, const void* syns,
                                  const void* pairs, void* corr_out,
                                  void* shift_out, void* tdoa_out, void* peak_out,
-                                 void* psr_out, int B, int M, int N, int F, int Fp,
+                                 void* psr_out, int B, int M, int N, int F,
                                  int P, int L, int phat, int per_mic, float eps,
                                  float taper_denom, int with_peaks, int* blocks_out,
                                  void* stream) {
-  const int tb = pipelined_frames_per_block(M, N, P, L);
-  if (tb < 1 || Fp % 4 != 0 || Fp < F || (M * N) % 4 != 0 ||
-      ((uintptr_t)frames & 15) != 0)
+  int nring = 0;
+  const int tb = pipelined_frames_per_block(M, N, P, L, &nring);
+  if (tb < 1 || F < 1 || N % 4 != 0 || ((uintptr_t)frames & 15) != 0)
     return (int)cudaErrorInvalidValue;
-  const size_t stage_off = pipelined_stage_off(tb, P, L);
-  const size_t smem = stage_off * 16 + (size_t)tb * M * N * 4;
+  CUtensorMap map;
+  if (!split_map(&map, wk, N, F)) return hopper::kErrTensorMap;
+  const size_t smem = base_smem_bytes(tb, M, P, L, nring, stage_bytes(tb, M, N));
   cudaError_t err = cudaFuncSetAttribute(
       gcc_pipelined_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -1501,11 +1635,11 @@ extern "C" int att_gcc_pipelined(const void* frames, const void* win, const void
   const int grid = n_tiles < sms * per_sm ? n_tiles : sms * per_sm;
   if (blocks_out) *blocks_out = grid;
   gcc_pipelined_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)frames, (const float*)win, (const float2*)wp,
-      (const float*)sync, (const float*)syns, (const int*)pairs,
+      map, split_cols(F), nring, (const float*)frames, (const float*)win,
+      (const float2*)wtail, (const float*)sync, (const float*)syns, (const int*)pairs,
       (float*)corr_out, (int*)shift_out, (float*)tdoa_out, (float*)peak_out,
-      (float*)psr_out, B, M, N, F, Fp, P, L, tb, phat, per_mic, eps * eps,
-      taper_denom, with_peaks, (int)stage_off);
+      (float*)psr_out, B, M, N, F, P, L, tb, phat, per_mic, eps * eps,
+      taper_denom, with_peaks);
   return (int)cudaGetLastError();
 }
 
@@ -1519,32 +1653,37 @@ extern "C" int att_gcc_stats_frames_per_block(int m, int f, int l, int p) {
   return stats_frames_per_block(m, f, l, p);
 }
 
-// The base mode.  wp: the packed DFT matrix (pack_dft) [N / 8, Fp / 4, 32, 2].
-extern "C" int att_gcc(const void* frames, const void* win, const void* wp,
-                       const void* sync, const void* syns, const void* pairs,
+// The base mode.  frames: [B, M, N] with rows ld floats apart (ld >= N, a
+// multiple of 4; 16-byte aligned), read by TMA; wtail: [N] float2, the
+// (cos, -sin) coefficients of bin F - 1 (read when it is summed apart,
+// F % 4 == 1); wk: the split coefficients (pack_dft_split) [2,
+// split_cols(F), split_k(N)], 16-byte aligned.  Returns a cudaError_t, or -1
+// when a tensor map could not be encoded.
+extern "C" int att_gcc(const void* frames, int ld, const void* win, const void* wtail,
+                       const void* wk, const void* sync, const void* syns, const void* pairs,
                        void* corr_out, void* shift_out, void* tdoa_out,
                        void* peak_out, void* psr_out, int B, int M, int N,
-                       int F, int Fp, int P, int L, int phat, int per_mic,
+                       int F, int P, int L, int phat, int per_mic,
                        float eps, float taper_denom, int with_peaks,
                        void* stream) {
-  return launch<false>(frames, win, wp, sync, syns, pairs, corr_out, shift_out,
-                       tdoa_out, peak_out, psr_out, B, M, N, F, Fp, P, L, phat,
+  return launch<false>(frames, ld, win, wtail, wk, sync, syns, pairs, corr_out, shift_out,
+                       tdoa_out, peak_out, psr_out, B, M, N, F, P, L, phat,
                        per_mic, eps, taper_denom, with_peaks, stream, Srp{});
 }
 
 // The SRP mode: the base mode with peaks, plus the lag LUT [P, G] in and the
 // first best cell [B], its score [B] and every cell's score [B, G] out.
-extern "C" int att_gcc_srp(const void* frames, const void* win, const void* wp,
-                           const void* sync, const void* syns, const void* pairs,
-                           const void* lut, void* corr_out, void* shift_out,
-                           void* tdoa_out, void* peak_out, void* psr_out,
+extern "C" int att_gcc_srp(const void* frames, int ld, const void* win, const void* wtail,
+                           const void* wk, const void* sync, const void* syns,
+                           const void* pairs, const void* lut, void* corr_out,
+                           void* shift_out, void* tdoa_out, void* peak_out, void* psr_out,
                            void* cell_out, void* score_out, void* scores_out, int B,
-                           int M, int N, int F, int Fp, int P, int L, int G, int phat,
+                           int M, int N, int F, int P, int L, int G, int phat,
                            int per_mic, float eps, float taper_denom, void* stream) {
   if (G < 1 || L > 32767) return (int)cudaErrorInvalidValue;   // int16 LUT
   const Srp srp{(const int*)lut, (int*)cell_out, (float*)score_out, (float*)scores_out, G};
-  return launch<true>(frames, win, wp, sync, syns, pairs, corr_out, shift_out,
-                      tdoa_out, peak_out, psr_out, B, M, N, F, Fp, P, L, phat,
+  return launch<true>(frames, ld, win, wtail, wk, sync, syns, pairs, corr_out, shift_out,
+                      tdoa_out, peak_out, psr_out, B, M, N, F, P, L, phat,
                       per_mic, eps, taper_denom, 1, stream, srp);
 }
 

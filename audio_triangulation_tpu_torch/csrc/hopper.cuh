@@ -1,8 +1,8 @@
 // Thin wrappers over the PTX that the tensor-core kernels of this package
 // share: cp.async, mma.sync (TF32 and bf16), and Hopper's mbarrier, TMA
 // tile load and wgmma (bf16 and int8 with both operands K-major in shared
-// memory under the 128-byte swizzle; TF32 with A from registers).  Built
-// for sm_90a only.
+// memory under the 128-byte swizzle; TF32 with A from registers and B under
+// the 128- or 64-byte swizzle).  Built for sm_90a only.
 
 #pragma once
 
@@ -31,19 +31,26 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// map of a row-major [rows, cols] matrix read in tiles of box_rows x 128 bytes
-// under the 128-byte swizzle; out-of-range elements read as zero
+// map of a row-major [rows, cols] matrix read in tiles of box_rows x
+// swizzle_bytes (128 or 64) under the swizzle of that width, or with
+// swizzle_bytes 0 of box_rows x box_bytes unswizzled; out-of-range elements
+// read as zero
 inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
-                     const void* base, int rows, int cols, int box_rows) {
+                     const void* base, int rows, int cols, int box_rows,
+                     int swizzle_bytes = 128, int box_bytes = 0) {
   const EncodeTiled encode = encode_tiled();
-  if (!encode) return false;
+  if (!encode || (swizzle_bytes != 128 && swizzle_bytes != 64 && swizzle_bytes != 0))
+    return false;
+  if (swizzle_bytes) box_bytes = swizzle_bytes;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
-  const cuuint32_t box[2] = {(cuuint32_t)(128 / elem_bytes), (cuuint32_t)box_rows};
+  const cuuint32_t box[2] = {(cuuint32_t)(box_bytes / elem_bytes), (cuuint32_t)box_rows};
   const cuuint32_t elem_strides[2] = {1, 1};
+  const CUtensorMapSwizzle swizzle = swizzle_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                           : CU_TENSOR_MAP_SWIZZLE_NONE;
   return encode(map, type, 2, const_cast<void*>(base), dims, strides, box, elem_strides,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -260,6 +267,23 @@ __device__ __forceinline__ uint64_t wgmma_desc_k128(const void* tile) {
   return d;
 }
 
+// The same for rows of 64 bytes under the 64-byte swizzle (CU_TENSOR_MAP_
+// SWIZZLE_64B): groups of 8 rows lie 512 bytes apart; the tile starts on a
+// 512-byte boundary, and a step of 32 bytes along K adds 2.
+__device__ __forceinline__ uint64_t wgmma_desc_k64(const void* tile) {
+  uint64_t d = 0;
+  d |= (uint64_t)((smem_addr(tile) & 0x3ffffu) >> 4);
+  d |= (uint64_t)1 << 16;            // leading offset: unused under a swizzle
+  d |= (uint64_t)(512 >> 4) << 32;   // stride between 8-row groups
+  d |= (uint64_t)2 << 62;            // 64-byte swizzle
+  return d;
+}
+
+#define ATT_REGS32                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "      \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, " \
+  "%31}"
+
 #define ATT_REGS64                                                              \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "      \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, " \
@@ -316,6 +340,22 @@ __device__ __forceinline__ void wgmma_m64n128_tf32(float (&d)[64], const uint32_
       "}\n"
       : ATT_64(ATT_F, d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d [64 x 64, f32] (+)= a [64 x 8] * b [64 x 8]^T, TF32: a from registers,
+// b K-major in shared memory (either swizzle's descriptor); with
+// accumulate = 0, d = a * b
+__device__ __forceinline__ void wgmma_m64n64_tf32(float (&d)[32], const uint32_t (&a)[4],
+                                                  uint64_t b, int accumulate = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " ATT_REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : ATT_8(ATT_F, d, 0), ATT_8(ATT_F, d, 8), ATT_8(ATT_F, d, 16), ATT_8(ATT_F, d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
 #define ATT_REGS76                                                              \

@@ -16,7 +16,8 @@ Counterpart of ``audio_triangulation_tpu.ops.pallas.gcc_kernel``
   its score per frame.
 
 The base and SRP modes compute the DFT as a split-fp32 product on the
-tensor cores (:func:`split_rdft`) a chunk of ``CHUNK_BINS`` bins at a time;
+tensor cores (:func:`split_rdft`; ``wgmma`` with the coefficients split once
+by :func:`pack_dft_split`) a chunk of ``CHUNK_BINS`` bins at a time;
 :func:`gcc_reference` with ``split=True`` repeats that arithmetic.
 
 On a CUDA tensor :func:`fused_gcc` and :func:`fused_gcc_srp` launch
@@ -24,7 +25,9 @@ On a CUDA tensor :func:`fused_gcc` and :func:`fused_gcc_srp` launch
 version of the mode (:func:`gcc_reference`, :func:`gcc_stats_reference`,
 :func:`gcc_srp_reference`).  ``launches`` counts base-mode launches,
 ``stats_launches`` stats-mode launches and ``srp_launches`` SRP-mode
-launches.
+launches; by the DFT stage a launch runs, ``wgmma_dft_launches`` counts the
+base, SRP and pipelined launches (``wgmma`` fed by TMA) and
+``mma_sync_dft_launches`` the stats mode's (``mma.sync``).
 
 :func:`fused_gcc_pipelined` is the base mode with peaks as a persistent
 kernel that walks the batch tiles itself, each tile's frames staged one
@@ -55,6 +58,8 @@ launches = 0
 stats_launches = 0
 srp_launches = 0
 pipelined_launches = 0
+wgmma_dft_launches = 0
+mma_sync_dft_launches = 0
 
 
 # The split, packed synthesis matrix that the stats mode's synthesis stage
@@ -109,6 +114,9 @@ def unpack_split_synthesis(packed: torch.Tensor, f: int, l: int):
 
 
 DFT_FLUSH_STEPS = 16  # mma steps (of 8 samples) summed before the flush
+# steps the base mode's tensor cores sum from zero before the CUDA cores add
+# them (``kTcSteps`` of ``csrc/gcc_kernel.cu``); the stats mode sums one
+DFT_TC_STEPS = 2
 # bins of a chunk of the base and SRP modes (``kChunkBins`` of
 # ``csrc/gcc_kernel.cu``): each chunk's spectra are computed, whitened and
 # added into the correlograms before the next
@@ -143,13 +151,64 @@ def unpack_dft(packed: torch.Tensor, n: int, f: int):
     return full[:n, :f, 0], full[:n, :f, 1]
 
 
-def split_rdft(x: torch.Tensor, cos: torch.Tensor, msin: torch.Tensor):
-    """:func:`mxu_fft.rdft` in the arithmetic of the stats mode's DFT stage,
-    in plain PyTorch, on f32 operands: samples and coefficients split by
-    :func:`tf32_split`; a step of 8 samples sums ``x_lo w_hi``, then
-    ``x_hi w_lo``, then ``x_hi w_hi`` from zero and is added to one f32
-    accumulator, which is added into the spectrum and cleared every
-    ``DFT_FLUSH_STEPS`` steps."""
+# The base mode's DFT operand (:func:`pack_dft_split`): its columns are the
+# wgmma's, CHUNK_COLS a chunk, its K padded to whole ring stages of
+# SPLIT_STAGE_SAMPLES samples (``kKStage`` of ``csrc/gcc_kernel.cu``); K slot
+# k of a step of 8 samples holds sample 8 s + DFT_SLOT_SAMPLE[k], so that a
+# lane's two slots t and t + 4 are the neighbouring samples 2 t and 2 t + 1.
+CHUNK_COLS = 2 * CHUNK_BINS
+SPLIT_STAGE_SAMPLES = 16
+DFT_SLOT_SAMPLE = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def split_shape(n: int, f: int):
+    """(columns a part, K) of :func:`pack_dft_split` for N samples, F bins."""
+    return (-(-2 * f // CHUNK_COLS) * CHUNK_COLS,
+            -(-n // SPLIT_STAGE_SAMPLES) * SPLIT_STAGE_SAMPLES)
+
+
+def pack_dft_split(cos: torch.Tensor, msin: torch.Tensor) -> torch.Tensor:
+    """(cos, -sin) [N, F] f32 -> the base mode's DFT operand [2, C, K] f32:
+    the coefficients split once by :func:`tf32_split`, the hi parts then the
+    lo parts, K-major (each row one column of the product, K running
+    fastest).  Column 2 f of a part is bin f's cos, column 2 f + 1 its -sin;
+    C = 2 F padded with zero columns to whole chunks, K = N padded with zero
+    samples to whole ring stages (:func:`split_shape`), and the samples of
+    each step of 8 in the K slots of ``DFT_SLOT_SAMPLE``."""
+    n, f = cos.shape
+    c, k = split_shape(n, f)
+    full = torch.zeros((k, c), dtype=torch.float32, device=cos.device)
+    full[:n, 0:2 * f:2] = cos
+    full[:n, 1:2 * f:2] = msin
+    slots = torch.tensor(DFT_SLOT_SAMPLE, device=cos.device)
+    full = full.reshape(k // 8, 8, c).index_select(1, slots).reshape(k, c)
+    hi, lo = tf32_split(full)
+    return torch.stack((hi.t(), lo.t())).contiguous()
+
+
+def unpack_dft_split(packed: torch.Tensor, n: int, f: int):
+    """The inverse of :func:`pack_dft_split`: ((cos hi, -sin hi), (cos lo,
+    -sin lo)), each [N, F]."""
+    k = packed.shape[-1]
+    order = torch.tensor(DFT_SLOT_SAMPLE).argsort().to(packed.device)
+    parts = []
+    for part in packed:
+        full = part.t().reshape(k // 8, 8, -1).index_select(1, order)
+        full = full.reshape(k, -1)[:n, :2 * f]
+        parts.append((full[:, 0::2], full[:, 1::2]))
+    return tuple(parts)
+
+
+def split_rdft(x: torch.Tensor, cos: torch.Tensor, msin: torch.Tensor,
+               tc_steps: int = 1):
+    """:func:`mxu_fft.rdft` in the arithmetic of the DFT stages of every
+    mode, in plain PyTorch, on f32 operands: samples and coefficients split by
+    :func:`tf32_split`; each group of ``tc_steps`` steps of 8 samples sums,
+    step by step, ``x_lo w_hi``, then ``x_hi w_lo``, then ``x_hi w_hi`` from
+    zero (the tensor cores' sum) and is added to one f32 accumulator, which
+    is added into the spectrum and cleared every ``DFT_FLUSH_STEPS`` steps.
+    (The base mode's ``wgmma`` puts a step's samples in other K slots,
+    ``DFT_SLOT_SAMPLE``: the same sums.)"""
     x_hi, x_lo = tf32_split(x.float())
     out = []
     for w in (cos, msin):
@@ -160,10 +219,14 @@ def split_rdft(x: torch.Tensor, cos: torch.Tensor, msin: torch.Tensor):
         n_steps = -(-x.shape[-1] // 8)
         for s in range(n_steps):
             ks = slice(8 * s, 8 * s + 8)
-            step = x_lo[..., ks] @ w_hi[ks]
-            step += x_hi[..., ks] @ w_lo[ks]
-            step += x_hi[..., ks] @ w_hi[ks]
-            acc += step
+            if s % tc_steps == 0:
+                group = x_lo[..., ks] @ w_hi[ks]
+            else:
+                group += x_lo[..., ks] @ w_hi[ks]
+            group += x_hi[..., ks] @ w_lo[ks]
+            group += x_hi[..., ks] @ w_hi[ks]
+            if (s + 1) % tc_steps == 0 or s + 1 == n_steps:
+                acc += group
             if (s + 1) % DFT_FLUSH_STEPS == 0 or s + 1 == n_steps:
                 total += acc
                 acc.zero_()
@@ -238,6 +301,12 @@ class GccMatrices(NamedTuple):
     # sync / syns split and in mma fragment order, for the stats mode's
     # synthesis on the tensor cores (:func:`pack_split_synthesis`); f32 always
     synp: torch.Tensor
+    # (cos, -sin) split and K-major for the base mode's wgmma DFT
+    # (:func:`pack_dft_split`): [2, C, K], f32 always
+    dft_split: torch.Tensor
+    # (cos, -sin) of the last bin [N, 2], which the base mode sums apart
+    # when F % 4 == 1; f32 always
+    dft_tail: torch.Tensor
 
     def to(self, dtype: torch.dtype) -> "GccMatrices":
         """The plain versions' matrices in ``dtype``; the kernel's own
@@ -251,7 +320,9 @@ def _matrices(cfg: PipelineConfig, n: int, device: str) -> GccMatrices:
         torch.as_tensor(a, dtype=torch.float32, device=device)
         for a in mxu_fft.gcc_matrices(cfg, n))
     return GccMatrices(cos, msin, sync, syns, pack_dft(cos, msin),
-                       pack_split_synthesis(sync, syns, STATS_LAG_TILES))
+                       pack_split_synthesis(sync, syns, STATS_LAG_TILES),
+                       pack_dft_split(cos, msin),
+                       torch.stack((cos[:, -1], msin[:, -1]), dim=-1).contiguous())
 
 
 def window_gain(window: torch.Tensor, cfg: PipelineConfig) -> torch.Tensor:
@@ -282,12 +353,13 @@ def gcc_reference(frames, win_gain, mats: GccMatrices, pairs, *,
     (tapered correlograms, best shift int32 [B, P], sub-sample tdoa [B, P]
     in lags, peak value [B, P], psr [B, P]), peaks taken on the raw
     correlogram.  ``split`` repeats the kernel's arithmetic on f32 frames:
-    the DFT as a split-fp32 product (:func:`split_rdft`) and the synthesis
-    added a bin chunk at a time (:func:`chunked_lag_correlogram`)."""
+    the DFT as a split-fp32 product (:func:`split_rdft`, ``DFT_TC_STEPS``
+    steps to a tensor-core sum) and the synthesis added a bin chunk at a time
+    (:func:`chunked_lag_correlogram`)."""
     split = split and frames.dtype == torch.float32
     x = (frames - frames.mean(dim=-1, keepdim=True)) * win_gain
     if split:
-        re, im = split_rdft(x, mats.cos, mats.msin)
+        re, im = split_rdft(x, mats.cos, mats.msin, DFT_TC_STEPS)
     else:
         re, im = mxu_fft.rdft(x, mats.cos, mats.msin)
     rr, jj = mxu_fft.cross_power_reim(re, im, pairs, phat=phat,
@@ -585,7 +657,7 @@ def fits(frames: torch.Tensor, cfg: PipelineConfig, n_pairs: int,
     """Whether :func:`fused_gcc` takes these frames [B, M, N] of
     ``n_pairs`` pairs in the mode ``cfg`` needs: on a CUDA device one
     frame must fit a block's shared memory (in the base mode 8 mics x 28
-    pairs fit up to 1,469 lags); the plain version on the CPU has no
+    pairs fit up to 1,363 lags); the plain version on the CPU has no
     limit.  The routes ask it from the shape
     (``models.localizer.gcc_routes``), never from a launch error."""
     if frames.device.type != "cuda":
@@ -615,7 +687,7 @@ def _checked(frames, win_gain, mats: GccMatrices, pairs, kernel: str):
     matrix, sync, syns], pairs int32).  Refuses inputs that require grad
     (``_build.refuse_grad``)."""
     _build.refuse_grad(kernel, frames, win_gain, mats.dft, mats.sync,
-                       mats.syns, mats.synp)
+                       mats.syns, mats.synp, mats.dft_split, mats.dft_tail)
     if frames.device.type != "cuda":
         raise ValueError(f"the GCC kernel needs CUDA tensors; frames are on "
                          f"{frames.device}")
@@ -635,6 +707,30 @@ def _checked(frames, win_gain, mats: GccMatrices, pairs, kernel: str):
     return (b, m, n, f, fp, p, l), frames.contiguous(), ins, pairs32
 
 
+def _tma_frames(frames: torch.Tensor):
+    """(frames, row stride in floats) as the base mode's TMA reads them:
+    rows of a multiple of 16 bytes from a 16-byte boundary, the frames
+    themselves when they are so, else a copy with zero-padded rows."""
+    n = frames.shape[-1]
+    if n % 4 == 0 and frames.data_ptr() % 16 == 0:
+        return frames, n
+    ld = -(-n // 4) * 4
+    padded = torch.zeros((*frames.shape[:-1], ld), dtype=frames.dtype,
+                         device=frames.device)
+    padded[..., :n] = frames
+    return padded, ld
+
+
+def _split_operands(mats: GccMatrices, n: int, f: int, dev):
+    """The base mode's DFT operands on ``dev``, checked: (the last bin's
+    coefficients [N, 2], the split matrix [2, C, K])."""
+    tail, wk = (t.to(device=dev, dtype=torch.float32).contiguous()
+                for t in (mats.dft_tail, mats.dft_split))
+    if tail.shape != (n, 2) or wk.shape != (2, *split_shape(n, f)):
+        raise ValueError("the split DFT operands do not match the frames")
+    return tail, wk
+
+
 def _outputs(b, p, l, dev, with_peaks):
     corr = torch.empty((b, p, l), dtype=torch.float32, device=dev)
     if not with_peaks:
@@ -652,27 +748,30 @@ def launch(frames, win_gain, mats: GccMatrices, pairs, *, phat: bool,
     take.  The pair indices are not range-checked here (that would sync
     with the device): they must index the M mics, as ``Localizer.create``
     and ``params_from_reference`` ensure."""
-    global launches
+    global launches, wgmma_dft_launches
     (b, m, n, f, fp, p, l), frames, ins, pairs32 = _checked(
         frames, win_gain, mats, pairs, "gcc_kernel")
     lib = _lib()
     if lib.att_gcc_frames_per_block(m, p, l) < 1:
         raise ValueError(f"one frame of {m} mics, {p} pairs x {l} lags does "
                          "not fit the kernel's shared memory")
+    tail, wk = _split_operands(mats, n, f, frames.device)
     outs = _outputs(b, p, l, frames.device, with_peaks)
     if b > 0:
         # Temporaries may be freed once launched: the caching allocator
         # reuses memory in the order of the stream the kernel runs on.
-        ptr = [t.data_ptr() for t in (frames, *ins, pairs32)]
+        x, ld = _tma_frames(frames)
+        ptr = [t.data_ptr() for t in (ins[0], tail, wk, *ins[2:], pairs32)]
         optr = [t.data_ptr() for t in outs] + [None] * (5 - len(outs))
         per_mic = phat and xcorr.phat_per_mic(m)
         with torch.cuda.device(frames.device):
             err = lib.att_gcc(
-                *ptr, *optr, b, m, n, f, fp, p, l, int(phat), int(per_mic),
-                phat_eps, taper_denom, int(with_peaks),
+                x.data_ptr(), ld, *ptr, *optr, b, m, n, f, p, l, int(phat),
+                int(per_mic), phat_eps, taper_denom, int(with_peaks),
                 torch.cuda.current_stream(frames.device).cuda_stream)
         with _build.count_lock:
             launches += 1
+            wgmma_dft_launches += 1
         _build.check(err, "gcc_kernel launch", lib)
     return outs if with_peaks else outs[0]
 
@@ -683,27 +782,31 @@ def launch_pipelined(frames, win_gain, mats: GccMatrices, pairs, *,
     """Run ``csrc/gcc_kernel.cu``'s persistent, self-pipelined instance of
     the base mode with peaks on CUDA tensors (same contract as
     :func:`gcc_reference` with peaks); raises on anything it does not take.
-    Its size limit: one frame's correlograms and its staged samples (M x N
-    floats, a multiple of 16 bytes) must fit a block's shared memory."""
-    global pipelined_launches
+    Its size limit: one frame's correlograms and its staged samples (M
+    rows of N floats, a multiple of 16 bytes) must fit a block's shared
+    memory."""
+    global pipelined_launches, wgmma_dft_launches
     (b, m, n, f, fp, p, l), frames, ins, pairs32 = _checked(
         frames, win_gain, mats, pairs, "gcc_pipelined_kernel")
     lib = _lib()
-    if (m * n) % 4 or lib.att_gcc_pipelined_frames_per_block(m, n, p, l) < 1:
+    if n % 4 or lib.att_gcc_pipelined_frames_per_block(m, n, p, l) < 1:
         raise ValueError(f"one frame of {m} mics x {n} samples, {p} pairs "
                          "does not fit the pipelined kernel's shared memory "
-                         "(or is no multiple of 16 bytes)")
+                         "(or its rows are no multiple of 16 bytes)")
+    tail, wk = _split_operands(mats, n, f, frames.device)
     outs = _outputs(b, p, l, frames.device, True)
     if b > 0:
-        ptr = [t.data_ptr() for t in (frames, *ins, pairs32, *outs)]
+        ptr = [t.data_ptr() for t in (frames, ins[0], tail, wk, *ins[2:],
+                                      pairs32, *outs)]
         per_mic = phat and xcorr.phat_per_mic(m)
         with torch.cuda.device(frames.device):
             err = lib.att_gcc_pipelined(
-                *ptr, b, m, n, f, fp, p, l, int(phat), int(per_mic),
+                *ptr, b, m, n, f, p, l, int(phat), int(per_mic),
                 phat_eps, taper_denom, 1, None,
                 torch.cuda.current_stream(frames.device).cuda_stream)
         with _build.count_lock:
             pipelined_launches += 1
+            wgmma_dft_launches += 1
         _build.check(err, "gcc_kernel pipelined launch", lib)
     return outs
 
@@ -718,10 +821,11 @@ def launch_srp(frames, win_gain, mats: GccMatrices, pairs, lut_flat, *,
     as int16); the grid size G has no limit (the LUT is staged a chunk of
     cells at a time).  LUT entries are clamped to the lag axis, not
     range-checked."""
-    global srp_launches
+    global srp_launches, wgmma_dft_launches
     (b, m, n, f, fp, p, l), frames, ins, pairs32 = _checked(
         frames, win_gain, mats, pairs, "gcc_srp_kernel")
     dev = frames.device
+    tail, wk = _split_operands(mats, n, f, dev)
     lut32 = lut_flat.to(device=dev, dtype=torch.int32).contiguous()
     if lut32.ndim != 2 or lut32.shape[0] != p or lut32.shape[1] < 1:
         raise ValueError(f"lut_flat must be [P={p}, G]; got "
@@ -737,16 +841,20 @@ def launch_srp(frames, win_gain, mats: GccMatrices, pairs, lut_flat, *,
     scores = torch.empty((b, lut32.shape[1]), dtype=torch.float32,
                          device=dev)
     if b > 0:
-        ptr = [t.data_ptr() for t in (frames, *ins, pairs32, lut32)]
+        x, ld = _tma_frames(frames)
+        ptr = [t.data_ptr() for t in (ins[0], tail, wk, *ins[2:], pairs32,
+                                      lut32)]
         optr = [t.data_ptr() for t in (*outs, cell, score, scores)]
         per_mic = phat and xcorr.phat_per_mic(m)
         with torch.cuda.device(dev):
             err = lib.att_gcc_srp(
-                *ptr, *optr, b, m, n, f, fp, p, l, lut32.shape[1], int(phat),
+                x.data_ptr(), ld, *ptr, *optr, b, m, n, f, p, l,
+                lut32.shape[1], int(phat),
                 int(per_mic), phat_eps, taper_denom,
                 torch.cuda.current_stream(dev).cuda_stream)
         with _build.count_lock:
             srp_launches += 1
+            wgmma_dft_launches += 1
         _build.check(err, "gcc_kernel SRP launch", lib)
     return (*outs, cell, score, scores)
 
@@ -758,7 +866,7 @@ def launch_stats(frames, win_gain, mats: GccMatrices, pairs,
     """Run ``csrc/gcc_kernel.cu``'s stats mode on CUDA tensors (same
     contract as :func:`gcc_stats_reference`); raises on anything it does
     not take, a frame too large for its shared memory included."""
-    global stats_launches
+    global stats_launches, mma_sync_dft_launches
     (b, m, n, f, fp, p, l), frames, ins, pairs32 = _checked(
         frames, win_gain, mats, pairs, "gcc_stats_kernel")
     if sp.phase and not with_peaks:
@@ -792,6 +900,7 @@ def launch_stats(frames, win_gain, mats: GccMatrices, pairs,
                 torch.cuda.current_stream(dev).cuda_stream)
         with _build.count_lock:
             stats_launches += 1
+            mma_sync_dft_launches += 1
         _build.check(err, "gcc_kernel stats launch", lib)
     extra = (band,) if with_band else ()
     if not with_peaks:
@@ -804,7 +913,8 @@ def _lib():
     with _build.bind_lock:  # threads may ask at once
         if lib.att_gcc.argtypes is None:
             vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.att_gcc.argtypes = ([vp] * 11 + [ci] * 9 + [cf, cf, ci, vp])
+            lib.att_gcc.argtypes = ([vp, ci] + [vp] * 11 + [ci] * 8
+                                    + [cf, cf, ci, vp])
             lib.att_gcc.restype = ci
             lib.att_gcc_stats.argtypes = ([vp] * 13 + [ci] * 9 + [cf, cf]
                                           + [ci] * 9 + [cf] * 3 + [vp])
@@ -813,9 +923,10 @@ def _lib():
             lib.att_gcc_frames_per_block.restype = ci
             lib.att_gcc_stats_frames_per_block.argtypes = [ci] * 4
             lib.att_gcc_stats_frames_per_block.restype = ci
-            lib.att_gcc_srp.argtypes = [vp] * 15 + [ci] * 10 + [cf, cf, vp]
+            lib.att_gcc_srp.argtypes = ([vp, ci] + [vp] * 15 + [ci] * 9
+                                        + [cf, cf, vp])
             lib.att_gcc_srp.restype = ci
-            lib.att_gcc_pipelined.argtypes = ([vp] * 11 + [ci] * 9
+            lib.att_gcc_pipelined.argtypes = ([vp] * 12 + [ci] * 8
                                               + [cf, cf, ci, vp, vp])
             lib.att_gcc_pipelined.restype = ci
             lib.att_gcc_pipelined_frames_per_block.argtypes = [ci] * 4

@@ -172,7 +172,11 @@ SPLIT_CASES = {
     "4mic_band_crop": (4, dict(phat=True, fft_pad_mode="circular",
                                band_hz=(800.0, 6000.0), band_crop=True)),
     "3mic_linear_nophat": (3, {}),
+    "3mic_band_crop": (3, dict(phat=True, fft_pad_mode="circular",
+                               band_hz=(800.0, 6000.0), band_crop=True)),
     "2mic_per_pair_phat": (2, dict(phat=True, fft_pad_mode="circular")),
+    "2mic_band_crop": (2, dict(phat=True, fft_pad_mode="circular",
+                               band_hz=(800.0, 6000.0), band_crop=True)),
 }
 
 
@@ -260,6 +264,55 @@ def test_split_reference_against_float64(case):
     assert bool(clear.float().mean() > 0.5)
     assert torch.equal(got[1][clear], ref64[1][clear])
     assert float((got[2].double() - ref64[2]).abs()[clear].max()) < 1e-3
+
+
+# The base mode's DFT operand for wgmma: (N, F) of the full band at linear
+# and circular padding, a band crop, and sizes that fill no chunk or stage.
+SPLIT_PACK_SHAPES = [(1024, 1025), (1024, 513), (1024, 107), (1000, 33)]
+
+
+@pytest.mark.parametrize("n,f", SPLIT_PACK_SHAPES)
+def test_pack_dft_split_layout(n, f):
+    """pack_dft_split holds the TF32 hi and lo parts of cos and -sin,
+    K-major, padded with zeros to whole chunks and ring stages, and
+    unpack_dft_split gives them back."""
+    g = torch.Generator().manual_seed(n + f)
+    cos, msin = (torch.rand((n, f), generator=g) * 2 - 1 for _ in range(2))
+    packed = tgcc.pack_dft_split(cos, msin)
+    c, k = tgcc.split_shape(n, f)
+    assert packed.shape == (2, c, k)
+    assert c % tgcc.CHUNK_COLS == 0 and 0 <= c - 2 * f < tgcc.CHUNK_COLS
+    assert k % tgcc.SPLIT_STAGE_SAMPLES == 0 and k >= n
+    assert k - n < tgcc.SPLIT_STAGE_SAMPLES
+    (ch, sh), (cl, sl) = tgcc.unpack_dft_split(packed, n, f)
+    (ch0, cl0), (sh0, sl0) = tgcc.tf32_split(cos), tgcc.tf32_split(msin)
+    for got, want in ((ch, ch0), (sh, sh0), (cl, cl0), (sl, sl0)):
+        assert torch.equal(got, want)
+    # padding: columns past 2F and samples past N are zero
+    assert not packed[:, 2 * f:].any()
+    order = torch.tensor(tgcc.DFT_SLOT_SAMPLE).argsort()
+    by_sample = packed.reshape(2, c, k // 8, 8)[..., order].reshape(2, c, k)
+    assert not by_sample[..., n:].any()
+
+
+@pytest.mark.parametrize("n,f", SPLIT_PACK_SHAPES)
+def test_pack_dft_split_steps_as_the_kernel_loads_them(n, f):
+    """The product as the kernel forms it from the packed operand: a lane
+    t of a step holds samples 8 s + 2 t and + 1 in K slots t and t + 4;
+    summed over the slots against the packed rows (hi + lo, float64) it is
+    the DFT within the split's 2^-21 of the coefficients."""
+    g = torch.Generator().manual_seed(7 * n + f)
+    cos, msin = (torch.rand((n, f), generator=g) * 2 - 1 for _ in range(2))
+    x = torch.rand((3, n), generator=g, dtype=torch.float64) - 0.5
+    packed = tgcc.pack_dft_split(cos, msin).double()
+    c, k = tgcc.split_shape(n, f)
+    xs = torch.nn.functional.pad(x, (0, k - n)).reshape(3, k // 8, 4, 2)
+    a = torch.cat([xs[..., 0], xs[..., 1]], dim=-1)  # slots t, then t + 4
+    out = a.reshape(3, k) @ (packed[0] + packed[1]).t()
+    want = torch.cat([x @ cos.double(), x @ msin.double()], dim=-1)
+    got = torch.cat([out[:, 0:2 * f:2], out[:, 1:2 * f:2]], dim=-1)
+    scale = float(x.abs().sum(-1).max())
+    assert float((got - want).abs().max()) <= 2.0 ** -20 * scale
 
 
 # the in-kernel SRP mode (the reference's compact Mode B)
@@ -579,3 +632,81 @@ def test_cuda_srp_mode_ragged_batches(cuda_device, case):
     assert torch.equal(got[5], cell)
     assert float((got[6] - score).abs().max()) <= 1e-6 * smax
     assert float((got[7] - scores).abs().max()) <= 1e-6 * smax
+
+
+# the base mode's wgmma DFT at the benchmark configurations' shapes: the
+# firmware's triangle (F = 1,025 at linear padding, no PHAT) and the 4-mic
+# square's band crop (PHAT), each on a batch whose last block is not full
+WGMMA_CASES = {
+    "ref3_linear": (3, dict(fft_pad_mode="linear")),
+    "square4_band_crop": (4, dict(phat=True, fft_pad_mode="circular",
+                                  band_hz=(800.0, 6000.0), band_crop=True)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(WGMMA_CASES))
+def test_cuda_wgmma_dft_at_benchmark_shapes(cuda_device, case):
+    """The base mode against float64 (1e-4 of scale, raw and tapered) and
+    the plain version in its own arithmetic (5e-5), equal shifts and tdoa
+    within 1e-3 samples on rows clear of near ties, on 2 blocks and a
+    ragged third; every launch counted on the wgmma DFT path."""
+    m, kw = WGMMA_CASES[case]
+    cfg = tcfg.PipelineConfig(**kw)
+    p = len(jgeo.mic_pairs(m))
+    tb = tgcc._lib().att_gcc_frames_per_block(m, p, cfg.num_lags)
+    frames, win, pairs = _bench_chirps(m, 2 * tb + 5)
+    x = torch.from_numpy(frames).to(cuda_device)
+    win_gain, mats = tgcc.operands(x, torch.from_numpy(win), cfg)
+    pt = torch.from_numpy(pairs).to(cuda_device)
+    args = dict(phat=cfg.phat, phat_eps=cfg.phat_eps,
+                max_shift=cfg.max_shift, taper_denom=cfg.taper_denom)
+    ops64 = (x.double(), win_gain.double(), mats.to(torch.float64), pt)
+    raw64 = tgcc.gcc_reference(*ops64, **args, with_peaks=False)
+    ref64 = tgcc.gcc_reference(*ops64, **args, with_peaks=True)
+    split = tgcc.gcc_reference(x, win_gain, mats, pt, **args,
+                               with_peaks=False, split=True)
+    before = (tgcc.wgmma_dft_launches, tgcc.mma_sync_dft_launches)
+    raw = tgcc.launch(x, win_gain, mats, pt, **args, with_peaks=False)
+    got = tgcc.launch(x, win_gain, mats, pt, **args, with_peaks=True)
+    assert (tgcc.wgmma_dft_launches, tgcc.mma_sync_dft_launches) == (
+        before[0] + 2, before[1])
+    scale = float(raw64.abs().max())
+    assert float((raw.double() - raw64).abs().max()) / scale < 1e-4
+    assert float((got[0].double() - ref64[0]).abs().max()) / scale < 1e-4
+    assert float((raw - split).abs().max()) / scale < 5e-5
+    clear = torch.from_numpy(_clear(raw64.cpu().numpy(), scale)).to(
+        cuda_device)
+    assert bool(clear.float().mean() > 0.9)
+    assert torch.equal(got[1][clear], ref64[1][clear])
+    assert float((got[2].double() - ref64[2]).abs()[clear].max()) < 1e-3
+
+
+@pytest.mark.gpu
+def test_cuda_dft_launch_counts_by_path(cuda_device):
+    """The base, SRP and pipelined launches count on the wgmma DFT path,
+    the stats mode's on the mma.sync one; a CPU call counts on neither."""
+    frames, win, pairs = _bench_chirps(4, 9)
+    x = torch.from_numpy(frames).to(cuda_device)
+    pt = torch.from_numpy(pairs).to(cuda_device)
+    cfg = tcfg.PipelineConfig(phat=True, fft_pad_mode="circular")
+    win_gain, mats = tgcc.operands(x, torch.from_numpy(win), cfg)
+    args = dict(phat=cfg.phat, phat_eps=cfg.phat_eps,
+                max_shift=cfg.max_shift, taper_denom=cfg.taper_denom)
+    lut = torch.zeros((len(pairs), 5), dtype=torch.int32, device=cuda_device)
+
+    def counts():
+        return tgcc.wgmma_dft_launches, tgcc.mma_sync_dft_launches
+
+    c0 = counts()
+    tgcc.launch(x, win_gain, mats, pt, **args, with_peaks=True)
+    tgcc.launch_srp(x, win_gain, mats, pt, lut, **args)
+    tgcc.launch_pipelined(x, win_gain, mats, pt, **args)
+    assert counts() == (c0[0] + 3, c0[1])
+    auto = tcfg.PipelineConfig(phat=True, fft_pad_mode="circular",
+                               band_hz="auto")
+    tgcc.fused_gcc(x, torch.from_numpy(win), pt, auto, with_peaks=True)
+    assert counts() == (c0[0] + 3, c0[1] + 1)
+    tgcc.fused_gcc(x.cpu(), torch.from_numpy(win), pt.cpu(), cfg,
+                   with_peaks=True)
+    assert counts() == (c0[0] + 3, c0[1] + 1)
