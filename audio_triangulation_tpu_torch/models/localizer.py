@@ -69,7 +69,7 @@ from ..core import geometry
 from ..core.config import GridConfig, PipelineConfig, SolverConfig
 from ..ops import caf, conditioning, detector, multisource, mxu_fft, srp
 from ..ops import solver as solver_ops, window as window_ops, xcorr
-from ..ops._device import device_constant
+from ..ops._device import device_constant, true_div
 from ..ops.cuda import gcc_kernel, gcc_large, gn_kernel
 from ..utils import profiling
 
@@ -610,7 +610,7 @@ def solve_tail(tdoa_samples: torch.Tensor, xy_grid: torch.Tensor,
     """(xy, rms_m, xy_cov) of the solver tail from TDOAs [B, P] in samples
     and the grid peak [B, 2]: the GN kernel ``gn`` when given, else the
     batched solver and ``solution_covariance``."""
-    tdoa_s = tdoa_samples / cfg.sample_rate_hz
+    tdoa_s = true_div(tdoa_samples, cfg.sample_rate_hz)
     if gn is not None:
         return gn(tdoa_s, xy_grid)
     xy, rms = solver_ops.solve_tdoa_batched(

@@ -38,6 +38,15 @@ def device_constant(arr: np.ndarray, device, dtype=torch.float32):
     return hit[1]
 
 
+def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` as one rounded division on every device.  CUDA divides a
+    tensor by a host scalar as a product with the scalar's reciprocal,
+    which lands an ulp off the quotient at times, and a Gauss-Newton solve
+    from a far grid cell can carry an ulp of its init or its TDOAs to 1e-4
+    m; a divisor on ``x``'s device is divided by, as the CPU does."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
 def pin_fp32_for(x: torch.Tensor) -> None:
     """Turn TF32 off (``models.localizer.pin_fp32``) when ``x`` lies on a
     CUDA device: the entry points of plain-torch paths call this."""

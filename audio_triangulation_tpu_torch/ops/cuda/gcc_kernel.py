@@ -25,9 +25,9 @@ On a CUDA tensor :func:`fused_gcc` and :func:`fused_gcc_srp` launch
 version of the mode (:func:`gcc_reference`, :func:`gcc_stats_reference`,
 :func:`gcc_srp_reference`).  ``launches`` counts base-mode launches,
 ``stats_launches`` stats-mode launches and ``srp_launches`` SRP-mode
-launches; by the DFT stage a launch runs, ``wgmma_dft_launches`` counts the
-base, SRP and pipelined launches (``wgmma`` fed by TMA) and
-``mma_sync_dft_launches`` the stats mode's (``mma.sync``).
+launches.  No mode picks between DFT stages: the base, SRP and pipelined
+launches take the ``wgmma`` one fed by TMA, the stats mode the ``mma.sync``
+one, and :func:`dft_path_launches` counts the launches so by DFT stage.
 
 :func:`fused_gcc_pipelined` is the base mode with peaks as a persistent
 kernel that walks the batch tiles itself, each tile's frames staged one
@@ -58,8 +58,13 @@ launches = 0
 stats_launches = 0
 srp_launches = 0
 pipelined_launches = 0
-wgmma_dft_launches = 0
-mma_sync_dft_launches = 0
+
+
+def dft_path_launches() -> dict:
+    """Launches by the DFT stage they ran: ``wgmma`` (base, SRP and
+    pipelined) and ``mma_sync`` (stats)."""
+    return {"wgmma": launches + srp_launches + pipelined_launches,
+            "mma_sync": stats_launches}
 
 
 # The split, packed synthesis matrix that the stats mode's synthesis stage
@@ -681,13 +686,13 @@ def srp_mode_fits(frames: torch.Tensor, cfg: PipelineConfig,
         frames.shape[-2], n_pairs, l) >= 1)
 
 
-def _checked(frames, win_gain, mats: GccMatrices, pairs, kernel: str):
+def _checked(frames, win_gain, mats: GccMatrices, pairs, kernel: str,
+             dft: tuple):
     """The launch operands on ``frames``' CUDA device, checked against the
-    frames: (dims (b, m, n, f, fp, p, l), frames, [win_gain, the packed DFT
-    matrix, sync, syns], pairs int32).  Refuses inputs that require grad
-    (``_build.refuse_grad``)."""
-    _build.refuse_grad(kernel, frames, win_gain, mats.dft, mats.sync,
-                       mats.syns, mats.synp, mats.dft_split, mats.dft_tail)
+    frames: (dims (b, m, n, f, p, l), frames, [win_gain, sync, syns], pairs
+    int32).  Refuses inputs that require grad (``_build.refuse_grad``),
+    ``dft`` the mode's DFT operands among them."""
+    _build.refuse_grad(kernel, frames, win_gain, mats.sync, mats.syns, *dft)
     if frames.device.type != "cuda":
         raise ValueError(f"the GCC kernel needs CUDA tensors; frames are on "
                          f"{frames.device}")
@@ -696,15 +701,13 @@ def _checked(frames, win_gain, mats: GccMatrices, pairs, kernel: str):
     p = pairs.shape[0]
     dev = frames.device
     pairs32 = pairs.to(device=dev, dtype=torch.int32).contiguous()
-    fp = -(-f // 4) * 4  # bins padded to whole column tiles
     ins = [t.to(device=dev, dtype=torch.float32).contiguous()
-           for t in (win_gain, mats.dft, mats.sync, mats.syns)]
-    if (ins[0].shape != (n,) or ins[1].shape != (-(-n // 8), fp // 4, 32, 2)
-            or ins[3].shape != (f, l)):
+           for t in (win_gain, mats.sync, mats.syns)]
+    if ins[0].shape != (n,) or ins[2].shape != (f, l):
         raise ValueError("GCC operand shapes do not match the frames")
     if p < 1 or pairs32.shape != (p, 2) or l % 2 == 0:
         raise ValueError("bad pair list or lag count for the GCC kernel")
-    return (b, m, n, f, fp, p, l), frames.contiguous(), ins, pairs32
+    return (b, m, n, f, p, l), frames.contiguous(), ins, pairs32
 
 
 def _tma_frames(frames: torch.Tensor):
@@ -719,6 +722,11 @@ def _tma_frames(frames: torch.Tensor):
                          device=frames.device)
     padded[..., :n] = frames
     return padded, ld
+
+
+def _split_dft(mats: GccMatrices):
+    """The base, SRP and pipelined instances' DFT operands."""
+    return mats.dft_tail, mats.dft_split
 
 
 def _split_operands(mats: GccMatrices, n: int, f: int, dev):
@@ -748,9 +756,9 @@ def launch(frames, win_gain, mats: GccMatrices, pairs, *, phat: bool,
     take.  The pair indices are not range-checked here (that would sync
     with the device): they must index the M mics, as ``Localizer.create``
     and ``params_from_reference`` ensure."""
-    global launches, wgmma_dft_launches
-    (b, m, n, f, fp, p, l), frames, ins, pairs32 = _checked(
-        frames, win_gain, mats, pairs, "gcc_kernel")
+    global launches
+    (b, m, n, f, p, l), frames, ins, pairs32 = _checked(
+        frames, win_gain, mats, pairs, "gcc_kernel", _split_dft(mats))
     lib = _lib()
     if lib.att_gcc_frames_per_block(m, p, l) < 1:
         raise ValueError(f"one frame of {m} mics, {p} pairs x {l} lags does "
@@ -761,7 +769,7 @@ def launch(frames, win_gain, mats: GccMatrices, pairs, *, phat: bool,
         # Temporaries may be freed once launched: the caching allocator
         # reuses memory in the order of the stream the kernel runs on.
         x, ld = _tma_frames(frames)
-        ptr = [t.data_ptr() for t in (ins[0], tail, wk, *ins[2:], pairs32)]
+        ptr = [t.data_ptr() for t in (ins[0], tail, wk, *ins[1:], pairs32)]
         optr = [t.data_ptr() for t in outs] + [None] * (5 - len(outs))
         per_mic = phat and xcorr.phat_per_mic(m)
         with torch.cuda.device(frames.device):
@@ -771,7 +779,6 @@ def launch(frames, win_gain, mats: GccMatrices, pairs, *, phat: bool,
                 torch.cuda.current_stream(frames.device).cuda_stream)
         with _build.count_lock:
             launches += 1
-            wgmma_dft_launches += 1
         _build.check(err, "gcc_kernel launch", lib)
     return outs if with_peaks else outs[0]
 
@@ -785,9 +792,10 @@ def launch_pipelined(frames, win_gain, mats: GccMatrices, pairs, *,
     Its size limit: one frame's correlograms and its staged samples (M
     rows of N floats, a multiple of 16 bytes) must fit a block's shared
     memory."""
-    global pipelined_launches, wgmma_dft_launches
-    (b, m, n, f, fp, p, l), frames, ins, pairs32 = _checked(
-        frames, win_gain, mats, pairs, "gcc_pipelined_kernel")
+    global pipelined_launches
+    (b, m, n, f, p, l), frames, ins, pairs32 = _checked(
+        frames, win_gain, mats, pairs, "gcc_pipelined_kernel",
+        _split_dft(mats))
     lib = _lib()
     if n % 4 or lib.att_gcc_pipelined_frames_per_block(m, n, p, l) < 1:
         raise ValueError(f"one frame of {m} mics x {n} samples, {p} pairs "
@@ -796,7 +804,7 @@ def launch_pipelined(frames, win_gain, mats: GccMatrices, pairs, *,
     tail, wk = _split_operands(mats, n, f, frames.device)
     outs = _outputs(b, p, l, frames.device, True)
     if b > 0:
-        ptr = [t.data_ptr() for t in (frames, ins[0], tail, wk, *ins[2:],
+        ptr = [t.data_ptr() for t in (frames, ins[0], tail, wk, *ins[1:],
                                       pairs32, *outs)]
         per_mic = phat and xcorr.phat_per_mic(m)
         with torch.cuda.device(frames.device):
@@ -806,7 +814,6 @@ def launch_pipelined(frames, win_gain, mats: GccMatrices, pairs, *,
                 torch.cuda.current_stream(frames.device).cuda_stream)
         with _build.count_lock:
             pipelined_launches += 1
-            wgmma_dft_launches += 1
         _build.check(err, "gcc_kernel pipelined launch", lib)
     return outs
 
@@ -821,9 +828,9 @@ def launch_srp(frames, win_gain, mats: GccMatrices, pairs, lut_flat, *,
     as int16); the grid size G has no limit (the LUT is staged a chunk of
     cells at a time).  LUT entries are clamped to the lag axis, not
     range-checked."""
-    global srp_launches, wgmma_dft_launches
-    (b, m, n, f, fp, p, l), frames, ins, pairs32 = _checked(
-        frames, win_gain, mats, pairs, "gcc_srp_kernel")
+    global srp_launches
+    (b, m, n, f, p, l), frames, ins, pairs32 = _checked(
+        frames, win_gain, mats, pairs, "gcc_srp_kernel", _split_dft(mats))
     dev = frames.device
     tail, wk = _split_operands(mats, n, f, dev)
     lut32 = lut_flat.to(device=dev, dtype=torch.int32).contiguous()
@@ -842,7 +849,7 @@ def launch_srp(frames, win_gain, mats: GccMatrices, pairs, lut_flat, *,
                          device=dev)
     if b > 0:
         x, ld = _tma_frames(frames)
-        ptr = [t.data_ptr() for t in (ins[0], tail, wk, *ins[2:], pairs32,
+        ptr = [t.data_ptr() for t in (ins[0], tail, wk, *ins[1:], pairs32,
                                       lut32)]
         optr = [t.data_ptr() for t in (*outs, cell, score, scores)]
         per_mic = phat and xcorr.phat_per_mic(m)
@@ -854,7 +861,6 @@ def launch_srp(frames, win_gain, mats: GccMatrices, pairs, lut_flat, *,
                 torch.cuda.current_stream(dev).cuda_stream)
         with _build.count_lock:
             srp_launches += 1
-            wgmma_dft_launches += 1
         _build.check(err, "gcc_kernel SRP launch", lib)
     return (*outs, cell, score, scores)
 
@@ -866,9 +872,10 @@ def launch_stats(frames, win_gain, mats: GccMatrices, pairs,
     """Run ``csrc/gcc_kernel.cu``'s stats mode on CUDA tensors (same
     contract as :func:`gcc_stats_reference`); raises on anything it does
     not take, a frame too large for its shared memory included."""
-    global stats_launches, mma_sync_dft_launches
-    (b, m, n, f, fp, p, l), frames, ins, pairs32 = _checked(
-        frames, win_gain, mats, pairs, "gcc_stats_kernel")
+    global stats_launches
+    (b, m, n, f, p, l), frames, ins, pairs32 = _checked(
+        frames, win_gain, mats, pairs, "gcc_stats_kernel",
+        (mats.dft, mats.synp))
     if sp.phase and not with_peaks:
         raise ValueError("the phase-slope TDOA needs the peak stage")
     if f != sp.fft_length // 2 + 1:
@@ -878,7 +885,11 @@ def launch_stats(frames, win_gain, mats: GccMatrices, pairs,
         raise ValueError(f"one frame of {m} mics, {p} pairs x {f} bins does "
                          "not fit the stats mode's shared memory")
     dev = frames.device
-    synp = mats.synp.to(device=dev, dtype=torch.float32).contiguous()
+    fp = -(-f // 4) * 4  # bins padded to whole column tiles
+    dft, synp = (t.to(device=dev, dtype=torch.float32).contiguous()
+                 for t in (mats.dft, mats.synp))
+    if dft.shape != (-(-n // 8), fp // 4, 32, 2):
+        raise ValueError("the packed DFT matrix does not match the frames")
     ntb, n_lb, fpad = split_dims(f, l, STATS_LAG_TILES)
     if synp.shape != (n_lb, fpad // 4, ntb, 32, 4):
         raise ValueError("the packed synthesis matrix does not match the "
@@ -887,7 +898,8 @@ def launch_stats(frames, win_gain, mats: GccMatrices, pairs,
     band = (torch.empty((b, f), dtype=torch.float32, device=dev)
             if with_band and sp.band_auto else None)
     if b > 0:
-        ptr = [t.data_ptr() for t in (frames, *ins, synp, pairs32)]
+        ptr = [t.data_ptr() for t in (frames, ins[0], dft, *ins[1:], synp,
+                                      pairs32)]
         optr = [t.data_ptr() for t in outs] + [None] * (5 - len(outs))
         per_mic = phat and xcorr.phat_per_mic(m)
         with torch.cuda.device(dev):
@@ -900,7 +912,6 @@ def launch_stats(frames, win_gain, mats: GccMatrices, pairs,
                 torch.cuda.current_stream(dev).cuda_stream)
         with _build.count_lock:
             stats_launches += 1
-            mma_sync_dft_launches += 1
         _build.check(err, "gcc_kernel stats launch", lib)
     extra = (band,) if with_band else ()
     if not with_peaks:

@@ -25,6 +25,8 @@ from __future__ import annotations
 
 import torch
 
+from ._device import true_div
+
 
 def srp_scores_matmul(correlograms: torch.Tensor, onehot: torch.Tensor,
                       dtype: str = "float32") -> torch.Tensor:
@@ -208,8 +210,8 @@ def cell_to_xy(cell: torch.Tensor, width: int, half_cells: tuple[int, int],
     half_x, half_y = half_cells
     row = torch.div(cell, width, rounding_mode="floor")
     col = cell % width
-    x_m = (col.float() + dx - half_x) / cells_per_m
-    y_m = (half_y - (row.float() + dy)) / cells_per_m
+    x_m = true_div(col.float() + dx - half_x, cells_per_m)
+    y_m = true_div(half_y - (row.float() + dy), cells_per_m)
     return torch.stack([x_m, y_m], dim=-1)
 
 

@@ -666,11 +666,11 @@ def test_cuda_wgmma_dft_at_benchmark_shapes(cuda_device, case):
     ref64 = tgcc.gcc_reference(*ops64, **args, with_peaks=True)
     split = tgcc.gcc_reference(x, win_gain, mats, pt, **args,
                                with_peaks=False, split=True)
-    before = (tgcc.wgmma_dft_launches, tgcc.mma_sync_dft_launches)
+    before = tgcc.dft_path_launches()
     raw = tgcc.launch(x, win_gain, mats, pt, **args, with_peaks=False)
     got = tgcc.launch(x, win_gain, mats, pt, **args, with_peaks=True)
-    assert (tgcc.wgmma_dft_launches, tgcc.mma_sync_dft_launches) == (
-        before[0] + 2, before[1])
+    assert tgcc.dft_path_launches() == {
+        "wgmma": before["wgmma"] + 2, "mma_sync": before["mma_sync"]}
     scale = float(raw64.abs().max())
     assert float((raw.double() - raw64).abs().max()) / scale < 1e-4
     assert float((got[0].double() - ref64[0]).abs().max()) / scale < 1e-4
@@ -696,7 +696,8 @@ def test_cuda_dft_launch_counts_by_path(cuda_device):
     lut = torch.zeros((len(pairs), 5), dtype=torch.int32, device=cuda_device)
 
     def counts():
-        return tgcc.wgmma_dft_launches, tgcc.mma_sync_dft_launches
+        c = tgcc.dft_path_launches()
+        return c["wgmma"], c["mma_sync"]
 
     c0 = counts()
     tgcc.launch(x, win_gain, mats, pt, **args, with_peaks=True)

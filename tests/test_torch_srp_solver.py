@@ -11,6 +11,7 @@ from audio_triangulation_tpu.core import config as jcfg, geometry as jgeo
 from audio_triangulation_tpu.ops import solver as jsolver, srp as jsrp
 from audio_triangulation_tpu_torch.core import config as tcfg
 from audio_triangulation_tpu_torch.ops import solver as tsolver, srp as tsrp
+from audio_triangulation_tpu_torch.ops._device import true_div
 
 C, H = 343.0, 1.2
 
@@ -89,6 +90,23 @@ def test_quantize_heatmap_and_cell_to_xy_match(rng):
         atol=1e-7)
     for p, l, g in ((6, 93, 1089), (253, 93, 10201)):
         assert tsrp.auto_srp_form(p, l, g) == jsrp.auto_srp_form(p, l, g)
+
+
+@pytest.mark.gpu
+def test_cuda_cell_to_xy_and_tdoa_seconds_equal_the_cpu(rng):
+    """Grid cell coordinates and TDOAs in seconds come out of the card bit
+    for bit as out of the CPU: CUDA divides by a host scalar as a product
+    with its reciprocal, an ulp off at some cells, and a Gauss-Newton solve
+    from a far cell carries that ulp to 1e-4 m."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cells = torch.arange(101 * 101)
+    for cpm in (24.0, 12.0, 10.0):
+        cpu = tsrp.cell_to_xy(cells, 101, (50, 50), cpm)
+        card = tsrp.cell_to_xy(cells.cuda(), 101, (50, 50), cpm).cpu()
+        assert torch.equal(card, cpu)
+    tdoa = torch.from_numpy(rng.normal(0.0, 30.0, 4096).astype(np.float32))
+    assert torch.equal(true_div(tdoa.cuda(), 16000.0).cpu(), tdoa / 16000.0)
 
 
 def _problem(rng, mics, sphere, b=24, outliers=False):
