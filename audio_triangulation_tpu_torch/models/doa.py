@@ -17,12 +17,20 @@ azimuth form of ``ops.srp_freq.music_spectrum``.
 The estimators are ``nn.Module`` s whose buffers live on the device given
 to ``create``; every lag window widens to the array's aperture unless
 ``max_shift_samples`` is set.
+
+Spans (``utils/profiling``, on only while tracing): ``doa.forward`` (host)
+around a :class:`DoaEstimator` call, and inside it, under one call id,
+``doa.gcc`` (the correlograms), ``doa.srp`` (best lag, taper, azimuth
+scores) and ``doa.tail`` (sub-sample peak, bearing solve, azimuth
+refinement), timed by CUDA events on the card; counts ``doa.frames`` and
+the GCC route of the call, ``doa.route.kernel`` / ``large`` / ``unfused``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 import numpy as np
 import torch
@@ -33,6 +41,7 @@ from ..core.config import PipelineConfig
 from ..ops import mxu_fft, srp, srp_freq, xcorr
 from ..ops import solver as solver_ops, window as window_ops
 from ..ops._device import device_constant
+from ..utils import profiling
 from . import localizer as localizer_mod
 
 
@@ -208,16 +217,17 @@ class DoaEstimator(nn.Module):
         return _params(self)
 
     def forward(self, frames: torch.Tensor) -> dict:
-        _check_frames(frames, self.window, self.mic_positions.shape[0],
-                      self.pipeline.frame_size)
-        if self.merge is None:
-            return estimate_doa(
-                self.params, self.onehot_az, frames, cfg=self.pipeline,
-                n_azimuths=self.n_azimuths)
-        return estimate_doa_smp(
-            self.params, self.onehot_az, self.merge, frames,
-            cfg=self.pipeline, n_azimuths=self.n_azimuths,
-            pseudo_mics=self.pseudo_mics, pseudo_pairs=self.pseudo_pairs)
+        with profiling.annotate("doa.forward"):
+            _check_frames(frames, self.window, self.mic_positions.shape[0],
+                          self.pipeline.frame_size)
+            if self.merge is None:
+                return estimate_doa(
+                    self.params, self.onehot_az, frames, cfg=self.pipeline,
+                    n_azimuths=self.n_azimuths)
+            return estimate_doa_smp(
+                self.params, self.onehot_az, self.merge, frames,
+                cfg=self.pipeline, n_azimuths=self.n_azimuths,
+                pseudo_mics=self.pseudo_mics, pseudo_pairs=self.pseudo_pairs)
 
 
 def _refine_azimuth(scores: torch.Tensor, n_azimuths: int) -> torch.Tensor:
@@ -251,6 +261,22 @@ def _doa_result(corr, scores, shifts, mics, pairs, cfg, n_azimuths):
     }
 
 
+def _count_call(frames: torch.Tensor, route: str) -> None:
+    """The counts of one estimator call on ``frames`` [..., M, N] (nothing
+    with tracing off)."""
+    profiling.count("doa.frames", math.prod(frames.shape[:-2]))
+    profiling.count("doa.route." + route)
+
+
+def _steered_scores(corr, onehot, cfg):
+    """(best shifts [B, P], scores [B, D]) of raw correlograms: the
+    first-max lag, the taper around it, the one-hot steering product."""
+    shifts = xcorr.best_lag(corr, cfg.max_shift)
+    corr_t = (xcorr.peak_taper(corr, cfg.max_shift, cfg.taper_denom, shifts)
+              if cfg.taper_enabled else corr)
+    return shifts, srp.srp_scores_matmul(corr_t, onehot)
+
+
 def _lead(out: dict, lead) -> dict:
     return {k: v.reshape(*lead, *v.shape[1:]) for k, v in out.items()}
 
@@ -272,14 +298,22 @@ def estimate_doa(
 ) -> dict:
     """frames [..., M, N] -> 'azimuth_deg' [...], 'scores' [..., A],
     'bearing' [..., 2], 'tdoa_samples' and 'best_shift' [..., P]."""
-    k = cfg.max_shift
-    corr, lead = _raw_correlograms(params, frames, cfg)
-    shifts = xcorr.best_lag(corr, k)
-    corr_t = (xcorr.peak_taper(corr, k, cfg.taper_denom, shifts)
-              if cfg.taper_enabled else corr)
-    scores = srp.srp_scores_matmul(corr_t, onehot_az)  # [B, A]
-    return _lead(_doa_result(corr, scores, shifts, params.mic_positions,
-                             params.pairs, cfg, n_azimuths), lead)
+    lead = frames.shape[:-2]
+    flat = localizer_mod._flat_frames(frames, cfg)
+    if profiling.enabled():
+        on_kernel, on_large = localizer_mod.gcc_routes(
+            flat, cfg, params.pairs.shape[0], with_peaks=False)
+        _count_call(flat, "kernel" if on_kernel
+                    else "large" if on_large else "unfused")
+    call = profiling.call_id()
+    with profiling.annotate("doa.gcc", flat.device, call):
+        corr = localizer_mod.conditioned_correlograms(flat, params, cfg)
+    with profiling.annotate("doa.srp", flat.device, call):
+        shifts, scores = _steered_scores(corr, onehot_az, cfg)  # [B, A]
+    with profiling.annotate("doa.tail", flat.device, call):
+        out = _doa_result(corr, scores, shifts, params.mic_positions,
+                          params.pairs, cfg, n_azimuths)
+    return _lead(out, lead)
 
 
 def estimate_doa_smp(
@@ -300,37 +334,40 @@ def estimate_doa_smp(
     group).  With the taper on, the taper acts on the merged correlogram."""
     k = cfg.max_shift
     pairs = params.pairs
-    crop = mxu_fft.crop_bins(cfg)
-    x = localizer_mod.condition_frames(frames, params.window, cfg)
-    if crop is not None:
-        re, im = mxu_fft.forward_spectra_band(
-            x, cfg.fft_length, *crop, cfg.matmul_dtype)
-        syn_c, syn_s = mxu_fft.lag_synthesis_matrices_band(
-            cfg.fft_length, k, *crop)
-    else:
-        re, im = mxu_fft.forward_spectra(x, cfg.fft_length, cfg.matmul_dtype)
-        syn_c, syn_s = mxu_fft.masked_synthesis(cfg)
-    rr, jj = mxu_fft.cross_power_reim(
-        re, im, pairs, phat=cfg.phat, phat_eps=cfg.phat_eps,
-        phat_beta=cfg.phat_beta)
-    if cfg.band_auto:
-        # pair-averaged, so the same for every group: weight before merging
-        w = xcorr.auto_band_weight(torch.complex(re, im), pairs,
-                                   cfg)[..., None, :]
-        rr = rr * w
-        jj = jj * w
-    rr = torch.einsum("pq,...pf->...qf", merge, rr)  # [..., P', F]
-    jj = torch.einsum("pq,...pf->...qf", merge, jj)
-    corr = mxu_fft.lag_correlogram(
-        rr, jj, device_constant(syn_c, frames.device),
-        device_constant(syn_s, frames.device), cfg.matmul_dtype)
-
-    shifts = xcorr.best_lag(corr, k)
-    corr_t = (xcorr.peak_taper(corr, k, cfg.taper_denom, shifts)
-              if cfg.taper_enabled else corr)
-    scores = srp.srp_scores_matmul(corr_t, onehot_az)
-    return _doa_result(corr, scores, shifts, pseudo_mics, pseudo_pairs, cfg,
-                       n_azimuths)
+    _count_call(frames, "unfused")
+    call = profiling.call_id()
+    with profiling.annotate("doa.gcc", frames.device, call):
+        crop = mxu_fft.crop_bins(cfg)
+        x = localizer_mod.condition_frames(frames, params.window, cfg)
+        if crop is not None:
+            re, im = mxu_fft.forward_spectra_band(
+                x, cfg.fft_length, *crop, cfg.matmul_dtype)
+            syn_c, syn_s = mxu_fft.lag_synthesis_matrices_band(
+                cfg.fft_length, k, *crop)
+        else:
+            re, im = mxu_fft.forward_spectra(x, cfg.fft_length,
+                                             cfg.matmul_dtype)
+            syn_c, syn_s = mxu_fft.masked_synthesis(cfg)
+        rr, jj = mxu_fft.cross_power_reim(
+            re, im, pairs, phat=cfg.phat, phat_eps=cfg.phat_eps,
+            phat_beta=cfg.phat_beta)
+        if cfg.band_auto:
+            # pair-averaged, so the same for every group: weight before
+            # merging
+            w = xcorr.auto_band_weight(torch.complex(re, im), pairs,
+                                       cfg)[..., None, :]
+            rr = rr * w
+            jj = jj * w
+        rr = torch.einsum("pq,...pf->...qf", merge, rr)  # [..., P', F]
+        jj = torch.einsum("pq,...pf->...qf", merge, jj)
+        corr = mxu_fft.lag_correlogram(
+            rr, jj, device_constant(syn_c, frames.device),
+            device_constant(syn_s, frames.device), cfg.matmul_dtype)
+    with profiling.annotate("doa.srp", frames.device, call):
+        shifts, scores = _steered_scores(corr, onehot_az, cfg)
+    with profiling.annotate("doa.tail", frames.device, call):
+        return _doa_result(corr, scores, shifts, pseudo_mics, pseudo_pairs,
+                           cfg, n_azimuths)
 
 
 # ----------------------------------------------------------------------
@@ -538,15 +575,11 @@ def estimate_doa_3d(
     'scores' [..., D], 'tdoa_samples', 'best_shift'.  A non-coplanar array
     takes both angles from the least-squares bearing; ``coplanar`` keeps
     its azimuth and the lattice peak's elevation."""
-    k = cfg.max_shift
     corr, lead = _raw_correlograms(params, frames, cfg)
-    shifts = xcorr.best_lag(corr, k)
-    corr_t = (xcorr.peak_taper(corr, k, cfg.taper_denom, shifts)
-              if cfg.taper_enabled else corr)
-    scores = srp.srp_scores_matmul(corr_t, onehot_sph)  # [B, D]
+    shifts, scores = _steered_scores(corr, onehot_sph, cfg)  # [B, D]
     u_grid = dirs[scores.argmax(dim=-1)]  # [B, 3]
 
-    tdoa_samples, _ = xcorr.subsample_peak(corr, k)
+    tdoa_samples, _ = xcorr.subsample_peak(corr, cfg.max_shift)
     u_ls = solver_ops.farfield_bearing(
         tdoa_samples / cfg.sample_rate_hz, params.mic_positions,
         params.pairs, cfg.speed_of_sound_mps)

@@ -1,9 +1,10 @@
 """The port's span system (``utils/profiling``): spans off cost nothing and
 make nothing; on, records nest with parents, ids and self time; the
-``StageTimer`` reads them; ``localize_frames`` and the stream step give
-bit-equal outputs with tracing on and off and open their spans in order;
-the benchmark's readers of the spans and counts.  The ``gpu`` cases time a
-graphed step's stages on the card inside its CUDA graph.  No JAX here: the
+``StageTimer`` reads them; ``localize_frames``, the stream step and the
+DoA estimator give bit-equal outputs with tracing on and off and open
+their spans in order; the benchmark's readers of the spans and counts.
+The ``gpu`` cases time a graphed step's stages on the card inside its CUDA
+graph, and the DoA estimator's stages.  No JAX here: the
 ``gpu`` cases run on the card (``python -m pytest
 tests/test_torch_tracing.py -m gpu -q``)."""
 
@@ -14,15 +15,22 @@ import torch
 
 from audio_triangulation_tpu_torch import (Localizer, StreamConfig,
                                            StreamingLocalizer)
+from audio_triangulation_tpu_torch.models.doa import DoaEstimator
 from audio_triangulation_tpu_torch.utils import profiling
 from benchmark import scenes, spans, spec as spec_mod, trace as trace_mod
 from benchmark.harness import Readings, mics_of, port_configs
+from benchmark.kinds import doa as doa_kind
 
 SPEC = spec_mod.load_spec()
 CELL = spec_mod.workload(SPEC, "ref3_firmware.stream4k")
 CONFIG = spec_mod.config_of(SPEC, CELL)
 STAGES = ("stream.detect", "stream.correlate", "stream.smooth",
           "stream.health", "stream.srp", "stream.solve")
+DOA_CELL = spec_mod.workload(SPEC, "circ8_doa.batch16k")
+DOA_CONFIG = spec_mod.config_of(SPEC, DOA_CELL)
+DOA_STAGES = ("doa.gcc", "doa.srp", "doa.tail")
+DOA_METRICS = ("doa.gcc_kernel_roofline", "doa.gcc_stage_ms",
+               "doa.srp_stage_ms", "doa.tail_stage_ms", "idle_pct.doa")
 
 
 @pytest.fixture(autouse=True)
@@ -251,6 +259,18 @@ def test_trace_turns_tracing_on_inside(tmp_path):
 # the spans of the program
 # ----------------------------------------------------------------------
 
+def _estimator(device="cpu", smp=False):
+    return DoaEstimator.create(mics_of(DOA_CONFIG),
+                               doa_kind.pipeline_of(DOA_CONFIG),
+                               DOA_CONFIG["n_azimuths"], smp=smp,
+                               device=device)
+
+
+def _doa_frames(device, b=8, seed=2103):
+    traffic = dict(spec_mod.traffic_of(DOA_CELL), frames_per_call=b,
+                   pool_batches=1)
+    return doa_kind.plane_wave_pool(DOA_CONFIG, traffic, seed, device)[0]
+
 def test_localize_frames_bit_equal_and_spans_in_order():
     loc = _localizer()
     frames = _frames("cpu")
@@ -267,6 +287,26 @@ def test_localize_frames_bit_equal_and_spans_in_order():
         ("loc.forward", None)]
     assert len({r.call for r in recs}) == 1 and direct != recs[0].call
     assert recs[2].host_self_ms < recs[2].host_ms
+
+
+@pytest.mark.parametrize("smp,route", [(False, "kernel"), (True, "unfused")])
+def test_doa_estimator_bit_equal_spans_in_order_and_counts(smp, route):
+    est = _estimator(smp=smp)
+    frames = _doa_frames("cpu")
+    off = est(frames)
+    assert profiling.counters() == {}
+    with profiling.tracing():
+        on = est(frames)
+        counts = profiling.counters()
+    assert set(on) == set(off)
+    for k in off:
+        assert torch.equal(on[k], off[k]), k
+    recs = profiling.records()
+    assert [(r.name, r.parent) for r in recs] == [
+        (name, "doa.forward") for name in DOA_STAGES] + [("doa.forward", None)]
+    assert len({r.call for r in recs}) == 1
+    assert all(r.device_ms is None for r in recs)  # no CUDA device here
+    assert counts == {"doa.frames": frames.shape[0], f"doa.route.{route}": 1}
 
 
 def test_step_many_bit_equal_and_stage_spans_in_order():
@@ -406,6 +446,63 @@ def test_span_metrics_have_entries_and_readers():
         assert name not in entries and callable(spec_mod.reader(name))
 
 
+def _doa_readings(trace, frames=16384):
+    st = doa_kind.shapes_of(DOA_CONFIG, frames)
+    return Readings(DOA_CELL, DOA_CONFIG, {}, st, trace, {})
+
+
+def test_doa_metrics_have_entries_and_readers():
+    entries = {m["name"]: m for m in SPEC["per_layer"]}
+    for name in DOA_METRICS:
+        m = entries[name]
+        assert m["workloads"] == [DOA_CELL["name"]], name
+        assert m["moves"] == "frames_per_s" and m["source"] == "device_trace"
+        assert callable(spec_mod.reader(name)), name
+    cell_metrics = {m["name"] for m in spec_mod.per_layer_of(
+        SPEC, DOA_CELL["name"])}
+    assert cell_metrics == set(DOA_METRICS)
+
+
+def test_doa_readers_on_synthetic_records_and_trace(monkeypatch):
+    from benchmark.roofline import gcc_bound
+
+    recs = [profiling.Record("doa.forward", None, 99, 0, 1)]
+    for call in range(3):
+        for i, name in enumerate(DOA_STAGES):
+            recs.append(profiling.Record(name, "doa.forward", call, 0, 0,
+                                         device_ms=10.0 * (i + 1) + call))
+    monkeypatch.setattr(profiling, "records", lambda: recs)
+    tr = trace_mod.Trace(
+        [("void gcc_kernel<false>(CUtensorMap_st)", "kernel", 0.0, 30000.0),
+         ("void gcc_kernel<false>(CUtensorMap_st)", "kernel", 40000.0,
+          34000.0),
+         ("sgemm", "kernel", 30000.0, 1000.0)], [], 0.0, 80000.0, 2)
+    r = _doa_readings(tr)
+    # the last 2 calls' spans (the traced stretch's), their median
+    for i, name in enumerate(DOA_STAGES):
+        got = spec_mod.reader(name + "_stage_ms")(r)
+        assert got == pytest.approx(10.0 * (i + 1) + 1.5), name
+    bound = gcc_bound(16384, 8, 1024, 1025, 28, 91, with_peaks=False)
+    assert spec_mod.reader("doa.gcc_kernel_roofline")(r) == pytest.approx(
+        100.0 * bound["bound_ms"] / 32.0)
+    assert spec_mod.reader("idle_pct.doa")(r) == pytest.approx(
+        100.0 * (1 - 65000.0 / 80000.0))
+    # row 2's bound at the estimator shape in the kernel table (PERF.md)
+    assert bound["bound_ms"] == pytest.approx(4.4146, abs=1e-4)
+
+
+def test_doa_readers_read_none_without_records_or_trace(monkeypatch):
+    for name in DOA_METRICS:
+        assert spec_mod.reader(name)(_doa_readings(None)) is None, name
+    r = _doa_readings(trace_mod.Trace([], [], 0.0, 1.0, 2))
+    for name in DOA_METRICS:  # tracing on nothing
+        assert spec_mod.reader(name)(r) is None, name
+    # a program without the span system (an older one)
+    monkeypatch.delattr(profiling, "records")
+    for name in DOA_METRICS[1:4]:
+        assert spec_mod.reader(name)(r) is None, name
+
+
 # ----------------------------------------------------------------------
 # on the card
 # ----------------------------------------------------------------------
@@ -510,3 +607,31 @@ def test_eager_localizer_spans_time_on_the_card(cuda_device, monkeypatch):
     assert len(free) == pairs - 2
     profiling.records()
     assert len(free) == pairs
+
+
+@pytest.mark.gpu
+def test_doa_spans_time_on_the_card(cuda_device):
+    """``doa.gcc``, ``doa.srp`` and ``doa.tail`` timed on the card by their
+    events, inside the host span ``doa.forward``; bit-equal outputs with
+    tracing on and off; one GCC kernel launch a call."""
+    est = _estimator(cuda_device)
+    frames = _doa_frames(cuda_device, b=4096)
+    off = {k: v.clone() for k, v in est(frames).items()}
+    torch.cuda.synchronize()
+    with profiling.tracing():
+        for _ in range(3):
+            on = est(frames)
+        counts = profiling.counters()
+    for k in off:
+        assert torch.equal(on[k], off[k]), k
+    recs = profiling.records()
+    for name in DOA_STAGES:
+        ms = [r.device_ms for r in recs if r.name == name]
+        assert len(ms) == 3 and all(m > 0 for m in ms), name
+    assert all(r.device_ms is None for r in recs if r.name == "doa.forward")
+    assert counts == {"doa.frames": 3 * 4096, "doa.route.kernel": 3}
+    from audio_triangulation_tpu_torch.ops.cuda import gcc_kernel
+
+    before = gcc_kernel.launches
+    est(frames)
+    assert gcc_kernel.launches == before + 1
