@@ -2,8 +2,9 @@
 //
 // Replaces audio_triangulation_tpu/ops/pallas/gcc_kernel.py::_gcc_kernel in
 // its base mode (rows 1 and 2 of the port's kernel table: with and without
-// the in-kernel peak stage), its compact "Mode B" (row 4, in-kernel SRP) and
-// its spectral-stats mode (row 3, below).  Base mode, per frame [M, N]:
+// the in-kernel peak stage; row 2 at many pairs in the pair instance), its
+// compact "Mode B" (row 4, in-kernel SRP) and its spectral-stats mode (row
+// 3, below).  Base mode, per frame [M, N]:
 //
 //   mean removal, x (window * gain)
 //   Re/Im DFT against cos / -sin, split and packed by the host (pack_dft_split)
@@ -56,7 +57,50 @@
 // do not depend on which other rows share its block: the SRP mode and the
 // pipelined instance, run at other tile sizes or with more shared memory,
 // stay bit-equal to it.
-// What bounds it now.  Per multiply-add a block pulls 0.021 bytes of
+//
+// The pair instance (gcc_kernel<false, true>: row 2, the base mode without
+// peaks, where the correlograms would crowd the tile).  The fused body
+// holds a block's correlograms [TB P, L] in shared memory and cuts TB until
+// they fit beside the ring: at 8 mics, 28 pairs and 91 lags 10 frames, 80
+// of the 128 rows, and 280 (frame, pair) rows of synthesis on the CUDA
+// cores a block.  The wrapper routes to this instance where fewer than
+// 128 / M frames a block fit.  One persistent launch (SM count x blocks an
+// SM) whose blocks claim work items in order from a counter, first every
+// spectra tile, then every pair tile:
+//   a spectra tile is base_tile at a full tile of 128 / M frames, its DFT
+//   and per-mic PHAT as they stand; each chunk's whitened spectra (raw
+//   without PHAT or at 2 mics) go out to a scratch buffer [B M, Fs] complex
+//   (F padded with zeros to whole stages of kStageBins), and the tile then
+//   sets its ready flag (release, after a proxy fence);
+//   a pair tile is 128 consecutive (frame, pair) rows, warpgroup w's 64 w
+//   ..; it waits (acquire) for the spectra tiles of the frames its rows
+//   span.  A ring stage (TMA) holds kStageBins bins of the synthesis
+//   matrices, split once and K-major (pack_synthesis_split: 1.6 MB at L =
+//   91, resident in L2), a lag block of kPairCols lags, and the same bins
+//   of the spanned frames' spectra.  A thread forms the cross-power of its
+//   two rows at bin 4 s + t from the staged spectra (each staged row serves
+//   M - 1 pairs; per-pair PHAT at 2 mics), splits it into TF32 parts in
+//   registers and issues the DFT's scheme against the matrices: per step
+//   x_lo w_hi, x_hi w_lo, x_hi w_hi (wgmma m64n48k8, two halves of 48 lags
+//   taking turns), kTcSteps steps summed in the tensor cores from zero,
+//   added on the CUDA cores into running sums that go into the totals every
+//   kFlushSteps steps, all in registers; the totals go out [B, P, L] once.
+// A pair tile waits only on spectra tiles, which blocks that run claimed
+// before it and finish without waiting, so the launch cannot deadlock
+// however many blocks are resident.
+//
+// What bounds it now.  The pair instance at 8 mics, 28 pairs, F = 1,025, L
+// = 91, 16,384 frames: 15.9 ms against a bound of 4.41 ms (the fused body
+// 31.9): the spectra phase about 10.1 ms, the pair phase about 3.8 ms, the
+// rest (means, PHAT, the spectra out, 1.07 GB, and back, about 1.4 GB as a
+// pair tile's first and last frames are read twice, under the products)
+// about 2 ms (chip_variants.py rowtwo, each phase cut short; NVIDIA H100
+// 80GB HBM3, 700 W).  Both phases run their products at about
+// a third of the TF32 rate (8.2e11 and 2.7e11 multiply-adds), held back as
+// the fused body's DFT is, below.  Left on the table there: the pair
+// phase's B operand is read from L2 by every block (TMA multicast across a
+// cluster would share it), and the lag blocks' padding (295 lags take four
+// of 96).  The fused body: per multiply-add a block pulls 0.021 bytes of
 // coefficients from L2 (128 rows share each) and 0.010 bytes of frames
 // (from memory: a wave's 128 rows a block are 66 MB); at the F = 1,025 of a
 // linear-padded 1,024-sample frame that is 6.5 GB and 3.2 GB a 16,384-frame
@@ -222,6 +266,22 @@ constexpr int kLagsPerLane = kLagBlock / 32;
 static_assert(kSub * kLagBlock % kThreads == 0, "whole staging loads a thread");
 constexpr int kRowsPerGroup = 4;  // (frame, pair) rows a warp synthesises together
 constexpr int kSrpFrames = 8;     // frames a thread scores at a time
+// ---- the pair phase (pair_tile) --------------------------------------------
+// A pair tile is kBlockRows (frame, pair) rows, warpgroup w's the rows 64 w
+// .. 64 w + 63, against a lag block of kPairCols lags, which each
+// warpgroup multiplies as two halves of kPairHalf (one wgmma m64n48k8
+// each).  K runs over the bins, 4 a step of 8 (their rr, then their jj);
+// a ring stage is kKStage values of K, kStageBins bins: the synthesis
+// matrices' hi and lo tiles (kPairCols rows each under the 64-byte swizzle),
+// then the spectra of the frames the tile's rows span, unswizzled, in
+// boxes of at most kBoxRows rows.
+constexpr int kPairHalf = 48;     // ops/cuda/gcc_kernel.py PAIR_LAG_COLS / 2
+constexpr int kPairCols = 2 * kPairHalf;
+constexpr int kStageBins = kKStage / 2;
+constexpr int kPairBTileBytes = kPairCols * kRowBytes;
+constexpr int kBoxRows = 256;     // rows of a TMA box, at most
+static_assert(kPairHalf % 8 == 0 && (kPairHalf * kRowBytes) % 512 == 0,
+              "a half is whole wgmma column groups and starts on a swizzle boundary");
 // ---- the stats mode (stats_tile) -------------------------------------------
 // DFT on the tensor cores: the block's (frame, mic) rows are one mma row
 // tile of kDftRows; the columns are (re, im) pairs, 4 bins a column tile of
@@ -709,8 +769,11 @@ __device__ __forceinline__ void synth_rows(float* corr, const float2* xp, const 
 // wrapper's pack_dft_split) as a [2 cp, K] matrix, hi rows then lo rows;
 // xmap (kXTma): the frames as [B M, ld], the tile's rows from xrow.
 // after_dft() is called by every thread once the last bin chunk's DFT is
-// done and x0 is spent.
-template <bool kXTma, bool kSrp, typename AfterDft>
+// done and x0 is spent.  kSpectra (the pair instance's spectra phase; P = L
+// = 0): no synthesis and no peaks; each chunk's whitened (M >= 3) or raw
+// spectra go out to spec_out [B M][sld] float2 instead, and the last chunk
+// zero-fills each row's bins past F.
+template <bool kXTma, bool kSrp, bool kSpectra, typename AfterDft>
 __device__ __forceinline__ void
 base_tile(const float* x0, int ld, int b0, int tb, int TB, uint8_t* sm, int nring,
           uint32_t& ring, const CUtensorMap* wmap, int cp, const CUtensorMap* xmap, int xrow,
@@ -726,7 +789,7 @@ base_tile(const float* x0, int ld, int b0, int tb, int TB, uint8_t* sm, int nrin
           float* __restrict__ psr_out,
           int M, int N, int F, int P, int L,
           int phat, int per_mic, float eps2, float taper_denom, int with_peaks,
-          Srp srp, AfterDft after_dft) {
+          Srp srp, float2* __restrict__ spec_out, int sld, AfterDft after_dft) {
   const BaseLayout lay(TB, M, P, L, nring);
   const int R = tb * M;    // (frame, mic) rows of this tile, at most kBlockRows
   const int RP = tb * P;   // (frame, pair) rows of this tile
@@ -984,6 +1047,17 @@ base_tile(const float* x0, int ld, int b0, int tb, int TB, uint8_t* sm, int nrin
       __syncthreads();
     }
 
+    if constexpr (kSpectra) {
+      // ---- 4. (spectra phase) the chunk's bins of every row out ----------
+      const int ncol = last ? sld - f0 : nbs;
+      for (int e = tid; e < R * ncol; e += kThreads) {
+        const int r = e / ncol, col = e % ncol;
+        spec_out[((size_t)b0 * M + r) * sld + f0 + col] =
+            col < nbs ? spec[r * kSpecStride + col] : make_float2(0.f, 0.f);
+      }
+      continue;
+    }
+
     // ---- 4. cross-power and lag synthesis, kSub bins at a time -------------
     // The cross-power of every (frame, pair) row (per-pair PHAT for 2-mic
     // arrays) and the bins' (cos, sin) rows of a lag block are staged; a
@@ -1036,6 +1110,8 @@ base_tile(const float* x0, int ld, int b0, int tb, int TB, uint8_t* sm, int nrin
       }
     }
   }
+
+  if constexpr (kSpectra) return;
 
   // ---- 5. peaks, a row per warp ----------------------------------------------
   for (int row = warp; row < RP; row += kWarps) {
@@ -1114,6 +1190,240 @@ base_tile(const float* x0, int ld, int b0, int tb, int TB, uint8_t* sm, int nrin
         srp.score_out[b0 + t0 + lane] = b;
       }
     }
+  }
+}
+
+// The pair instance's plan: the spectra phase's ring (base_tile at a full
+// tile of kBlockRows / m frames, no correlograms) and the pair phase's ring
+// in the same staging region, stages of `slot` bytes.
+struct PairPlan {
+  int nring;   // the spectra phase's ring stages
+  int sbox;    // rows of a spectra box
+  int nbox;    // spectra boxes a stage
+  int slot;    // bytes of a pair-phase stage
+  int pring;   // the pair phase's ring stages
+};
+
+// Frames that kBlockRows consecutive (frame, pair) rows span, at most.
+__host__ __device__ inline int pair_tile_frames(int p) { return (kBlockRows - 1) / p + 2; }
+
+// false when the pair phase does not take m mics and p pairs (its ring
+// would have fewer than kMinRing stages)
+inline bool pair_plan(int m, int p, PairPlan* pl) {
+  if (m < 2 || m > kBlockRows || p < 1) return false;
+  const int tb = kBlockRows / m;
+  pl->nring = ring_stages(tb, m, 0, 0);
+  if (pl->nring < kMinRing) return false;
+  const int rows = pair_tile_frames(p) * m;
+  pl->nbox = (rows + kBoxRows - 1) / kBoxRows;
+  pl->sbox = (rows + pl->nbox - 1) / pl->nbox;
+  pl->slot = (2 * kPairBTileBytes + pl->nbox * pl->sbox * kRowBytes + 1023) & ~1023;
+  const size_t stages = BaseLayout(tb, m, 0, 0, pl->nring).bars / (size_t)pl->slot;
+  pl->pring = stages < (size_t)kMaxRing ? (int)stages : kMaxRing;
+  return pl->pring >= kMinRing;
+}
+
+// One pair tile, the kBlockRows (frame, pair) rows from q kBlockRows, by the
+// whole block; see the note at the top.  The ring (pl.pring stages of
+// pl.slot bytes at sm) has its barriers at full (full, then empty); ring
+// counts its loads so far.  smap: the spectra [B M, 2 Fs] (Fs = F padded to
+// whole stages), written by spectra tile s (TBs frames) once ready[s] is
+// set; bmap: the synthesis matrices split (the wrapper's
+// pack_synthesis_split) as [2 n_lb kPairCols, 2 Fs], hi rows then lo rows.
+__device__ __forceinline__ void
+pair_tile(int q, uint8_t* sm, const PairPlan& pl, uint64_t* full, uint32_t& ring,
+          const CUtensorMap* smap, const CUtensorMap* bmap,
+          const int* __restrict__ pairs,   // [P, 2]
+          const int* ready,                // [spectra tiles]
+          float* __restrict__ corr_out,    // [B, P, L]
+          int B, int M, int F, int P, int L, int TBs, int phat, int per_mic, float eps2) {
+  uint64_t* empty = full + kMaxRing;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int t_ = lane & 3;
+  const long long rows = (long long)B * P;
+  const long long r0 = (long long)q * kBlockRows;
+  const int f_lo = (int)(r0 / P);
+  const int f_hi = (int)(((r0 + kBlockRows < rows ? r0 + kBlockRows : rows) - 1) / P);
+  const int nks = (F + kStageBins - 1) / kStageBins;   // ring stages a lag block
+  const int n_lb = (L + kPairCols - 1) / kPairCols;
+  const uint32_t bytes = 2 * kPairBTileBytes + pl.nbox * pl.sbox * kRowBytes;
+
+  // This thread's rows ra and rb of its warpgroup's row tile (as the DFT's),
+  // and where their pairs' mics lie in a stage's spectra (floats).
+  const long long ra = r0 + 64 * (warp >> 2) + 16 * (warp & 3) + (lane >> 2), rb = ra + 8;
+  const bool ok_a = ra < rows, ok_b = rb < rows;
+  auto mic_at = [&](long long r, int k) {
+    const int p = (int)(r % P);
+    return (((int)(r / P) - f_lo) * M + __ldg(pairs + 2 * p + k)) * kKStage;
+  };
+  const int ia = ok_a ? mic_at(ra, 0) : 0, ja = ok_a ? mic_at(ra, 1) : 0;
+  const int ib = ok_b ? mic_at(rb, 0) : 0, jb = ok_b ? mic_at(rb, 1) : 0;
+
+  // Stage kb of lag block lb into the ring's slot for the block's k-th load
+  // (by thread 0), once every warp has released the slot's previous load.
+  auto issue = [&](uint32_t k, int kb, int lb) {
+    const int slot = k % pl.pring;
+    if (!hopper::mbar_wait_bounded(empty + slot, ((k / pl.pring) & 1) ^ 1)) __trap();
+    uint8_t* dst = sm + (size_t)slot * pl.slot;
+    hopper::mbar_expect_tx(full + slot, bytes);
+    hopper::tma_load_2d(dst, bmap, full + slot, kKStage * kb, kPairCols * lb);
+    hopper::tma_load_2d(dst + kPairBTileBytes, bmap, full + slot, kKStage * kb,
+                        kPairCols * (n_lb + lb));
+    for (int i = 0; i < pl.nbox; ++i)
+      hopper::tma_load_2d(dst + 2 * kPairBTileBytes + i * pl.sbox * kRowBytes, smap,
+                          full + slot, kKStage * kb, f_lo * M + i * pl.sbox);
+  };
+  auto release = [&](uint32_t k) {
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(empty + k % pl.pring);
+  };
+
+  // the spectra of the tile's frames are whole, and visible to the copies
+  if (tid == 0) {
+    for (int s = f_lo / TBs; s <= f_hi / TBs; ++s)
+      if (!hopper::wait_flag(ready + s)) __trap();
+    hopper::fence_proxy_async_global();
+  }
+
+  for (int lb = 0; lb < n_lb; ++lb) {
+    __syncthreads();   // every warp has left the lag block before
+    if (tid == 0)
+      for (int kb = 0; kb < pl.pring && kb < nks; ++kb) issue(ring + kb, kb, lb);
+
+    // [128 rows, K] x [K, kPairCols] as a split-fp32 product, the DFT's
+    // scheme: each warpgroup its 64 rows as two halves of kPairHalf lags
+    // (wgmma m64n48k8, A from registers, B from the ring); a group of
+    // kTcSteps steps' three products summed in the tensor cores from zero,
+    // small terms first, then added on the CUDA cores into `part`, which
+    // goes into `tot` every kFlushSteps steps.  The halves take turns, so
+    // one group of products is always in flight.
+    float acc0[kPairHalf / 2], acc1[kPairHalf / 2], part[kPairHalf], tot[kPairHalf];
+#pragma unroll
+    for (int i = 0; i < kPairHalf / 2; ++i) acc0[i] = acc1[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kPairHalf; ++i) part[i] = tot[i] = 0.f;
+    uint32_t ah[2][kTcSteps][4], al[2][kTcSteps][4];
+    auto flush = [&] {
+#pragma unroll
+      for (int i = 0; i < kPairHalf; ++i) {
+        tot[i] += part[i];
+        part[i] = 0.f;
+      }
+    };
+    for (int kb0 = 0; kb0 < nks; kb0 += 2) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int kb = kb0 + u;
+        if (kb >= nks) break;
+        const int s0 = kStageSteps * kb;
+        const uint32_t k = ring + kb;
+        const uint8_t* st = sm + (size_t)(k % pl.pring) * pl.slot;
+        if (!hopper::mbar_wait_bounded(full + k % pl.pring, (k / pl.pring) & 1)) __trap();
+        const float* sp = reinterpret_cast<const float*>(st + 2 * kPairBTileBytes);
+        const uint64_t dh = hopper::wgmma_desc_k64(st);
+        const uint64_t dl = hopper::wgmma_desc_k64(st + kPairBTileBytes);
+        constexpr uint64_t kHalf = (kPairHalf * kRowBytes) >> 4;   // descriptor units
+        // the cross-power of a row at the stage's float o (re) and o + 1
+        // (im) of its pair's mics x at i and y at j: conj(x) y, whitened per
+        // pair for 2-mic arrays
+        auto cross = [&](bool ok, int i, int j, int o, float& rr, float& jj) {
+          const float2 a =
+              ok ? *reinterpret_cast<const float2*>(sp + i + o) : make_float2(0.f, 0.f);
+          const float2 b =
+              ok ? *reinterpret_cast<const float2*>(sp + j + o) : make_float2(0.f, 0.f);
+          rr = a.x * b.x + a.y * b.y;
+          jj = a.x * b.y - a.y * b.x;
+          if (phat && !per_mic) {
+            const float inv = rsqrtf(rr * rr + jj * jj + eps2);
+            rr *= inv;
+            jj *= inv;
+          }
+        };
+#pragma unroll
+        for (int gq = 0; gq < kStageSteps / kTcSteps; ++gq) {
+          const int sg = s0 + kTcSteps * gq;   // the group's first step
+          const int b = (u * (kStageSteps / kTcSteps) + gq) & 1;
+          // the group's A fragments: K slot t the rr of bin 4 s + t, slot
+          // t + 4 its jj
+#pragma unroll
+          for (int j = 0; j < kTcSteps; ++j) {
+            const int o = 2 * (4 * (kTcSteps * gq + j) + t_);
+            float rra, jja, rrb, jjb;
+            cross(ok_a, ia, ja, o, rra, jja);
+            cross(ok_b, ib, jb, o, rrb, jjb);
+            hopper::tf32_split(rra, ah[b][j][0], al[b][j][0]);
+            hopper::tf32_split(rrb, ah[b][j][1], al[b][j][1]);
+            hopper::tf32_split(jja, ah[b][j][2], al[b][j][2]);
+            hopper::tf32_split(jjb, ah[b][j][3], al[b][j][3]);
+          }
+          auto products = [&](float (&acc)[kPairHalf / 2], uint64_t off) {
+#pragma unroll
+            for (int i = 0; i < kPairHalf / 2; ++i) hopper::keep(acc[i]);
+            hopper::wgmma_fence();
+#pragma unroll
+            for (int j = 0; j < kTcSteps; ++j) {
+              const int qq = kTcSteps * gq + j;   // the step within the stage
+              hopper::wgmma_m64n48_tf32(acc, al[b][j], dh + off + 2 * qq, j > 0);
+              hopper::wgmma_m64n48_tf32(acc, ah[b][j], dl + off + 2 * qq);
+              hopper::wgmma_m64n48_tf32(acc, ah[b][j], dh + off + 2 * qq);
+            }
+            hopper::wgmma_commit();
+          };
+          products(acc0, 0);
+          if (sg > 0) {
+            // half 1 of the group before is done: its sum, the flush of the
+            // steps before sg, the release of the stage that ended there and
+            // the next copy into its slot
+            hopper::wgmma_wait<1>();
+#pragma unroll
+            for (int i = 0; i < kPairHalf / 2; ++i) {
+              hopper::keep(acc1[i]);
+              part[kPairHalf / 2 + i] += acc1[i];
+            }
+            if (sg % kFlushSteps == 0) flush();
+            if (gq == 0) {
+              release(k - 1);
+              if (kb + pl.pring - 1 < nks) {
+                if (tid == 0) issue(k + pl.pring - 1, kb + pl.pring - 1, lb);
+                __syncwarp();
+              }
+            }
+          }
+          products(acc1, kHalf);
+          hopper::wgmma_wait<1>();   // half 0 of the group is done
+#pragma unroll
+          for (int i = 0; i < kPairHalf / 2; ++i) {
+            hopper::keep(acc0[i]);
+            part[i] += acc0[i];
+          }
+        }
+      }
+    }
+    hopper::wgmma_wait0();
+#pragma unroll
+    for (int i = 0; i < kPairHalf / 2; ++i) {
+      hopper::keep(acc1[i]);
+      part[kPairHalf / 2 + i] += acc1[i];
+    }
+    flush();
+    release(ring + nks - 1);
+    ring += nks;
+
+    // the lag block out: half h's fragment rows ra (c < 2) and rb, lags
+    // 8 j + 2 t and + 1 of the half
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < kPairHalf / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const bool top = c < 2;
+          const int l = kPairCols * lb + kPairHalf * h + 8 * j + 2 * t_ + (c & 1);
+          if ((top ? ok_a : ok_b) && l < L)
+            corr_out[(size_t)(top ? ra : rb) * L + l] = tot[kPairHalf / 2 * h + 4 * j + c];
+        }
   }
 }
 
@@ -1454,10 +1764,71 @@ gcc_kernel(const __grid_constant__ CUtensorMap wmap, int cp,
   init_ring(reinterpret_cast<uint64_t*>(sm + BaseLayout(TB, M, P, L, nring).bars));
   const int b0 = blockIdx.x * TB;
   uint32_t ring = 0;
-  base_tile<true, kSrp>(frames + (size_t)b0 * M * ld, ld, b0, min(TB, B - b0), TB, sm, nring,
-                        ring, &wmap, cp, &xmap, b0 * M, win, wtail, sync, syns, pairs,
-                        corr_out, shift_out, tdoa_out, peak_out, psr_out, M, N, F, P, L, phat,
-                        per_mic, eps2, taper_denom, with_peaks, srp, [] {});
+  base_tile<true, kSrp, false>(frames + (size_t)b0 * M * ld, ld, b0, min(TB, B - b0), TB, sm,
+                               nring, ring, &wmap, cp, &xmap, b0 * M, win, wtail, sync, syns,
+                               pairs, corr_out, shift_out, tdoa_out, peak_out, psr_out, M, N,
+                               F, P, L, phat, per_mic, eps2, taper_denom, with_peaks, srp,
+                               nullptr, 0, [] {});
+}
+
+// The base mode without peaks where the correlograms would crowd the tile:
+// one persistent launch whose blocks claim work items in order, all spectra
+// tiles (base_tile at kBlockRows / M frames, spectra out), then all pair
+// tiles (pair_tile).  work: [0] the next item, [1 + s] spectra tile s is
+// written.  A pair tile waits only on spectra tiles, claimed before it by
+// blocks that run and wait on nothing, so the launch cannot deadlock.
+template <bool kSrp, bool kPairs>
+__global__ void __launch_bounds__(kThreads, 1)
+gcc_kernel(const __grid_constant__ CUtensorMap wmap, int cp,
+           const __grid_constant__ CUtensorMap xmap, int ld,
+           const __grid_constant__ CUtensorMap smap,
+           const __grid_constant__ CUtensorMap bmap, PairPlan pl,
+           const float* __restrict__ frames,   // [B, M, N], rows ld floats apart
+           const float* __restrict__ win, const float2* __restrict__ wtail,
+           const int* __restrict__ pairs, float2* __restrict__ spectra, int sld,
+           int* __restrict__ work, float* __restrict__ corr_out,
+           int B, int M, int N, int F, int P, int L, int phat, int per_mic, float eps2) {
+  static_assert(kPairs && !kSrp, "the pair instance");
+  __shared__ int item_s;
+  uint8_t* sm = smem_base();
+  const int TB = kBlockRows / M;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + BaseLayout(TB, M, 0, 0, pl.nring).bars);
+  init_ring(full);
+  const int n_spec = (B + TB - 1) / TB;
+  const int n_items = n_spec + (int)(((long long)B * P + kBlockRows - 1) / kBlockRows);
+  uint32_t ring = 0;
+  bool paired = false;
+  for (;;) {
+    if (threadIdx.x == 0) item_s = atomicAdd(work, 1);
+    __syncthreads();
+    const int item = item_s;
+    __syncthreads();   // every thread has read it
+    if (item >= n_items) break;
+    if (item < n_spec) {
+      const int b0 = item * TB;
+      base_tile<true, false, true>(frames + (size_t)b0 * M * ld, ld, b0, min(TB, B - b0), TB,
+                                   sm, pl.nring, ring, &wmap, cp, &xmap, b0 * M, win, wtail,
+                                   nullptr, nullptr, pairs, nullptr, nullptr, nullptr, nullptr,
+                                   nullptr, M, N, F, 0, 0, phat, per_mic, eps2, 0.f, 0, Srp{},
+                                   spectra, sld, [] {});
+      __syncthreads();   // every row of the tile is written
+      if (threadIdx.x == 0) {
+        __threadfence();
+        hopper::fence_proxy_async_global();
+        hopper::st_release(work + 1 + item, 1);
+      }
+    } else {
+      if (!paired) {
+        // the pair ring's stages are other than the spectra ring's: its
+        // barriers start over (every load so far has landed and been read)
+        init_ring(full);
+        ring = 0;
+        paired = true;
+      }
+      pair_tile(item - n_spec, sm, pl, full, ring, &smap, &bmap, pairs, work + 1, corr_out,
+                B, M, F, P, L, TB, phat, per_mic, eps2);
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -1521,11 +1892,11 @@ gcc_pipelined_kernel(const __grid_constant__ CUtensorMap wmap, int cp, int nring
     asm volatile("cp.async.wait_all;\n" ::: "memory");
     __syncthreads();
     const int b0 = tile * TB;
-    base_tile<false, false>(stage, ld, b0, min(TB, B - b0), TB, sm, nring, ring, &wmap, cp,
-                            nullptr, 0, win, wtail, sync, syns, pairs, corr_out, shift_out,
-                            tdoa_out, peak_out, psr_out, M, N, F, P, L, phat, per_mic, eps2,
-                            taper_denom, with_peaks, Srp{},
-                            [&] { prefetch(tile + gridDim.x); });
+    base_tile<false, false, false>(stage, ld, b0, min(TB, B - b0), TB, sm, nring, ring, &wmap,
+                                   cp, nullptr, 0, win, wtail, sync, syns, pairs, corr_out,
+                                   shift_out, tdoa_out, peak_out, psr_out, M, N, F, P, L, phat,
+                                   per_mic, eps2, taper_denom, with_peaks, Srp{}, nullptr, 0,
+                                   [&] { prefetch(tile + gridDim.x); });
   }
 }
 
@@ -1685,6 +2056,62 @@ extern "C" int att_gcc_srp(const void* frames, int ld, const void* win, const vo
   return launch<true>(frames, ld, win, wtail, wk, sync, syns, pairs, corr_out, shift_out,
                       tdoa_out, peak_out, psr_out, B, M, N, F, P, L, phat,
                       per_mic, eps, taper_denom, 1, stream, srp);
+}
+
+// Whether the base mode without peaks takes the pair phase at m mics and
+// p pairs (its ring fits); the wrapper routes to it where fewer than
+// 128 / m frames a block fit the fused body.
+extern "C" int att_gcc_pairs_fit(int m, int p) {
+  PairPlan pl;
+  return pair_plan(m, p, &pl);
+}
+
+// The pair instance of the base mode without peaks: att_gcc's operands and
+// correlograms, plus wsyn (the synthesis matrices split, pack_synthesis_split:
+// [2, n_lb kPairCols, 2 Fs], Fs = F padded to whole stages; 16-byte
+// aligned), spectra (scratch [B M, Fs] float2, 16-byte aligned) and work
+// (n_work >= 1 + spectra tiles ints, zero).
+extern "C" int att_gcc_pairs(const void* frames, int ld, const void* win, const void* wtail,
+                             const void* wk, const void* wsyn, const void* pairs,
+                             void* corr_out, void* spectra, void* work, int n_work, int B,
+                             int M, int N, int F, int P, int L, int phat, int per_mic,
+                             float eps, void* stream) {
+  PairPlan pl;
+  const int TB = kBlockRows / (M > 0 ? M : 1);
+  if (!pair_plan(M, P, &pl) || F < 1 || L < 1 || ld < N || ld % 4 != 0 ||
+      n_work < 1 + (B + TB - 1) / TB ||
+      (((uintptr_t)frames | (uintptr_t)wsyn | (uintptr_t)spectra) & 15) != 0)
+    return (int)cudaErrorInvalidValue;
+  const int sld = (F + kStageBins - 1) / kStageBins * kStageBins;
+  const int n_lb = (L + kPairCols - 1) / kPairCols;
+  CUtensorMap wmap, xmap, smap, bmap;
+  if (!split_map(&wmap, wk, N, F) ||
+      !hopper::make_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, frames, B * M, ld,
+                        kBlockRows, 0, kRowBytes) ||
+      !hopper::make_map(&smap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, spectra, B * M, 2 * sld,
+                        pl.sbox, 0, kRowBytes) ||
+      !hopper::make_map(&bmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, wsyn, 2 * n_lb * kPairCols,
+                        2 * sld, kPairCols, kRowBytes))
+    return hopper::kErrTensorMap;
+  const size_t smem = base_smem_bytes(TB, M, 0, 0, pl.nring);
+  cudaError_t err = cudaFuncSetAttribute(
+      gcc_kernel<false, true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gcc_kernel<false, true>,
+                                                           kThreads, smem)) != cudaSuccess)
+    return (int)err;
+  if (per_sm < 1 || sms < 1) return (int)cudaErrorInvalidValue;
+  const long long items = (B + TB - 1) / TB + ((long long)B * P + kBlockRows - 1) / kBlockRows;
+  const int grid = items < (long long)sms * per_sm ? (int)items : sms * per_sm;
+  gcc_kernel<false, true><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      wmap, split_cols(F), xmap, ld, smap, bmap, pl, (const float*)frames, (const float*)win,
+      (const float2*)wtail, (const int*)pairs, (float2*)spectra, sld, (int*)work,
+      (float*)corr_out, B, M, N, F, P, L, phat, per_mic, eps * eps);
+  return (int)cudaGetLastError();
 }
 
 // The stats mode: the base mode's operands and outputs, plus synp (the

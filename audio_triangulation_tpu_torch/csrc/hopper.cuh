@@ -1,6 +1,6 @@
 // Thin wrappers over the PTX that the tensor-core kernels of this package
-// share: cp.async, mma.sync (TF32 and bf16), and Hopper's mbarrier, TMA
-// tile load and wgmma (bf16 and int8 with both operands K-major in shared
+// share: cp.async, mma.sync (TF32 and bf16), flags between blocks, and
+// Hopper's mbarrier, TMA tile load and wgmma (bf16 and int8 with both operands K-major in shared
 // memory under the 128-byte swizzle; TF32 with A from registers and B under
 // the 128- or 64-byte swizzle).  Built for sm_90a only.
 
@@ -222,6 +222,32 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// makes global-memory writes of ordinary threads, made visible to this
+// thread, visible to its later TMA reads
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// ---- flags between blocks (global memory, GPU scope) ------------------------
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+// waits until *p is nonzero; false when it is not after about seven seconds
+// (a flag that is never set would otherwise hang the card)
+__device__ __forceinline__ bool wait_flag(const int* p) {
+  for (uint32_t spins = 0; spins < (1u << 26); ++spins) {
+    if (ld_acquire(p)) return true;
+    __nanosleep(100);
+  }
+  return false;
+}
+
 // barrier `id` (1..15) over `kThreads` threads
 template <int kThreads>
 __device__ __forceinline__ void named_barrier(int id) {
@@ -355,6 +381,26 @@ __device__ __forceinline__ void wgmma_m64n64_tf32(float (&d)[32], const uint32_t
       ", {%32, %33, %34, %35}, %36, p, 1, 1;\n"
       "}\n"
       : ATT_8(ATT_F, d, 0), ATT_8(ATT_F, d, 8), ATT_8(ATT_F, d, 16), ATT_8(ATT_F, d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+#define ATT_REGS24                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "      \
+  "%16, %17, %18, %19, %20, %21, %22, %23}"
+
+// d [64 x 48, f32] (+)= a [64 x 8] * b [48 x 8]^T, TF32: a from registers,
+// b K-major in shared memory (either swizzle's descriptor); with
+// accumulate = 0, d = a * b
+__device__ __forceinline__ void wgmma_m64n48_tf32(float (&d)[24], const uint32_t (&a)[4],
+                                                  uint64_t b, int accumulate = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 " ATT_REGS24
+      ", {%24, %25, %26, %27}, %28, p, 1, 1;\n"
+      "}\n"
+      : ATT_8(ATT_F, d, 0), ATT_8(ATT_F, d, 8), ATT_8(ATT_F, d, 16)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 

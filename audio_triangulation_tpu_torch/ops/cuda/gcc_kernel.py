@@ -29,6 +29,16 @@ launches.  No mode picks between DFT stages: the base, SRP and pipelined
 launches take the ``wgmma`` one fed by TMA, the stats mode the ``mma.sync``
 one, and :func:`dft_path_launches` counts the launches so by DFT stage.
 
+Without peaks, where the correlograms of a block's frames would crowd its
+tile (fewer than ``128 // M`` frames a block fit, as at 8 mics and 28
+pairs), :func:`launch` takes the pair phase instead: one persistent launch
+of the same kernel that writes the whitened spectra of full tiles to a
+scratch buffer and synthesises each tile of 128 (frame, pair) rows on
+split-fp32 ``wgmma`` (:func:`pack_synthesis_split`);
+:func:`gcc_reference` with ``split=True, pair_phase=True`` repeats its
+arithmetic, and ``pair_launches`` counts it (those launches count in
+``launches`` too), as does the span system's ``gcc.route.pairs``.
+
 :func:`fused_gcc_pipelined` is the base mode with peaks as a persistent
 kernel that walks the batch tiles itself, each tile's frames staged one
 tile ahead (counterpart of ``tools/emit_pipeline_probe.py``'s ``outer`` in
@@ -47,6 +57,7 @@ import numpy as np
 import torch
 
 from ...core.config import PipelineConfig
+from ...utils import profiling
 from .. import mxu_fft, xcorr
 from . import _build
 from .srp_kernel import tf32_split
@@ -55,6 +66,7 @@ from .srp_kernel import tf32_split
 SRP_MAX_LAGS = 32767
 
 launches = 0
+pair_launches = 0
 stats_launches = 0
 srp_launches = 0
 pipelined_launches = 0
@@ -256,14 +268,16 @@ def chunked_lag_correlogram(rr: torch.Tensor, jj: torch.Tensor,
 
 def split_lag_correlogram(rr: torch.Tensor, jj: torch.Tensor,
                           sync: torch.Tensor, syns: torch.Tensor, *,
-                          flush_steps: int = 0,
+                          flush_steps: int = 0, tc_steps: int = 0,
                           hi_only: bool = False) -> torch.Tensor:
     """:func:`mxu_fft.lag_correlogram` in the arithmetic of the tensor-core
     synthesis stages, in plain PyTorch: cross-power [..., P, F] and matrices
     [F, L] split by :func:`tf32_split`; every step of 4 bins (8 values of K:
     their rr, then their jj) adds ``a_lo b_hi``, then ``a_hi b_lo``, then
     ``a_hi b_hi`` to one f32 accumulator (``a_hi b_hi`` alone with
-    ``hi_only``, for operands that have no low part); with ``flush_steps``
+    ``hi_only``, for operands that have no low part); with ``tc_steps``
+    each group of that many steps is summed from zero first (the tensor
+    cores' sum) and then added to the accumulator; with ``flush_steps``
     the accumulator is added into a total and cleared every that many
     steps."""
     f, l = sync.shape
@@ -282,15 +296,69 @@ def split_lag_correlogram(rr: torch.Tensor, jj: torch.Tensor,
     total = torch.zeros((*rr.shape[:-1], l), dtype=torch.float32,
                         device=rr.device)
     acc = torch.zeros_like(total)
+    group = acc if not tc_steps else torch.zeros_like(total)
     for s in range(steps):
+        if tc_steps and s % tc_steps == 0:
+            group.zero_()
         if not hi_only:
-            acc += a_lo[..., s, :] @ b_hi[s]
-            acc += a_hi[..., s, :] @ b_lo[s]
-        acc += a_hi[..., s, :] @ b_hi[s]
+            group += a_lo[..., s, :] @ b_hi[s]
+            group += a_hi[..., s, :] @ b_lo[s]
+        group += a_hi[..., s, :] @ b_hi[s]
+        if tc_steps and ((s + 1) % tc_steps == 0 or s + 1 == steps):
+            acc += group
         if flush_steps and (s + 1) % flush_steps == 0:
             total += acc
             acc.zero_()
     return total + acc
+
+
+# The pair phase's synthesis operand (:func:`pack_synthesis_split`): lag
+# blocks of PAIR_LAG_COLS lags (``kPairCols`` of ``csrc/gcc_kernel.cu``),
+# K padded to whole ring stages of PAIR_STAGE_BINS bins; its tensor cores
+# sum PAIR_TC_STEPS steps from zero, its registers flush every
+# PAIR_FLUSH_STEPS (the DFT's ``kTcSteps`` and ``kFlushSteps``).
+PAIR_LAG_COLS = 96
+PAIR_STAGE_BINS = 8
+PAIR_TC_STEPS = DFT_TC_STEPS
+PAIR_FLUSH_STEPS = DFT_FLUSH_STEPS
+
+
+def pair_bins(f: int) -> int:
+    """F padded to whole pair-phase ring stages: the bins of a row of the
+    pair phase's spectra and of its synthesis operand's K / 2."""
+    return -(-f // PAIR_STAGE_BINS) * PAIR_STAGE_BINS
+
+
+def pack_synthesis_split(sync: torch.Tensor,
+                         syns: torch.Tensor) -> torch.Tensor:
+    """(sync, syns) [F, L] f32 -> the pair phase's B operand [2, Lp, K] f32:
+    the matrices split once by :func:`tf32_split`, the hi parts then the lo
+    parts, K-major (each row one lag).  K slot 8 s + t of step s holds bin
+    4 s + t's cos row, slot 8 s + 4 + t its sin row (as
+    :func:`split_lag_correlogram` orders K); K = 2 :func:`pair_bins`, Lp =
+    L padded to whole lag blocks of PAIR_LAG_COLS, both with zeros."""
+    f, l = sync.shape
+    fp = pair_bins(f)
+    lp = -(-l // PAIR_LAG_COLS) * PAIR_LAG_COLS
+    parts = []
+    for mat in (sync, syns):
+        padded = torch.zeros((fp, lp), dtype=torch.float32, device=sync.device)
+        padded[:f, :l] = mat
+        parts.append(padded.reshape(fp // 4, 4, lp))
+    hi, lo = tf32_split(torch.stack(parts, dim=1).reshape(2 * fp, lp))
+    return torch.stack((hi.t(), lo.t())).contiguous()
+
+
+def unpack_synthesis_split(packed: torch.Tensor, f: int, l: int):
+    """The inverse of :func:`pack_synthesis_split`: ((sync hi, syns hi),
+    (sync lo, syns lo)), each [F, L]."""
+    lp, k = packed.shape[1:]
+    out = []
+    for part in packed:
+        full = part.t().reshape(k // 8, 2, 4, lp)
+        out.append(tuple(full[:, i].reshape(k // 2, lp)[:f, :l]
+                         for i in range(2)))
+    return tuple(out)
 
 
 class GccMatrices(NamedTuple):
@@ -312,6 +380,9 @@ class GccMatrices(NamedTuple):
     # (cos, -sin) of the last bin [N, 2], which the base mode sums apart
     # when F % 4 == 1; f32 always
     dft_tail: torch.Tensor
+    # (sync, syns) split and K-major for the pair phase's wgmma synthesis
+    # (:func:`pack_synthesis_split`): [2, Lp, K], f32 always
+    syn_split: torch.Tensor
 
     def to(self, dtype: torch.dtype) -> "GccMatrices":
         """The plain versions' matrices in ``dtype``; the kernel's own
@@ -327,7 +398,8 @@ def _matrices(cfg: PipelineConfig, n: int, device: str) -> GccMatrices:
     return GccMatrices(cos, msin, sync, syns, pack_dft(cos, msin),
                        pack_split_synthesis(sync, syns, STATS_LAG_TILES),
                        pack_dft_split(cos, msin),
-                       torch.stack((cos[:, -1], msin[:, -1]), dim=-1).contiguous())
+                       torch.stack((cos[:, -1], msin[:, -1]), dim=-1).contiguous(),
+                       pack_synthesis_split(sync, syns))
 
 
 def window_gain(window: torch.Tensor, cfg: PipelineConfig) -> torch.Tensor:
@@ -351,7 +423,8 @@ def _peaks(corr, max_shift: int, taper_denom: float):
 
 def gcc_reference(frames, win_gain, mats: GccMatrices, pairs, *,
                   phat: bool, phat_eps: float, max_shift: int,
-                  taper_denom: float, with_peaks: bool, split: bool = False):
+                  taper_denom: float, with_peaks: bool, split: bool = False,
+                  pair_phase: bool = False):
     """Plain PyTorch version of the base mode, on the kernel's operands.
 
     frames [B, M, N] -> correlograms [B, P, L]; with ``with_peaks`` ->
@@ -360,7 +433,10 @@ def gcc_reference(frames, win_gain, mats: GccMatrices, pairs, *,
     correlogram.  ``split`` repeats the kernel's arithmetic on f32 frames:
     the DFT as a split-fp32 product (:func:`split_rdft`, ``DFT_TC_STEPS``
     steps to a tensor-core sum) and the synthesis added a bin chunk at a time
-    (:func:`chunked_lag_correlogram`)."""
+    (:func:`chunked_lag_correlogram`), or with ``pair_phase`` as the pair
+    phase's split-fp32 product (:func:`split_lag_correlogram`,
+    ``PAIR_TC_STEPS`` steps to a tensor-core sum, flushed every
+    ``PAIR_FLUSH_STEPS``)."""
     split = split and frames.dtype == torch.float32
     x = (frames - frames.mean(dim=-1, keepdim=True)) * win_gain
     if split:
@@ -369,8 +445,13 @@ def gcc_reference(frames, win_gain, mats: GccMatrices, pairs, *,
         re, im = mxu_fft.rdft(x, mats.cos, mats.msin)
     rr, jj = mxu_fft.cross_power_reim(re, im, pairs, phat=phat,
                                       phat_eps=phat_eps)
-    synth = chunked_lag_correlogram if split else mxu_fft.lag_correlogram
-    corr = synth(rr, jj, mats.sync, mats.syns)
+    if split and pair_phase:
+        corr = split_lag_correlogram(rr, jj, mats.sync, mats.syns,
+                                     flush_steps=PAIR_FLUSH_STEPS,
+                                     tc_steps=PAIR_TC_STEPS)
+    else:
+        synth = chunked_lag_correlogram if split else mxu_fft.lag_correlogram
+        corr = synth(rr, jj, mats.sync, mats.syns)
     if not with_peaks:
         return corr
     return _peaks(corr, max_shift, taper_denom)
@@ -748,14 +829,47 @@ def _outputs(b, p, l, dev, with_peaks):
                                        device=dev) for _ in range(3)))
 
 
+# (frame, mic) rows of a block's tile (``kBlockRows`` of
+# ``csrc/gcc_kernel.cu``)
+BLOCK_ROWS = 128
+
+
+def takes_pair_phase(m: int, p: int, l: int) -> bool:
+    """Whether :func:`launch` without peaks takes the pair phase for frames
+    of ``m`` mics and ``p`` pairs x ``l`` lags: where fewer than
+    ``BLOCK_ROWS // m`` frames a block fit the fused body beside their
+    correlograms, and the pair phase's ring fits.  Asks the kernel library
+    (CUDA only)."""
+    lib = _lib()
+    tb = lib.att_gcc_frames_per_block(m, p, l)
+    return 1 <= tb < BLOCK_ROWS // m and bool(lib.att_gcc_pairs_fit(m, p))
+
+
 def launch(frames, win_gain, mats: GccMatrices, pairs, *, phat: bool,
            phat_eps: float, max_shift: int, taper_denom: float,
            with_peaks: bool):
     """Run ``csrc/gcc_kernel.cu``'s base mode on CUDA tensors (same
     contract as :func:`gcc_reference`); raises on anything it does not
-    take.  The pair indices are not range-checked here (that would sync
-    with the device): they must index the M mics, as ``Localizer.create``
-    and ``params_from_reference`` ensure."""
+    take.  Without peaks at shapes where the correlograms would crowd the
+    tile (:func:`takes_pair_phase`) it takes the pair phase, else the
+    fused body.  The pair indices are not range-checked here (that would
+    sync with the device): they must index the M mics, as
+    ``Localizer.create`` and ``params_from_reference`` ensure."""
+    if (not with_peaks and frames.is_cuda and frames.ndim == 3
+            and takes_pair_phase(frames.shape[1], pairs.shape[0],
+                                 mats.sync.shape[1])):
+        return _launch_pairs(frames, win_gain, mats, pairs, phat=phat,
+                             phat_eps=phat_eps)
+    return _launch_fused(frames, win_gain, mats, pairs, phat=phat,
+                         phat_eps=phat_eps, max_shift=max_shift,
+                         taper_denom=taper_denom, with_peaks=with_peaks)
+
+
+def _launch_fused(frames, win_gain, mats: GccMatrices, pairs, *, phat: bool,
+                  phat_eps: float, max_shift: int, taper_denom: float,
+                  with_peaks: bool):
+    """The base mode's fused body (each block's correlograms in its shared
+    memory) at any shape it fits, as :func:`launch`."""
     global launches
     (b, m, n, f, p, l), frames, ins, pairs32 = _checked(
         frames, win_gain, mats, pairs, "gcc_kernel", _split_dft(mats))
@@ -781,6 +895,48 @@ def launch(frames, win_gain, mats: GccMatrices, pairs, *, phat: bool,
             launches += 1
         _build.check(err, "gcc_kernel launch", lib)
     return outs if with_peaks else outs[0]
+
+
+def _launch_pairs(frames, win_gain, mats: GccMatrices, pairs, *, phat: bool,
+                  phat_eps: float):
+    """The base mode without peaks through its pair phase, as
+    :func:`launch`: the whitened spectra of full tiles go to a scratch
+    buffer [B M, pair_bins(F)] complex, then tiles of 128 (frame, pair)
+    rows are synthesised against :func:`pack_synthesis_split`'s operand,
+    in one launch."""
+    global launches, pair_launches
+    (b, m, n, f, p, l), frames, ins, pairs32 = _checked(
+        frames, win_gain, mats, pairs, "gcc_kernel",
+        (*_split_dft(mats), mats.syn_split))
+    lib = _lib()
+    dev = frames.device
+    tail, wk = _split_operands(mats, n, f, dev)
+    wsyn = mats.syn_split.to(device=dev, dtype=torch.float32).contiguous()
+    fs = pair_bins(f)
+    if wsyn.shape != (2, -(-l // PAIR_LAG_COLS) * PAIR_LAG_COLS, 2 * fs):
+        raise ValueError("the split synthesis operand does not match the "
+                         "frames")
+    corr = torch.empty((b, p, l), dtype=torch.float32, device=dev)
+    if b > 0:
+        x, ld = _tma_frames(frames)
+        spectra = torch.empty((b * m, 2 * fs), dtype=torch.float32, device=dev)
+        # [0] the next work item, [1 + s] spectra tile s written
+        work = torch.zeros(1 + -(-b // (BLOCK_ROWS // m)), dtype=torch.int32,
+                           device=dev)
+        ptr = [t.data_ptr() for t in (ins[0], tail, wk, wsyn, pairs32, corr,
+                                      spectra, work)]
+        per_mic = phat and xcorr.phat_per_mic(m)
+        with torch.cuda.device(dev):
+            err = lib.att_gcc_pairs(
+                x.data_ptr(), ld, *ptr, work.numel(), b, m, n, f, p, l,
+                int(phat), int(per_mic), phat_eps,
+                torch.cuda.current_stream(dev).cuda_stream)
+        with _build.count_lock:
+            launches += 1
+            pair_launches += 1
+        profiling.count("gcc.route.pairs")
+        _build.check(err, "gcc_kernel pair-phase launch", lib)
+    return corr
 
 
 def launch_pipelined(frames, win_gain, mats: GccMatrices, pairs, *,
@@ -942,4 +1098,9 @@ def _lib():
             lib.att_gcc_pipelined.restype = ci
             lib.att_gcc_pipelined_frames_per_block.argtypes = [ci] * 4
             lib.att_gcc_pipelined_frames_per_block.restype = ci
+            lib.att_gcc_pairs.argtypes = ([vp, ci] + [vp] * 8 + [ci] * 9
+                                          + [cf, vp])
+            lib.att_gcc_pairs.restype = ci
+            lib.att_gcc_pairs_fit.argtypes = [ci, ci]
+            lib.att_gcc_pairs_fit.restype = ci
     return lib

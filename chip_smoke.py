@@ -298,6 +298,31 @@ def alternate_ms(plain, kernel, reps=REPS):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def row2_turns(flat, ops, kw, reps=REPS):
+    """Row 2 at a shape, timed in turns plain, fused body, kernel, kernel,
+    fused body, plain: (kernel ms as ``gcc_kernel.launch`` routes it, the
+    fused body's ms, plain ms, the route).  The kernel is the pair phase
+    where the correlograms would crowd a block's tile
+    (``gcc_kernel.takes_pair_phase``), else the fused body itself."""
+    from audio_triangulation_tpu_torch.ops.cuda import gcc_kernel
+
+    def plain():
+        return gcc_kernel.gcc_reference(flat, *ops, **kw)
+
+    def fused():
+        return gcc_kernel._launch_fused(flat, *ops, **kw)
+
+    def kernel():
+        return gcc_kernel.launch(flat, *ops, **kw)
+
+    p1, f1, k1 = cuda_ms(plain, reps), cuda_ms(fused, reps), cuda_ms(kernel, reps)
+    k2, f2, p2 = cuda_ms(kernel, reps), cuda_ms(fused, reps), cuda_ms(plain, reps)
+    pairs_route = gcc_kernel.takes_pair_phase(
+        flat.shape[1], ops[2].shape[0], ops[1].sync.shape[1])
+    return ((k1 + k2) / 2, (f1 + f2) / 2, (p1 + p2) / 2,
+            "pair phase" if pairs_route else "fused body")
+
+
 def bound(flops: float, nbytes: float, rate: float = PEAK_FP32_FLOPS) -> dict:
     """The least time the card could take: the larger of the operations
     over its peak ``rate`` for their type (fp32 on the CUDA cores unless
@@ -2646,16 +2671,15 @@ def phase_multi(card, results):
     results["gcc_kernel"]["max_abs_err"] = max(
         results["gcc_kernel"]["max_abs_err"], raw_err)
     del raw, raw64
-    k_ms, p_ms = alternate_ms(
-        lambda: gcc_kernel.gcc_reference(frames, *ops, **kw),
-        lambda: gcc_kernel.launch(frames, *ops, **kw))
+    k_ms, f_ms, p_ms, route = row2_turns(frames, ops, kw)
     p_n = loc.pairs.shape[0]
     bnd = gcc_bound(MULTI_FRAMES, mics.shape[0], frames.shape[-1], f, p_n, l,
                     with_peaks=False, split_products=True)
     pct = share_of_bound("5 timing", "gcc_kernel multi_8mic", k_ms, bnd)
     say("5 timing", f"gcc_kernel multi_8mic without peaks (row 2: "
         f"{MULTI_FRAMES} frames of 8 x 1,024, {p_n} pairs, {f} bins, {l} "
-        f"lags): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+        f"lags): kernel {k_ms:.4f} ms ({route}), fused body {f_ms:.4f} ms "
+        f"({100 * bnd['bound_ms'] / f_ms:.1f}%), plain {p_ms:.4f} ms, bound "
         f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']} (the DFT and the "
         f"synthesis as three TF32 products each), {pct:.1f}% of it ({card})")
     results["gcc_kernel"]["multi_8mic_no_peaks"] = dict(
@@ -3558,9 +3582,7 @@ def row2_at_shape(card, results, name, flat, window, pairs, cfg,
             results["gcc_kernel"]["max_abs_err"], err)
         entry["max_abs_err"] = err
         del raw, raw64, plain
-    k_ms, p_ms = alternate_ms(
-        lambda: gcc_kernel.gcc_reference(flat, *ops, **kw),
-        lambda: gcc_kernel.launch(flat, *ops, **kw), reps=EST_KERNEL_REPS)
+    k_ms, f_ms, p_ms, route = row2_turns(flat, ops, kw, reps=EST_KERNEL_REPS)
     b, m, n = flat.shape
     bnd = gcc_bound(b, m, n, f, pairs.shape[0], l, with_peaks=False,
                     split_products=True)
@@ -3568,11 +3590,12 @@ def row2_at_shape(card, results, name, flat, window, pairs, cfg,
     say("13 estimators", f"gcc_kernel {name} without peaks (row 2: {b} "
         f"frames of {m} x {n}, {pairs.shape[0]} pairs, {f} bins, {l} lags; "
         f"{gcc_kernel._lib().att_gcc_frames_per_block(m, pairs.shape[0], l)}"
-        f" frames a block): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-        f"bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} (split), "
-        f"{pct:.1f}% of it ({card})")
+        f" frames a block): kernel {k_ms:.4f} ms ({route}), fused body "
+        f"{f_ms:.4f} ms ({100 * bnd['bound_ms'] / f_ms:.1f}%), plain "
+        f"{p_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms by "
+        f"{bnd['bound_by']} (split), {pct:.1f}% of it ({card})")
     results["gcc_kernel"][f"{name}_no_peaks"] = dict(
-        ms=k_ms, plain_ms=p_ms, **entry, **bnd)
+        ms=k_ms, fused_ms=f_ms, route=route, plain_ms=p_ms, **entry, **bnd)
 
 
 def expect_counts(name, kernels, phase="13 estimators") -> str:

@@ -23,8 +23,10 @@ its samples loaded for the first chunk only, or its synthesis cut out (DFT,
 means and peaks only).  The base mode without peaks (``rowtwo``: row 2 of
 the kernel table) runs on the 16,384 frames of each frame-batch estimator
 path of ``chip_smoke.py``'s phase 13 as it is, with its DFT cut to the
-first 32 samples and with its synthesis cut out, which splits its time
-between the DFT and the lag synthesis at each shape.
+first 32 samples, with the fused body's synthesis cut out and with the
+pair phase cut to its first 16 bins, which splits its time between the
+DFT and the lag synthesis at each shape (the pair phase takes the shapes
+whose correlograms would crowd a block's tile, the fused body the rest).
 
     python3 chip_variants.py [srp] [large] [stats] [base] [dft] [scan] [gn]
                              [rowtwo]
@@ -124,10 +126,21 @@ BASE_VARIANTS = {
         "for (int fb = 0; fb < 0; fb += kSub) {"),
 }
 # row 2 (the base mode without peaks) at the estimators' shapes: the whole
-# kernel, its DFT cut to the first 32 samples, its synthesis cut out
-ROW_TWO_VARIANTS = {k: BASE_VARIANTS[k] for k in (
-    "as_committed", "timing_only_dft_first_32_samples",
-    "timing_only_no_synthesis")}
+# kernel, its DFT cut to the first 32 samples (two ring stages a bin chunk),
+# the fused body's synthesis cut out, the pair phase cut to two ring stages
+# of 8 bins
+ROW_TWO_VARIANTS = {
+    "as_committed": None,
+    "timing_only_dft_first_32_samples": (
+        "gcc_kernel.cu",
+        "const int nkb = (N + kKStage - 1) / kKStage;   // ring stages a chunk",
+        "const int nkb = 2;"),
+    "timing_only_no_synthesis": BASE_VARIANTS["timing_only_no_synthesis"],
+    "timing_only_pair_phase_first_2_stages": (
+        "gcc_kernel.cu",
+        "const int nks = (F + kStageBins - 1) / kStageBins;   // ring stages a lag block",
+        "const int nks = 2;"),
+}
 # the DFT-product kernel's f32 mode: how often the tensor cores' sums go
 # into fp32 registers (outputs compared with float64, not with each other)
 DFT_VARIANTS = {

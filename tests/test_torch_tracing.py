@@ -613,7 +613,8 @@ def test_eager_localizer_spans_time_on_the_card(cuda_device, monkeypatch):
 def test_doa_spans_time_on_the_card(cuda_device):
     """``doa.gcc``, ``doa.srp`` and ``doa.tail`` timed on the card by their
     events, inside the host span ``doa.forward``; bit-equal outputs with
-    tracing on and off; one GCC kernel launch a call."""
+    tracing on and off; one GCC kernel launch a call, on the pair route at
+    8 mics and 28 pairs (``gcc.route.pairs``)."""
     est = _estimator(cuda_device)
     frames = _doa_frames(cuda_device, b=4096)
     off = {k: v.clone() for k, v in est(frames).items()}
@@ -629,7 +630,8 @@ def test_doa_spans_time_on_the_card(cuda_device):
         ms = [r.device_ms for r in recs if r.name == name]
         assert len(ms) == 3 and all(m > 0 for m in ms), name
     assert all(r.device_ms is None for r in recs if r.name == "doa.forward")
-    assert counts == {"doa.frames": 3 * 4096, "doa.route.kernel": 3}
+    assert counts == {"doa.frames": 3 * 4096, "doa.route.kernel": 3,
+                      "gcc.route.pairs": 3}
     from audio_triangulation_tpu_torch.ops.cuda import gcc_kernel
 
     before = gcc_kernel.launches
