@@ -27,7 +27,7 @@ import ctypes
 import torch
 
 from . import _build
-from .srp_kernel import tf32_split
+from .split_fp32 import split_product, tf32_split
 
 # name -> (operand dtype, accumulator / output / scalar dtype, kernel code)
 TYPE_SETS = {
@@ -88,29 +88,23 @@ def dft_matmul_split_reference(x: torch.Tensor, w1: torch.Tensor,
                                ) -> torch.Tensor:
     """Plain PyTorch version of the f32 kernel's arithmetic (same contract
     as :func:`dft_matmul_reference`, f32 only): ``x + s`` and both matrices
-    split into TF32 parts by :func:`~.srp_kernel.tf32_split`; every 8
+    split into TF32 parts by :func:`~.split_fp32.tf32_split`; every 8
     values of K add ``lo hi``, ``hi lo`` and ``hi hi`` of w1, then of w2, to
     one f32 accumulator (``lo lo`` is dropped), which is added into the f32
-    result every :data:`FLUSH_STEPS` steps and at the end."""
+    result every :data:`FLUSH_STEPS` steps and at the end
+    (:func:`~.split_fp32.split_product`)."""
     name, _, _ = _checked(x, w1, w2, s)
     if name != "f32":
         raise ValueError(f"the split product takes f32 operands; got {name}")
-    n = x.shape[1]
-    xh, xl = tf32_split(x + s.reshape(1))
-    parts = [tf32_split(w) for w in (w1, w2)]
-    total = torch.zeros((x.shape[0], w1.shape[1]), dtype=torch.float32,
-                        device=x.device)
-    acc = torch.zeros_like(total)
-    for step, k0 in enumerate(range(0, n, 8)):
-        ks = slice(k0, k0 + 8)
-        for wh, wl in parts:
-            acc += xl[:, ks] @ wh[ks]
-            acc += xh[:, ks] @ wl[ks]
-            acc += xh[:, ks] @ wh[ks]
-        if (step + 1) % FLUSH_STEPS == 0 or k0 + 8 >= n:
-            total += acc
-            acc.zero_()
-    return total
+    # K in the kernel's order: each step of 8 samples against w1, then
+    # against w2 (samples padded with zeros to whole steps)
+    pad = torch.nn.functional.pad
+    short = -x.shape[1] % 8
+    xs = pad(x + s.reshape(1), (0, short)).unflatten(-1, (-1, 8))
+    a = torch.cat((xs, xs), dim=-1).flatten(-2)
+    b = torch.cat([pad(w, (0, 0, 0, short)).unflatten(0, (-1, 8))
+                   for w in (w1, w2)], dim=1).flatten(0, 1)
+    return split_product(a, b, flush_steps=2 * FLUSH_STEPS)
 
 
 def split_k_major_reference(w1: torch.Tensor,

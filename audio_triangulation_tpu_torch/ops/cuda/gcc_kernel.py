@@ -60,7 +60,7 @@ from ...core.config import PipelineConfig
 from ...utils import profiling
 from .. import mxu_fft, xcorr
 from . import _build
-from .srp_kernel import tf32_split
+from .split_fp32 import split_product, tf32_split
 
 # the SRP mode stages the lag LUT as int16
 SRP_MAX_LAGS = 32767
@@ -226,29 +226,8 @@ def split_rdft(x: torch.Tensor, cos: torch.Tensor, msin: torch.Tensor,
     is added into the spectrum and cleared every ``DFT_FLUSH_STEPS`` steps.
     (The base mode's ``wgmma`` puts a step's samples in other K slots,
     ``DFT_SLOT_SAMPLE``: the same sums.)"""
-    x_hi, x_lo = tf32_split(x.float())
-    out = []
-    for w in (cos, msin):
-        w_hi, w_lo = tf32_split(w.float())
-        total = torch.zeros((*x.shape[:-1], w.shape[1]), dtype=torch.float32,
-                            device=x.device)
-        acc = torch.zeros_like(total)
-        n_steps = -(-x.shape[-1] // 8)
-        for s in range(n_steps):
-            ks = slice(8 * s, 8 * s + 8)
-            if s % tc_steps == 0:
-                group = x_lo[..., ks] @ w_hi[ks]
-            else:
-                group += x_lo[..., ks] @ w_hi[ks]
-            group += x_hi[..., ks] @ w_lo[ks]
-            group += x_hi[..., ks] @ w_hi[ks]
-            if (s + 1) % tc_steps == 0 or s + 1 == n_steps:
-                acc += group
-            if (s + 1) % DFT_FLUSH_STEPS == 0 or s + 1 == n_steps:
-                total += acc
-                acc.zero_()
-        out.append(total)
-    return out
+    return [split_product(x, w, tc_steps=tc_steps,
+                          flush_steps=DFT_FLUSH_STEPS) for w in (cos, msin)]
 
 
 def chunked_lag_correlogram(rr: torch.Tensor, jj: torch.Tensor,
@@ -284,32 +263,16 @@ def split_lag_correlogram(rr: torch.Tensor, jj: torch.Tensor,
     fp = -(-f // SPLIT_CHUNK_BINS) * SPLIT_CHUNK_BINS
     steps = fp // 4
 
-    def k_steps(c, s):  # two [..., F] -> [..., steps, 8]
+    def k_steps(c, s):  # two [..., F] -> [..., K]
         pad = (0, fp - f)
         return torch.cat(
             [torch.nn.functional.pad(t.float(), pad).unflatten(-1, (steps, 4))
-             for t in (c, s)], dim=-1)
+             for t in (c, s)], dim=-1).flatten(-2)
 
-    b_hi, b_lo = tf32_split(k_steps(sync.t(), syns.t()))  # [L, steps, 8]
-    b_hi, b_lo = b_hi.permute(1, 2, 0), b_lo.permute(1, 2, 0)
-    a_hi, a_lo = tf32_split(k_steps(rr, jj))
-    total = torch.zeros((*rr.shape[:-1], l), dtype=torch.float32,
-                        device=rr.device)
-    acc = torch.zeros_like(total)
-    group = acc if not tc_steps else torch.zeros_like(total)
-    for s in range(steps):
-        if tc_steps and s % tc_steps == 0:
-            group.zero_()
-        if not hi_only:
-            group += a_lo[..., s, :] @ b_hi[s]
-            group += a_hi[..., s, :] @ b_lo[s]
-        group += a_hi[..., s, :] @ b_hi[s]
-        if tc_steps and ((s + 1) % tc_steps == 0 or s + 1 == steps):
-            acc += group
-        if flush_steps and (s + 1) % flush_steps == 0:
-            total += acc
-            acc.zero_()
-    return total + acc
+    # b [K, L] is a view of [L, K], K running fastest
+    return split_product(k_steps(rr, jj), k_steps(sync.t(), syns.t()).t(),
+                         tc_steps=tc_steps, flush_steps=flush_steps,
+                         hi_only=hi_only)
 
 
 # The pair phase's synthesis operand (:func:`pack_synthesis_split`): lag

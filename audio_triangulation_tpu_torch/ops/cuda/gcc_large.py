@@ -30,7 +30,7 @@ from ...core.config import PipelineConfig
 from .. import mxu_fft, xcorr
 from . import _build
 from .gcc_kernel import SPLIT_CHUNK_BINS, _peaks, split_lag_correlogram
-from .srp_kernel import tf32_split
+from .split_fp32 import tf32_split
 
 launches = 0
 

@@ -22,6 +22,7 @@ import ctypes
 import torch
 
 from . import _build
+from .split_fp32 import split_product
 
 launches = 0
 
@@ -41,46 +42,19 @@ def srp_argmax_reference(flat: torch.Tensor, matrix: torch.Tensor,
     return val, cell.to(torch.int32)
 
 
-def tf32_round(t: torch.Tensor) -> torch.Tensor:
-    """f32 values rounded to TF32 (10 mantissa bits) to nearest, ties away
-    from zero, as the kernel and ``cvt.rna.tf32.f32`` do: half a TF32 ulp
-    added to the magnitude bits, the 13 low bits cleared."""
-    bits = t.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def tf32_split(t: torch.Tensor):
-    """(hi, lo), both TF32 values, with hi + lo within 2^-21 of t: hi is t
-    rounded to TF32 and lo the rounded remainder."""
-    hi = tf32_round(t)
-    return hi, tf32_round(t - hi)
-
-
 def srp_argmax_split_reference(flat: torch.Tensor, matrix: torch.Tensor,
                                num_cells: int, *, bf16: bool = False):
     """Plain PyTorch version that repeats the kernel's arithmetic on f32
     operands (same contract as :func:`srp_argmax_reference`).  f32 mode:
-    both operands split by :func:`tf32_split`, and every 8 values of K add
-    ``a_lo w_hi``, then ``a_hi w_lo``, then ``a_hi w_hi`` to one f32
-    accumulator.  bf16 mode: operands rounded to bf16, every 16 values of
-    K added to one f32 accumulator."""
-    flat, matrix = flat.float(), matrix.float()
-    b, k = flat.shape
-    acc = torch.zeros((b, matrix.shape[1]), dtype=torch.float32,
-                      device=flat.device)
+    both operands split by :func:`~.split_fp32.tf32_split`, and every 8
+    values of K add ``a_lo w_hi``, then ``a_hi w_lo``, then ``a_hi w_hi`` to
+    one f32 accumulator.  bf16 mode: operands rounded to bf16, every 16
+    values of K added to one f32 accumulator.  Both are
+    :func:`~.split_fp32.split_product`."""
     if bf16:
-        a = flat.to(torch.bfloat16).float()
-        w = matrix.to(torch.bfloat16).float()
-        for k0 in range(0, k, 16):
-            acc += a[:, k0:k0 + 16] @ w[k0:k0 + 16]
-    else:
-        (a_hi, a_lo), (w_hi, w_lo) = tf32_split(flat), tf32_split(matrix)
-        for k0 in range(0, k, 8):
-            ks = slice(k0, k0 + 8)
-            acc += a_lo[:, ks] @ w_hi[ks]
-            acc += a_hi[:, ks] @ w_lo[ks]
-            acc += a_hi[:, ks] @ w_hi[ks]
-    scores = acc[:, :num_cells]
+        flat, matrix = flat.float().bfloat16(), matrix.float().bfloat16()
+    scores = split_product(flat, matrix, k=16 if bf16 else 8,
+                           hi_only=bf16)[:, :num_cells]
     cell = scores.argmax(dim=-1)
     val = scores.gather(-1, cell[:, None])[:, 0]
     return val, cell.to(torch.int32)

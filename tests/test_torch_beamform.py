@@ -16,6 +16,8 @@ over DAS on a 3x interferer and distortionless on the target alone, a
 moving steer's glide beating a frozen one, the zero-delay WOLA
 reconstruction, chunk-size invariance, ``step_many`` equal to a loop."""
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import numpy as np
 import pytest
 import torch

@@ -12,6 +12,8 @@ shifts and grid cells equal, tdoa 1e-3 samples, xy 2e-4 m plus 5e-4 of its
 size (a noise frame's solve lands metres out, where range is
 ill-conditioned: measured 3.8e-4 of it)."""
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import json
 import os
 

@@ -5,6 +5,8 @@ frames; the whole sweep, ``slow``, against the JAX package's rows) and
 ``tools/soak_streaming`` (its JSON and gates).  None writes a file without
 ``--out``."""
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import importlib.util
 import json
 import os

@@ -13,6 +13,8 @@ choice, its refined lag and alpha within 1e-6; on real frames
 scale, and ``localize_moving``'s velocity within 1e-3 m/s on the moving
 scene of the JAX package's ``examples/advanced.py``."""
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import dataclasses
 
 import numpy as np

@@ -34,6 +34,8 @@ the port's float32.
   version of row 2 and ``measured_tdoas`` keep their autograd.
 """
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import functools
 
 import numpy as np

@@ -17,6 +17,8 @@ Tolerances, from the measured gaps between the two CLIs on these scenes:
 - WAV files of the beamformed events within 1e-3 of full scale.
 """
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import json
 import os
 import subprocess

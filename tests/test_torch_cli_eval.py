@@ -6,6 +6,8 @@ its report held to the JAX CLI's on the same manifest: the same detected
 files, positions within 2e-4 m (printed to 1e-4 m) and errors within
 0.03 cm."""
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import json
 import os
 

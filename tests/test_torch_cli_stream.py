@@ -9,6 +9,8 @@ within 1.5e-3 m, the last printed digit over the tracking tests' 1e-3),
 and the files they write compared (frame sequences by count and pixels,
 extracted audio within 1e-3 of full scale)."""
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import os
 
 import numpy as np

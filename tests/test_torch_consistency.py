@@ -4,6 +4,8 @@ channel.  Float tolerance: both sides solve M x M systems in float32 by LU,
 so values agree to a few ulp of the TDOA scale (rtol 1e-4, atol 1e-4 of the
 largest TDOA); the fault flags must be equal."""
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import numpy as np
 import pytest
 import torch

@@ -2,6 +2,8 @@
 the matmul GCC engine held against the JAX package; the port's package
 imports no JAX; its kernel build has no silent fallback."""
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import ast
 import dataclasses
 import pathlib

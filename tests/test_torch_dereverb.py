@@ -20,6 +20,8 @@ the STFT round trip, WPE near a no-op on anechoic input (every TDOA
 kept), the stream equal to one long ``wpe_rls`` and to itself at any
 chunk size, ``step_many`` equal to a loop of ``step``."""
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import dataclasses
 
 import numpy as np

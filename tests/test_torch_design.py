@@ -16,6 +16,8 @@ Tolerances, from the measured gaps (both packages float32):
   ``torch.autograd`` through the forward-mode Jacobian (second order).
 """
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import numpy as np
 import pytest
 import torch

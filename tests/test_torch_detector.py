@@ -4,6 +4,8 @@ and positions, the prefix sums, the detector powers and the captured frames
 must be equal bit for bit (float32 adds made in the same order; integer
 input in exact int64)."""
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import numpy as np
 import pytest
 import torch

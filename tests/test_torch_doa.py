@@ -27,6 +27,8 @@ bearings equal where the spectrum's peak is 1e-3 of scale clear.  Every
 estimator also finds the planted bearing within the JAX package's own
 test bound."""
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import dataclasses
 
 import numpy as np

@@ -6,6 +6,8 @@ frames of the benchmark's 8-mic circle and of a 4-mic circle.  The
 control (the reference at the precision below, float32 with TF32 product
 operands) fails the same tolerances.  No JAX here."""
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import copy
 
 import numpy as np

@@ -23,6 +23,8 @@ lines the JAX example prints off its own TPU path or from another PRNG:
   package's 20.6 dB.
 """
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import os
 import re
 import subprocess

@@ -19,6 +19,8 @@ float32 (offsets 1e-3 samples, xy 2e-4 m) and float64 (1e-9 m, 1e-12 s).
 rot and trans within 1e-5, rms within 1e-5; ``registered_arrays``
 equal."""
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import numpy as np
 import pytest
 import torch

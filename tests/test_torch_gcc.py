@@ -3,6 +3,8 @@ on the CPU) against the JAX package's Pallas GCC kernel in interpret mode,
 on the same raw frames, in the base mode, the spectral-stats mode and the
 in-kernel SRP mode; plus the wrapper's no-fallback contract."""
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +16,7 @@ from audio_triangulation_tpu.ops.pallas import gcc_kernel as jgcc
 from audio_triangulation_tpu.utils import synth as jsynth
 from audio_triangulation_tpu_torch.core import config as tcfg
 from audio_triangulation_tpu_torch.ops.cuda import gcc_kernel as tgcc
+from audio_triangulation_tpu_torch.ops.cuda.split_fp32 import tf32_split
 
 CASES = {
     "circular_phat": (3, {"fft_pad_mode": "circular", "phat": True}),
@@ -285,7 +288,7 @@ def test_pack_dft_split_layout(n, f):
     assert k % tgcc.SPLIT_STAGE_SAMPLES == 0 and k >= n
     assert k - n < tgcc.SPLIT_STAGE_SAMPLES
     (ch, sh), (cl, sl) = tgcc.unpack_dft_split(packed, n, f)
-    (ch0, cl0), (sh0, sl0) = tgcc.tf32_split(cos), tgcc.tf32_split(msin)
+    (ch0, cl0), (sh0, sl0) = tf32_split(cos), tf32_split(msin)
     for got, want in ((ch, ch0), (sh, sh0), (cl, cl0), (sl, sl0)):
         assert torch.equal(got, want)
     # padding: columns past 2F and samples past N are zero

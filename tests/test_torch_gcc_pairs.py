@@ -13,6 +13,8 @@ the pair phase existed.  Imports no JAX."""
 
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import dataclasses
 import hashlib
 
@@ -23,6 +25,7 @@ import torch
 from audio_triangulation_tpu_torch.core import config as tcfg, geometry
 from audio_triangulation_tpu_torch.ops import window as twin
 from audio_triangulation_tpu_torch.ops.cuda import gcc_kernel as tgcc
+from audio_triangulation_tpu_torch.ops.cuda.split_fp32 import tf32_split
 from audio_triangulation_tpu_torch.utils import synth
 
 
@@ -232,9 +235,9 @@ def test_pack_synthesis_split_layout(f, l):
     assert packed.shape == (2, lp, 2 * fs) and fs % tgcc.PAIR_STAGE_BINS == 0
     (ch, sh), (cl, sl) = tgcc.unpack_synthesis_split(packed, f, l)
     for got, mat in ((ch, sync), (sh, syns)):
-        assert torch.equal(got, tgcc.tf32_split(mat)[0])
+        assert torch.equal(got, tf32_split(mat)[0])
     for got, mat in ((cl, sync), (sl, syns)):
-        assert torch.equal(got, tgcc.tf32_split(mat)[1])
+        assert torch.equal(got, tf32_split(mat)[1])
     full = torch.zeros((2, lp, 2 * fs), dtype=torch.bool)
     full[:, :l] = True
     k = torch.arange(2 * fs)
@@ -243,9 +246,9 @@ def test_pack_synthesis_split_layout(f, l):
     # step s of K: slot t the cos row of bin 4 s + t, slot 4 + t its sin row
     s, t = 3, 2
     hi = packed[0]
-    assert torch.equal(hi[:l, 8 * s + t], tgcc.tf32_split(sync[4 * s + t])[0])
+    assert torch.equal(hi[:l, 8 * s + t], tf32_split(sync[4 * s + t])[0])
     assert torch.equal(hi[:l, 8 * s + 4 + t],
-                       tgcc.tf32_split(syns[4 * s + t])[0])
+                       tf32_split(syns[4 * s + t])[0])
 
 
 def test_cpu_path_is_unchanged_by_the_pair_route():

@@ -15,6 +15,8 @@ above the 1e-4 m floor, and an rms 9e-8 m apart (inside its 1e-6 m
 tolerance) moves sigma^2 by 1.6e-3 of itself at rms 1.1e-4 m (3-mic array,
 source 1.4 m off axis)."""
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import numpy as np
 import pytest
 import torch

@@ -6,6 +6,8 @@ compared with ``torch.equal`` (dtype included), never with a tolerance:
 wraparound, negative shifts, saturated frames, 8- and 10-bit frame sizes.
 ``gpu`` cases hold the card to the CPU path bit for bit."""
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import numpy as np
 import pytest
 import torch

@@ -4,6 +4,8 @@ Pallas kernel in interpret mode, the pair-blocked matmul engine against the
 reference's, and the port's Localizer against the JAX Localizer at 276 pairs
 on each scoring branch; all on the same numpy inputs."""
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import dataclasses
 
 import numpy as np
@@ -21,7 +23,7 @@ from audio_triangulation_tpu_torch.models import localizer as tloc
 from audio_triangulation_tpu_torch.ops import mxu_fft as tmxu
 from audio_triangulation_tpu_torch.ops.cuda import _build
 from audio_triangulation_tpu_torch.ops.cuda import gcc_large as tlarge
-from audio_triangulation_tpu_torch.ops.cuda import srp_kernel as tsrpk
+from audio_triangulation_tpu_torch.ops.cuda.split_fp32 import tf32_round
 from audio_triangulation_tpu_torch.utils import synth
 
 SMALL = dict(fft_pad_mode="circular", frame_size_bits=8,
@@ -534,7 +536,7 @@ def test_packed_synthesis_layout_and_split(rng, lags, bins):
     assert int((packed.view(torch.int32) & 0x1FFF).abs().max()) == 0
     c_hi, s_hi, c_lo, s_lo = tlarge.unpack_synthesis(packed, bins, lags)
     for mat, hi, lo in ((sync, c_hi, c_lo), (syns, s_hi, s_lo)):
-        assert torch.equal(hi, tsrpk.tf32_round(mat))
+        assert torch.equal(hi, tf32_round(mat))
         err = (hi.double() + lo.double() - mat.double()).abs()
         assert bool((err <= 2.0 ** -21 * mat.double().abs()).all())
     # what is past the matrix is zero

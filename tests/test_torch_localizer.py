@@ -2,6 +2,8 @@
 package's Localizer, on the same synthetic frames: through the reference's
 fused Pallas path (interpret mode) and its unfused path."""
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import dataclasses
 
 import numpy as np

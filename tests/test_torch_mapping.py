@@ -16,6 +16,8 @@ reflective walls of a 6 x 5 x 3 m room (``max_order=1``) heard by a 6-mic
 0.25 m circle, three events each; the walls are also found within the JAX
 tests' 0.15 / 0.2 m."""
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import numpy as np
 import pytest
 import torch

@@ -14,6 +14,8 @@ products' rounding: 3e-3 seen), ``peak_value`` / ``scores`` /
 ``source_score`` within 2e-3 of the score scale, ``rms_m`` within 1e-5 m
 and ``xy_cov`` within 1e-3 relative."""
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import numpy as np
 import pytest
 import torch

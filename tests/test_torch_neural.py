@@ -24,6 +24,8 @@ from float64).
   ``simulate_batch`` tolerance).
 """
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import functools
 
 import numpy as np

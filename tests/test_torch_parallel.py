@@ -26,6 +26,8 @@ Tolerances, from the measured gaps:
 - each test states its own where it differs, with the measured gap.
 """
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import os
 import pickle
 import tempfile

@@ -7,6 +7,8 @@ version, and a model axis run shard by shard against the world of one.
     python -m pytest tests/test_torch_parallel_gpu.py -m gpu -q
 """
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import numpy as np
 import pytest
 import torch

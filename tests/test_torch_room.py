@@ -11,6 +11,8 @@ package's float32; measured 7.5e-6) and to the float64 ``simulate`` within
 the JAX test's 2e-4; cut into batch slices it is equal to one slice.  The
 same validation errors are raised."""
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import numpy as np
 import pytest
 import torch

@@ -9,6 +9,8 @@ JAX platform at import; the int32 products exact), ``tools/soak_transport``
 committed record.  The ``gpu`` case holds row 8's int8 mode at the tool's
 padded shape to numpy's int32 product on a card."""
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import glob
 import hashlib
 import json

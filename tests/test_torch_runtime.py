@@ -5,6 +5,8 @@ same pushes into both packages' runtimes give equal events, stamps and
 counters: integers and int16 frames, held exactly); and the root exports
 of the two packages."""
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import os
 import shutil
 import subprocess

@@ -21,6 +21,8 @@ Tolerances, from the measured gaps:
   over three more steps (the ten-step test's tolerance).
 """
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import json
 import os
 import sys

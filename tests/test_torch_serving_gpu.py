@@ -9,6 +9,8 @@ computation or the eager call on the same inputs.
     python -m pytest tests/test_torch_serving_gpu.py -m gpu -q
 """
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import os
 import subprocess
 import sys

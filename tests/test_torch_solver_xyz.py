@@ -17,6 +17,8 @@ rms within 5e-5 m.  On these inputs the JAX package's own float32 solve is
 7.4e-8 s and 1.2e-5 m from that solution, and up to 7 cm from it in
 position."""
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import numpy as np
 import pytest
 import torch

@@ -43,6 +43,8 @@ card to the CPU path over the band per cell within 1e-3, and MUSIC over
 the full band by its reciprocal, within 2e-3 of the CPU's and within
 1e-3 of float64's; MVDR and frequency SRP keep their rules."""
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import dataclasses
 
 import numpy as np

@@ -3,6 +3,8 @@ against the JAX package's Pallas kernel in interpret mode, the large-array
 scoring functions of ``ops.srp`` against the reference's, and the geometry
 additions byte for byte; all on the same numpy inputs."""
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import numpy as np
 import pytest
 import torch

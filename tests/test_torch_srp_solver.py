@@ -1,6 +1,8 @@
 """PyTorch port, SRP scoring, grid peak and solver against the JAX package
 on the same numpy inputs."""
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import numpy as np
 import pytest
 import torch

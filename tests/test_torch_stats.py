@@ -14,6 +14,8 @@ Tolerances, and why:
 - phase-slope TDOA: 1e-4 samples (f32 atan2 on both sides).
 """
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import dataclasses
 
 import numpy as np
@@ -30,7 +32,8 @@ from audio_triangulation_tpu_torch.core import config as tcfg
 from audio_triangulation_tpu_torch.ops import mxu_fft as tmxu, xcorr as tx
 from audio_triangulation_tpu_torch.ops.cuda import _build
 from audio_triangulation_tpu_torch.ops.cuda import gcc_kernel as tgcc
-from audio_triangulation_tpu_torch.ops.cuda import srp_kernel as tsrpk
+from audio_triangulation_tpu_torch.ops.cuda.split_fp32 import (
+    tf32_round, tf32_split)
 
 MICS = jgeo.square_array(0.3)
 PAIRS = jgeo.mic_pairs(4)
@@ -362,8 +365,8 @@ def test_split_lag_correlogram_is_the_three_kept_products(rng):
     jj = torch.from_numpy(rng.standard_normal((3, 5, 37)).astype(np.float32))
     sc = torch.from_numpy(rng.standard_normal((37, 21)).astype(np.float32))
     ss = torch.from_numpy(rng.standard_normal((37, 21)).astype(np.float32))
-    (rh, rl), (jh, jl) = tsrpk.tf32_split(rr), tsrpk.tf32_split(jj)
-    (ch, cl), (sh, sl) = tsrpk.tf32_split(sc), tsrpk.tf32_split(ss)
+    (rh, rl), (jh, jl) = tf32_split(rr), tf32_split(jj)
+    (ch, cl), (sh, sl) = tf32_split(sc), tf32_split(ss)
     d = torch.Tensor.double
     kept = (d(rl) @ d(ch) + d(rh) @ d(cl) + d(rh) @ d(ch)
             + d(jl) @ d(sh) + d(jh) @ d(sl) + d(jh) @ d(sh))
@@ -418,7 +421,7 @@ def test_split_rdft_against_float64(rng):
     assert float((im.double() - im64).abs().max()) <= 2e-6 * scale
     pre, _ = tmxu.rdft(x, cos, msin)
     assert float((pre.double() - re64).abs().max()) <= 2e-6 * scale
-    one = tsrpk.tf32_round(x) @ tsrpk.tf32_round(cos)
+    one = tf32_round(x) @ tf32_round(cos)
     assert float((one.double() - re64).abs().max()) > 1e-4 * scale
     # 100 samples: the last step is padded, the only chunk is cut short
     r2, _ = tgcc.split_rdft(x[..., :100], cos[:100], msin[:100])
@@ -438,7 +441,7 @@ def test_gcc_matrices_carry_the_packed_synthesis():
     assert (f, l) == (513, 93)
     assert mats.synp.shape == (1, 528 // 4, 12, 32, 4)
     c_hi, s_hi, c_lo, s_lo = tgcc.unpack_split_synthesis(mats.synp, f, l)
-    assert torch.equal(c_hi, tsrpk.tf32_round(mats.sync))
+    assert torch.equal(c_hi, tf32_round(mats.sync))
     assert float((c_hi.double() + c_lo.double() - mats.sync.double()
                   ).abs().max()) <= 2.0 ** -21 * float(mats.sync.abs().max())
     assert float((s_hi.double() + s_lo.double() - mats.syns.double()

@@ -20,6 +20,8 @@ m, ``multi_tdoa_samples`` within 5e-3 lags, ``multi_score`` within 2e-3
 of its scale, ``multi_rms_m`` within 1e-5 m, ``multi_xy_cov`` 1e-3
 relative, ``velocity`` and ``pair_rel_speed`` within 1e-3 m/s."""
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import dataclasses
 
 import numpy as np

@@ -8,8 +8,12 @@ mode, against float64 at K = 558, and its split against the definition of
 TF32.  ``k_major`` and ``split_k_major`` are the host-side preparation of
 the DFT-product kernel's ``wgmma`` type sets; their plain versions are
 held to the transposes and the TF32 split, and the f32 mode's arithmetic,
-``dft_matmul_split_reference``, to the three products it keeps.  ``gpu`` cases hold the kernels themselves to these functions
-on a CUDA device."""
+``dft_matmul_split_reference``, to the three products it keeps.
+``split_product``, the split-fp32 product behind every plain version, is
+held to float64 in each of its modes.  ``gpu`` cases hold the kernels
+themselves to these functions on a CUDA device."""
+
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
 
 import numpy as np
 import pytest
@@ -26,6 +30,8 @@ from audio_triangulation_tpu_torch.ops import window as twindow
 from audio_triangulation_tpu_torch.ops.cuda import _build, dft_matmul
 from audio_triangulation_tpu_torch.ops.cuda import gcc_kernel as tgcc
 from audio_triangulation_tpu_torch.ops.cuda import gcc_large as tlarge
+from audio_triangulation_tpu_torch.ops.cuda.split_fp32 import (
+    split_product, tf32_round, tf32_split)
 from audio_triangulation_tpu_torch.ops.cuda import srp_kernel as tsrpk
 from audio_triangulation_tpu_torch.tools import int8_microbench
 from audio_triangulation_tpu_torch.utils import synth as tsynth
@@ -46,7 +52,7 @@ def test_tf32_round_is_nearest_with_ties_away_from_zero():
               -(1.0 + 0.5 * ulp), 1.0 + 1.5 * ulp, 3.0e-39, 0.0, -0.0])
     want = _f32([1.0, 1.0, 1.0 + ulp, 1.0 + ulp, -(1.0 + ulp),
                  1.0 + 2 * ulp, 3.0e-39, 0.0, -0.0])
-    got = tsrpk.tf32_round(x)
+    got = tf32_round(x)
     # the subnormal keeps its 10 leading stored bits
     want[6] = torch.tensor(
         (np.float32(3.0e-39).view(np.int32) + 0x1000) & ~0x1FFF,
@@ -59,10 +65,10 @@ def test_tf32_round_is_nearest_with_ties_away_from_zero():
 def test_tf32_split_parts_are_tf32_and_sum_within_2_pow_minus_21(rng, scale):
     w = torch.from_numpy(
         (rng.standard_normal((558, 97)) * scale).astype(np.float32))
-    hi, lo = tsrpk.tf32_split(w)
+    hi, lo = tf32_split(w)
     for part in (hi, lo):  # 13 low mantissa bits clear
         assert int((part.view(torch.int32) & 0x1FFF).abs().max()) == 0
-    assert torch.equal(hi, tsrpk.tf32_round(w))
+    assert torch.equal(hi, tf32_round(w))
     # |w - hi| <= 2^-11 |w| and lo rounds that to 11 bits: 2^-22 of |w|,
     # held at 2^-21
     err = (hi.double() + lo.double() - w.double()).abs()
@@ -74,8 +80,38 @@ def test_tf32_split_parts_are_tf32_and_sum_within_2_pow_minus_21(rng, scale):
 def test_tf32_split_of_bf16_values_has_no_low_part(rng):
     x = torch.from_numpy(rng.standard_normal(1000).astype(np.float32))
     x = x.to(torch.bfloat16).float()
-    hi, lo = tsrpk.tf32_split(x)
+    hi, lo = tf32_split(x)
     assert torch.equal(hi, x) and int(lo.count_nonzero()) == 0
+
+
+SPLIT_PRODUCT_MODES = {
+    "plain": {},
+    "tc_steps": dict(tc_steps=3),
+    "flush_steps": dict(flush_steps=4),
+    "tc_and_flush_steps": dict(tc_steps=2, flush_steps=4),
+    "hi_only_k16": dict(k=16, hi_only=True),
+}
+
+
+@pytest.mark.parametrize("mode", sorted(SPLIT_PRODUCT_MODES))
+def test_split_product_modes(rng, mode):
+    """Each mode of the split-fp32 product, at K = 76 (a short last step,
+    a short last group), within the split's bound of the float64 product:
+    per term the kept products miss a b by at most 5 2^-22 |a b| (``a_lo
+    b_lo``, and hi + lo within 2^-21 of each operand), and the f32 sum of
+    the 3 K exact TF32 products adds at most 3 K 2^-24 of the sum of |a b|.
+    ``hi_only`` takes bf16 operands, which have no low part."""
+    kw = SPLIT_PRODUCT_MODES[mode]
+    a = torch.from_numpy(rng.standard_normal((3, 5, 76)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((76, 24)).astype(np.float32))
+    if kw.get("hi_only"):
+        a, b = a.bfloat16().float(), b.bfloat16().float()
+    got = split_product(a, b, **kw)
+    assert got.dtype == torch.float32 and got.shape == (3, 5, 24)
+    bound = ((5 * 2.0 ** -22 + 3 * 76 * 2.0 ** -24)
+             * (a.double().abs() @ b.double().abs()))
+    assert bool(((got.double() - a.double() @ b.double()).abs()
+                 <= bound).all())
 
 
 # ---------------------------------------------------------------------------
@@ -141,7 +177,7 @@ def test_split_reference_drops_only_the_low_low_term(rng):
     by what the split itself leaves out, each 2^-22 of a product."""
     a = torch.from_numpy(rng.standard_normal((8, 40)).astype(np.float32))
     w = torch.from_numpy(rng.standard_normal((40, 24)).astype(np.float32))
-    (ah, al), (wh, wl) = tsrpk.tf32_split(a), tsrpk.tf32_split(w)
+    (ah, al), (wh, wl) = tf32_split(a), tf32_split(w)
     kept = (ah.double() @ wh.double() + ah.double() @ wl.double()
             + al.double() @ wh.double())
     val, _ = tsrpk.srp_argmax_split_reference(a, w, 24)
@@ -183,25 +219,6 @@ def _bench_frames(mics, n_frames, n, seed):
     return torch.from_numpy(tsynth.synth_scene(
         src, mics, n=n, noise_rms=0.01,
         seed=int(rng.integers(1 << 30))).astype(np.float32))
-
-
-def _split_rdft(x, cos, msin):
-    """The forward DFT x [..., N] @ (cos, msin) [N, F] as a split-fp32
-    product: both operands split by ``tf32_split``, and every 8 values of N
-    add ``x_lo w_hi``, then ``x_hi w_lo``, then ``x_hi w_hi`` to one f32
-    accumulator (the order of ``srp_argmax_split_reference``)."""
-    xh, xl = tsrpk.tf32_split(x)
-    out = []
-    for w in (cos, msin):
-        wh, wl = tsrpk.tf32_split(w)
-        acc = torch.zeros((*x.shape[:-1], w.shape[1]))
-        for k0 in range(0, x.shape[-1], 8):
-            ks = slice(k0, k0 + 8)
-            acc += xl[..., ks] @ wh[ks]
-            acc += xh[..., ks] @ wl[ks]
-            acc += xh[..., ks] @ wh[ks]
-        out.append(acc)
-    return out
 
 
 SPLIT_PHAT_CASES = {
@@ -260,10 +277,10 @@ def test_split_dft_under_phat_stays_inside_the_kernels_tolerance(case):
     def err(re, im):
         return float((correlogram(re, im) - ref).abs().max()) / scale
 
-    e_split = err(*_split_rdft(x, cos, msin))
+    e_split = err(split_product(x, cos), split_product(x, msin))
     e_fp32 = err(*tmxu.rdft(x, cos, msin))
-    xh = tsrpk.tf32_round(x)
-    e_tf32 = err(xh @ tsrpk.tf32_round(cos), xh @ tsrpk.tf32_round(msin))
+    xh = tf32_round(x)
+    e_tf32 = err(xh @ tf32_round(cos), xh @ tf32_round(msin))
     print(f"{case}: correlogram error of scale under PHAT: split-fp32 DFT "
           f"{e_split:.2e}, fp32 torch.matmul DFT {e_fp32:.2e}, one TF32 "
           f"product {e_tf32:.2e}")
@@ -324,10 +341,10 @@ def test_dft_split_reference_drops_only_the_low_low_term(rng):
     w2 = torch.from_numpy(rng.standard_normal((64, 16)).astype(np.float32))
     s = torch.full((1,), 0.5)
     xs = x + s
-    xh, xl = tsrpk.tf32_split(xs)
+    xh, xl = tf32_split(xs)
     kept = 0
     for w in (w1, w2):
-        wh, wl = tsrpk.tf32_split(w)
+        wh, wl = tf32_split(w)
         kept = kept + (xh.double() @ wh.double() + xh.double() @ wl.double()
                        + xl.double() @ wh.double())
     got = dft_matmul.dft_matmul_split_reference(x, w1, w2, s)
@@ -350,11 +367,11 @@ def test_split_k_major_holds_the_tf32_parts_k_major():
     assert pk.shape == (4, 80, 192) and pk.dtype == torch.float32
     assert pk.is_contiguous()
     for m, w in enumerate((w1, w2)):
-        hi, lo = tsrpk.tf32_split(w)
+        hi, lo = tf32_split(w)
         assert torch.equal(pk[2 * m], hi.t()) and torch.equal(pk[2 * m + 1],
                                                               lo.t())
         for part in (pk[2 * m], pk[2 * m + 1]):
-            assert torch.equal(part, tsrpk.tf32_round(part))
+            assert torch.equal(part, tf32_round(part))
         back = pk[2 * m].t().double() + pk[2 * m + 1].t().double()
         assert float(((back - w.double()).abs()
                       / w.double().abs()).max()) <= 2.0 ** -21

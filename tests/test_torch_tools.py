@@ -11,6 +11,8 @@ kernel's split-fp32 arithmetic, against the same and against float64.  The pipel
 port's three tools at a tiny size on the CPU.  ``gpu`` cases hold the two
 kernels on a card and skip without one."""
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import functools
 import importlib.util
 import json

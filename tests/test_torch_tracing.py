@@ -8,6 +8,8 @@ graph, and the DoA estimator's stages.  No JAX here: the
 ``gpu`` cases run on the card (``python -m pytest
 tests/test_torch_tracing.py -m gpu -q``)."""
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import time
 
 import pytest

@@ -23,6 +23,8 @@ JAX package's, their decisions checked clear of their thresholds; the associatio
 within 1e-4.  ``gpu`` cases hold the CUDA-graph forms to the eager step
 on a card."""
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import dataclasses
 
 import numpy as np

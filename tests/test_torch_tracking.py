@@ -9,6 +9,8 @@ the nearest track); the two packages add in other orders, so the sequences
 are built so that each decision lies at least 1e-3 (relative) clear of its
 threshold, and each test checks that it does."""
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import dataclasses
 import functools
 

@@ -5,6 +5,8 @@ inputs (images as arrays, PNG files as bytes, terminal output as text).
 The viz modules are numpy only; the port keeps its own copy because
 importing any module of the JAX package runs its ``__init__`` (jax)."""
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import io
 import zlib
 

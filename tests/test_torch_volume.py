@@ -21,6 +21,8 @@ position within 2e-3 m (worst measured 4.7e-4), its rms within 5e-5 m
 the solve (``iterations`` + 3 steps, the z floor) in float64 within 1e-8
 m of the reference's.  The batched gather equals the whole gather."""
 
+import torch_threads  # noqa: F401  (first: before torch loads OpenMP)
+
 import dataclasses
 
 import numpy as np
