@@ -6,13 +6,16 @@ the circle has pair TDOAs tau_p(a) = -(m_j - m_i) . u(a) / c; the raw
 correlograms (``localizer.conditioned_correlograms``: the GCC kernel
 without peaks, row 2 of the kernel table, where the configuration takes
 it; the large-array kernel for a frame too large for it) are tapered and
-scored against a one-hot steering matrix [P * L, A], the peak refined by
-circular parabolic interpolation and a least-squares bearing solve.
-:class:`Doa3dEstimator` scores a Fibonacci lattice of unit bearings the
-same way.  With ``smp=True`` pairs of equal displacement are merged before
-the lag synthesis (Grondin et al., arXiv:2203.14409): unfused spectra, no
-kernel, as in the reference.  :func:`estimate_doa_music` is the
-azimuth form of ``ops.srp_freq.music_spectrum``.
+scored against a one-hot steering matrix [P * L, A] (on the card the SRP
+gather kernel gives the product's scores and first-max azimuth,
+``ops.cuda.srp_gather``, where the matrix is the lag table's one-hot), the
+peak refined by circular parabolic interpolation and a least-squares
+bearing solve.  :class:`Doa3dEstimator` scores a Fibonacci lattice of
+unit bearings with the product.  With ``smp=True`` pairs of equal
+displacement are merged before the lag synthesis (Grondin et al.,
+arXiv:2203.14409): unfused spectra, no GCC kernel, as in the reference.
+:func:`estimate_doa_music` is the azimuth form of
+``ops.srp_freq.music_spectrum``.
 
 The estimators are ``nn.Module`` s whose buffers live on the device given
 to ``create``; every lag window widens to the array's aperture unless
@@ -23,7 +26,8 @@ around a :class:`DoaEstimator` call, and inside it, under one call id,
 ``doa.gcc`` (the correlograms), ``doa.srp`` (best lag, taper, azimuth
 scores) and ``doa.tail`` (sub-sample peak, bearing solve, azimuth
 refinement), timed by CUDA events on the card; counts ``doa.frames`` and
-the GCC route of the call, ``doa.route.kernel`` / ``large`` / ``unfused``.
+the GCC route of the call, ``doa.route.kernel`` / ``large`` / ``unfused``,
+and the scoring's, ``srp.route.kernel`` / ``product``.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from ..core.config import PipelineConfig
 from ..ops import mxu_fft, srp, srp_freq, xcorr
 from ..ops import solver as solver_ops, window as window_ops
 from ..ops._device import device_constant
+from ..ops.cuda import srp_gather
 from ..utils import profiling
 from . import localizer as localizer_mod
 
@@ -108,11 +113,12 @@ def _widened(pipeline: PipelineConfig, mics: np.ndarray) -> PipelineConfig:
                                                                pipeline))
 
 
-def _params(est) -> localizer_mod.LocalizerParams:
-    """An estimator's buffers as the pipeline's ``LocalizerParams``."""
+def _params(est, lag_onehot: bool = False) -> localizer_mod.LocalizerParams:
+    """An estimator's buffers as the pipeline's ``LocalizerParams``
+    (``lag_onehot``: its steering matrix is the one-hot of ``lut_flat``)."""
     return localizer_mod.LocalizerParams(
         mic_positions=est.mic_positions, pairs=est.pairs, window=est.window,
-        lut_flat=est.lut_flat, onehot=None)
+        lut_flat=est.lut_flat, onehot=None, lag_onehot=lag_onehot)
 
 
 def _tensors(arrays: dict, device) -> dict:
@@ -156,6 +162,9 @@ class DoaEstimator(nn.Module):
         for name in ("mic_positions", "pairs", "window", "lut_flat",
                      "onehot_az", "merge"):
             self.register_buffer(name, tensors.get(name))
+        # whether the SRP gather kernel may score from lut_flat
+        self.lag_onehot = srp_gather.is_lag_onehot(
+            self.lut_flat, self.onehot_az, pipeline.num_lags)
         dev = self.window.device
         if disp is not None:
             mics_p, pairs_p = _pseudo_geometry(disp)
@@ -214,7 +223,7 @@ class DoaEstimator(nn.Module):
 
     @property
     def params(self) -> localizer_mod.LocalizerParams:
-        return _params(self)
+        return _params(self, self.lag_onehot)
 
     def forward(self, frames: torch.Tensor) -> dict:
         with profiling.annotate("doa.forward"):
@@ -230,10 +239,12 @@ class DoaEstimator(nn.Module):
                 pseudo_mics=self.pseudo_mics, pseudo_pairs=self.pseudo_pairs)
 
 
-def _refine_azimuth(scores: torch.Tensor, n_azimuths: int) -> torch.Tensor:
-    """Circular 3-point parabolic refinement of the first-max azimuth ->
-    bearing in degrees [...]."""
-    a = scores.argmax(dim=-1)
+def _refine_azimuth(scores: torch.Tensor, n_azimuths: int,
+                    a: torch.Tensor | None = None) -> torch.Tensor:
+    """Circular 3-point parabolic refinement of the first-max azimuth (``a``
+    [...], when the caller has it) -> bearing in degrees [...]."""
+    if a is None:
+        a = scores.argmax(dim=-1)
 
     def take(i):
         return scores.gather(-1, (i % n_azimuths)[..., None])[..., 0]
@@ -245,15 +256,16 @@ def _refine_azimuth(scores: torch.Tensor, n_azimuths: int) -> torch.Tensor:
     return ((a.to(scores.dtype) + delta) * (360.0 / n_azimuths)) % 360.0
 
 
-def _doa_result(corr, scores, shifts, mics, pairs, cfg, n_azimuths):
-    """Refined azimuth, per-pair sub-sample TDOAs and the least-squares
-    far-field bearing."""
+def _doa_result(corr, scores, shifts, mics, pairs, cfg, n_azimuths,
+                best=None):
+    """Refined azimuth (from the first-max azimuth ``best`` when given),
+    per-pair sub-sample TDOAs and the least-squares far-field bearing."""
     tdoa_samples, _ = xcorr.subsample_peak(corr, cfg.max_shift)
     bearing = solver_ops.farfield_bearing(
         tdoa_samples / cfg.sample_rate_hz, mics, pairs,
         cfg.speed_of_sound_mps)
     return {
-        "azimuth_deg": _refine_azimuth(scores, n_azimuths),
+        "azimuth_deg": _refine_azimuth(scores, n_azimuths, best),
         "scores": scores,
         "bearing": bearing,
         "tdoa_samples": tdoa_samples,
@@ -268,13 +280,18 @@ def _count_call(frames: torch.Tensor, route: str) -> None:
     profiling.count("doa.route." + route)
 
 
-def _steered_scores(corr, onehot, cfg):
-    """(best shifts [B, P], scores [B, D]) of raw correlograms: the
-    first-max lag, the taper around it, the one-hot steering product."""
+def _steered_scores(corr, onehot, cfg, params):
+    """(best shifts [B, P], scores [B, D], first-max azimuth [B] or None)
+    of raw correlograms: the first-max lag, the taper around it, the
+    one-hot steering product's scores, and their first maximum where the
+    gather kernel gives them (``srp_gather.route`` on ``params``' lag
+    table)."""
     shifts = xcorr.best_lag(corr, cfg.max_shift)
     corr_t = (xcorr.peak_taper(corr, cfg.max_shift, cfg.taper_denom, shifts)
               if cfg.taper_enabled else corr)
-    return shifts, srp.srp_scores_matmul(corr_t, onehot)
+    if srp_gather.route(corr_t, params.lut_flat, params.lag_onehot):
+        return (shifts, *srp_gather.launch(corr_t, params.lut_flat))
+    return shifts, srp.srp_scores_matmul(corr_t, onehot), None
 
 
 def _lead(out: dict, lead) -> dict:
@@ -309,10 +326,11 @@ def estimate_doa(
     with profiling.annotate("doa.gcc", flat.device, call):
         corr = localizer_mod.conditioned_correlograms(flat, params, cfg)
     with profiling.annotate("doa.srp", flat.device, call):
-        shifts, scores = _steered_scores(corr, onehot_az, cfg)  # [B, A]
+        shifts, scores, best = _steered_scores(  # scores [B, A]
+            corr, onehot_az, cfg, params)
     with profiling.annotate("doa.tail", flat.device, call):
         out = _doa_result(corr, scores, shifts, params.mic_positions,
-                          params.pairs, cfg, n_azimuths)
+                          params.pairs, cfg, n_azimuths, best)
     return _lead(out, lead)
 
 
@@ -364,10 +382,10 @@ def estimate_doa_smp(
             rr, jj, device_constant(syn_c, frames.device),
             device_constant(syn_s, frames.device), cfg.matmul_dtype)
     with profiling.annotate("doa.srp", frames.device, call):
-        shifts, scores = _steered_scores(corr, onehot_az, cfg)
+        shifts, scores, best = _steered_scores(corr, onehot_az, cfg, params)
     with profiling.annotate("doa.tail", frames.device, call):
         return _doa_result(corr, scores, shifts, pseudo_mics, pseudo_pairs,
-                           cfg, n_azimuths)
+                           cfg, n_azimuths, best)
 
 
 # ----------------------------------------------------------------------
@@ -576,7 +594,9 @@ def estimate_doa_3d(
     takes both angles from the least-squares bearing; ``coplanar`` keeps
     its azimuth and the lattice peak's elevation."""
     corr, lead = _raw_correlograms(params, frames, cfg)
-    shifts, scores = _steered_scores(corr, onehot_sph, cfg)  # [B, D]
+    # the spherical lattice keeps the product (``lag_onehot`` False)
+    shifts, scores, _ = _steered_scores(corr, onehot_sph, cfg,
+                                        params)  # [B, D]
     u_grid = dirs[scores.argmax(dim=-1)]  # [B, 3]
 
     tdoa_samples, _ = xcorr.subsample_peak(corr, cfg.max_shift)

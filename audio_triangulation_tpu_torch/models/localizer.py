@@ -8,11 +8,14 @@ and ``localize_frames``).  Hand-written CUDA kernels carry the path on a
 GPU: ``ops/cuda/gcc_kernel`` (conditioning through per-pair peaks, in its
 base mode, its spectral-stats mode or its in-kernel SRP mode),
 ``ops/cuda/gcc_large`` (cross-power and lag synthesis of every pair of a
-large array) and ``ops/cuda/gn_kernel`` (the Gauss-Newton solve and the
-position covariance in one launch).  On a CPU tensor each wrapper runs its
-plain PyTorch version.  SRP scoring outside
-the kernel, the grid peak and the unfused correlation engines are plain
-torch, as they were plain XLA in the reference.
+large array), ``ops/cuda/gn_kernel`` (the Gauss-Newton solve and the
+position covariance in one launch) and ``ops/cuda/srp_gather`` (the
+one-hot product's SRP scores and the grid's first-max cell in one pass,
+where the steering matrix is the lag table's one-hot and no score bias is
+added: ``srp_gather.route``).  On a CPU tensor each wrapper runs its plain
+PyTorch version, and the one-hot scores stay the reference's product.
+Other SRP scoring, the grid peak's refinement and the unfused correlation
+engines are plain torch, as they were plain XLA in the reference.
 
 Routing follows the reference's with its kernels switched on
 (``fused_kernel='on'``), on every device.  Up to ``LARGE_ARRAY_PAIRS``
@@ -70,7 +73,7 @@ from ..core.config import GridConfig, PipelineConfig, SolverConfig
 from ..ops import caf, conditioning, detector, multisource, mxu_fft, srp
 from ..ops import solver as solver_ops, window as window_ops, xcorr
 from ..ops._device import device_constant, true_div
-from ..ops.cuda import gcc_kernel, gcc_large, gn_kernel
+from ..ops.cuda import gcc_kernel, gcc_large, gn_kernel, srp_gather
 from ..utils import profiling
 
 SAVE_FORMAT = "audio_triangulation_tpu.Localizer/1"
@@ -92,9 +95,16 @@ class LocalizerParams:
     # [P*L', G] float32 steering matrix of a large array in gather form,
     # when it fits the budget (L' >= L: the reference pads its lag axis)
     onehot_big: Optional[torch.Tensor] = None
+    # whether ``onehot`` is the one-hot of ``lut_flat``
+    # (``srp_gather.is_lag_onehot``, decided when the localizer is built):
+    # then the SRP gather kernel may score from ``lut_flat``; False keeps
+    # the product
+    lag_onehot: bool = False
 
 
-PARAM_NAMES = tuple(f.name for f in dataclasses.fields(LocalizerParams))
+# the fields that are tensors: a localizer's buffers
+PARAM_NAMES = tuple(f.name for f in dataclasses.fields(LocalizerParams)
+                    if f.name != "lag_onehot")
 
 
 def kernel_route(cfg: PipelineConfig) -> bool:
@@ -184,6 +194,8 @@ class Localizer(nn.Module):
         self.with_heatmap = with_heatmap
         for name in PARAM_NAMES:
             self.register_buffer(name, getattr(params, name))
+        self.lag_onehot = srp_gather.is_lag_onehot(
+            params.lut_flat, params.onehot, pipeline.num_lags)
         # the GN kernel bound to this array, or None: the batched solver
         # (also on the meta device, which holds no coordinates to decide on)
         self.gn = None if params.mic_positions.is_meta else gn_route(
@@ -272,7 +284,8 @@ class Localizer(nn.Module):
 
     @property
     def params(self) -> LocalizerParams:
-        return LocalizerParams(**{n: getattr(self, n) for n in PARAM_NAMES})
+        return LocalizerParams(**{n: getattr(self, n) for n in PARAM_NAMES},
+                               lag_onehot=self.lag_onehot)
 
     # ------------------------------------------------------------------
     def _check_frames(self, frames) -> None:
@@ -677,21 +690,23 @@ def localize_frames(
                 flat, params, cfg)
 
     with profiling.annotate("loc.srp", flat.device, call):
-        # with the in-kernel SRP the scores come from the kernel: the
-        # one-hot product's sums, in pair order
-        if scores is None:
+        # with the in-kernel SRP the scores come from the GCC kernel: the
+        # one-hot product's sums, in pair order; else the gather kernel
+        # gives them and their first-max cell where it takes the product
+        if scores is None and srp_form == "matmul" and srp_gather.route(
+                corr_t, params.lut_flat, params.lag_onehot,
+                params.score_bias is not None):
+            scores, best_cell = srp_gather.launch(corr_t, params.lut_flat,
+                                                  cfg.srp_dtype)
+        elif scores is None:
             scores = _srp_scores(corr_t, params, cfg, srp_form, p_n)
         if params.score_bias is not None:
             scores = scores + params.score_bias
 
-        half_cells = (grid_cfg.half_cells_x, grid_cfg.half_cells_y)
-        if best_cell is not None:
-            xy_grid = srp.cell_to_xy(best_cell, grid_cfg.width, half_cells,
-                                     grid_cfg.cells_per_m)
-        else:
-            xy_grid = srp.grid_peak_xy(
-                scores, (grid_cfg.height, grid_cfg.width), half_cells,
-                grid_cfg.cells_per_m, refine=refine)
+        xy_grid = srp.grid_peak_xy(
+            scores, (grid_cfg.height, grid_cfg.width),
+            (grid_cfg.half_cells_x, grid_cfg.half_cells_y),
+            grid_cfg.cells_per_m, refine=refine, flat_idx=best_cell)
 
     out = {
         "tdoa_samples": tdoa_samples,

@@ -22,11 +22,15 @@ Reference-parity behaviours:
 
 The reference's streaming step launches none of its hand kernels (it
 correlates through the unfused matmul engine and solves with the batched
-solver), so this path is plain torch on tensors.  On a CUDA device no step
-waits for the host: there is no branch on a tensor and no constant copied
-per step.  ``StreamConfig.batch_chunk_streams`` (the reference's sub-batch
-dispatch, a limit of its compiler's fast memory) is accepted and changes
-nothing: one batched step runs at any number of streams.  An eager step
+solver), so this path is plain torch on tensors, but for the detector's
+prefix sums (``ops.detector``) and, on a CUDA device, the one-hot SRP
+scores and their first-max cell (``ops.cuda.srp_gather``, where
+``srp_gather.route`` takes them; the multi-source scores keep the
+product).  On a CUDA device no step waits for the host: there is no
+branch on a tensor and no constant copied per step.
+``StreamConfig.batch_chunk_streams`` (the reference's sub-batch dispatch,
+a limit of its compiler's fast memory) is accepted and changes nothing:
+one batched step runs at any number of streams.  An eager step
 is several hundred small launches, which the host cannot issue as fast as
 the card runs them below a few thousand streams;
 :meth:`StreamingLocalizer.graph_step_many` captures the same step once as
@@ -56,6 +60,7 @@ from ..core.config import (GridConfig, PipelineConfig, SolverConfig,
 from ..ops import (beamform, caf, consistency, detector,
                    solver as solver_ops, srp, xcorr)
 from ..ops._device import device_constant
+from ..ops.cuda import srp_gather
 from ..utils import profiling
 from . import localizer as localizer_mod
 
@@ -581,14 +586,19 @@ def stream_step(
     with profiling.annotate("stream.srp", dev, call):
         srp_in = (ema_corr if w2_health is None
                   else ema_corr * w2_health[..., None])
-        if srp_form == "matmul":
+        cell = None
+        if srp_form == "matmul" and srp_gather.route(
+                srp_in, params.lut_flat, params.lag_onehot):
+            # the one-hot product's scores and first-max cell (f32)
+            scores, cell = srp_gather.launch(srp_in, params.lut_flat)
+        elif srp_form == "matmul":
             scores = srp.srp_scores_matmul(srp_in, params.onehot)
         else:
             scores = srp.srp_scores_gather(srp_in, params.lut_flat)
         xy_grid = srp.grid_peak_xy(
             scores, (grid_cfg.height, grid_cfg.width),
             (grid_cfg.half_cells_x, grid_cfg.half_cells_y),
-            grid_cfg.cells_per_m)
+            grid_cfg.cells_per_m, flat_idx=cell)
 
     new_state = StreamState(
         context=window[..., -(n - 1):],

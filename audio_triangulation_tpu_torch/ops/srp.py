@@ -23,6 +23,8 @@ port builds them unpadded and takes a padded matrix when it is given one.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ._device import true_div
@@ -253,12 +255,15 @@ def peak_offsets(flat_idx: torch.Tensor, values: torch.Tensor,
 
 def grid_peak_xy(scores: torch.Tensor, grid_shape: tuple[int, int],
                  half_cells: tuple[int, int], cells_per_m: float,
-                 refine: bool = True) -> torch.Tensor:
+                 refine: bool = True,
+                 flat_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Peak position [..., 2] in meters from flat scores [..., G]; the first
-    maximum wins.  ``refine`` adds a 3-point quadratic fit along each axis
-    (interior cells only, clipped to +-0.5 cell)."""
+    maximum wins (``flat_idx`` [...]: that cell, when the caller has it).
+    ``refine`` adds a 3-point quadratic fit along each axis (interior cells
+    only, clipped to +-0.5 cell)."""
     h, w = grid_shape
-    flat_idx = scores.argmax(dim=-1)
+    if flat_idx is None:
+        flat_idx = scores.argmax(dim=-1)
     if refine:
         values = scores.gather(-1, peak_neighbours(flat_idx, grid_shape))
         dx, dy = peak_offsets(flat_idx, values, grid_shape)

@@ -55,7 +55,8 @@ def shard_params(params: localizer_mod.LocalizerParams, mesh,
     bias = srp.pad_scores_bias(g, -(-g // parts) * parts,
                                params.lut_flat.device)[start:stop]
     return dataclasses.replace(params, lut_flat=lut, onehot=shard.onehot,
-                               score_bias=bias, onehot_big=None)
+                               score_bias=bias, onehot_big=None,
+                               lag_onehot=False)
 
 
 def make_sharded_localize(loc: localizer_mod.Localizer, mesh,

@@ -5,8 +5,11 @@ Builds the CUDA kernels from ``audio_triangulation_tpu_torch/csrc`` with
 nvcc and holds each kernel (the GCC kernel's base, spectral-stats and
 in-kernel SRP modes, the GN kernel, the large-array GCC kernel, the
 SRP-argmax kernel, the DFT-product kernel, the pipelined GCC kernel, the
-detector's prefix-sum kernel) against its plain PyTorch version on the
-card.  Then it
+detector's prefix-sum kernel, the SRP gather kernel) against its plain
+PyTorch version on the card, the SRP gather kernel at the four benchmark
+cells' shapes and against the cuBLAS product and argmax it replaced too
+(phase ``2 srp gather``, timed after phase 5's other kernels; its
+launches are counted there, not in the paths' launch tables).  Then it
 drives the frame-batch Localizer at full size: 16,384 frames of 4 x 1,024
 samples in the three bench configurations (band-crop, full band,
 hands-free) and with ``fused_srp='on'``, and 256 frames of 64 x 4,096
@@ -261,6 +264,10 @@ KERNEL_INFO = {
     "detector_scan_kernel": dict(
         source="audio_triangulation_tpu_torch/csrc/detector_scan.cu",
         replaces="audio_triangulation_tpu/ops/detector.py:31"),
+    # no Pallas kernel: the reference's one-hot steering product and argmax
+    "srp_gather_kernel": dict(
+        source="audio_triangulation_tpu_torch/csrc/srp_gather.cu",
+        replaces="audio_triangulation_tpu/ops/srp.py:27"),
 }
 
 
@@ -1073,10 +1080,14 @@ def fused_srp_config():
     return name + "_fused_srp", dataclasses.replace(cfg, fused_srp="on")
 
 
-# the kernels each main path must launch
-PATH_KERNELS = {"bandcrop_800_6000": ("gcc_kernel", "gn_kernel"),
-                "fullband": ("gcc_kernel", "gn_kernel"),
-                "handsfree_auto_hybrid": ("gcc_stats_kernel", "gn_kernel"),
+# the kernels each main path must launch; ``srp_gather_kernel`` scores
+# every Localizer call, stream step and DoaEstimator call whose one-hot
+# lag table fits it (``srp_gather.route``)
+PATH_KERNELS = {"bandcrop_800_6000": ("gcc_kernel", "gn_kernel",
+                                      "srp_gather_kernel"),
+                "fullband": ("gcc_kernel", "gn_kernel", "srp_gather_kernel"),
+                "handsfree_auto_hybrid": ("gcc_stats_kernel", "gn_kernel",
+                                          "srp_gather_kernel"),
                 "bandcrop_800_6000_fused_srp": ("gcc_srp_kernel",
                                                 "gn_kernel"),
                 "large64_fullband": ("gcc_large_kernel",),
@@ -1088,43 +1099,53 @@ PATH_KERNELS = {"bandcrop_800_6000": ("gcc_kernel", "gn_kernel"),
                                          "dft_matmul_kernel_int8"),
                 "tool_emit_pipeline_probe": ("gcc_pipelined_kernel",
                                              "gcc_kernel"),
-                **{f"stream_{name}": ("detector_scan_kernel",)
+                **{f"stream_{name}": ("detector_scan_kernel",
+                                      "srp_gather_kernel")
                    for name in ("default", "band_crop_phat",
                                 "band_auto_phat", "xyz_tetra", "tracked",
-                                "multi", "velocity", "tracked_multi",
-                                "tracked_velocity")},
+                                "velocity", "tracked_velocity")},
+                # the 8-mic circle's table of 28 pairs x 10,201 cells does
+                # not fit shared memory: the product
+                **{f"stream_{name}": ("detector_scan_kernel",)
+                   for name in ("multi", "tracked_multi")},
                 "multi_8mic": ("gcc_kernel",),
                 "multi_64mic": ("gcc_large_kernel",),
-                "moving": ("gcc_kernel", "gn_kernel"),
+                "moving": ("gcc_kernel", "gn_kernel", "srp_gather_kernel"),
                 # the port's tools: the accuracy sweep's five methods and
                 # the bench's three configurations (base and stats modes),
                 # the tracked soak's stream step
                 "tool_bench_accuracy": ("gcc_kernel", "gcc_stats_kernel",
-                                        "gn_kernel"),
+                                        "gn_kernel", "srp_gather_kernel"),
                 "tool_bench": ("gcc_kernel", "gcc_stats_kernel",
-                               "gn_kernel"),
-                "tool_soak_streaming": ("detector_scan_kernel",),
+                               "gn_kernel", "srp_gather_kernel"),
+                "tool_soak_streaming": ("detector_scan_kernel",
+                                        "srp_gather_kernel"),
                 # the integer path is plain torch (no kernel: its count is
                 # recorded); the offline stream's events go through the
                 # Localizer's GCC base mode and GN kernel
                 "localize_frames_int": (),
-                "localize_stream": ("gcc_kernel", "gn_kernel"),
+                "localize_stream": ("gcc_kernel", "gn_kernel",
+                                    "srp_gather_kernel"),
                 # phase 13: row 2 once a call on the four frame-batch
                 # estimators and the sync fusion, no kernel elsewhere
+                "doa_8mic": ("gcc_kernel", "srp_gather_kernel"),
+                "doa_smp_line8": ("srp_gather_kernel",),
                 **{name: ("gcc_kernel",) for name in (
-                    "doa_8mic", "doa3d_tetra", "volume_8mic", "fusion_2x4",
+                    "doa3d_tetra", "volume_8mic", "fusion_2x4",
                     "fusion_sync_3x4", "fusion_sync_3x4_drift")},
                 **{name: () for name in (
-                    "doa_smp_line8", "music_8mic", "music_8mic_auto",
+                    "music_8mic", "music_8mic_auto",
                     "mvdr_8mic", "freq_8mic", "music_coherent", "doa_music",
                     "register")},
                 # phase 14: rows 1 and 5 once a Localizer call, the scan
                 # once a stream step, no kernel elsewhere
                 **{name: ("gcc_kernel", "gn_kernel") for name in (
-                    "extract_8mic_das", "extract_8mic_mvdr",
-                    "mapping_6mic")},
-                **{name: ("detector_scan_kernel",) for name in (
-                    "dereverb_stream", "tworate_audio")},
+                    "extract_8mic_das", "extract_8mic_mvdr")},
+                "mapping_6mic": ("gcc_kernel", "gn_kernel",
+                                 "srp_gather_kernel"),
+                "dereverb_stream": ("detector_scan_kernel",
+                                    "srp_gather_kernel"),
+                "tworate_audio": ("detector_scan_kernel",),
                 # phase 15: rows 1 and 5 once a Localizer call of the EM and
                 # tracked calibrations, row 2 once a neural step and
                 # prediction, no kernel on the gradient paths
@@ -1141,12 +1162,13 @@ PATH_KERNELS = {"bandcrop_800_6000": ("gcc_kernel", "gn_kernel"),
                     "mapping_echo")},
                 # phase 16: rows 1 and 5 once a /localize request and an
                 # EventPump or feeder batch, the scan once a session step
-                **{name: ("gcc_kernel", "gn_kernel") for name in (
+                **{name: ("gcc_kernel", "gn_kernel", "srp_gather_kernel")
+                   for name in (
                     "serve_pump", "serve_localize_b1", "serve_localize_b64",
                     "serve_localize_b4096", "serve_clients",
                     "serve_feeder")},
-                **{name: ("detector_scan_kernel",) for name in (
-                    "serve_sessions", "serve_checkpoint")},
+                **{name: ("detector_scan_kernel", "srp_gather_kernel")
+                   for name in ("serve_sessions", "serve_checkpoint")},
                 # phase 17: the parallel paths in a world of one, and the
                 # model axis four ways on the card (rows 7, 6 and 2 at the
                 # shards' shapes)
@@ -1157,17 +1179,18 @@ PATH_KERNELS = {"bandcrop_800_6000": ("gcc_kernel", "gn_kernel"),
                     "par_pairs_64mic", "par4_pairs")},
                 **{name: ("gcc_kernel",) for name in (
                     "par_fusion_2x4", "par4_fusion", "par_neural_step")},
-                **{name: ("detector_scan_kernel",) for name in (
-                    "par_stream", "par_stream_tracked")},
+                **{name: ("detector_scan_kernel", "srp_gather_kernel")
+                   for name in ("par_stream", "par_stream_tracked")},
                 "par_calib_step_8mic": ()}
 
 
 def launch_counts():
     from audio_triangulation_tpu_torch.ops.cuda import (
         detector_scan, dft_matmul, gcc_kernel, gcc_large, gn_kernel,
-        srp_kernel)
+        srp_gather, srp_kernel)
 
     return {"detector_scan_kernel": detector_scan.launches,
+            "srp_gather_kernel": srp_gather.launches,
             "gcc_kernel": gcc_kernel.launches,
             "gcc_stats_kernel": gcc_kernel.stats_launches,
             "gn_kernel": gn_kernel.launches,
@@ -1182,9 +1205,9 @@ def launch_counts():
 def reset_counts():
     from audio_triangulation_tpu_torch.ops.cuda import (
         detector_scan, dft_matmul, gcc_kernel, gcc_large, gn_kernel,
-        srp_kernel)
+        srp_gather, srp_kernel)
 
-    detector_scan.launches = 0
+    detector_scan.launches = srp_gather.launches = 0
     gcc_kernel.launches = gcc_kernel.stats_launches = 0
     gcc_kernel.srp_launches = gn_kernel.launches = 0
     gcc_kernel.pipelined_launches = 0
@@ -1991,6 +2014,169 @@ def phase_scan(card, rng, results):
             results["detector_scan_kernel"].update(
                 ms=k_ms, plain_ms=p_ms, **bnd, library_ms=lib_ms,
                 library="two torch.cumsum (another order, not bit-equal)")
+
+
+# the benchmark cells' SRP shapes: (frames, score type) and the estimator
+# that holds the lag table
+SRP_GATHER_SHAPES = {
+    "ref3_batch": (16384, "float32"), "square4_batch": (16384, "bfloat16"),
+    "circ8_doa": (16384, "float32"), "ref3_stream": (4096, "float32")}
+SRP_GATHER_CHECK_FRAMES = 1021  # checked against the CPU; a ragged tile
+
+
+def srp_gather_tables():
+    """name -> (lag table [P, G] int32, one-hot [P*L, G], L) on the card, of
+    the benchmark cells' estimators (``benchmark/configs``), each of which
+    found its steering matrix the one-hot of its table."""
+    from audio_triangulation_tpu_torch import (GridConfig, Localizer,
+                                               PipelineConfig, geometry)
+    from audio_triangulation_tpu_torch.models.doa import DoaEstimator
+
+    ref3 = Localizer.create(
+        geometry.reference_array(),
+        PipelineConfig(max_shift_samples=46, power_threshold=524288),
+        GridConfig(), device="cuda")
+    square4 = Localizer.create(
+        geometry.square_array(0.3),
+        PipelineConfig(max_shift_samples=46, phat=True,
+                       band_hz=(800.0, 6000.0), band_crop=True,
+                       fft_pad_mode="circular", srp_dtype="bfloat16"),
+        GridConfig(), device="cuda", init_grid_stride=3)
+    circ8 = DoaEstimator.create(
+        geometry.circular_array(8, 0.15),
+        PipelineConfig(phat=True, max_shift_samples=45), 360, device="cuda")
+    out = {}
+    for name, est, onehot in (
+            ("ref3_batch", ref3, ref3.onehot),
+            ("square4_batch", square4, square4.onehot),
+            ("circ8_doa", circ8, circ8.onehot_az),
+            ("ref3_stream", ref3, ref3.onehot)):
+        if not est.lag_onehot:
+            fail("2 srp gather", f"{name}: the estimator's steering matrix "
+                 "is not the one-hot of its lag table")
+        out[name] = (est.lut_flat, onehot, est.pipeline.num_lags)
+    return out
+
+
+def srp_gather_nonfinite(frames):
+    """The frames of ``srp_gather_inputs`` that hold a NaN (the first two)
+    or an inf: frames 1 and 2 in the first tile, and three whose tiles a
+    CTA reaches after others where the frames outnumber the CTAs' first
+    tiles (264 CTAs of 8 frames, or 4 on the circle)."""
+    return (1, frames - 3, 2, frames // 2 + 1, frames * 3 // 4 + 5)
+
+
+def srp_gather_inputs(lut, num_lags, frames, rng):
+    """Correlograms [frames, P, L] f32 on the card: noise with a peak at a
+    drawn cell's lags a frame, NaN in two frames and an inf in three
+    (``srp_gather_nonfinite``)."""
+    import torch
+
+    p, g = lut.shape
+    lut = lut.long().cpu().numpy()
+    corr = rng.normal(size=(frames, p, num_lags)).astype(np.float32)
+    corr[np.arange(frames)[:, None], np.arange(p),
+         lut[:, rng.integers(0, g, frames)].T] += 3.0
+    nan1, nan2, inf1, inf2, inf3 = srp_gather_nonfinite(frames)
+    corr[nan1, 0, 0] = np.nan
+    corr[nan2, p // 2, num_lags // 2] = np.nan
+    corr[inf1, -1, -1] = np.inf
+    corr[inf2, 0, -1] = -np.inf
+    corr[inf3, p - 1, 0] = np.inf
+    return torch.from_numpy(corr).cuda()
+
+
+def srp_gather_checked(phase, name, got, want):
+    """Whether the kernel's (scores, cells) equal ``want``'s bit for bit
+    (NaN where it has NaN), the non-finite frames NaN in every cell and
+    cell 0; fails the phase if not."""
+    import torch
+
+    (want_s, want_c) = want
+    got_s, got_c = (t.to(want_s.device) for t in got)
+    bad = torch.tensor(srp_gather_nonfinite(got_s.shape[0]),
+                       device=got_s.device)
+    ok = (same(got_s, want_s) and same(got_c, want_c)
+          and bool(got_s[bad].isnan().all())
+          and int(got_s.isnan().any(dim=-1).sum()) == bad.numel()
+          and not bool(got_c[bad].any()))
+    if not ok:
+        fail(phase, f"{name}: the kernel disagrees with its plain version "
+             f"at {got_s.shape[0]} frames")
+    return ok
+
+
+def phase_srp_gather(card, rng, results):
+    """The SRP gather kernel (no TPU row: the reference's one-hot product
+    and argmax) at the four benchmark cells' shapes: scores and first-max
+    cells bit-equal to its plain version, on the CPU at 1,021 frames (a
+    ragged tile) and on the card at the cells' own frame counts (16,384,
+    or 4,096 streams), where each CTA walks several tiles through its ring
+    and frames of later tiles hold NaN and inf; against the cuBLAS product
+    and ``argmax`` it replaces at both counts; then timed at the cells'
+    frame counts against its bound (correlograms read once, scores and
+    cells written once), its plain version and that product.  Its
+    ``launches`` are the main paths' (``counted``)."""
+    import torch
+    from audio_triangulation_tpu_torch.ops import srp
+    from audio_triangulation_tpu_torch.ops.cuda import srp_gather
+
+    phase = "2 srp gather"
+    shapes = {}
+    for name, (lut, onehot, num_lags) in srp_gather_tables().items():
+        b, dtype = SRP_GATHER_SHAPES[name]
+        p, g = lut.shape
+        cublas = {}
+        for n in (SRP_GATHER_CHECK_FRAMES, b):
+            corr = srp_gather_inputs(lut, num_lags, n, rng)
+            got = srp_gather.launch(corr, lut, dtype)
+            on = corr.cpu() if n == SRP_GATHER_CHECK_FRAMES else corr
+            want = srp_gather.scores_first_max_reference(
+                on, lut.to(on.device), dtype)
+            srp_gather_checked(phase, name, got, want)
+            lib_s = srp.srp_scores_matmul(corr, onehot, dtype)
+            cublas[n] = (same(got[0], lib_s)
+                         and same(got[1], lib_s.argmax(dim=-1)))
+            say(phase, f"{name} (P, L, G = {p}, {num_lags}, {g}; {dtype}; "
+                f"{n} frames): scores and cells bit-equal to the plain "
+                f"version {'on the CPU' if n == SRP_GATHER_CHECK_FRAMES else 'on the card'}"
+                f" True, to the cuBLAS product and argmax {cublas[n]}")
+            del want, lib_s
+
+        def kernel():
+            return srp_gather.launch(corr, lut, dtype)
+
+        def plain():
+            return srp_gather.scores_first_max_reference(corr, lut, dtype)
+
+        def library():
+            s_ = srp.srp_scores_matmul(corr, onehot, dtype)
+            return s_, s_.argmax(dim=-1)
+
+        lib1 = cuda_ms(library, REPS)
+        k_ms, p_ms = alternate_ms(plain, kernel)
+        lib_ms = (lib1 + cuda_ms(library, REPS)) / 2
+        srp_gather_checked(phase, name, kernel(), plain())  # the timed call
+        bnd = bound(b * g * p, 4 * b * p * num_lags + 4 * b * g + 8 * b
+                    + p * g)
+        pct = share_of_bound("5 timing", f"srp_gather_kernel {name}", k_ms,
+                             bnd)
+        say("5 timing", f"srp_gather_kernel {name} ({b} frames): kernel "
+            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, library {lib_ms:.4f} ms "
+            f"(the one-hot product on cuBLAS, then argmax), bound "
+            f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']}, {pct:.1f}% of "
+            f"it; bit-equal to the product {cublas[b]} ({card})")
+        shapes[name] = dict(frames=b, dtype=dtype, ms=k_ms, plain_ms=p_ms,
+                            library_ms=lib_ms, cublas_bit_equal=cublas[b],
+                            **bnd)
+        del corr
+    main = shapes["ref3_batch"]
+    results["srp_gather_kernel"].update(
+        max_abs_err=0.0, ms=main["ms"], plain_ms=main["plain_ms"],
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        library_ms=main["library_ms"],
+        library="torch.matmul against the one-hot (cuBLAS) then argmax",
+        shapes=shapes)
 
 
 def stream_setups():
@@ -3357,7 +3543,8 @@ def estimator_paths():
     """The frame-batch estimator paths of phase 13: {name: (make(device) ->
     estimator, one noise-free event [.., M, 1,024] f32, kernels a call)}.
     The row-2 paths launch the GCC kernel without peaks once a call; the
-    SMP path runs unfused spectra (no kernel)."""
+    SMP path runs unfused spectra (no GCC kernel); both DoA paths score on
+    the SRP gather kernel once a call."""
     from audio_triangulation_tpu_torch import (PipelineConfig, VolumeConfig,
                                                VolumeLocalizer, geometry)
     from audio_triangulation_tpu_torch.models import doa
@@ -3382,10 +3569,10 @@ def estimator_paths():
     return {
         "doa_8mic": (lambda dev: doa.DoaEstimator.create(mics8, device=dev),
                      synth.synth_scene(src_far, mics8)[0].astype(np.float32),
-                     ("gcc_kernel",)),
+                     ("gcc_kernel", "srp_gather_kernel")),
         "doa_smp_line8": (
             lambda dev: doa.DoaEstimator.create(line8, smp=True, device=dev),
-            plane_wave_frame(line8, SMP_AZ), ()),
+            plane_wave_frame(line8, SMP_AZ), ("srp_gather_kernel",)),
         "doa3d_tetra": (
             lambda dev: doa.Doa3dEstimator.create(tetra, cli3d, n_dirs=2048,
                                                   device=dev),
@@ -4241,7 +4428,8 @@ def reverb_dereverb_stream(phase, card, results, failures):
 
     events, peak = peak_gb(lambda: counted("dereverb_stream", results, run))
     calls = count_only(phase, "dereverb_stream",
-                       {"detector_scan_kernel": n_steps - 2})
+                       {"detector_scan_kernel": n_steps - 2,
+                        "srp_gather_kernel": n_steps - 2})
     ev = torch.stack([e for e, _ in events]).cpu().numpy()  # [T, S]
     xy = torch.stack([p for _, p in events]).cpu().numpy()  # [T, S, 2]
     # each burst's event: the first in the chunks where the burst (at
@@ -4710,7 +4898,8 @@ def reverb_mapping(phase, card, results, failures):
     ok &= lag_eq and e_d <= 1e-3
     res, peak = peak_gb(lambda: counted("mapping_6mic", results,
                                         lambda: mapper.map(ev)))
-    calls = expect_counts("mapping_6mic", ("gcc_kernel", "gn_kernel"), phase)
+    calls = expect_counts("mapping_6mic", ("gcc_kernel", "gn_kernel",
+                                           "srp_gather_kernel"), phase)
     walls, ok_walls = walls_found(res["walls"])
     t = time_ms(lambda: mapper.map(ev))
     t_dev = time_ms(lambda: (loc(ev), mapper.echo_delays(ev)))
@@ -5384,7 +5573,8 @@ def serving_ingest(phase, card, results, failures, refs):
     finally:
         shutil.rmtree(tmp)
     calls = count_only(phase, "serve_pump", {
-        "gcc_kernel": len(batches), "gn_kernel": len(batches)})
+        "gcc_kernel": len(batches), "gn_kernel": len(batches),
+        "srp_gather_kernel": len(batches)})
     valid = [v for _, _, v, _ in batches]
     stamps = np.concatenate([s[v] for (_, s, v, _) in batches])
     frames = torch.cat([a[torch.from_numpy(v).cuda()]
@@ -5469,7 +5659,8 @@ def serving_http(phase, card, results, failures):
             code, resp = counted(name, results,
                                  lambda: http(srv, "/localize", **req), phase)
             calls = count_only(phase, name, {"gcc_kernel": 1,
-                                             "gn_kernel": 1})
+                                             "gn_kernel": 1,
+                                             "srp_gather_kernel": 1})
             equal = code == 200 and served_equal(
                 resp, loc(torch.from_numpy(frames).cuda()))
             times = []
@@ -5513,7 +5704,8 @@ def serving_http(phase, card, results, failures):
         wall = time.perf_counter() - t0
         n_req = SERVE_CLIENTS * SERVE_CLIENT_REQUESTS
         calls = count_only(phase, "serve_clients", {
-            "gcc_kernel": n_req, "gn_kernel": n_req})
+            "gcc_kernel": n_req, "gn_kernel": n_req,
+            "srp_gather_kernel": n_req})
         say(phase, f"serve_clients: {SERVE_CLIENTS} threads x "
             f"{SERVE_CLIENT_REQUESTS} requests of 64 frames at once: all "
             f"bit-equal to the library call {all(ok) and done}; {calls}; "
@@ -5578,7 +5770,8 @@ def serving_http(phase, card, results, failures):
         wall = time.perf_counter() - t0
         steps = SERVE_SESSIONS * SERVE_CHUNKS
         calls = count_only(phase, "serve_sessions",
-                           {"detector_scan_kernel": steps})
+                           {"detector_scan_kernel": steps,
+                            "srp_gather_kernel": steps})
         equal = done and served == series
         events = sum(o["event"] for outs in series for o in outs)
         say(phase, f"serve_sessions: {SERVE_SESSIONS} sessions x "
@@ -5641,7 +5834,8 @@ def serving_feeder(phase, card, results, failures):
 
     outs, t_fed = wall(lambda: counted("serve_feeder", results, fed, phase))
     calls = count_only(phase, "serve_feeder", {
-        "gcc_kernel": FEED_BATCHES, "gn_kernel": FEED_BATCHES})
+        "gcc_kernel": FEED_BATCHES, "gn_kernel": FEED_BATCHES,
+        "srp_gather_kernel": FEED_BATCHES})
     _, t_copy = wall(lambda: [b for b in DoubleBufferedFeeder(batches())])
     _, t_compute = wall(lambda: [
         {k: v for k, v in loc(dev[i % FEED_DISTINCT]).items()
@@ -5784,7 +5978,8 @@ def serving_checkpoint(phase, card, results, failures):
     end_r, got = counted("serve_checkpoint", results, lambda: run(restored),
                          phase)
     calls = count_only(phase, "serve_checkpoint", {
-        "detector_scan_kernel": CKPT_CHUNKS - half})
+        "detector_scan_kernel": CKPT_CHUNKS - half,
+        "srp_gather_kernel": CKPT_CHUNKS - half})
     equal = all(sorted(a) == sorted(b) and all(torch.equal(a[k], b[k])
                                                for k in a)
                 for a, b in zip(got, want)) and all(
@@ -6336,13 +6531,14 @@ def cli_commands(tmp: str) -> list:
     wav = os.path.join(tmp, "events.wav")
     cli_wav(wav)
     manifest = os.path.join(HERE, "tests", "data", "eval", "manifest.json")
-    loc_k = ("gcc_kernel", "gn_kernel")
+    loc_k = ("gcc_kernel", "gn_kernel", "srp_gather_kernel")
     return [
         ("simulate", ["simulate", "--out", os.path.join(tmp, "dash.png")],
          loc_k, 0.011, 0.0, ("dashboard ->",)),
         ("evaluate", ["evaluate", manifest], loc_k, 0.03, 0.0, ()),
-        ("stream", ["stream"], ("detector_scan_kernel",), 1.5e-3, 0.0, ()),
-        ("doa", ["doa"], ("gcc_kernel",), 0.02, 0.0, ()),
+        ("stream", ["stream"], ("detector_scan_kernel", "srp_gather_kernel"),
+         1.5e-3, 0.0, ()),
+        ("doa", ["doa"], ("gcc_kernel", "srp_gather_kernel"), 0.02, 0.0, ()),
         ("doa_music", ["doa", "--method", "music"], (), 0.02, 0.0, ()),
         ("doa_elevation", ["doa", "--elevation", "30"], ("gcc_kernel",),
          0.02, 0.0, ()),
@@ -6563,11 +6759,15 @@ EXAMPLE_TOL, EXAMPLE_REL = 0.011, 0.01  # tests/test_torch_examples.py's
 EXAMPLE_SKIP = {"serving_http": ("server up at",),
                 "advanced": ("^dereverb:",)}
 EXAMPLE_KERNELS = {
-    "quickstart": ("gcc_kernel", "gn_kernel", "detector_scan_kernel"),
-    "advanced": ("gcc_kernel", "gn_kernel"),
-    "production": ("gcc_kernel", "gn_kernel", "detector_scan_kernel"),
-    "robustness": ("gcc_kernel", "gcc_stats_kernel", "gn_kernel"),
-    "serving_http": ("gcc_kernel", "gn_kernel", "detector_scan_kernel")}
+    "quickstart": ("gcc_kernel", "gn_kernel", "detector_scan_kernel",
+                   "srp_gather_kernel"),
+    "advanced": ("gcc_kernel", "gn_kernel", "srp_gather_kernel"),
+    "production": ("gcc_kernel", "gn_kernel", "detector_scan_kernel",
+                   "srp_gather_kernel"),
+    "robustness": ("gcc_kernel", "gcc_stats_kernel", "gn_kernel",
+                   "srp_gather_kernel"),
+    "serving_http": ("gcc_kernel", "gn_kernel", "detector_scan_kernel",
+                     "srp_gather_kernel")}
 REPLICATED_FRAMES = 16384  # the replicated-frames probe's batch
 
 
@@ -6631,7 +6831,7 @@ def tools_bench_configs(phase, card, results, failures):
 
     _, (recs, counts) = printed(lambda: tool_counted(
         results, failures, "tool_bench_configs",
-        ("gcc_kernel", "gn_kernel", "gcc_large_kernel"),
+        ("gcc_kernel", "gn_kernel", "gcc_large_kernel", "srp_gather_kernel"),
         lambda: bench_configs.main([])))
     for r in recs:
         say(phase, f"bench_configs {r['config']}: {r['frames_per_sec']:.1f} "
@@ -6711,7 +6911,8 @@ def tools_bench_latency(phase, card, results, failures):
 
     _, (res, counts) = printed(lambda: tool_counted(
         results, failures, "tool_bench_latency",
-        ("detector_scan_kernel",), lambda: bench_latency.main([])))
+        ("detector_scan_kernel", "srp_gather_kernel"),
+        lambda: bench_latency.main([])))
     # synchronized steps, then a warm-up, a lead-in, 29 traced steps and a
     # lead-out
     steps = sum(n + 32 for n in (220, 60))
@@ -6746,7 +6947,7 @@ def tools_bench_robustness(phase, card, results, failures):
 
     _, (rows, counts) = printed(lambda: tool_counted(
         results, failures, "tool_bench_robustness",
-        ("gcc_kernel", "gcc_stats_kernel", "gn_kernel"),
+        ("gcc_kernel", "gcc_stats_kernel", "gn_kernel", "srp_gather_kernel"),
         lambda: bench_robustness.main([])))
     t0 = time.perf_counter()
     _, cpu = printed(lambda: bench_robustness.main(["--device", "cpu"]))
@@ -6802,7 +7003,8 @@ def tools_soak_transport(phase, card, results, failures):
 
     _, (res, counts) = printed(lambda: tool_counted(
         results, failures, "tool_soak_transport",
-        ("gcc_kernel", "gn_kernel"), lambda: soak_transport.main(
+        ("gcc_kernel", "gn_kernel", "srp_gather_kernel"),
+        lambda: soak_transport.main(
             ["--minutes", str(TOOLS_SOAK_MINUTES)])))
     say(phase, f"soak_transport: {res['blocks']} blocks, {res['events']} "
         f"events, {res['spurious']} spurious, {res['reconnects']} "
@@ -6839,7 +7041,8 @@ def tools_eval_dataset(phase, card, results, failures):
         report = os.path.join(tmp, "report.json")
         _, (_, counts) = printed(lambda: tool_counted(
             results, failures, "tool_make_eval_dataset",
-            ("gcc_kernel", "gn_kernel"), lambda: cli.main(
+            ("gcc_kernel", "gn_kernel", "srp_gather_kernel"),
+            lambda: cli.main(
                 ["evaluate", os.path.join(out, "manifest.json"), "--out",
                  report, "--device", "cuda"])))
         with open(report) as f:
@@ -7049,12 +7252,12 @@ def phase_root_tools(card, results):
 
 
 # further keys of an entry that has them: what the library yardstick is, the
-# SRP-argmax kernel's other bound and its bf16 mode, the bf16 DFT product's
-# library form with f32 outputs
-EXTRA_KEYS = ("library", "bound_ms_fp32_cores", "bf16_ms", "bf16_plain_ms",
-              "bf16_library_ms", "bf16_bound_ms", "library_f32_out_ms",
-              "device_ms", "launches_per_call", "launches_by_path",
-              "multi_8mic_no_peaks", "doa_8mic_no_peaks",
+# SRP gather kernel's shapes, the SRP-argmax kernel's other bound and its
+# bf16 mode, the bf16 DFT product's library form with f32 outputs
+EXTRA_KEYS = ("library", "shapes", "bound_ms_fp32_cores", "bf16_ms",
+              "bf16_plain_ms", "bf16_library_ms", "bf16_bound_ms",
+              "library_f32_out_ms", "device_ms", "launches_per_call",
+              "launches_by_path", "multi_8mic_no_peaks", "doa_8mic_no_peaks",
               "doa3d_tetra_no_peaks", "volume_8mic_no_peaks",
               "fusion_2x4_no_peaks")
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
@@ -7081,6 +7284,7 @@ def main():
     state = phase_main(rng, results)
     phase_timing(card, *state, results)
     del state
+    phase_srp_gather(card, rng, results)
     torch.cuda.empty_cache()
     phase_dft_matmul(card, results)
     phase_gcc_pipelined(card, rng, results)

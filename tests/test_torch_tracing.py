@@ -308,7 +308,9 @@ def test_doa_estimator_bit_equal_spans_in_order_and_counts(smp, route):
         (name, "doa.forward") for name in DOA_STAGES] + [("doa.forward", None)]
     assert len({r.call for r in recs}) == 1
     assert all(r.device_ms is None for r in recs)  # no CUDA device here
-    assert counts == {"doa.frames": frames.shape[0], f"doa.route.{route}": 1}
+    # on the CPU the scores are the one-hot product's (``srp.route``)
+    assert counts == {"doa.frames": frames.shape[0], f"doa.route.{route}": 1,
+                      "srp.route.product": 1}
 
 
 def test_step_many_bit_equal_and_stage_spans_in_order():
@@ -616,7 +618,8 @@ def test_doa_spans_time_on_the_card(cuda_device):
     """``doa.gcc``, ``doa.srp`` and ``doa.tail`` timed on the card by their
     events, inside the host span ``doa.forward``; bit-equal outputs with
     tracing on and off; one GCC kernel launch a call, on the pair route at
-    8 mics and 28 pairs (``gcc.route.pairs``)."""
+    8 mics and 28 pairs (``gcc.route.pairs``), and the scores on the SRP
+    gather kernel (``srp.route.kernel``)."""
     est = _estimator(cuda_device)
     frames = _doa_frames(cuda_device, b=4096)
     off = {k: v.clone() for k, v in est(frames).items()}
@@ -633,7 +636,7 @@ def test_doa_spans_time_on_the_card(cuda_device):
         assert len(ms) == 3 and all(m > 0 for m in ms), name
     assert all(r.device_ms is None for r in recs if r.name == "doa.forward")
     assert counts == {"doa.frames": 3 * 4096, "doa.route.kernel": 3,
-                      "gcc.route.pairs": 3}
+                      "gcc.route.pairs": 3, "srp.route.kernel": 3}
     from audio_triangulation_tpu_torch.ops.cuda import gcc_kernel
 
     before = gcc_kernel.launches
